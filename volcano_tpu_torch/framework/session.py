@@ -1,0 +1,276 @@
+"""The Session: one snapshot-scoped scheduling transaction.
+
+Mirrors pkg/scheduler/framework/session.go:38-437 and the
+tiered dispatch semantics of session_plugins.go:130-725 (first-nonzero for
+order fns, vote semantics for pipelined/enqueueable).
+
+Besides the reference's per-object callbacks, plugins register *tensor
+contributions* — static feasibility masks ``bool[T,N]``, static score
+matrices ``f32[T,N]``, and weights for the in-kernel dynamic scorers — which
+the allocate action assembles into one device solve on ``ssn.device``.
+"""
+
+from __future__ import annotations
+
+import time
+import uuid
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from ..api import JobInfo, NodeInfo, QueueInfo, TaskInfo, TaskStatus
+from .conf import Configuration, Tier
+from .statement import Statement
+
+# Vote values (plugins/util/util.go Permit/Abstain/Reject).
+PERMIT = 1
+ABSTAIN = 0
+REJECT = -1
+
+
+class ValidateResult:
+    def __init__(self, passed: bool, reason: str = "", message: str = ""):
+        self.passed = passed
+        self.reason = reason
+        self.message = message
+
+
+class Event:
+    def __init__(self, task: TaskInfo):
+        self.task = task
+
+
+class EventHandler:
+    def __init__(self, allocate_func: Optional[Callable[[Event], None]] = None,
+                 deallocate_func: Optional[Callable[[Event], None]] = None,
+                 aggregatable: bool = False):
+        """aggregatable=True declares the handler's effect is additive in
+        ``event.task.resreq`` within a job: the fused allocate may then fire
+        one aggregated event per job instead of one per task."""
+        self.allocate_func = allocate_func
+        self.deallocate_func = deallocate_func
+        self.aggregatable = aggregatable
+
+
+class Session:
+    def __init__(self, cache, tiers: List[Tier],
+                 configurations: List[Configuration],
+                 device: torch.device,
+                 time_fn: Optional[Callable[[], float]] = None):
+        self.uid = str(uuid.uuid4())
+        self.cache = cache
+        self.tiers = tiers
+        self.configurations = configurations
+        # where the allocate solve's tensors live: the CUDA card unless the
+        # caller asked for the CPU (framework.resolve_device)
+        self.device = device
+        # plugin decision callbacks (gang condition timestamps) read "now"
+        # through ssn.now(), so a shell can pin it to its own clock
+        self._time_fn: Callable[[], float] = time_fn or time.time
+
+        snapshot = cache.snapshot()
+        self.jobs: Dict[str, JobInfo] = snapshot.jobs
+        self.nodes: Dict[str, NodeInfo] = snapshot.nodes
+        self.queues: Dict[str, QueueInfo] = snapshot.queues
+
+        self.plugins: Dict[str, object] = {}
+        self.event_handlers: List[EventHandler] = []
+
+        # callback registries (session.go:58-80)
+        self.job_order_fns: Dict[str, Callable] = {}
+        self.queue_order_fns: Dict[str, Callable] = {}
+        self.task_order_fns: Dict[str, Callable] = {}
+        self.namespace_order_fns: Dict[str, Callable] = {}
+        self.predicate_fns: Dict[str, Callable] = {}
+        self.overused_fns: Dict[str, Callable] = {}
+        self.job_ready_fns: Dict[str, Callable] = {}
+        self.job_pipelined_fns: Dict[str, Callable] = {}
+        self.job_valid_fns: Dict[str, Callable] = {}
+        self.job_enqueueable_fns: Dict[str, Callable] = {}
+        self.job_enqueued_fns: Dict[str, Callable] = {}
+
+        # tensor-contribution registries: fns of (session, tasks, node
+        # tensors) -> numpy arrays, assembled by cache/snapshot.py
+        self.feasibility_fns: Dict[str, Callable] = {}
+        self.static_score_fns: Dict[str, Callable] = {}
+        self.dynamic_score_weights: Dict[str, dict] = {}
+
+    def now(self) -> float:
+        return self._time_fn()
+
+    # -- registration helpers (AddXxxFn of session_plugins.go) --------------
+
+    def add_job_order_fn(self, name, fn): self.job_order_fns[name] = fn
+    def add_queue_order_fn(self, name, fn): self.queue_order_fns[name] = fn
+    def add_task_order_fn(self, name, fn): self.task_order_fns[name] = fn
+    def add_namespace_order_fn(self, name, fn): self.namespace_order_fns[name] = fn
+    def add_predicate_fn(self, name, fn): self.predicate_fns[name] = fn
+    def add_overused_fn(self, name, fn): self.overused_fns[name] = fn
+    def add_job_ready_fn(self, name, fn): self.job_ready_fns[name] = fn
+    def add_job_pipelined_fn(self, name, fn): self.job_pipelined_fns[name] = fn
+    def add_job_valid_fn(self, name, fn): self.job_valid_fns[name] = fn
+    def add_job_enqueueable_fn(self, name, fn): self.job_enqueueable_fns[name] = fn
+    def add_job_enqueued_fn(self, name, fn): self.job_enqueued_fns[name] = fn
+    def add_event_handler(self, eh: EventHandler): self.event_handlers.append(eh)
+
+    def add_feasibility_fn(self, name, fn): self.feasibility_fns[name] = fn
+    def add_static_score_fn(self, name, fn): self.static_score_fns[name] = fn
+
+    def set_dynamic_score_weights(self, name, **weights):
+        self.dynamic_score_weights[name] = weights
+
+    # -- tier iteration helper ----------------------------------------------
+
+    def _enabled_fns(self, registry: Dict[str, Callable], flag: Optional[str]):
+        """Yield each enabled registered plugin's fn, in tier order."""
+        for tier in self.tiers:
+            for opt in tier.plugins:
+                if flag is not None and not opt.is_enabled(flag):
+                    continue
+                fn = registry.get(opt.name)
+                if fn is not None:
+                    yield fn
+
+    # -- order fns: first non-zero comparison wins --------------------------
+
+    def _order(self, registry, flag, l, r, fallback) -> bool:
+        for fn in self._enabled_fns(registry, flag):
+            j = fn(l, r)
+            if j != 0:
+                return j < 0
+        return fallback(l, r)
+
+    def job_order_fn(self, l: JobInfo, r: JobInfo) -> bool:
+        return self._order(self.job_order_fns, "enabledJobOrder", l, r,
+                           lambda a, b: (a.creation_timestamp, a.uid)
+                           < (b.creation_timestamp, b.uid))
+
+    def queue_order_fn(self, l: QueueInfo, r: QueueInfo) -> bool:
+        return self._order(self.queue_order_fns, "enabledQueueOrder", l, r,
+                           lambda a, b: a.uid < b.uid)
+
+    def task_order_fn(self, l: TaskInfo, r: TaskInfo) -> bool:
+        return self._order(self.task_order_fns, "enabledTaskOrder", l, r,
+                           lambda a, b: (a.creation_timestamp, a.uid)
+                           < (b.creation_timestamp, b.uid))
+
+    def namespace_order_fn(self, l, r) -> bool:
+        return self._order(self.namespace_order_fns, "enabledNamespaceOrder",
+                           l, r, lambda a, b: str(a) < str(b))
+
+    # -- predicates ---------------------------------------------------------
+
+    def predicate_fn(self, task: TaskInfo, node: NodeInfo) -> None:
+        """All enabled predicates must pass; a failing one raises
+        (session_plugins.go PredicateFn)."""
+        for fn in self._enabled_fns(self.predicate_fns, "enabledPredicate"):
+            fn(task, node)
+
+    # -- job votes ----------------------------------------------------------
+
+    def overused(self, queue: QueueInfo) -> bool:
+        for fn in self._enabled_fns(self.overused_fns, None):
+            if fn(queue):
+                return True
+        return False
+
+    def job_ready(self, job: JobInfo) -> bool:
+        """All registered fns in the first tier that has any must agree
+        (session_plugins.go JobReady)."""
+        for tier in self.tiers:
+            found = False
+            for opt in tier.plugins:
+                if not opt.is_enabled("enabledJobReady"):
+                    continue
+                fn = self.job_ready_fns.get(opt.name)
+                if fn is None:
+                    continue
+                found = True
+                if not fn(job):
+                    return False
+            if found:
+                return True
+        return True
+
+    def _vote(self, registry, flag, obj) -> bool:
+        """Permit/abstain/reject tier voting (JobPipelined/JobEnqueueable)."""
+        for tier in self.tiers:
+            has_permit = False
+            for opt in tier.plugins:
+                if not opt.is_enabled(flag):
+                    continue
+                fn = registry.get(opt.name)
+                if fn is None:
+                    continue
+                res = fn(obj)
+                if res < 0:
+                    return False
+                if res > 0:
+                    has_permit = True
+            if has_permit:
+                return True
+        return True
+
+    def job_pipelined(self, job: JobInfo) -> bool:
+        return self._vote(self.job_pipelined_fns, "enabledJobPipelined", job)
+
+    def job_enqueueable(self, job: JobInfo) -> bool:
+        return self._vote(self.job_enqueueable_fns, "enabledJobEnqueued", job)
+
+    def job_enqueued(self, job: JobInfo) -> None:
+        for fn in self._enabled_fns(self.job_enqueued_fns, "enabledJobEnqueued"):
+            fn(job)
+
+    def job_valid(self, job: JobInfo) -> Optional[ValidateResult]:
+        for fn in self._enabled_fns(self.job_valid_fns, None):
+            vr = fn(job)
+            if vr is not None and not vr.passed:
+                return vr
+        return None
+
+    # -- state mutation (session.go:224-397) --------------------------------
+
+    def _fire_allocate(self, task: TaskInfo) -> None:
+        for eh in self.event_handlers:
+            if eh.allocate_func:
+                eh.allocate_func(Event(task))
+
+    def _fire_deallocate(self, task: TaskInfo) -> None:
+        for eh in self.event_handlers:
+            if eh.deallocate_func:
+                eh.deallocate_func(Event(task))
+
+    def allocate(self, task: TaskInfo, node: NodeInfo) -> None:
+        """Direct allocation (used by backfill): statusify, occupy node,
+        fire events, and dispatch the bind immediately if the gang is ready
+        (session.go:267-358)."""
+        job = self.jobs[task.job]
+        job.update_task_status(task, TaskStatus.ALLOCATED)
+        task.node_name = node.name
+        self.nodes[node.name].add_task(task)
+        self._fire_allocate(task)
+        if self.job_ready(job):
+            self.dispatch(task)
+
+    def dispatch(self, task: TaskInfo) -> None:
+        self.jobs[task.job].update_task_status(task, TaskStatus.BINDING)
+        self.cache.bind(task)
+
+    def update_pod_group_condition(self, job: JobInfo, condition: dict) -> None:
+        """Replace the same-type condition (one entry per type, like
+        PodGroup status conditions on the CR); mark dirty only on a real
+        transition so the close-time writeback can dedup."""
+        conditions = job.podgroup.conditions
+        for i, existing in enumerate(conditions):
+            if existing.get("type") == condition.get("type"):
+                changed = any(existing.get(k) != condition.get(k)
+                              for k in ("status", "reason", "message"))
+                conditions[i] = condition
+                if changed:
+                    job.podgroup.conditions_dirty = True
+                return
+        conditions.append(condition)
+        job.podgroup.conditions_dirty = True
+
+    def statement(self) -> Statement:
+        return Statement(self)
