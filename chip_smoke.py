@@ -7,10 +7,15 @@
 1. Prints the card's name and power limit, and builds the CUDA kernels
    (volcano_tpu_torch/ops/csrc, one nvcc per source, all at once).
 2. Holds each kernel against its plain PyTorch version on the card, on
-   seeded worlds and on the 10k-pod / 2k-node cycle's own tensors: outputs
+   seeded worlds and on the 10k-pod / 2k-node cycle's own tensors, at the
+   default launch plan and at every cluster size the card launches: outputs
    and final node state must be equal (tolerance 0: both round every f32
    operation alike). Prints the kernel's time (CUDA events, warm, median),
-   the plain version's, and the largest state difference.
+   the plain version's, the largest state difference and the (task, node)
+   scorings the inputs require; on slice-10k, slice-10k-taints and
+   r3-n8192 also the time at each cluster size and thread count. One
+   world (R=8, 40,000 nodes) is larger than a 16-CTA cluster's shared
+   memory, so the kernel keeps its planes in device memory.
 3. Runs the scheduling cycle ``Scheduler(cache, SLICE_CONF).run_once()`` on
    the BASELINE 10k world (10,000 pending pods in 200 gangs, 2,000 nodes of
    32 CPU / 128 GiB / 110 pods, 3 queues) on the card, with each kernel's
@@ -113,6 +118,74 @@ def identical_world(T, N, J):
                 min_available=np.full(J, T // J, np.int32))
 
 
+def runs_world(seed, N, gang_sizes, R=2):
+    """Gangs that share one request and one static row each, the requests
+    differing across gangs."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    J = len(gang_sizes)
+    cap = rng.choice([32000.0, 64000.0], size=(N, R)).astype(f32)
+    used = (cap * rng.uniform(0, 0.3, (N, R))).astype(f32)
+    job_ix = np.repeat(np.arange(J), gang_sizes).astype(np.int32)
+    gang_req = rng.choice([250.0, 500.0, 1000.0, 2000.0], (J, R)).astype(f32)
+    gang_ms = np.where(rng.rand(J, N) > 0.2, rng.randint(0, 50, (J, N)),
+                       -1e30).astype(f32)
+    return dict(idle=cap - used, future_idle=cap - used, used=used,
+                ntasks=np.zeros(N, np.int32), allocatable=cap,
+                max_tasks=np.full(N, 110, np.int32), req=gang_req[job_ix],
+                job_ix=job_ix, masked_static=gang_ms[job_ix],
+                min_available=np.asarray(gang_sizes, np.int32))
+
+
+def static_one_node_world(seed, T, N, J):
+    """One request; each task's static row differs from the one before on a
+    single node."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    cap = np.full((N, 2), 64000.0, f32)
+    used = (cap * rng.uniform(0, 0.4, (N, 2))).astype(f32)
+    row = rng.randint(0, 50, N).astype(f32)
+    ms = np.repeat(row[None], T, axis=0)
+    at = rng.randint(0, N, T)
+    val = np.where(rng.rand(T) < 0.3, -1e30, rng.randint(0, 50, T))
+    for t in range(T):          # each change persists into the later rows
+        ms[t:, at[t]] = val[t]
+    return dict(idle=cap - used, future_idle=cap - used, used=used,
+                ntasks=np.zeros(N, np.int32), allocatable=cap,
+                max_tasks=np.full(N, 110, np.int32),
+                req=np.full((T, 2), 1000.0, f32),
+                job_ix=np.repeat(np.arange(J), T // J).astype(np.int32),
+                masked_static=ms.astype(f32),
+                min_available=np.full(J, T // J // 2, np.int32))
+
+
+def rollback_then_same_world(N):
+    """Gangs too large for what is left roll back, and the next gang asks
+    the same request, so every node a rolled-back gang touched is stale."""
+    f32 = np.float32
+    cap = np.full((N, 2), 4000.0, f32)
+    used = np.zeros((N, 2), f32)
+    used[::3] = 1000.0
+    sizes = [2 * N, N, 3 * N, N // 2, N // 4, 2 * N]
+    job_ix = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    T = len(job_ix)
+    ms = (((np.arange(T)[:, None] // 40) * 5 + np.arange(N)[None, :] * 2)
+          % 7).astype(f32)
+    return dict(idle=cap - used, future_idle=cap - used, used=used,
+                ntasks=np.zeros(N, np.int32), allocatable=cap,
+                max_tasks=np.full(N, 30, np.int32),
+                req=np.full((T, 2), 1000.0, f32), job_ix=job_ix,
+                masked_static=ms, min_available=np.asarray(sizes, np.int32))
+
+
+def wide_ties_world(slice_, T):
+    """Identical nodes at N = 3 * slice_ + 5, three tasks to a node: picks
+    walk up the node axis through ties, across CTA slices."""
+    w = identical_world(T, 3 * slice_ + 5, T // 20)
+    w["max_tasks"] = np.full(3 * slice_ + 5, 3, np.int32)
+    return w
+
+
 def kernel_args(world, device):
     """place_cuda/place_plain arguments on ``device`` for a world."""
     import torch
@@ -210,18 +283,10 @@ def place_bound(args, packed):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_place(label, args):
-    """place_cuda against place_plain on the same CUDA tensors; returns a
-    record of the comparison and the times."""
+def same_result(label, got, want) -> float:
+    """Raise unless the packed words and the final state are equal; returns
+    the largest state difference (0)."""
     import torch
-
-    from volcano_tpu_torch.ops.place import place_cuda, place_plain
-    got = place_cuda(*args)
-    torch.cuda.synchronize()
-    plain = {}
-    plain_ms = time_host_ms(lambda: plain.setdefault("out",
-                                                     place_plain(*args)))
-    want = plain["out"]
     if not torch.equal(got[0], want[0]):
         first = (got[0] != want[0]).nonzero().flatten()[:1].tolist()
         raise RuntimeError(f"{label}: kernel and plain decisions differ, "
@@ -234,21 +299,64 @@ def compare_place(label, args):
         err = max(err, float((g.double() - w.double()).abs().max())
                   if g.numel() else 0.0)
     check(err == 0.0, f"{label}: final node state differs by {err}")
+    return err
+
+
+SWEEP_THREADS = (64, 128, 256, 512)
+
+
+def compare_place(label, args, sweep=False):
+    """place_cuda against place_plain on the same CUDA tensors, at the
+    default plan and at every cluster size the card launches; returns a
+    record of the comparison and the times (with ``sweep``, also the time
+    at each cluster size and each thread count)."""
+    import torch
+
+    from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, launch_plan,
+                                             max_cluster, place_cuda,
+                                             place_plain, scored_pairs)
+    got = place_cuda(*args)
+    torch.cuda.synchronize()
+    plain = {}
+    plain_ms = time_host_ms(lambda: plain.setdefault("out",
+                                                     place_plain(*args)))
+    want = plain["out"]
+    err = same_result(label, got, want)
+    sizes = [c for c in CLUSTER_SIZES if c <= max_cluster()]
+    for c in sizes:
+        err = max(err, same_result(f"{label} cluster {c}",
+                                   place_cuda(*args, cluster=c), want))
+    torch.cuda.synchronize()
     words = got[0].cpu().numpy()
-    last = (args[7].cpu().numpy() & 4) != 0
+    flags = args[7].cpu().numpy()
+    last = (flags & 4) != 0
+    N, R = args[0].shape
+    ms = args[10]
+    plan = launch_plan(N, R, ms is not None, max_cluster())
     rec = {
-        "world": label, "T": int(args[6].shape[0]),
-        "N": int(args[0].shape[0]), "R": int(args[0].shape[1]),
-        "static": args[10] is not None,
+        "world": label, "T": int(args[6].shape[0]), "N": int(N), "R": int(R),
+        "static": ms is not None,
         "placed": int(((words & 1) != 0).sum()),
         "pipelined": int(((words & 2) != 0).sum()),
         "jobs": int(last.sum()),
         "rolled_back": int(((words[last] & 8) == 0).sum()),
         "max_abs_err": err,
+        "cluster": plan.cluster, "threads": plan.threads,
+        "in_smem": plan.in_smem,
+        "scored_pairs": scored_pairs(
+            words, flags, args[6].cpu().numpy(),
+            None if ms is None else ms.cpu().numpy(), int(N)),
         "ms": time_cuda_ms(lambda: place_cuda(*args)),
         "plain_ms": plain_ms,
     }
     rec["bound_ms"], rec["bound_by"] = place_bound(args, got[0])
+    if sweep:
+        rec["ms_by_cluster"] = {
+            c: time_cuda_ms(lambda c=c: place_cuda(*args, cluster=c))
+            for c in sizes}
+        rec["ms_by_threads"] = {
+            t: time_cuda_ms(lambda t=t: place_cuda(*args, threads=t))
+            for t in SWEEP_THREADS}
     print("kernel place", json.dumps(rec), flush=True)
     return rec
 
@@ -356,13 +464,30 @@ def main() -> int:
         "identical-nodes", kernel_args(identical_world(4000, 2048, 40), dev)))
     records.append(compare_place(
         "r3-n8192", kernel_args(random_world(
-            7, T=4000, N=8192, J=100, R=3, tight=False, static=False), dev)))
+            7, T=4000, N=8192, J=100, R=3, tight=False, static=False), dev),
+        sweep=True))
+    gangs = np.random.RandomState(8).randint(20, 51, 80)
+    records.append(compare_place(
+        "runs", kernel_args(runs_world(8, 2000, gangs), dev)))
+    records.append(compare_place(
+        "static-one-node", kernel_args(static_one_node_world(
+            9, T=1000, N=2000, J=20), dev)))
+    records.append(compare_place(
+        "rollback-then-same", kernel_args(rollback_then_same_world(64), dev)))
+    records.append(compare_place(
+        "wide-ties", kernel_args(wide_ties_world(512, 3000), dev)))
+    records.append(compare_place(
+        "device-memory-r8-n40000", kernel_args(random_world(
+            10, T=500, N=40000, J=50, R=8, tight=False, static=False), dev)))
+    check(not records[-1]["in_smem"],
+          "the R=8, 40,000-node world did not take the device-memory path")
     slice_rec = compare_place("slice-10k", slice_args(
-        baseline_config("10k")[0]))
+        baseline_config("10k")[0]), sweep=True)
     records.append(slice_rec)
     tainted = baseline_config("10k")[0]
     taint_tenth(tainted)
-    records.append(compare_place("slice-10k-taints", slice_args(tainted)))
+    records.append(compare_place("slice-10k-taints", slice_args(tainted),
+                                 sweep=True))
 
     # 3. the cycle on the card (twice without taints: the second run shows
     # the time without first-use costs), and on the CPU
@@ -403,6 +528,8 @@ def main() -> int:
         "bound_ms": slice_rec["bound_ms"],
         "bound_by": slice_rec["bound_by"],
         "library_ms": None,
+        "cluster": slice_rec["cluster"],
+        "scored_pairs": slice_rec["scored_pairs"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

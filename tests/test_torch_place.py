@@ -13,7 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from volcano_tpu_torch.ops.place import NEG, place
+from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, NEG, SMEM_MAX,
+                                         fixed_bytes, launch_plan,
+                                         node_bytes, place, place_plain,
+                                         scored_pairs, scratch_bytes,
+                                         task_flags, tree_bytes)
 from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import (INTEGER_PLACE_WORLDS, PLACE_WORLDS, jax_place,
@@ -78,6 +82,12 @@ def test_worlds_exercise_what_they_name(reference):
     rb = reference["rollback"]["scan"]
     assert not rb[3].all() and rb[3][-1]             # a rollback, then a fit
     assert rb[1].any()                               # and a pipeline
+    rs = reference["rollback-then-same"]["scan"]
+    assert list(rs[3]) == [True, True, False, False, True]
+    wide = reference["wide-ties"]["scan"]
+    assert wide[0].max() >= 3 * 64 // 2              # past a 2-CTA slice
+    assert (np.diff(wide[0]) >= 0).all()             # lowest index first
+    assert reference["runs"]["scan"][3].all()
 
 
 def test_reference_is_the_compiled_scan():
@@ -86,3 +96,96 @@ def test_reference_is_the_compiled_scan():
     differs from it only in how XLA rounds, never in what it computes."""
     ref = jax_place(PLACE_WORLDS["ties"](), pallas=False)["scan"]
     assert_equal(torch_place(PLACE_WORLDS["ties"]()), ref, "place_scan")
+
+
+def _plain_words(inst):
+    """place_plain's packed words for a world, with its kernel inputs."""
+    (idle, releasing, used, ntasks, cap, max_tasks, req, job_ix,
+     feas, static, min_avail) = inst
+    zeros = np.zeros(len(min_avail), np.int32)
+    flags, ready_need, keep_need = task_flags(job_ix, min_avail, zeros, zeros)
+    ms = np.where(feas, static, NEG).astype(np.float32)
+    t = torch.tensor
+    packed = place_plain(t(idle), t(idle + releasing), t(used), t(ntasks),
+                         t(cap), t(max_tasks), t(req), t(flags),
+                         t(ready_need), t(keep_need), t(ms),
+                         default_weights(req.shape[1]))[0].numpy()
+    return packed, flags, req, ms
+
+
+@pytest.mark.parametrize("world,most", [("runs", 0.06), ("wide-ties", 0.01),
+                                        ("static-one-node", 0.1)])
+def test_cache_rescores_only_what_changed(world, most):
+    """Inside a gang of one request and one static row, a task re-scores
+    the node picked last; one changed static entry re-scores one node."""
+    packed, flags, req, ms = _plain_words(PLACE_WORLDS[world]())
+    T, N = ms.shape
+    got = scored_pairs(packed, flags, req, ms, N)
+    assert N <= got <= most * T * N
+
+
+def test_scored_pairs_counts_each_stale_rule():
+    """Three tasks of one gang on four nodes: the first scores all nodes, the
+    second the node picked first plus the one static entry that moved, the
+    third (a new request) all nodes again."""
+    flags = np.array([3, 1, 5], np.int32)
+    req = np.array([[1, 1], [1, 1], [2, 1]], np.float32)
+    ms = np.zeros((3, 4), np.float32)
+    ms[1:, 3] = 7.0
+    packed = np.array([(2 << 4) | 1, (3 << 4) | 1, (1 << 4) | 1 | 8],
+                      np.int32)
+    assert scored_pairs(packed, flags, req, ms, 4) == 4 + 2 + 4
+    assert scored_pairs(packed, flags, req, None, 4) == 4 + 1 + 4
+
+
+def test_scored_pairs_counts_restored_nodes():
+    """A rejected gang's nodes are stale for the next task; a broken job's
+    later tasks are not evaluated."""
+    flags = np.array([3, 1, 5, 7], np.int32)
+    req = np.ones((4, 2), np.float32)
+    packed = np.array([(1 << 4) | 1, 0, 0, (2 << 4) | 1 | 8], np.int32)
+    # task 0 scores 5 nodes, task 1 (fails) node 0, task 2 is skipped, the
+    # rollback restores node 0, task 3 re-scores it
+    assert scored_pairs(packed, flags, req, None, 5) == 5 + 1 + 1
+
+
+@pytest.mark.parametrize("R", [2, 8])
+@pytest.mark.parametrize("N", [1, 31, 2000, 2048, 8192, 40000])
+def test_launch_plan(N, R):
+    """Every node belongs to exactly one (CTA, thread), a CTA's shared
+    memory stays within Hopper's 232,448 bytes, and the planes go to device
+    memory exactly when a slice does not fit beside the fixed part; at
+    every cluster size, with and without a static matrix."""
+    for has_static in (False, True):
+        for cluster in (None, *CLUSTER_SIZES):
+            plan = launch_plan(N, R, has_static, 16, cluster)
+            # place.cu: CTA k owns [k*slice, (k+1)*slice) within [0, N);
+            # its thread t the nodes lo + t, lo + t + threads, ...
+            owners = np.zeros(N, np.int64)
+            for k in range(plan.cluster):
+                lo, hi = min(k * plan.slice, N), min((k + 1) * plan.slice, N)
+                for t in range(plan.threads):
+                    owners[lo + t:hi:plan.threads] += 1
+            assert (owners == 1).all(), plan
+            assert plan.smem_bytes <= SMEM_MAX, plan
+            fits = (fixed_bytes(R) + plan.slice
+                    * node_bytes(R, has_static, False)
+                    + tree_bytes(plan.slice) <= SMEM_MAX)
+            assert plan.in_smem == fits, plan
+            assert (scratch_bytes(plan, N) > 0) == (not plan.in_smem)
+            assert plan.ro_smem <= plan.in_smem
+            assert plan.threads % 32 == 0 and plan.threads <= 512
+
+
+def test_launch_plan_default_cluster():
+    """The default is one CTA when every node fits its shared memory, else
+    the largest cluster the card launches; past a 16-CTA cluster's shared
+    memory the node arrays go to device memory."""
+    assert launch_plan(2000, 2, True, 16).cluster == 1
+    assert launch_plan(8192, 3, False, 16).cluster == 16
+    assert launch_plan(8192, 3, False, 4).cluster == 4
+    big = launch_plan(40000, 8, False, 16)
+    assert (big.cluster, big.in_smem) == (16, False)
+    assert launch_plan(40000, 8, False, 8).cluster == 8
+    with pytest.raises(ValueError):
+        launch_plan(2000, 2, False, 4, cluster=8)

@@ -251,6 +251,87 @@ def _rollback():
             np.array(sizes, np.int32))
 
 
+def _runs():
+    """Gangs of 20-50 tasks, each gang one request and one static row (with
+    its own infeasible nodes), the requests differing across gangs: the
+    kernel's cache re-scores one node a task inside a gang."""
+    rng = np.random.RandomState(11)
+    N, R = 40, 3
+    sizes = [20, 35, 50, 28, 44, 31]
+    cap = rng.choice([8000.0, 16000.0, 32000.0], size=(N, R)).astype(np.float32)
+    used = (cap * rng.uniform(0, 0.3, size=(N, R))).astype(np.float32)
+    releasing = (cap * rng.uniform(0, 0.05, size=(N, R))).astype(np.float32)
+    job_ix = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    gang_req = np.array([[500, 1000, 250], [1000, 500, 500], [250, 250, 1000],
+                         [2000, 1000, 250], [500, 2000, 500],
+                         [1000, 1000, 1000]], np.float32)
+    gang_feas = rng.rand(len(sizes), N) > 0.2
+    gang_static = rng.randint(0, 50, size=(len(sizes), N)).astype(np.float32)
+    return (cap - used, releasing, used, np.zeros(N, np.int32), cap,
+            np.full(N, 40, np.int32), gang_req[job_ix], job_ix,
+            gang_feas[job_ix], gang_static[job_ix],
+            np.array([20, 30, 50, 28, 40, 31], np.int32))
+
+
+def _static_one_node():
+    """One request throughout; each task's static row differs from the one
+    before on a single node (a new score, or that node masked out)."""
+    rng = np.random.RandomState(12)
+    N, R, T = 24, 2, 60
+    cap = np.full((N, R), 16000.0, np.float32)
+    used = (cap * rng.uniform(0, 0.4, size=(N, R))).astype(np.float32)
+    static = np.empty((T, N), np.float32)
+    feas = np.empty((T, N), bool)
+    row = rng.randint(0, 50, size=N).astype(np.float32)
+    ok = np.ones(N, bool)
+    for t in range(T):
+        n = rng.randint(N)
+        if rng.rand() < 0.3:
+            ok[n] = not ok[n]
+        else:
+            row[n] = rng.randint(0, 50)
+        static[t], feas[t] = row, ok
+    job_ix = np.repeat(np.arange(6), 10).astype(np.int32)
+    return (cap - used, np.zeros((N, R), np.float32), used,
+            np.zeros(N, np.int32), cap, np.full(N, 30, np.int32),
+            np.full((T, R), 1000.0, np.float32), job_ix, feas, static,
+            np.array([10, 5, 10, 10, 3, 10], np.int32))
+
+
+def _rollback_then_same():
+    """A gang of 30 on twelve 4-slot nodes rolls back, and the next gangs
+    ask the same request: every node the first gang touched was restored,
+    so its cached entries are stale."""
+    N, R = 12, 2
+    cap = np.full((N, R), 4000.0, np.float32)
+    used = np.zeros((N, R), np.float32)
+    used[::3] = 1000.0
+    sizes = [30, 8, 8, 30, 4]
+    job_ix = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    T = len(job_ix)
+    static = ((np.arange(T)[:, None] // 40) * 5
+              + np.arange(N)[None, :] * 2) % 7
+    return (cap - used, np.zeros((N, R), np.float32), used,
+            np.zeros(N, np.int32), cap, np.full(N, 30, np.int32),
+            np.full((T, R), 1000.0, np.float32), job_ix,
+            np.ones((T, N), bool), static.astype(np.float32),
+            np.array([30, 8, 8, 30, 4], np.int32))
+
+
+def _wide_ties():
+    """Identical nodes at N = 3 * 64 + 5 = 197 and identical tasks, three to
+    a node: the picks walk up the node axis through ties, across the node
+    slices of every cluster size, and the lowest index must win."""
+    N, R, T = 197, 2, 480
+    cap = np.full((N, R), 8000.0, np.float32)
+    z = np.zeros((N, R), np.float32)
+    job_ix = np.repeat(np.arange(24), 20).astype(np.int32)
+    return (cap.copy(), z, z.copy(), np.zeros(N, np.int32), cap,
+            np.full(N, 3, np.int32), np.full((T, R), 1000.0, np.float32),
+            job_ix, np.ones((T, N), bool), np.zeros((T, N), np.float32),
+            np.full(24, 20, np.int32))
+
+
 PLACE_WORLDS = {
     **{f"random-{s}": (lambda s=s: _random(s)) for s in range(6)},
     **{f"tight-{s}": (lambda s=s: _random(100 + s, T=60, N=8, J=10,
@@ -262,6 +343,10 @@ PLACE_WORLDS = {
     "ties": _ties,
     "sub-epsilon": _sub_epsilon,
     "rollback": _rollback,
+    "runs": _runs,
+    "static-one-node": _static_one_node,
+    "rollback-then-same": _rollback_then_same,
+    "wide-ties": _wide_ties,
 }
 # where the Pallas kernel (interpret mode) must agree with the scan too
 INTEGER_PLACE_WORLDS = ("integer-0", "integer-tight", "ties", "rollback")

@@ -165,13 +165,144 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"place_cuda: {name} is not contiguous")
 
 
-def _vt_place():
-    fn = build.load("place").vt_place
+# Launch plan of the kernel (csrc/place.cu): a cluster of CTAs over the
+# node axis, each owning a contiguous slice; its node arrays in shared memory
+# when the slice fits. The byte counts mirror place.cu's fixed_bytes,
+# node_bytes and tree_bytes, and the C entry refuses a plan whose bytes
+# differ.
+SMEM_MAX = 232_448          # dynamic shared memory a Hopper CTA may use
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+CHUNK = 32                  # tasks staged per chunk (place.cu kChunk)
+MIN_THREADS, MAX_THREADS = 64, 512
+# A bulk re-score is fastest with a node a thread; a one-node step does not
+# depend on the thread count (chip_smoke.py's per-thread times, PERF.md).
+NODES_PER_THREAD = 1
+
+
+class LaunchPlan(NamedTuple):
+    cluster: int        # CTAs in the cluster (the grid is one cluster)
+    threads: int        # threads per CTA
+    slice: int          # nodes per CTA: CTA k owns [k*slice, (k+1)*slice)
+    smem_bytes: int     # dynamic shared memory per CTA
+    in_smem: bool       # node state, key cache, group keys in shared memory
+    ro_smem: bool       # alloc and max_tasks in shared memory too
+
+
+def fixed_bytes(R: int) -> int:
+    """Shared memory of a CTA besides its nodes: the cluster exchange's two
+    mbarriers and key slots, the bulk command, two staged chunks of the
+    task stream."""
+    return 2 * 8 + 2 * 16 * 8 + 64 + 2 * CHUNK * (4 + R) * 4
+
+
+def node_bytes(R: int, has_static: bool, ro: bool) -> int:
+    """Shared memory per node of a slice: the cached key (8), the mutable
+    planes and pod count, the job tag, the stale flag; with a static matrix
+    the cached static value; with ``ro`` alloc and max_tasks."""
+    return (8 + (3 * R + 1) * 4 + 4 + 1 + (4 if has_static else 0)
+            + (R * 4 + 4 if ro else 0))
+
+
+def tree_bytes(slice_: int) -> int:
+    """The best key of each 32 nodes of a slice."""
+    return 8 * -(-slice_ // 32)
+
+
+def _smem(R: int, has_static: bool, ro: bool, slice_: int) -> int:
+    return (fixed_bytes(R) + slice_ * node_bytes(R, has_static, ro)
+            + tree_bytes(slice_))
+
+
+def launch_plan(N: int, R: int, has_static: bool, max_cluster: int = 16,
+                cluster: Optional[int] = None,
+                threads: Optional[int] = None) -> LaunchPlan:
+    """Where the solve runs: ``cluster`` CTAs, ``threads`` each (default:
+    about NODES_PER_THREAD nodes a thread). The node arrays live in shared
+    memory exactly when a slice's fit beside the fixed part; alloc and
+    max_tasks join them when they fit too.
+
+    The default cluster is one CTA when all N nodes fit its shared memory,
+    else the largest size up to ``max_cluster``. A task that re-scores one
+    node is fastest on one CTA, where no cluster exchange sits on the
+    chain; a task that re-scores every node (a new request) divides that
+    work by the cluster size. chip_smoke.py times every size on the
+    10k-pod / 2k-node solve (one CTA's worth of nodes, fastest at C=1) and
+    on R=3 at 8,192 nodes with a new request every task (two CTAs' worth,
+    fastest at C=16); PERF.md has the H100 numbers."""
+    sizes = [c for c in CLUSTER_SIZES if c <= max_cluster]
+    if not sizes:
+        raise ValueError(f"launch_plan: no cluster size within {max_cluster}")
+    if cluster is None:
+        one = _smem(R, has_static, False, max(1, N)) <= SMEM_MAX
+        cluster = 1 if one else sizes[-1]
+    if cluster not in sizes:
+        raise ValueError(f"launch_plan: cluster {cluster} not in {sizes}")
+    slice_ = max(1, -(-N // cluster))
+    if threads is None:
+        threads = -(-slice_ // NODES_PER_THREAD)
+        threads = min(MAX_THREADS, max(MIN_THREADS, -(-threads // 32) * 32))
+    if not (MIN_THREADS <= threads <= MAX_THREADS and threads % 32 == 0):
+        raise ValueError(f"launch_plan: {threads} threads")
+    if _smem(R, has_static, True, slice_) <= SMEM_MAX:
+        in_smem, ro = True, True
+    elif _smem(R, has_static, False, slice_) <= SMEM_MAX:
+        in_smem, ro = True, False
+    else:
+        in_smem, ro = False, False
+    smem = (_smem(R, has_static, ro, slice_) if in_smem
+            else fixed_bytes(R))
+    return LaunchPlan(cluster, threads, slice_, smem, in_smem, ro)
+
+
+def scratch_bytes(plan: LaunchPlan, N: int) -> int:
+    """Device memory for the node arrays a plan keeps out of shared memory:
+    keys, every CTA's group keys, job tags, cached static values, stale
+    flags."""
+    if plan.in_smem:
+        return 0
+    return 17 * N + plan.cluster * tree_bytes(plan.slice)
+
+
+def _lib():
+    lib = build.load("place")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, p, p, p, f, f, f, f, p, p, p, p, p,
-                   i, i, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.vt_place.argtypes = [p, p, p, p, p, p, p, p, p, f, f, f, f, p, p, p,
+                             p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.vt_place.restype = ctypes.c_int
+    lib.vt_place_active_clusters.argtypes = [i, i, i, i,
+                                             ctypes.POINTER(ctypes.c_int)]
+    lib.vt_place_active_clusters.restype = ctypes.c_int
+    return lib
+
+
+def active_clusters(R: int, plan: LaunchPlan) -> int:
+    """How many clusters of this plan the card holds at once; 0 means the
+    launch would be refused. Raises if the query itself fails."""
+    count = ctypes.c_int(0)
+    err = _lib().vt_place_active_clusters(R, plan.cluster, plan.threads,
+                                          plan.smem_bytes,
+                                          ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"place_cuda: cluster query failed with "
+                           f"cudaError_t {err}")
+    return count.value
+
+
+_max_cluster: Optional[int] = None
+
+
+def max_cluster() -> int:
+    """The largest cluster size the card launches with a full CTA
+    (MAX_THREADS threads, all of its shared memory), asked once."""
+    global _max_cluster
+    if _max_cluster is None:
+        full = [LaunchPlan(c, MAX_THREADS, 1, SMEM_MAX, True, True)
+                for c in CLUSTER_SIZES]
+        ok = [p.cluster for p in full if active_clusters(2, p) > 0]
+        if not ok:
+            raise RuntimeError("place_cuda: the card launches no cluster")
+        _max_cluster = max(ok)
+    return _max_cluster
 
 
 def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
@@ -180,10 +311,13 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
                req: torch.Tensor, flags: torch.Tensor,
                ready_need: torch.Tensor, keep_need: torch.Tensor,
                masked_static: Optional[torch.Tensor],
-               weights: ScoreWeights) -> PlaceOutput:
+               weights: ScoreWeights, cluster: Optional[int] = None,
+               threads: Optional[int] = None) -> PlaceOutput:
     """The solve as one launch of the CUDA kernel ``csrc/place.cu`` on the
     current stream. Same inputs and outputs as ``place_plain``; every tensor
-    must lie on one CUDA device. Raises on a tensor it does not take, a
+    must lie on one CUDA device. ``cluster`` and ``threads`` override the
+    launch plan's defaults (tests and chip_smoke.py run every size). Raises
+    on a tensor it does not take, a cluster the card cannot launch, a
     failed build or a failed launch."""
     device = idle.device
     if device.type != "cuda":
@@ -211,8 +345,8 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
     if masked_static is not None:
         _check("masked_static", masked_static, torch.float32, (T, N), device)
 
-    # node-major [N,R] -> resource-major [R,N]: neighbouring threads own
-    # neighbouring nodes, so each resource row is read coalesced
+    # node-major [N,R] -> resource-major [R,N]: a CTA copies each resource
+    # row of its slice coalesced
     state = torch.stack([idle.t(), future_idle.t(), used.t()]).contiguous()
     nt = ntasks.clone()
     alloc_rn = allocatable.t().contiguous()
@@ -225,19 +359,33 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
     saved_nt = torch.empty_like(nt)
     packed = torch.empty(T, dtype=torch.int32, device=device)
     if T:
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _vt_place()(
-            req.data_ptr(), flags.data_ptr(), ready_need.data_ptr(),
-            keep_need.data_ptr(),
-            None if masked_static is None else masked_static.data_ptr(),
-            alloc_rn.data_ptr(), max_tasks.data_ptr(), res.data_ptr(),
-            weights.binpack_weight, weights.least_req_weight,
-            weights.most_req_weight, weights.balanced_weight,
-            state.data_ptr(), nt.data_ptr(), saved.data_ptr(),
-            saved_nt.data_ptr(), packed.data_ptr(), T, N, R, stream)
+        with torch.cuda.device(device):
+            plan = launch_plan(N, R, masked_static is not None,
+                               max_cluster(), cluster, threads)
+            if cluster is not None and active_clusters(R, plan) == 0:
+                raise RuntimeError(f"place_cuda: the card cannot launch "
+                                   f"{plan}")
+            scratch = torch.empty(scratch_bytes(plan, N), dtype=torch.uint8,
+                                  device=device)
+            rowdiff = torch.empty(0 if masked_static is None else T,
+                                  dtype=torch.int32, device=device)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = _lib().vt_place(
+                req.data_ptr(), flags.data_ptr(), ready_need.data_ptr(),
+                keep_need.data_ptr(),
+                None if masked_static is None else masked_static.data_ptr(),
+                rowdiff.data_ptr() or None,
+                alloc_rn.data_ptr(), max_tasks.data_ptr(), res.data_ptr(),
+                weights.binpack_weight, weights.least_req_weight,
+                weights.most_req_weight, weights.balanced_weight,
+                state.data_ptr(), nt.data_ptr(), saved.data_ptr(),
+                saved_nt.data_ptr(), scratch.data_ptr() or None,
+                packed.data_ptr(), T, N, R, plan.cluster, plan.threads,
+                plan.slice, int(plan.in_smem), int(plan.ro_smem),
+                plan.smem_bytes, stream)
         if err != 0:
             raise RuntimeError(f"place_cuda: kernel launch failed with "
-                               f"cudaError_t {err}")
+                               f"cudaError_t {err} ({plan})")
         place_cuda.launches += 1
     return (packed, state[0].t().contiguous(), state[1].t().contiguous(),
             state[2].t().contiguous(), nt)
@@ -245,6 +393,50 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
 
 # kernel launches since the count was last reset (chip_smoke.py reads it)
 place_cuda.launches = 0
+
+
+def scored_pairs(packed: np.ndarray, flags: np.ndarray, req: np.ndarray,
+                 masked_static: Optional[np.ndarray], N: int) -> int:
+    """The (task, node) scorings the kernel's cache rule requires for these
+    inputs and this solve's packed words: a task the solve evaluated (valid,
+    its job not yet broken) scores every node when its request differs
+    from the last evaluated task's, else only the nodes whose static entry
+    differs from that task's, that were picked since, or that a rejected
+    gang restored since (the nodes its tasks' words name)."""
+    packed = np.asarray(packed)
+    flags = np.asarray(flags)
+    req = np.asarray(req, np.float32).view(np.uint32)
+    ms = (None if masked_static is None
+          else np.asarray(masked_static, np.float32).view(np.uint32))
+    total = 0
+    last = -1
+    dirty = set()
+    job_nodes = []
+    broken = False
+    for i, f in enumerate(flags.tolist()):
+        w = int(packed[i])
+        if f & FIRST:
+            job_nodes = []
+            broken = False
+        if f & VALID and not broken:
+            if last < 0 or (req[i] != req[last]).any():
+                total += N
+            else:
+                stale = set(dirty)
+                if ms is not None:
+                    stale.update(np.flatnonzero(ms[i] != ms[last]).tolist())
+                total += len(stale)
+            dirty = set()
+            last = i
+            if w & F_PLACE:
+                node = (w >> 4) - 1
+                dirty.add(node)
+                job_nodes.append(node)
+            else:
+                broken = True
+        if f & VALID and f & LAST and not w & F_KEEP:
+            dirty.update(job_nodes)
+    return total
 
 
 def unpack_placement(packed: np.ndarray, job_ix: np.ndarray, J: int
