@@ -11,19 +11,24 @@
    default launch plan and at every cluster size the card launches: outputs
    and final node state must be equal (tolerance 0: both round every f32
    operation alike). Prints the kernel's time (CUDA events, warm, median),
-   the plain version's, the largest state difference and the (task, node)
-   scorings the inputs require; on slice-10k, slice-10k-taints and
-   r3-n8192 also the time at each cluster size and thread count. One
-   world (R=8, 40,000 nodes) is larger than a 16-CTA cluster's shared
-   memory, so the kernel keeps its planes in device memory.
+   the plain version's, the largest state difference, the (task, node)
+   scorings the inputs require and the bound they give; on slice-10k,
+   slice-10k-taints, r3-n8192 (a new request every task) and two gang
+   worlds of 8,192 and 16,384 nodes (one request a gang) also the time at
+   each cluster size. One world (R=8, 40,000 nodes) is larger than a
+   16-CTA cluster's shared memory, so the kernel keeps its planes in device
+   memory. The static-row pre-pass (rowdiff) is held against its plain
+   version on the worlds with a static matrix.
 3. Runs the scheduling cycle ``Scheduler(cache, SLICE_CONF).run_once()`` on
    the BASELINE 10k world (10,000 pending pods in 200 gangs, 2,000 nodes of
    32 CPU / 128 GiB / 110 pods, 3 queues) on the card, with each kernel's
-   launch count set to 0 just before and read just after: every kernel of
-   the path must have launched, all 10,000 pods must bind, and the bind map
+   launch count set to 0 just before and read just after: the placement
+   kernel must have launched, all 10,000 pods must bind, and the bind map
    must equal the same world's on the CPU. Then again with a
    PreferNoSchedule taint on 10% of the nodes, which puts nodeorder's
-   [10,000 x 2,000] static score matrix on the card.
+   [10,000 x 2,000] static score matrix on the card: there the rowdiff
+   pre-pass must have launched too (and without taints, not at all).
+   torch.profiler then traces one more cycle of each.
 4. Prints one JSON line with each kernel's launches, times, bound and
    error, then the card's name and power limit, then the result line
    ``{"ok": true, "device": {...}}``.
@@ -118,9 +123,9 @@ def identical_world(T, N, J):
                 min_available=np.full(J, T // J, np.int32))
 
 
-def runs_world(seed, N, gang_sizes, R=2):
-    """Gangs that share one request and one static row each, the requests
-    differing across gangs."""
+def runs_world(seed, N, gang_sizes, R=2, static=True):
+    """Gangs that share one request and (optionally) one static row each,
+    the requests differing across gangs."""
     rng = np.random.RandomState(seed)
     f32 = np.float32
     J = len(gang_sizes)
@@ -133,7 +138,8 @@ def runs_world(seed, N, gang_sizes, R=2):
     return dict(idle=cap - used, future_idle=cap - used, used=used,
                 ntasks=np.zeros(N, np.int32), allocatable=cap,
                 max_tasks=np.full(N, 110, np.int32), req=gang_req[job_ix],
-                job_ix=job_ix, masked_static=gang_ms[job_ix],
+                job_ix=job_ix,
+                masked_static=gang_ms[job_ix] if static else None,
                 min_available=np.asarray(gang_sizes, np.int32))
 
 
@@ -256,12 +262,24 @@ def time_host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def place_bound(args, packed):
-    """Least time the card could take for one solve: each input byte read
-    once and each output byte written once over HBM bandwidth, against the
-    FP32 operations of scoring every node for every task this run attempted
-    (placed tasks, plus the one failed task of each job that broke) over
-    the FP32 rate. Returns (bound_ms, "bytes" or "operations")."""
+def larger(t_bytes, t_ops):
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def place_bound(args, counts):
+    """Least time the card could take for one solve, from what these inputs
+    need: each input byte read once and each output byte written once over
+    HBM bandwidth, against the operations over the FP32 rate. ``counts``
+    holds the nodes the cache rule re-scores for each evaluated task
+    (ops/place.py::task_rescores). Per re-scored (task, node) pair the fit
+    tests and binpack terms cost about ten operations a resource column,
+    least/most/balanced allocation, the square root and the weighted sum
+    about 41 more (place.cu); per task the argmax over the cached keys
+    re-reduces the 32-node group of each re-scored node and reduces the
+    N/32 group maxima, two operations a 64-bit compare. Returns (bound_ms,
+    "bytes" or "operations", all_pairs_ms): the last is PR 1's operation
+    count, every node scored for every evaluated task, kept so that the two
+    kernels' bounds compare."""
     idle, _, _, _, _, _, req, _, _, _, ms, _ = args
     N, R = idle.shape
     T = req.shape[0]
@@ -269,18 +287,14 @@ def place_bound(args, packed):
     in_bytes = (T * R * 4 + 3 * T * 4 + N * R * 4 + N * 4 + state_bytes
                 + R * 4 + (T * N * 4 if ms is not None else 0))
     out_bytes = T * 4 + state_bytes
-    words = packed.cpu().numpy()
-    flags = args[7].cpu().numpy()
-    placed = (words & 1) != 0
-    job_of = np.cumsum((flags & 2) != 0) - 1
-    attempted = int(placed.sum()) + len(np.unique(job_of[~placed]))
-    # per (task, node): the fit tests and the binpack terms cost about ten
-    # operations for each resource column; least/most/balanced allocation,
-    # the square root and the weighted sum about 41 more (place.cu)
-    ops = attempted * N * (10 * R + 41)
+    groups = -(-int(N) // 32)
+    per_pair = 10 * R + 41
+    compares = int((32 * np.minimum(counts, groups) + groups).sum())
+    ops = int(counts.sum()) * per_pair + 2 * compares
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    all_pairs = len(counts) * N * per_pair / FP32_OPS_PER_S * 1e3
+    return (*larger(t_bytes, ops / FP32_OPS_PER_S * 1e3),
+            max(t_bytes, all_pairs))
 
 
 def same_result(label, got, want) -> float:
@@ -302,19 +316,16 @@ def same_result(label, got, want) -> float:
     return err
 
 
-SWEEP_THREADS = (64, 128, 256, 512)
-
-
 def compare_place(label, args, sweep=False):
     """place_cuda against place_plain on the same CUDA tensors, at the
     default plan and at every cluster size the card launches; returns a
     record of the comparison and the times (with ``sweep``, also the time
-    at each cluster size and each thread count)."""
+    at each cluster size)."""
     import torch
 
     from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, launch_plan,
                                              max_cluster, place_cuda,
-                                             place_plain, scored_pairs)
+                                             place_plain, task_rescores)
     got = place_cuda(*args)
     torch.cuda.synchronize()
     plain = {}
@@ -333,6 +344,8 @@ def compare_place(label, args, sweep=False):
     N, R = args[0].shape
     ms = args[10]
     plan = launch_plan(N, R, ms is not None, max_cluster())
+    counts = task_rescores(words, flags, args[6].cpu().numpy(),
+                           None if ms is None else ms.cpu().numpy(), int(N))
     rec = {
         "world": label, "T": int(args[6].shape[0]), "N": int(N), "R": int(R),
         "static": ms is not None,
@@ -343,21 +356,42 @@ def compare_place(label, args, sweep=False):
         "max_abs_err": err,
         "cluster": plan.cluster, "threads": plan.threads,
         "in_smem": plan.in_smem,
-        "scored_pairs": scored_pairs(
-            words, flags, args[6].cpu().numpy(),
-            None if ms is None else ms.cpu().numpy(), int(N)),
+        "scored_pairs": int(counts.sum()),
         "ms": time_cuda_ms(lambda: place_cuda(*args)),
         "plain_ms": plain_ms,
     }
-    rec["bound_ms"], rec["bound_by"] = place_bound(args, got[0])
+    (rec["bound_ms"], rec["bound_by"],
+     rec["bound_all_pairs_ms"]) = place_bound(args, counts)
     if sweep:
         rec["ms_by_cluster"] = {
             c: time_cuda_ms(lambda c=c: place_cuda(*args, cluster=c))
             for c in sizes}
-        rec["ms_by_threads"] = {
-            t: time_cuda_ms(lambda t=t: place_cuda(*args, threads=t))
-            for t in SWEEP_THREADS}
     print("kernel place", json.dumps(rec), flush=True)
+    return rec
+
+
+def compare_rowdiff(label, ms):
+    """rowdiff_cuda against rowdiff_plain on the same static matrix; returns
+    a record of the comparison, the times and the bound (the matrix read
+    once, the marks written once)."""
+    import torch
+
+    from volcano_tpu_torch.ops.place import rowdiff_cuda, rowdiff_plain
+    got = rowdiff_cuda(ms)
+    plain = {}
+    plain_ms = time_host_ms(lambda: plain.setdefault("out",
+                                                     rowdiff_plain(ms)))
+    check(torch.equal(got, plain["out"]),
+          f"{label}: rowdiff kernel and plain marks differ")
+    T, N = ms.shape
+    rec = {"world": label, "T": int(T), "N": int(N),
+           "rows_new": int(got.sum()), "max_abs_err": 0.0,
+           "ms": time_cuda_ms(lambda: rowdiff_cuda(ms)),
+           "plain_ms": plain_ms}
+    rec["bound_ms"], rec["bound_by"] = larger(
+        (T * N * 4 + T * 4) / HBM_BYTES_PER_S * 1e3,
+        T * N / FP32_OPS_PER_S * 1e3)
+    print("kernel rowdiff", json.dumps(rec), flush=True)
     return rec
 
 
@@ -378,14 +412,15 @@ def run_cycle(device, taints, count=False):
     phase times in ms, launches of each kernel during the cycle)."""
     from volcano_tpu_torch import Scheduler
     from volcano_tpu_torch.cache.synthetic import baseline_config
-    from volcano_tpu_torch.ops.place import place_cuda
+    from volcano_tpu_torch.ops.place import place_cuda, rowdiff_cuda
     cache, binder, _ = baseline_config("10k")
     if taints:
         taint_tenth(cache)
     sched = Scheduler(cache, SLICE_CONF, device=device)
-    place_cuda.launches = 0
+    place_cuda.launches = rowdiff_cuda.launches = 0
     sched.run_once()
-    launches = {"place": place_cuda.launches}
+    launches = {"place": place_cuda.launches,
+                "rowdiff": rowdiff_cuda.launches}
     times = {k: v * 1e3 for k, v in sched.last_cycle_s.items()}
     allocate = next(a for a in sched.actions if a.name() == "allocate-tpu")
     times["allocate_phases"] = {
@@ -394,22 +429,28 @@ def run_cycle(device, taints, count=False):
     return dict(binder.binds), times, launches
 
 
-def profile_cycle(cycle_ms: float) -> dict:
+def profile_cycle(taints: bool, cycle_ms: float) -> dict:
     """One more 10k cycle on the card under torch.profiler: the device time
     by kernel name, and the device's idle share of an unprofiled cycle of
-    ``cycle_ms``."""
+    ``cycle_ms``. Only device events (kernels, copies) are summed: a CPU op
+    also carries the device time of what it launched."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from volcano_tpu_torch import Scheduler
     from volcano_tpu_torch.cache.synthetic import baseline_config
-    sched = Scheduler(baseline_config("10k")[0], SLICE_CONF)
+    cache = baseline_config("10k")[0]
+    if taints:
+        taint_tenth(cache)
+    sched = Scheduler(cache, SLICE_CONF)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         sched.run_once()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
+              if e.device_type != DeviceType.CPU
+              and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     return {
@@ -466,12 +507,18 @@ def main() -> int:
         "r3-n8192", kernel_args(random_world(
             7, T=4000, N=8192, J=100, R=3, tight=False, static=False), dev),
         sweep=True))
+    for seed, N in ((11, 8192), (12, 16384)):
+        # one request a gang, as in the 10k world, past one CTA's nodes
+        records.append(compare_place(
+            f"gangs-n{N}", kernel_args(runs_world(
+                seed, N, np.random.RandomState(seed).randint(20, 51, 100),
+                static=False), dev), sweep=True))
     gangs = np.random.RandomState(8).randint(20, 51, 80)
-    records.append(compare_place(
-        "runs", kernel_args(runs_world(8, 2000, gangs), dev)))
-    records.append(compare_place(
-        "static-one-node", kernel_args(static_one_node_world(
-            9, T=1000, N=2000, J=20), dev)))
+    runs_args = kernel_args(runs_world(8, 2000, gangs), dev)
+    records.append(compare_place("runs", runs_args))
+    one_node_args = kernel_args(static_one_node_world(
+        9, T=1000, N=2000, J=20), dev)
+    records.append(compare_place("static-one-node", one_node_args))
     records.append(compare_place(
         "rollback-then-same", kernel_args(rollback_then_same_world(64), dev)))
     records.append(compare_place(
@@ -486,8 +533,12 @@ def main() -> int:
     records.append(slice_rec)
     tainted = baseline_config("10k")[0]
     taint_tenth(tainted)
-    records.append(compare_place("slice-10k-taints", slice_args(tainted),
+    tainted_args = slice_args(tainted)
+    records.append(compare_place("slice-10k-taints", tainted_args,
                                  sweep=True))
+    compare_rowdiff("runs", runs_args[10])
+    compare_rowdiff("static-one-node", one_node_args[10])
+    rowdiff_rec = compare_rowdiff("slice-10k-taints", tainted_args[10])
 
     # 3. the cycle on the card (twice without taints: the second run shows
     # the time without first-use costs), and on the CPU
@@ -498,6 +549,9 @@ def main() -> int:
             binds, times, launches = run_cycle(None, taints)
             check(launches["place"] > 0,
                   f"{label}: the cycle launched no placement kernel")
+            # the pre-pass runs exactly when a plugin gives a static matrix
+            check((launches["rowdiff"] > 0) == taints,
+                  f"{label}: rowdiff launched {launches['rowdiff']} times")
             check(len(binds) == 10000,
                   f"{label}: {len(binds)} of 10000 pods bound")
             check(binds == cpu_binds,
@@ -511,10 +565,14 @@ def main() -> int:
         print(f"cycle {label} cpu:", json.dumps(
             {"binds": len(cpu_binds), "allocate_ms": cpu_times["allocate-tpu"],
              "cycle_ms": cpu_times["cycle"]}), flush=True)
-    print("profile 10k:", json.dumps(profile_cycle(
-        results["10k-second"]["ms"]["cycle"])), flush=True)
+    for label, taints, run in (("10k", False, "10k-second"),
+                               ("10k-taints", True, "10k-taints-first")):
+        print(f"profile {label}:", json.dumps(profile_cycle(
+            taints, results[run]["ms"]["cycle"])), flush=True)
 
-    # 4. the kernels line, the card, the result
+    # 4. the kernels line (launches: the placement kernel's in the 10k
+    # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
+    # it a static matrix), the card, the result
     main_run = results["10k-first"]
     kernels = [{
         "name": "place",
@@ -530,6 +588,18 @@ def main() -> int:
         "library_ms": None,
         "cluster": slice_rec["cluster"],
         "scored_pairs": slice_rec["scored_pairs"],
+    }, {
+        "name": "rowdiff",
+        "route": "cuda",
+        "source": "volcano_tpu_torch/ops/csrc/place.cu",
+        "replaces": "volcano_tpu/ops/pallas_place.py:58",
+        "launches": results["10k-taints-first"]["launches"]["rowdiff"],
+        "max_abs_err": rowdiff_rec["max_abs_err"],
+        "ms": rowdiff_rec["ms"],
+        "plain_ms": rowdiff_rec["plain_ms"],
+        "bound_ms": rowdiff_rec["bound_ms"],
+        "bound_by": rowdiff_rec["bound_by"],
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

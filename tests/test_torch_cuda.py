@@ -11,7 +11,8 @@ import torch
 
 from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, NEG, launch_plan,
                                          max_cluster, place, place_cuda,
-                                         place_plain, task_flags)
+                                         place_plain, rowdiff_cuda,
+                                         rowdiff_plain, task_flags)
 from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import PLACE_WORLDS
@@ -82,8 +83,18 @@ def test_place_dispatches_cuda_tensors_to_the_kernel(card):
     inst = PLACE_WORLDS["ties"]()
     args = _args(inst, card)
     before = place_cuda.launches
+    rows_before = rowdiff_cuda.launches
     res = place(*args[:7], inst[7], args[10], inst[10],
                 np.zeros(len(inst[10]), np.int32),
                 np.zeros(len(inst[10]), np.int32), args[11])
     assert place_cuda.launches == before + 1
+    assert rowdiff_cuda.launches == rows_before + 1
     assert (res.task_node >= 0).all()
+
+
+@pytest.mark.parametrize("world", list(PLACE_WORLDS))
+def test_rowdiff_matches_plain(world, card):
+    """The static-row pre-pass marks exactly the rows place_plain's
+    reading of them would."""
+    ms = _args(PLACE_WORLDS[world](), card)[10]
+    assert torch.equal(rowdiff_cuda(ms), rowdiff_plain(ms))

@@ -16,8 +16,10 @@ import torch
 from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, NEG, SMEM_MAX,
                                          fixed_bytes, launch_plan,
                                          node_bytes, place, place_plain,
+                                         rowdiff_cuda, rowdiff_plain,
                                          scored_pairs, scratch_bytes,
-                                         task_flags, tree_bytes)
+                                         task_flags, task_rescores,
+                                         tree_bytes)
 from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import (INTEGER_PLACE_WORLDS, PLACE_WORLDS, jax_place,
@@ -174,7 +176,9 @@ def test_launch_plan(N, R):
             assert plan.in_smem == fits, plan
             assert (scratch_bytes(plan, N) > 0) == (not plan.in_smem)
             assert plan.ro_smem <= plan.in_smem
-            assert plan.threads % 32 == 0 and plan.threads <= 512
+            # a thread a node of the slice, a multiple of 32, 64 to 512
+            want = min(512, max(64, -(-plan.slice // 32) * 32))
+            assert plan.threads == want, plan
 
 
 def test_launch_plan_default_cluster():
@@ -189,3 +193,50 @@ def test_launch_plan_default_cluster():
     assert launch_plan(40000, 8, False, 8).cluster == 8
     with pytest.raises(ValueError):
         launch_plan(2000, 2, False, 4, cluster=8)
+
+
+@pytest.mark.parametrize("world", list(PLACE_WORLDS))
+def test_task_rescores_one_count_per_evaluated_task(world):
+    """One count per task the solve evaluated (placed, or the failed task
+    that broke its job), each within [0, N]; the first is N, and the counts
+    sum to scored_pairs."""
+    packed, flags, req, ms = _plain_words(PLACE_WORLDS[world]())
+    T, N = ms.shape
+    counts = task_rescores(packed, flags, req, ms, N)
+    placed = (packed & 1) != 0
+    job_of = np.cumsum((flags & 2) != 0) - 1
+    assert len(counts) == placed.sum() + len(np.unique(job_of[~placed]))
+    assert counts[0] == N and ((counts >= 0) & (counts <= N)).all()
+    assert counts.sum() == scored_pairs(packed, flags, req, ms, N)
+
+
+@pytest.mark.parametrize("world", ["runs", "static-one-node",
+                                   "rollback-then-same", "multi-chunk"])
+def test_rowdiff_plain_marks_rows_that_differ(world):
+    """The first row, and each row whose bits differ from the row before."""
+    ms = _plain_words(PLACE_WORLDS[world]())[3]
+    bits = ms.view(np.uint32)
+    want = np.ones(len(ms), np.int32)
+    want[1:] = (bits[1:] != bits[:-1]).any(axis=1)
+    got = rowdiff_plain(torch.tensor(ms)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32
+
+
+def test_rowdiff_plain_compares_bits():
+    """-0 and +0 are different rows; a row equal to the one before is not
+    marked, NaN bits included."""
+    nan = np.float32("nan")
+    ms = np.array([[0.0, 1.0], [-0.0, 1.0], [-0.0, 1.0], [nan, 1.0],
+                   [nan, 1.0]], np.float32)
+    assert rowdiff_plain(torch.tensor(ms)).tolist() == [1, 1, 0, 1, 0]
+    assert rowdiff_plain(torch.zeros(0, 3)).tolist() == []
+
+
+def test_rowdiff_cuda_refuses_cpu_tensors():
+    """The kernel's wrapper never computes on the CPU: a CPU tensor raises
+    before anything is built or launched."""
+    before = rowdiff_cuda.launches
+    with pytest.raises(ValueError):
+        rowdiff_cuda(torch.zeros(4, 3))
+    assert rowdiff_cuda.launches == before

@@ -1,86 +1,44 @@
 #!/usr/bin/env python3
-"""Time the placement kernel (volcano_tpu_torch/ops/csrc/place.cu) against
-another source of it that has the single-block C interface
+"""Time this checkout's placement kernel against another checkout's, on the
+same CUDA tensors and the same card, in turns: other, this, this, other.
+Both must give the same packed words and final state.
 
-    int vt_place(req, flags, ready_need, keep_need, mstatic, alloc,
-                 max_tasks, binpack_res, bw, lw, mw, balw, state, ntasks,
-                 saved, saved_nt, out, int T, int N, int R, stream)
+    git archive REV | tar -x -C chip_archive/other     # chip_archive/ is
+    python3 tools/place_ab.py chip_archive/other        # not committed
 
-(one CTA, state [3,R,N] and saved of the same shape), on the same CUDA
-tensors and the same card, in turns: other, this, this, other. Both must
-give the same packed words and final state.
-
-    python3 tools/place_ab.py OTHER.cu     # from the repository root
-
-Builds OTHER.cu with ops/build.py's nvcc flags into ops/_build/, then prints
-one JSON line per world (slice-10k and slice-10k-taints, chip_smoke.py's
-r3-n8192, tight-0, random-0 and identical-nodes) with each kernel's two
-times (CUDA events, warm, median of 5) and the card's name and power limit.
-To compare with the single-block kernel of an earlier revision, write its
-source out first, e.g. ``git show REV:volcano_tpu_torch/ops/csrc/place.cu >
-chip_archive/place_single_block.cu`` (chip_archive/ is not committed).
+(from the repository root, on a machine with a CUDA card and nvcc). The
+other checkout's ``volcano_tpu_torch/ops`` package is imported under a name
+of its own and called through its own ``place_cuda``, so any revision whose
+``place_cuda`` takes the twelve arguments of ``place_plain`` will do; it
+builds its kernels into its own ``ops/_build/``. Prints one JSON line per
+world (slice-10k and slice-10k-taints, and chip_smoke.py's r3-n8192,
+tight-0, random-0 and identical-nodes) with each kernel's two times (CUDA
+events, warm, median of 5), then the card's name and power limit.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
+import importlib
+import importlib.util
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def build_other(src: str) -> ctypes.CDLL:
-    from volcano_tpu_torch.ops import build
-    data = open(src, "rb").read()
-    digest = hashlib.sha256(data + " ".join(build.NVCC_FLAGS).encode())
-    lib = build.BUILD_DIR / f"ab-{digest.hexdigest()[:12]}.so"
-    if not lib.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
-                        src], check=True, capture_output=True)
-    dll = ctypes.CDLL(str(lib))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dll.vt_place.argtypes = [p, p, p, p, p, p, p, p, f, f, f, f, p, p, p, p,
-                             p, i, i, i, p]
-    dll.vt_place.restype = ctypes.c_int
-    return dll
-
-
-def other_place(dll, idle, future_idle, used, ntasks, allocatable,
-                max_tasks, req, flags, ready_need, keep_need, masked_static,
-                weights):
-    """One launch of the other kernel, wrapped as ops/place.py wrapped the
-    single-block interface."""
-    import torch
-    N, R = idle.shape
-    T = req.shape[0]
-    state = torch.stack([idle.t(), future_idle.t(), used.t()]).contiguous()
-    nt = ntasks.clone()
-    alloc_rn = allocatable.t().contiguous()
-    res = torch.as_tensor(weights.binpack_res, dtype=torch.float32,
-                          device=idle.device).contiguous()
-    saved = torch.empty_like(state)
-    saved_nt = torch.empty_like(nt)
-    packed = torch.empty(T, dtype=torch.int32, device=idle.device)
-    err = dll.vt_place(
-        req.data_ptr(), flags.data_ptr(), ready_need.data_ptr(),
-        keep_need.data_ptr(),
-        None if masked_static is None else masked_static.data_ptr(),
-        alloc_rn.data_ptr(), max_tasks.data_ptr(), res.data_ptr(),
-        weights.binpack_weight, weights.least_req_weight,
-        weights.most_req_weight, weights.balanced_weight, state.data_ptr(),
-        nt.data_ptr(), saved.data_ptr(), saved_nt.data_ptr(),
-        packed.data_ptr(), T, N, R,
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"other kernel: launch failed with {err}")
-    return (packed, state[0].t().contiguous(), state[1].t().contiguous(),
-            state[2].t().contiguous(), nt)
+def other_place_module(tree: str):
+    """``ops/place.py`` of the checkout at ``tree``, imported as the
+    package ``place_ab_other`` beside this checkout's own."""
+    ops = os.path.join(os.path.abspath(tree), "volcano_tpu_torch", "ops")
+    spec = importlib.util.spec_from_file_location(
+        "place_ab_other", os.path.join(ops, "__init__.py"),
+        submodule_search_locations=[ops])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["place_ab_other"] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module("place_ab_other.place")
 
 
 def main() -> int:
@@ -90,10 +48,8 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from volcano_tpu_torch.cache.synthetic import baseline_config
-    from volcano_tpu_torch.ops import build
     from volcano_tpu_torch.ops.place import place_cuda
-    dll = build_other(sys.argv[1])
-    build.build_all()
+    other = other_place_module(sys.argv[1])
     dev = torch.device("cuda")
     tainted = baseline_config("10k")[0]
     cs.taint_tenth(tainted)
@@ -111,15 +67,14 @@ def main() -> int:
     }
     for name, make in worlds.items():
         args = make()
-        other = other_place(dll, *args)
-        this = place_cuda(*args)
+        theirs = other.place_cuda(*args)
+        ours = place_cuda(*args)
         torch.cuda.synchronize()
-        equal = all(torch.equal(a, b) for a, b in zip(other, this))
+        equal = all(torch.equal(a, b) for a, b in zip(theirs, ours))
         times = {"other_ms": [], "this_ms": []}
         for which in ("other_ms", "this_ms", "this_ms", "other_ms"):
-            fn = ((lambda: other_place(dll, *args)) if which == "other_ms"
-                  else (lambda: place_cuda(*args)))
-            times[which].append(cs.time_cuda_ms(fn))
+            fn = other.place_cuda if which == "other_ms" else place_cuda
+            times[which].append(cs.time_cuda_ms(lambda fn=fn: fn(*args)))
         print("ab", json.dumps({"world": name, "equal": equal, **times}),
               flush=True)
         cs.check(equal, f"{name}: the two kernels disagree")

@@ -50,9 +50,9 @@
 //   time, the next chunk loaded into registers a chunk ahead, and reads the
 //   next task's fields while the current one runs. The static matrix is read
 //   only where a row differs from the one before: a grid-wide pre-pass
-//   (rowdiff_kernel) marks those tasks, and a run of tasks with one static
-//   row reads no row at all. With no static matrix (a null pointer) neither
-//   runs.
+//   (rowdiff_kernel, its own launch through vt_rowdiff) marks those tasks,
+//   and a run of tasks with one static row reads no row at all. With no
+//   static matrix (a null pointer) neither runs.
 // - A thread-block cluster over the node axis (1 to 16 CTAs). Each CTA's
 //   leader stores its slice's best key into every CTA's slot of this
 //   exchange (st.async into distributed shared memory, counted on that CTA's
@@ -923,13 +923,6 @@ cudaError_t configure(int C, int threads, int smem, cudaLaunchConfig_t* cfg,
 template <int R>
 cudaError_t launch(const PlaceArgs& a, int C, int threads, int smem,
                    cudaStream_t stream) {
-  if (a.mstatic != nullptr) {
-    const int blocks = min((a.T + 7) / 8, 4096);
-    rowdiff_kernel<<<blocks, 256, 0, stream>>>(a.mstatic, a.T, a.N,
-                                               const_cast<int*>(a.rowdiff));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
   cudaError_t err = configure<R>(C, threads, smem, &cfg, &attr);
@@ -969,9 +962,23 @@ bool plan_ok(int R, int T, int N, int C, int threads, int slice, int in_smem,
 
 }  // namespace
 
+// Plain C entry, bound with ctypes (ops/place.py::rowdiff_cuda): marks in
+// out [T] each task whose row of ms [T,N] differs bitwise from the row
+// before (the first row always). Launches on `stream` and returns the
+// launch's cudaError_t (0 on success).
+extern "C" int vt_rowdiff(const float* ms, int T, int N, int* out,
+                          void* stream) {
+  if (T < 1) return 0;
+  const int blocks = min((T + 7) / 8, 4096);
+  rowdiff_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      ms, T, N, out);
+  return cudaGetLastError();
+}
+
 // Plain C entry, bound with ctypes (ops/place.py::place_cuda). Layouts:
 // req [T,R]; flags/ready_need/keep_need/out [T]; mstatic [T,N] or null;
-// rowdiff [T] scratch (null without mstatic); alloc, and each of the three
+// rowdiff [T], vt_rowdiff's marks of mstatic (null without mstatic),
+// launched before on the same stream; alloc, and each of the three
 // planes of state (idle, future idle, used) and saved, [R,N];
 // max_tasks/ntasks/saved_nt [N]; scratch ops/place.py::scratch_bytes bytes
 // when the node arrays stay in device memory, else null. state and ntasks
@@ -983,7 +990,7 @@ bool plan_ok(int R, int T, int N, int C, int threads, int slice, int in_smem,
 // does not match this file's layout.
 extern "C" int vt_place(const float* req, const int* flags,
                         const int* ready_need, const int* keep_need,
-                        const float* mstatic, int* rowdiff,
+                        const float* mstatic, const int* rowdiff,
                         const float* alloc, const int* max_tasks,
                         const float* binpack_res, float bw, float lw,
                         float mw, float balw, float* state, int* ntasks,

@@ -173,10 +173,9 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
 SMEM_MAX = 232_448          # dynamic shared memory a Hopper CTA may use
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 CHUNK = 32                  # tasks staged per chunk (place.cu kChunk)
+# A node a thread, at most 512: a bulk re-score was fastest so, and a
+# one-node step does not depend on the thread count (PERF.md, PR 2).
 MIN_THREADS, MAX_THREADS = 64, 512
-# A bulk re-score is fastest with a node a thread; a one-node step does not
-# depend on the thread count (chip_smoke.py's per-thread times, PERF.md).
-NODES_PER_THREAD = 1
 
 
 class LaunchPlan(NamedTuple):
@@ -214,10 +213,9 @@ def _smem(R: int, has_static: bool, ro: bool, slice_: int) -> int:
 
 
 def launch_plan(N: int, R: int, has_static: bool, max_cluster: int = 16,
-                cluster: Optional[int] = None,
-                threads: Optional[int] = None) -> LaunchPlan:
-    """Where the solve runs: ``cluster`` CTAs, ``threads`` each (default:
-    about NODES_PER_THREAD nodes a thread). The node arrays live in shared
+                cluster: Optional[int] = None) -> LaunchPlan:
+    """Where the solve runs: ``cluster`` CTAs of one thread a node of the
+    slice (a multiple of 32, 64 to 512). The node arrays live in shared
     memory exactly when a slice's fit beside the fixed part; alloc and
     max_tasks join them when they fit too.
 
@@ -226,9 +224,10 @@ def launch_plan(N: int, R: int, has_static: bool, max_cluster: int = 16,
     node is fastest on one CTA, where no cluster exchange sits on the
     chain; a task that re-scores every node (a new request) divides that
     work by the cluster size. chip_smoke.py times every size on the
-    10k-pod / 2k-node solve (one CTA's worth of nodes, fastest at C=1) and
-    on R=3 at 8,192 nodes with a new request every task (two CTAs' worth,
-    fastest at C=16); PERF.md has the H100 numbers."""
+    10k-pod / 2k-node solve (one CTA's worth of nodes, fastest at C=1), on
+    R=3 at 8,192 nodes with a new request every task, and on gangs of one
+    request at 8,192 and 16,384 nodes (both fastest at C=16); PERF.md has
+    the H100 numbers."""
     sizes = [c for c in CLUSTER_SIZES if c <= max_cluster]
     if not sizes:
         raise ValueError(f"launch_plan: no cluster size within {max_cluster}")
@@ -238,11 +237,7 @@ def launch_plan(N: int, R: int, has_static: bool, max_cluster: int = 16,
     if cluster not in sizes:
         raise ValueError(f"launch_plan: cluster {cluster} not in {sizes}")
     slice_ = max(1, -(-N // cluster))
-    if threads is None:
-        threads = -(-slice_ // NODES_PER_THREAD)
-        threads = min(MAX_THREADS, max(MIN_THREADS, -(-threads // 32) * 32))
-    if not (MIN_THREADS <= threads <= MAX_THREADS and threads % 32 == 0):
-        raise ValueError(f"launch_plan: {threads} threads")
+    threads = min(MAX_THREADS, max(MIN_THREADS, -(-slice_ // 32) * 32))
     if _smem(R, has_static, True, slice_) <= SMEM_MAX:
         in_smem, ro = True, True
     elif _smem(R, has_static, False, slice_) <= SMEM_MAX:
@@ -272,6 +267,8 @@ def _lib():
     lib.vt_place_active_clusters.argtypes = [i, i, i, i,
                                              ctypes.POINTER(ctypes.c_int)]
     lib.vt_place_active_clusters.restype = ctypes.c_int
+    lib.vt_rowdiff.argtypes = [p, i, i, p, p]
+    lib.vt_rowdiff.restype = ctypes.c_int
     return lib
 
 
@@ -311,14 +308,14 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
                req: torch.Tensor, flags: torch.Tensor,
                ready_need: torch.Tensor, keep_need: torch.Tensor,
                masked_static: Optional[torch.Tensor],
-               weights: ScoreWeights, cluster: Optional[int] = None,
-               threads: Optional[int] = None) -> PlaceOutput:
+               weights: ScoreWeights,
+               cluster: Optional[int] = None) -> PlaceOutput:
     """The solve as one launch of the CUDA kernel ``csrc/place.cu`` on the
-    current stream. Same inputs and outputs as ``place_plain``; every tensor
-    must lie on one CUDA device. ``cluster`` and ``threads`` override the
-    launch plan's defaults (tests and chip_smoke.py run every size). Raises
-    on a tensor it does not take, a cluster the card cannot launch, a
-    failed build or a failed launch."""
+    current stream, after ``rowdiff_cuda`` when there is a static matrix.
+    Same inputs and outputs as ``place_plain``; every tensor must lie on one
+    CUDA device. ``cluster`` overrides the launch plan's cluster size (tests
+    and chip_smoke.py run every size). Raises on a tensor it does not take,
+    a cluster the card cannot launch, a failed build or a failed launch."""
     device = idle.device
     if device.type != "cuda":
         raise ValueError(f"place_cuda: tensors are on {device}, not a CUDA "
@@ -361,20 +358,20 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
     if T:
         with torch.cuda.device(device):
             plan = launch_plan(N, R, masked_static is not None,
-                               max_cluster(), cluster, threads)
+                               max_cluster(), cluster)
             if cluster is not None and active_clusters(R, plan) == 0:
                 raise RuntimeError(f"place_cuda: the card cannot launch "
                                    f"{plan}")
             scratch = torch.empty(scratch_bytes(plan, N), dtype=torch.uint8,
                                   device=device)
-            rowdiff = torch.empty(0 if masked_static is None else T,
-                                  dtype=torch.int32, device=device)
+            rowdiff = (None if masked_static is None
+                       else rowdiff_cuda(masked_static))
             stream = torch.cuda.current_stream(device).cuda_stream
             err = _lib().vt_place(
                 req.data_ptr(), flags.data_ptr(), ready_need.data_ptr(),
                 keep_need.data_ptr(),
                 None if masked_static is None else masked_static.data_ptr(),
-                rowdiff.data_ptr() or None,
+                None if rowdiff is None else rowdiff.data_ptr(),
                 alloc_rn.data_ptr(), max_tasks.data_ptr(), res.data_ptr(),
                 weights.binpack_weight, weights.least_req_weight,
                 weights.most_req_weight, weights.balanced_weight,
@@ -395,20 +392,60 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
 place_cuda.launches = 0
 
 
-def scored_pairs(packed: np.ndarray, flags: np.ndarray, req: np.ndarray,
-                 masked_static: Optional[np.ndarray], N: int) -> int:
-    """The (task, node) scorings the kernel's cache rule requires for these
-    inputs and this solve's packed words: a task the solve evaluated (valid,
-    its job not yet broken) scores every node when its request differs
-    from the last evaluated task's, else only the nodes whose static entry
-    differs from that task's, that were picked since, or that a rejected
-    gang restored since (the nodes its tasks' words name)."""
+def rowdiff_plain(masked_static: torch.Tensor) -> torch.Tensor:
+    """i32[T]: 1 where a task's static row differs bitwise from the row
+    before it (the first row always), else 0; any device."""
+    bits = masked_static.view(torch.int32)
+    out = torch.ones(bits.shape[0], dtype=torch.int32, device=bits.device)
+    if bits.shape[0] > 1:
+        out[1:] = (bits[1:] != bits[:-1]).any(dim=1).to(torch.int32)
+    return out
+
+
+def rowdiff_cuda(masked_static: torch.Tensor) -> torch.Tensor:
+    """``rowdiff_plain`` as one launch of ``csrc/place.cu``'s rowdiff
+    kernel on the current stream; ``masked_static`` a contiguous f32
+    ``[T,N]`` CUDA tensor. place_cuda runs it before the solve, which reads
+    a task's static row only where it is marked. Raises on a tensor it does
+    not take, a failed build or a failed launch."""
+    device = masked_static.device
+    if device.type != "cuda":
+        raise ValueError(f"rowdiff_cuda: the matrix is on {device}, not a "
+                         f"CUDA device")
+    _check("masked_static", masked_static, torch.float32,
+           tuple(masked_static.shape), device)
+    T, N = masked_static.shape
+    out = torch.empty(T, dtype=torch.int32, device=device)
+    if T:
+        with torch.cuda.device(device):
+            err = _lib().vt_rowdiff(
+                masked_static.data_ptr(), T, N, out.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"rowdiff_cuda: kernel launch failed with "
+                               f"cudaError_t {err}")
+        rowdiff_cuda.launches += 1
+    return out
+
+
+rowdiff_cuda.launches = 0
+
+
+def task_rescores(packed: np.ndarray, flags: np.ndarray, req: np.ndarray,
+                  masked_static: Optional[np.ndarray], N: int) -> np.ndarray:
+    """The nodes the kernel's cache rule re-scores for each task the solve
+    evaluated (valid, its job not yet broken), in task order, given these
+    inputs and this solve's packed words: every node when the task's
+    request differs from the last evaluated task's, else only the nodes
+    whose static entry differs from that task's, that were picked since, or
+    that a rejected gang restored since (the nodes its tasks' words
+    name)."""
     packed = np.asarray(packed)
     flags = np.asarray(flags)
     req = np.asarray(req, np.float32).view(np.uint32)
     ms = (None if masked_static is None
           else np.asarray(masked_static, np.float32).view(np.uint32))
-    total = 0
+    counts = []
     last = -1
     dirty = set()
     job_nodes = []
@@ -420,12 +457,12 @@ def scored_pairs(packed: np.ndarray, flags: np.ndarray, req: np.ndarray,
             broken = False
         if f & VALID and not broken:
             if last < 0 or (req[i] != req[last]).any():
-                total += N
+                counts.append(N)
             else:
                 stale = set(dirty)
                 if ms is not None:
                     stale.update(np.flatnonzero(ms[i] != ms[last]).tolist())
-                total += len(stale)
+                counts.append(len(stale))
             dirty = set()
             last = i
             if w & F_PLACE:
@@ -436,7 +473,14 @@ def scored_pairs(packed: np.ndarray, flags: np.ndarray, req: np.ndarray,
                 broken = True
         if f & VALID and f & LAST and not w & F_KEEP:
             dirty.update(job_nodes)
-    return total
+    return np.asarray(counts, np.int64)
+
+
+def scored_pairs(packed: np.ndarray, flags: np.ndarray, req: np.ndarray,
+                 masked_static: Optional[np.ndarray], N: int) -> int:
+    """The (task, node) scorings the kernel's cache rule requires for these
+    inputs and this solve's packed words (``task_rescores`` summed)."""
+    return int(task_rescores(packed, flags, req, masked_static, N).sum())
 
 
 def unpack_placement(packed: np.ndarray, job_ix: np.ndarray, J: int
