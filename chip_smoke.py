@@ -29,7 +29,25 @@
    [10,000 x 2,000] static score matrix on the card: there the rowdiff
    pre-pass must have launched too (and without taints, not at all).
    torch.profiler then traces one more cycle of each.
-4. Prints one JSON line with each kernel's launches, times, bound and
+4. Holds the preempt victim walk (csrc/evict.cu) against its plain version
+   on the card, to the bit (task nodes, slot owners, quota verdicts), on
+   seeded worlds (gang rollback, the intra-job phase, drf tiers, two
+   dynamic tiers, 64 slots, nothing fits) and on the walk inputs of
+   ``baseline_config("preempt")``'s phase 1 and of its intra-job variant's
+   phase 2.
+5. Runs ``PreemptAction(engine="tpu")`` alone with deploy/scheduler.conf's
+   tiers on ``baseline_config("preempt")`` (5,000 running and 5,000
+   pending pods on 1,000 nodes) on the card, counts set to 0 just before:
+   the walk must launch, and the evictions and pipelined tasks must equal
+   the port's CPU run.
+6. Runs ``Scheduler(cache, deploy/scheduler.conf as written).run_once()``
+   on the 10k world, on bench.py's pipeline world (10k pods / 2k nodes,
+   half the gangs running) and on a tight running+pending mix (400 nodes,
+   10,000 pods) on the card and on the CPU, counts set to 0 just before
+   each card run: binds, evictions, pipelined tasks and PodGroup phases
+   must be equal, the placement kernel must launch, and in the tight mix
+   the walk too. Prints each action's ms and the counts.
+7. Prints one JSON line with each kernel's launches, times, bound and
    error, then the card's name and power limit, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -40,12 +58,15 @@ line; so it does without a CUDA device, and outside the repository.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SLICE_CONF = """
 actions: "enqueue, allocate-tpu, backfill"
@@ -396,6 +417,197 @@ def compare_rowdiff(label, ms):
 
 
 # ---------------------------------------------------------------------------
+# the preempt victim walk against its plain version
+# ---------------------------------------------------------------------------
+
+def walk_worlds():
+    """The seeded walk worlds of tests/torch_parity.py (NumPy only)."""
+    sys.path.insert(0, os.path.join(_ROOT, "tests"))
+    from torch_parity import WALK_WORLDS
+    return WALK_WORLDS
+
+
+def walk_bound(inputs, kinds, steps):
+    """Least time the card could take for one walk, from what these inputs
+    need: every input byte read once and every output byte written once
+    over HBM bandwidth, against the per-task algorithm's operations over
+    the FP32 rate. Per evaluated task (``steps``, this run's count) and per
+    valid victim slot: one operation for each static mask and two more for
+    the tier cascade, R adds for the evictable sum, and under a drf tier
+    3R + 3 for the victim job's remaining share and the keep compare; per
+    pair of slots of one node, R adds of drf's same-job prefix; per node,
+    R fit compares and two operations of the argmax."""
+    nw = inputs.nw
+    N, W, R = nw.vreq.shape
+    M = inputs.tier_masks.shape[0]
+    drf = "drf" in kinds
+    k = nw.valid.sum(dim=1).double()
+    slots = float(k.sum())
+    pairs = float((k * (k - 1) / 2).sum())
+    per_step = (slots * (M + 2 + R + (3 * R + 3 if drf else 0))
+                + (pairs * R if drf else 0) + N * (R + 2))
+    tensors = [t for t in inputs if hasattr(t, "nbytes")] + list(nw)
+    in_bytes = sum(int(t.nbytes) for t in tensors)
+    P = inputs.preq.shape[0]
+    out_bytes = 4 * (P + N * W + inputs.needed.shape[0])
+    return larger((in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+                  steps * per_step / FP32_OPS_PER_S * 1e3)
+
+
+def compare_walk(label, world, device):
+    """walk_cuda against walk_plain on the same CUDA tensors: task nodes,
+    slot owners, quota verdicts and evaluated tasks must be equal."""
+    import torch
+
+    from volcano_tpu_torch.ops.evict import to_device, walk_cuda, walk_plain
+    inputs, kinds, sizes, gang = world
+    d = to_device(inputs, device)
+    got = walk_cuda(d, kinds, sizes, gang)
+    torch.cuda.synchronize()
+    plain = {}
+    plain_ms = time_host_ms(lambda: plain.setdefault(
+        "out", walk_plain(d, kinds, sizes, gang)))
+    want = plain["out"]
+    for name in ("task_node", "owner", "job_done"):
+        g, w = getattr(got, name), getattr(want, name)
+        if not torch.equal(g, w):
+            first = (g != w).nonzero()[:1].tolist()
+            raise RuntimeError(f"walk {label}: kernel and plain {name} "
+                               f"differ, first at {first}")
+    check(got.steps == want.steps,
+          f"walk {label}: {got.steps} evaluated tasks, plain {want.steps}")
+    N, W, R = d.nw.vreq.shape
+    rec = {"world": label, "P": int(d.preq.shape[0]), "N": int(N),
+           "W": int(W), "R": int(R), "tiers": list(kinds), "gang": gang,
+           "steps": got.steps,
+           "placed": int((got.task_node >= 0).sum()),
+           "evicted": int((got.owner >= 0).sum()), "max_abs_err": 0.0,
+           "ms": time_cuda_ms(lambda: walk_cuda(d, kinds, sizes, gang)),
+           "plain_ms": plain_ms}
+    rec["bound_ms"], rec["bound_by"] = walk_bound(d, kinds, got.steps)
+    print("kernel evict_walk", json.dumps(rec), flush=True)
+    return rec
+
+
+def record_walks(fn):
+    """Run ``fn`` and return every walk it asked for, as (inputs, kinds,
+    sizes, gang) on the inputs' device."""
+    from volcano_tpu_torch.actions import evict_tpu
+    seen = []
+    real = evict_tpu.walk
+
+    def recording(inputs, kinds, sizes, gang_commit):
+        seen.append((inputs, kinds, sizes, gang_commit))
+        return real(inputs, kinds, sizes, gang_commit)
+
+    evict_tpu.walk = recording
+    try:
+        fn()
+    finally:
+        evict_tpu.walk = real
+    return seen
+
+
+# ---------------------------------------------------------------------------
+# preempt alone, and the deployed cycle
+# ---------------------------------------------------------------------------
+
+def deployed_conf() -> str:
+    with open(os.path.join(_ROOT, "deploy", "scheduler.conf")) as f:
+        return f.read()
+
+
+def preempt_world(intra=False):
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+    cache = baseline_config("preempt")[0]
+    if intra:
+        sys.path.insert(0, os.path.join(_ROOT, "tests"))
+        from torch_parity import intra_variant
+        intra_variant(cache)
+    return cache
+
+
+def run_preempt(device, intra=False):
+    """PreemptAction(engine="tpu") alone, under deploy/scheduler.conf's
+    tiers, on a fresh preempt world; returns (evictions, pipelined tasks,
+    walk launches, action ms, phase stats, the walks it ran)."""
+    from volcano_tpu_torch.actions import PreemptAction
+    from volcano_tpu_torch.framework import (close_session, open_session,
+                                             parse_scheduler_conf)
+    from volcano_tpu_torch.ops.evict import walk_cuda
+    cache = preempt_world(intra)
+    conf = parse_scheduler_conf(deployed_conf())
+    ssn = open_session(cache, conf.tiers, conf.configurations, device=device)
+    out = {}
+    action = PreemptAction(engine="tpu")
+
+    def drive():
+        walk_cuda.launches = 0
+        t0 = time.perf_counter()
+        action.execute(ssn)
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = walk_cuda.launches
+
+    walks = record_walks(drive)
+    pipelined = sorted(t.uid for j in ssn.jobs.values()
+                       for t in j.tasks.values() if int(t.status) == 3)
+    close_session(ssn)
+    return (sorted(cache.evictor.evicts), pipelined, out["launches"],
+            out["ms"], action.last_stats, walks)
+
+
+def deployed_world(name):
+    from volcano_tpu_torch.cache import synthetic
+    if name == "10k":
+        return synthetic.baseline_config("10k")[0]
+    if name == "pipeline":
+        return synthetic.pipeline_world()[0]
+    return synthetic.preempt_mix_cache(n_nodes=400, n_tasks=10000,
+                                       n_jobs=200)[0]
+
+
+def run_deployed(name, device):
+    """One ``Scheduler.run_once`` of deploy/scheduler.conf as written on a
+    fresh world, each kernel's count set to 0 just before; returns the
+    decisions, the phase times in ms, the launches and the preempt
+    phases."""
+    from volcano_tpu_torch import Scheduler, scheduler
+    from volcano_tpu_torch.ops.evict import walk_cuda
+    from volcano_tpu_torch.ops.place import place_cuda, rowdiff_cuda
+    cache = deployed_world(name)
+    sched = Scheduler(cache, deployed_conf(), device=device)
+    closed = []
+    real_close = scheduler.close_session
+
+    def close(ssn):
+        closed.append(ssn)
+        real_close(ssn)
+
+    scheduler.close_session = close
+    place_cuda.launches = rowdiff_cuda.launches = walk_cuda.launches = 0
+    try:
+        sched.run_once()
+    finally:
+        scheduler.close_session = real_close
+    launches = {"place": place_cuda.launches,
+                "rowdiff": rowdiff_cuda.launches,
+                "evict_walk": walk_cuda.launches}
+    ssn = closed[0]
+    got = {
+        "binds": dict(cache.binder.binds),
+        "evicts": sorted(cache.evictor.evicts),
+        "pipelined": sorted(t.uid for j in ssn.jobs.values()
+                            for t in j.tasks.values() if int(t.status) == 3),
+        "phases": {uid: j.podgroup.phase.value
+                   for uid, j in cache.jobs.items()},
+    }
+    times = {k: v * 1e3 for k, v in sched.last_cycle_s.items()}
+    preempt = next(a for a in sched.actions if a.name() == "preempt")
+    return got, times, launches, preempt.last_stats
+
+
+
+# ---------------------------------------------------------------------------
 # the cycle
 # ---------------------------------------------------------------------------
 
@@ -540,6 +752,20 @@ def main() -> int:
     compare_rowdiff("static-one-node", one_node_args[10])
     rowdiff_rec = compare_rowdiff("slice-10k-taints", tainted_args[10])
 
+    # the preempt walk: seeded worlds, then the preempt world's own walks,
+    # recorded on the port's CPU runs (which step 5 compares against)
+    walk_records = [compare_walk(name, make(), dev)
+                    for name, make in walk_worlds().items()]
+    cpu_preempt = run_preempt("cpu")
+    check(len(cpu_preempt[5]) == 1 and cpu_preempt[5][0][3],
+          "the preempt world ran no phase-1 walk")
+    walk_main = compare_walk("preempt-p1", cpu_preempt[5][0], dev)
+    walk_records.append(walk_main)
+    intra_walks = run_preempt("cpu", intra=True)[5]
+    phase2 = [w for w in intra_walks if not w[3]]
+    check(len(phase2) == 1, "the intra-job preempt world ran no phase-2 walk")
+    walk_records.append(compare_walk("preempt-intra-p2", phase2[0], dev))
+
     # 3. the cycle on the card (twice without taints: the second run shows
     # the time without first-use costs), and on the CPU
     results = {}
@@ -570,9 +796,42 @@ def main() -> int:
         print(f"profile {label}:", json.dumps(profile_cycle(
             taints, results[run]["ms"]["cycle"])), flush=True)
 
-    # 4. the kernels line (launches: the placement kernel's in the 10k
+    # 5. preempt alone on the preempt world, on the card
+    evicts, pipelined, launches, ms, stats, _ = run_preempt(None)
+    check(launches >= 1, "preempt on the card launched no walk")
+    check(evicts == cpu_preempt[0],
+          "preempt: evictions differ from the CPU run's")
+    check(pipelined == cpu_preempt[1],
+          "preempt: pipelined tasks differ from the CPU run's")
+    print("preempt:", json.dumps(
+        {"evictions": len(evicts), "pipelined": len(pipelined),
+         "walk_launches": launches, "ms": ms, "cpu_ms": cpu_preempt[3],
+         "phases": stats}), flush=True)
+
+    # 6. the deployed cycle, on the card and on the CPU
+    deployed = {}
+    for name in ("10k", "pipeline", "tight-mix"):
+        want, cpu_times, _, _ = run_deployed(name, "cpu")
+        got, times, launches, stats = run_deployed(name, None)
+        for key in ("binds", "evicts", "pipelined", "phases"):
+            check(got[key] == want[key],
+                  f"deployed {name}: {key} differ from the CPU cycle's")
+        check(launches["place"] > 0,
+              f"deployed {name}: the cycle launched no placement kernel")
+        if name == "tight-mix":
+            check(launches["evict_walk"] > 0,
+                  "deployed tight-mix: preempt launched no walk")
+        deployed[name] = launches
+        print(f"deployed {name}:", json.dumps(
+            {"binds": len(got["binds"]), "evictions": len(got["evicts"]),
+             "pipelined": len(got["pipelined"]), "launches": launches,
+             "ms": times, "cpu_ms": cpu_times, "preempt_phases": stats}),
+            flush=True)
+
+    # 7. the kernels line (launches: the placement kernel's in the 10k
     # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
-    # it a static matrix), the card, the result
+    # it a static matrix, the walk's in the deployed cycle of the tight mix,
+    # the one where preempt has work), the card, the result
     main_run = results["10k-first"]
     kernels = [{
         "name": "place",
@@ -600,6 +859,19 @@ def main() -> int:
         "bound_ms": rowdiff_rec["bound_ms"],
         "bound_by": rowdiff_rec["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "evict_walk",
+        "route": "cuda",
+        "source": "volcano_tpu_torch/ops/csrc/evict.cu",
+        "replaces": "volcano_tpu/ops/evict.py:249",
+        "launches": deployed["tight-mix"]["evict_walk"],
+        "max_abs_err": max(r["max_abs_err"] for r in walk_records),
+        "ms": walk_main["ms"],
+        "plain_ms": walk_main["plain_ms"],
+        "bound_ms": walk_main["bound_ms"],
+        "bound_by": walk_main["bound_by"],
+        "library_ms": None,
+        "steps": walk_main["steps"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

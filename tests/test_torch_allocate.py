@@ -16,6 +16,7 @@ from volcano_tpu_torch import Scheduler
 from volcano_tpu_torch.cache import cache_from_world
 from volcano_tpu_torch.cache import synthetic as torch_synthetic
 
+from torch_parity import port_gc_windows  # noqa: F401 (autouse)
 from torch_parity import (SLICE_CONF, assert_same, jax_reference, outcome,
                           run_torch_cycle, world_from_cache)
 
@@ -77,8 +78,9 @@ def test_scheduler_run_once():
 @pytest.mark.parametrize("conf_text, refused", [
     (SLICE_CONF.replace("engine: tpu-fused", "engine: callbacks"),
      "callbacks"),
-    (SLICE_CONF.replace("name: binpack", "name: drf"), "drf"),
-    (SLICE_CONF.replace("backfill", "preempt"), "preempt"),
+    (SLICE_CONF.replace("name: binpack", "name: conformance"),
+     "conformance"),
+    (SLICE_CONF.replace("backfill", "reserve"), "reserve"),
 ])
 def test_refuses_what_is_not_ported(conf_text, refused):
     cache = torch_synthetic.baseline_config("tiny")[0]

@@ -12,6 +12,7 @@ import volcano_tpu_torch.api as torch_api
 from volcano_tpu.utils import PriorityQueue as JaxPQ
 from volcano_tpu_torch.utils import PriorityQueue as TorchPQ
 
+from torch_parity import port_gc_windows  # noqa: F401 (autouse)
 from torch_parity import SLICE_CONF
 
 # values straddling the 0.1 epsilon of resource_info.go
@@ -129,3 +130,130 @@ def test_statement_matches_jax(commit):
     else:
         assert all(s == (1, "") for s in states["torch"][1][0].values())
     assert np.isfinite(states["torch"][1][4]).all()
+
+
+def _running_session(pkg):
+    """_session's world plus a running single-task job on n1."""
+    api = jax_api if pkg == "jax" else torch_api
+    ssn, cache = _session(pkg)
+    close = (__import__("volcano_tpu.framework", fromlist=["x"])
+             if pkg == "jax" else
+             __import__("volcano_tpu_torch.framework", fromlist=["x"]))
+    close.close_session(ssn)
+    pg = api.PodGroup(name="r", queue="default", min_member=1,
+                      phase=api.PodGroupPhase.RUNNING)
+    job = api.JobInfo(uid="r", name="r", queue="default", min_available=1,
+                      podgroup=pg, creation_timestamp=0.0)
+    task = api.TaskInfo(uid="r-0", name="r-0", job="r",
+                        resreq=api.Resource(1500, 1 << 30),
+                        status=api.TaskStatus.RUNNING)
+    job.add_task_info(task)
+    cache.nodes["n1"].add_task(job.tasks["r-0"])
+    cache.add_job(job)
+    conf = close.parse_scheduler_conf(SLICE_CONF)
+    kw = {} if pkg == "jax" else {"device": "cpu"}
+    return close.open_session(cache, conf.tiers, conf.configurations,
+                              **kw), cache
+
+
+@pytest.mark.parametrize("commit", [True, False])
+def test_statement_evict_matches_jax(commit):
+    """Evict and unevict: session state, node releasing accounting, and the
+    eviction the cache records on commit."""
+    states = {}
+    for pkg in ("jax", "torch"):
+        ssn, cache = _running_session(pkg)
+        stmt = ssn.statement()
+        victim = ssn.jobs["r"].tasks["r-0"]
+        stmt.evict(victim, "preempt")
+        stmt.pipeline(ssn.jobs["j"].tasks["j-0"], "n1")
+        node = ssn.nodes["n1"]
+        mid = (int(victim.status), node.releasing.cpu,
+               node.future_idle().cpu, int(node.tasks["r-0"].status))
+        stmt.commit() if commit else stmt.discard()
+        live = cache.jobs["r"].tasks["r-0"]
+        states[pkg] = (mid, int(victim.status), node.releasing.cpu,
+                       node.future_idle().cpu, list(cache.evictor.evicts),
+                       int(live.status), cache.nodes["n1"].releasing.cpu)
+    assert states["torch"] == states["jax"]
+    assert states["torch"][4] == (["default/r-0"] if commit else [])
+
+
+def test_gc_window():
+    """open_session suspends automatic collection until close_session or
+    abandon_session; windows nest, and each closes once."""
+    import gc
+
+    assert gc.isenabled()
+    ssn, _ = _session("torch")
+    assert not gc.isenabled()
+    inner, _ = _session("torch")
+    from volcano_tpu_torch.framework import close_session
+    close_session(inner)
+    assert not gc.isenabled()          # the outer window is still open
+    close_session(ssn)
+    assert gc.isenabled()
+    close_session(ssn)                 # closing twice changes nothing
+    assert gc.isenabled()
+    from volcano_tpu_torch.framework import abandon_session
+    failed, _ = _session("torch")
+    assert not gc.isenabled()
+    abandon_session(failed)
+    assert gc.isenabled()
+
+
+def test_failed_cycle_releases_the_gc_window():
+    """A cycle whose action raises re-enables automatic collection. (The
+    JAX package's guard, a finalizer on the session, never fires while
+    collection is off: plugin callbacks hold the session in a cycle.)"""
+    import gc
+
+    from volcano_tpu_torch import Scheduler
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+
+    class Boom(RuntimeError):
+        pass
+
+    sched = Scheduler(baseline_config("tiny")[0], SLICE_CONF, device="cpu")
+    action = sched.actions[1]
+
+    def explode(ssn):
+        raise Boom("action failed")
+
+    action.execute, real = explode, action.execute
+    try:
+        with pytest.raises(Boom):
+            sched.run_once()
+    finally:
+        action.execute = real
+    assert gc.isenabled()
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_scheduler_helper_matches_jax(seed):
+    """sort_nodes / select_best_node / prioritize_nodes: highest score
+    first, node order within a score, as the JAX package's helpers."""
+    from volcano_tpu.actions.preempt import sort_nodes as jax_sort
+    from volcano_tpu.utils import scheduler_helper as jax_helper
+    from volcano_tpu_torch.utils import scheduler_helper as torch_helper
+    rng = random.Random(seed)
+    names = [f"n{i}" for i in range(30)]
+    score = {n: float(rng.randint(0, 5)) for n in names}
+    out = {}
+
+    def predicate(task, node):
+        if not score[node.name]:
+            raise ValueError("fit failed")
+
+    for pkg, api, helper, sort in (
+            ("jax", jax_api, jax_helper, jax_sort),
+            ("torch", torch_api, torch_helper, torch_helper.sort_nodes)):
+        nodes = [api.NodeInfo(name=n) for n in names]
+        grouped = helper.prioritize_nodes(
+            None, nodes, lambda t, ns: {n.name: 0.5 for n in ns[::3]},
+            lambda t, n: score[n.name])
+        feasible, _ = helper.predicate_nodes(None, nodes, predicate)
+        out[pkg] = ([n.name for n in sort(grouped)],
+                    helper.select_best_node(grouped).name,
+                    [n.name for n in feasible])
+    assert out["torch"] == out["jax"]

@@ -1,5 +1,6 @@
-"""The CUDA placement kernel against its plain version, on the card, at
-every cluster size the card launches.
+"""The CUDA kernels against their plain versions, on the card: the
+placement kernel at every cluster size the card launches, and the preempt
+victim walk on every walk world and on a preempt world's own walk.
 
 These tests need an NVIDIA card and nvcc; without a card they skip. On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -13,9 +14,12 @@ from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, NEG, launch_plan,
                                          max_cluster, place, place_cuda,
                                          place_plain, rowdiff_cuda,
                                          rowdiff_plain, task_flags)
+from volcano_tpu_torch.ops.evict import (to_device, walk, walk_cuda,
+                                         walk_plain)
 from volcano_tpu_torch.ops.scores import default_weights
 
-from torch_parity import PLACE_WORLDS
+from torch_parity import port_gc_windows  # noqa: F401 (autouse)
+from torch_parity import PLACE_WORLDS, WALK_WORLDS
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +102,59 @@ def test_rowdiff_matches_plain(world, card):
     reading of them would."""
     ms = _args(PLACE_WORLDS[world](), card)[10]
     assert torch.equal(rowdiff_cuda(ms), rowdiff_plain(ms))
+
+
+def _assert_walk_same(got, want, label):
+    for name in ("task_node", "owner", "job_done"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), \
+            f"{label}: {name}"
+    assert got.steps == want.steps, label
+
+
+@pytest.mark.parametrize("world", list(WALK_WORLDS))
+def test_walk_kernel_matches_plain(world, card):
+    """Task nodes, slot owners and quota verdicts equal to the bit."""
+    inputs, kinds, sizes, gang = WALK_WORLDS[world]()
+    d = to_device(inputs, card)
+    _assert_walk_same(walk_cuda(d, kinds, sizes, gang),
+                      walk_plain(d, kinds, sizes, gang), world)
+    torch.cuda.synchronize()
+
+
+def test_walk_dispatches_cuda_tensors_to_the_kernel(card):
+    inputs, kinds, sizes, gang = WALK_WORLDS["drf"]()
+    d = to_device(inputs, card)
+    before = walk_cuda.launches
+    got = walk(d, kinds, sizes, gang)
+    assert walk_cuda.launches == before + 1
+    _assert_walk_same(got, walk_plain(d, kinds, sizes, gang), "drf")
+
+
+def test_walk_preempt_world_matches_plain(card):
+    """The walk that preempt builds on the preempt mix at a tenth (phase 1
+    under deploy/scheduler.conf's tiers), recorded on a CPU run."""
+    from volcano_tpu_torch.actions import PreemptAction, evict_tpu
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+    from volcano_tpu_torch.framework import open_session, parse_scheduler_conf
+
+    from torch_parity import DEPLOYED_CONF
+    seen = []
+    real = evict_tpu.walk
+
+    def recording(inputs, kinds, sizes, gang_commit):
+        seen.append((inputs, kinds, sizes, gang_commit))
+        return real(inputs, kinds, sizes, gang_commit)
+
+    conf = parse_scheduler_conf(DEPLOYED_CONF)
+    ssn = open_session(baseline_config("preempt-small")[0], conf.tiers,
+                       conf.configurations, device="cpu")
+    evict_tpu.walk = recording
+    try:
+        PreemptAction(engine="tpu").execute(ssn)
+    finally:
+        evict_tpu.walk = real
+    assert seen
+    for inputs, kinds, sizes, gang in seen:
+        d = to_device(inputs, card)
+        _assert_walk_same(walk_cuda(d, kinds, sizes, gang),
+                          walk_plain(d, kinds, sizes, gang), "preempt-small")

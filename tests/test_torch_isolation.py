@@ -1,6 +1,7 @@
 """volcano_tpu_torch stands alone: it imports neither JAX nor any module of
-the JAX package, and its entry points refuse to fall back to the CPU when
-no CUDA device is there."""
+the JAX package — not while it runs the slice conf, nor deploy/scheduler.conf
+with its preempt walk, drf, predicates and proportion — and its entry
+points refuse to fall back to the CPU when no CUDA device is there."""
 
 import ast
 import os
@@ -28,11 +29,21 @@ def test_cycle_runs_without_jax():
     code = (
         "import sys\n"
         "from volcano_tpu_torch import Scheduler\n"
+        "import volcano_tpu_torch.actions.evict_tpu\n"
+        "import volcano_tpu_torch.ops.evict\n"
+        "import volcano_tpu_torch.ops.fairness\n"
+        "import volcano_tpu_torch.plugins.drf\n"
+        "import volcano_tpu_torch.plugins.predicates\n"
+        "import volcano_tpu_torch.plugins.proportion\n"
         "from volcano_tpu_torch.cache.synthetic import baseline_config\n"
         f"conf = {SLICE_CONF!r}\n"
         "cache, binder, _ = baseline_config('1k')\n"
         "Scheduler(cache, conf, device='cpu').run_once()\n"
         "assert len(binder.binds) == 1000, len(binder.binds)\n"
+        f"deployed = open({str(REPO / 'deploy' / 'scheduler.conf')!r}).read()\n"
+        "cache, binder, evictor = baseline_config('preempt-small')\n"
+        "Scheduler(cache, deployed, device='cpu').run_once()\n"
+        "assert binder.binds, 'the deployed cycle bound nothing'\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'volcano_tpu'))\n"
         "assert not bad, bad\n"

@@ -1,0 +1,131 @@
+"""The port's drf, proportion and predicates plugins against the JAX
+package's, on the CPU.
+
+- drf: hierarchical drf on tests/test_hdrf.py's worlds, and drf's
+  namespace order, each as one allocate-tpu cycle in both packages;
+- proportion: the deserved water-filling at 3 queues (the NumPy twin the
+  plugin uses below 64) and at 64 and 96 queues (torch ops, against the
+  JAX package's lax.while_loop);
+- predicates: the feasibility mask over a world of taints, selectors,
+  required affinity, an unschedulable node and host ports.
+
+The JAX results come from a child process (tests/torch_parity.py). Decisions
+and masks must be equal, and so must the NumPy twin's deserved shares. The
+torch form's shares at 64 queues or more are held to a relative 1e-5 of the
+JAX loop's: each round sums f32 grants over the queue axis, and XLA:CPU
+vectorizes that 64-term sum across the resource columns in an order the
+port's queue-by-queue sum does not reproduce (last-bit differences, 1.7e-6
+relative at most on these inputs).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import volcano_tpu_torch.plugins  # noqa: F401
+from volcano_tpu_torch.api import TaskStatus
+from volcano_tpu_torch.cache import cache_from_world
+from volcano_tpu_torch.cache.snapshot import discover_resource_names
+from volcano_tpu_torch.framework import (close_session, open_session,
+                                         parse_scheduler_conf)
+from volcano_tpu_torch.ops.fairness import (proportion_deserved,
+                                            proportion_deserved_numpy)
+
+from torch_parity import port_gc_windows  # noqa: F401 (autouse)
+from torch_parity import (DEPLOYED_CONF, PLUGIN_CASES, PLUGIN_WORLDS,
+                          jax_reference, outcome, proportion_inputs,
+                          run_torch_cycle)
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return jax_reference("plugins", list(PLUGIN_CASES),
+                         tmp_path_factory.mktemp("jax") / "plugins.pkl")
+
+
+@pytest.mark.parametrize("name", list(PLUGIN_WORLDS))
+def test_drf_cycle_matches_jax(name, reference):
+    world, want = reference[name]
+    cache = cache_from_world(world)
+    got = outcome(run_torch_cycle(cache, PLUGIN_WORLDS[name][1]), cache)
+    assert got == want
+    assert got["binds"]
+
+
+@pytest.mark.parametrize("name, Q, seed", [("proportion-3", 3, 0),
+                                           ("proportion-64", 64, 1),
+                                           ("proportion-96", 96, 2)])
+def test_proportion_deserved_matches_jax(name, Q, seed, reference):
+    args = proportion_inputs(Q, seed)
+    want = reference[name]
+    num = proportion_deserved_numpy(*args)
+    np.testing.assert_array_equal(num.deserved, want["numpy"][0])
+    np.testing.assert_array_equal(num.share, want["numpy"][1])
+    dev = proportion_deserved(*args, device=torch.device("cpu"))
+    if Q < 64:
+        np.testing.assert_array_equal(dev.deserved.numpy(), want["jax"][0])
+        np.testing.assert_array_equal(dev.share.numpy(), want["jax"][1])
+    np.testing.assert_allclose(dev.deserved.numpy(), want["jax"][0],
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(dev.share.numpy(), want["jax"][1],
+                               rtol=1e-5, atol=0)
+
+
+def test_proportion_plugin_takes_torch_ops_at_64_queues(monkeypatch):
+    """At 64 queues or more the plugin's deserved comes from the torch
+    form on the session's device; below, from the NumPy twin."""
+    from volcano_tpu_torch.cache.synthetic import make_cluster, make_jobs
+    from volcano_tpu_torch.api import QueueInfo
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.ops import fairness
+    calls = []
+    real = fairness.proportion_deserved
+    monkeypatch.setattr(fairness, "proportion_deserved",
+                        lambda *a, **k: calls.append(k["device"]) or real(*a, **k))
+    for Q, want in ((3, 0), (64, 1)):
+        calls.clear()
+        cache = SchedulerCache(default_queue="")
+        names = [f"q{i}" for i in range(Q)]
+        for n in names:
+            cache.add_queue(QueueInfo(name=n, weight=1 + len(n) % 3))
+        for node in make_cluster(8):
+            cache.add_node(node)
+        for job in make_jobs(Q * 2, Q, names, seed=1):
+            cache.add_job(job)
+        conf = parse_scheduler_conf(DEPLOYED_CONF)
+        ssn = open_session(cache, conf.tiers, conf.configurations,
+                           device="cpu")
+        assert len(ssn.queue_deserved) == Q
+        close_session(ssn)
+        assert len(calls) == want
+
+
+def test_predicates_mask_matches_jax(reference):
+    world, uids, want, want_stateful = reference["predicates-mask"]
+    cache = cache_from_world(world)
+    conf = parse_scheduler_conf(DEPLOYED_CONF)
+    ssn = open_session(cache, conf.tiers, conf.configurations, device="cpu")
+    tasks = [t for j in ssn.jobs.values() for t in j.tasks.values()
+             if t.status == TaskStatus.PENDING]
+    assert [t.uid for t in tasks] == uids
+
+    class Axis:
+        names = list(ssn.nodes)
+
+    mask = ssn.plugins["predicates"].feasibility_mask(ssn, tasks, Axis)
+    np.testing.assert_array_equal(mask, want)
+    assert not mask.all() and mask.any()
+    assert sorted(ssn.stateful_predicates) == want_stateful == ["predicates"]
+    # the host predicate agrees with the mask on every (task, node) pair
+    # of a node with no claimed ports
+    nodes = list(ssn.nodes.values())
+    for ti, task in enumerate(tasks[::7]):
+        for ni, node in enumerate(nodes):
+            try:
+                ssn.predicate_fn(task, node)
+                ok = True
+            except ValueError:
+                ok = False
+            assert ok == mask[ti * 7, ni]
+    close_session(ssn)
+    assert discover_resource_names(nodes, tasks).names == ["cpu", "memory"]

@@ -13,7 +13,8 @@ off the JAX programs do too, so the two packages must decide alike bit for
 bit. The flag cannot change in the test process itself: XLA reads it once.
 
 Run as a script, this file computes the references:
-``python tests/torch_parity.py {slice|place} OUT NAME...``.
+``python tests/torch_parity.py {slice|deployed|evict|walk|plugins|place}
+OUT NAME...``, or ``mixed OUT KIND:NAME...``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 SLICE_CONF = """
 actions: "enqueue, allocate-tpu, backfill"
@@ -43,7 +45,26 @@ configurations:
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(_TESTS)
+# deploy/scheduler.conf as written: enqueue, allocate-tpu, preempt, reclaim,
+# backfill with priority, gang | drf, predicates, proportion, nodeorder,
+# binpack
+with open(os.path.join(_REPO, "deploy", "scheduler.conf")) as _f:
+    DEPLOYED_CONF = _f.read()
 NO_FMA_XLA_FLAGS = "--xla_backend_optimization_level=0"
+
+
+@pytest.fixture(autouse=True)
+def port_gc_windows():
+    """The port's sessions suspend automatic garbage collection until they
+    close (volcano_tpu_torch/framework/framework.py). Tests that leave a
+    session open to inspect it would keep collection off for every later
+    test in the process, the JAX package's GC tests included: close the
+    windows a test leaked. Test modules that open port sessions import this
+    fixture, which makes it autouse there."""
+    yield
+    from volcano_tpu_torch.framework import framework as fw
+    for window in list(fw._GC_OPEN_WINDOWS):
+        fw._gc_resume(window)
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +430,614 @@ def jax_place(inst, pallas: bool):
 
 
 # ---------------------------------------------------------------------------
+# the preempt walk's worlds: seeded WalkInputs in NumPy (no JAX), each with
+# its tier structure and phase
+# ---------------------------------------------------------------------------
+
+WALK_BIG = 1 << 30
+
+
+def walk_world(seed, N=12, W=4, R=2, PJ=4, tasks=(2, 6), kinds=("static",),
+               sizes=(1,), gang=True, fidle_max=5, tight=False, total_extra=20):
+    """Random walk inputs with the invariants the host guarantees: victims
+    in node-major slots, small integer quantities, job allocations that
+    cover each job's victims, one score row per same-request run (ties and
+    infeasible nodes included). ``gang`` True is phase 1 (preemptors are
+    jobs of their own, with a pipeline quota), False phase 2 (each
+    preemptor job preempts its own running tasks)."""
+    from volcano_tpu_torch.ops.evict import EvictNW, WalkInputs
+    rng = np.random.RandomState(seed)
+    counts = rng.randint(0, W + 1, size=N)
+    counts[rng.randint(N)] = W
+    V = int(counts.sum())
+    vnode = np.repeat(np.arange(N), counts)
+    n_vjobs = max(PJ + 1, V // 3)
+    vjob = rng.randint(0, n_vjobs, size=V)
+    vreq = rng.randint(1, 5, size=(V, R)).astype(np.float32)
+    vslot = np.full((N, W), V, np.int32)
+    col = np.arange(V) - np.r_[0, np.cumsum(counts)[:-1]][vnode]
+    vslot[vnode, col] = np.arange(V)
+    valid = vslot < V
+    rank = np.full((N, W), WALK_BIG, np.int32)
+    rank[vnode, col] = rng.permutation(V)
+    if gang:
+        pgroups = n_vjobs + np.arange(PJ)
+        AJ = n_vjobs + PJ
+    else:
+        pgroups = rng.choice(n_vjobs, size=PJ, replace=False)
+        AJ = n_vjobs
+    vgroup = np.full((N, W), AJ, np.int32)
+    vgroup[vnode, col] = vjob
+    jalloc0 = np.zeros((AJ + 1, R), np.float32)
+    np.add.at(jalloc0, vjob, vreq)
+    jalloc0[:AJ] += rng.randint(0, 4, size=(AJ, R))
+    total = (jalloc0.sum(0) + rng.randint(5, total_extra + 5, R)).astype(
+        np.float32)
+    if gang:
+        cand = rng.rand(PJ, V) < 0.8
+    else:
+        cand = vjob[None, :] == pgroups[:, None]
+    cand_mask = np.pad(cand, ((0, 0), (0, 1)))
+    M = int(sum(sizes))
+    tier_masks = np.pad(rng.rand(M, PJ, V) < 0.7, ((0, 0), (0, 0), (0, 1)))
+    tier_part = rng.rand(M, PJ) < 0.85
+    preq, pjob, first, run_id, score_rows = [], [], [], [], []
+    needed = np.zeros(AJ + 1, np.float32)
+    for j in range(PJ):
+        n_t = rng.randint(tasks[0], tasks[1] + 1)
+        needed[pgroups[j]] = (WALK_BIG if not gang else
+                              n_t if tight else rng.randint(0, n_t + 1))
+        cuts = np.sort(rng.choice(np.arange(1, n_t), size=min(
+            n_t - 1, rng.randint(0, 3)), replace=False)) if n_t > 1 else []
+        bounds = [0, *cuts, n_t]
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            req = rng.randint(1, 6, size=R).astype(np.float32)
+            row = rng.randint(0, 10, size=N).astype(np.float32)
+            row[rng.rand(N) < 0.15] = -np.inf
+            score_rows.append(row)
+            for k in range(a, b):
+                preq.append(req)
+                pjob.append(j)
+                first.append(k == 0)
+                run_id.append(len(score_rows) - 1)
+    P = len(preq)
+    pjob = np.asarray(pjob, np.int32)
+    first = np.asarray(first, bool)
+    run_id = np.asarray(run_id, np.int32)
+
+    def ends(is_last):
+        e = np.flatnonzero(is_last)
+        return e[np.searchsorted(e, np.arange(P))].astype(np.int32)
+
+    run_end = ends(np.r_[run_id[1:] != run_id[:-1], True])
+    job_end = ends(np.r_[first[1:], True])
+    inputs = WalkInputs(
+        fidle0=rng.randint(0, fidle_max + 1, size=(N, R)).astype(np.float32),
+        nw=EvictNW(vslot=vslot, valid=valid,
+                   vreq=np.vstack([vreq, np.zeros((1, R), np.float32)])[vslot],
+                   vgroup=vgroup, rank=rank),
+        cand_mask=cand_mask, tier_masks=tier_masks, tier_part=tier_part,
+        preq=np.asarray(preq, np.float32), pjob=pjob,
+        pjg=pgroups.astype(np.int32)[pjob], first=first, run_id=run_id,
+        run_end=run_end, job_end=job_end,
+        score_g=np.asarray(score_rows, np.float32), needed=needed,
+        jalloc0=jalloc0, total=total)
+    return inputs, tuple(kinds), tuple(int(x) for x in sizes), gang
+
+
+def two_dynamic_tiers_world():
+    """tests/test_preempt_reclaim.py::
+    test_walk_two_dynamic_tiers_accumulates_co_masks, input for input: two
+    drf tiers, each with a static co-mask; only node 1 can serve the
+    preemptor, though node 0 outscores it."""
+    from volcano_tpu_torch.ops.evict import EvictNW, WalkInputs
+    V = 3
+    vslot = np.array([[0, 1], [2, V]], np.int32)
+    inputs = WalkInputs(
+        fidle0=np.zeros((2, 1), np.float32),
+        nw=EvictNW(vslot=vslot, valid=vslot < V,
+                   vreq=np.array([[[1.0], [4.0]], [[4.0], [0.0]]], np.float32),
+                   vgroup=np.array([[1, 2], [3, 4]], np.int32),
+                   rank=np.array([[0, 1], [2, WALK_BIG]], np.int32)),
+        cand_mask=np.array([[True, True, True, False]]),
+        tier_masks=np.array([[[True, False, True, False]],
+                             [[True, True, True, False]]]),
+        tier_part=np.ones((2, 1), bool),
+        preq=np.array([[4.0]], np.float32), pjob=np.zeros(1, np.int32),
+        pjg=np.zeros(1, np.int32), first=np.array([True]),
+        run_id=np.zeros(1, np.int32), run_end=np.zeros(1, np.int32),
+        job_end=np.zeros(1, np.int32),
+        score_g=np.array([[10.0, 5.0]], np.float32),
+        needed=np.array([WALK_BIG, 0, 0, 0, 0], np.float32),
+        jalloc0=np.array([[0.0], [50.0], [50.0], [50.0], [0.0]], np.float32),
+        total=np.array([100.0], np.float32))
+    return inputs, ("drf", "drf"), (1, 1), False
+
+
+WALK_WORLDS = {
+    # phase 1, static tiers only, every gang needs all its tasks: rollbacks
+    "gang-rollback": lambda: walk_world(1, N=10, W=3, PJ=5, tasks=(2, 5),
+                                        kinds=("static",), sizes=(2,),
+                                        tight=True, fidle_max=3),
+    # phase 2: each job preempts its own tasks, stops at its first failure
+    "intra-job": lambda: walk_world(2, N=10, W=4, PJ=3, tasks=(3, 7),
+                                    kinds=("static", "drf"), sizes=(1, 0),
+                                    gang=False, fidle_max=2),
+    # phase 1 under the deployed tiers: priority/gang, then drf
+    "drf": lambda: walk_world(3, N=14, W=5, PJ=5, tasks=(2, 6),
+                              kinds=("static", "drf"), sizes=(1, 0),
+                              fidle_max=3, total_extra=4),
+    "drf-co-mask": lambda: walk_world(4, N=14, W=5, PJ=5, tasks=(2, 6),
+                                      kinds=("static", "drf"), sizes=(1, 1),
+                                      fidle_max=3, total_extra=6),
+    "two-dynamic-tiers": two_dynamic_tiers_world,
+    "two-dynamic-random": lambda: walk_world(5, N=10, W=4, PJ=3,
+                                             kinds=("drf", "drf"),
+                                             sizes=(1, 1), gang=False,
+                                             fidle_max=2, total_extra=4),
+    "w64": lambda: walk_world(6, N=4, W=64, PJ=4, tasks=(4, 12),
+                              kinds=("static", "drf"), sizes=(1, 0),
+                              fidle_max=2, total_extra=40),
+    "w60-static": lambda: walk_world(7, N=5, W=60, PJ=3, tasks=(4, 10),
+                                     kinds=("static",), sizes=(2,)),
+    # no victim set covers any request: nothing is placed or evicted
+    "no-fit": lambda: walk_world(8, N=6, W=3, PJ=3, R=3, fidle_max=0,
+                                 kinds=("static",), sizes=(1,)) ,
+    **{f"random-{s}": (lambda s=s: walk_world(
+        100 + s, N=9, W=4, PJ=4, kinds=("static", "drf"), sizes=(1, 1),
+        gang=bool(s % 2), fidle_max=3)) for s in range(2)},
+}
+
+
+def _no_fit(world):
+    inputs, kinds, sizes, gang = world
+    return inputs._replace(preq=inputs.preq + 1000.0), kinds, sizes, gang
+
+
+WALK_WORLDS["no-fit"] = (lambda f=WALK_WORLDS["no-fit"]: _no_fit(f()))
+
+
+def jax_walk(world):
+    """build_preempt_walk on a walk world: (task_node, owner, job_done) as
+    NumPy arrays. allow_cheap follows the JAX host's rule."""
+    import jax.numpy as jnp
+
+    from volcano_tpu.ops.evict import EvictNW, build_preempt_walk
+    inputs, kinds, sizes, gang = world
+    allow_cheap = (all(k == "static" for k in kinds[:-1])
+                   and (gang or "drf" not in kinds))
+    masks, off = [], 0
+    for size in sizes:
+        masks.append((jnp.asarray(inputs.tier_masks[off:off + size]),
+                      jnp.asarray(inputs.tier_part[off:off + size])))
+        off += size
+    nw = EvictNW(*(jnp.asarray(a) for a in inputs.nw))
+    fn = build_preempt_walk(kinds, sizes, gang, allow_cheap)
+    a = jnp.asarray
+    task_node, owner, job_done, _ = fn(
+        a(inputs.fidle0), nw, a(inputs.cand_mask), tuple(masks),
+        a(inputs.preq), a(inputs.pjob), a(inputs.pjg), a(inputs.first),
+        a(inputs.run_id), a(inputs.run_end), a(inputs.job_end),
+        a(inputs.score_g), a(inputs.needed), a(inputs.jalloc0),
+        a(inputs.total))
+    return (np.asarray(task_node), np.asarray(owner),
+            np.asarray(job_done))
+
+
+# ---------------------------------------------------------------------------
+# preempt and reclaim worlds (tests/test_preempt_reclaim.py's), and the
+# deployed cycle's
+# ---------------------------------------------------------------------------
+
+def _evict_job(name, queue, min_avail, tasks, priority=0):
+    """tests/test_preempt_reclaim.py::build_job: tasks are (cpu, mem,
+    status, node or None)."""
+    from volcano_tpu.api import (JobInfo, PodGroup, PodGroupPhase, Resource,
+                                 TaskInfo)
+    pg = PodGroup(name=name, queue=queue, min_member=min_avail,
+                  phase=PodGroupPhase.INQUEUE)
+    job = JobInfo(uid=name, name=name, queue=queue, min_available=min_avail,
+                  podgroup=pg, priority=priority)
+    for i, (cpu, mem, status, node) in enumerate(tasks):
+        job.add_task_info(TaskInfo(uid=f"{name}-{i}", name=f"{name}-{i}",
+                                   job=name, resreq=Resource(cpu, mem),
+                                   status=status, creation_timestamp=float(i)))
+        job.tasks[f"{name}-{i}"]._target_node = node
+    return job
+
+
+def _evict_wire(jobs, nodes, queues):
+    cache = _jax_cache(nodes, [], queues)
+    node_map = {n.name: n for n in nodes}
+    for j in jobs:
+        cache.add_job(j)
+        for t in j.tasks.values():
+            if t._target_node:
+                node_map[t._target_node].add_task(t)
+    return cache
+
+
+def _random_preempt_world(seed):
+    """tests/test_preempt_reclaim.py::_random_preempt_world: running
+    low-priority fillers and starving high-priority gangs on 6 nodes."""
+    from volcano_tpu.api import NodeInfo, QueueInfo, Resource, TaskStatus
+    rng = np.random.RandomState(seed)
+    nodes = [NodeInfo(name=f"n{i}", allocatable=Resource(8000, 8000))
+             for i in range(6)]
+    jobs = []
+    perm = rng.permutation(6)
+    for i in range(6):
+        node = f"n{perm[i]}"
+        jobs.append(_evict_job(
+            f"run{i}", "default", 1,
+            [(2000, 2000, TaskStatus.RUNNING, node) for _ in range(2)],
+            priority=int(rng.randint(1, 4))))
+    for i in range(4):
+        jobs.append(_evict_job(
+            f"hot{i}", "default", 2,
+            [(3000, 3000, TaskStatus.PENDING, None) for _ in range(2)],
+            priority=int(rng.randint(5, 9))))
+    return _evict_wire(jobs, nodes, [QueueInfo(name="default", weight=1)])
+
+
+def _reclaim_world(reclaimable=True):
+    """TestReclaim's worlds: q2 holds the whole node, q1's pending job
+    reclaims (or, with q2 unreclaimable, cannot)."""
+    from volcano_tpu.api import NodeInfo, QueueInfo, Resource, TaskStatus
+    hog = _evict_job("hog", "q2", 1, [(4000, 4000, TaskStatus.RUNNING, "n1")])
+    needy = _evict_job("needy", "q1", 1,
+                       [(3000, 3000, TaskStatus.PENDING, None)])
+    return _evict_wire([hog, needy],
+                       [NodeInfo(name="n1", allocatable=Resource(4000, 4000))],
+                       [QueueInfo(name="q1", weight=1),
+                        QueueInfo(name="q2", weight=1,
+                                  reclaimable=reclaimable)])
+
+
+def _reclaim_parity_world():
+    """test_reclaim_engine_parity's world: q2 hogs 4 nodes, q1 has 3
+    pending reclaimers."""
+    from volcano_tpu.api import NodeInfo, QueueInfo, Resource, TaskStatus
+    nodes = [NodeInfo(name=f"n{i}", allocatable=Resource(8000, 8000))
+             for i in range(4)]
+    jobs = [_evict_job(f"hog{i}", "q2", 1,
+                       [(3000, 3000, TaskStatus.RUNNING, f"n{i}")] * 2)
+            for i in range(4)]
+    jobs += [_evict_job(f"needy{i}", "q1", 1,
+                        [(3000, 3000, TaskStatus.PENDING, None)])
+             for i in range(3)]
+    return _evict_wire(jobs, nodes, [QueueInfo(name="q1", weight=1),
+                                     QueueInfo(name="q2", weight=1)])
+
+
+def _preempt_mix(seed):
+    from volcano_tpu.cache.synthetic import preempt_mix_cache
+    return preempt_mix_cache(seed=seed)[0]
+
+
+def intra_variant(cache):
+    """A preempt world where every fourth running gang has lost the last
+    third of its tasks back to Pending: those gangs starve while holding
+    running tasks, so preempt's intra-job phase has work. Works on either
+    package's cache."""
+    for k, job in enumerate(cache.jobs.values()):
+        if job.podgroup.phase.value != "Running" or k % 4:
+            continue
+        running = [t for t in job.tasks.values() if int(t.status) == 6]
+        for t in running[-max(1, len(running) // 3):]:
+            cache.nodes[t.node_name].remove_task(t)
+            job.update_task_status(t, type(t.status)(1))      # Pending
+    return cache
+
+
+def taint_variant(cache):
+    """A PreferNoSchedule taint on every tenth node: nodeorder's static
+    score matrix joins the walk's scores (the f32 score path)."""
+    taint = {"key": "dedicated", "value": "batch",
+             "effect": "PreferNoSchedule"}
+    for i, node in enumerate(cache.nodes.values()):
+        if i % 10 == 3:
+            node.taints = [taint]
+    return cache
+
+
+def ports_variant(cache):
+    """Every third gang claims host port 8080, running or pending:
+    predicates turns stateful, so preempt replays through Statements with
+    the live predicate chain."""
+    for k, job in enumerate(cache.jobs.values()):
+        if k % 3:
+            continue
+        for task in job.tasks.values():
+            if task.node_name:
+                node = cache.nodes[task.node_name]
+                node.remove_task(task)
+                task.host_ports = [("0.0.0.0", "TCP", 8080)]
+                node.add_task(task)
+            else:
+                task.host_ports = [("0.0.0.0", "TCP", 8080)]
+    return cache
+
+
+def _pipeline_tenth():
+    """bench.py's pipeline world at a tenth: 200 nodes, 1,000 pods in 20
+    gangs over 3 queues, half the gangs running."""
+    from volcano_tpu.cache.synthetic import make_cluster, make_jobs
+    nodes = make_cluster(200)
+    jobs = make_jobs(1000, 20, ["q1", "q2", "q3"], running_fraction=0.5,
+                     nodes=nodes, seed=0)
+    return _jax_cache(nodes, jobs, _queues(3, 2, 1))
+
+
+# name -> (world builder, the action to run alone under the deployed tiers)
+EVICT_WORLDS = {
+    **{f"random-preempt-{s}": (lambda s=s: _random_preempt_world(s),
+                               "preempt") for s in range(4)},
+    "reclaim-starved": (_reclaim_world, "reclaim"),
+    "reclaim-protected": (lambda: _reclaim_world(False), "reclaim"),
+    "reclaim-parity": (_reclaim_parity_world, "reclaim"),
+    "preempt-small": (lambda: _baseline("preempt-small"), "preempt"),
+    "preempt-mix-3": (lambda: _preempt_mix(3), "preempt"),
+    "preempt-small-intra": (lambda: intra_variant(_baseline("preempt-small")),
+                            "preempt"),
+    "preempt-small-taints": (lambda: taint_variant(_baseline("preempt-small")),
+                             "preempt"),
+    "preempt-small-ports": (lambda: ports_variant(_baseline("preempt-small")),
+                            "preempt"),
+}
+
+# worlds of one deployed cycle (deploy/scheduler.conf as written)
+DEPLOYED_WORLDS = {
+    "pipeline-tenth": _pipeline_tenth,
+    "preempt-small": lambda: _baseline("preempt-small"),
+    "three-queue": _three_queue,
+}
+
+
+def evict_outcome(ssn, cache) -> dict:
+    """What preempt or reclaim decided: evictions and pipelined tasks."""
+    return {"evicts": sorted(cache.evictor.evicts),
+            "pipelined": sorted(t.uid for j in ssn.jobs.values()
+                                for t in j.tasks.values()
+                                if int(t.status) == 3)}
+
+
+def run_jax_action(cache, action):
+    """One preempt or reclaim action, engine tpu, alone in a session with
+    the deployed conf's tiers, through the JAX package."""
+    import volcano_tpu.plugins  # noqa: F401
+    from volcano_tpu.actions import PreemptAction, ReclaimAction
+    from volcano_tpu.framework import open_session, parse_scheduler_conf
+    conf = parse_scheduler_conf(DEPLOYED_CONF)
+    ssn = open_session(cache, conf.tiers, conf.configurations)
+    cls = PreemptAction if action == "preempt" else ReclaimAction
+    cls(engine="tpu").execute(ssn)
+    return ssn
+
+
+def run_torch_action(cache, action):
+    """The same action through the port on the CPU."""
+    import volcano_tpu_torch.plugins  # noqa: F401
+    from volcano_tpu_torch.actions import PreemptAction, ReclaimAction
+    from volcano_tpu_torch.framework import open_session, parse_scheduler_conf
+    conf = parse_scheduler_conf(DEPLOYED_CONF)
+    ssn = open_session(cache, conf.tiers, conf.configurations, device="cpu")
+    cls = PreemptAction if action == "preempt" else ReclaimAction
+    cls(engine="tpu").execute(ssn)
+    return ssn
+
+
+def _tight_mix():
+    """The running+pending preempt mix on 40 nodes: allocate cannot place
+    every pending gang, so preempt and reclaim act in the deployed cycle."""
+    from volcano_tpu.cache.synthetic import preempt_mix_cache
+    return preempt_mix_cache(n_nodes=40, n_tasks=1000, n_jobs=40, seed=2)[0]
+
+
+def _predicates_world():
+    """What predicates filters: NoSchedule taints tolerated by some gangs,
+    node selectors and required node affinity, an unschedulable node, and
+    gangs claiming host port 8080 (one per node: the stateful re-check and
+    the re-solve rounds)."""
+    from volcano_tpu.cache.synthetic import make_jobs
+    taint = {"key": "gpu", "value": "true", "effect": "NoSchedule"}
+    nodes = _nodes(24, labels=lambda i: {"zone": "a" if i % 3 == 0 else "b",
+                                         "disk": "ssd" if i % 2 else "hdd"},
+                   taints=lambda i: [taint] if i % 4 == 1 else [])
+    nodes[5].unschedulable = True
+    jobs = make_jobs(240, 12, ["q1", "q2"], seed=6)
+    required = {"nodeAffinity": {
+        "requiredDuringSchedulingIgnoredDuringExecution": {
+            "nodeSelectorTerms": [{"matchExpressions": [
+                {"key": "zone", "operator": "In", "values": ["a"]}]}]}}}
+    for j, job in enumerate(jobs):
+        for task in job.tasks.values():
+            if j % 3 == 0:
+                task.node_selector = {"disk": "ssd"}
+            if j % 4 == 0:
+                task.tolerations = [{"key": "gpu", "operator": "Exists",
+                                     "effect": "NoSchedule"}]
+            if j % 5 == 1:
+                task.host_ports = [("0.0.0.0", "TCP", 8080)]
+            if j == 7:
+                task.affinity = required
+    return _jax_cache(nodes, jobs, _queues(1, 1))
+
+
+DEPLOYED_WORLDS.update({"tight-mix": _tight_mix,
+                        "predicates": _predicates_world})
+
+# ---------------------------------------------------------------------------
+# plugin cases: drf (hierarchy, namespace order), proportion's deserved
+# shares, predicates' mask
+# ---------------------------------------------------------------------------
+
+HDRF_CONF = """
+actions: "allocate-tpu"
+tiers:
+- plugins:
+  - name: drf
+    enableHierarchy: true
+  - name: gang
+configurations:
+- name: allocate-tpu
+  arguments:
+    engine: tpu-fused
+"""
+
+NAMESPACE_CONF = """
+actions: "enqueue, allocate-tpu, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+    enableNamespaceOrder: true
+  - name: proportion
+  - name: nodeorder
+configurations:
+- name: allocate-tpu
+  arguments:
+    engine: tpu-fused
+"""
+
+_G = 1_000_000_000        # hdrf_test.go's decimal giga
+
+
+def _hdrf_world(queues, jobs, node_res):
+    """tests/test_hdrf.py::run_case's world: one node, hierarchical queues,
+    jobs of min 1 whose tasks share one request."""
+    from volcano_tpu.api import (JobInfo, NodeInfo, PodGroup, PodGroupPhase,
+                                 QueueInfo, Resource, TaskInfo)
+    from volcano_tpu.api.queue_info import (
+        KUBE_HIERARCHY_ANNOTATION_KEY, KUBE_HIERARCHY_WEIGHT_ANNOTATION_KEY)
+    qs = [QueueInfo(name=n, weight=1, annotations={
+        KUBE_HIERARCHY_ANNOTATION_KEY: h,
+        KUBE_HIERARCHY_WEIGHT_ANNOTATION_KEY: w}) for n, h, w in queues]
+    js = []
+    for pg, queue, num, cpu, mem in jobs:
+        job = JobInfo(uid=pg, name=pg, queue=queue, min_available=1,
+                      podgroup=PodGroup(name=pg, queue=queue, min_member=1,
+                                        phase=PodGroupPhase.INQUEUE))
+        for i in range(num):
+            job.add_task_info(TaskInfo(uid=f"{pg}-p{i}", name=f"{pg}-p{i}",
+                                       job=pg, resreq=Resource(cpu, mem),
+                                       creation_timestamp=float(i)))
+        js.append(job)
+    alloc = Resource(*node_res)
+    alloc.max_task_num = 1000
+    return _jax_cache([NodeInfo(name="n", allocatable=alloc)], js, qs)
+
+
+def _hdrf_rescaling():
+    return _hdrf_world(
+        [("root-sci", "root/sci", "100/50"),
+         ("root-eng-dev", "root/eng/dev", "100/50/50"),
+         ("root-eng-prod", "root/eng/prod", "100/50/50")],
+        [("pg1", "root-sci", 10, 1000, 1 * _G),
+         ("pg21", "root-eng-dev", 10, 1000, 0),
+         ("pg22", "root-eng-prod", 10, 0, 1 * _G)], (10_000, 10 * _G))
+
+
+def _hdrf_blocking():
+    return _hdrf_world(
+        [("root-pg1", "root/pg1", "100/25"), ("root-pg2", "root/pg2", "100/25"),
+         ("root-pg3-pg31", "root/pg3/pg31", "100/25/50"),
+         ("root-pg3-pg32", "root/pg3/pg32", "100/25/50"),
+         ("root-pg4", "root/pg4", "100/25")],
+        [("pg1", "root-pg1", 30, 1000, 0), ("pg2", "root-pg2", 30, 1000, 0),
+         ("pg31", "root-pg3-pg31", 30, 1000, 0),
+         ("pg32", "root-pg3-pg32", 30, 0, 1 * _G),
+         ("pg4", "root-pg4", 30, 0, 1 * _G)], (30_000, 30 * _G))
+
+
+def _namespaces():
+    """Jobs of two namespaces over two queues on a tight cluster: drf's
+    namespace order decides which namespace's gangs go first."""
+    from volcano_tpu.cache.synthetic import make_jobs
+    jobs = make_jobs(400, 20, ["q1", "q2"], seed=8)
+    for j, job in enumerate(jobs):
+        ns = "ns-a" if j % 3 else "ns-b"
+        job.namespace = ns
+        job.podgroup.namespace = ns
+        for task in job.tasks.values():
+            task.namespace = ns
+    return _jax_cache(_nodes(16), jobs, _queues(2, 1))
+
+
+# name -> (world builder, conf text) for one cycle in both packages
+PLUGIN_WORLDS = {
+    "hdrf-rescaling": (_hdrf_rescaling, HDRF_CONF),
+    "hdrf-blocking": (_hdrf_blocking, HDRF_CONF),
+    "drf-namespaces": (_namespaces, NAMESPACE_CONF),
+}
+
+
+def proportion_inputs(Q, seed):
+    """Seeded water-filling inputs: total f32[R], weight f32[Q],
+    request/capability/allocated f32[Q,R] (capability +inf where
+    unlimited)."""
+    rng = np.random.RandomState(seed)
+    R = 3
+    total = rng.randint(1000, 5000, size=R).astype(np.float32) * 10
+    weight = rng.randint(1, 6, size=Q).astype(np.float32)
+    request = (rng.rand(Q, R) * total / Q * 3).astype(np.float32)
+    cap = np.where(rng.rand(Q, R) < 0.3,
+                   (rng.rand(Q, R) * total / Q * 2).astype(np.float32),
+                   np.float32(np.inf)).astype(np.float32)
+    allocated = (request * rng.rand(Q, R)).astype(np.float32)
+    return total, weight, request, cap, allocated
+
+
+def _proportion_case(Q, seed):
+    import jax.numpy as jnp
+
+    from volcano_tpu.ops.fairness import (proportion_deserved,
+                                          proportion_deserved_numpy)
+    args = proportion_inputs(Q, seed)
+    num = proportion_deserved_numpy(*args)
+    dev = proportion_deserved(*(jnp.asarray(a) for a in args))
+    return {"numpy": (np.asarray(num.deserved), np.asarray(num.share)),
+            "jax": (np.asarray(dev.deserved), np.asarray(dev.share))}
+
+
+def _predicates_mask():
+    """predicates' feasibility mask over every pending task of the
+    predicates world, under the deployed tiers."""
+    import volcano_tpu.plugins  # noqa: F401
+    from volcano_tpu.api import TaskStatus
+    from volcano_tpu.cache.snapshot import (NodeTensors,
+                                            discover_resource_names)
+    from volcano_tpu.framework import (close_session, open_session,
+                                       parse_scheduler_conf)
+    cache = _predicates_world()
+    world = world_from_cache(cache)
+    conf = parse_scheduler_conf(DEPLOYED_CONF)
+    ssn = open_session(cache, conf.tiers, conf.configurations)
+    tasks = [t for j in ssn.jobs.values() for t in j.tasks.values()
+             if t.status == TaskStatus.PENDING]
+    nodes = list(ssn.nodes.values())
+    node_t = NodeTensors(nodes, discover_resource_names(nodes, tasks))
+    mask = ssn.plugins["predicates"].feasibility_mask(ssn, tasks, node_t)
+    stateful = sorted(ssn.stateful_predicates)
+    close_session(ssn)
+    return world, [t.uid for t in tasks], mask, stateful
+
+
+PLUGIN_CASES = {
+    **{name: (lambda b=b, c=c: (lambda cache: (world_from_cache(cache),
+                                               outcome(run_jax_cycle(cache, c),
+                                                       cache)))(b()))
+       for name, (b, c) in PLUGIN_WORLDS.items()},
+    "proportion-3": lambda: _proportion_case(3, 0),
+    "proportion-64": lambda: _proportion_case(64, 1),
+    "proportion-96": lambda: _proportion_case(96, 2),
+    "predicates-mask": _predicates_mask,
+}
+
+
+# ---------------------------------------------------------------------------
 # the plain-data world, and one cycle through either package
 # ---------------------------------------------------------------------------
 
@@ -425,11 +1054,11 @@ def world_from_cache(cache) -> dict:
         t.resreq for j in jobs for t in j.tasks.values()]
     scalars = sorted({k for r in res for k in r.scalars})
     R = 2 + len(scalars)
-    for q in cache.queues.values():
-        assert getattr(q, "capability", None) is None
+    def vec_or_none(r):
+        return None if r is None else np.asarray(_vec(r, scalars), np.float64)
+
     world_jobs = []
     for j in jobs:
-        assert j.podgroup.min_resources is None
         ts = list(j.tasks.values())
         world_jobs.append({
             "uid": j.uid, "name": j.name, "namespace": j.namespace,
@@ -437,6 +1066,7 @@ def world_from_cache(cache) -> dict:
             "min_available": j.min_available,
             "creation_timestamp": j.creation_timestamp,
             "phase": j.podgroup.phase.value,
+            "min_resources": vec_or_none(j.podgroup.min_resources),
             "tasks": {
                 "uid": [t.uid for t in ts],
                 "name": [t.name for t in ts],
@@ -448,11 +1078,16 @@ def world_from_cache(cache) -> dict:
                     [t.creation_timestamp for t in ts], np.float64),
                 "tolerations": [list(t.tolerations) for t in ts],
                 "affinity": [dict(t.affinity) for t in ts],
+                "node_selector": [dict(t.node_selector) for t in ts],
+                "host_ports": [list(t.host_ports) for t in ts],
             },
         })
     return {
         "resource_names": ["cpu", "memory"] + scalars,
-        "queues": [{"name": q.name, "weight": q.weight}
+        "queues": [{"name": q.name, "weight": q.weight,
+                    "capability": vec_or_none(q.capability),
+                    "reclaimable": q.reclaimable,
+                    "annotations": dict(q.annotations)}
                    for q in cache.queues.values()],
         "nodes": {
             "names": [n.name for n in nodes],
@@ -464,6 +1099,7 @@ def world_from_cache(cache) -> dict:
             "labels": [dict(n.labels) for n in nodes],
             "taints": [list(n.taints) for n in nodes],
             "tasks": [list(n.tasks) for n in nodes],
+            "unschedulable": [bool(n.unschedulable) for n in nodes],
         },
         "jobs": world_jobs,
     }
@@ -487,10 +1123,12 @@ def assert_same(a, b, path="world"):
 
 
 def outcome(ssn, cache) -> dict:
-    """What a cycle decided: binds, PodGroup phases and conditions (without
-    the session id and time stamp), and the session's pipelined tasks."""
+    """What a cycle decided: binds, evictions, PodGroup phases and
+    conditions (without the session id and time stamp), and the session's
+    pipelined tasks."""
     return {
         "binds": dict(cache.binder.binds),
+        "evicts": sorted(cache.evictor.evicts),
         "phases": {uid: j.podgroup.phase.value
                    for uid, j in cache.jobs.items()},
         "conditions": {uid: [(c["type"], c["status"], c["reason"],
@@ -502,16 +1140,17 @@ def outcome(ssn, cache) -> dict:
     }
 
 
-def run_jax_cycle(cache):
-    """One cycle of the slice conf through the JAX package; returns the
-    closed session. The fused engine runs its XLA scan on the CPU, and the
-    run must not have fallen back to the callback placer."""
+def run_jax_cycle(cache, conf_text=SLICE_CONF):
+    """One cycle of a conf (the slice conf by default) through the JAX
+    package; returns the closed session. The fused engine runs its XLA scan
+    on the CPU, and the run must not have fallen back to the callback
+    placer."""
     import volcano_tpu.actions  # noqa: F401  (registers the actions)
     import volcano_tpu.plugins  # noqa: F401  (registers the plugins)
     from volcano_tpu.actions import allocate
     from volcano_tpu.framework import (close_session, get_action,
                                        open_session, parse_scheduler_conf)
-    conf = parse_scheduler_conf(SLICE_CONF)
+    conf = parse_scheduler_conf(conf_text)
     ssn = open_session(cache, conf.tiers, conf.configurations)
     for name in conf.actions:
         get_action(name).execute(ssn)
@@ -520,15 +1159,15 @@ def run_jax_cycle(cache):
     return ssn
 
 
-def run_torch_cycle(cache):
-    """One cycle of the slice conf through the port on the CPU; returns
-    the closed session."""
+def run_torch_cycle(cache, conf_text=SLICE_CONF):
+    """One cycle of a conf (the slice conf by default) through the port on
+    the CPU; returns the closed session."""
     import volcano_tpu_torch.actions  # noqa: F401
     import volcano_tpu_torch.plugins  # noqa: F401
     from volcano_tpu_torch.framework import (close_session, get_action,
                                              open_session,
                                              parse_scheduler_conf)
-    conf = parse_scheduler_conf(SLICE_CONF)
+    conf = parse_scheduler_conf(conf_text)
     ssn = open_session(cache, conf.tiers, conf.configurations, device="cpu")
     for name in conf.actions:
         get_action(name).execute(ssn)
@@ -536,32 +1175,60 @@ def run_torch_cycle(cache):
     return ssn
 
 
-def jax_reference(kind: str, names, out_path) -> dict:
-    """The JAX package's results for the named worlds, computed in a child
-    process without FMA contraction (module docstring). ``kind`` "slice":
-    name -> (world, outcome) of one cycle; "place": name -> jax_place()."""
+def jax_reference_script(argv, out_path, names=()) -> dict:
+    """Run ``python *argv out_path *names`` in a child process without FMA
+    contraction and load the pickle it writes to ``out_path``."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=NO_FMA_XLA_FLAGS,
                PYTHONPATH=os.pathsep.join(
                    [_REPO, _TESTS, os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), kind, str(out_path),
-         *names], env=env, cwd=_REPO, capture_output=True, text=True,
-        timeout=600)
+        [sys.executable, *argv, str(out_path), *names], env=env, cwd=_REPO,
+        capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     with open(out_path, "rb") as f:
         return pickle.load(f)
 
 
+def jax_reference(kind: str, names, out_path) -> dict:
+    """The JAX package's results for the named worlds, computed in a child
+    process without FMA contraction (module docstring). ``kind`` "slice"
+    and "deployed": name -> (world, outcome) of one cycle of that conf;
+    "evict": name -> (world, evict_outcome) of one preempt or reclaim;
+    "walk": name -> jax_walk(); "plugins": name -> PLUGIN_CASES[name]();
+    "place": name -> jax_place(); "mixed": names are "kind:name", so one
+    child process serves several kinds."""
+    return jax_reference_script([os.path.abspath(__file__), kind], out_path,
+                                names)
+
+
+def _reference(kind, name):
+    if kind == "slice":
+        cache = SLICE_WORLDS[name]()
+        world = world_from_cache(cache)
+        return world, outcome(run_jax_cycle(cache), cache)
+    if kind == "deployed":
+        cache = DEPLOYED_WORLDS[name]()
+        world = world_from_cache(cache)
+        return world, outcome(run_jax_cycle(cache, DEPLOYED_CONF), cache)
+    if kind == "evict":
+        build, action = EVICT_WORLDS[name]
+        cache = build()
+        world = world_from_cache(cache)
+        return world, evict_outcome(run_jax_action(cache, action), cache)
+    if kind == "walk":
+        return jax_walk(WALK_WORLDS[name]())
+    if kind == "plugins":
+        return PLUGIN_CASES[name]()
+    return jax_place(PLACE_WORLDS[name](), name in INTEGER_PLACE_WORLDS)
+
+
 def _main(kind, out_path, names):
     results = {}
     for name in names:
-        if kind == "slice":
-            cache = SLICE_WORLDS[name]()
-            world = world_from_cache(cache)
-            results[name] = (world, outcome(run_jax_cycle(cache), cache))
+        if kind == "mixed":
+            results[name] = _reference(*name.split(":", 1))
         else:
-            results[name] = jax_place(PLACE_WORLDS[name](),
-                                      name in INTEGER_PLACE_WORLDS)
+            results[name] = _reference(kind, name)
     with open(out_path, "wb") as f:
         pickle.dump(results, f)
 

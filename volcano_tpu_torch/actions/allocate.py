@@ -193,40 +193,53 @@ def _execute_fused(ssn, max_order_iters: int = 4) -> Dict[str, float]:
     immediate; gang rollbacks trigger one extra iteration because a failed
     job must stop influencing queue shares and overused gating.
 
+    With stateful predicates (host ports) a device proposal can fail the
+    live re-check at replay because an earlier replay placement changed the
+    state the mask was computed from. Those tasks stay pending, and up to
+    two more rounds re-solve them against the fresh session state — the
+    batched analogue of the reference's per-task re-evaluation.
+
     Returns the phases' host wall seconds: "order" (the order simulation),
     "assemble" (the solve's tensors, built and copied to the device),
     "solve" (the kernel, the one device-to-host copy and the decode),
     "replay", and "solves", the number of solves."""
     stats = {"order": 0.0, "assemble": 0.0, "solve": 0.0, "replay": 0.0,
              "solves": 0}
-    assumed: Optional[set] = None
-    solution = None
-    for _ in range(max_order_iters):
-        t0 = time.perf_counter()
-        ordered_jobs = _fixed_job_order(ssn, assumed)
-        t1 = time.perf_counter()
-        stats["order"] += t1 - t0
-        inputs = placement_inputs(ssn, ordered_jobs)
-        t2 = time.perf_counter()
-        stats["assemble"] += t2 - t1
-        if inputs is None:
-            return stats
-        solution = _fused_solution(inputs)
-        stats["solve"] += time.perf_counter() - t2
-        stats["solves"] += 1
-        kept_uids = {solution.jobs_list[jx].uid
-                     for jx in range(len(solution.jobs_list))
-                     if solution.job_kept[jx]}
-        # assumed=None simulated "all jobs admitted" — if the solve indeed
-        # kept every job the premise held; no re-solve needed.
-        if kept_uids == assumed or (
-                assumed is None
-                and kept_uids == {j.uid for j in ordered_jobs}):
+    max_rounds = 3 if ssn.stateful_predicates else 1
+    for _ in range(max_rounds):
+        assumed: Optional[set] = None
+        solution = None
+        for _ in range(max_order_iters):
+            t0 = time.perf_counter()
+            ordered_jobs = _fixed_job_order(ssn, assumed)
+            t1 = time.perf_counter()
+            stats["order"] += t1 - t0
+            inputs = placement_inputs(ssn, ordered_jobs)
+            t2 = time.perf_counter()
+            stats["assemble"] += t2 - t1
+            if inputs is None:
+                solution = None
+                break
+            solution = _fused_solution(inputs)
+            stats["solve"] += time.perf_counter() - t2
+            stats["solves"] += 1
+            kept_uids = {solution.jobs_list[jx].uid
+                         for jx in range(len(solution.jobs_list))
+                         if solution.job_kept[jx]}
+            # assumed=None simulated "all jobs admitted" — if the solve
+            # indeed kept every job the premise held; no re-solve needed.
+            if kept_uids == assumed or (
+                    assumed is None
+                    and kept_uids == {j.uid for j in ordered_jobs}):
+                break
+            assumed = kept_uids
+        if solution is None:
             break
-        assumed = kept_uids
-    t0 = time.perf_counter()
-    _replay_fused(ssn, solution)
-    stats["replay"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rejected = _replay_fused(ssn, solution)
+        stats["replay"] += time.perf_counter() - t0
+        if not rejected:
+            break
     return stats
 
 
@@ -353,11 +366,26 @@ def _fused_solution(inputs: PlacementInputs) -> _FusedSolution:
 # replay
 # ---------------------------------------------------------------------------
 
+def _stateful_recheck(ssn, task, node) -> bool:
+    """Re-validate a device proposal through the predicate chain when a
+    plugin registered itself in ssn.stateful_predicates (host ports): the
+    static feasibility mask shipped to the device is necessary but not
+    sufficient for those, and the reference evaluates them per placement."""
+    try:
+        ssn.predicate_fn(task, node)
+        return True
+    except ValueError:              # a predicate's fit error
+        return False
+
+
 def _fast_replay_ok(ssn) -> bool:
     """The batched replay skips the per-task Statement machinery; it is
-    sound only when (a) every event handler declared itself additive per
-    job and (b) the gang plugin alone decides job readiness/pipelining, so
-    the kernel's gang verdicts (gang.go's formula) are authoritative."""
+    sound only when (a) no stateful predicates need re-checking, (b) every
+    event handler declared itself additive per job and (c) the gang plugin
+    alone decides job readiness/pipelining, so the kernel's gang verdicts
+    (gang.go's formula) are authoritative."""
+    if ssn.stateful_predicates:
+        return False
     if any(not eh.aggregatable for eh in ssn.event_handlers):
         return False
     for reg, flag in ((ssn.job_ready_fns, "enabledJobReady"),
@@ -441,16 +469,20 @@ def _replay_fused_fast(ssn, sol: _FusedSolution) -> None:
     ssn.cache.bind_batch(binds)
 
 
-def _replay_fused(ssn, sol: _FusedSolution) -> None:
+def _replay_fused(ssn, sol: _FusedSolution) -> int:
     """Replay the device decisions through the session: batched when
     _fast_replay_ok holds, else through Statements, job by job, preserving
-    gang atomicity on the host model (statement.go semantics)."""
+    gang atomicity on the host model (statement.go semantics). Returns the
+    number of proposals the live stateful re-check rejected (the caller
+    re-solves those tasks against fresh state)."""
     if _fast_replay_ok(ssn):
         _replay_fused_fast(ssn, sol)
-        return
+        return 0
     per_job_tasks: Dict[int, List[int]] = {}
     for i, jx in enumerate(sol.job_ix):
         per_job_tasks.setdefault(int(jx), []).append(i)
+    recheck = bool(ssn.stateful_predicates)
+    rejected = 0
     for jx, task_ids in per_job_tasks.items():
         if not sol.job_kept[jx]:
             continue
@@ -462,10 +494,15 @@ def _replay_fused(ssn, sol: _FusedSolution) -> None:
                 if n == NO_NODE:
                     continue
                 name = sol.node_t.names[n]
+                node = ssn.nodes[name]
+                if recheck and not _stateful_recheck(ssn, sol.tasks[i],
+                                                     node):
+                    rejected += 1
+                    continue
                 if sol.pipelined[i]:
                     stmt.pipeline(sol.tasks[i], name)
                 else:
-                    stmt.allocate(sol.tasks[i], ssn.nodes[name])
+                    stmt.allocate(sol.tasks[i], node)
         except Exception:
             stmt.discard()
             raise
@@ -473,3 +510,4 @@ def _replay_fused(ssn, sol: _FusedSolution) -> None:
             stmt.commit()
         elif not ssn.job_pipelined(job):
             stmt.discard()
+    return rejected

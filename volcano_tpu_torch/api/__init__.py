@@ -3,8 +3,8 @@ for dense-tensor snapshots)."""
 
 from .resource import (CPU, INFINITY, MEMORY, MIN_RESOURCE, ZERO, Resource,
                        ResourceNames)
-from .types import (PodGroupConditionType, PodGroupPhase, TaskStatus,
-                    allocated_status)
+from .types import (PodGroupConditionType, PodGroupPhase, QueueState,
+                    TaskStatus, allocated_status)
 from .job_info import JobInfo, PodGroup, TaskInfo
 from .node_info import NodeInfo
 from .queue_info import QueueInfo
@@ -13,7 +13,8 @@ from .unschedule_info import FitError, FitErrors
 
 __all__ = [
     "CPU", "INFINITY", "MEMORY", "MIN_RESOURCE", "ZERO", "Resource",
-    "ResourceNames", "PodGroupConditionType", "PodGroupPhase", "TaskStatus",
+    "ResourceNames", "PodGroupConditionType", "PodGroupPhase", "QueueState",
+    "TaskStatus",
     "allocated_status", "JobInfo", "PodGroup", "TaskInfo", "NodeInfo",
     "QueueInfo", "ClusterInfo", "FitError", "FitErrors",
 ]

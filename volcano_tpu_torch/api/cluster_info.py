@@ -12,7 +12,7 @@ from typing import Dict
 
 from .job_info import JobInfo
 from .node_info import NodeInfo
-from .queue_info import QueueInfo
+from .queue_info import NamespaceInfo, QueueInfo
 
 
 class ClusterInfo:
@@ -20,6 +20,7 @@ class ClusterInfo:
         self.jobs: Dict[str, JobInfo] = {}
         self.nodes: Dict[str, NodeInfo] = {}
         self.queues: Dict[str, QueueInfo] = {}
+        self.namespaces: Dict[str, NamespaceInfo] = {}
 
     def __repr__(self) -> str:
         return (f"ClusterInfo(jobs={len(self.jobs)} nodes={len(self.nodes)} "

@@ -25,6 +25,28 @@ def _new_uid(prefix: str) -> str:
     return f"{prefix}-{next(_uid_counter)}"
 
 
+def normalize_host_ports(ports) -> List[tuple]:
+    """Container hostPort declarations → canonical ``(host_ip, protocol,
+    port)`` tuples (the k8s nodeports plugin's GetContainerPorts shape).
+
+    Accepts bare ints, k8s ContainerPort dicts (only entries with
+    ``hostPort > 0`` count), or pre-normalized tuples. ``hostIP`` defaults to
+    the 0.0.0.0 wildcard and ``protocol`` to TCP, matching upstream."""
+    out: List[tuple] = []
+    for p in ports or []:
+        if isinstance(p, int):
+            out.append(("0.0.0.0", "TCP", p))
+        elif isinstance(p, dict):
+            hp = int(p.get("hostPort") or 0)
+            if hp > 0:
+                out.append((p.get("hostIP") or "0.0.0.0",
+                            p.get("protocol") or "TCP", hp))
+        else:
+            ip, proto, port = p
+            out.append((ip or "0.0.0.0", proto or "TCP", int(port)))
+    return out
+
+
 class TaskInfo:
     """One schedulable unit (a pod in the reference, pod_info.go)."""
 
@@ -32,9 +54,11 @@ class TaskInfo:
                  job: str = "", resreq: Optional[Resource] = None,
                  status: TaskStatus = TaskStatus.PENDING, priority: int = 1,
                  node_name: str = "", task_role: str = "",
+                 node_selector: Optional[Dict[str, str]] = None,
                  tolerations: Optional[List[dict]] = None,
                  affinity: Optional[dict] = None,
-                 creation_timestamp: Optional[float] = None):
+                 creation_timestamp: Optional[float] = None,
+                 host_ports: Optional[List] = None):
         self.uid = uid or _new_uid("task")
         self.name = name or self.uid
         self.namespace = namespace
@@ -50,6 +74,7 @@ class TaskInfo:
         # task_role groups replicas of the same task template; per-template
         # minAvailable (job_info.go TaskMinAvailable) is keyed by it.
         self.task_role = task_role or name
+        self.node_selector = dict(node_selector or {})
         self.tolerations = list(tolerations or [])
         self.affinity = affinity or {}
         # any required or preferred pod (anti-)affinity term; affinity never
@@ -59,6 +84,9 @@ class TaskInfo:
             for kind in ("podAffinity", "podAntiAffinity")
             for term in ("requiredDuringSchedulingIgnoredDuringExecution",
                          "preferredDuringSchedulingIgnoredDuringExecution"))
+        # (host_ip, protocol, port) tuples the pod claims on its node
+        # (nodeports predicate); treated as immutable after construction.
+        self.host_ports: List[tuple] = normalize_host_ports(host_ports)
         self.creation_timestamp = creation_timestamp if creation_timestamp is not None else _time.time()
 
     def clone(self) -> "TaskInfo":
@@ -203,6 +231,11 @@ class JobInfo:
             if actual.get(role, 0) < min_avail:
                 return False
         return True
+
+    def get_min_resources(self) -> Resource:
+        if self.podgroup and self.podgroup.min_resources is not None:
+            return self.podgroup.min_resources.clone()
+        return Resource()
 
     def fit_error(self) -> str:
         """Aggregate pending-reason string (job_info.go:489-507)."""

@@ -15,10 +15,23 @@ from .resource import Resource
 from .types import TaskStatus
 
 
+def ports_conflict(want, existing) -> bool:
+    """k8s nodeports conflict rule over canonical (host_ip, protocol, port)
+    tuples: conflict iff protocol and port match and the hostIPs are equal or
+    either side binds the 0.0.0.0 wildcard."""
+    for ip, proto, port in want:
+        for eip, eproto, eport in existing:
+            if (port == eport and proto == eproto
+                    and (ip == eip or ip == "0.0.0.0" or eip == "0.0.0.0")):
+                return True
+    return False
+
+
 class NodeInfo:
     def __init__(self, name: str = "", allocatable: Optional[Resource] = None,
                  labels: Optional[Dict[str, str]] = None,
-                 taints: Optional[List[dict]] = None):
+                 taints: Optional[List[dict]] = None,
+                 unschedulable: bool = False):
         self.name = name
         self.allocatable = allocatable.clone() if allocatable else Resource()
         self.idle = self.allocatable.clone()
@@ -27,7 +40,11 @@ class NodeInfo:
         self.pipelined = Resource()
         self.labels = dict(labels or {})
         self.taints = list(taints or [])
+        self.unschedulable = unschedulable
         self.tasks: Dict[str, TaskInfo] = {}
+        # (host_ip, protocol, port) -> claim count for tasks on this node
+        # (k8s nodeports bookkeeping; predicates.go:321 Filter input)
+        self.used_ports: Dict[tuple, int] = {}
         # ready mirrors NodePhase; the snapshot skips nodes flagged not-ready
         # (cache.go:822-827)
         self.ready = True
@@ -35,6 +52,10 @@ class NodeInfo:
     @property
     def max_task_num(self) -> int:
         return self.allocatable.max_task_num or 0
+
+    def future_idle(self) -> Resource:
+        """Idle + Releasing - Pipelined (node_info.go FutureIdle)."""
+        return self.idle.clone().add(self.releasing).sub(self.pipelined)
 
     def _allocate_idle(self, task: TaskInfo) -> None:
         if not task.resreq.less_equal(self.idle):
@@ -69,6 +90,8 @@ class NodeInfo:
         task.node_name = self.name
         ti.node_name = self.name
         self.tasks[ti.uid] = ti
+        for port in ti.host_ports:
+            self.used_ports[port] = self.used_ports.get(port, 0) + 1
 
     def remove_task(self, task: TaskInfo) -> None:
         own = self.tasks.get(task.uid)
@@ -85,6 +108,12 @@ class NodeInfo:
             self.used.sub(own.resreq)
         task.node_name = ""
         del self.tasks[own.uid]
+        for port in own.host_ports:
+            left = self.used_ports.get(port, 0) - 1
+            if left > 0:
+                self.used_ports[port] = left
+            else:
+                self.used_ports.pop(port, None)
 
     def update_task(self, task: TaskInfo) -> None:
         self.remove_task(task)
@@ -103,6 +132,8 @@ class NodeInfo:
         n.pipelined = self.pipelined.clone()
         n.labels = self.labels
         n.taints = self.taints
+        n.unschedulable = self.unschedulable
+        n.used_ports = dict(self.used_ports)
         n.ready = self.ready
         n.tasks = {}
         for uid, task in self.tasks.items():
@@ -110,6 +141,14 @@ class NodeInfo:
             ti.node_name = self.name
             n.tasks[uid] = ti
         return n
+
+    def has_port_conflict(self, task: TaskInfo) -> bool:
+        """True when any of the task's hostPorts collides with a port already
+        claimed on this node (k8s nodeports Filter semantics). Pipelined
+        tasks' ports count too — they claim the node's future."""
+        if not task.host_ports or not self.used_ports:
+            return False
+        return ports_conflict(task.host_ports, self.used_ports)
 
     def __repr__(self) -> str:
         return f"Node({self.name} idle=<{self.idle}> used=<{self.used}>)"

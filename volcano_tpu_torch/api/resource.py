@@ -76,6 +76,17 @@ class Resource:
             return self.memory
         return self.scalars.get(name, 0.0)
 
+    def set(self, name: str, value: float) -> None:
+        if name == CPU:
+            self.cpu = value
+        elif name == MEMORY:
+            self.memory = value
+        else:
+            self.scalars[name] = value
+
+    def resource_names(self) -> List[str]:
+        return [CPU, MEMORY] + list(self.scalars)
+
     def is_empty(self) -> bool:
         """True iff every dimension is below epsilon (resource_info.go:142-155)."""
         if not (self.cpu < MIN_RESOURCE and self.memory < MIN_RESOURCE):
@@ -104,6 +115,13 @@ class Resource:
                 self.scalars[n] -= q
         return self
 
+    def multi(self, ratio: float) -> "Resource":
+        self.cpu *= ratio
+        self.memory *= ratio
+        for n in self.scalars:
+            self.scalars[n] *= ratio
+        return self
+
     # -- comparisons --------------------------------------------------------
 
     def _paired_dims(self, rr: "Resource", default: str) -> Iterable[Tuple[float, float]]:
@@ -125,6 +143,17 @@ class Resource:
                 return False
         return True
 
+    def less(self, rr: "Resource", default: str = ZERO) -> bool:
+        """LessInAllDimension — strict, no epsilon (resource_info.go:278-308)."""
+        if not (self.cpu < rr.cpu and self.memory < rr.memory):
+            return False
+        for lv, rv in self._paired_dims(rr, default):
+            if rv == _INF:
+                continue
+            if lv == _INF or not lv < rv:
+                return False
+        return True
+
     def __repr__(self) -> str:
         s = f"cpu {self.cpu:0.2f}, memory {self.memory:0.2f}"
         for n, q in sorted(self.scalars.items()):
@@ -138,6 +167,27 @@ class Resource:
         for i, n in enumerate(names.names):
             v[i] = self.get(n)
         return v
+
+    def to_vector_inf_fill(self, names: "ResourceNames") -> np.ndarray:
+        """Like to_vector but missing scalar dims become +inf — used for queue
+        capabilities, where an unspecified dimension means unlimited."""
+        v = np.full(len(names), np.inf, dtype=np.float32)
+        v[0] = self.cpu
+        v[1] = self.memory
+        for i, n in enumerate(names.names):
+            if n in self.scalars:
+                v[i] = self.scalars[n]
+        return v
+
+    @classmethod
+    def from_vector(cls, v: np.ndarray, names: "ResourceNames") -> "Resource":
+        r = cls()
+        for i, n in enumerate(names.names):
+            if float(v[i]) != 0.0:
+                r.set(n, float(v[i]))
+        r.cpu = float(v[0])
+        r.memory = float(v[1])
+        return r
 
 
 class ResourceNames:

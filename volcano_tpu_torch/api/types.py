@@ -42,3 +42,20 @@ class PodGroupPhase(str, enum.Enum):
 class PodGroupConditionType(str, enum.Enum):
     SCHEDULED = "Scheduled"
     UNSCHEDULABLE = "Unschedulable"
+
+
+class QueueState(str, enum.Enum):
+    """scheduling/v1beta1 QueueState."""
+
+    OPEN = "Open"
+    CLOSED = "Closed"
+    CLOSING = "Closing"
+    UNKNOWN = "Unknown"
+
+
+# predicate failure reasons (types.go:108-167)
+NODE_POD_NUMBER_EXCEEDED = "node(s) pod number exceeded"
+NODE_UNSCHEDULABLE = "node(s) were unschedulable"
+TAINTS_UNTOLERATED = "node(s) had taints that the pod didn't tolerate"
+NODE_AFFINITY_FAILED = "node(s) didn't match node affinity"
+NODE_PORTS_FAILED = "node(s) didn't have free ports for the requested pod ports"

@@ -145,5 +145,20 @@ class SchedulerCache:
                         self._unbind(t)
                 raise
 
+    # -- evictions ----------------------------------------------------------
+
+    def evict(self, task: TaskInfo, reason: str) -> None:
+        """Execute an eviction through the Evictor, then mark the cached
+        task RELEASING on its job and node (cache.go:549-599). An Evictor
+        failure leaves the cache as it was and raises."""
+        self.evictor.evict(task, reason)
+        with self._lock:
+            job = self.jobs.get(task.job)
+            if job is not None and task.uid in job.tasks:
+                cached = job.tasks[task.uid]
+                job.update_task_status(cached, TaskStatus.RELEASING)
+                if cached.node_name in self.nodes:
+                    self.nodes[cached.node_name].update_task(cached)
+
     def update_job_status(self, job: JobInfo) -> None:
         self.status_updater.update_pod_group(job)

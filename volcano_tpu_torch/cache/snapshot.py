@@ -17,7 +17,7 @@ Rows are built in NumPy and copied to the device once.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +35,7 @@ class NodeTensors:
                  device: torch.device):
         self.rnames = rnames
         self.names: List[str] = [n.name for n in nodes]
+        self.index: Dict[str, int] = {n: i for i, n in enumerate(self.names)}
         N, R = len(nodes), len(rnames)
         host = {f: np.zeros((N, R), np.float32) for f in
                 ("idle", "used", "releasing", "pipelined", "allocatable")}

@@ -2,16 +2,17 @@
 
 The same generator, seed for seed, as the JAX package's: one seed gives the
 same world in both packages, for the configs this package runs (tiny, 1k,
-10k); the others arrive with the actions and resources they exercise.
+10k, preempt, preempt-small), the running+pending preempt mix and the
+pipeline world; the others arrive with the resources they exercise.
 """
 
 from __future__ import annotations
 
 import random
-from typing import List
+from typing import List, Optional
 
 from ..api import (JobInfo, NodeInfo, PodGroup, PodGroupPhase, QueueInfo,
-                   Resource, TaskInfo)
+                   Resource, TaskInfo, TaskStatus)
 from .cache import SchedulerCache
 from .executors import FakeBinder, FakeEvictor
 
@@ -30,21 +31,25 @@ def make_cluster(num_nodes: int, cpu_milli: int = 32000,
 
 def make_jobs(num_tasks: int, num_jobs: int, queues: List[str],
               cpu_range=(500, 4000), mem_range=(1 * GI, 8 * GI),
+              running_fraction: float = 0.0,
+              nodes: Optional[List[NodeInfo]] = None,
               seed: int = 0) -> List[JobInfo]:
     """num_tasks split over num_jobs; each job is a whole gang (minAvailable
-    = its task count), Inqueue, whose tasks share one request."""
+    = its task count) whose tasks share one request. running_fraction of
+    the jobs are pre-placed RUNNING onto ``nodes``, round-robin wherever a
+    task fits (the preempt and reclaim worlds); the others are Inqueue."""
     rng = random.Random(seed)
     sizes = _split(num_tasks, num_jobs, rng)
     jobs: List[JobInfo] = []
+    node_cycle = 0
     for j, size in enumerate(sizes):
         queue = queues[j % len(queues)]
-        # the JAX generator draws here whether the job starts running; the
-        # draw is kept so one seed gives the same world in both packages
-        rng.random()
+        running = rng.random() < running_fraction
         min_avail = size
         name = f"job-{j:05d}"
         pg = PodGroup(name=name, queue=queue, min_member=min_avail,
-                      phase=PodGroupPhase.INQUEUE)
+                      phase=PodGroupPhase.RUNNING if running
+                      else PodGroupPhase.INQUEUE)
         job = JobInfo(uid=name, name=name, queue=queue,
                       min_available=min_avail, podgroup=pg,
                       priority=rng.randint(0, 10),
@@ -52,9 +57,22 @@ def make_jobs(num_tasks: int, num_jobs: int, queues: List[str],
         cpu = rng.randrange(*cpu_range, 100)
         mem = rng.randrange(mem_range[0], mem_range[1], GI // 4)
         for t in range(size):
-            job.add_task_info(TaskInfo(uid=f"{name}-{t}", name=f"{name}-{t}", job=name,
-                                       resreq=Resource(cpu, mem),
-                                       creation_timestamp=float(j * 100000 + t)))
+            task = TaskInfo(uid=f"{name}-{t}", name=f"{name}-{t}", job=name,
+                            resreq=Resource(cpu, mem),
+                            creation_timestamp=float(j * 100000 + t))
+            if running and nodes:
+                for _ in range(len(nodes)):
+                    node = nodes[node_cycle % len(nodes)]
+                    node_cycle += 1
+                    if task.resreq.less_equal(node.idle):
+                        task.status = TaskStatus.RUNNING
+                        job.add_task_info(task)
+                        node.add_task(job.tasks[task.uid])
+                        break
+                else:
+                    job.add_task_info(task)
+            else:
+                job.add_task_info(task)
         jobs.append(job)
     return jobs
 
@@ -75,6 +93,8 @@ def baseline_config(name: str, seed: int = 0):
     - "tiny":  example/job.yaml analogue — 1 gang of 3, 10 nodes
     - "1k":    1k pending pods / 200 nodes
     - "10k":   10k pods in 200 gangs / 2k nodes, 3 queues
+    - "preempt": 5k running + 5k pending / 1k nodes, 2 queues
+    - "preempt-small": the preempt mix at a tenth
     """
     binder, evictor = FakeBinder(), FakeEvictor()
     cache = SchedulerCache(binder=binder, evictor=evictor)
@@ -93,13 +113,56 @@ def baseline_config(name: str, seed: int = 0):
         queues = [QueueInfo(name="q1", weight=3),
                   QueueInfo(name="q2", weight=2),
                   QueueInfo(name="q3", weight=1)]
+    elif name == "preempt":
+        nodes = make_cluster(1000)
+        jobs = make_jobs(10000, 200, ["q1", "q2"], running_fraction=0.5,
+                         nodes=nodes, seed=seed)
+        queues = [QueueInfo(name="q1", weight=1),
+                  QueueInfo(name="q2", weight=1)]
+    elif name == "preempt-small":
+        nodes = make_cluster(100)
+        jobs = make_jobs(1000, 20, ["q1", "q2"], running_fraction=0.5,
+                         nodes=nodes, seed=seed)
+        queues = [QueueInfo(name="q1", weight=1),
+                  QueueInfo(name="q2", weight=1)]
     else:
         raise ValueError(f"unknown baseline config {name!r}")
+    return _wire(cache, queues, nodes, jobs), binder, evictor
 
+
+def _wire(cache, queues, nodes, jobs):
     for q in queues:
         cache.add_queue(q)
     for n in nodes:
         cache.add_node(n)
     for j in jobs:
         cache.add_job(j)
-    return cache, binder, evictor
+    return cache
+
+
+def preempt_mix_cache(n_nodes: int = 200, n_tasks: int = 1000,
+                      n_jobs: int = 40, seed: int = 0):
+    """The JAX package's standard running+pending preempt mix, as (cache,
+    binder, evictor)."""
+    binder, evictor = FakeBinder(), FakeEvictor()
+    cache = SchedulerCache(binder=binder, evictor=evictor)
+    nodes = make_cluster(n_nodes)
+    jobs = make_jobs(n_tasks, n_jobs, ["q1", "q2"], running_fraction=0.5,
+                     nodes=nodes, seed=seed)
+    queues = [QueueInfo(name="q1", weight=1), QueueInfo(name="q2", weight=1)]
+    return _wire(cache, queues, nodes, jobs), binder, evictor
+
+
+def pipeline_world(seed: int = 0, num_nodes: int = 2000,
+                   num_tasks: int = 10000, num_jobs: int = 200):
+    """bench.py's pipeline world: 10k pods / 2k nodes in 3 queues with half
+    the gangs pre-placed RUNNING, so every action of the deployed cycle has
+    work. As (cache, binder, evictor); the sizes shrink it for tests."""
+    binder, evictor = FakeBinder(), FakeEvictor()
+    cache = SchedulerCache(binder=binder, evictor=evictor)
+    nodes = make_cluster(num_nodes)
+    jobs = make_jobs(num_tasks, num_jobs, ["q1", "q2", "q3"],
+                     running_fraction=0.5, nodes=nodes, seed=seed)
+    queues = [QueueInfo(name="q1", weight=3), QueueInfo(name="q2", weight=2),
+              QueueInfo(name="q3", weight=1)]
+    return _wire(cache, queues, nodes, jobs), binder, evictor

@@ -1,8 +1,11 @@
 """OpenSession/CloseSession (mirrors
-pkg/scheduler/framework/framework.go:30-60)."""
+pkg/scheduler/framework/framework.go:30-60), with automatic garbage
+collection suspended for the lifetime of each session."""
 
 from __future__ import annotations
 
+import gc
+import threading
 from typing import List, Optional, Union
 
 import torch
@@ -26,22 +29,91 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     return torch.device("cuda")
 
 
+# Whether automatic GC is on in this process OUTSIDE session windows.
+# Learned (not snapshotted per session) so an open_session that was never
+# paired with close_session cannot latch the "disabled" state into every
+# later session's restore decision.
+_GC_ON_OUTSIDE: bool = gc.isenabled()
+
+# Suspension DEPTH, not a boolean latch: overlapping sessions each open one
+# _GCWindow and close it at most once, and collection re-enables only when
+# the last open window closes. A session must end in close_session or, when
+# its cycle failed, abandon_session: a finalizer on the session object (the
+# JAX package's guard) never runs while collection is off, because plugin
+# callbacks hold the session in a reference cycle.
+_GC_LOCK = threading.Lock()
+_GC_OPEN_WINDOWS: List["_GCWindow"] = []
+
+
+class _GCWindow:
+    __slots__ = ("closed",)
+
+    def __init__(self):
+        self.closed = False
+
+
+def _gc_suspend() -> "_GCWindow":
+    global _GC_ON_OUTSIDE
+    window = _GCWindow()
+    with _GC_LOCK:
+        if not _GC_OPEN_WINDOWS and gc.isenabled():
+            _GC_ON_OUTSIDE = True
+        _GC_OPEN_WINDOWS.append(window)
+        gc.disable()
+    return window
+
+
+def _gc_resume(window: "_GCWindow") -> None:
+    """Close one suspension window; a no-op if it already closed. The last
+    window to close re-enables collection and runs one young-generation
+    pass over the cycle's garbage."""
+    with _GC_LOCK:
+        if window.closed:
+            return
+        window.closed = True
+        _GC_OPEN_WINDOWS.remove(window)
+        if _GC_OPEN_WINDOWS or not _GC_ON_OUTSIDE:
+            return
+        gc.enable()
+    gc.collect(1)
+
+
 def open_session(cache, tiers: List[Tier],
                  configurations: List[Configuration] = (),
                  time_fn=None,
                  device: Optional[Union[str, torch.device]] = None) -> Session:
-    ssn = Session(cache, tiers, list(configurations), resolve_device(device),
-                  time_fn=time_fn)
-    for tier in tiers:
-        for opt in tier.plugins:
-            plugin = get_plugin_builder(opt.name)(opt.arguments)
-            ssn.plugins[plugin.name()] = plugin
-            plugin.on_session_open(ssn)
+    # Automatic (threshold-triggered) collection is suspended from before
+    # the snapshot to close_session: a 10k-pod cycle allocates enough
+    # tracked objects (task clones, Resources, statement entries) to trip
+    # full-heap collections inside the cycle. close_session resumes it and
+    # runs one bounded young-generation pass.
+    window = _gc_suspend()
+    try:
+        ssn = Session(cache, tiers, list(configurations),
+                      resolve_device(device), time_fn=time_fn)
+        for tier in tiers:
+            for opt in tier.plugins:
+                plugin = get_plugin_builder(opt.name)(opt.arguments)
+                ssn.plugins[plugin.name()] = plugin
+                plugin.on_session_open(ssn)
+    except BaseException:
+        _gc_resume(window)
+        raise
+    ssn._gc_window = window
     return ssn
 
 
+def abandon_session(ssn: Session) -> None:
+    """End a session whose cycle failed: release its garbage-collection
+    window without the plugins' close or any status writeback."""
+    _gc_resume(ssn._gc_window)
+
+
 def close_session(ssn: Session) -> None:
-    for plugin in ssn.plugins.values():
-        plugin.on_session_close(ssn)
-    # writeback of job/podgroup status (job_updater.go:95-108)
-    update_all(ssn)
+    try:
+        for plugin in ssn.plugins.values():
+            plugin.on_session_close(ssn)
+        # writeback of job/podgroup status (job_updater.go:95-108)
+        update_all(ssn)
+    finally:
+        _gc_resume(ssn._gc_window)

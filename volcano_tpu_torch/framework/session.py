@@ -1,8 +1,9 @@
 """The Session: one snapshot-scoped scheduling transaction.
 
 Mirrors pkg/scheduler/framework/session.go:38-437 and the
-tiered dispatch semantics of session_plugins.go:130-725 (first-nonzero for
-order fns, vote semantics for pipelined/enqueueable).
+tiered dispatch semantics of session_plugins.go:130-725 (intersection+veto
+for victim selection, first-nonzero for order fns, vote semantics for
+pipelined/enqueueable, sum for node order).
 
 Besides the reference's per-object callbacks, plugins register *tensor
 contributions* — static feasibility masks ``bool[T,N]``, static score
@@ -72,6 +73,7 @@ class Session:
         self.jobs: Dict[str, JobInfo] = snapshot.jobs
         self.nodes: Dict[str, NodeInfo] = snapshot.nodes
         self.queues: Dict[str, QueueInfo] = snapshot.queues
+        self.namespaces = snapshot.namespaces
 
         self.plugins: Dict[str, object] = {}
         self.event_handlers: List[EventHandler] = []
@@ -82,6 +84,12 @@ class Session:
         self.task_order_fns: Dict[str, Callable] = {}
         self.namespace_order_fns: Dict[str, Callable] = {}
         self.predicate_fns: Dict[str, Callable] = {}
+        self.node_order_fns: Dict[str, Callable] = {}
+        self.batch_node_order_fns: Dict[str, Callable] = {}
+        self.preemptable_fns: Dict[str, Callable] = {}
+        self.reclaimable_fns: Dict[str, Callable] = {}
+        self.victim_tasks_fns: Dict[str, Callable] = {}
+        self.job_starving_fns: Dict[str, Callable] = {}
         self.overused_fns: Dict[str, Callable] = {}
         self.job_ready_fns: Dict[str, Callable] = {}
         self.job_pipelined_fns: Dict[str, Callable] = {}
@@ -94,6 +102,13 @@ class Session:
         self.feasibility_fns: Dict[str, Callable] = {}
         self.static_score_fns: Dict[str, Callable] = {}
         self.dynamic_score_weights: Dict[str, dict] = {}
+        # plugins whose predicate depends on state mutated during the cycle
+        # (host ports): the batched engines re-validate device proposals
+        # through predicate_fn at replay time
+        self.stateful_predicates: set = set()
+        # proportion publishes its per-queue deserved vectors here for the
+        # reclaim screener's over-deserved gate
+        self.queue_deserved: Dict[str, "Resource"] = {}
 
     def now(self) -> float:
         return self._time_fn()
@@ -105,6 +120,12 @@ class Session:
     def add_task_order_fn(self, name, fn): self.task_order_fns[name] = fn
     def add_namespace_order_fn(self, name, fn): self.namespace_order_fns[name] = fn
     def add_predicate_fn(self, name, fn): self.predicate_fns[name] = fn
+    def add_node_order_fn(self, name, fn): self.node_order_fns[name] = fn
+    def add_batch_node_order_fn(self, name, fn): self.batch_node_order_fns[name] = fn
+    def add_preemptable_fn(self, name, fn): self.preemptable_fns[name] = fn
+    def add_reclaimable_fn(self, name, fn): self.reclaimable_fns[name] = fn
+    def add_victim_tasks_fn(self, name, fn): self.victim_tasks_fns[name] = fn
+    def add_job_starving_fn(self, name, fn): self.job_starving_fns[name] = fn
     def add_overused_fn(self, name, fn): self.overused_fns[name] = fn
     def add_job_ready_fn(self, name, fn): self.job_ready_fns[name] = fn
     def add_job_pipelined_fn(self, name, fn): self.job_pipelined_fns[name] = fn
@@ -166,6 +187,74 @@ class Session:
         for fn in self._enabled_fns(self.predicate_fns, "enabledPredicate"):
             fn(task, node)
 
+    def node_order_fn(self, task: TaskInfo, node: NodeInfo) -> float:
+        score = 0.0
+        for fn in self._enabled_fns(self.node_order_fns, "enabledNodeOrder"):
+            score += fn(task, node)
+        return score
+
+    def batch_node_order_fn(self, task: TaskInfo,
+                            nodes: List[NodeInfo]) -> Dict[str, float]:
+        scores: Dict[str, float] = {n.name: 0.0 for n in nodes}
+        for fn in self._enabled_fns(self.batch_node_order_fns,
+                                    "enabledNodeOrder"):
+            for name, s in fn(task, nodes).items():
+                scores[name] = scores.get(name, 0.0) + s
+        return scores
+
+    # -- victim selection: per-tier intersection with veto ------------------
+
+    def _tiered_victims(self, registry, flag, invoke) -> List[TaskInfo]:
+        """session_plugins.go:187-236: within a tier, every participating
+        plugin's candidates intersect; an empty set from any of them vetoes
+        the tier, and the next tier rules."""
+        for tier in self.tiers:
+            victims: Optional[List[TaskInfo]] = None
+            init = False
+            for opt in tier.plugins:
+                if flag is not None and not opt.is_enabled(flag):
+                    continue
+                fn = registry.get(opt.name)
+                if fn is None:
+                    continue
+                result = invoke(fn)
+                if result is None:      # abstain
+                    continue
+                candidates = result
+                if not candidates:      # veto: this tier yields nothing
+                    victims = None
+                    break
+                if not init:
+                    victims = list(candidates)
+                    init = True
+                else:
+                    cand_ids = {c.uid for c in candidates}
+                    victims = [v for v in victims if v.uid in cand_ids]
+            if victims is not None:
+                return victims
+        return []
+
+    def preemptable(self, preemptor: TaskInfo,
+                    preemptees: List[TaskInfo]) -> List[TaskInfo]:
+        """Plugin fns return (candidates, vote); ABSTAIN abstains."""
+        def invoke(fn):
+            candidates, vote = fn(preemptor, preemptees)
+            return None if vote == ABSTAIN else candidates
+        return self._tiered_victims(self.preemptable_fns, "enabledPreemptable",
+                                    invoke)
+
+    def reclaimable(self, reclaimer: TaskInfo,
+                    reclaimees: List[TaskInfo]) -> List[TaskInfo]:
+        def invoke(fn):
+            candidates, vote = fn(reclaimer, reclaimees)
+            return None if vote == ABSTAIN else candidates
+        return self._tiered_victims(self.reclaimable_fns, "enabledReclaimable",
+                                    invoke)
+
+    def victim_tasks(self) -> List[TaskInfo]:
+        return self._tiered_victims(self.victim_tasks_fns, "enabledVictim",
+                                    lambda fn: fn())
+
     # -- job votes ----------------------------------------------------------
 
     def overused(self, queue: QueueInfo) -> bool:
@@ -221,6 +310,22 @@ class Session:
         for fn in self._enabled_fns(self.job_enqueued_fns, "enabledJobEnqueued"):
             fn(job)
 
+    def job_starving(self, job: JobInfo) -> bool:
+        found = False
+        for tier in self.tiers:
+            for opt in tier.plugins:
+                if not opt.is_enabled("enabledJobStarving"):
+                    continue
+                fn = self.job_starving_fns.get(opt.name)
+                if fn is None:
+                    continue
+                found = True
+                if not fn(job):
+                    return False
+            if found:
+                return True
+        return False
+
     def job_valid(self, job: JobInfo) -> Optional[ValidateResult]:
         for fn in self._enabled_fns(self.job_valid_fns, None):
             vr = fn(job)
@@ -240,6 +345,13 @@ class Session:
             if eh.deallocate_func:
                 eh.deallocate_func(Event(task))
 
+    def pipeline(self, task: TaskInfo, hostname: str) -> None:
+        job = self.jobs[task.job]
+        job.update_task_status(task, TaskStatus.PIPELINED)
+        task.node_name = hostname
+        self.nodes[hostname].add_task(task)
+        self._fire_allocate(task)
+
     def allocate(self, task: TaskInfo, node: NodeInfo) -> None:
         """Direct allocation (used by backfill): statusify, occupy node,
         fire events, and dispatch the bind immediately if the gang is ready
@@ -255,6 +367,16 @@ class Session:
     def dispatch(self, task: TaskInfo) -> None:
         self.jobs[task.job].update_task_status(task, TaskStatus.BINDING)
         self.cache.bind(task)
+
+    def evict(self, reclaimee: TaskInfo, reason: str) -> None:
+        """Direct eviction (used by reclaim): session state + cache side
+        effect (session.go:360-397)."""
+        job = self.jobs[reclaimee.job]
+        job.update_task_status(reclaimee, TaskStatus.RELEASING)
+        node = self.nodes[reclaimee.node_name]
+        node.update_task(job.tasks[reclaimee.uid])
+        self._fire_deallocate(reclaimee)
+        self.cache.evict(reclaimee, reason)
 
     def update_pod_group_condition(self, job: JobInfo, condition: dict) -> None:
         """Replace the same-type condition (one entry per type, like

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("place",)
+KERNELS = ("place", "evict")
 # sm_90a: Hopper with its architecture-specific features. -fmad=false keeps
 # every multiply and add separately rounded, as PyTorch's elementwise ops
 # are, so a kernel and its plain version agree bit for bit. -Xptxas=-v

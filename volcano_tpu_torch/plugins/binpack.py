@@ -3,7 +3,7 @@
 Mirrors pkg/scheduler/plugins/binpack/binpack.go:60-260.
 Contributes its per-resource weights to the in-kernel dynamic scorer
 (ops/scores.binpack_score), which the placement kernel re-evaluates as node
-usage mutates.
+usage mutates, and the host scorer ``score`` that preempt reads.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from typing import Dict
 
 from ..api import CPU, MEMORY
 from .base import Plugin
+
+MAX_NODE_SCORE = 100.0
 
 
 class BinpackPlugin(Plugin):
@@ -37,8 +39,29 @@ class BinpackPlugin(Plugin):
                 w = args.get_int(f"binpack.resources.{rname}", 1)
                 self.res_weights[rname] = w if w >= 0 else 1
 
+    def score(self, task, node) -> float:
+        """BinPackingScore (binpack.go:196-244): the host scorer of preempt's
+        callbacks rung and of its f64 rank replica."""
+        score, weight_sum = 0.0, 0
+        for rname in task.resreq.resource_names():
+            request = task.resreq.get(rname)
+            if request == 0:
+                continue
+            w = self.res_weights.get(rname)
+            if w is None:
+                continue
+            allocatable = node.allocatable.get(rname)
+            used = node.used.get(rname)
+            if allocatable != 0 and w != 0 and used + request <= allocatable:
+                score += (used + request) * w / allocatable
+            weight_sum += w
+        if weight_sum > 0:
+            score /= weight_sum
+        return score * MAX_NODE_SCORE * self.weight
+
     def on_session_open(self, ssn) -> None:
         if self.weight != 0:
+            ssn.add_node_order_fn(self.NAME, self.score)
             ssn.set_dynamic_score_weights(
                 self.NAME, binpack_weight=float(self.weight),
                 binpack_res={k: float(v) for k, v in self.res_weights.items()})

@@ -37,6 +37,16 @@ class GangPlugin(Plugin):
 
         ssn.add_job_valid_fn(self.NAME, job_valid)
 
+        def preemptable(preemptor, preemptees):
+            """Victims only from lower-priority jobs (gang.go:83-101)."""
+            p_job = ssn.jobs[preemptor.job]
+            victims = [t for t in preemptees
+                       if p_job.priority > ssn.jobs[t.job].priority]
+            return victims, PERMIT
+
+        ssn.add_preemptable_fn(self.NAME, preemptable)
+        ssn.add_reclaimable_fn(self.NAME, preemptable)
+
         def job_order(l, r) -> int:
             """Ready jobs sort last (gang.go:108-131)."""
             l_ready, r_ready = l.ready(), r.ready()
@@ -52,6 +62,12 @@ class GangPlugin(Plugin):
             return PERMIT if occupied >= job.min_available else REJECT
 
         ssn.add_job_pipelined_fn(self.NAME, pipelined)
+
+        def starving(job) -> bool:
+            occupied = job.waiting_task_num() + job.ready_task_num()
+            return occupied < job.min_available
+
+        ssn.add_job_starving_fn(self.NAME, starving)
 
     def on_session_close(self, ssn) -> None:
         """Write PodGroup (Un)schedulable conditions (gang.go:158-216)."""

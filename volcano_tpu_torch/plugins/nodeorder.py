@@ -4,7 +4,8 @@ Mirrors pkg/scheduler/plugins/nodeorder/nodeorder.go:71-412 —
 LeastAllocated/MostAllocated/BalancedAllocation as weights of the in-kernel
 dynamic scorers, and the preference terms that are static per session
 (preferred node affinity, PreferNoSchedule taint toleration) as a static
-score matrix for the device solve. The pod-affinity score term is not in
+score matrix for the device solve; and the same terms as host scorers
+(``_score``, ``_batch_score``) for preempt. The pod-affinity score term is not in
 this package yet: a session where any task carries pod affinity is refused.
 """
 
@@ -102,6 +103,41 @@ class NodeOrderPlugin(Plugin):
         self.balanced_weight = args.get_int("balancedresource.weight", 1)
         self.taint_toleration_weight = args.get_int("tainttoleration.weight", 1)
 
+    # host-path per-(task, node) scorers: preempt's callbacks rung and its
+    # f64 rank replica (actions/evict_tpu.py) read these
+    def _score(self, task, node) -> float:
+        score = 0.0
+        alloc_c, alloc_m = node.allocatable.cpu, node.allocatable.memory
+        used_c = node.used.cpu + task.resreq.cpu
+        used_m = node.used.memory + task.resreq.memory
+        if self.least_req_weight:
+            frac_c = max(0.0, (alloc_c - used_c) / alloc_c) if alloc_c else 0.0
+            frac_m = max(0.0, (alloc_m - used_m) / alloc_m) if alloc_m else 0.0
+            score += self.least_req_weight * (frac_c + frac_m) / 2 * MAX_NODE_SCORE
+        if self.most_req_weight:
+            frac_c = used_c / alloc_c if alloc_c else 0.0
+            frac_m = used_m / alloc_m if alloc_m else 0.0
+            frac_c = 0.0 if frac_c > 1 else frac_c
+            frac_m = 0.0 if frac_m > 1 else frac_m
+            score += self.most_req_weight * (frac_c + frac_m) / 2 * MAX_NODE_SCORE
+        if self.balanced_weight:
+            frac_c = min(1.0, used_c / alloc_c) if alloc_c else 0.0
+            frac_m = min(1.0, used_m / alloc_m) if alloc_m else 0.0
+            mean = (frac_c + frac_m) / 2
+            std = (((frac_c - mean) ** 2 + (frac_m - mean) ** 2) / 2) ** 0.5
+            score += self.balanced_weight * (1.0 - std) * MAX_NODE_SCORE
+        if self.node_affinity_weight:
+            score += self.node_affinity_weight * node_affinity_preferred_score(task, node)
+        return score
+
+    def _batch_score(self, task, nodes):
+        out = {}
+        if self.taint_toleration_weight:
+            for n in nodes:
+                out[n.name] = self.taint_toleration_weight * \
+                    taint_toleration_score(task.tolerations, n)
+        return out
+
     def _static_matrix(self, ssn, tasks, node_t):
         """The device path's static score matrix (preference terms only),
         or None when it would add the same constant to every node of a
@@ -147,6 +183,8 @@ class NodeOrderPlugin(Plugin):
             raise NotImplementedError(
                 "nodeorder: the pod-affinity score term is not in "
                 "volcano_tpu_torch yet, and a task carries pod affinity")
+        ssn.add_node_order_fn(self.NAME, self._score)
+        ssn.add_batch_node_order_fn(self.NAME, self._batch_score)
         ssn.set_dynamic_score_weights(
             self.NAME,
             least_req_weight=float(self.least_req_weight),

@@ -14,8 +14,9 @@ import torch
 
 from . import actions as _actions  # noqa: F401  (registers the actions)
 from . import plugins as _plugins  # noqa: F401  (registers the plugins)
-from .framework import (close_session, get_action, get_plugin_builder,
-                        open_session, parse_scheduler_conf, resolve_device)
+from .framework import (abandon_session, close_session, get_action,
+                        get_plugin_builder, open_session,
+                        parse_scheduler_conf, resolve_device)
 
 
 class Scheduler:
@@ -43,11 +44,15 @@ class Scheduler:
                            self.conf.configurations, device=self.device)
         t = time.perf_counter()
         times["open_session"] = t - t0
-        for action in self.actions:
-            action.execute(ssn)
-            now = time.perf_counter()
-            times[action.name()] = now - t
-            t = now
+        try:
+            for action in self.actions:
+                action.execute(ssn)
+                now = time.perf_counter()
+                times[action.name()] = now - t
+                t = now
+        except BaseException:
+            abandon_session(ssn)
+            raise
         close_session(ssn)
         now = time.perf_counter()
         times["close_session"] = now - t
