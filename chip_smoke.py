@@ -30,11 +30,15 @@
    pre-pass must have launched too (and without taints, not at all).
    torch.profiler then traces one more cycle of each.
 4. Holds the preempt victim walk (csrc/evict.cu) against its plain version
-   on the card, to the bit (task nodes, slot owners, quota verdicts), on
-   seeded worlds (gang rollback, the intra-job phase, drf tiers, two
-   dynamic tiers, 64 slots, nothing fits) and on the walk inputs of
+   on the card, to the bit (task nodes, slot owners, quota verdicts,
+   evaluated tasks), on seeded worlds (gang rollback, the intra-job phase,
+   drf tiers, two dynamic tiers, 64 slots, nothing fits, and five worlds
+   built to break a wrong verdict cache), on two worlds too large for the
+   plain walk on the CPU (2,500 nodes; W = 64 at 400 nodes, which must take
+   the device-memory plan) and on the walk inputs of
    ``baseline_config("preempt")``'s phase 1 and of its intra-job variant's
-   phase 2.
+   phase 2. Prints each walk's launch plan, the nodes the kernel
+   re-dispatched and its µs per evaluated task.
 5. Runs ``PreemptAction(engine="tpu")`` alone with deploy/scheduler.conf's
    tiers on ``baseline_config("preempt")`` (5,000 running and 5,000
    pending pods on 1,000 nodes) on the card, counts set to 0 just before:
@@ -46,8 +50,12 @@
    10,000 pods) on the card and on the CPU, counts set to 0 just before
    each card run: binds, evictions, pipelined tasks and PodGroup phases
    must be equal, the placement kernel must launch, and in the tight mix
-   the walk too. Prints each action's ms and the counts.
-7. Prints one JSON line with each kernel's launches, times, bound and
+   the walk too, whose own inputs are then held against the plain walk.
+   Prints each action's ms and the counts.
+7. Runs proportion's deserved water-filling at 64 queues in its torch form
+   on the card (ops/fairness.py::proportion_deserved, B8), against its
+   NumPy twin within 1e-5 relative, with its time and bound.
+8. Prints one JSON line with each kernel's launches, times, bound and
    error, then the card's name and power limit, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -420,11 +428,12 @@ def compare_rowdiff(label, ms):
 # the preempt victim walk against its plain version
 # ---------------------------------------------------------------------------
 
-def walk_worlds():
-    """The seeded walk worlds of tests/torch_parity.py (NumPy only)."""
+def walk_worlds(card=False):
+    """The seeded walk worlds of tests/torch_parity.py (NumPy only); with
+    ``card``, those too large for the plain walk on the CPU."""
     sys.path.insert(0, os.path.join(_ROOT, "tests"))
-    from torch_parity import WALK_WORLDS
-    return WALK_WORLDS
+    from torch_parity import CARD_WALK_WORLDS, WALK_WORLDS
+    return CARD_WALK_WORLDS if card else WALK_WORLDS
 
 
 def walk_bound(inputs, kinds, steps):
@@ -456,10 +465,14 @@ def walk_bound(inputs, kinds, steps):
 
 def compare_walk(label, world, device):
     """walk_cuda against walk_plain on the same CUDA tensors: task nodes,
-    slot owners, quota verdicts and evaluated tasks must be equal."""
+    slot owners, quota verdicts and evaluated tasks must be equal. The
+    record carries the launch plan (threads, which blocks sit in shared
+    memory), the nodes the kernel re-dispatched, its bulk operations and
+    its µs per evaluated task."""
     import torch
 
-    from volcano_tpu_torch.ops.evict import to_device, walk_cuda, walk_plain
+    from volcano_tpu_torch.ops.evict import (launch_plan, to_device,
+                                             walk_cuda, walk_plain)
     inputs, kinds, sizes, gang = world
     d = to_device(inputs, device)
     got = walk_cuda(d, kinds, sizes, gang)
@@ -477,13 +490,19 @@ def compare_walk(label, world, device):
     check(got.steps == want.steps,
           f"walk {label}: {got.steps} evaluated tasks, plain {want.steps}")
     N, W, R = d.nw.vreq.shape
+    plan = launch_plan(int(N), int(W), int(R), int(d.tier_masks.shape[0]),
+                       int(d.jalloc0.shape[0]))
     rec = {"world": label, "P": int(d.preq.shape[0]), "N": int(N),
            "W": int(W), "R": int(R), "tiers": list(kinds), "gang": gang,
            "steps": got.steps,
            "placed": int((got.task_node >= 0).sum()),
            "evicted": int((got.owner >= 0).sum()), "max_abs_err": 0.0,
+           "in_smem": plan.in_smem, "smem_blocks": plan.where(),
+           "threads": plan.threads, "redispatched": got.redispatched,
+           "bulks": got.bulks,
            "ms": time_cuda_ms(lambda: walk_cuda(d, kinds, sizes, gang)),
            "plain_ms": plain_ms}
+    rec["us_per_task"] = rec["ms"] * 1e3 / max(got.steps, 1)
     rec["bound_ms"], rec["bound_by"] = walk_bound(d, kinds, got.steps)
     print("kernel evict_walk", json.dumps(rec), flush=True)
     return rec
@@ -506,6 +525,69 @@ def record_walks(fn):
     finally:
         evict_tpu.walk = real
     return seen
+
+
+# ---------------------------------------------------------------------------
+# proportion's water-filling (B8) in its torch form
+# ---------------------------------------------------------------------------
+
+def compare_proportion(Q, seed, device):
+    """ops/fairness.py::proportion_deserved on the card against its NumPy
+    twin on the same seeded inputs (tests/torch_parity.py's): deserved
+    shares and queue shares within 1e-5 relative, the tolerance the CPU
+    tests hold the torch form to against the JAX loop (the two order the
+    64-term queue sums differently). Time: host
+    clock around the call, which reads its loop condition back once a
+    round (median of 5, warm). Bound: the inputs read once and the outputs
+    written once over HBM, against about 16 operations per (queue,
+    resource) element per round over the FP32 rate; the rounds are this
+    run's, counted by the queue-axis sums (two a round)."""
+    import torch
+
+    from volcano_tpu_torch.ops import fairness
+    sys.path.insert(0, os.path.join(_ROOT, "tests"))
+    from torch_parity import proportion_inputs
+    args = proportion_inputs(Q, seed)
+    want = fairness.proportion_deserved_numpy(*args)
+    calls = [0]
+    real = fairness._sum0
+
+    def counting(x):
+        calls[0] += 1
+        return real(x)
+
+    fairness._sum0 = counting
+    try:
+        got = fairness.proportion_deserved(*args, device=device)
+    finally:
+        fairness._sum0 = real
+    rounds = calls[0] // 2
+    err = 0.0
+    for g, w in ((got.deserved, want.deserved), (got.share, want.share)):
+        g = g.double().cpu().numpy()
+        w = np.asarray(w, np.float64)
+        both = np.isfinite(w)
+        check(np.array_equal(both, np.isfinite(g)),
+              "proportion: infinite entries differ")
+        rel = np.abs(g[both] - w[both]) / np.maximum(np.abs(w[both]), 1e-30)
+        err = max(err, float(rel.max()) if rel.size else 0.0)
+    check(err <= 1e-5, f"proportion: deserved {err} relative off the twin")
+    times = []
+    for _ in range(6):
+        times.append(time_host_ms(lambda: fairness.proportion_deserved(
+            *args, device=device)))
+    R = len(args[0])
+    in_bytes = 4 * (R + Q + 3 * Q * R)
+    out_bytes = 4 * (Q * R + Q)
+    rec = {"Q": Q, "R": R, "rounds": rounds, "max_rel_err": err,
+           "ms": statistics.median(times[1:]),
+           "numpy_ms": time_host_ms(
+               lambda: fairness.proportion_deserved_numpy(*args))}
+    rec["bound_ms"], rec["bound_by"] = larger(
+        (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+        max(rounds, 1) * Q * R * 16 / FP32_OPS_PER_S * 1e3)
+    print("proportion", json.dumps(rec), flush=True)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -756,6 +838,11 @@ def main() -> int:
     # recorded on the port's CPU runs (which step 5 compares against)
     walk_records = [compare_walk(name, make(), dev)
                     for name, make in walk_worlds().items()]
+    for name, make in walk_worlds(card=True).items():
+        walk_records.append(compare_walk(name, make(), dev))
+        if name == "w64-n400":
+            check(not walk_records[-1]["smem_blocks"]["tables"],
+                  "w64-n400 kept its victim tables in shared memory")
     cpu_preempt = run_preempt("cpu")
     check(len(cpu_preempt[5]) == 1 and cpu_preempt[5][0][3],
           "the preempt world ran no phase-1 walk")
@@ -810,9 +897,15 @@ def main() -> int:
 
     # 6. the deployed cycle, on the card and on the CPU
     deployed = {}
+    tight_walks = []
     for name in ("10k", "pipeline", "tight-mix"):
         want, cpu_times, _, _ = run_deployed(name, "cpu")
-        got, times, launches, stats = run_deployed(name, None)
+        ran = {}
+        walks = record_walks(lambda: ran.setdefault(
+            "out", run_deployed(name, None)))
+        got, times, launches, stats = ran["out"]
+        if name == "tight-mix":
+            tight_walks = walks
         for key in ("binds", "evicts", "pipelined", "phases"):
             check(got[key] == want[key],
                   f"deployed {name}: {key} differ from the CPU cycle's")
@@ -828,7 +921,15 @@ def main() -> int:
              "ms": times, "cpu_ms": cpu_times, "preempt_phases": stats}),
             flush=True)
 
-    # 7. the kernels line (launches: the placement kernel's in the 10k
+    # the tight mix's own walk against the plain walk
+    check(len(tight_walks) >= 1, "deployed tight-mix: no walk recorded")
+    for k, w in enumerate(tight_walks):
+        walk_records.append(compare_walk(f"tight-mix-walk-{k}", w, dev))
+
+    # 7. proportion's water-filling at 64 queues (B8)
+    compare_proportion(64, 1, dev)
+
+    # 8. the kernels line (launches: the placement kernel's in the 10k
     # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
     # it a static matrix, the walk's in the deployed cycle of the tight mix,
     # the one where preempt has work), the card, the result
@@ -872,6 +973,11 @@ def main() -> int:
         "bound_by": walk_main["bound_by"],
         "library_ms": None,
         "steps": walk_main["steps"],
+        "us_per_task": walk_main["us_per_task"],
+        "redispatched": walk_main["redispatched"],
+        "bulks": walk_main["bulks"],
+        "in_smem": walk_main["in_smem"],
+        "threads": walk_main["threads"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

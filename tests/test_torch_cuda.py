@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the
 placement kernel at every cluster size the card launches, and the preempt
-victim walk on every walk world and on a preempt world's own walk.
+victim walk on every walk world, on two worlds too large for the plain walk
+on the CPU (2,500 nodes; W = 64 at 400 nodes, in the device-memory plan)
+and on a preempt world's own walk.
 
 These tests need an NVIDIA card and nvcc; without a card they skip. On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -14,12 +16,13 @@ from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, NEG, launch_plan,
                                          max_cluster, place, place_cuda,
                                          place_plain, rowdiff_cuda,
                                          rowdiff_plain, task_flags)
-from volcano_tpu_torch.ops.evict import (to_device, walk, walk_cuda,
+from volcano_tpu_torch.ops.evict import (launch_plan as walk_plan,
+                                         to_device, walk, walk_cuda,
                                          walk_plain)
 from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
-from torch_parity import PLACE_WORLDS, WALK_WORLDS
+from torch_parity import CARD_WALK_WORLDS, PLACE_WORLDS, WALK_WORLDS
 
 pytestmark = pytest.mark.cuda
 
@@ -119,6 +122,22 @@ def test_walk_kernel_matches_plain(world, card):
     _assert_walk_same(walk_cuda(d, kinds, sizes, gang),
                       walk_plain(d, kinds, sizes, gang), world)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("world", list(CARD_WALK_WORLDS))
+def test_walk_kernel_matches_plain_card_worlds(world, card):
+    """More nodes than threads (a thread owns several), and victim tables
+    larger than shared memory (the device-memory plan)."""
+    inputs, kinds, sizes, gang = CARD_WALK_WORLDS[world]()
+    d = to_device(inputs, card)
+    N, W, R = inputs.nw.vreq.shape
+    plan = walk_plan(N, W, R, inputs.tier_masks.shape[0],
+                     inputs.jalloc0.shape[0])
+    if world == "w64-n400":
+        assert not plan.where()["tables"]
+    got = walk_cuda(d, kinds, sizes, gang)
+    _assert_walk_same(got, walk_plain(d, kinds, sizes, gang), world)
+    assert got.redispatched >= N and got.steps > 0
 
 
 def test_walk_dispatches_cuda_tensors_to_the_kernel(card):

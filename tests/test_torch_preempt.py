@@ -79,6 +79,53 @@ def test_walk_worlds_exercise_their_case(walk_ref):
     assert int(walk_ref["two-dynamic-tiers"][0][0]) == 1
     assert placed("w64") > 0 and (walk_ref["w64"][1] >= 0).any()
     assert placed("no-fit") == 0 and (walk_ref["no-fit"][1] < 0).all()
+    # the hand-built worlds' outcomes, as their docstrings derive them
+    assert walk_ref["drf-threshold-cross"][0].tolist() == [0, 1, 2, 3, 5, 5]
+    assert walk_ref["group-stale-elsewhere"][0].tolist() == [0, 1, 3, 3]
+    assert walk_ref["intra-ls-falls"][0].tolist() == [0, 1, 1]
+    node, owner, done = walk_ref["rollback-after-lazy-save"]
+    assert node.tolist() == [-1, -1, -1, -1, 0]
+    assert owner[:3, 0].tolist() == [4, -1, -1] and not done[0] and done[2]
+    assert walk_ref["ties-across-warps"][0].tolist() == [31, 32, 63, 64, -1]
+
+
+def test_rollback_world_evicts_on_three_nodes_before_it_fails():
+    """With its quota lowered to 3, the rolled-back job of
+    rollback-after-lazy-save commits: its three tasks evicted on nodes 0, 1
+    and 2, the nodes the rollback restores."""
+    inputs, kinds, sizes, gang = WALK_WORLDS["rollback-after-lazy-save"]()
+    needed = inputs.needed.copy()
+    needed[0] = 3
+    out = _plain((inputs._replace(needed=needed), kinds, sizes, gang))
+    assert out.task_node.tolist()[:3] == [0, 1, 2]
+    assert out.owner[:3, 0].tolist() == [0, 1, 2]
+
+
+@pytest.mark.parametrize("N, W, R, M, AJ1", [
+    (1000, 6, 2, 2, 201), (400, 6, 2, 2, 201), (400, 64, 2, 2, 201),
+    (2500, 6, 2, 2, 2518), (4, 64, 1, 1, 20), (100000, 8, 8, 64, 5001)])
+def test_walk_launch_plan(N, W, R, M, AJ1):
+    """One thread a node up to 512; blocks join shared memory in priority
+    order while they fit; device memory holds every block and the saves."""
+    from volcano_tpu_torch.ops.evict import (FIXED_BYTES, SMEM_MAX,
+                                             block_bytes, launch_plan)
+    plan = launch_plan(N, W, R, M, AJ1)
+    assert plan.threads == min(512, max(64, -(-N // 32) * 32))
+    sizes = block_bytes(N, W, R, M, AJ1)
+    assert plan.smem == FIXED_BYTES + sum(
+        s for k, s in enumerate(sizes) if plan.blocks >> k & 1)
+    assert plan.smem <= SMEM_MAX
+    for k, s in enumerate(sizes):
+        if not plan.blocks >> k & 1:      # left out only for want of room
+            before = FIXED_BYTES + sum(
+                t for j, t in enumerate(sizes[:k]) if plan.blocks >> j & 1)
+            assert before + s > SMEM_MAX
+    assert plan.scratch >= sum(sizes)
+    assert plan.in_smem == (plan.blocks == 31)
+    if (N, W) == (1000, 6):
+        assert plan.in_smem                 # the preempt world's walk
+    if (N, W) == (400, 64):
+        assert not plan.where()["tables"]   # w64-n400
 
 
 def test_walk_dispatch_takes_plain_for_cpu_and_refuses_other_devices():

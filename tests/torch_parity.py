@@ -554,6 +554,181 @@ def two_dynamic_tiers_world():
     return inputs, ("drf", "drf"), (1, 1), False
 
 
+def hand_walk(fidle, slots, jalloc, total, jobs, gang, cand=None,
+              static=None, kinds=("static", "drf"), sizes=(1, 0)):
+    """Walk inputs written out by hand. ``fidle`` [N][R]; ``slots[n]`` the
+    victims on node n in row order, each (group, request); ``jalloc``
+    [AJ][R] (a zeroed pad row is added); ``jobs`` the preemptor jobs in
+    order, each (group, needed or None for BIG, runs) with runs [(tasks,
+    request, score row)]. ``cand(job, group)`` says whether job j's tasks
+    may evict a victim of ``group`` (default: another group's in phase 1,
+    its own in phase 2); ``static(mask, job, group)`` gives each static
+    mask's verdict and its participation (default: every victim, every
+    plugin participating). A victim's rank is its index in node order."""
+    from volcano_tpu_torch.ops.evict import EvictNW, WalkInputs
+    N, R = len(fidle), len(total)
+    W = max(len(s) for s in slots)
+    V = sum(len(s) for s in slots)
+    AJ = len(jalloc)
+    vslot = np.full((N, W), V, np.int32)
+    vgroup = np.full((N, W), AJ, np.int32)
+    rank = np.full((N, W), WALK_BIG, np.int32)
+    vreq_v = np.zeros((V + 1, R), np.float32)
+    vgroup_v = np.full(V, AJ, np.int32)
+    v = 0
+    for n, node in enumerate(slots):
+        for w, (grp, req) in enumerate(node):
+            vslot[n, w], vgroup[n, w], rank[n, w] = v, grp, v
+            vreq_v[v], vgroup_v[v] = req, grp
+            v += 1
+    if cand is None:
+        def cand(j, grp):
+            return (grp != jobs[j][0]) if gang else (grp == jobs[j][0])
+    M = int(sum(sizes))
+    PJ = len(jobs)
+    cand_mask = np.zeros((PJ, V + 1), bool)
+    tier_masks = np.zeros((M, PJ, V + 1), bool)
+    tier_part = np.ones((M, PJ), bool)
+    for j in range(PJ):
+        for u in range(V):
+            cand_mask[j, u] = cand(j, int(vgroup_v[u]))
+            for k in range(M):
+                tier_masks[k, j, u], tier_part[k, j] = (
+                    (True, True) if static is None
+                    else static(k, j, int(vgroup_v[u])))
+    preq, pjob, pjg, first, run_id, rows = [], [], [], [], [], []
+    needed = np.zeros(AJ + 1, np.float32)
+    for j, (grp, need, runs) in enumerate(jobs):
+        needed[grp] = WALK_BIG if need is None else need
+        k = 0
+        for count, req, row in runs:
+            rows.append(np.asarray(row, np.float32))
+            for _ in range(count):
+                preq.append(req)
+                pjob.append(j)
+                pjg.append(grp)
+                first.append(k == 0)
+                run_id.append(len(rows) - 1)
+                k += 1
+    P = len(preq)
+    first = np.asarray(first, bool)
+    run_id = np.asarray(run_id, np.int32)
+
+    def ends(is_last):
+        e = np.flatnonzero(is_last)
+        return e[np.searchsorted(e, np.arange(P))].astype(np.int32)
+
+    inputs = WalkInputs(
+        fidle0=np.asarray(fidle, np.float32),
+        nw=EvictNW(vslot=vslot, valid=vslot < V, vreq=vreq_v[vslot],
+                   vgroup=vgroup, rank=rank),
+        cand_mask=cand_mask, tier_masks=tier_masks, tier_part=tier_part,
+        preq=np.asarray(preq, np.float32), pjob=np.asarray(pjob, np.int32),
+        pjg=np.asarray(pjg, np.int32), first=first, run_id=run_id,
+        run_end=ends(np.r_[run_id[1:] != run_id[:-1], True]),
+        job_end=ends(np.r_[first[1:], True]),
+        score_g=np.asarray(rows, np.float32), needed=needed,
+        jalloc0=np.vstack([np.asarray(jalloc, np.float32),
+                           np.zeros((1, R), np.float32)]),
+        total=np.asarray(total, np.float32))
+    return inputs, tuple(kinds), tuple(sizes), gang
+
+
+def _drf_decides(k, j, grp):
+    """A static tier that never participates: drf rules every node."""
+    return True, False
+
+
+def drf_threshold_cross_world():
+    """Phase 1 under drf alone (total 100, requests of 10, so the preemptor's
+    share ls is 0.1, 0.2, ... task by task). Nodes 0-3 (score 9) each take
+    one task without evicting; node 4 (score 5) holds a victim of share 0.4
+    after the eviction, node 5 (score 1) one of share 0.7. Tasks 1-4 fill
+    nodes 0-3 (node 4's victim kept up to ls = 0.4, equality included); at
+    task 5 ls = 0.5 passes node 4's share in the middle of the job, which
+    drops its victim: the task goes to node 5. A cache that kept node 4's
+    verdict would take node 4."""
+    high = [(2, [1.0])]
+    slots = [high] * 4 + [[(1, [10.0])], high, [(2, [1.0])]]
+    fidle = [[10.0]] * 4 + [[10.0], [20.0], [0.0]]
+    scores = [9, 9, 9, 9, 5, 1, 0]
+    return hand_walk(fidle, slots, jalloc=[[0.0], [50.0], [90.0]],
+                     total=[100.0], jobs=[(0, 6, [(6, [10.0], scores)])],
+                     gang=True, static=_drf_decides)
+
+
+def group_stale_elsewhere_world():
+    """Phase 1 under drf alone. Group 1 (allocation 45) has a victim of 10
+    on node 0 (score 9) and on node 2 (score 5). Task 1 evicts it on node 0,
+    which lowers the share of group 1's victim on node 2 from 0.35 to 0.25;
+    task 2 (ls 0.2) takes node 1 (score 8); at task 3 (ls 0.3) node 2's
+    victim is no longer kept, so the task goes to node 3 (score 1). Node 2
+    was never picked: a cache that re-dispatched only picked nodes would
+    still take it."""
+    x = [(2, [1.0])]
+    slots = [[(1, [10.0])], x, [(1, [10.0])], x]
+    fidle = [[0.0], [10.0], [10.0], [20.0]]
+    return hand_walk(fidle, slots, jalloc=[[0.0], [45.0], [90.0]],
+                     total=[100.0],
+                     jobs=[(0, 4, [(4, [10.0], [9, 8, 5, 1])])],
+                     gang=True, static=_drf_decides)
+
+
+def intra_ls_falls_world():
+    """Phase 2 (no gang statement). Job group 0 (allocation 60) runs a task
+    of 30 on node 0 (score 9), which a static tier makes eligible there;
+    elsewhere that tier abstains and drf rules. Node 1 (score 5) holds a
+    victim of group 1 at share 0.65. Task 1 (ls 0.7) cannot take node 1 and
+    evicts its own task on node 0; the job's allocation falls to 40, so task
+    2's ls falls to 0.5, node 1's victim is kept again and task 2 takes node
+    1. A cache that assumed ls only rises would find no node and stop the
+    job."""
+    def static(k, j, grp):
+        return grp == 0, True
+    return hand_walk([[0.0], [10.0], [0.0]],
+                     [[(0, [30.0])], [(1, [10.0])], [(1, [1.0])]],
+                     jalloc=[[60.0], [75.0]], total=[100.0],
+                     jobs=[(0, None, [(3, [10.0], [9, 5, 1])])], gang=False,
+                     cand=lambda j, grp: True, static=static)
+
+
+def rollback_after_lazy_save_world():
+    """Phase 1 under drf alone. Job 1 (4 tasks, quota 4) evicts group 1's
+    victim on nodes 0, 1 and 2 (scores 9, 8, 7), finds no node for its
+    fourth task and misses its quota: its three nodes and both groups it
+    changed (1, and its own) roll back. Job 2 (ls 0.6) then needs group 1's
+    allocation restored (share 0.75 on node 0, not 0.45) and node 0's victim
+    alive again: it evicts that victim. Nodes 3-5 hold victims too large to
+    make room."""
+    v1 = [(1, [10.0])]
+    big = [(3, [1.0])]
+    return hand_walk([[0.0]] * 6, [v1, v1, v1, big, big, big],
+                     jalloc=[[0.0], [85.0], [50.0], [90.0]], total=[100.0],
+                     jobs=[(0, 4, [(4, [10.0], [9, 8, 7, 6, 5, 4])]),
+                           (2, 1, [(1, [10.0], [9, 8, 7, 6, 5, 4])])],
+                     gang=True, static=_drf_decides)
+
+
+def ties_across_warps_world():
+    """65 nodes (node 64 needs them); nodes 31, 32, 63 and 64 tie at the top
+    score and each fits one task after evicting its victim; the other nodes
+    score lower or do not fit. Four tasks take 31, 32, 63 and 64 in that
+    order: the lowest index wins each tie, across 32-node groups (each a
+    warp's in the kernel)."""
+    N = 65
+    slots = [[(1, [5.0])] for _ in range(N)]
+    fidle = [[0.0] for _ in range(N)]
+    scores = [3.0] * N
+    for n in (31, 32, 63, 64):
+        slots[n] = [(1, [10.0])]
+        scores[n] = 7.0
+    for n in (0, 30, 33, 62):
+        scores[n] = 7.0            # tie too, but 5 + 0 cannot hold 10
+    return hand_walk(fidle, slots, jalloc=[[0.0], [400.0]], total=[1000.0],
+                     jobs=[(0, 4, [(5, [10.0], scores)])], gang=True,
+                     kinds=("static",), sizes=(1,))
+
+
 WALK_WORLDS = {
     # phase 1, static tiers only, every gang needs all its tasks: rollbacks
     "gang-rollback": lambda: walk_world(1, N=10, W=3, PJ=5, tasks=(2, 5),
@@ -595,6 +770,26 @@ def _no_fit(world):
 
 
 WALK_WORLDS["no-fit"] = (lambda f=WALK_WORLDS["no-fit"]: _no_fit(f()))
+# hand-built worlds that break a wrong verdict cache (csrc/evict.cu)
+WALK_WORLDS.update({
+    "drf-threshold-cross": drf_threshold_cross_world,
+    "group-stale-elsewhere": group_stale_elsewhere_world,
+    "intra-ls-falls": intra_ls_falls_world,
+    "rollback-after-lazy-save": rollback_after_lazy_save_world,
+    "ties-across-warps": ties_across_warps_world,
+})
+
+# walk worlds for the card only (walk_plain is too slow for them on the CPU):
+# more nodes than the kernel's 512 threads, and W = 64 at 400 nodes, whose
+# victim tables do not fit shared memory
+CARD_WALK_WORLDS = {
+    "n2500": lambda: walk_world(21, N=2500, W=6, PJ=40, tasks=(10, 40),
+                                kinds=("static", "drf"), sizes=(1, 0),
+                                fidle_max=3, total_extra=400),
+    "w64-n400": lambda: walk_world(22, N=400, W=64, PJ=12, tasks=(8, 30),
+                                   kinds=("static", "drf"), sizes=(1, 1),
+                                   fidle_max=2, total_extra=400),
+}
 
 
 def jax_walk(world):

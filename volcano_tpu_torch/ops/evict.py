@@ -42,7 +42,7 @@ run.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +102,8 @@ class WalkOutput(NamedTuple):
     owner: torch.Tensor         # i32[N, W] task that evicted the slot, or -1
     job_done: torch.Tensor      # bool[AJ1] quota met
     steps: int                  # tasks the walk evaluated (diagnostics)
+    redispatched: Optional[int] = None   # walk_cuda: node dispatches
+    bulks: Optional[int] = None          # walk_cuda: all-warp operations
 
 
 def to_device(inp: WalkInputs, device) -> WalkInputs:
@@ -275,8 +277,68 @@ def walk_plain(inp: WalkInputs, tier_kinds: Tuple[str, ...],
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-_PTRS = 37
-_INTS = 12 + 2 * MAX_TIERS
+_PTRS = 25
+_INTS = 14 + 2 * MAX_TIERS
+SMEM_MAX = 232_448          # dynamic shared memory a Hopper CTA may use
+MIN_THREADS, MAX_THREADS = 64, 512
+# csrc/evict.cu's layout: the fixed part, then five blocks, each in shared
+# memory when the plan's bit is set (kGroups ... kCsr), in this order of
+# priority
+GROUPS, NODES, TABLES, MASKS, CSR = 1, 2, 4, 8, 16
+BLOCK_NAMES = ("groups", "nodes", "tables", "masks", "csr")
+
+
+def _al16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+FIXED_BYTES = 128 + _al16(4 * (MAX_W + 1))
+
+
+def block_bytes(N: int, W: int, R: int, M: int, AJ1: int) -> Tuple[int, ...]:
+    """Bytes of each block of csrc/evict.cu's layout, in plan-bit order:
+    group allocations, counts, needs, tags and the CSR offsets; node state,
+    the verdict cache (with each 32 nodes' best key and smallest kept
+    share) and two score rows; the victim tables; the job's mask words; the
+    group -> nodes CSR."""
+    groups = _al16(4 * AJ1 * R) + 3 * _al16(4 * AJ1) + _al16(4 * (AJ1 + 1))
+    G32 = -(-N // 32)
+    nodes = (4 * _al16(8 * N) + _al16(8 * G32) + _al16(4 * G32)
+             + _al16(4 * N * R) + 4 * _al16(4 * N))
+    tables = _al16(8 * N * W) + _al16(4 * N * W * R) + _al16(4 * N * W)
+    return groups, nodes, tables, _al16(8 * M * N), _al16(4 * N * W)
+
+
+class WalkPlan(NamedTuple):
+    threads: int        # one CTA; a warp owns whole groups of 32 nodes
+    smem: int           # dynamic shared memory bytes
+    blocks: int         # plan bits: the blocks kept in shared memory
+    scratch: int        # device-memory bytes: every block, plus gang saves
+
+    @property
+    def in_smem(self) -> bool:
+        """Every block in shared memory."""
+        return self.blocks == GROUPS | NODES | TABLES | MASKS | CSR
+
+    def where(self) -> dict:
+        return {name: bool(self.blocks & (1 << k))
+                for k, name in enumerate(BLOCK_NAMES)}
+
+
+def launch_plan(N: int, W: int, R: int, M: int, AJ1: int) -> WalkPlan:
+    """Where the walk runs: one CTA of one thread a node (a multiple of 32,
+    64 to 512). Each block of the layout joins shared memory, in priority
+    order, when it fits beside the fixed part and the blocks before it; the
+    others stay in device memory, read through the same pointers."""
+    threads = min(MAX_THREADS, max(MIN_THREADS, -(-N // 32) * 32))
+    sizes = block_bytes(N, W, R, M, AJ1)
+    smem, blocks = FIXED_BYTES, 0
+    for bit, size in enumerate(sizes):
+        if smem + size <= SMEM_MAX:
+            smem += size
+            blocks |= 1 << bit
+    saves = _al16(8 * N) + _al16(4 * N * R) + _al16(4 * AJ1 * R)
+    return WalkPlan(threads, smem, blocks, sum(sizes) + saves)
 
 
 def _lib():
@@ -300,7 +362,8 @@ def walk_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
     """The walk as one launch of ``csrc/evict.cu`` on the current stream:
     same inputs and outputs as ``walk_plain``, every tensor on one CUDA
     device. Raises on an input it does not take, a failed build or a failed
-    launch."""
+    launch. The output also carries the kernel's count of node dispatches
+    (``redispatched``) and of bulk operations (``bulks``)."""
     nw = inp.nw
     device = inp.fidle0.device
     if device.type != "cuda":
@@ -318,6 +381,9 @@ def walk_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
         raise ValueError(f"walk_cuda: W={W} R={R} masks={M} tiers="
                          f"{len(tier_kinds)} exceed the kernel's "
                          f"{MAX_W}/{MAX_R}/{MAX_MASKS}/{MAX_TIERS}")
+    if N < 1 or AJ1 < 1:
+        raise ValueError(f"walk_cuda: {N} nodes and {AJ1} alloc-groups; the "
+                         f"kernel needs at least one of each")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     for name, t, dtype, shape in (
             ("fidle0", inp.fidle0, f32, (N, R)),
@@ -338,30 +404,22 @@ def walk_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
             ("total", inp.total, f32, (R,))):
         _check(name, t, dtype, shape, device)
 
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=device)
-    u64 = torch.int64
-    work = [empty((N, R), f32), empty((N,), u64), empty((N, W), i32),
-            empty((AJ1, R), f32), empty((AJ1,), f32),
-            empty((N, R), f32), empty((N,), u64), empty((N, W), i32),
-            empty((AJ1, R), f32), empty((AJ1,), f32),
-            empty((N,), u64), empty((max(M, 1), N), u64),
-            empty((N, W), u64), empty((N,), u64)]
-    task_node = empty((P,), i32)
-    owner = work[2]
-    job_done = empty((AJ1,), i32)
-    steps = empty((1,), i32)
+    plan = launch_plan(N, W, R, M, AJ1)
+    scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=device)
+    owner = torch.empty((N, W), dtype=i32, device=device)
+    task_node = torch.empty((P,), dtype=i32, device=device)
+    job_done = torch.empty((AJ1,), dtype=i32, device=device)
+    stats = torch.empty((3,), dtype=i32, device=device)
     ins = [inp.fidle0, nw.vslot, nw.valid, nw.vreq, nw.vgroup, nw.rank,
            inp.cand_mask, inp.tier_masks, inp.tier_part, inp.preq, inp.pjob,
            inp.pjg, inp.first, inp.run_id, inp.run_end, inp.job_end,
            inp.score_g, inp.needed, inp.jalloc0, inp.total]
     ptrs = (ctypes.c_int64 * _PTRS)(*[t.data_ptr() for t in
-                                      ins + work + [task_node, job_done,
-                                                    steps]])
-    threads = min(1024, max(32, (N + 31) // 32 * 32))
+                                      ins + [scratch, owner, task_node,
+                                             job_done, stats]])
     kinds = [1 if k == "drf" else 0 for k in tier_kinds]
     ints = [N, W, R, P, PJ, V1, AJ1, G, len(tier_kinds), M,
-            int(gang_commit), threads]
+            int(gang_commit), plan.threads, plan.blocks, plan.smem]
     ints += kinds + [0] * (MAX_TIERS - len(kinds))
     ints += list(tier_sizes) + [0] * (MAX_TIERS - len(tier_sizes))
     cints = (ctypes.c_int * _INTS)(*ints)
@@ -370,9 +428,13 @@ def walk_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
             ptrs, cints, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"walk_cuda: kernel launch failed with "
-                           f"cudaError_t {err}")
+                           f"cudaError_t {err}" if err > 0 else
+                           f"walk_cuda: the kernel refused plan {plan} "
+                           f"({err})")
     walk_cuda.launches += 1
-    return WalkOutput(task_node, owner, job_done.to(b8), int(steps.item()))
+    steps, redispatched, bulks = stats.tolist()
+    return WalkOutput(task_node, owner, job_done.to(b8), steps,
+                      redispatched, bulks)
 
 
 # kernel launches since the count was last reset (chip_smoke.py reads it)
