@@ -33,12 +33,14 @@
    on the card, to the bit (task nodes, slot owners, quota verdicts,
    evaluated tasks), on seeded worlds (gang rollback, the intra-job phase,
    drf tiers, two dynamic tiers, 64 slots, nothing fits, and five worlds
-   built to break a wrong verdict cache), on two worlds too large for the
-   plain walk on the CPU (2,500 nodes; W = 64 at 400 nodes, which must take
-   the device-memory plan) and on the walk inputs of
-   ``baseline_config("preempt")``'s phase 1 and of its intra-job variant's
-   phase 2. Prints each walk's launch plan, the nodes the kernel
-   re-dispatched and its µs per evaluated task.
+   built to break a wrong verdict cache), on three worlds too large for the
+   plain walk on the CPU (2,500 nodes; W = 64 at 400 nodes, whose victim
+   tables must leave shared memory; 8,192 nodes, whose node and group state
+   must) and on the walk inputs of ``baseline_config("preempt")``'s phase 1
+   and of its intra-job variant's phase 2. The nodes the kernel
+   re-dispatched must equal those its cache rule needs, counted from the
+   plain walk, and the bound counts those. Prints each walk's launch plan,
+   dispatches and µs per evaluated task.
 5. Runs ``PreemptAction(engine="tpu")`` alone with deploy/scheduler.conf's
    tiers on ``baseline_config("preempt")`` (5,000 running and 5,000
    pending pods on 1,000 nodes) on the card, counts set to 0 just before:
@@ -436,43 +438,53 @@ def walk_worlds(card=False):
     return CARD_WALK_WORLDS if card else WALK_WORLDS
 
 
-def walk_bound(inputs, kinds, steps):
+def walk_bound(inputs, kinds, dispatches):
     """Least time the card could take for one walk, from what these inputs
     need: every input byte read once and every output byte written once
-    over HBM bandwidth, against the per-task algorithm's operations over
-    the FP32 rate. Per evaluated task (``steps``, this run's count) and per
-    valid victim slot: one operation for each static mask and two more for
-    the tier cascade, R adds for the evictable sum, and under a drf tier
-    3R + 3 for the victim job's remaining share and the keep compare; per
-    pair of slots of one node, R adds of drf's same-job prefix; per node,
-    R fit compares and two operations of the argmax."""
+    over HBM bandwidth, against the operations over the FP32 rate.
+    ``dispatches`` holds the node dispatches the verdict cache needs on
+    these inputs (ops/evict.py::walk_dispatches, counted from the plain
+    walk). A dispatch of node n costs, per valid victim slot on it, one
+    operation for each static mask and two more for the tier cascade, R
+    adds for the evictable sum, and under a drf tier 3R + 3 for the victim
+    job's remaining share and the keep compare; per pair of its slots, R
+    adds of drf's same-job prefix; R fit compares and two operations of its
+    key. Per evaluated task the argmax over the cached keys re-reduces the
+    32-node group of each dispatched node and reduces the N/32 group
+    maxima, two operations a 64-bit compare. Returns (bound_ms, "bytes" or
+    "operations", all_pairs_ms): the last counts a walk without the cache,
+    every node dispatched for every evaluated task."""
     nw = inputs.nw
     N, W, R = nw.vreq.shape
     M = inputs.tier_masks.shape[0]
     drf = "drf" in kinds
-    k = nw.valid.sum(dim=1).double()
-    slots = float(k.sum())
-    pairs = float((k * (k - 1) / 2).sum())
-    per_step = (slots * (M + 2 + R + (3 * R + 3 if drf else 0))
-                + (pairs * R if drf else 0) + N * (R + 2))
+    k = nw.valid.sum(dim=1).double().cpu().numpy()
+    per_node = (k * (M + 2 + R + (3 * R + 3 if drf else 0))
+                + (k * (k - 1) / 2 * R if drf else 0) + R + 2)
+    groups = -(-int(N) // 32)
+    compares = (32 * np.minimum(dispatches.per_task, groups) + groups).sum()
+    ops = float((dispatches.per_node * per_node).sum()) + 2.0 * compares
+    all_pairs = len(dispatches.per_task) * float(per_node.sum())
     tensors = [t for t in inputs if hasattr(t, "nbytes")] + list(nw)
     in_bytes = sum(int(t.nbytes) for t in tensors)
     P = inputs.preq.shape[0]
     out_bytes = 4 * (P + N * W + inputs.needed.shape[0])
-    return larger((in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
-                  steps * per_step / FP32_OPS_PER_S * 1e3)
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    return (*larger(t_bytes, ops / FP32_OPS_PER_S * 1e3),
+            max(t_bytes, all_pairs / FP32_OPS_PER_S * 1e3))
 
 
 def compare_walk(label, world, device):
     """walk_cuda against walk_plain on the same CUDA tensors: task nodes,
-    slot owners, quota verdicts and evaluated tasks must be equal. The
-    record carries the launch plan (threads, which blocks sit in shared
-    memory), the nodes the kernel re-dispatched, its bulk operations and
-    its µs per evaluated task."""
+    slot owners, quota verdicts and evaluated tasks must be equal, and the
+    node dispatches the kernel counted must equal those its cache rule
+    needs, counted from the plain walk. The record carries the plan the
+    kernel launched with (threads, which blocks sit in shared memory), its
+    dispatches, its bulk operations and its µs per evaluated task."""
     import torch
 
-    from volcano_tpu_torch.ops.evict import (launch_plan, to_device,
-                                             walk_cuda, walk_plain)
+    from volcano_tpu_torch.ops.evict import (to_device, walk_cuda,
+                                             walk_dispatches, walk_plain)
     inputs, kinds, sizes, gang = world
     d = to_device(inputs, device)
     got = walk_cuda(d, kinds, sizes, gang)
@@ -489,9 +501,12 @@ def compare_walk(label, world, device):
                                f"differ, first at {first}")
     check(got.steps == want.steps,
           f"walk {label}: {got.steps} evaluated tasks, plain {want.steps}")
+    needed = walk_dispatches(d, kinds, sizes, gang)
+    check(int(needed.per_node.sum()) == got.redispatched,
+          f"walk {label}: the kernel dispatched {got.redispatched} nodes, "
+          f"its cache rule needs {int(needed.per_node.sum())}")
     N, W, R = d.nw.vreq.shape
-    plan = launch_plan(int(N), int(W), int(R), int(d.tier_masks.shape[0]),
-                       int(d.jalloc0.shape[0]))
+    plan = got.plan
     rec = {"world": label, "P": int(d.preq.shape[0]), "N": int(N),
            "W": int(W), "R": int(R), "tiers": list(kinds), "gang": gang,
            "steps": got.steps,
@@ -503,7 +518,8 @@ def compare_walk(label, world, device):
            "ms": time_cuda_ms(lambda: walk_cuda(d, kinds, sizes, gang)),
            "plain_ms": plain_ms}
     rec["us_per_task"] = rec["ms"] * 1e3 / max(got.steps, 1)
-    rec["bound_ms"], rec["bound_by"] = walk_bound(d, kinds, got.steps)
+    (rec["bound_ms"], rec["bound_by"],
+     rec["bound_all_pairs_ms"]) = walk_bound(d, kinds, needed)
     print("kernel evict_walk", json.dumps(rec), flush=True)
     return rec
 
@@ -840,9 +856,13 @@ def main() -> int:
                     for name, make in walk_worlds().items()]
     for name, make in walk_worlds(card=True).items():
         walk_records.append(compare_walk(name, make(), dev))
+        where = walk_records[-1]["smem_blocks"]
         if name == "w64-n400":
-            check(not walk_records[-1]["smem_blocks"]["tables"],
+            check(not where["tables"],
                   "w64-n400 kept its victim tables in shared memory")
+        if name == "n8192":
+            check(not where["nodes"] and not where["groups"],
+                  f"n8192 kept node or group state in shared memory: {where}")
     cpu_preempt = run_preempt("cpu")
     check(len(cpu_preempt[5]) == 1 and cpu_preempt[5][0][3],
           "the preempt world ran no phase-1 walk")
@@ -971,6 +991,7 @@ def main() -> int:
         "plain_ms": walk_main["plain_ms"],
         "bound_ms": walk_main["bound_ms"],
         "bound_by": walk_main["bound_by"],
+        "bound_all_pairs_ms": walk_main["bound_all_pairs_ms"],
         "library_ms": None,
         "steps": walk_main["steps"],
         "us_per_task": walk_main["us_per_task"],

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the
 placement kernel at every cluster size the card launches, and the preempt
-victim walk on every walk world, on two worlds too large for the plain walk
-on the CPU (2,500 nodes; W = 64 at 400 nodes, in the device-memory plan)
-and on a preempt world's own walk.
+victim walk on every walk world, on three worlds too large for the plain
+walk on the CPU (2,500 nodes; W = 64 at 400 nodes and 8,192 nodes, in
+device-memory plans) and on a preempt world's own walk.
 
 These tests need an NVIDIA card and nvcc; without a card they skip. On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -18,7 +18,7 @@ from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, NEG, launch_plan,
                                          rowdiff_plain, task_flags)
 from volcano_tpu_torch.ops.evict import (launch_plan as walk_plan,
                                          to_device, walk, walk_cuda,
-                                         walk_plain)
+                                         walk_dispatches, walk_plain)
 from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
@@ -116,27 +116,36 @@ def _assert_walk_same(got, want, label):
 
 @pytest.mark.parametrize("world", list(WALK_WORLDS))
 def test_walk_kernel_matches_plain(world, card):
-    """Task nodes, slot owners and quota verdicts equal to the bit."""
+    """Task nodes, slot owners and quota verdicts equal to the bit; the
+    kernel dispatched the nodes its cache rule needs, no more."""
     inputs, kinds, sizes, gang = WALK_WORLDS[world]()
     d = to_device(inputs, card)
-    _assert_walk_same(walk_cuda(d, kinds, sizes, gang),
-                      walk_plain(d, kinds, sizes, gang), world)
+    got = walk_cuda(d, kinds, sizes, gang)
+    _assert_walk_same(got, walk_plain(d, kinds, sizes, gang), world)
+    assert got.redispatched == walk_dispatches(
+        d, kinds, sizes, gang).per_node.sum()
     torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("world", list(CARD_WALK_WORLDS))
 def test_walk_kernel_matches_plain_card_worlds(world, card):
-    """More nodes than threads (a thread owns several), and victim tables
-    larger than shared memory (the device-memory plan)."""
+    """More nodes than threads (a thread owns several), victim tables larger
+    than shared memory, and node state and group allocations larger than
+    it (the device-memory plans)."""
     inputs, kinds, sizes, gang = CARD_WALK_WORLDS[world]()
     d = to_device(inputs, card)
     N, W, R = inputs.nw.vreq.shape
-    plan = walk_plan(N, W, R, inputs.tier_masks.shape[0],
-                     inputs.jalloc0.shape[0])
-    if world == "w64-n400":
-        assert not plan.where()["tables"]
     got = walk_cuda(d, kinds, sizes, gang)
+    assert got.plan == walk_plan(N, W, R, inputs.tier_masks.shape[0],
+                                 inputs.jalloc0.shape[0])
+    if world == "w64-n400":
+        assert not got.plan.where()["tables"]
+    if world == "n8192":
+        assert not got.plan.where()["nodes"]
+        assert not got.plan.where()["groups"]
     _assert_walk_same(got, walk_plain(d, kinds, sizes, gang), world)
+    assert got.redispatched == walk_dispatches(
+        d, kinds, sizes, gang).per_node.sum()
     assert got.redispatched >= N and got.steps > 0
 
 

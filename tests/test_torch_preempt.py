@@ -87,18 +87,73 @@ def test_walk_worlds_exercise_their_case(walk_ref):
     assert node.tolist() == [-1, -1, -1, -1, 0]
     assert owner[:3, 0].tolist() == [4, -1, -1] and not done[0] and done[2]
     assert walk_ref["ties-across-warps"][0].tolist() == [31, 32, 63, 64, -1]
+    assert walk_ref["rollback-after-lazy-save-quota-3"][2][0]
 
 
-def test_rollback_world_evicts_on_three_nodes_before_it_fails():
+def test_rollback_world_evicts_on_three_nodes_before_it_fails(walk_ref):
     """With its quota lowered to 3, the rolled-back job of
     rollback-after-lazy-save commits: its three tasks evicted on nodes 0, 1
-    and 2, the nodes the rollback restores."""
-    inputs, kinds, sizes, gang = WALK_WORLDS["rollback-after-lazy-save"]()
-    needed = inputs.needed.copy()
-    needed[0] = 3
-    out = _plain((inputs._replace(needed=needed), kinds, sizes, gang))
+    and 2, the nodes the rollback restores (walk_plain and the JAX walk)."""
+    name = "rollback-after-lazy-save-quota-3"
+    out = _plain(WALK_WORLDS[name]())
     assert out.task_node.tolist()[:3] == [0, 1, 2]
     assert out.owner[:3, 0].tolist() == [0, 1, 2]
+    node, owner, _ = walk_ref[name]
+    assert node.tolist()[:3] == [0, 1, 2] and owner[:3, 0].tolist() == [0, 1, 2]
+
+
+@pytest.mark.parametrize("name, per_task", [
+    # task 5's share 0.5 passes node 4's kept 0.4: the pick (3) and node 4
+    ("drf-threshold-cross", [7, 1, 1, 1, 2, 1]),
+    # task 1 evicts group 1 on node 0: nodes 0 and 2; task 3's share 0.3
+    # passes node 2's kept 0.25: the pick (1) and node 2
+    ("group-stale-elsewhere", [4, 2, 2, 1]),
+    # task 2's share falls: every node
+    ("intra-ls-falls", [3, 3, 2]),
+])
+def test_walk_dispatches_hand_counts(name, per_task):
+    """The verdict cache's dispatches on the hand-built worlds, as their
+    docstrings derive them."""
+    inputs, kinds, sizes, gang = WALK_WORLDS[name]()
+    got = torch_evict.walk_dispatches(to_device(inputs, "cpu"), kinds, sizes,
+                                      gang)
+    assert got.per_task.tolist() == per_task
+    assert got.per_node.sum() == sum(per_task)
+
+
+@pytest.mark.parametrize("name", list(WALK_WORLDS))
+def test_walk_dispatches_cover_every_evaluated_task(name):
+    """One count per evaluated task: every node for the first, at least the
+    last pick after it, never more than every node; a node the rule leaves
+    out keeps its kept share (walk_dispatches raises otherwise)."""
+    inputs, kinds, sizes, gang = WALK_WORLDS[name]()
+    d = to_device(inputs, "cpu")
+    got = torch_evict.walk_dispatches(d, kinds, sizes, gang)
+    N = inputs.nw.vreq.shape[0]
+    assert len(got.per_task) == walk_plain(d, kinds, sizes, gang).steps
+    assert got.per_task[0] == N
+    assert ((got.per_task >= 1) & (got.per_task <= N)).all()
+    assert got.per_node.sum() == got.per_task.sum()
+    assert got.per_node.shape == (N,)
+
+
+@pytest.mark.parametrize("name", ["n2500", "w64-n400", "n8192"])
+def test_card_walk_worlds_take_their_plans(name):
+    """Each card-only world reaches the plan it is there for: more nodes
+    than threads; victim tables in device memory; node state and group
+    allocations in device memory (the score row read from device memory)."""
+    from torch_parity import CARD_WALK_WORLDS
+    inputs, *_ = CARD_WALK_WORLDS[name]()
+    N, W, R = inputs.nw.vreq.shape
+    plan = torch_evict.launch_plan(N, W, R, inputs.tier_masks.shape[0],
+                                   inputs.jalloc0.shape[0])
+    where = plan.where()
+    if name == "n2500":
+        assert N > plan.threads == 512 and where["nodes"]
+    if name == "w64-n400":
+        assert not where["tables"]
+    if name == "n8192":
+        assert not where["nodes"] and not where["groups"]
 
 
 @pytest.mark.parametrize("N, W, R, M, AJ1", [

@@ -709,6 +709,16 @@ def rollback_after_lazy_save_world():
                      gang=True, static=_drf_decides)
 
 
+def rollback_quota_3_world():
+    """rollback-after-lazy-save with job 1's quota lowered to 3: the job
+    commits its three evictions on nodes 0, 1 and 2, the nodes the rollback
+    restores there."""
+    inputs, kinds, sizes, gang = rollback_after_lazy_save_world()
+    needed = inputs.needed.copy()
+    needed[0] = 3
+    return inputs._replace(needed=needed), kinds, sizes, gang
+
+
 def ties_across_warps_world():
     """65 nodes (node 64 needs them); nodes 31, 32, 63 and 64 tie at the top
     score and each fits one task after evicting its victim; the other nodes
@@ -776,12 +786,14 @@ WALK_WORLDS.update({
     "group-stale-elsewhere": group_stale_elsewhere_world,
     "intra-ls-falls": intra_ls_falls_world,
     "rollback-after-lazy-save": rollback_after_lazy_save_world,
+    "rollback-after-lazy-save-quota-3": rollback_quota_3_world,
     "ties-across-warps": ties_across_warps_world,
 })
 
 # walk worlds for the card only (walk_plain is too slow for them on the CPU):
-# more nodes than the kernel's 512 threads, and W = 64 at 400 nodes, whose
-# victim tables do not fit shared memory
+# more nodes than the kernel's 512 threads; W = 64 at 400 nodes, whose
+# victim tables do not fit shared memory; 8,192 nodes, whose node state and
+# group allocations do not either
 CARD_WALK_WORLDS = {
     "n2500": lambda: walk_world(21, N=2500, W=6, PJ=40, tasks=(10, 40),
                                 kinds=("static", "drf"), sizes=(1, 0),
@@ -789,6 +801,9 @@ CARD_WALK_WORLDS = {
     "w64-n400": lambda: walk_world(22, N=400, W=64, PJ=12, tasks=(8, 30),
                                    kinds=("static", "drf"), sizes=(1, 1),
                                    fidle_max=2, total_extra=400),
+    "n8192": lambda: walk_world(23, N=8192, W=8, PJ=20, tasks=(10, 30),
+                                kinds=("static", "drf"), sizes=(1, 0),
+                                fidle_max=3, total_extra=1200),
 }
 
 

@@ -14,7 +14,8 @@ of its own and called through its own ``walk_cuda``, so any revision whose
 kernels into its own ``ops/_build/``. The walks: the preempt world's phase
 1 and its intra-job variant's phase 2 (recorded on this checkout's CPU
 runs, as chip_smoke.py records them), the deployed tight mix's walk, and
-the seeded worlds drf, w64, n2500 and w64-n400 of tests/torch_parity.py.
+the seeded worlds drf, w64, n2500, w64-n400 and n8192 of
+tests/torch_parity.py.
 Prints one JSON line per walk with each kernel's two times (CUDA events,
 warm, median of 5), then the card's name and power limit.
 """
@@ -59,7 +60,7 @@ def recorded_walks():
     out += [(f"tight-mix-walk-{k}", w) for k, w in enumerate(tight)]
     worlds = {**cs.walk_worlds(), **cs.walk_worlds(card=True)}
     out += [(name, worlds[name]()) for name in
-            ("drf", "w64", "n2500", "w64-n400")]
+            ("drf", "w64", "n2500", "w64-n400", "n8192")]
     return out
 
 

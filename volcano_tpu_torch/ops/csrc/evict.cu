@@ -43,16 +43,12 @@
 //   while keep(ls, bound) holds no node is stale by ls.
 // - One warp on the chain. Warp 0 walks the task stream, picks the node of
 //   the largest key (the best key of each 32 nodes is kept, so the pick reads
-//   N/32 words) and evicts on it. When only the pick is stale, or the pick
-//   and one more node, the leader's warp re-dispatches them itself, a victim
-//   slot a lane, and the task passes no block barrier. The other warps
-//   sleep on a named barrier and join for bulk work: a job's opening
-//   (rollback, its candidate and mask words), a re-dispatch of every node,
-//   or of the stale ones: those (d) found, and an eviction's group nodes,
-//   which the leader marks stale (min_kept -inf). On the H100 one
-//   all-warp pass over an evicted group's nodes took less time than the
-//   leader's lanes taking them a node a lane, and a leader-side repair of
-//   (d) more than the pass it saved (PERF.md).
+//   N/32 words) and evicts on it. The other warps sleep on a named barrier
+//   and join for bulk work: a job's opening (rollback, its candidate and
+//   mask words), or a re-dispatch of every node or of the stale ones. The
+//   leader marks the last pick and the changed groups' nodes stale
+//   (min_kept -inf), so one all-warp pass takes those and the ones (d)
+//   finds: at most one pass a task.
 // - State in shared memory. Node state (future idle, alive slots, the
 //   cache), the victim tables (requests, groups, drf's same-job precedence),
 //   the job's mask words, the group allocations and quota counts, and the
@@ -291,29 +287,6 @@ __device__ u64 drf_keep(const View& v, int W, int n, u64 cand, float ls,
   return kept;
 }
 
-// The same rule by a whole warp, lane l taking slots l and l + 32; every
-// lane gets the kept slots and *min_kept.
-template <int R>
-__device__ u64 drf_keep_warp(const View& v, int W, int n, u64 cand, float ls,
-                             const float (&tot)[R], float* min_kept,
-                             int lane) {
-  bool k0 = false, k1 = false;
-  float mk = INFINITY;
-  if ((cand >> lane) & 1ull) {
-    const float rs = slot_rs<R>(v, W, n, lane, cand, tot);
-    k0 = keep(ls, rs);
-    if (k0) mk = rs;
-  }
-  if (lane + 32 < W && ((cand >> (lane + 32)) & 1ull)) {
-    const float rs = slot_rs<R>(v, W, n, lane + 32, cand, tot);
-    k1 = keep(ls, rs);
-    if (k1 && rs < mk) mk = rs;
-  }
-  *min_kept = warp_min(mk);
-  return static_cast<u64>(__ballot_sync(kFull, k0)) |
-         (static_cast<u64>(__ballot_sync(kFull, k1)) << 32);
-}
-
 // The tiered dispatch on node n (session_plugins.go:187-236) given drf's
 // kept slots: the eligible victim slots.
 __device__ __forceinline__ u64 tier_elig(const View& v, const Args& a, int n,
@@ -384,31 +357,6 @@ __device__ u64 dispatch(const View& v, const Args& a, int n, u64 part,
   v.elig[n] = elig;
   v.key[n] = key;
   v.minrs[n] = mk;
-  *min_kept = mk;
-  return key;
-}
-
-// The same by a whole warp for one node (drf's shares a slot a lane); lane
-// 0 writes the cache.
-template <int R>
-__device__ u64 dispatch_warp(const View& v, const Args& a, int n, u64 part,
-                             float ls, const float (&req)[R], float s,
-                             const float (&tot)[R], float* min_kept,
-                             int lane) {
-  const u64 cand = v.alive[n] & v.ccand[n];
-  float mk = INFINITY;
-  u64 dset = 0;
-  if (cand && a.has_drf)
-    dset = drf_keep_warp<R>(v, a.W, n, cand, ls, tot, &mk, lane);
-  const u64 elig = cand ? tier_elig(v, a, n, cand, part, dset) : 0;
-  const u64 key = fit_key<R>(v, a.W, n, elig, req, s);
-  __syncwarp();
-  if (lane == 0) {
-    v.elig[n] = elig;
-    v.key[n] = key;
-    v.minrs[n] = mk;
-  }
-  __syncwarp();
   *min_kept = mk;
   return key;
 }
@@ -742,19 +690,6 @@ __global__ void __launch_bounds__(kMaxThreads, 1) walk_kernel(const Args a) {
         bulk_dispatch<R>(v, a, c, tot, tid, nth, &redisp);
     };
 
-    // a 32-node group's best key and smallest min_kept, from its nodes
-    auto regroup = [&](int g0) {
-      const int n = g0 * 32 + lane;
-      __syncwarp();
-      const u64 m = warp_max(n < N ? v.key[n] : 0ull);
-      const float mm = warp_min(n < N ? v.minrs[n] : INFINITY);
-      __syncwarp();
-      if (lane == 0) {
-        v.gbest[g0] = m;
-        v.gmin[g0] = mm;
-      }
-      __syncwarp();
-    };
     // the smallest min_kept of every node
     auto floor_all = [&]() -> float {
       float m = INFINITY;
@@ -825,49 +760,27 @@ __global__ void __launch_bounds__(kMaxThreads, 1) walk_kernel(const Args a) {
                  (a.has_drf && ls < ls_prev);
 
       if (!all && pend_best >= 0) {
-        // the last pick and the nodes of the groups it changed: one or two
-        // the leader's warp dispatches itself, a victim slot a lane; more
-        // are marked stale (min_kept -inf) for the all-warp pass below
-        int total = 1, other = -1;
+        // the last pick and the nodes of the groups it changed are marked
+        // stale (min_kept -inf) for the all-warp pass below
+        __syncwarp();
+        if (lane == 0) v.minrs[pend_best] = -INFINITY;
         for (int k = 0; k < npg; ++k) {
           const int grp = pgroups[k];
           const int lo = v.csr_off[grp], hi = v.csr_off[grp + 1];
-          if (hi - lo == 1) other = v.csr[lo];
-          total += hi - lo;
+          for (int j = lo + lane; j < hi; j += 32)
+            v.minrs[v.csr[j]] = -INFINITY;
         }
-        if (total <= 2) {
-          const float* row =
-              v.row_smem ? (cur_buf ? v.srow1 : v.srow0)
-                         : a.score_g + static_cast<size_t>(cur_run) * N;
-          for (int j = 0; j < total; ++j) {
-            const int n = j == 0 ? pend_best : other;
-            float mk;
-            dispatch_warp<R>(v, a, n, part, ls, t.req, row[n], tot, &mk,
-                             lane);
-            lo_bound = mk < lo_bound ? mk : lo_bound;
-            if (lane == 0) ++redisp;
-            regroup(n >> 5);
-          }
-        } else {
-          __syncwarp();
-          if (lane == 0) v.minrs[pend_best] = -INFINITY;
-          for (int k = 0; k < npg; ++k) {
-            const int grp = pgroups[k];
-            const int lo = v.csr_off[grp], hi = v.csr_off[grp + 1];
-            for (int j = lo + lane; j < hi; j += 32)
-              v.minrs[v.csr[j]] = -INFINITY;
-          }
-          __syncwarp();
-          lo_bound = -INFINITY;
-        }
+        __syncwarp();
+        lo_bound = -INFINITY;
       }
       pend_best = -1;
       npg = 0;
 
       // (d): while keep(ls, lo_bound) holds (a lower bound on every node's
-      // min_kept; -inf when nodes were marked stale above) no node is stale
-      // by ls; else every warp re-dispatches its nodes whose min_kept fails
-      const bool thresh = !all && a.has_drf && !keep(ls, lo_bound);
+      // min_kept; -inf when nodes were marked stale above) no node is
+      // stale; else every warp re-dispatches its nodes whose min_kept fails
+      // (without a drf tier, ls is 0 and min_kept +inf but where marked)
+      const bool thresh = !all && !keep(ls, lo_bound);
       if (all || thresh) {
         // bulk: every node, or those (d) made stale
         Command c = {};

@@ -104,6 +104,7 @@ class WalkOutput(NamedTuple):
     steps: int                  # tasks the walk evaluated (diagnostics)
     redispatched: Optional[int] = None   # walk_cuda: node dispatches
     bulks: Optional[int] = None          # walk_cuda: all-warp operations
+    plan: Optional["WalkPlan"] = None    # walk_cuda: the plan it launched
 
 
 def to_device(inp: WalkInputs, device) -> WalkInputs:
@@ -139,9 +140,15 @@ def _check_tiers(tier_kinds: Sequence[str], tier_sizes: Sequence[int],
 
 
 def walk_plain(inp: WalkInputs, tier_kinds: Tuple[str, ...],
-               tier_sizes: Tuple[int, ...], gang_commit: bool) -> WalkOutput:
+               tier_sizes: Tuple[int, ...], gang_commit: bool,
+               observe=None) -> WalkOutput:
     """The walk as PyTorch ops on the inputs' device, one task at a time:
-    the plain version of ``walk_cuda``."""
+    the plain version of ``walk_cuda``. ``observe``, if given, is called
+    after each evaluated task's dispatch as ``observe(i, ls, min_kept,
+    best, changed)``: the preemptor's drf share (0.0 without a drf tier),
+    each node's smallest drf-kept share (f32[N], inf where drf keeps none),
+    the node taken (-1 if none fits) and the alloc-groups whose allocation
+    the eviction changed (its victims' and the preemptor's own)."""
     nw = inp.nw
     N, W, R = nw.vreq.shape
     P = inp.preq.shape[0]
@@ -237,7 +244,15 @@ def walk_plain(inp: WalkInputs, tier_kinds: Tuple[str, ...],
                 & elig.any(dim=-1))
         row = torch.where(fits, inp.score_g[run_id[i]], neg_inf)
         best = int(torch.argmax(row))
-        if not bool(row[best] > neg_inf):
+        found = bool(row[best] > neg_inf)
+        if observe is not None:
+            inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+            min_kept = (torch.where(dset, rs, inf).min(dim=1).values
+                        if has_drf else inf.expand(N))
+            seen = (i, float(ls) if has_drf else 0.0, min_kept)
+        if not found:
+            if observe is not None:
+                observe(*seen, -1, [])
             # phase 1: the rest of the run fails alike (nothing changed);
             # phase 2 stops the job at its first failure
             i = (run_end[i] if gang_commit else job_end[i]) + 1
@@ -261,6 +276,9 @@ def walk_plain(inp: WalkInputs, tier_kinds: Tuple[str, ...],
         jalloc[g] = jalloc[g] + req
         count[g] += 1.0
         task_node[i] = best
+        if observe is not None:
+            observe(*seen, best,
+                    sorted(set(nw.vgroup[best][evicted].tolist()) | {g}))
         i += 1
 
     if gang_commit:
@@ -271,6 +289,65 @@ def walk_plain(inp: WalkInputs, tier_kinds: Tuple[str, ...],
         task_node = torch.where(job_done[inp.pjg.long()], task_node,
                                 torch.full_like(task_node, NO_NODE))
     return WalkOutput(task_node, owner, job_done, steps)
+
+
+class WalkDispatches(NamedTuple):
+    per_task: np.ndarray        # i64[steps] nodes dispatched, task by task
+    per_node: np.ndarray        # i64[N] dispatches of each node
+
+
+def walk_dispatches(inp: WalkInputs, tier_kinds: Tuple[str, ...],
+                    tier_sizes: Tuple[int, ...],
+                    gang_commit: bool) -> WalkDispatches:
+    """The node dispatches that ``csrc/evict.cu``'s verdict cache needs on
+    these inputs, counted from ``walk_plain``'s own per-task verdicts (not
+    from the kernel). An evaluated task dispatches every node when it is the
+    first since a job opened, when its score row or request differs from
+    the last evaluated task's, or when the preemptor's drf share fell;
+    else the last pick, under a drf tier every node with a slot of a group
+    whose allocation the last eviction changed, and every node whose
+    smallest drf-kept share at its last dispatch fails keep with the new
+    share. Raises if a node the rule leaves out has a kept share other than
+    its last dispatch's."""
+    nw = inp.nw
+    N = nw.vreq.shape[0]
+    dev = inp.fidle0.device
+    has_drf = "drf" in tier_kinds
+    opens = np.cumsum(inp.first.cpu().numpy())
+    run_id = inp.run_id.cpu().numpy()
+    req_bits = inp.preq.cpu().numpy().view(np.uint32)
+    cached = torch.full((N,), float("inf"), device=dev)
+    per_node = torch.zeros(N, dtype=torch.int64, device=dev)
+    per_task = []
+    last = {"i": -1, "ls": 0.0, "best": -1, "changed": []}
+
+    def observe(i, ls, min_kept, best, changed):
+        p = last["i"]
+        if (p < 0 or opens[i] != opens[p] or run_id[i] != run_id[p]
+                or (req_bits[i] != req_bits[p]).any()
+                or (has_drf and ls < last["ls"])):
+            stale = torch.ones(N, dtype=torch.bool, device=dev)
+        else:
+            ls_t = torch.tensor(ls, dtype=torch.float32, device=dev)
+            stale = ~((ls_t < cached)
+                      | ((ls_t - cached).abs() <= SHARE_DELTA))
+            if last["best"] >= 0:
+                stale[last["best"]] = True
+                if has_drf:
+                    grp = torch.tensor(last["changed"], dtype=nw.vgroup.dtype,
+                                       device=dev)
+                    stale |= (torch.isin(nw.vgroup, grp) & nw.valid).any(1)
+            if not torch.equal(min_kept[~stale], cached[~stale]):
+                raise RuntimeError(f"walk_dispatches: task {i} left out a "
+                                   f"node whose kept share changed")
+        cached[stale] = min_kept[stale]
+        per_node.add_(stale.long())
+        per_task.append(int(stale.sum()))
+        last.update(i=i, ls=ls, best=best, changed=changed)
+
+    walk_plain(inp, tier_kinds, tier_sizes, gang_commit, observe=observe)
+    return WalkDispatches(np.asarray(per_task, np.int64),
+                          per_node.cpu().numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +440,8 @@ def walk_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
     same inputs and outputs as ``walk_plain``, every tensor on one CUDA
     device. Raises on an input it does not take, a failed build or a failed
     launch. The output also carries the kernel's count of node dispatches
-    (``redispatched``) and of bulk operations (``bulks``)."""
+    (``redispatched``), of bulk operations (``bulks``) and the plan it
+    launched with."""
     nw = inp.nw
     device = inp.fidle0.device
     if device.type != "cuda":
@@ -434,7 +512,7 @@ def walk_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
     walk_cuda.launches += 1
     steps, redispatched, bulks = stats.tolist()
     return WalkOutput(task_node, owner, job_done.to(b8), steps,
-                      redispatched, bulks)
+                      redispatched, bulks, plan)
 
 
 # kernel launches since the count was last reset (chip_smoke.py reads it)
