@@ -57,7 +57,29 @@
 7. Runs proportion's deserved water-filling at 64 queues in its torch form
    on the card (ops/fairness.py::proportion_deserved, B8), against its
    NumPy twin within 1e-5 relative, with its time and bound.
-8. Prints one JSON line with each kernel's launches, times, bound and
+8. Runs deploy/scheduler.conf with its allocate engine line changed to
+   tpu-blocks at baseline_config("20k") (20,000 pods / 5,000 nodes, budgets
+   5/4), with and without taint_tenth (a [20,000 x 5,000] static matrix),
+   on the card and on the CPU (binds, pipelined tasks, PodGroup phases and
+   evictions equal; every B4 kernel launched, the placement kernel not),
+   and at baseline_config("100k") (100,000 pods / 20,000 nodes) on the
+   card alone, held to the invariants: no node over its capacity or pod
+   count, every gang bound whole or not at all. Prints allocate and solve
+   ms, and keeps each card cycle's first solve.
+9. Holds the block auction's three kernels (csrc/blocks.cu, B4) against
+   blocks_plain on the card, to the bit (packed row and final node state),
+   on tests/torch_parity.py's blocks worlds and on the solves step 8 kept.
+   Each ``kernel blocks`` line has the solve's time, each kernel's time and
+   launches in one solve, the counts, each kernel's bound and one timed run
+   of blocks_plain.
+10. Runs the same conf with engine tpu-strict at 10k on the card and on
+   the CPU (equal decisions; one placement launch a solve), printing the
+   batch sizes and whether its admissions equal tpu-fused's (step 6).
+11. Runs the reference's default conf (enqueue, allocate, backfill) on
+   baseline_config("1k", seed=3) with engine callbacks (host), tpu-strict
+   and tpu-fused (card): callbacks binds as tpu-strict does and admits the
+   gangs tpu-fused admits, with as many binds.
+12. Prints one JSON line with each kernel's launches, times, bound and
    error, then the card's name and power limit, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -98,6 +120,11 @@ configurations:
 # operations over these
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+
+def admitted(binds) -> frozenset:
+    """The gangs a bind map admits (bench.py's admission comparison)."""
+    return frozenset(k.rsplit("-", 1)[0] for k in binds)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -607,6 +634,193 @@ def compare_proportion(Q, seed, device):
 
 
 # ---------------------------------------------------------------------------
+# the block auction (B4) against its plain version
+# ---------------------------------------------------------------------------
+
+BLOCK_KERNELS = ("blocks_topk", "blocks_round", "blocks_free")
+
+
+def blocks_worlds():
+    """tests/torch_parity.py's blocks worlds and their argument builder
+    (NumPy and the port only)."""
+    sys.path.insert(0, os.path.join(_ROOT, "tests"))
+    from torch_parity import BLOCK_WORLDS, blocks_args
+    return BLOCK_WORLDS, blocks_args
+
+
+def blocks_bound(args, kw, stats):
+    """Least time the card could take for each B4 kernel's work in one
+    solve, from this run's counts (``stats``: chunks and rows with work,
+    rounds, sweeps, dropped tasks): each input byte read once and each
+    output byte written once over HBM, against the operations the function
+    needs over the FP32 rate. blocks_topk: per scored (row, node) pair the
+    fit tests and binpack terms, about 11 operations a resource column, and
+    43 for least/most/balanced allocation, the square root and the sums.
+    blocks_round: every sum over tasks on one node is an in-order segmented
+    prefix (or total) over the chunk's tasks grouped by node, so per task
+    with work (a chunk's rows spread evenly over its rounds) a round needs a
+    grouping of log2(C) compares, the claims (R + 1), three waves of prefix,
+    fit and count tests (3R + 2 each) and the free room (R); a chunk then
+    needs a grouping, nine split steps (3R + 1 each), the deltas (2R + 1)
+    and the chosen nodes' update (3R + 1). blocks_free: 2R adds per dropped
+    task and the state update (3R + 1) of every node per sweep; its bytes
+    are the node groups, the dropped tasks' rows and the node state.
+    Returns {kernel: (bound_ms, "bytes" or "operations")}."""
+    N, R = args[0].shape
+    has_ms = args[10] is not None
+    C = kw["chunk"]
+    K = min(32, int(N))
+    chunks, rows = stats["chunks"], stats["rows"]
+    log_c = max(1, (int(C) - 1).bit_length())
+    per_row = rows / max(1, chunks)
+    ops = {
+        "blocks_topk": rows * N * (11 * R + 43),
+        "blocks_round": (stats["rounds"] * per_row * (log_c + 11 * R + 7)
+                         + rows * (log_c + 9 * (3 * R + 1) + 5 * R + 2)),
+        "blocks_free": (stats["dropped"] * 2 * R
+                        + stats["sweeps"] * N * (3 * R + 1)),
+    }
+    moved = {
+        "blocks_topk": (chunks * (3 * N * R * 4 + 2 * N * 4)
+                        + rows * (R * 4 + (N * 4 if has_ms else 0) + K * 8)),
+        "blocks_round": chunks * (C * K * 8 + C * R * 4
+                                  + 2 * C * (3 * R + 1) * 4 + 8 * C),
+        "blocks_free": (stats["sweeps"] * (2 * N * 4
+                                           + 2 * N * (3 * R + 1) * 4)
+                        + stats["dropped"] * (R + 2) * 4),
+    }
+    return {k: larger(moved[k] / HBM_BYTES_PER_S * 1e3,
+                      ops[k] / FP32_OPS_PER_S * 1e3) for k in ops}
+
+
+def compare_blocks(label, args, kw):
+    """blocks_cuda against blocks_plain on the same CUDA tensors: the
+    packed row and the final node state must be equal (tolerance 0). The
+    record has the solve's time (CUDA events around the whole call, warm,
+    median of 5), each kernel's device time in one solve (events around
+    each launch alone, median of 5) and the frees' grouping's (tensor ops
+    before each blocks_free launch, "blocks_free_prep"), each kernel's
+    launches in one solve, the
+    counts, the bound of each kernel from them, and one timed run of
+    blocks_plain (host clock, synchronised) with its parts by kernel."""
+    import torch
+
+    from volcano_tpu_torch.ops.blocks import (blocks_cuda, blocks_plain,
+                                              free_cuda, round_cuda,
+                                              topk_cuda)
+    counters = (topk_cuda, round_cuda, free_cuda)
+    before = [k.launches for k in counters]
+    stats = {}
+    got = blocks_cuda(*args, stats=stats, **kw)
+    torch.cuda.synchronize()
+    launches = dict(zip(BLOCK_KERNELS, (k.launches - b for k, b in
+                                        zip(counters, before))))
+    box, plain_parts = {}, {}
+    plain_ms = time_host_ms(lambda: box.setdefault("out", blocks_plain(
+        *args, timing=plain_parts, **kw)))
+    for name, g, w in zip(("packed", "idle", "future_idle", "used",
+                           "ntasks"), got, box["out"]):
+        if not torch.equal(g, w):
+            first = (g != w).nonzero()[:1].tolist()
+            raise RuntimeError(f"blocks {label}: kernels and plain {name} "
+                               f"differ, first at {first}")
+    runs = []
+    for _ in range(5):
+        timing = {}
+        blocks_cuda(*args, timing=timing, **kw)
+        runs.append(timing)
+    T = int(args[7].sum())
+    rec = {"world": label, "T": T, "Tp": int(args[6].shape[0]),
+           "N": int(args[0].shape[0]), "R": int(args[0].shape[1]),
+           "static": args[10] is not None, **kw,
+           "placed": int((got[0][:args[6].shape[0]] >= 0).sum()),
+           "max_abs_err": 0.0, "launches": launches, "counts": stats,
+           "ms": time_cuda_ms(lambda: blocks_cuda(*args, **kw)),
+           "kernel_ms": {k: statistics.median(r.get(k, 0.0) * 1e3
+                                              for r in runs)
+                         for k in BLOCK_KERNELS + ("blocks_free_prep",)},
+           "plain_ms": plain_ms,
+           "plain_kernel_ms": {k: v * 1e3 for k, v in plain_parts.items()},
+           "bound": blocks_bound(args, kw, stats)}
+    print("kernel blocks", json.dumps(rec), flush=True)
+    return rec
+
+
+def record_blocks_solves(fn):
+    """Run ``fn`` and return, for every block-auction solve the allocate
+    action asked for, blocks_plain/blocks_cuda's arguments as the solve
+    passed them (the task axis padded), on the card."""
+    import torch
+
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.ops.blocks import JobMeta, pad_tasks
+    seen = []
+    real = allocate.place_blocks_unified
+
+    def recording(mesh, nodes, req, valid, job_ix, jobs, weights, alloc,
+                  max_tasks, **kw):
+        padded = pad_tasks(req, valid, job_ix, kw.get("masked_static"))
+        meta = JobMeta(*(torch.as_tensor(a, dtype=torch.int32,
+                                         device=req.device) for a in jobs))
+        seen.append(((*nodes, alloc, max_tasks, *padded[:3], meta,
+                      padded[3], weights),
+                     {"chunk": 256, "sweeps": kw["sweeps"],
+                      "passes": kw["passes"]}))
+        return real(mesh, nodes, req, valid, job_ix, jobs, weights, alloc,
+                    max_tasks, **kw)
+
+    allocate.place_blocks_unified = recording
+    try:
+        out = fn()
+    finally:
+        allocate.place_blocks_unified = real
+    return out, seen
+
+
+def engine_conf(engine: str, default: bool = False) -> str:
+    """deploy/scheduler.conf with only its allocate-tpu engine line set to
+    ``engine``; with ``default``, the reference's default conf with its
+    allocate action's engine set."""
+    if default:
+        from volcano_tpu_torch.framework import DEFAULT_SCHEDULER_CONF
+        return (DEFAULT_SCHEDULER_CONF + "configurations:\n"
+                "- name: allocate\n  arguments:\n"
+                f"    engine: {engine}\n")
+    return deployed_conf().replace("engine: tpu-fused", f"engine: {engine}")
+
+
+def check_capacity_and_gangs(cache, label):
+    """The invariants of a cycle with no CPU run to compare with: no node
+    holds more than its allocatable or its pod count, and every gang is
+    bound whole (at least its minAvailable) or not at all. Returns the bind
+    count."""
+    tasks = {f"{t.namespace}/{t.name}": (j, t) for j in cache.jobs.values()
+             for t in j.tasks.values()}
+    used, pods, per_job = {}, {}, {}
+    for key, node_name in cache.binder.binds.items():
+        job, task = tasks[key]
+        r = task.resreq
+        u = used.setdefault(node_name, [0.0, 0.0])
+        u[0] += r.cpu
+        u[1] += r.memory
+        pods[node_name] = pods.get(node_name, 0) + 1
+        per_job[job.uid] = per_job.get(job.uid, 0) + 1
+    for name, (cpu, mem) in used.items():
+        node = cache.nodes[name]
+        alloc = node.allocatable
+        check(cpu <= alloc.cpu and mem <= alloc.memory,
+              f"{label}: node {name} holds {cpu}/{mem} of "
+              f"{alloc.cpu}/{alloc.memory}")
+        check(pods[name] <= alloc.max_task_num,
+              f"{label}: node {name} holds {pods[name]} pods")
+    for uid, n in per_job.items():
+        check(n >= cache.jobs[uid].min_available,
+              f"{label}: gang {uid} bound {n} of "
+              f"{cache.jobs[uid].min_available}")
+    return len(cache.binder.binds)
+
+
+# ---------------------------------------------------------------------------
 # preempt alone, and the deployed cycle
 # ---------------------------------------------------------------------------
 
@@ -655,25 +869,42 @@ def run_preempt(device, intra=False):
 
 
 def deployed_world(name):
+    """A fresh world: a BASELINE config by name ("1k-seed3": the 1k world
+    from seed 3; a "-taints" suffix: taint_tenth on top), bench.py's
+    pipeline world, or the tight running+pending mix."""
     from volcano_tpu_torch.cache import synthetic
-    if name == "10k":
-        return synthetic.baseline_config("10k")[0]
+    if name in ("10k", "20k", "20k-taints", "100k", "1k-seed3"):
+        base, _, extra = name.partition("-")
+        cache = synthetic.baseline_config(
+            base, seed=3 if extra == "seed3" else 0)[0]
+        if extra == "taints":
+            taint_tenth(cache)
+        return cache
     if name == "pipeline":
         return synthetic.pipeline_world()[0]
     return synthetic.preempt_mix_cache(n_nodes=400, n_tasks=10000,
                                        n_jobs=200)[0]
 
 
-def run_deployed(name, device):
-    """One ``Scheduler.run_once`` of deploy/scheduler.conf as written on a
-    fresh world, each kernel's count set to 0 just before; returns the
-    decisions, the phase times in ms, the launches and the preempt
-    phases."""
-    from volcano_tpu_torch import Scheduler, scheduler
+def kernel_counters():
+    """Every kernel wrapper whose launches the script counts, by name."""
+    from volcano_tpu_torch.ops.blocks import free_cuda, round_cuda, topk_cuda
     from volcano_tpu_torch.ops.evict import walk_cuda
     from volcano_tpu_torch.ops.place import place_cuda, rowdiff_cuda
+    return {"place": place_cuda, "rowdiff": rowdiff_cuda,
+            "evict_walk": walk_cuda, "blocks_topk": topk_cuda,
+            "blocks_round": round_cuda, "blocks_free": free_cuda}
+
+
+def run_deployed(name, device, conf_text=None, keep_cache=False):
+    """One ``Scheduler.run_once`` of deploy/scheduler.conf as written (or
+    ``conf_text``) on a fresh world, each kernel's count set to 0 just
+    before; returns the decisions, the phase times in ms, the launches, the
+    preempt phases (None without preempt) and the allocate action's stats
+    (and the cache with ``keep_cache``)."""
+    from volcano_tpu_torch import Scheduler, scheduler
     cache = deployed_world(name)
-    sched = Scheduler(cache, deployed_conf(), device=device)
+    sched = Scheduler(cache, conf_text or deployed_conf(), device=device)
     closed = []
     real_close = scheduler.close_session
 
@@ -682,14 +913,14 @@ def run_deployed(name, device):
         real_close(ssn)
 
     scheduler.close_session = close
-    place_cuda.launches = rowdiff_cuda.launches = walk_cuda.launches = 0
+    counters = kernel_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
     try:
         sched.run_once()
     finally:
         scheduler.close_session = real_close
-    launches = {"place": place_cuda.launches,
-                "rowdiff": rowdiff_cuda.launches,
-                "evict_walk": walk_cuda.launches}
+    launches = {k: w.launches for k, w in counters.items()}
     ssn = closed[0]
     got = {
         "binds": dict(cache.binder.binds),
@@ -700,8 +931,12 @@ def run_deployed(name, device):
                    for uid, j in cache.jobs.items()},
     }
     times = {k: v * 1e3 for k, v in sched.last_cycle_s.items()}
-    preempt = next(a for a in sched.actions if a.name() == "preempt")
-    return got, times, launches, preempt.last_stats
+    by_name = {a.name(): a for a in sched.actions}
+    preempt = by_name.get("preempt")
+    alloc = by_name.get("allocate-tpu") or by_name.get("allocate")
+    out = (got, times, launches,
+           None if preempt is None else preempt.last_stats, alloc.last_stats)
+    return out + (cache,) if keep_cache else out
 
 
 
@@ -788,6 +1023,12 @@ def main() -> int:
         return 2
 
     # 1. the card and the build
+    started = time.perf_counter()
+
+    def phase(name):
+        print(f"phase {name} at {time.perf_counter() - started:.1f} s",
+              flush=True)
+
     card = card_line()
     print("card:", card, flush=True)
     t0 = time.perf_counter()
@@ -799,6 +1040,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  nvcc {name}: {line.strip()}")
 
+    phase("kernels")
     # 2. each kernel against its plain version
     from volcano_tpu_torch.cache.synthetic import baseline_config
     from volcano_tpu_torch.framework import resolve_device
@@ -873,6 +1115,7 @@ def main() -> int:
     check(len(phase2) == 1, "the intra-job preempt world ran no phase-2 walk")
     walk_records.append(compare_walk("preempt-intra-p2", phase2[0], dev))
 
+    phase("cycle")
     # 3. the cycle on the card (twice without taints: the second run shows
     # the time without first-use costs), and on the CPU
     results = {}
@@ -903,6 +1146,7 @@ def main() -> int:
         print(f"profile {label}:", json.dumps(profile_cycle(
             taints, results[run]["ms"]["cycle"])), flush=True)
 
+    phase("preempt")
     # 5. preempt alone on the preempt world, on the card
     evicts, pipelined, launches, ms, stats, _ = run_preempt(None)
     check(launches >= 1, "preempt on the card launched no walk")
@@ -915,15 +1159,16 @@ def main() -> int:
          "walk_launches": launches, "ms": ms, "cpu_ms": cpu_preempt[3],
          "phases": stats}), flush=True)
 
+    phase("deployed")
     # 6. the deployed cycle, on the card and on the CPU
     deployed = {}
     tight_walks = []
     for name in ("10k", "pipeline", "tight-mix"):
-        want, cpu_times, _, _ = run_deployed(name, "cpu")
+        want, cpu_times = run_deployed(name, "cpu")[:2]
         ran = {}
         walks = record_walks(lambda: ran.setdefault(
             "out", run_deployed(name, None)))
-        got, times, launches, stats = ran["out"]
+        got, times, launches, stats, _ = ran["out"]
         if name == "tight-mix":
             tight_walks = walks
         for key in ("binds", "evicts", "pipelined", "phases"):
@@ -935,6 +1180,8 @@ def main() -> int:
             check(launches["evict_walk"] > 0,
                   "deployed tight-mix: preempt launched no walk")
         deployed[name] = launches
+        if name == "10k":
+            fused_10k_binds = got["binds"]
         print(f"deployed {name}:", json.dumps(
             {"binds": len(got["binds"]), "evictions": len(got["evicts"]),
              "pipelined": len(got["pipelined"]), "launches": launches,
@@ -946,13 +1193,114 @@ def main() -> int:
     for k, w in enumerate(tight_walks):
         walk_records.append(compare_walk(f"tight-mix-walk-{k}", w, dev))
 
+    phase("proportion")
     # 7. proportion's water-filling at 64 queues (B8)
     compare_proportion(64, 1, dev)
 
-    # 8. the kernels line (launches: the placement kernel's in the 10k
+    phase("tpu-blocks")
+    # 8. tpu-blocks under the deployed conf (its engine line changed): at
+    # 20k, with and without taints, on the card against the CPU; at 100k on
+    # the card alone, held to capacity and gang invariants. The card cycles'
+    # first solves are kept for step 9.
+    blocks_cycles, solves = {}, {}
+    for name in ("20k", "20k-taints", "100k"):
+        conf = engine_conf("tpu-blocks")
+        cpu = None if name == "100k" else run_deployed(name, "cpu", conf)
+        ran, seen = record_blocks_solves(
+            lambda: run_deployed(name, None, conf, keep_cache=True))
+        got, times, launches, _, stats, cache = ran
+        solves[name] = seen[0]
+        for k in BLOCK_KERNELS:
+            check(launches[k] > 0,
+                  f"tpu-blocks {name}: {k} never launched")
+        check(launches["place"] == 0,
+              f"tpu-blocks {name}: the placement kernel launched")
+        if cpu is not None:
+            for key in ("binds", "pipelined", "phases", "evicts"):
+                check(got[key] == cpu[0][key],
+                      f"tpu-blocks {name}: {key} differ from the CPU cycle's")
+        binds = check_capacity_and_gangs(cache, f"tpu-blocks {name}")
+        del cache
+        blocks_cycles[name] = launches
+        rec = {"binds": binds, "pipelined": len(got["pipelined"]),
+               "launches": launches, "allocate_ms": times["allocate-tpu"],
+               "allocate_phases_ms": {
+                   k: v * 1e3 for k, v in stats.items()
+                   if k in ("order", "assemble", "solve", "replay")},
+               "solves": stats["solves"], "cycle_ms": times["cycle"],
+               "blocks": stats["blocks"]}
+        if cpu is not None:
+            rec.update(cpu_allocate_ms=cpu[1]["allocate-tpu"],
+                       cpu_solve_ms=cpu[4]["solve"] * 1e3,
+                       cpu_cycle_ms=cpu[1]["cycle"])
+        print(f"cycle tpu-blocks {name}:", json.dumps(rec), flush=True)
+
+    phase("blocks-kernels")
+    # 9. the block auction's kernels against blocks_plain on the CPU test
+    # worlds and on the tpu-blocks cycles' own first solves (20k with and
+    # without taints, 100k)
+    worlds, world_args = blocks_worlds()
+    blocks_records = []
+    for name, make in worlds.items():
+        args, kw = world_args(make(), dev)
+        blocks_records.append(compare_blocks(name, args, kw))
+    big_blocks = {}
+    for name in ("20k", "20k-taints", "100k"):
+        args, kw = solves.pop(name)
+        big_blocks[name] = compare_blocks(f"solve-{name}", args, kw)
+        blocks_records.append(big_blocks[name])
+        del args
+
+    phase("tpu-strict")
+    # 10. tpu-strict at 10k under the deployed conf, card against CPU, and
+    # its admissions beside tpu-fused's (step 6)
+    strict_conf = engine_conf("tpu-strict")
+    want, cpu_times, _, _, cpu_stats = run_deployed("10k", "cpu",
+                                                    strict_conf)
+    got, times, launches, _, stats = run_deployed("10k", None, strict_conf)
+    for key in ("binds", "pipelined", "phases", "evicts"):
+        check(got[key] == want[key],
+              f"tpu-strict 10k: {key} differ from the CPU cycle's")
+    check(launches["place"] == stats["solves"] > 0,
+          f"tpu-strict 10k: {launches['place']} placement launches for "
+          f"{stats['solves']} solves")
+    print("cycle tpu-strict 10k:", json.dumps({
+        "binds": len(got["binds"]), "place_launches": launches["place"],
+        "batches": stats["batches"],
+        "admissions_equal_tpu_fused": (admitted(got["binds"])
+                                       == admitted(fused_10k_binds)),
+        "allocate_ms": times["allocate-tpu"],
+        "solve_ms": stats["solve"] * 1e3,
+        "cpu_allocate_ms": cpu_times["allocate-tpu"]}), flush=True)
+
+    phase("default-conf")
+    # 11. the reference's default conf at 1k (seed 3): callbacks on the
+    # host, tpu-strict and tpu-fused on the card
+    runs = {e: run_deployed("1k-seed3", None, engine_conf(e, default=True))
+            for e in ("callbacks", "tpu-strict", "tpu-fused")}
+    binds = {e: r[0]["binds"] for e, r in runs.items()}
+    check(binds["callbacks"] == binds["tpu-strict"],
+          "default conf 1k: callbacks and tpu-strict bind differently")
+    check(admitted(binds["callbacks"]) == admitted(binds["tpu-fused"])
+          and len(binds["callbacks"]) == len(binds["tpu-fused"]),
+          "default conf 1k: callbacks and tpu-fused admit differently")
+    check(not any(runs["callbacks"][2].values()),
+          "default conf 1k: callbacks launched a kernel")
+    check(runs["tpu-strict"][2]["place"] > 0
+          and runs["tpu-fused"][2]["place"] > 0,
+          "default conf 1k: a device engine launched no placement kernel")
+    print("engines default-conf 1k:", json.dumps({
+        e: {"binds": len(binds[e]), "launches": r[2],
+            "allocate_ms": r[1]["allocate"]} for e, r in runs.items()}),
+        flush=True)
+
+    phase("summary")
+    # 12. the kernels line (launches: the placement kernel's in the 10k
     # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
     # it a static matrix, the walk's in the deployed cycle of the tight mix,
-    # the one where preempt has work), the card, the result
+    # the one where preempt has work, the block auction's in the tpu-blocks
+    # cycle at 20k; times and bounds of B4 on that cycle's first solve), the
+    # card, the result
     main_run = results["10k-first"]
     kernels = [{
         "name": "place",
@@ -1000,6 +1348,27 @@ def main() -> int:
         "in_smem": walk_main["in_smem"],
         "threads": walk_main["threads"],
     }]
+    solve20 = big_blocks["20k"]
+    for k in BLOCK_KERNELS:
+        kernels.append({
+            "name": k,
+            "route": "cuda",
+            "source": "volcano_tpu_torch/ops/csrc/blocks.cu",
+            "replaces": ("volcano_tpu/ops/unified.py:313" if k == "blocks_free"
+                         else "volcano_tpu/ops/unified.py:152"),
+            "launches": blocks_cycles["20k"][k],
+            "max_abs_err": max(r["max_abs_err"] for r in blocks_records),
+            "ms": solve20["kernel_ms"][k],
+            "plain_ms": solve20["plain_kernel_ms"].get(k, 0.0),
+            "bound_ms": solve20["bound"][k][0],
+            "bound_by": solve20["bound"][k][1],
+            "library_ms": None,
+            "launches_per_solve": solve20["launches"][k],
+            **({"prep_ms": solve20["kernel_ms"]["blocks_free_prep"]}
+               if k == "blocks_free" else {}),
+            "solve_ms": solve20["ms"],
+            "plain_solve_ms": solve20["plain_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

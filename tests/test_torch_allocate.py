@@ -76,11 +76,20 @@ def test_scheduler_run_once():
 
 
 @pytest.mark.parametrize("conf_text, refused", [
-    (SLICE_CONF.replace("engine: tpu-fused", "engine: callbacks"),
-     "callbacks"),
+    (SLICE_CONF.replace("engine: tpu-fused", "engine: tpu-sharded"),
+     "tpu-sharded"),
     (SLICE_CONF.replace("name: binpack", "name: conformance"),
      "conformance"),
     (SLICE_CONF.replace("backfill", "reserve"), "reserve"),
+    (SLICE_CONF.replace("engine: tpu-fused", "engine: callbacks-parallel"),
+     "callbacks-parallel"),
+    (SLICE_CONF.replace("engine: tpu-fused", "engine: tpu-scan"),
+     "tpu-scan"),
+    (SLICE_CONF.replace("engine: tpu-fused", "engine: tpu-pallas"),
+     "tpu-pallas"),
+    (SLICE_CONF.replace("engine: tpu-fused",
+                        "engine: tpu-fused\n    topology-weight: 3"),
+     "topology-weight"),
 ])
 def test_refuses_what_is_not_ported(conf_text, refused):
     cache = torch_synthetic.baseline_config("tiny")[0]

@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain versions, on the card: the
-placement kernel at every cluster size the card launches, and the preempt
-victim walk on every walk world, on three worlds too large for the plain
-walk on the CPU (2,500 nodes; W = 64 at 400 nodes and 8,192 nodes, in
-device-memory plans) and on a preempt world's own walk.
+placement kernel at every cluster size the card launches (and a strict
+engine's sequence of batches), the preempt victim walk on every walk world,
+on three worlds too large for the plain walk on the CPU (2,500 nodes; W =
+64 at 400 nodes and 8,192 nodes, in device-memory plans) and on a preempt
+world's own walk, and the block auction's kernels on every blocks world
+and on the tpu-blocks engine's first solve at 20,000 pods.
 
 These tests need an NVIDIA card and nvcc; without a card they skip. On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -19,10 +21,13 @@ from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, NEG, launch_plan,
 from volcano_tpu_torch.ops.evict import (launch_plan as walk_plan,
                                          to_device, walk, walk_cuda,
                                          walk_dispatches, walk_plain)
+from volcano_tpu_torch.ops.blocks import (blocks, blocks_cuda, blocks_plain,
+                                          free_cuda, round_cuda, topk_cuda)
 from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
-from torch_parity import CARD_WALK_WORLDS, PLACE_WORLDS, WALK_WORLDS
+from torch_parity import (BLOCK_WORLDS, CARD_WALK_WORLDS, PLACE_WORLDS,
+                          WALK_WORLDS, blocks_args)
 
 pytestmark = pytest.mark.cuda
 
@@ -186,3 +191,100 @@ def test_walk_preempt_world_matches_plain(card):
         d = to_device(inputs, card)
         _assert_walk_same(walk_cuda(d, kinds, sizes, gang),
                           walk_plain(d, kinds, sizes, gang), "preempt-small")
+
+
+# ---------------------------------------------------------------------------
+# the block auction (B4)
+# ---------------------------------------------------------------------------
+
+def _assert_blocks_same(got, want, label):
+    for name, g, w in zip(("packed", "idle", "future_idle", "used",
+                           "ntasks"), got, want):
+        assert torch.equal(g, w), f"{label}: {name}"
+
+
+@pytest.mark.parametrize("world", list(BLOCK_WORLDS))
+def test_blocks_kernels_match_plain(world, card):
+    """The packed row and the final node state equal to the bit."""
+    args, kw = blocks_args(BLOCK_WORLDS[world](), card)
+    stats = {}
+    got = blocks_cuda(*args, stats=stats, **kw)
+    _assert_blocks_same(got, blocks_plain(*args, **kw), world)
+    assert stats["chunks"] > 0 and stats["rounds"] > 0
+    torch.cuda.synchronize()
+
+
+def test_blocks_20k_solve_matches_plain(card):
+    """The tpu-blocks engine's first solve of baseline_config("20k")
+    (20,000 pods, 5,000 nodes, budgets 5/4) under deploy/scheduler.conf:
+    the kernels against blocks_plain on its own inputs."""
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+    from volcano_tpu_torch.framework import (abandon_session, get_action,
+                                             open_session,
+                                             parse_scheduler_conf)
+    from volcano_tpu_torch.ops.blocks import JobMeta, pad_tasks
+
+    from torch_parity import DEPLOYED_CONF
+    conf = parse_scheduler_conf(
+        DEPLOYED_CONF.replace("engine: tpu-fused", "engine: tpu-blocks"))
+    ssn = open_session(baseline_config("20k")[0], conf.tiers,
+                       conf.configurations, device=card)
+    try:
+        get_action("enqueue").execute(ssn)
+        inp = allocate.placement_inputs(ssn, allocate._fixed_job_order(ssn))
+    finally:
+        abandon_session(ssn)
+    T = len(inp.tasks)
+    req, valid, job_ix, ms = pad_tasks(
+        inp.req, torch.ones(T, dtype=torch.bool, device=card),
+        torch.tensor(inp.job_ix, device=card), inp.masked_static)
+    jobs = JobMeta(*(torch.tensor(a, device=card) for a in (
+        inp.min_available, inp.base_ready, inp.base_pipelined)))
+    nt = inp.node_t
+    args = (nt.idle, nt.future_idle, nt.used, nt.ntasks, nt.allocatable,
+            nt.max_tasks, req, valid, job_ix, jobs, ms, inp.weights)
+    got = blocks_cuda(*args, sweeps=5, passes=4)
+    _assert_blocks_same(got, blocks_plain(*args, sweeps=5, passes=4), "20k")
+    assert T == 20000 and (got[0][:T] >= 0).all()
+
+
+def test_blocks_dispatches_cuda_tensors_to_the_kernels(card):
+    args, kw = blocks_args(BLOCK_WORLDS["t300-padding"](), card)
+    before = (topk_cuda.launches, round_cuda.launches, free_cuda.launches)
+    got = blocks(*args, **kw)
+    assert topk_cuda.launches > before[0]
+    assert round_cuda.launches > before[1]
+    assert free_cuda.launches > before[2]
+    _assert_blocks_same(got, blocks_plain(*args, **kw), "t300-padding")
+
+
+def test_blocks_cuda_refuses_more_than_eight_resources(card):
+    args, kw = blocks_args(BLOCK_WORLDS["n-lt-32"](), card)
+    wide = [torch.cat([a] * 5, dim=1) if a is not None and a.dim() == 2
+            and a.shape[1] == 2 else a for a in args[:7]]
+    with pytest.raises(ValueError, match="resource columns"):
+        blocks_cuda(*wide, *args[7:], **kw)
+
+
+def test_strict_batches_carry_the_same_state(card):
+    """A strict engine's batch sequence — each batch solved from the node
+    state the last one left — ends in the same node state through
+    place_cuda as through place_plain."""
+    inst = PLACE_WORLDS["multi-chunk"]()
+    args = _args(inst, card)
+    state = {"cuda": args[:4], "plain": args[:4]}
+    for lo in range(0, args[6].shape[0], 60):
+        hi = min(lo + 60, args[6].shape[0])
+        job_ix = inst[7][lo:hi]
+        for name, solve in (("cuda", place_cuda), ("plain", place_plain)):
+            zeros = np.zeros(int(job_ix.max()) + 1, np.int32)
+            flags, ready_need, keep_need = (
+                torch.tensor(a, device=card) for a in task_flags(
+                    job_ix, inst[10][:len(zeros)], zeros, zeros))
+            out = solve(*state[name], args[4], args[5], args[6][lo:hi],
+                        flags, ready_need, keep_need, args[10][lo:hi],
+                        args[11])
+            state[name] = out[1:]
+    for g, w in zip(state["cuda"], state["plain"]):
+        assert torch.equal(g, w)

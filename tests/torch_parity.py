@@ -13,8 +13,9 @@ off the JAX programs do too, so the two packages must decide alike bit for
 bit. The flag cannot change in the test process itself: XLA reads it once.
 
 Run as a script, this file computes the references:
-``python tests/torch_parity.py {slice|deployed|evict|walk|plugins|place}
-OUT NAME...``, or ``mixed OUT KIND:NAME...``.
+``python tests/torch_parity.py
+{slice|deployed|evict|walk|plugins|place|blocks|engines} OUT NAME...``, or
+``mixed OUT KIND:NAME...``.
 """
 
 from __future__ import annotations
@@ -427,6 +428,280 @@ def jax_place(inst, pallas: bool):
                          got.job_kept, got.idle, got.future_idle, got.used,
                          got.ntasks.astype(np.int32))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the block auction's worlds (B4): dicts of NumPy arrays — node state,
+# tasks, gangs, an optional masked static matrix — and the solve's chunk
+# and budgets
+# ---------------------------------------------------------------------------
+
+GI = float(1 << 30)
+NEG_F32 = np.float32(-1e30)
+
+
+def _blocks_world(alloc, req, job_ix, min_avail, *, ms=None, used=None,
+                  releasing=None, ntasks=None, max_tasks=None, chunk=256,
+                  sweeps=3, passes=3):
+    alloc = np.asarray(alloc, np.float32)
+    req = np.asarray(req, np.float32)
+    N, R = alloc.shape
+    used = np.zeros((N, R), np.float32) if used is None else used
+    releasing = (np.zeros((N, R), np.float32) if releasing is None
+                 else releasing)
+    J = len(min_avail)
+    return {
+        "idle": (alloc - used).astype(np.float32),
+        "future_idle": (alloc - used + releasing).astype(np.float32),
+        "used": np.asarray(used, np.float32),
+        "ntasks": (np.zeros(N, np.int32) if ntasks is None
+                   else np.asarray(ntasks, np.int32)),
+        "allocatable": alloc,
+        "max_tasks": (np.full(N, 100, np.int32) if max_tasks is None
+                      else np.asarray(max_tasks, np.int32)),
+        "req": req, "valid": np.ones(len(req), bool),
+        "job_ix": np.asarray(job_ix, np.int32),
+        "min_available": np.asarray(min_avail, np.int32),
+        "base_ready": np.zeros(J, np.int32),
+        "base_pipelined": np.zeros(J, np.int32),
+        "ms": None if ms is None else np.asarray(ms, np.float32),
+        "chunk": chunk, "sweeps": sweeps, "passes": passes,
+    }
+
+
+def _unified(seed, with_ms, sweeps, passes):
+    """tests/test_unified.py's build(seed) world (96 tasks in 8 gangs, 16
+    nodes, chunks of 16) and, with ``with_ms``, its masked_static_for
+    matrix: copies, draw for draw, since that module imports JAX."""
+    T, N, J, R = 96, 16, 8, 2
+    rng = np.random.RandomState(seed)
+    alloc = rng.choice([4000.0, 8000.0], size=(N, R)).astype(np.float32)
+    req = rng.choice([500.0, 1000.0, 2000.0], size=(T, R)).astype(np.float32)
+    job_ix = np.sort(rng.randint(0, J, size=T)).astype(np.int32)
+    min_avail = [max(1, (job_ix == j).sum() // 2) for j in range(J)]
+    ms = None
+    if with_ms:
+        rng = np.random.RandomState(seed + 1000)
+        feas = rng.rand(T, N) < 0.85
+        feas[:, 0] = True
+        static = rng.rand(T, N).astype(np.float32) * 0.5
+        ms = np.where(feas, static, NEG_F32)
+    return _blocks_world(alloc, req, job_ix, min_avail, ms=ms, chunk=16,
+                         sweeps=sweeps, passes=passes)
+
+
+def _zero_static(world):
+    """The world with an all-zero static matrix and every pair feasible:
+    what the JAX package's non-sharded blocks engine always builds."""
+    world["ms"] = np.zeros((len(world["req"]), len(world["idle"])),
+                           np.float32)
+    return world
+
+
+def _ops_place_blocks(case):
+    """The three blocks cases of tests/test_ops_place.py (place_blocks: an
+    all-true mask and a zero static matrix)."""
+    if case == "capacity":
+        alloc, req, jx, mina = ([[2000.0, 4000.0], [1000.0, 2000.0]],
+                                [[1000, 2000]] * 3, [0, 0, 0], [3])
+        kw = dict(chunk=4)
+    elif case == "rollback-refill":
+        alloc, req, jx, mina = ([[1000.0, 1000.0]], [[1000, 1000]] * 3,
+                                [0, 0, 1], [2, 1])
+        kw = dict(chunk=2)
+    else:
+        alloc, req, jx, mina = ([[2500.0, 2500.0]], [[1000, 1000]] * 4,
+                                [0, 1, 2, 3], [1] * 4)
+        kw = dict(chunk=4, sweeps=1)
+    ms = np.zeros((len(req), len(alloc)), np.float32)
+    return _blocks_world(alloc, req, jx, mina, ms=ms, **kw)
+
+
+def _blocks_identical():
+    """40 identical empty nodes, 600 identical tasks in 12 gangs of 50:
+    every candidate list is a run of ties."""
+    alloc = np.tile([[32000.0, 128 * GI]], (40, 1))
+    req = np.tile([[1000.0, 2 * GI]], (600, 1))
+    jx = np.repeat(np.arange(12), 50)
+    return _blocks_world(alloc, req, jx, [50] * 12,
+                         max_tasks=np.full(40, 110))
+
+
+def _blocks_random(seed, T, N, J, R=2, chunk=256, tight=False, ms=False,
+                   fractional=False):
+    rng = np.random.RandomState(seed)
+    if fractional:
+        alloc = rng.uniform(3.0, 9.0, size=(N, R)).astype(np.float32)
+        req = rng.uniform(0.1, 2.3, size=(T, R)).astype(np.float32)
+    else:
+        alloc = rng.choice([4000.0, 8000.0, 16000.0],
+                           size=(N, R)).astype(np.float32)
+        req = rng.choice([250.0, 500.0, 1000.0, 2000.0],
+                         size=(T, R)).astype(np.float32)
+    used = (alloc * rng.uniform(0, 0.8 if tight else 0.3, (N, R))
+            ).astype(np.float32)
+    releasing = (alloc * rng.uniform(0, 0.1, (N, R))).astype(np.float32)
+    jx = np.sort(rng.randint(0, J, size=T))
+    mina = [max(1, int((jx == j).sum() * 3 // 4)) for j in range(J)]
+    m = None
+    if ms:
+        m = np.where(rng.rand(T, N) > 0.2,
+                     rng.randint(0, 30, (T, N)), NEG_F32)
+    return _blocks_world(alloc, req, jx, mina, ms=m, used=used,
+                         releasing=releasing,
+                         ntasks=rng.randint(0, 3, N),
+                         max_tasks=rng.randint(8, 60, N), chunk=chunk)
+
+
+def _blocks_one_node():
+    """40 single-task jobs in one chunk, all of whose best node is node 2
+    (half used: binpack prefers it), which holds ten of them."""
+    alloc = np.tile([[8000.0, 8000.0]], (6, 1))
+    used = np.zeros((6, 2), np.float32)
+    used[2] = 4000.0
+    req = np.tile([[400.0, 400.0]], (40, 1))
+    return _blocks_world(alloc, req, np.arange(40), [1] * 40, used=used,
+                         chunk=64)
+
+
+def _blocks_idle_chunks():
+    """1,024 tasks in chunks of 256 on 64 nodes, a static matrix that makes
+    nodes 0-31 the best: the first three chunks place in pass 1, the last
+    chunk's large tasks fill nodes 0-31 and the rest wait for pass 2, in
+    which the first three chunks have no work."""
+    N = 64
+    alloc = np.tile([[8000.0, 8000.0]], (N, 1))
+    req = np.concatenate([np.tile([[100.0, 100.0]], (768, 1)),
+                          np.tile([[2000.0, 2000.0]], (256, 1))])
+    jx = np.concatenate([np.repeat(np.arange(24), 32),
+                         24 + np.arange(256)])
+    ms = np.zeros((1024, N), np.float32)
+    ms[:, :32] = 100.0
+    return _blocks_world(alloc, req, jx, [32] * 24 + [1] * 256, ms=ms,
+                         max_tasks=np.full(N, 110))
+
+
+def _lane_boundary():
+    """Four requests whose [C,C]-product sum (four lanes, (l0 + l1) + (l2 +
+    l3)) is an ulp above their sum in order, a fifth request r, and a node
+    value A at which r + lanes >= A + EPS > r + in-order sum: the order of
+    the sum decides whether the fifth task fits."""
+    f32 = np.float32
+    rng = np.random.RandomState(0)
+    while True:
+        v = rng.uniform(0.5, 2.0, 4).astype(f32)
+        lanes = f32(f32(v[0] + v[1]) + f32(v[2] + v[3]))
+        seq = f32(f32(f32(v[0] + v[1]) + v[2]) + v[3])
+        if lanes > seq:
+            break
+    r = f32(1.0)
+    lo, hi = f32(r + seq), f32(r + lanes)
+    a = f32(hi - f32(0.1))
+    while not lo < f32(a + f32(0.1)) <= hi:
+        up = f32(a + f32(0.1)) <= lo
+        a = np.nextafter(a, f32(np.inf) if up else f32(-np.inf), dtype=f32)
+    return np.append(v, r).astype(f32), a
+
+
+def _blocks_lanes(split, chunk=8):
+    """Five single-task jobs on one node (tasks 0-3 the requests of
+    _lane_boundary, task 4 the fifth): with ``split`` False the node's
+    FutureIdle is A, and the bidding wave rejects task 4; with ``split`` its
+    Idle is A and FutureIdle 10 more, and the alloc/pipe split pipelines
+    it. A sum in another order keeps it in both."""
+    v, a = _lane_boundary()
+    req = np.stack([v, np.ones(5, np.float32)], axis=1)
+    alloc = np.array([[a, 100.0]], np.float32)
+    rel = np.array([[10.0 if split else 0.0, 0.0]], np.float32)
+    return _blocks_world(alloc, req, np.arange(5), [1] * 5, releasing=rel,
+                         chunk=chunk, sweeps=1, passes=1)
+
+
+def _blocks_fractional_frees(T=1024):
+    """T fractional requests in 8 gangs on 4 nodes; every other gang asks
+    for one task more than it has, so the sweep frees its tasks, which span
+    blocks of 256 on every node: the frees' order shows in the final node
+    state."""
+    rng = np.random.RandomState(15)
+    req = rng.uniform(0.1, 2.3, size=(T, 2)).astype(np.float32)
+    alloc = np.full((4, 2), 1e4, np.float32)
+    size = T // 8
+    mina = [size + 1 if j % 2 else size for j in range(8)]
+    return _blocks_world(alloc, req, np.repeat(np.arange(8), size), mina,
+                         max_tasks=np.full(4, 1000))
+
+
+BLOCK_WORLDS = {
+    **{f"unified-{s}-{'ms' if m else 'plain'}-{sw}{pa}":
+       (lambda s=s, m=m, sw=sw, pa=pa: _unified(s, m, sw, pa))
+       for s in (0, 1, 3) for m in (False, True)
+       for sw, pa in ((3, 3), (5, 4))},
+    "unified-1-caps-98": lambda: _unified(1, False, 9, 8),
+    "unified-0-zeros-33": lambda: _zero_static(_unified(0, False, 3, 3)),
+    **{f"ops-place-{c}": (lambda c=c: _ops_place_blocks(c))
+       for c in ("capacity", "rollback-refill", "contention-exact")},
+    "identical": _blocks_identical,
+    "n-lt-32": lambda: _blocks_random(11, T=120, N=10, J=8, chunk=64,
+                                      tight=True),
+    "t300-padding": lambda: _blocks_random(12, T=300, N=50, J=20, ms=True),
+    "one-node-40": _blocks_one_node,
+    "fractional": lambda: _blocks_random(13, T=700, N=24, J=30, R=3,
+                                         chunk=64, tight=True,
+                                         fractional=True),
+    "fractional-ms": lambda: _blocks_random(14, T=500, N=40, J=25, R=3,
+                                            chunk=128, tight=True, ms=True,
+                                            fractional=True),
+    "idle-chunks": _blocks_idle_chunks,
+    "lanes-wave": lambda: _blocks_lanes(False),
+    "lanes-wave-256": lambda: _blocks_lanes(False, 256),
+    "lanes-split-256": lambda: _blocks_lanes(True, 256),
+    "fractional-frees": _blocks_fractional_frees,
+}
+
+
+def blocks_args(world, device):
+    """blocks_plain/blocks_cuda's arguments for a blocks world on
+    ``device``: the task axis padded, then the chunk and budgets as
+    keywords."""
+    import torch
+
+    from volcano_tpu_torch.ops.blocks import JobMeta, pad_tasks
+    from volcano_tpu_torch.ops.scores import default_weights
+
+    def t(k):
+        return torch.tensor(world[k], device=device)
+
+    req, valid, job_ix, ms = pad_tasks(
+        t("req"), t("valid"), t("job_ix"),
+        None if world["ms"] is None else t("ms"), world["chunk"])
+    args = (t("idle"), t("future_idle"), t("used"), t("ntasks"),
+            t("allocatable"), t("max_tasks"), req, valid, job_ix,
+            JobMeta(t("min_available"), t("base_ready"), t("base_pipelined")),
+            ms, default_weights(world["req"].shape[1]))
+    return args, {k: world[k] for k in ("chunk", "sweeps", "passes")}
+
+
+def jax_blocks(world):
+    """place_blocks_unified(None, ...) on a blocks world: the packed row and
+    the final node state, as NumPy arrays."""
+    import jax.numpy as jnp
+
+    from volcano_tpu.ops.place import JobMeta, NodeState
+    from volcano_tpu.ops.scores import default_weights
+    from volcano_tpu.ops.unified import place_blocks_unified
+    w = world
+    packed, nodes = place_blocks_unified(
+        None, NodeState(*(jnp.asarray(w[k]) for k in
+                          ("idle", "future_idle", "used", "ntasks"))),
+        jnp.asarray(w["req"]), jnp.asarray(w["valid"]),
+        jnp.asarray(w["job_ix"]),
+        JobMeta(*(jnp.asarray(w[k]) for k in
+                  ("min_available", "base_ready", "base_pipelined"))),
+        default_weights(w["req"].shape[1]), jnp.asarray(w["allocatable"]),
+        jnp.asarray(w["max_tasks"]), chunk=w["chunk"], sweeps=w["sweeps"],
+        passes=w["passes"],
+        masked_static=None if w["ms"] is None else jnp.asarray(w["ms"]))
+    return (np.asarray(packed), *(np.asarray(a) for a in nodes))
 
 
 # ---------------------------------------------------------------------------
@@ -1248,6 +1523,212 @@ PLUGIN_CASES = {
 
 
 # ---------------------------------------------------------------------------
+# the allocate engines: tests/test_allocate_action.py's worlds, each run by
+# one AllocateAction(engine=...) under that file's tiers (or the default
+# conf), in either package
+# ---------------------------------------------------------------------------
+
+ENGINES = ("callbacks", "tpu-strict", "tpu-strict-perjob", "tpu-blocks")
+
+# tests/test_allocate_action.py::default_tiers
+ENGINE_CONF = """
+actions: "allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: binpack
+"""
+
+
+def _engine_job(name, queue, min_avail, reqs, priority=0, phase="Inqueue"):
+    """tests/test_allocate_action.py::build_job."""
+    from volcano_tpu.api import (JobInfo, PodGroup, PodGroupPhase, Resource,
+                                 TaskInfo)
+    pg = PodGroup(name=name, namespace="default", queue=queue,
+                  min_member=min_avail, phase=PodGroupPhase(phase))
+    job = JobInfo(uid=name, name=name, namespace="default", queue=queue,
+                  min_available=min_avail, podgroup=pg, priority=priority)
+    for i, (cpu, mem) in enumerate(reqs):
+        job.add_task_info(TaskInfo(uid=f"{name}-{i}", name=f"{name}-{i}",
+                                   namespace="default", job=name,
+                                   resreq=Resource(cpu, mem),
+                                   creation_timestamp=float(i)))
+    return job
+
+
+def _engine_node(name, cpu, mem, pods=100):
+    from volcano_tpu.api import NodeInfo, Resource
+    alloc = Resource(cpu, mem)
+    alloc.max_task_num = pods
+    return NodeInfo(name=name, allocatable=alloc)
+
+
+def _engine_case(case):
+    """The worlds of tests/test_allocate_action.py::TestAllocate and
+    TestEngineParity.test_random_fixture_parity."""
+    import random
+    from volcano_tpu.api import QueueInfo
+    J, N = _engine_job, _engine_node
+    queues = [QueueInfo(name="default", weight=1)]
+    if case == "gang-fits":
+        jobs = [J("j1", "default", 3, [(1000, 1000)] * 3)]
+        nodes = [N("n1", 2000, 2000), N("n2", 1000, 1000)]
+    elif case == "gang-unsatisfiable":
+        jobs = [J("j1", "default", 3, [(1000, 1000)] * 3)]
+        nodes = [N("n1", 2000, 2000)]
+    elif case == "pending-podgroup":
+        jobs = [J("j1", "default", 1, [(100, 100)], phase="Pending")]
+        nodes = [N("n1", 1000, 1000)]
+    elif case == "discard-frees":
+        jobs = [J("a-big", "default", 2, [(800, 800)] * 2, priority=10),
+                J("b-small", "default", 1, [(800, 800)])]
+        nodes = [N("n1", 1000, 1000)]
+    elif case == "priority-order":
+        jobs = [J("low", "default", 1, [(800, 800)], priority=1),
+                J("high", "default", 1, [(800, 800)], priority=10)]
+        nodes = [N("n1", 1000, 1000)]
+    elif case == "best-effort":
+        jobs = [J("j1", "default", 1, [(0, 0)])]
+        nodes = [N("n1", 1000, 1000)]
+    elif case == "node-selector":
+        jobs = [J("j1", "default", 1, [(100, 100)])]
+        for t in jobs[0].tasks.values():
+            t.node_selector = {"zone": "a"}
+        nodes = [N("n1", 1000, 1000), N("n2", 1000, 1000)]
+        nodes[1].labels["zone"] = "a"
+    elif case == "taint":
+        jobs = [J("j1", "default", 1, [(100, 100)])]
+        nodes = [N("n1", 1000, 1000), N("n2", 1000, 1000)]
+        nodes[0].taints = [{"key": "dedicated", "value": "x",
+                            "effect": "NoSchedule"}]
+    elif case == "queue-weights":
+        queues = _queues(3, 1)
+        jobs = []
+        for i in range(4):
+            jobs.append(J(f"a{i}", "q1", 1, [(1000, 1000)]))
+            jobs.append(J(f"b{i}", "q2", 1, [(1000, 1000)]))
+        nodes = [N("n1", 4000, 4000)]
+    else:                                   # "random-fixture"
+        rng = random.Random(7)
+        nodes = [N(f"n{i}", rng.choice([2000, 4000, 8000]),
+                   rng.choice([4000, 8000, 16000])) for i in range(8)]
+        jobs = []
+        for j in range(12):
+            k = rng.randint(1, 4)
+            reqs = [(rng.choice([500, 1000, 2000]),
+                     rng.choice([500, 1000, 2000]))] * k
+            jobs.append(J(f"job{j}", "default", k, reqs,
+                          priority=rng.randint(0, 5)))
+    return _jax_cache(nodes, jobs, queues)
+
+
+def _strict_multiqueue():
+    """tests/test_allocate_action.py::test_strict_batched_multiqueue_parity's
+    world: 300 pods in 30 gangs over 3 queues (3:2:1) on 40 nodes."""
+    from volcano_tpu.cache.synthetic import make_cluster, make_jobs
+    return _jax_cache(make_cluster(40, seed=7),
+                      make_jobs(300, 30, ["q1", "q2", "q3"], seed=7),
+                      _queues(3, 2, 1))
+
+
+def _strict_adaptive():
+    """test_strict_adaptive_batching_fewer_solves' world: 60 jobs of two
+    (100, 100) tasks on eight 4,000/4,000 nodes."""
+    from volcano_tpu.api import QueueInfo
+    jobs = [_engine_job(f"j{i:02d}", "default", 1, [(100, 100)] * 2)
+            for i in range(60)]
+    return _jax_cache([_engine_node(f"n{i}", 4000, 4000) for i in range(8)],
+                      jobs, [QueueInfo(name="default", weight=1)])
+
+
+ENGINE_CASES = ("gang-fits", "gang-unsatisfiable", "pending-podgroup",
+                "discard-frees", "priority-order", "best-effort",
+                "node-selector", "taint", "queue-weights", "random-fixture")
+
+# name -> (world builder, conf text or None for the default conf, the
+# allocate action's arguments)
+ENGINE_WORLDS = {
+    **{c: ((lambda c=c: _engine_case(c)), ENGINE_CONF, {})
+       for c in ENGINE_CASES},
+    "1k-seed3": (lambda: _baseline_seed("1k", 3), None, {}),
+    "strict-multiqueue": (_strict_multiqueue, None, {}),
+    "strict-multiqueue-batch3": (_strict_multiqueue, None,
+                                 {"strict-batch": 3}),
+    "strict-adaptive": (_strict_adaptive, ENGINE_CONF, {"strict-batch": 4}),
+}
+
+
+def _baseline_seed(name, seed):
+    from volcano_tpu.cache.synthetic import baseline_config
+    return baseline_config(name, seed=seed)[0]
+
+
+def run_allocate(cache, engine, conf_text, arguments, torch_port):
+    """One AllocateAction(engine=...) alone in a session of ``conf_text``'s
+    tiers (the default conf for None) with ``arguments`` as the allocate
+    action's configuration, through the port on the CPU (``torch_port``) or
+    the JAX package; returns (closed session, the solves the engine ran: the
+    JAX package's strict engines counted at _solve_job_batch, the port's
+    from its stats)."""
+    if torch_port:
+        import volcano_tpu_torch.plugins  # noqa: F401
+        from volcano_tpu_torch.actions import AllocateAction, allocate
+        from volcano_tpu_torch.framework import (Arguments, Configuration,
+                                                 close_session, open_session,
+                                                 parse_scheduler_conf)
+        kw = {"device": "cpu"}
+    else:
+        import volcano_tpu.plugins  # noqa: F401
+        from volcano_tpu.actions import AllocateAction, allocate
+        from volcano_tpu.framework import (Configuration, close_session,
+                                           open_session,
+                                           parse_scheduler_conf)
+        from volcano_tpu.framework.arguments import Arguments
+        kw = {}
+    conf = parse_scheduler_conf(conf_text)
+    confs = ([Configuration(name="allocate", arguments=Arguments(arguments))]
+             if arguments else [])
+    ssn = open_session(cache, conf.tiers, confs, **kw)
+    action = AllocateAction(engine=engine)
+    solves = 0
+    if torch_port:
+        action.execute(ssn)
+        solves = action.last_stats.get("solves", 0)
+    else:
+        real = allocate._solve_job_batch
+
+        def counting(*a, **k):
+            nonlocal solves
+            solves += 1
+            return real(*a, **k)
+
+        allocate._solve_job_batch = counting
+        try:
+            action.execute(ssn)
+        finally:
+            allocate._solve_job_batch = real
+        assert not allocate.LAST_FALLBACK, allocate.LAST_FALLBACK
+    close_session(ssn)
+    return ssn, solves
+
+
+def engine_reference(name):
+    """name is "engine:world": (the world, the outcome, the solves)."""
+    engine, world_name = name.split(":", 1)
+    build, conf_text, arguments = ENGINE_WORLDS[world_name]
+    cache = build()
+    world = world_from_cache(cache)
+    ssn, solves = run_allocate(cache, engine, conf_text, arguments, False)
+    return world, outcome(ssn, cache), solves
+
+
+# ---------------------------------------------------------------------------
 # the plain-data world, and one cycle through either package
 # ---------------------------------------------------------------------------
 
@@ -1405,8 +1886,9 @@ def jax_reference(kind: str, names, out_path) -> dict:
     and "deployed": name -> (world, outcome) of one cycle of that conf;
     "evict": name -> (world, evict_outcome) of one preempt or reclaim;
     "walk": name -> jax_walk(); "plugins": name -> PLUGIN_CASES[name]();
-    "place": name -> jax_place(); "mixed": names are "kind:name", so one
-    child process serves several kinds."""
+    "place": name -> jax_place(); "blocks": name -> jax_blocks();
+    "engines": "engine:world" -> engine_reference(); "mixed": names are
+    "kind:name", so one child process serves several kinds."""
     return jax_reference_script([os.path.abspath(__file__), kind], out_path,
                                 names)
 
@@ -1429,6 +1911,10 @@ def _reference(kind, name):
         return jax_walk(WALK_WORLDS[name]())
     if kind == "plugins":
         return PLUGIN_CASES[name]()
+    if kind == "blocks":
+        return jax_blocks(BLOCK_WORLDS[name]())
+    if kind == "engines":
+        return engine_reference(name)
     return jax_place(PLACE_WORLDS[name](), name in INTEGER_PLACE_WORLDS)
 
 

@@ -1,17 +1,36 @@
-"""Allocate (``allocate-tpu``, engine ``tpu-fused``): the whole action as one
-device solve.
+"""Allocate: the core scheduling action, in the engines that run on one
+device.
 
-Control flow mirrors pkg/scheduler/actions/allocate/
-allocate.go:42-277 — namespace → queue (overused-filtered) → job → task
-priority interleave, per-task predicate/score/select, Statement commit iff
-the gang is Ready — with the job order fixed up front: the interleave is
-simulated with every popped job assumed admitted, all pending tasks solve in
-one placement kernel launch (ops/place.py), the order is re-simulated with
-the actually admitted set until it stops changing, and the final solve
-replays through the session.
+Control flow mirrors pkg/scheduler/actions/allocate/allocate.go:42-277 —
+namespace → queue (overused-filtered, share-ordered) → job → task priority
+interleave, per-task predicate/score/select, Statement commit iff the gang
+is Ready. The engines (the JAX package's actions/allocate.py):
 
-This is the only engine here. A conf that asks for another one is refused;
-a solve that fails raises — there is no fallback placer.
+- ``callbacks``: the reference's architecture on the host — per-(task,
+  node) plugin callbacks through predicate_nodes/prioritize_nodes, the
+  interleave popping one job at a time. An engine a conf selects (the
+  default of ``allocate``), never a stand-in for a failed device engine.
+- ``tpu-strict``: the same interleave, with the device solves batched: the
+  next B pops are predicted by simulating the interleave, solved in one
+  placement kernel launch (ops/place.py) with the node state carried
+  across jobs, and verified pop by pop at replay; a mispredicted pop
+  discards the rest of the batch and re-solves the verified prefix. The
+  batch doubles after a verified full batch (up to 32 times the floor,
+  ``strict-batch``, 16 by default) and halves on a mispredict; it is 1
+  under stateful predicates. ``tpu-strict-perjob`` solves one job a launch.
+- ``tpu-fused``: the whole action as one solve: the job order is fixed up
+  front by simulating the interleave with every popped job assumed
+  admitted, all pending tasks solve in one placement kernel launch, the
+  order is re-simulated with the actually admitted set until it stops
+  changing, and the final solve replays through the session.
+- ``tpu-blocks``: tpu-fused's fixed point with the block auction
+  (ops/blocks.py) as the solve.
+
+The action ``allocate`` defaults to callbacks and ``allocate-tpu`` to
+tpu-fused. A conf that asks for an engine this package lacks
+(``tpu-sharded``, ``tpu-scan``, ``tpu-pallas``, ``callbacks-parallel``) or
+for a positive ``topology-weight`` is refused by name. A device solve that
+fails raises: there is no fallback placer and no device cool-down.
 """
 
 from __future__ import annotations
@@ -22,16 +41,30 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..api import PodGroupPhase, Resource, TaskInfo, TaskStatus
+from ..api import (FitError, PodGroupPhase, Resource, TaskInfo, TaskStatus)
+from ..api.types import NODE_RESOURCE_FIT_FAILED
 from ..cache.snapshot import (NodeTensors, assemble_feasibility,
                               assemble_static_score, assemble_weights,
                               discover_resource_names, task_requests)
+from ..ops.blocks import (JobMeta, NodeState, padded_task_len,
+                          place_blocks_unified)
 from ..ops.place import NEG, NO_NODE, place
 from ..ops.scores import ScoreWeights
 from ..utils import PriorityQueue
+from ..utils.scheduler_helper import (predicate_nodes, prioritize_nodes,
+                                      select_best_node)
 from .base import Action
 
-ENGINE = "tpu-fused"
+ENGINES = ("callbacks", "tpu-strict", "tpu-strict-perjob", "tpu-fused",
+           "tpu-blocks")
+# engines of the JAX package this one lacks, and why
+MISSING_ENGINES = {
+    "tpu-sharded": "the node-sharded solve over a device mesh (B5)",
+    "tpu-scan": "the XLA scan solve, whose function place.cu computes",
+    "tpu-pallas": "the Pallas solve, whose function place.cu computes",
+    "callbacks-parallel": "the 16-way threaded callbacks engine",
+}
+BLOCKS_BIG_T = 12000    # above this many tasks the blocks budgets are 5/4
 
 
 class SolverFault(RuntimeError):
@@ -50,26 +83,59 @@ class _AggTask:
         self.resreq = resreq
 
 
-class AllocateTPUAction(Action):
-    NAME = "allocate-tpu"
+def _action_args(ssn, names):
+    """The arguments of every configuration block of the named actions."""
+    return [c.arguments for c in ssn.configurations if c.name in names]
 
-    def __init__(self):
-        # the last execute's phases in host wall seconds (_execute_fused)
-        self.last_stats: Dict[str, float] = {}
+
+class AllocateAction(Action):
+    NAME = "allocate"
+    DEFAULT_ENGINE = "callbacks"
+
+    def __init__(self, engine: Optional[str] = None):
+        self.engine = engine or self.DEFAULT_ENGINE
+        # the last execute's phases in host wall seconds and counts
+        self.last_stats: Dict[str, object] = {}
 
     def execute(self, ssn) -> None:
-        engine = ENGINE
-        for conf in ssn.configurations:
-            if conf.name in (self.NAME, "allocate"):
-                engine = conf.arguments.get("engine", engine)
-        if engine != ENGINE:
+        engine = self.engine
+        batch = 16
+        for args in _action_args(ssn, (self.NAME, "allocate")):
+            engine = args.get("engine", engine)
+            batch = int(args.get("strict-batch", batch))
+        if engine in MISSING_ENGINES:
             raise ValueError(f"allocate engine {engine!r} is not in "
-                             f"volcano_tpu_torch (has: {ENGINE!r})")
-        self.last_stats = _execute_fused(ssn)
+                             f"volcano_tpu_torch: it needs "
+                             f"{MISSING_ENGINES[engine]}")
+        if engine not in ENGINES:
+            raise ValueError(f"unknown allocate engine {engine!r}")
+        for args in _action_args(ssn, ("allocate", "allocate-tpu")):
+            if float(args.get("topology-weight", 0.0) or 0.0) > 0.0:
+                raise ValueError("allocate topology-weight > 0 is not in "
+                                 "volcano_tpu_torch: it needs the "
+                                 "zone-anchor solve (B6)")
+        if engine == "callbacks":
+            t0 = time.perf_counter()
+            _execute_interleaved(ssn, _CallbackJobPlacer(ssn))
+            self.last_stats = {"interleave": time.perf_counter() - t0}
+        elif engine == "tpu-strict":
+            self.last_stats = _execute_strict_batched(ssn, batch=batch)
+        elif engine == "tpu-strict-perjob":
+            placer = _DeviceJobPlacer(ssn)
+            _execute_interleaved(ssn, placer)
+            self.last_stats = placer.stats
+        else:
+            self.last_stats = _execute_fused(
+                ssn, blocks=engine == "tpu-blocks")
+
+
+class AllocateTPUAction(AllocateAction):
+    NAME = "allocate-tpu"
+    DEFAULT_ENGINE = "tpu-fused"
 
 
 # ---------------------------------------------------------------------------
-# job and task order (allocate.go:123-180)
+# the interleave (allocate.go:123-274)
 # ---------------------------------------------------------------------------
 
 def _eligible_jobs(ssn):
@@ -110,17 +176,9 @@ def _pending_tasks(ssn, job) -> List[TaskInfo]:
     return out
 
 
-def _fixed_job_order(ssn, assumed_admitted: Optional[set] = None) -> List:
-    """Precompute the namespace→queue→job interleave for the fused solve.
-
-    Runs the reference's popping loop (allocate.go:123-180) with one
-    assumption: every popped job in ``assumed_admitted`` (all jobs when None)
-    allocates all of its pending tasks. Plugin allocate-events fire during
-    the simulation so mid-cycle share updates and overused gating order
-    queues exactly as the live loop would; all events are undone before
-    returning. The fused executor iterates this to a fixed point on the
-    actually-admitted set, so gang failures feed back into the ordering.
-    """
+def _build_interleave(ssn):
+    """The namespace -> queue -> job priority queues the popping loop
+    mutates (allocate.go:123-142)."""
     namespaces = PriorityQueue(ssn.namespace_order_fn)
     jobs_map: Dict[str, Dict[str, PriorityQueue]] = {}
     for job in _eligible_jobs(ssn):
@@ -131,67 +189,379 @@ def _fixed_job_order(ssn, assumed_admitted: Optional[set] = None) -> List:
         if job.queue not in jobs_map[ns]:
             jobs_map[ns][job.queue] = PriorityQueue(ssn.job_order_fn)
         jobs_map[ns][job.queue].push(job)
+    return namespaces, jobs_map
 
+
+def _pop_next(ssn, namespaces, jobs_map):
+    """One pop of the interleave (allocate.go:143-180), with its queue
+    deletions; returns (job, jobs_pq, ns), or (None, None, None) when
+    drained. The live loop, the order simulations and the strict engine's
+    verification all pop through here. The namespace is not pushed back:
+    the reference re-inserts it after the popped job's statement closes, so
+    a share-based namespace order sees the post-placement shares. Callers
+    push ``ns`` back after the job."""
+    while not namespaces.empty():
+        ns = namespaces.pop()
+        queue_jobs = jobs_map[ns]
+        queue = None
+        for qid in list(queue_jobs):
+            q = ssn.queues[qid]
+            if ssn.overused(q):
+                del queue_jobs[qid]
+                continue
+            if queue_jobs[qid].empty():
+                continue
+            if queue is None or ssn.queue_order_fn(q, queue):
+                queue = q
+        if queue is None:
+            continue              # every queue of the namespace is done
+        jobs = queue_jobs[queue.uid]
+        if jobs.empty():
+            del queue_jobs[queue.uid]
+            namespaces.push(ns)
+            continue
+        return jobs.pop(), jobs, ns
+    return None, None, None
+
+
+def _assume_allocated(ssn, job) -> Optional[_AggTask]:
+    """One aggregated allocate event as if every pending task of ``job``
+    placed: allocate-event handlers are additive in task.resreq, so one
+    event per job is equivalent and O(jobs) instead of O(tasks)."""
+    total = Resource()
+    count = 0
+    for task in job.task_status_index.get(TaskStatus.PENDING, {}).values():
+        if task.resreq.is_empty():
+            continue
+        total.add(task.resreq)
+        count += 1
+    if not count:
+        return None
+    agg = _AggTask(job.uid, total)
+    ssn._fire_allocate(agg)
+    return agg
+
+
+def _fixed_job_order(ssn, assumed_admitted: Optional[set] = None) -> List:
+    """Precompute the interleave for the fused solve: the popping loop with
+    every popped job in ``assumed_admitted`` (all jobs when None) assumed to
+    allocate all of its pending tasks, its allocate events fired so that
+    share updates and overused gating order queues as the live loop would;
+    all events are undone before returning. The fused executor iterates this
+    to a fixed point on the actually admitted set, so gang failures feed
+    back into the ordering."""
+    namespaces, jobs_map = _build_interleave(ssn)
     ordered: List = []
     simulated: List[_AggTask] = []
     try:
-        while not namespaces.empty():
-            ns = namespaces.pop()
-            queue_jobs = jobs_map[ns]
-            queue = None
-            for qid in list(queue_jobs):
-                q = ssn.queues[qid]
-                if ssn.overused(q):
-                    del queue_jobs[qid]
-                    continue
-                if queue_jobs[qid].empty():
-                    continue
-                if queue is None or ssn.queue_order_fn(q, queue):
-                    queue = q
-            if queue is None:
-                continue
-            jobs = queue_jobs[queue.uid]
-            if jobs.empty():
-                del queue_jobs[queue.uid]
-                namespaces.push(ns)
-                continue
-            job = jobs.pop()
+        while True:
+            job, _, ns = _pop_next(ssn, namespaces, jobs_map)
+            if job is None:
+                break
             ordered.append(job)
             if assumed_admitted is None or job.uid in assumed_admitted:
-                # one aggregated pseudo-event per job: allocate-event
-                # handlers are additive in task.resreq, so summing the
-                # job's pending requests into a single event is equivalent
-                # and O(jobs) instead of O(tasks)
-                total = Resource()
-                count = 0
-                for task in job.task_status_index.get(TaskStatus.PENDING,
-                                                      {}).values():
-                    if task.resreq.is_empty():
-                        continue
-                    total.add(task.resreq)
-                    count += 1
-                if count:
-                    agg = _AggTask(job.uid, total)
-                    ssn._fire_allocate(agg)
+                agg = _assume_allocated(ssn, job)
+                if agg is not None:
                     simulated.append(agg)
             namespaces.push(ns)
     finally:
-        # always undo the simulated events: the replay runs in this same
-        # session and must not see phantom queue shares
-        for task in reversed(simulated):
-            ssn._fire_deallocate(task)
+        # the replay runs in this same session and must not see phantom
+        # queue shares
+        for agg in reversed(simulated):
+            ssn._fire_deallocate(agg)
     return ordered
+
+
+def _execute_interleaved(ssn, placer) -> None:
+    """The live popping loop (allocate.go:143-274): each popped job's tasks
+    go to ``placer`` inside a Statement, committed if the gang is ready,
+    kept if it is pipelined, else discarded."""
+    namespaces, jobs_map = _build_interleave(ssn)
+    pending: Dict[str, List[TaskInfo]] = {}
+    while True:
+        job, jobs, ns = _pop_next(ssn, namespaces, jobs_map)
+        if job is None:
+            break
+        if job.uid not in pending:
+            pending[job.uid] = _pending_tasks(ssn, job)
+        stmt = ssn.statement()
+        try:
+            placer.place(job, pending[job.uid], stmt, jobs)
+        except Exception:
+            stmt.discard()
+            raise
+        if ssn.job_ready(job):
+            stmt.commit()
+        elif not ssn.job_pipelined(job):
+            stmt.discard()
+        namespaces.push(ns)            # post-placement, like allocate.go
+
+
+def _fit_error(task, node) -> ValueError:
+    err = ValueError(f"task {task.key()} on node {node.name}: resource fit "
+                     f"failed")
+    err.fit_error = FitError(task, node, [NODE_RESOURCE_FIT_FAILED])
+    return err
+
+
+class _CallbackJobPlacer:
+    """Per-(task, node) callback placement — the reference's hot loop
+    (allocate.go:186-262)."""
+
+    def __init__(self, ssn):
+        self.ssn = ssn
+
+    def place(self, job, tasks, stmt, jobs_pq) -> None:
+        ssn = self.ssn
+        nodes = list(ssn.nodes.values())
+
+        def pred(task, node):
+            if not task.init_resreq.less_equal(node.future_idle()):
+                raise _fit_error(task, node)
+            ssn.predicate_fn(task, node)
+
+        while tasks:
+            task = tasks.pop(0)
+            feasible, fit_errors = predicate_nodes(task, nodes, pred)
+            if not feasible:
+                job.nodes_fit_errors[task.uid] = fit_errors
+                break
+            candidates = [n for n in feasible
+                          if task.init_resreq.less_equal(n.idle)
+                          or task.init_resreq.less_equal(n.future_idle())]
+            if not candidates:
+                continue
+            scores = prioritize_nodes(task, candidates,
+                                      ssn.batch_node_order_fn,
+                                      ssn.node_order_fn)
+            node = ssn.best_node_fn(task, scores) or select_best_node(scores)
+            if task.init_resreq.less_equal(node.idle):
+                stmt.allocate(task, node)
+            elif task.init_resreq.less_equal(node.future_idle()):
+                stmt.pipeline(task, node.name)
+            if ssn.job_ready(job) and tasks:
+                jobs_pq.push(job)
+                return
+
+
+# ---------------------------------------------------------------------------
+# the strict engines: the interleave with device solves
+# ---------------------------------------------------------------------------
+
+class _StrictSolver:
+    """What the strict engines solve against: the node tensors built once
+    at the action's start, the weights, and the node state carried from
+    solve to solve on the session's device (``state``: idle, future idle,
+    used, pod counts)."""
+
+    def __init__(self, ssn):
+        tasks_all = [t for j in ssn.jobs.values() for t in j.tasks.values()]
+        nodes = list(ssn.nodes.values())
+        self.ssn = ssn
+        self.rnames = discover_resource_names(nodes, tasks_all)
+        self.node_t = NodeTensors(nodes, self.rnames, ssn.device)
+        self.weights = assemble_weights(ssn, self.rnames)
+        nt = self.node_t
+        self.state = (nt.idle, nt.future_idle, nt.used, nt.ntasks)
+        self.stats: Dict[str, object] = {"solves": 0, "batches": [],
+                                         "solve": 0.0}
+
+    def solve(self, jobs_with_tasks, state):
+        """One placement kernel launch over the jobs' pending tasks, from
+        node state ``state`` (per-job gang snapshots in the kernel).
+        Returns the PlacementResult and each job's task slice."""
+        ssn = self.ssn
+        t0 = time.perf_counter()
+        tasks: List[TaskInfo] = []
+        job_ix: List[int] = []
+        slices: List[tuple] = []
+        for jx, (_, jtasks) in enumerate(jobs_with_tasks):
+            slices.append((len(tasks), len(tasks) + len(jtasks)))
+            tasks.extend(jtasks)
+            job_ix.extend([jx] * len(jtasks))
+        nt = self.node_t
+        req = task_requests(tasks, self.rnames)
+        masked = _masked_static(assemble_feasibility(ssn, tasks, nt),
+                                assemble_static_score(ssn, tasks, nt),
+                                len(tasks), len(nt.names), ssn.device)
+        min_av, base_r, base_p = _gang_meta([j for j, _ in jobs_with_tasks])
+        res = place(*state, nt.allocatable, nt.max_tasks,
+                    torch.tensor(req, device=ssn.device),
+                    np.asarray(job_ix, np.int32), masked, min_av, base_r,
+                    base_p, self.weights)
+        self.stats["solves"] += 1
+        self.stats["batches"].append(len(jobs_with_tasks))
+        self.stats["solve"] += time.perf_counter() - t0
+        return res, slices
+
+    def replay(self, tasks, task_node, pipelined, stmt) -> None:
+        """A solved job's placements through its Statement."""
+        ssn = self.ssn
+        recheck = bool(ssn.stateful_predicates)
+        for i, task in enumerate(tasks):
+            n = int(task_node[i])
+            if n == NO_NODE:
+                continue
+            name = self.node_t.names[n]
+            node = ssn.nodes[name]
+            if recheck and not _stateful_recheck(ssn, task, node):
+                continue
+            if pipelined[i]:
+                stmt.pipeline(task, name)
+            else:
+                stmt.allocate(task, node)
+
+
+def _new_state(res):
+    return (res.idle, res.future_idle, res.used, res.ntasks)
+
+
+class _DeviceJobPlacer(_StrictSolver):
+    """tpu-strict-perjob: one solve a popped job, the live interleave
+    deciding every job; the solve's node state is kept only when the job is
+    kept."""
+
+    def place(self, job, tasks, stmt, jobs_pq) -> None:
+        if not tasks or not self.node_t.names:
+            tasks.clear()
+            return
+        res, _ = self.solve([(job, tasks)], self.state)
+        if bool(res.job_kept[0]):
+            self.state = _new_state(res)
+        # every task is consumed: the reference pops each task from its
+        # queue once per cycle whether or not it placed
+        # (allocate.go:187-223)
+        self.replay(tasks, res.task_node, res.task_pipelined, stmt)
+        tasks.clear()
+
+
+def _predict_pops(ssn, namespaces, jobs_map, n: int, first=None) -> List:
+    """The next ``n`` pops of the interleave, simulated on clones of the
+    live queues with each popped job's assume-all-allocated event fired
+    (undone before returning). Optimistic, never authoritative: the caller
+    verifies each against the live pop. ``first`` seeds a job the live loop
+    already popped (a previous batch's mispredict)."""
+    sim_ns = namespaces.clone()
+    sim_map = {ns: {qid: pq.clone() for qid, pq in qmap.items()}
+               for ns, qmap in jobs_map.items()}
+    predicted: List = [] if first is None else [first]
+    simulated: List[_AggTask] = []
+    try:
+        for job in predicted:
+            agg = _assume_allocated(ssn, job)
+            if agg is not None:
+                simulated.append(agg)
+            # the live loop popped this job's namespace and pushes it back
+            # when the job's statement closes
+            sim_ns.push(job.namespace)
+        while len(predicted) < n:
+            job, _, ns = _pop_next(ssn, sim_ns, sim_map)
+            if job is None:
+                break
+            predicted.append(job)
+            agg = _assume_allocated(ssn, job)
+            if agg is not None:
+                simulated.append(agg)
+            sim_ns.push(ns)
+    finally:
+        for agg in reversed(simulated):
+            ssn._fire_deallocate(agg)
+    return predicted
+
+
+def _execute_strict_batched(ssn, batch: int = 16) -> Dict[str, object]:
+    """tpu-strict: pop by pop the callbacks loop — the live _pop_next
+    decides every job and every placement replays through a Statement with
+    the same votes — with the device solves batched. The next B pops are
+    predicted, solved in one launch with the node state carried across
+    them, and verified against the live pops at replay; a mispredict
+    discards the rest, re-solves the verified prefix from the batch's start
+    state (the same decisions, so the same state) and restarts prediction
+    from the job the live loop popped. B doubles after a verified full
+    batch, up to 32 times ``batch``, and halves on a mispredict; it is 1
+    under stateful predicates, whose feasibility changes as jobs replay.
+    Returns the solves' count, their batch sizes and host seconds."""
+    if not ssn.nodes:
+        return {"solves": 0, "batches": [], "solve": 0.0}
+    solver = _StrictSolver(ssn)
+    if ssn.stateful_predicates:
+        batch = 1
+    namespaces, jobs_map = _build_interleave(ssn)
+    pending: Dict[str, List[TaskInfo]] = {}
+    carry = None     # (job, ns) a mispredict popped live but left unplaced
+    b_cur, b_max = batch, batch * 32 if batch > 1 else 1
+
+    def live_tasks(job):
+        if job.uid not in pending:
+            pending[job.uid] = _pending_tasks(ssn, job)
+        return pending[job.uid]
+
+    while True:
+        carried_job, carried_ns = carry if carry is not None else (None, None)
+        predicted = _predict_pops(ssn, namespaces, jobs_map, b_cur,
+                                  first=carried_job)
+        carry = None
+        if not predicted:
+            break
+        solvable = [(j, live_tasks(j)) for j in predicted if live_tasks(j)]
+        start = solver.state
+        if solvable:
+            res, slices = solver.solve(solvable, start)
+        solved_ix = {id(j): k for k, (j, _) in enumerate(solvable)}
+
+        verified: List[tuple] = []
+        ok = True
+        for idx, job in enumerate(predicted):
+            if idx == 0 and carried_job is job:
+                actual, ns = job, carried_ns
+            else:
+                actual, _, ns = _pop_next(ssn, namespaces, jobs_map)
+            if actual is not job:
+                carry = None if actual is None else (actual, ns)
+                ok = False
+                break
+            tasks = live_tasks(job)
+            stmt = ssn.statement()
+            k = solved_ix.get(id(job))
+            if k is not None:
+                lo, hi = slices[k]
+                try:
+                    solver.replay(tasks, res.task_node[lo:hi],
+                                  res.task_pipelined[lo:hi], stmt)
+                except Exception:
+                    stmt.discard()
+                    raise
+                verified.append((job, list(tasks)))
+                tasks.clear()
+            if ssn.job_ready(job):
+                stmt.commit()
+            elif not ssn.job_pipelined(job):
+                stmt.discard()
+            namespaces.push(ns)
+        if ok and solvable:
+            solver.state = _new_state(res)
+        elif verified:
+            solver.state = _new_state(solver.solve(verified, start)[0])
+        if ok and len(predicted) == b_cur:
+            b_cur = min(b_cur * 2, b_max)
+        elif not ok:
+            b_cur = max(batch, b_cur // 2)
+        if carry is None and not ok:
+            break                           # the live loop drained
+    return solver.stats
 
 
 # ---------------------------------------------------------------------------
 # the fused solve
 # ---------------------------------------------------------------------------
 
-def _execute_fused(ssn, max_order_iters: int = 4) -> Dict[str, float]:
-    """Iterate (order simulation → one device solve) until the admitted-job
-    set stabilizes, then replay the final solve. Convergence is usually
-    immediate; gang rollbacks trigger one extra iteration because a failed
-    job must stop influencing queue shares and overused gating.
+def _execute_fused(ssn, blocks: bool = False,
+                   max_order_iters: int = 4) -> Dict[str, object]:
+    """tpu-fused, or with ``blocks`` tpu-blocks: iterate (order simulation
+    → one device solve) until the admitted-job set stabilizes, then replay
+    the final solve. Convergence is usually immediate; gang rollbacks
+    trigger one extra iteration because a failed job must stop influencing
+    queue shares and overused gating.
 
     With stateful predicates (host ports) a device proposal can fail the
     live re-check at replay because an earlier replay placement changed the
@@ -201,10 +571,12 @@ def _execute_fused(ssn, max_order_iters: int = 4) -> Dict[str, float]:
 
     Returns the phases' host wall seconds: "order" (the order simulation),
     "assemble" (the solve's tensors, built and copied to the device),
-    "solve" (the kernel, the one device-to-host copy and the decode),
-    "replay", and "solves", the number of solves."""
-    stats = {"order": 0.0, "assemble": 0.0, "solve": 0.0, "replay": 0.0,
-             "solves": 0}
+    "solve" (the kernels, the one device-to-host copy and the decode),
+    "replay", and "solves", the number of solves; with ``blocks`` also
+    "blocks", the block auction's counts (ops/blocks.py)."""
+    stats: Dict[str, object] = {"order": 0.0, "assemble": 0.0, "solve": 0.0,
+                                "replay": 0.0, "solves": 0}
+    blocks_stats = stats["blocks"] = {} if blocks else None
     max_rounds = 3 if ssn.stateful_predicates else 1
     for _ in range(max_rounds):
         assumed: Optional[set] = None
@@ -220,7 +592,7 @@ def _execute_fused(ssn, max_order_iters: int = 4) -> Dict[str, float]:
             if inputs is None:
                 solution = None
                 break
-            solution = _fused_solution(inputs)
+            solution = _fused_solution(inputs, blocks, blocks_stats)
             stats["solve"] += time.perf_counter() - t2
             stats["solves"] += 1
             kept_uids = {solution.jobs_list[jx].uid
@@ -240,6 +612,8 @@ def _execute_fused(ssn, max_order_iters: int = 4) -> Dict[str, float]:
         stats["replay"] += time.perf_counter() - t0
         if not rejected:
             break
+    if blocks_stats is None:
+        del stats["blocks"]
     return stats
 
 
@@ -309,29 +683,63 @@ def placement_inputs(ssn, ordered_jobs) -> Optional[PlacementInputs]:
                 weights.binpack_weight, weights.least_req_weight,
                 weights.most_req_weight, weights.balanced_weight))):
         raise SolverFault("non-finite score weights")
-    masked = None
-    if feas is not None or static is not None:
-        T, N = len(tasks), len(node_t.names)
-        f = np.ones((T, N), bool) if feas is None else feas
-        s = np.zeros((T, N), np.float32) if static is None else static
-        masked = torch.tensor(np.where(f, s, NEG).astype(np.float32),
-                              device=ssn.device)
     min_av, base_r, base_p = _gang_meta(jobs_list)
     return PlacementInputs(
         tasks=tasks, jobs_list=jobs_list, node_t=node_t,
         req=torch.tensor(req, device=ssn.device),
-        job_ix=np.asarray(job_ix, np.int32), masked_static=masked,
+        job_ix=np.asarray(job_ix, np.int32),
+        masked_static=_masked_static(feas, static, len(tasks),
+                                     len(node_t.names), ssn.device),
         min_available=min_av, base_ready=base_r, base_pipelined=base_p,
         weights=weights)
 
 
-def solve(inputs: PlacementInputs):
-    """One placement solve of ``inputs`` (ops/place.place)."""
+def _masked_static(feas, static, T: int, N: int, device):
+    """The plugins' [T,N] mask and static scores (None where every plugin
+    abstains) folded into one f32[T,N] on ``device``: the static scores
+    where the mask allows the pair, NEG elsewhere; None when both are None
+    (the solves then test no mask and add no static score, which gives the
+    same bits as an all-true mask and a zero matrix)."""
+    if feas is None and static is None:
+        return None
+    f = np.ones((T, N), bool) if feas is None else feas
+    s = np.zeros((T, N), np.float32) if static is None else static
+    return torch.tensor(np.where(f, s, NEG).astype(np.float32),
+                        device=device)
+
+
+def solve(inputs: PlacementInputs, blocks: bool = False,
+          stats: Optional[Dict[str, int]] = None):
+    """One solve of ``inputs``: the placement kernel (ops/place.place), or
+    with ``blocks`` the block auction (ops/blocks.place_blocks_unified) at
+    the reference's size-scaled budgets, 5 sweeps and 4 passes above
+    BLOCKS_BIG_T tasks, else 3 and 3 (allocate.py:1387-1393). Returns
+    (task_node, task_pipelined, job_ready, job_kept) as NumPy arrays."""
     nt = inputs.node_t
-    return place(nt.idle, nt.future_idle, nt.used, nt.ntasks,
-                 nt.allocatable, nt.max_tasks, inputs.req, inputs.job_ix,
-                 inputs.masked_static, inputs.min_available,
-                 inputs.base_ready, inputs.base_pipelined, inputs.weights)
+    if not blocks:
+        res = place(nt.idle, nt.future_idle, nt.used, nt.ntasks,
+                    nt.allocatable, nt.max_tasks, inputs.req, inputs.job_ix,
+                    inputs.masked_static, inputs.min_available,
+                    inputs.base_ready, inputs.base_pipelined, inputs.weights)
+        return res.task_node, res.task_pipelined, res.job_ready, res.job_kept
+    T = len(inputs.tasks)
+    J = len(inputs.min_available)
+    big = T > BLOCKS_BIG_T
+    dev = inputs.req.device
+    packed, _ = place_blocks_unified(
+        None, NodeState(nt.idle, nt.future_idle, nt.used, nt.ntasks),
+        inputs.req, torch.ones(T, dtype=torch.bool, device=dev),
+        torch.tensor(inputs.job_ix, device=dev),
+        JobMeta(inputs.min_available, inputs.base_ready,
+                inputs.base_pipelined),
+        inputs.weights, nt.allocatable, nt.max_tasks,
+        sweeps=5 if big else 3, passes=4 if big else 3,
+        masked_static=inputs.masked_static, stats=stats)
+    packed = packed.cpu().numpy()
+    Tp = padded_task_len(T)
+    return (packed[:T], packed[Tp:Tp + T].astype(bool),
+            packed[2 * Tp:2 * Tp + J].astype(bool),
+            packed[2 * Tp + J:].astype(bool))
 
 
 class _FusedSolution:
@@ -355,11 +763,11 @@ class _FusedSolution:
         self.job_kept = job_kept
 
 
-def _fused_solution(inputs: PlacementInputs) -> _FusedSolution:
-    res = solve(inputs)
+def _fused_solution(inputs: PlacementInputs, blocks: bool = False,
+                    stats: Optional[Dict[str, int]] = None
+                    ) -> _FusedSolution:
     return _FusedSolution(inputs.tasks, inputs.job_ix, inputs.jobs_list,
-                          inputs.node_t, res.task_node, res.task_pipelined,
-                          res.job_ready, res.job_kept)
+                          inputs.node_t, *solve(inputs, blocks, stats))
 
 
 # ---------------------------------------------------------------------------

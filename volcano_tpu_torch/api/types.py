@@ -55,6 +55,7 @@ class QueueState(str, enum.Enum):
 
 # predicate failure reasons (types.go:108-167)
 NODE_POD_NUMBER_EXCEEDED = "node(s) pod number exceeded"
+NODE_RESOURCE_FIT_FAILED = "node(s) resource fit failed"
 NODE_UNSCHEDULABLE = "node(s) were unschedulable"
 TAINTS_UNTOLERATED = "node(s) had taints that the pod didn't tolerate"
 NODE_AFFINITY_FAILED = "node(s) didn't match node affinity"

@@ -2,8 +2,9 @@
 
 The same generator, seed for seed, as the JAX package's: one seed gives the
 same world in both packages, for the configs this package runs (tiny, 1k,
-10k, preempt, preempt-small), the running+pending preempt mix and the
-pipeline world; the others arrive with the resources they exercise.
+10k, 20k, 100k, preempt, preempt-small), the running+pending preempt mix
+and the pipeline world; the others arrive with the resources they
+exercise.
 """
 
 from __future__ import annotations
@@ -93,6 +94,8 @@ def baseline_config(name: str, seed: int = 0):
     - "tiny":  example/job.yaml analogue — 1 gang of 3, 10 nodes
     - "1k":    1k pending pods / 200 nodes
     - "10k":   10k pods in 200 gangs / 2k nodes, 3 queues
+    - "20k":   20k pods in 400 gangs / 5k nodes, 3 queues
+    - "100k":  100k pods in 2,000 gangs / 20k nodes, 3 queues
     - "preempt": 5k running + 5k pending / 1k nodes, 2 queues
     - "preempt-small": the preempt mix at a tenth
     """
@@ -110,6 +113,18 @@ def baseline_config(name: str, seed: int = 0):
     elif name == "10k":
         nodes = make_cluster(2000)
         jobs = make_jobs(10000, 200, ["q1", "q2", "q3"], seed=seed)
+        queues = [QueueInfo(name="q1", weight=3),
+                  QueueInfo(name="q2", weight=2),
+                  QueueInfo(name="q3", weight=1)]
+    elif name == "20k":
+        nodes = make_cluster(5000)
+        jobs = make_jobs(20000, 400, ["q1", "q2", "q3"], seed=seed)
+        queues = [QueueInfo(name="q1", weight=3),
+                  QueueInfo(name="q2", weight=2),
+                  QueueInfo(name="q3", weight=1)]
+    elif name == "100k":
+        nodes = make_cluster(20000)
+        jobs = make_jobs(100000, 2000, ["q1", "q2", "q3"], seed=seed)
         queues = [QueueInfo(name="q1", weight=3),
                   QueueInfo(name="q2", weight=2),
                   QueueInfo(name="q3", weight=1)]

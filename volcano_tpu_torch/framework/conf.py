@@ -11,11 +11,26 @@ package alike.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import yaml
 
 from .arguments import Arguments
+
+# The reference's default conf (pkg/scheduler/util.go:31-42): its allocate
+# action runs the callbacks engine.
+DEFAULT_SCHEDULER_CONF = """
+actions: "enqueue, allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+"""
 
 # The per-plugin enable flags: YAML tag (exactly as the reference's struct
 # tags, scheduler_conf.go:45-81) -> internal flag name used by the session's
@@ -74,13 +89,13 @@ class SchedulerConfiguration:
     configurations: List[Configuration] = field(default_factory=list)
 
 
-def parse_scheduler_conf(text: str) -> SchedulerConfiguration:
-    """Parse the scheduler YAML. The reference's default conf names plugins
-    this package does not have yet, so there is no default: an empty text
-    is refused."""
+def parse_scheduler_conf(text: Optional[str] = None
+                         ) -> SchedulerConfiguration:
+    """Parse the scheduler YAML; None or an empty text gives the default
+    conf (pkg/scheduler/util.go:31-42)."""
     raw = yaml.safe_load(text) if text else None
     if not raw:
-        raise ValueError("empty scheduler conf: pass a conf text")
+        raw = yaml.safe_load(DEFAULT_SCHEDULER_CONF)
 
     actions = [a.strip() for a in str(raw.get("actions", "")).split(",") if a.strip()]
 

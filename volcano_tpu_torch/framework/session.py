@@ -86,6 +86,7 @@ class Session:
         self.predicate_fns: Dict[str, Callable] = {}
         self.node_order_fns: Dict[str, Callable] = {}
         self.batch_node_order_fns: Dict[str, Callable] = {}
+        self.best_node_fns: Dict[str, Callable] = {}
         self.preemptable_fns: Dict[str, Callable] = {}
         self.reclaimable_fns: Dict[str, Callable] = {}
         self.victim_tasks_fns: Dict[str, Callable] = {}
@@ -122,6 +123,7 @@ class Session:
     def add_predicate_fn(self, name, fn): self.predicate_fns[name] = fn
     def add_node_order_fn(self, name, fn): self.node_order_fns[name] = fn
     def add_batch_node_order_fn(self, name, fn): self.batch_node_order_fns[name] = fn
+    def add_best_node_fn(self, name, fn): self.best_node_fns[name] = fn
     def add_preemptable_fn(self, name, fn): self.preemptable_fns[name] = fn
     def add_reclaimable_fn(self, name, fn): self.reclaimable_fns[name] = fn
     def add_victim_tasks_fn(self, name, fn): self.victim_tasks_fns[name] = fn
@@ -201,6 +203,16 @@ class Session:
             for name, s in fn(task, nodes).items():
                 scores[name] = scores.get(name, 0.0) + s
         return scores
+
+    def best_node_fn(self, task: TaskInfo,
+                     node_scores) -> Optional[NodeInfo]:
+        """The first enabled plugin's pick from the grouped node scores, or
+        None (session_plugins.go BestNodeFn)."""
+        for fn in self._enabled_fns(self.best_node_fns, "enabledBestNode"):
+            best = fn(task, node_scores)
+            if best is not None:
+                return best
+        return None
 
     # -- victim selection: per-tier intersection with veto ------------------
 

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``ops/csrc``.
 
 Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library with
-a plain C interface, loaded with ctypes. Libraries land in ``ops/_build/``
+a plain C interface, loaded with ctypes; ``csrc/*.cuh`` holds device code
+they share. Libraries land in ``ops/_build/``
 (listed in .gitignore) under a name that carries a hash of the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
 ``build_all`` starts one nvcc per source at once and waits for all of them.
@@ -22,7 +23,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("place", "evict")
+KERNELS = ("place", "evict", "blocks")
 # sm_90a: Hopper with its architecture-specific features. -fmad=false keeps
 # every multiply and add separately rounded, as PyTorch's elementwise ops
 # are, so a kernel and its plain version agree bit for bit. -Xptxas=-v
@@ -48,7 +49,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the headers of
+    ``csrc`` it may include and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -76,9 +76,13 @@
 #include <cmath>
 #include <cstdint>
 
+#include "score.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using vt::clamp01;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 0.1f;          // resource_info.go minResource
@@ -127,10 +131,6 @@ __device__ __forceinline__ u64 warp_max(u64 k) {
 
 __device__ __forceinline__ u64 max64(u64 a, u64 b) { return a > b ? a : b; }
 
-__device__ __forceinline__ float clamp01(float x) {
-  return fminf(fmaxf(x, 0.f), 1.f);
-}
-
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -178,60 +178,6 @@ __device__ __forceinline__ void mbar_wait(unsigned addr, unsigned parity) {
       "}\n" ::"r"(addr),
       "r"(parity)
       : "memory");
-}
-
-// ops/scores.py::combined_dynamic_score for one node, in its operation order.
-template <int R>
-__device__ __forceinline__ float dynamic_score(const float (&q)[R],
-                                               const float (&u)[R],
-                                               const float (&al)[R],
-                                               const float (&rw)[R],
-                                               float bw, float lw, float mw,
-                                               float balw) {
-  float uf[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) uf[r] = u[r] + q[r];
-
-  // binpack (binpack.go:196-260)
-  float per_sum = 0.f, wsum = 0.f;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float per = 0.f;
-    if (q[r] > 0.f && rw[r] > 0.f && uf[r] <= al[r] && al[r] > 0.f)
-      per = (uf[r] * rw[r]) / al[r];
-    const float w = q[r] > 0.f ? rw[r] : 0.f;
-    per_sum = r == 0 ? per : per_sum + per;
-    wsum = r == 0 ? w : wsum + w;
-  }
-  float binp = wsum > 0.f ? per_sum / wsum : 0.f;
-  binp = binp * 100.f;
-  binp = binp * bw;
-
-  // least allocated (nodeorder.go:179-190), cpu and memory columns
-  const float l0 = clamp01(al[0] > 0.f ? ((al[0] - u[0]) - q[0]) / al[0] : 0.f);
-  const float l1 = clamp01(al[1] > 0.f ? ((al[1] - u[1]) - q[1]) / al[1] : 0.f);
-  const float least = ((l0 + l1) / 2.f) * 100.f;
-
-  // most allocated (nodeorder.go:195-202)
-  float m0 = al[0] > 0.f ? uf[0] / al[0] : 0.f;
-  float m1 = al[1] > 0.f ? uf[1] / al[1] : 0.f;
-  m0 = m0 > 1.f ? 0.f : m0;
-  m1 = m1 > 1.f ? 0.f : m1;
-  const float most = ((m0 + m1) / 2.f) * 100.f;
-
-  // balanced allocation (k8s NodeResourcesBalancedAllocation)
-  const float b0 = clamp01(al[0] > 0.f ? uf[0] / al[0] : 0.f);
-  const float b1 = clamp01(al[1] > 0.f ? uf[1] / al[1] : 0.f);
-  const float mean = (b0 + b1) / 2.f;
-  const float d0 = b0 - mean, d1 = b1 - mean;
-  const float sd = sqrtf((d0 * d0 + d1 * d1) / 2.f);
-  const float bal = (1.f - sd) * 100.f;
-
-  float s = binp;
-  s = s + lw * least;
-  s = s + mw * most;
-  s = s + balw * bal;
-  return s;
 }
 
 // The same key as dynamic_score and node_key give, computed by a whole warp
@@ -398,7 +344,7 @@ struct Slice {
       alr[r] = al[r * as + j];
     }
     if (!fit) return 0;
-    float s = dynamic_score<R>(q, u, alr, rw, a.bw, a.lw, a.mw, a.balw);
+    float s = vt::dynamic_score<R>(q, u, alr, rw, a.bw, a.lw, a.mw, a.balw);
     if (has_static) s = st + s;
     return node_key(s, lo + j, fit_idle);
   }

@@ -20,7 +20,7 @@ from .framework import (abandon_session, close_session, get_action,
 
 
 class Scheduler:
-    def __init__(self, cache, conf_text: str,
+    def __init__(self, cache, conf_text: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.cache = cache
         self.device = resolve_device(device)

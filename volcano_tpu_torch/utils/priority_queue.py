@@ -22,6 +22,15 @@ class PriorityQueue:
     def push(self, it: Any) -> None:
         heapq.heappush(self._heap, _Item(it, self._less, next(self._counter)))
 
+    def clone(self) -> "PriorityQueue":
+        """A copy that pops in exactly the original's order, insertion
+        tie-breaks included (the strict engine's pop prediction)."""
+        out = PriorityQueue(self._less)
+        out._heap = list(self._heap)          # _Item is never mutated
+        next_seq = max((it._seq for it in self._heap), default=-1) + 1
+        out._counter = itertools.count(next_seq)
+        return out
+
     def pop(self) -> Any:
         if not self._heap:
             return None

@@ -1,12 +1,10 @@
-"""Per-(task, node) helpers of the host paths (preempt's callbacks rung and
-the reclaim rotation).
+"""Per-(task, node) helpers of the host paths (the allocate callbacks
+engine, preempt's callbacks rung and the reclaim rotation).
 
-Mirrors pkg/scheduler/util/scheduler_helper.go:36-266 — PredicateNodes,
-PrioritizeNodes score merge, SelectBestNode — and preempt.go's sortNodes.
-The reference parallelizes these over 16 goroutines; here they are
-straightforward loops. The deployed configuration searches every node
-(percentageOfNodesToFind 100), so PredicateNodes keeps every feasible
-node.
+Mirrors pkg/scheduler/util/scheduler_helper.go:36-266 — PredicateNodes
+with adaptive feasible-node sampling, PrioritizeNodes score merge,
+SelectBestNode — and preempt.go's sortNodes. The reference parallelizes
+these over 16 goroutines; here they are straightforward loops.
 """
 
 from __future__ import annotations
@@ -15,17 +13,46 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from ..api import FitErrors, NodeInfo, TaskInfo
 
+# options.go:38-41 defaults
+DEFAULT_MIN_NODES_TO_FIND = 100
+DEFAULT_MIN_PERCENTAGE_OF_NODES_TO_FIND = 5
+DEFAULT_PERCENTAGE_OF_NODES_TO_FIND = 100
+
+
+def calculate_num_feasible_nodes(
+        num_all_nodes: int,
+        percentage: int = DEFAULT_PERCENTAGE_OF_NODES_TO_FIND,
+        min_nodes: int = DEFAULT_MIN_NODES_TO_FIND,
+        min_percent: int = DEFAULT_MIN_PERCENTAGE_OF_NODES_TO_FIND) -> int:
+    """CalculateNumOfFeasibleNodesToFind (scheduler_helper.go:49-68)."""
+    if num_all_nodes <= min_nodes or percentage >= 100:
+        return num_all_nodes
+    adaptive = percentage
+    if adaptive == 0:
+        adaptive = int(50 - num_all_nodes / 125)
+        if adaptive < min_percent:
+            adaptive = min_percent
+    num = num_all_nodes * adaptive // 100
+    return max(num, min_nodes)
+
+
 def predicate_nodes(task: TaskInfo, nodes: List[NodeInfo],
                     fn: Callable[[TaskInfo, NodeInfo], None],
+                    percentage: int = DEFAULT_PERCENTAGE_OF_NODES_TO_FIND,
                     ) -> Tuple[List[NodeInfo], FitErrors]:
-    """PredicateNodes (scheduler_helper.go:71-127): the nodes that pass
-    ``fn``, in node order, and why the others failed."""
+    """PredicateNodes (scheduler_helper.go:71-127): the first feasible
+    nodes, as many as calculate_num_feasible_nodes allows, in node order,
+    and why the others tried failed. Any exception ``fn`` raises fails the
+    node."""
+    to_find = calculate_num_feasible_nodes(len(nodes), percentage)
     feasible: List[NodeInfo] = []
     errors = FitErrors()
     for node in nodes:
+        if len(feasible) >= to_find:
+            break
         try:
             fn(task, node)
-        except ValueError as err:       # a predicate's fit error
+        except Exception as err:
             errors.set_node_error(node.name, getattr(err, "fit_error", err))
             continue
         feasible.append(node)
