@@ -5,7 +5,9 @@
                                  # card, nvcc and nvidia-smi
 
 1. Prints the card's name and power limit, and builds the CUDA kernels
-   (volcano_tpu_torch/ops/csrc, one nvcc per source, all at once).
+   (volcano_tpu_torch/ops/csrc, one nvcc per source, all at once); ptxas
+   must report no stack frame and no spills for any instance of the block
+   auction's round kernel (its lane sums stay in registers).
 2. Holds each kernel against its plain PyTorch version on the card, on
    seeded worlds and on the 10k-pod / 2k-node cycle's own tensors, at the
    default launch plan and at every cluster size the card launches: outputs
@@ -68,10 +70,15 @@
    ms, and keeps each card cycle's first solve.
 9. Holds the block auction's three kernels (csrc/blocks.cu, B4) against
    blocks_plain on the card, to the bit (packed row and final node state),
-   on tests/torch_parity.py's blocks worlds and on the solves step 8 kept.
-   Each ``kernel blocks`` line has the solve's time, each kernel's time and
-   launches in one solve, the counts, each kernel's bound and one timed run
-   of blocks_plain.
+   on tests/torch_parity.py's blocks worlds, on its two card worlds (20,000
+   nodes with few request classes; a fractional world of 20,000 tasks and
+   5,000 nodes) and on the solves step 8 kept; both of the round kernel's
+   sum modes must have run. Each ``kernel blocks`` line has the solve's
+   time, each kernel's time and launches in one solve, the counts (the
+   candidate lists computed, the chunks each sum mode took), µs a round and
+   a candidate launch, each kernel's bound and one timed run of
+   blocks_plain. torch.topk over the 20k solve's first chunk of masked
+   scores is the candidate kernel's library yardstick (selection only).
 10. Runs the same conf with engine tpu-strict at 10k on the card and on
    the CPU (equal decisions; one placement launch a solve), printing the
    batch sizes and whether its admissions equal tpu-fused's (step 6).
@@ -637,52 +644,70 @@ def compare_proportion(Q, seed, device):
 # the block auction (B4) against its plain version
 # ---------------------------------------------------------------------------
 
-BLOCK_KERNELS = ("blocks_topk", "blocks_round", "blocks_free")
+BLOCK_KERNELS = ("blocks_prep", "blocks_topk", "blocks_round", "blocks_free")
 
 
 def blocks_worlds():
-    """tests/torch_parity.py's blocks worlds and their argument builder
-    (NumPy and the port only)."""
+    """tests/torch_parity.py's blocks worlds, its card-only blocks worlds
+    and the function that makes their arguments (NumPy and the port
+    only)."""
     sys.path.insert(0, os.path.join(_ROOT, "tests"))
-    from torch_parity import BLOCK_WORLDS, blocks_args
-    return BLOCK_WORLDS, blocks_args
+    from torch_parity import BLOCK_WORLDS, CARD_BLOCK_WORLDS, blocks_args
+    return BLOCK_WORLDS, CARD_BLOCK_WORLDS, blocks_args
 
 
 def blocks_bound(args, kw, stats):
     """Least time the card could take for each B4 kernel's work in one
     solve, from this run's counts (``stats``: chunks and rows with work,
-    rounds, sweeps, dropped tasks): each input byte read once and each
-    output byte written once over HBM, against the operations the function
-    needs over the FP32 rate. blocks_topk: per scored (row, node) pair the
-    fit tests and binpack terms, about 11 operations a resource column, and
-    43 for least/most/balanced allocation, the square root and the sums.
+    candidate lists computed (classes), rounds, sweeps, dropped tasks):
+    each input
+    byte read once and each output byte written once over HBM, against the
+    operations the function needs over the FP32 rate. blocks_prep: each
+    request and static word hashed once (3 operations) and a grouping of
+    each chunk's rows (log2 C), against the requests, the static matrix and
+    the class and flag outputs. blocks_topk: rows of one class (the same
+    request and static row) have the same candidates, so the function
+    scores each (class with work, node) pair once: the fit tests and
+    binpack terms, about 11 operations a resource column, and 43 for
+    least/most/balanced allocation, the square root and the sums.
     blocks_round: every sum over tasks on one node is an in-order segmented
     prefix (or total) over the chunk's tasks grouped by node, so per task
-    with work (a chunk's rows spread evenly over its rounds) a round needs a
-    grouping of log2(C) compares, the claims (R + 1), three waves of prefix,
-    fit and count tests (3R + 2 each) and the free room (R); a chunk then
-    needs a grouping, nine split steps (3R + 1 each), the deltas (2R + 1)
-    and the chosen nodes' update (3R + 1). blocks_free: 2R adds per dropped
-    task and the state update (3R + 1) of every node per sweep; its bytes
-    are the node groups, the dropped tasks' rows and the node state.
-    Returns {kernel: (bound_ms, "bytes" or "operations")}."""
+    with work (a chunk's rows spread evenly over its rounds) a round needs
+    a grouping of log2(C) compares, the claims (R + 1), three waves of
+    prefix, fit and count tests (3R + 2 each) and the free room (R); a
+    chunk then needs a grouping, nine split steps (3R + 1 each), the deltas
+    (2R + 1) and the chosen nodes' update (3R + 1). blocks_free: 2R adds
+    per dropped task and the state update (3R + 1) of every node per sweep;
+    its bytes are the node groups, the dropped tasks' rows and the node
+    state. Returns {kernel: (bound_ms, "bytes" or "operations")}, and under
+    "blocks_topk_all_rows" the candidate bound counted per row with
+    work."""
     N, R = args[0].shape
     has_ms = args[10] is not None
     C = kw["chunk"]
     K = min(32, int(N))
-    chunks, rows = stats["chunks"], stats["rows"]
+    chunks, rows, classes = stats["chunks"], stats["rows"], stats["classes"]
     log_c = max(1, (int(C) - 1).bit_length())
     per_row = rows / max(1, chunks)
+    state_bytes = chunks * (3 * N * R * 4 + 2 * N * 4)
+    Tp = int(args[6].shape[0])
     ops = {
-        "blocks_topk": rows * N * (11 * R + 43),
+        "blocks_prep": Tp * ((R + (N if has_ms else 0)) * 3 + log_c),
+        "blocks_topk": classes * N * (11 * R + 43),
+        "blocks_topk_all_rows": rows * N * (11 * R + 43),
         "blocks_round": (stats["rounds"] * per_row * (log_c + 11 * R + 7)
                          + rows * (log_c + 9 * (3 * R + 1) + 5 * R + 2)),
         "blocks_free": (stats["dropped"] * 2 * R
                         + stats["sweeps"] * N * (3 * R + 1)),
     }
     moved = {
-        "blocks_topk": (chunks * (3 * N * R * 4 + 2 * N * 4)
-                        + rows * (R * 4 + (N * 4 if has_ms else 0) + K * 8)),
+        "blocks_prep": (Tp * (R * 4 + (N * 4 if has_ms else 0) + 8)
+                        + (Tp // C) * (4 + 1)),
+        "blocks_topk": (state_bytes + rows * 4
+                        + classes * (R * 4 + (N * 4 if has_ms else 0)
+                                     + K * 8)),
+        "blocks_topk_all_rows": (state_bytes + rows * (
+            R * 4 + (N * 4 if has_ms else 0) + K * 8)),
         "blocks_round": chunks * (C * K * 8 + C * R * 4
                                   + 2 * C * (3 * R + 1) * 4 + 8 * C),
         "blocks_free": (stats["sweeps"] * (2 * N * 4
@@ -693,29 +718,62 @@ def blocks_bound(args, kw, stats):
                       ops[k] / FP32_OPS_PER_S * 1e3) for k in ops}
 
 
+def topk_library_ms(args, kw):
+    """The yardstick of the candidate kernel's selection: one torch.topk
+    over the first chunk's [C, N] masked scores (ops/blocks.py::
+    masked_scores at the solve's initial state), CUDA events, warm, median
+    of 5. It covers the selection only, not the scoring, and one row at a
+    time where the kernel computes one list a class."""
+    import torch
+
+    from volcano_tpu_torch.ops.blocks import masked_scores
+    C, N = kw["chunk"], args[0].shape[0]
+    ms = None if args[10] is None else args[10][:C]
+    masked = masked_scores(args[1], args[2], args[3], args[4], args[5],
+                           args[6][:C], ms, args[11])
+    return time_cuda_ms(lambda: torch.topk(masked, min(32, N), dim=1))
+
+
 def compare_blocks(label, args, kw):
     """blocks_cuda against blocks_plain on the same CUDA tensors: the
     packed row and the final node state must be equal (tolerance 0). The
     record has the solve's time (CUDA events around the whole call, warm,
     median of 5), each kernel's device time in one solve (events around
-    each launch alone, median of 5) and the frees' grouping's (tensor ops
+    each launch alone, median of 5), the classes' and exactness flags'
+    ("blocks_prep", once a solve) and the frees' grouping's (tensor ops
     before each blocks_free launch, "blocks_free_prep"), each kernel's
-    launches in one solve, the
-    counts, the bound of each kernel from them, and one timed run of
-    blocks_plain (host clock, synchronised) with its parts by kernel."""
+    launches in one solve, the counts (with the chunks each sum mode took),
+    µs a round of the round kernel and a launch of the candidate kernel,
+    the bound of each kernel from the counts, and one timed run of
+    blocks_plain (host clock, synchronised), with its parts by kernel for
+    the engine's solves (labels "solve-...")."""
     import torch
 
     from volcano_tpu_torch.ops.blocks import (blocks_cuda, blocks_plain,
-                                              free_cuda, round_cuda,
-                                              topk_cuda)
-    counters = (topk_cuda, round_cuda, free_cuda)
+                                              chunk_exact, free_cuda,
+                                              prep_cuda, round_cuda,
+                                              task_classes, topk_cuda)
+    counters = (prep_cuda, topk_cuda, round_cuda, free_cuda)
+    # the per-solve classes and exactness flags: kernel against tensor ops
+    req, ms, C = args[6], args[10], kw["chunk"]
+    classes, exact = prep_cuda(req, ms, C)
+    want = (*task_classes(req, ms, C), chunk_exact(req, C).to(torch.uint8))
+    for name, g, w in zip(("cls", "class_rep", "n_class", "exact"),
+                          (*classes, exact), want):
+        if not torch.equal(g, w):
+            raise RuntimeError(f"blocks {label}: blocks_prep's {name} differs "
+                               f"from the tensor ops'")
+    prep_plain_ms = time_cuda_ms(lambda: (task_classes(req, ms, C),
+                                          chunk_exact(req, C)))
     before = [k.launches for k in counters]
     stats = {}
     got = blocks_cuda(*args, stats=stats, **kw)
     torch.cuda.synchronize()
     launches = dict(zip(BLOCK_KERNELS, (k.launches - b for k, b in
                                         zip(counters, before))))
-    box, plain_parts = {}, {}
+    # the plain version's parts only for the engine's solves (the kernels
+    # line reads them): timing them synchronises after every part
+    box, plain_parts = {}, ({} if label.startswith("solve-") else None)
     plain_ms = time_host_ms(lambda: box.setdefault("out", blocks_plain(
         *args, timing=plain_parts, **kw)))
     for name, g, w in zip(("packed", "idle", "future_idle", "used",
@@ -730,18 +788,27 @@ def compare_blocks(label, args, kw):
         blocks_cuda(*args, timing=timing, **kw)
         runs.append(timing)
     T = int(args[7].sum())
+    kernel_ms = {k: statistics.median(r.get(k, 0.0) * 1e3 for r in runs)
+                 for k in BLOCK_KERNELS + ("blocks_free_prep",)}
+    bound = blocks_bound(args, kw, stats)
     rec = {"world": label, "T": T, "Tp": int(args[6].shape[0]),
            "N": int(args[0].shape[0]), "R": int(args[0].shape[1]),
            "static": args[10] is not None, **kw,
            "placed": int((got[0][:args[6].shape[0]] >= 0).sum()),
            "max_abs_err": 0.0, "launches": launches, "counts": stats,
+           "modes": {"exact": stats["chunks_exact"],
+                     "in_order": stats["chunks"] - stats["chunks_exact"]},
            "ms": time_cuda_ms(lambda: blocks_cuda(*args, **kw)),
-           "kernel_ms": {k: statistics.median(r.get(k, 0.0) * 1e3
-                                              for r in runs)
-                         for k in BLOCK_KERNELS + ("blocks_free_prep",)},
+           "kernel_ms": kernel_ms,
+           "us_per_round": (kernel_ms["blocks_round"] * 1e3
+                            / max(1, stats["rounds"])),
+           "us_per_chunk": (kernel_ms["blocks_topk"] * 1e3
+                            / max(1, launches["blocks_topk"])),
            "plain_ms": plain_ms,
-           "plain_kernel_ms": {k: v * 1e3 for k, v in plain_parts.items()},
-           "bound": blocks_bound(args, kw, stats)}
+           "plain_kernel_ms": {k: v * 1e3
+                               for k, v in (plain_parts or {}).items()},
+           "prep_plain_ms": prep_plain_ms,
+           "bound": bound}
     print("kernel blocks", json.dumps(rec), flush=True)
     return rec
 
@@ -888,12 +955,14 @@ def deployed_world(name):
 
 def kernel_counters():
     """Every kernel wrapper whose launches the script counts, by name."""
-    from volcano_tpu_torch.ops.blocks import free_cuda, round_cuda, topk_cuda
+    from volcano_tpu_torch.ops.blocks import (free_cuda, prep_cuda,
+                                              round_cuda, topk_cuda)
     from volcano_tpu_torch.ops.evict import walk_cuda
     from volcano_tpu_torch.ops.place import place_cuda, rowdiff_cuda
     return {"place": place_cuda, "rowdiff": rowdiff_cuda,
-            "evict_walk": walk_cuda, "blocks_topk": topk_cuda,
-            "blocks_round": round_cuda, "blocks_free": free_cuda}
+            "evict_walk": walk_cuda, "blocks_prep": prep_cuda,
+            "blocks_topk": topk_cuda, "blocks_round": round_cuda,
+            "blocks_free": free_cuda}
 
 
 def run_deployed(name, device, conf_text=None, keep_cache=False):
@@ -1039,6 +1108,15 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  nvcc {name}: {line.strip()}")
+    # the round kernel keeps its lane sums in registers: no stack frame and
+    # no spills in any instance
+    round_ptxas = {fn: r for fn, r in build.ptxas_report("blocks").items()
+                   if "blocks_round_kernel" in fn}
+    print("ptxas blocks_round_kernel:", json.dumps(round_ptxas), flush=True)
+    check(len(round_ptxas) == 7 and all(
+        r.get("stack") == 0 and r.get("spill_stores") == 0
+        and r.get("spill_loads") == 0 for r in round_ptxas.values()),
+          "blocks_round_kernel has a stack frame or spills")
 
     phase("kernels")
     # 2. each kernel against its plain version
@@ -1239,9 +1317,9 @@ def main() -> int:
     # 9. the block auction's kernels against blocks_plain on the CPU test
     # worlds and on the tpu-blocks cycles' own first solves (20k with and
     # without taints, 100k)
-    worlds, world_args = blocks_worlds()
+    worlds, card_worlds, world_args = blocks_worlds()
     blocks_records = []
-    for name, make in worlds.items():
+    for name, make in {**worlds, **card_worlds}.items():
         args, kw = world_args(make(), dev)
         blocks_records.append(compare_blocks(name, args, kw))
     big_blocks = {}
@@ -1249,7 +1327,12 @@ def main() -> int:
         args, kw = solves.pop(name)
         big_blocks[name] = compare_blocks(f"solve-{name}", args, kw)
         blocks_records.append(big_blocks[name])
+        if name == "20k":
+            topk_library = topk_library_ms(args, kw)
         del args
+    for mode in ("exact", "in_order"):
+        check(any(r["modes"][mode] for r in blocks_records),
+              f"blocks: no world's chunks took the {mode} sum mode")
 
     phase("tpu-strict")
     # 10. tpu-strict at 10k under the deployed conf, card against CPU, and
@@ -1349,6 +1432,31 @@ def main() -> int:
         "threads": walk_main["threads"],
     }]
     solve20 = big_blocks["20k"]
+    extra = {
+        "blocks_prep": {
+            "classes_in_chunks": solve20["counts"]["classes"],
+            "chunks_exact": solve20["counts"]["chunks_exact"],
+            "plain_ms": solve20["prep_plain_ms"],
+            "note": ("new with the redesign: each row's class and each "
+                     "chunk's exactness flag, once a solve"),
+        },
+        "blocks_topk": {
+            "classes": solve20["counts"]["classes"],
+            "rows": solve20["counts"]["rows"],
+            "us_per_chunk": solve20["us_per_chunk"],
+            "bound_all_rows_ms": solve20["bound"]["blocks_topk_all_rows"][0],
+            "library_call": ("torch.topk over the first chunk's [C, N] "
+                             "masked scores: the selection only, one "
+                             "launch's worth"),
+        },
+        "blocks_round": {
+            "rounds": solve20["counts"]["rounds"],
+            "us_per_round": solve20["us_per_round"],
+            "chunks_by_mode": solve20["modes"],
+            "ptxas": round_ptxas,
+        },
+        "blocks_free": {"prep_ms": solve20["kernel_ms"]["blocks_free_prep"]},
+    }
     for k in BLOCK_KERNELS:
         kernels.append({
             "name": k,
@@ -1362,10 +1470,9 @@ def main() -> int:
             "plain_ms": solve20["plain_kernel_ms"].get(k, 0.0),
             "bound_ms": solve20["bound"][k][0],
             "bound_by": solve20["bound"][k][1],
-            "library_ms": None,
+            "library_ms": topk_library if k == "blocks_topk" else None,
             "launches_per_solve": solve20["launches"][k],
-            **({"prep_ms": solve20["kernel_ms"]["blocks_free_prep"]}
-               if k == "blocks_free" else {}),
+            **extra[k],
             "solve_ms": solve20["ms"],
             "plain_solve_ms": solve20["plain_ms"],
         })

@@ -8,9 +8,15 @@ build(seed) worlds for seeds 0, 1 and 3 with and without a masked static
 matrix at both budget tiers, the three blocks cases of
 tests/test_ops_place.py, identical nodes, fewer than 32 nodes, 300 tasks
 (padding to 512), 40 tasks of one chunk contending for one node,
-fractional requests (where the order of the float sums decides bits), and
-a pass in which whole chunks have no work. The JAX reference runs in a
-child process without FMA contraction (tests/torch_parity.py).
+fractional requests (where the order of the float sums decides bits), a
+pass in which whole chunks have no work, rows with one request and
+different static rows, a node that takes exactly its last pods, and a
+solve with one chunk of each sum mode. The JAX reference runs in a child
+process without FMA contraction (tests/torch_parity.py).
+
+The CUDA kernels' per-solve helpers, ``task_classes`` (each row's class in
+its chunk) and ``chunk_exact`` (each chunk's exactness flag), are held
+against a direct NumPy computation.
 """
 
 import numpy as np
@@ -146,3 +152,97 @@ def test_blocks_dispatch_and_refusals():
         B.blocks_cuda(*args, **kw)
     with pytest.raises(NotImplementedError, match="mesh"):
         B.place_blocks_unified(object(), *([None] * 8))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' per-solve helpers: row classes and per-chunk exactness
+# ---------------------------------------------------------------------------
+
+def _classes_numpy(req, ms, chunk):
+    """Each chunk's rows numbered by the first row with the same request
+    bytes and static row bytes: (cls, first row of each class, classes)."""
+    Tp = len(req)
+    cls = np.zeros(Tp, np.int32)
+    reps = np.zeros((Tp // chunk, chunk), np.int32)
+    count = []
+    for c in range(Tp // chunk):
+        seen = {}
+        for r in range(chunk):
+            t = c * chunk + r
+            key = req[t].tobytes() + (b"" if ms is None else ms[t].tobytes())
+            if key not in seen:
+                reps[c, len(seen)] = r
+                seen[key] = len(seen)
+            cls[t] = seen[key]
+        count.append(len(seen))
+    return cls, reps, np.array(count, np.int32)
+
+
+@pytest.mark.parametrize("name", ["static-classes", "t300-padding",
+                                  "unified-0-ms-33", "identical",
+                                  "fractional-ms", "idle-chunks",
+                                  "n-lt-32"])
+def test_task_classes_match_numpy(name):
+    """task_classes groups a chunk's rows exactly by request and static
+    row bytes (-0 and +0 apart), classes numbered by their first row."""
+    args, kw = blocks_args(BLOCK_WORLDS[name](), "cpu")
+    req, ms = args[6], args[10]
+    got = B.task_classes(req, ms, kw["chunk"])
+    want = _classes_numpy(req.numpy(), None if ms is None else ms.numpy(),
+                          kw["chunk"])
+    for label, g, w in zip(("cls", "class_rep", "n_class"), got, want):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), w), label
+
+
+def _exact_numpy(req, chunk):
+    """Per chunk: every column total below 2^24 units, the unit the largest
+    power of two dividing every nonzero request of the column, in exact
+    rational arithmetic; all False when a request is negative (or -0),
+    subnormal, infinite or NaN."""
+    from fractions import Fraction
+    flat = req.ravel()
+    if (np.signbit(flat).any() | (~np.isfinite(flat)).any()
+            | ((flat != 0) & (np.abs(flat) < np.finfo(np.float32).tiny)
+               ).any()):
+        return np.zeros(len(req) // chunk, bool)
+    units = []
+    for col in req.T:
+        best = None
+        for v in col[col != 0]:
+            f = Fraction(float(v))
+            num, val = f.numerator, -(f.denominator.bit_length() - 1)
+            while num % 2 == 0:
+                num //= 2
+                val += 1
+            best = val if best is None else min(best, val)
+        units.append(Fraction(2) ** (best or 0))
+    out = []
+    for c in range(len(req) // chunk):
+        block = req[c * chunk:(c + 1) * chunk]
+        out.append(all(sum(Fraction(float(v)) for v in block[:, r])
+                       < units[r] * 2 ** 24 for r in range(req.shape[1])))
+    return np.array(out)
+
+
+@pytest.mark.parametrize("name", ["mixed-exact", "fractional", "identical",
+                                  "unified-0-plain-33", "lanes-wave-256",
+                                  "one-node-40", "bad-requests"])
+def test_chunk_exact_matches_numpy(name):
+    """chunk_exact's flags are the direct rational computation's; the
+    mixed world has one chunk of each kind."""
+    if name == "bad-requests":
+        world = BLOCK_WORLDS["identical"]()
+        world["req"][3, 0] = -0.0
+        world["req"][600 - 1, 1] = 1e-40            # subnormal
+    else:
+        world = BLOCK_WORLDS[name]()
+    args, kw = blocks_args(world, "cpu")
+    got = B.chunk_exact(args[6], kw["chunk"])
+    assert got.dtype == torch.bool
+    want = _exact_numpy(args[6].numpy(), kw["chunk"])
+    assert got.tolist() == want.tolist()
+    if name == "mixed-exact":
+        assert want.tolist() == [True, False]
+    if name == "bad-requests":
+        assert not want.any()

@@ -4,7 +4,11 @@ engine's sequence of batches), the preempt victim walk on every walk world,
 on three worlds too large for the plain walk on the CPU (2,500 nodes; W =
 64 at 400 nodes and 8,192 nodes, in device-memory plans) and on a preempt
 world's own walk, and the block auction's kernels on every blocks world
-and on the tpu-blocks engine's first solve at 20,000 pods.
+and on the tpu-blocks engine's first solve at 20,000 pods; its two card
+worlds (20,000 nodes with few request classes, which splits the candidate
+kernel's node axis; a fractional world of 20,000 tasks, whose chunks all
+keep the reference's sum order), both sum modes, and the per-solve class
+ids and exactness flags computed on the card as on the CPU.
 
 These tests need an NVIDIA card and nvcc; without a card they skip. On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -26,8 +30,8 @@ from volcano_tpu_torch.ops.blocks import (blocks, blocks_cuda, blocks_plain,
 from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
-from torch_parity import (BLOCK_WORLDS, CARD_WALK_WORLDS, PLACE_WORLDS,
-                          WALK_WORLDS, blocks_args)
+from torch_parity import (BLOCK_WORLDS, CARD_BLOCK_WORLDS, CARD_WALK_WORLDS,
+                          PLACE_WORLDS, WALK_WORLDS, blocks_args)
 
 pytestmark = pytest.mark.cuda
 
@@ -214,6 +218,53 @@ def test_blocks_kernels_match_plain(world, card):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("world", list(CARD_BLOCK_WORLDS))
+def test_blocks_kernels_match_plain_card_worlds(world, card):
+    """The card-only worlds: few classes over 20,000 nodes (the candidate
+    kernel's split node axis), and a fractional world at 20,000 tasks /
+    5,000 nodes, summed in the reference's order throughout."""
+    args, kw = blocks_args(CARD_BLOCK_WORLDS[world](), card)
+    stats = {}
+    got = blocks_cuda(*args, stats=stats, **kw)
+    _assert_blocks_same(got, blocks_plain(*args, **kw), world)
+    if world == "fractional-20k":
+        assert stats["chunks_exact"] == 0 and stats["chunks"] >= 79
+    else:
+        assert stats["chunks_exact"] == stats["chunks"]
+        assert stats["classes"] <= 2 * stats["chunks"]
+
+
+def test_blocks_sum_modes_per_chunk(card):
+    """mixed-exact's solve takes the exact mode in its first chunk and the
+    in-order mode in its second; both modes equal blocks_plain."""
+    from volcano_tpu_torch.ops.blocks import chunk_exact
+    args, kw = blocks_args(BLOCK_WORLDS["mixed-exact"](), card)
+    assert chunk_exact(args[6], kw["chunk"]).tolist() == [True, False]
+    stats = {}
+    got = blocks_cuda(*args, stats=stats, **kw)
+    _assert_blocks_same(got, blocks_plain(*args, **kw), "mixed-exact")
+    assert 0 < stats["chunks_exact"] < stats["chunks"]
+
+
+@pytest.mark.parametrize("world", ["static-classes", "fractional-ms",
+                                   "mixed-exact", "unified-0-ms-33",
+                                   "n-lt-32", "t300-padding"])
+def test_blocks_prep_kernel_matches_the_cpu(world, card):
+    """prep_cuda (the class and exactness kernels) gives on the card what
+    task_classes and chunk_exact give on the CPU (the tests there hold those
+    against NumPy)."""
+    from volcano_tpu_torch.ops.blocks import (chunk_exact, prep_cuda,
+                                              task_classes)
+    on_card, kw = blocks_args(BLOCK_WORLDS[world](), card)
+    on_cpu, _ = blocks_args(BLOCK_WORLDS[world](), "cpu")
+    C = kw["chunk"]
+    classes, exact = prep_cuda(on_card[6], on_card[10], C)
+    for g, w in zip(classes, task_classes(on_cpu[6], on_cpu[10], C)):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(exact.cpu(),
+                       chunk_exact(on_cpu[6], C).to(torch.uint8))
+
+
 def test_blocks_20k_solve_matches_plain(card):
     """The tpu-blocks engine's first solve of baseline_config("20k")
     (20,000 pods, 5,000 nodes, budgets 5/4) under deploy/scheduler.conf:
@@ -250,9 +301,12 @@ def test_blocks_20k_solve_matches_plain(card):
 
 
 def test_blocks_dispatches_cuda_tensors_to_the_kernels(card):
+    from volcano_tpu_torch.ops.blocks import prep_cuda
     args, kw = blocks_args(BLOCK_WORLDS["t300-padding"](), card)
+    prep_before = prep_cuda.launches
     before = (topk_cuda.launches, round_cuda.launches, free_cuda.launches)
     got = blocks(*args, **kw)
+    assert prep_cuda.launches == prep_before + 1
     assert topk_cuda.launches > before[0]
     assert round_cuda.launches > before[1]
     assert free_cuda.launches > before[2]

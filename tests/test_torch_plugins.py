@@ -10,12 +10,9 @@ package's, on the CPU.
   required affinity, an unschedulable node and host ports.
 
 The JAX results come from a child process (tests/torch_parity.py). Decisions
-and masks must be equal, and so must the NumPy twin's deserved shares. The
-torch form's shares at 64 queues or more are held to a relative 1e-5 of the
-JAX loop's: each round sums f32 grants over the queue axis, and XLA:CPU
-vectorizes that 64-term sum across the resource columns in an order the
-port's queue-by-queue sum does not reproduce (last-bit differences, 1.7e-6
-relative at most on these inputs).
+and masks must be equal, and so must the deserved shares of the NumPy twin
+and of the torch form: the torch form sums the queue axis in the order
+XLA:CPU gives the JAX loop's sums (windows of 32, then the window sums).
 """
 
 import numpy as np
@@ -62,13 +59,39 @@ def test_proportion_deserved_matches_jax(name, Q, seed, reference):
     np.testing.assert_array_equal(num.deserved, want["numpy"][0])
     np.testing.assert_array_equal(num.share, want["numpy"][1])
     dev = proportion_deserved(*args, device=torch.device("cpu"))
-    if Q < 64:
-        np.testing.assert_array_equal(dev.deserved.numpy(), want["jax"][0])
-        np.testing.assert_array_equal(dev.share.numpy(), want["jax"][1])
-    np.testing.assert_allclose(dev.deserved.numpy(), want["jax"][0],
-                               rtol=1e-5, atol=0)
-    np.testing.assert_allclose(dev.share.numpy(), want["jax"][1],
-                               rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(dev.deserved.numpy(), want["jax"][0])
+    np.testing.assert_array_equal(dev.share.numpy(), want["jax"][1])
+
+
+@pytest.mark.parametrize("Q", [1, 31, 32, 33, 64, 65, 96, 200, 1025])
+def test_queue_sum_follows_xla_order(Q):
+    """The torch form sums the queue axis as XLA:CPU's reduce-window
+    rewrite does: windows of 32 in order from 0 over the axis padded with
+    zeros (the smaller half before), then the window sums the same way.
+    Held against that order written out in NumPy, on values whose sum
+    rounds differently in other orders."""
+    from volcano_tpu_torch.ops.fairness import _sum0
+
+    def seq(x):
+        acc = np.float32(0)
+        for v in x:
+            acc = np.float32(acc + v)
+        return acc
+
+    def xla(x):
+        if len(x) <= 32:
+            return seq(x)
+        pad = -len(x) % 32
+        x = np.concatenate([np.zeros(pad // 2, np.float32), x,
+                            np.zeros(pad - pad // 2, np.float32)])
+        return xla(np.array([seq(x[i:i + 32])
+                             for i in range(0, len(x), 32)], np.float32))
+
+    rng = np.random.RandomState(Q)
+    x = (rng.rand(Q, 3) * rng.choice([1e-3, 1.0, 1e3, 1e5], (Q, 3))
+         ).astype(np.float32)
+    got = _sum0(torch.tensor(x)).numpy()
+    assert [xla(x[:, r]) for r in range(3)] == got.tolist()
 
 
 def test_proportion_plugin_takes_torch_ops_at_64_queues(monkeypatch):

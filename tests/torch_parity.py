@@ -553,6 +553,22 @@ def _blocks_random(seed, T, N, J, R=2, chunk=256, tight=False, ms=False,
                          max_tasks=rng.randint(8, 60, N), chunk=chunk)
 
 
+def _blocks_gangs(T, N, J, seed=17):
+    """T tasks in J equal gangs, one request a gang (as the synthetic
+    baselines have it), on N nodes of 32 CPU / 128 GiB / 110 pods, a third
+    of them partly used."""
+    rng = np.random.RandomState(seed)
+    alloc = np.tile([[32000.0, 128 * GI]], (N, 1)).astype(np.float32)
+    used = np.where(rng.rand(N, 1) < 1 / 3,
+                    alloc * rng.choice([0.25, 0.5], size=(N, 1)), 0.0
+                    ).astype(np.float32)
+    reqs = np.stack([rng.choice([500.0, 1000.0, 2000.0], J),
+                     rng.choice([1.0, 2.0, 4.0], J) * GI], axis=1)
+    jx = np.repeat(np.arange(J), T // J)
+    return _blocks_world(alloc, reqs[jx].astype(np.float32), jx,
+                         [T // J] * J, used=used, max_tasks=np.full(N, 110))
+
+
 def _blocks_one_node():
     """40 single-task jobs in one chunk, all of whose best node is node 2
     (half used: binpack prefers it), which holds ten of them."""
@@ -631,6 +647,57 @@ def _blocks_fractional_frees(T=1024):
                          max_tasks=np.full(4, 1000))
 
 
+def _blocks_static_classes():
+    """96 tasks with one request in 3 gangs on 20 nodes, chunks of 32: each
+    task's static row favours its own node (task mod 20), so rows with
+    equal requests but different static rows must not share candidates;
+    every fourth task repeats its predecessor's row, which may."""
+    T, N = 96, 20
+    ms = np.zeros((T, N), np.float32)
+    for t in range(T):
+        src = t - 1 if t % 4 == 3 else t
+        ms[t, src % N] = 50.0
+    ms[5, 7] = -0.0                      # -0 and +0: other bits, one score
+    alloc = np.tile([[4000.0, 16 * GI]], (N, 1))
+    req = np.tile([[1000.0, 2 * GI]], (T, 1))
+    return _blocks_world(alloc, req, np.repeat(np.arange(3), 32), [32] * 3,
+                         ms=ms, chunk=32)
+
+
+def _blocks_max_tasks():
+    """40 single-task jobs in one chunk of 256, all of whose best node is
+    node 2 (half used: binpack prefers it), which has room for all of
+    them but holds 2 of its 7 pods: it takes exactly its last 5."""
+    alloc = np.tile([[64000.0, 64000.0]], (6, 1))
+    used = np.zeros((6, 2), np.float32)
+    used[2] = 32000.0
+    ntasks = np.zeros(6, np.int32)
+    ntasks[2] = 2
+    max_tasks = np.full(6, 100, np.int32)
+    max_tasks[2] = 7
+    req = np.tile([[400.0, 400.0]], (40, 1))
+    return _blocks_world(alloc, req, np.arange(40), [1] * 40, used=used,
+                         ntasks=ntasks, max_tasks=max_tasks)
+
+
+def _blocks_mixed_exact():
+    """Two chunks of 64 in one solve on 8 nodes: every request a multiple
+    of 2^-20 (the solve's unit). Chunk 0's requests (1/8 each) total 8 a
+    column, below 2^24 units (16), so its sums are exact; chunk 1's (up to
+    2) total more, so its sums keep the reference's order."""
+    rng = np.random.RandomState(21)
+    small = np.full((64, 2), 0.125, np.float32)
+    big = (rng.randint(1, 1 << 21, size=(64, 2)) / float(1 << 20)
+           ).astype(np.float32)
+    req = np.concatenate([small, big])
+    alloc = rng.uniform(3.0, 9.0, size=(8, 2)).astype(np.float32)
+    used = (alloc * rng.uniform(0, 0.5, (8, 2))).astype(np.float32)
+    jx = np.concatenate([np.repeat(np.arange(8), 8),
+                         8 + np.repeat(np.arange(16), 4)])
+    return _blocks_world(alloc, req, jx, [8] * 8 + [3] * 16, used=used,
+                         max_tasks=np.full(8, 60), chunk=64)
+
+
 BLOCK_WORLDS = {
     **{f"unified-{s}-{'ms' if m else 'plain'}-{sw}{pa}":
        (lambda s=s, m=m, sw=sw, pa=pa: _unified(s, m, sw, pa))
@@ -656,6 +723,20 @@ BLOCK_WORLDS = {
     "lanes-wave-256": lambda: _blocks_lanes(False, 256),
     "lanes-split-256": lambda: _blocks_lanes(True, 256),
     "fractional-frees": _blocks_fractional_frees,
+    "static-classes": _blocks_static_classes,
+    "max-tasks-exact": _blocks_max_tasks,
+    "mixed-exact": _blocks_mixed_exact,
+}
+
+# Worlds for the card only (blocks_plain on the CPU would take minutes):
+# 20,000 nodes and 2,048 tasks in 8 gangs of one request each, few classes a
+# chunk, so the candidate kernel splits the node axis; and a fractional
+# world at the 20k engine cycle's size (20,000 tasks, 5,000 nodes), whose
+# chunks all sum in the reference's order.
+CARD_BLOCK_WORLDS = {
+    "n20000-few-classes": lambda: _blocks_gangs(2048, 20000, 8),
+    "fractional-20k": lambda: _blocks_random(16, T=20000, N=5000, J=400,
+                                             fractional=True),
 }
 
 

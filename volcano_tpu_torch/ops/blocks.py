@@ -27,8 +27,9 @@ of 256 (at a chunk of 8 it sums the split in order, and it blocks frees
 over 1,280 tasks otherwise). ``blocks_plain`` computes
 each sum in that order, unless the sum and every partial sum of it are
 exact in f32 (the requests' bits and the sum's total show it: ``sum_unit``),
-when no order can change a bit and it sums any way. The kernels always sum
-in that order.
+when no order can change a bit and it sums any way. The round kernel sums
+in that order too, except in a chunk whose requests' column totals stay
+below 2^24 units (``chunk_exact``), where it sums in parallel.
 
 ``blocks`` picks the version by the tensors' device: the plain one only
 for CPU tensors.
@@ -90,24 +91,82 @@ def padded_task_len(T: int, chunk: int = CHUNK) -> int:
 # sums over tasks, in the reference's order
 # ---------------------------------------------------------------------------
 
+def _unit_and_ok(req: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sum_unit``'s unit (f64[R]) and whether it holds (a bool tensor:
+    no request negative, subnormal, infinite or NaN), with no read back to
+    the host."""
+    bits = req.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    expo = (bits >> 23) & 0xFF
+    nonzero = bits != 0
+    ok = ~(((bits >> 31) != 0).any()
+           | (nonzero & ((expo == 0) | (expo == 0xFF))).any())
+    mant = (bits & 0x7FFFFF) | 0x800000
+    low = mant & -mant                       # the lowest set bit, <= 2^23
+    # log2 of that power of two, exactly: the exponent field of it as f32
+    log2_low = ((low.to(torch.int32).float().view(torch.int32) >> 23)
+                - 127).long()
+    valuation = expo - 150 + log2_low
+    big = 1 << 20
+    unit = torch.where(nonzero, valuation, big).min(dim=0).values
+    unit = torch.where(unit == big, 0, unit)
+    # 2^unit as f64, exactly: its exponent field
+    return ((unit + 1023) << 52).view(torch.float64), ok
+
+
 def sum_unit(req: torch.Tensor) -> Optional[torch.Tensor]:
     """f64[R]: per column, the largest power of two dividing every nonzero
     request (1 for an all-zero column); None when a request is negative,
     subnormal, infinite or NaN. A sum of such requests whose total stays
     below 2^24 units has every partial sum, in any order, an integer
     number of units below 2^24: exact in f32, so no order changes a bit."""
-    bits = req.contiguous().view(torch.int32).long() & 0xFFFFFFFF
-    expo = (bits >> 23) & 0xFF
-    nonzero = bits != 0
-    if bool(((bits >> 31) != 0).any()
-            | (nonzero & ((expo == 0) | (expo == 0xFF))).any()):
-        return None
-    mant = (bits & 0x7FFFFF) | 0x800000
-    low = mant & -mant                       # the lowest set bit
-    valuation = expo - 150 + torch.log2(low.double()).long()
-    big = 1 << 20
-    unit = torch.where(nonzero, valuation, big).min(dim=0).values
-    return torch.exp2(torch.where(unit == big, 0, unit).double())
+    unit, ok = _unit_and_ok(req)
+    return unit if bool(ok) else None
+
+
+def chunk_exact(req: torch.Tensor, chunk: int) -> torch.Tensor:
+    """bool[Tp/chunk]: whether every sum over a subset of the chunk's
+    requests is exact in f32 — the chunk's column totals below 2^24 units
+    of ``sum_unit(req)`` (the solve's unit). Then no order of the round
+    kernel's sums (claims, waves, split, deltas: all over tasks of one
+    chunk) can change a bit. Tensor ops on ``req``'s device, no read back."""
+    unit, ok = _unit_and_ok(req)
+    R = req.shape[1]
+    total = req.double().reshape(-1, chunk, R).sum(dim=1)
+    return ok & (total < unit * 2.0 ** 24).all(dim=1)
+
+
+def task_classes(req: torch.Tensor, masked_static: Optional[torch.Tensor],
+                 chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rows of each chunk grouped by what their candidates depend on:
+    the request's bits and the masked static row's bits (or no static
+    row). Returns ``(cls i32[Tp], class_rep i32[Tp/chunk, chunk], n_class
+    i32[Tp/chunk])``: each row's class in its chunk (classes numbered in
+    the order of their first row), each class's first row (chunk-local;
+    unused entries 0) and the number of classes. The plain version of
+    ``prep_cuda``'s class kernel, one chunk at a time."""
+    Tp = req.shape[0]
+    dev = req.device
+    words = req.contiguous().view(torch.int32)
+    if masked_static is not None:
+        words = torch.cat([words, masked_static.contiguous().view(
+            torch.int32)], dim=1)
+    n = Tp // chunk
+    cls = torch.empty(Tp, dtype=torch.int32, device=dev)
+    class_rep = torch.zeros((n, chunk), dtype=torch.int32, device=dev)
+    n_class = torch.empty(n, dtype=torch.int32, device=dev)
+    rows = torch.arange(chunk, device=dev)
+    for c in range(n):
+        _, same = torch.unique(words[c * chunk:(c + 1) * chunk], dim=0,
+                               return_inverse=True)
+        first = torch.full((chunk,), chunk, device=dev).scatter_reduce(
+            0, same, rows, "amin")[same]          # each row's first twin
+        is_first = first == rows
+        local = is_first.cumsum(dim=0) - 1
+        cls[c * chunk:(c + 1) * chunk] = local[first].to(torch.int32)
+        class_rep[c, local[is_first]] = rows[is_first].to(torch.int32)
+        n_class[c] = is_first.sum()
+    return cls, class_rep, n_class
 
 
 def _exact(total: torch.Tensor, unit: Optional[torch.Tensor]) -> bool:
@@ -188,22 +247,34 @@ def _block_node_sums(node: torch.Tensor, vals: torch.Tensor, N: int,
 # the plain version
 # ---------------------------------------------------------------------------
 
-def topk_plain(fidle: torch.Tensor, used: torch.Tensor, ntasks: torch.Tensor,
-               allocatable: torch.Tensor, max_tasks: torch.Tensor,
-               req_c: torch.Tensor, ms_c: Optional[torch.Tensor],
-               weights: ScoreWeights, K: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A chunk's candidates (unified.py:175-204): each task's K best nodes
-    by FutureIdle fit and dynamic (+ masked static) score, highest first,
-    equal scores in node order; unfit nodes score -inf and fill the list in
-    node order when fewer than K fit."""
+def masked_scores(fidle: torch.Tensor, used: torch.Tensor,
+                  ntasks: torch.Tensor, allocatable: torch.Tensor,
+                  max_tasks: torch.Tensor, req_c: torch.Tensor,
+                  ms_c: Optional[torch.Tensor],
+                  weights: ScoreWeights) -> torch.Tensor:
+    """f32[C,N]: each task's dynamic (+ masked static) score on each node,
+    -inf where the node does not fit (FutureIdle, pod count, static
+    mask): what a chunk's candidates are chosen from (unified.py:175-186)."""
     fit = ((req_c[:, None, :] < fidle[None] + EPS).all(dim=-1)
            & (ntasks < max_tasks)[None])
     score = combined_dynamic_score(req_c, used, allocatable, weights)
     if ms_c is not None:
         fit = fit & (ms_c > NEG_TEST)
         score = score + ms_c
-    masked = torch.where(fit, score, -torch.inf)
+    return torch.where(fit, score, -torch.inf)
+
+
+def topk_plain(fidle: torch.Tensor, used: torch.Tensor, ntasks: torch.Tensor,
+               allocatable: torch.Tensor, max_tasks: torch.Tensor,
+               req_c: torch.Tensor, ms_c: Optional[torch.Tensor],
+               weights: ScoreWeights, K: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A chunk's candidates (unified.py:175-204): each task's K best nodes
+    by ``masked_scores``, highest first, equal scores in node order; unfit
+    nodes score -inf and fill the list in node order when fewer than K
+    fit."""
+    masked = masked_scores(fidle, used, ntasks, allocatable, max_tasks,
+                           req_c, ms_c, weights)
     vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
     return vals[:, :K].contiguous(), idx[:, :K].contiguous()
 
@@ -428,21 +499,28 @@ def blocks_plain(idle: torch.Tensor, future_idle: torch.Tensor,
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
-# device counters (i32, one solve): rows the candidate kernel scored, chunks
-# the round kernel worked on, bidding rounds they ran, tasks accepted in the
-# current pass (the kernels add to these), tasks the sweeps dropped
-ROWS, CHUNKS, ROUNDS, ACCEPTED, DROPPED = range(5)
+# device counters (i32, one solve): rows with work the candidate kernel
+# served, chunks the round kernel worked on, bidding rounds they ran, tasks
+# accepted in the current pass (the kernels add to these), tasks the sweeps
+# dropped, candidate lists the candidate kernel computed (one a class with
+# work), and chunks the round kernel summed in its exact mode
+ROWS, CHUNKS, ROUNDS, ACCEPTED, DROPPED, CLASSES, EXACT_CHUNKS = range(7)
+TOPK_CLASSES_PER_BLOCK = 4   # blocks.cu kCPB
+
 
 
 def _lib():
     lib = build.load("blocks")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vt_blocks_topk.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, f, f,
-                                   f, f, p, p, p, i, i, i, i, i, p]
+                                   f, f, p, p, p, p, p, p, p, p, i, i, i, i,
+                                   i, i, p]
     lib.vt_blocks_round.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                                    i, i, i, i, i, p]
+                                    p, p, i, i, i, i, i, p]
     lib.vt_blocks_free.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
-    for fn in (lib.vt_blocks_topk, lib.vt_blocks_round, lib.vt_blocks_free):
+    lib.vt_blocks_prep.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    for fn in (lib.vt_blocks_topk, lib.vt_blocks_round, lib.vt_blocks_free,
+               lib.vt_blocks_prep):
         fn.restype = ctypes.c_int
     return lib
 
@@ -503,17 +581,22 @@ def blocks_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
                 passes: int = 3, timing: Optional[Dict[str, float]] = None,
                 stats: Optional[Dict[str, int]] = None) -> BlocksOutput:
     """The solve through the kernels of ``csrc/blocks.cu`` on the current
-    stream: per pass, for each chunk, one launch of the candidate kernel
-    (``blocks_topk``, one block a task row) and one of the round kernel
-    (``blocks_round``, one block, a thread a task); per sweep, the gang
-    vote's counts and the frees' grouping by node as tensor ops and one
-    launch of ``blocks_free`` (a thread a node) for the frees. The host reads one flag per pass (none after a
-    sweep's last allowed pass) and one per sweep (none after the last).
-    Same inputs and outputs as ``blocks_plain``; every tensor must lie on
-    one CUDA device. ``timing`` collects each kernel's device seconds (CUDA
-    events around every launch) and the frees' grouping's, as
-    "blocks_free_prep"; ``stats`` the chunks and rows with work,
-    the rounds, passes and sweeps run and the tasks the sweeps dropped.
+    stream: once, each row's class (``task_classes``) and each chunk's
+    exactness flag (``chunk_exact``) by ``blocks_prep``; per pass, for each
+    chunk, one launch of the candidate kernel (``blocks_topk``, a list a
+    class with work, on a grid of two blocks an SM) and one of the round
+    kernel (``blocks_round``, one block, a thread a task); per sweep, the
+    gang vote's counts and the frees' grouping by node as tensor ops and one
+    launch of ``blocks_free`` (a thread a node) for the frees. The host
+    reads one flag per pass (none after a sweep's last allowed pass) and one
+    per sweep (none after the last). Same inputs and outputs as
+    ``blocks_plain``; every tensor must lie on one CUDA device. ``timing``
+    collects each kernel's device seconds (CUDA events around every launch),
+    the classes' and flags' as "blocks_prep" and the frees' grouping's as
+    "blocks_free_prep"; ``stats`` the chunks and rows with work, the
+    candidate lists computed ("classes"), the chunks summed in the exact
+    mode ("chunks_exact"), the rounds, passes and sweeps run and the tasks
+    the sweeps dropped.
     Raises on a tensor it does not take, a failed build or a failed
     launch."""
     device = idle.device
@@ -570,6 +653,8 @@ def _drive(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
     K = min(K_CAND, N)
     state = NodeState(idle.clone(), future_idle.clone(), used.clone(),
                       ntasks.clone())
+    if allocatable.data_ptr() % 16:
+        allocatable = allocatable.clone()    # the 16-byte row loads
     assign = torch.full((Tp,), NO_NODE, dtype=torch.int32, device=device)
     pipe = torch.zeros(Tp, dtype=torch.int32, device=device)
     job_dead = torch.zeros(J, dtype=torch.bool, device=device)
@@ -577,10 +662,18 @@ def _drive(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
     kept = torch.zeros(J, dtype=torch.bool, device=device)
     cand = torch.empty((chunk, K), dtype=torch.int32, device=device)
     cand_score = torch.empty((chunk, K), dtype=torch.float32, device=device)
-    counters = torch.zeros(5, dtype=torch.int32, device=device)
+    counters = torch.zeros(7, dtype=torch.int32, device=device)
     jx = job_ix.long()
     stats = {} if stats is None else stats
     events = _Events(timing)
+    classes, exact = events.run("blocks_prep", lambda: prep_cuda(
+        req, masked_static, chunk))
+    grid = 2 * torch.cuda.get_device_properties(device).multi_processor_count
+    part = torch.empty(grid * TOPK_CLASSES_PER_BLOCK * 32, dtype=torch.int64,
+                       device=device)
+    done = torch.zeros(MAX_CHUNK // TOPK_CLASSES_PER_BLOCK,
+                       dtype=torch.int32, device=device)
+    scratch = (part, done)
 
     def todo_any(assign, job_dead):
         return ((assign == NO_NODE) & valid & ~job_dead[jx]).any()
@@ -590,11 +683,11 @@ def _drive(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
         for lo in range(0, Tp, chunk):
             events.run("blocks_topk", lambda: topk_cuda(
                 state, allocatable, max_tasks, res, weights, req, valid,
-                job_ix, job_dead, assign, masked_static, lo, chunk, cand,
-                cand_score, counters))
+                job_ix, job_dead, assign, masked_static, classes, scratch,
+                lo, chunk, cand, cand_score, counters))
             events.run("blocks_round", lambda: round_cuda(
                 state, max_tasks, req, valid, job_ix, job_dead, assign, pipe,
-                cand, cand_score, lo, chunk, counters))
+                classes[0], exact, cand, cand_score, lo, chunk, counters))
 
     # a sweep's pass loop starts on any(todo): read here for the first,
     # with the sweep's changed flag for the others
@@ -631,9 +724,42 @@ def _drive(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
     stats["chunks"] = stats.get("chunks", 0) + counts[CHUNKS]
     stats["rounds"] = stats.get("rounds", 0) + counts[ROUNDS]
     stats["dropped"] = stats.get("dropped", 0) + counts[DROPPED]
+    stats["classes"] = stats.get("classes", 0) + counts[CLASSES]
+    stats["chunks_exact"] = (stats.get("chunks_exact", 0)
+                             + counts[EXACT_CHUNKS])
     packed = torch.cat([assign, pipe, ready.to(torch.int32),
                         kept.to(torch.int32)])
     return (packed, *state)
+
+
+def prep_cuda(req: torch.Tensor, masked_static: Optional[torch.Tensor],
+              chunk: int) -> Tuple[Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor], torch.Tensor]:
+    """One call of ``vt_blocks_prep`` (the class kernel, a block a chunk,
+    then the exactness kernel, one block): ``(task_classes(req,
+    masked_static, chunk), chunk_exact(req, chunk))`` computed on the card,
+    the flags as u8. Arguments as ``blocks_cuda`` checked them."""
+    Tp, R = req.shape
+    n = Tp // chunk
+    dev = req.device
+    cls = torch.empty(Tp, dtype=torch.int32, device=dev)
+    class_rep = torch.zeros((n, chunk), dtype=torch.int32, device=dev)
+    n_class = torch.empty(n, dtype=torch.int32, device=dev)
+    total = torch.empty((n, R), dtype=torch.float64, device=dev)
+    valuation = torch.empty((n, R), dtype=torch.int32, device=dev)
+    bad = torch.empty(n, dtype=torch.int32, device=dev)
+    exact = torch.empty(n, dtype=torch.uint8, device=dev)
+    N = 1 if masked_static is None else masked_static.shape[1]
+    err = _lib().vt_blocks_prep(
+        req.data_ptr(),
+        None if masked_static is None else masked_static.data_ptr(),
+        cls.data_ptr(), class_rep.data_ptr(), n_class.data_ptr(),
+        total.data_ptr(), valuation.data_ptr(), bad.data_ptr(),
+        exact.data_ptr(), Tp, chunk, N, R,
+        torch.cuda.current_stream().cuda_stream)
+    _launched("blocks_prep", err)
+    prep_cuda.launches += 1
+    return (cls, class_rep, n_class), exact
 
 
 def topk_cuda(state: NodeState, allocatable: torch.Tensor,
@@ -641,13 +767,20 @@ def topk_cuda(state: NodeState, allocatable: torch.Tensor,
               weights: ScoreWeights, req: torch.Tensor, valid: torch.Tensor,
               job_ix: torch.Tensor, job_dead: torch.Tensor,
               assign: torch.Tensor, masked_static: Optional[torch.Tensor],
-              lo: int, chunk: int, cand: torch.Tensor,
-              cand_score: torch.Tensor, counters: torch.Tensor) -> None:
+              classes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+              scratch: Tuple[torch.Tensor, torch.Tensor], lo: int,
+              chunk: int, cand: torch.Tensor, cand_score: torch.Tensor,
+              counters: torch.Tensor) -> None:
     """One launch of ``blocks_topk_kernel`` for the chunk of tasks
-    ``[lo, lo + chunk)``: the K candidates of each task that still has
-    work, into ``cand``/``cand_score``. Arguments as ``blocks_cuda`` checked
-    them."""
+    ``[lo, lo + chunk)``: the K candidates of each class (``task_classes``)
+    with a row that still has work, into row ``class`` of
+    ``cand``/``cand_score``. ``scratch`` is the splits' lists (i64[grid *
+    TOPK_CLASSES_PER_BLOCK * 32], which sets the grid) and the groups'
+    counters (i32[MAX_CHUNK / TOPK_CLASSES_PER_BLOCK], zero). Arguments as
+    ``blocks_cuda`` checked them."""
     N, R = state.idle.shape
+    cls, class_rep, n_class = classes
+    part, done = scratch
     err = _lib().vt_blocks_topk(
         state.future_idle.data_ptr(), state.used.data_ptr(),
         state.ntasks.data_ptr(), allocatable.data_ptr(),
@@ -656,9 +789,12 @@ def topk_cuda(state: NodeState, allocatable: torch.Tensor,
         assign.data_ptr(),
         None if masked_static is None else masked_static.data_ptr(),
         weights.binpack_weight, weights.least_req_weight,
-        weights.most_req_weight, weights.balanced_weight, cand.data_ptr(),
-        cand_score.data_ptr(), counters.data_ptr(), lo, chunk, N, R,
-        cand.shape[1], torch.cuda.current_stream().cuda_stream)
+        weights.most_req_weight, weights.balanced_weight, cls.data_ptr(),
+        class_rep.data_ptr(), n_class.data_ptr(), part.data_ptr(),
+        done.data_ptr(), cand.data_ptr(), cand_score.data_ptr(),
+        counters.data_ptr(), lo, chunk, N, R, cand.shape[1],
+        part.numel() // (TOPK_CLASSES_PER_BLOCK * 32),
+        torch.cuda.current_stream().cuda_stream)
     _launched("blocks_topk", err)
     topk_cuda.launches += 1
 
@@ -666,21 +802,23 @@ def topk_cuda(state: NodeState, allocatable: torch.Tensor,
 def round_cuda(state: NodeState, max_tasks: torch.Tensor, req: torch.Tensor,
                valid: torch.Tensor, job_ix: torch.Tensor,
                job_dead: torch.Tensor, assign: torch.Tensor,
-               pipe: torch.Tensor, cand: torch.Tensor,
-               cand_score: torch.Tensor, lo: int, chunk: int,
-               counters: torch.Tensor) -> None:
+               pipe: torch.Tensor, cls: torch.Tensor, exact: torch.Tensor,
+               cand: torch.Tensor, cand_score: torch.Tensor, lo: int,
+               chunk: int, counters: torch.Tensor) -> None:
     """One launch of ``blocks_round_kernel`` for the chunk ``[lo, lo +
     chunk)``: its bidding rounds, the alloc/pipe split, the deltas on the
-    node state and the chunk's fresh tasks' assignments."""
+    node state and the chunk's fresh tasks' assignments; a row reads its
+    class's candidates (``cls``), and the chunk sums in the exact mode
+    where ``exact`` (``chunk_exact``, u8) says so."""
     N, R = state.idle.shape
     err = _lib().vt_blocks_round(
         state.idle.data_ptr(), state.future_idle.data_ptr(),
         state.used.data_ptr(), state.ntasks.data_ptr(), max_tasks.data_ptr(),
         req.data_ptr(), valid.data_ptr(), job_ix.data_ptr(),
         job_dead.data_ptr(), assign.data_ptr(), pipe.data_ptr(),
-        cand.data_ptr(), cand_score.data_ptr(), counters.data_ptr(), lo,
-        chunk, N, R, cand.shape[1],
-        torch.cuda.current_stream().cuda_stream)
+        cls.data_ptr(), exact.data_ptr(), cand.data_ptr(),
+        cand_score.data_ptr(), counters.data_ptr(), lo, chunk, N, R,
+        cand.shape[1], torch.cuda.current_stream().cuda_stream)
     _launched("blocks_round", err)
     round_cuda.launches += 1
 
@@ -717,6 +855,7 @@ def free_cuda(state: NodeState, req: torch.Tensor, pipe: torch.Tensor,
 
 
 # kernel launches since each count was last reset (chip_smoke.py reads them)
+prep_cuda.launches = 0
 topk_cuda.launches = 0
 round_cuda.launches = 0
 free_cuda.launches = 0

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -82,10 +83,46 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{out}")
             continue
+        lib.with_suffix(".log").write_text(out)
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (with ptxas's registers, stack frames and spills) from
+    the build of the named kernel's current library, built first if it is
+    missing."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        build_all([name])
+    return log.read_text()
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel function of the named library's build (mangled name):
+    registers, stack frame bytes, spill store and spill load bytes, as
+    ``ptxas -v`` printed them."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in build_log(name).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers")):
+            m = re.search(pat, line)
+            if m:
+                out[fn][key] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

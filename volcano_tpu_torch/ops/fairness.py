@@ -7,7 +7,8 @@ update over ``f32[Q,R]``.
 Two forms with one semantics, as in the JAX package: a NumPy twin that the
 plugin uses below 64 queues, and torch ops on the session's device at 64 or
 more (the JAX package's ``lax.while_loop``; its loop condition is read back
-once a round here).
+once a round here), whose sums over the queue axis follow XLA:CPU's order,
+so it gives the JAX loop's bits.
 """
 
 from __future__ import annotations
@@ -71,13 +72,24 @@ def proportion_deserved_numpy(total, weight, request, capability, allocated,
 
 
 def _sum0(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the queue axis, one queue after the other: a fixed order,
-    so the f32 result does not depend on how a library splits a
-    reduction."""
-    acc = x[0]
-    for q in range(1, x.shape[0]):
+    """Sum over the queue axis in the order XLA:CPU gives the JAX loop's
+    ``jnp.sum`` at --xla_backend_optimization_level=0: up to 32 queues one
+    after the other from 0; beyond, the axis padded with zeros to a
+    multiple of 32 (the smaller half of the padding before it), each window
+    of 32 summed in order from 0, and the window sums summed the same way
+    (its reduce-window rewrite). A fixed order, so the f32 result does not
+    depend on how a library splits a reduction."""
+    Q = x.shape[0]
+    if Q > 32:
+        pad = -Q % 32
+        lo = pad // 2
+        x = torch.cat([x.new_zeros((lo, *x.shape[1:])), x,
+                       x.new_zeros((pad - lo, *x.shape[1:]))])
+        x = x.reshape(-1, 32, *x.shape[1:]).transpose(0, 1)
+    acc = torch.zeros_like(x[0])
+    for q in range(x.shape[0]):
         acc = acc + x[q]
-    return acc
+    return _sum0(acc) if Q > 32 else acc
 
 
 def proportion_deserved(total, weight, request, capability, allocated,
