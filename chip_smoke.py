@@ -147,6 +147,16 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def clocks_line() -> str:
+    """The card's SM clock and its maximum, memory clock, power draw and
+    temperature now, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,"
+         "power.draw,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
 # ---------------------------------------------------------------------------
 # the placement kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -1095,8 +1105,8 @@ def main() -> int:
     started = time.perf_counter()
 
     def phase(name):
-        print(f"phase {name} at {time.perf_counter() - started:.1f} s",
-              flush=True)
+        print(f"phase {name} at {time.perf_counter() - started:.1f} s, "
+              f"clocks {clocks_line()}", flush=True)
 
     card = card_line()
     print("card:", card, flush=True)

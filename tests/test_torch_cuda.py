@@ -221,8 +221,9 @@ def test_blocks_kernels_match_plain(world, card):
 @pytest.mark.parametrize("world", list(CARD_BLOCK_WORLDS))
 def test_blocks_kernels_match_plain_card_worlds(world, card):
     """The card-only worlds: few classes over 20,000 nodes (the candidate
-    kernel's split node axis), and a fractional world at 20,000 tasks /
-    5,000 nodes, summed in the reference's order throughout."""
+    kernel's split node axis), a fractional world at 20,000 tasks / 5,000
+    nodes, summed in the reference's order throughout, and 2^23 + 64 nodes
+    (the round kernel's 64-bit grouping keys)."""
     args, kw = blocks_args(CARD_BLOCK_WORLDS[world](), card)
     stats = {}
     got = blocks_cuda(*args, stats=stats, **kw)

@@ -728,15 +728,39 @@ BLOCK_WORLDS = {
     "mixed-exact": _blocks_mixed_exact,
 }
 
+def _blocks_past_2_23():
+    """256 tasks in 8 gangs of one request each, in chunks of 32, on 2^23 +
+    64 nodes: more than the round kernel's 32-bit grouping keys can number
+    (2^23 - 1), so it sorts 64-bit keys. Only nodes 0-7 (three quarters
+    used, room for about 64 of the tasks), node 2^23 - 1 and the 64 nodes
+    from 2^23 on have pod room, so most bids land on nodes a 23-bit node
+    field cannot hold."""
+    N = (1 << 23) + 64
+    alloc = np.tile(np.array([[32000.0, 128 * GI]], np.float32), (N, 1))
+    used = np.zeros((N, 2), np.float32)
+    used[:8] = alloc[:8] * 0.75
+    max_tasks = np.zeros(N, np.int32)
+    max_tasks[:8] = 110
+    max_tasks[(1 << 23) - 1:] = 110
+    rng = np.random.RandomState(23)
+    reqs = np.stack([rng.choice([500.0, 1000.0, 2000.0], 8),
+                     rng.choice([1.0, 2.0, 4.0], 8) * GI], axis=1)
+    jx = np.repeat(np.arange(8), 32)
+    return _blocks_world(alloc, reqs[jx].astype(np.float32), jx, [32] * 8,
+                         used=used, max_tasks=max_tasks, chunk=32)
+
+
 # Worlds for the card only (blocks_plain on the CPU would take minutes):
 # 20,000 nodes and 2,048 tasks in 8 gangs of one request each, few classes a
-# chunk, so the candidate kernel splits the node axis; and a fractional
-# world at the 20k engine cycle's size (20,000 tasks, 5,000 nodes), whose
-# chunks all sum in the reference's order.
+# chunk, so the candidate kernel splits the node axis; a fractional world
+# at the 20k engine cycle's size (20,000 tasks, 5,000 nodes), whose chunks
+# all sum in the reference's order; and 2^23 + 64 nodes, where the round
+# kernel groups by node on 64-bit keys.
 CARD_BLOCK_WORLDS = {
     "n20000-few-classes": lambda: _blocks_gangs(2048, 20000, 8),
     "fractional-20k": lambda: _blocks_random(16, T=20000, N=5000, J=400,
                                              fractional=True),
+    "n-past-2^23": _blocks_past_2_23,
 }
 
 

@@ -505,16 +505,16 @@ def blocks_plain(idle: torch.Tensor, future_idle: torch.Tensor,
 # dropped, candidate lists the candidate kernel computed (one a class with
 # work), and chunks the round kernel summed in its exact mode
 ROWS, CHUNKS, ROUNDS, ACCEPTED, DROPPED, CLASSES, EXACT_CHUNKS = range(7)
-TOPK_CLASSES_PER_BLOCK = 4   # blocks.cu kCPB
-
 
 
 def _lib():
     lib = build.load("blocks")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vt_blocks_topk.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, f, f,
-                                   f, f, p, p, p, p, p, p, p, p, i, i, i, i,
-                                   i, i, p]
+                                   f, f, p, p, p, p, i, p, i, p, p, p, i, i,
+                                   i, i, i, i, p]
+    lib.vt_blocks_topk_scratch.argtypes = [i, p, p]
+    lib.vt_blocks_topk_scratch.restype = None
     lib.vt_blocks_round.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                     p, p, i, i, i, i, i, p]
     lib.vt_blocks_free.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
@@ -668,12 +668,9 @@ def _drive(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
     events = _Events(timing)
     classes, exact = events.run("blocks_prep", lambda: prep_cuda(
         req, masked_static, chunk))
-    grid = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    part = torch.empty(grid * TOPK_CLASSES_PER_BLOCK * 32, dtype=torch.int64,
-                       device=device)
-    done = torch.zeros(MAX_CHUNK // TOPK_CLASSES_PER_BLOCK,
-                       dtype=torch.int32, device=device)
-    scratch = (part, done)
+    scratch = topk_scratch(
+        2 * torch.cuda.get_device_properties(device).multi_processor_count,
+        device)
 
     def todo_any(assign, job_dead):
         return ((assign == NO_NODE) & valid & ~job_dead[jx]).any()
@@ -762,25 +759,36 @@ def prep_cuda(req: torch.Tensor, masked_static: Optional[torch.Tensor],
     return (cls, class_rep, n_class), exact
 
 
+def topk_scratch(grid: int, device: torch.device
+                 ) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """``(grid, part, done)`` for ``topk_cuda`` on ``grid`` blocks: the
+    splits' lists and the groups' counters (zero), sized by
+    ``vt_blocks_topk_scratch``."""
+    part_n, done_n = ctypes.c_int(), ctypes.c_int()
+    _lib().vt_blocks_topk_scratch(grid, ctypes.byref(part_n),
+                                  ctypes.byref(done_n))
+    return (grid,
+            torch.empty(part_n.value, dtype=torch.int64, device=device),
+            torch.zeros(done_n.value, dtype=torch.int32, device=device))
+
+
 def topk_cuda(state: NodeState, allocatable: torch.Tensor,
               max_tasks: torch.Tensor, res: torch.Tensor,
               weights: ScoreWeights, req: torch.Tensor, valid: torch.Tensor,
               job_ix: torch.Tensor, job_dead: torch.Tensor,
               assign: torch.Tensor, masked_static: Optional[torch.Tensor],
               classes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-              scratch: Tuple[torch.Tensor, torch.Tensor], lo: int,
+              scratch: Tuple[int, torch.Tensor, torch.Tensor], lo: int,
               chunk: int, cand: torch.Tensor, cand_score: torch.Tensor,
               counters: torch.Tensor) -> None:
     """One launch of ``blocks_topk_kernel`` for the chunk of tasks
     ``[lo, lo + chunk)``: the K candidates of each class (``task_classes``)
     with a row that still has work, into row ``class`` of
-    ``cand``/``cand_score``. ``scratch`` is the splits' lists (i64[grid *
-    TOPK_CLASSES_PER_BLOCK * 32], which sets the grid) and the groups'
-    counters (i32[MAX_CHUNK / TOPK_CLASSES_PER_BLOCK], zero). Arguments as
-    ``blocks_cuda`` checked them."""
+    ``cand``/``cand_score``, on the grid and scratch of ``topk_scratch``.
+    Arguments as ``blocks_cuda`` checked them."""
     N, R = state.idle.shape
     cls, class_rep, n_class = classes
-    part, done = scratch
+    grid, part, done = scratch
     err = _lib().vt_blocks_topk(
         state.future_idle.data_ptr(), state.used.data_ptr(),
         state.ntasks.data_ptr(), allocatable.data_ptr(),
@@ -791,10 +799,9 @@ def topk_cuda(state: NodeState, allocatable: torch.Tensor,
         weights.binpack_weight, weights.least_req_weight,
         weights.most_req_weight, weights.balanced_weight, cls.data_ptr(),
         class_rep.data_ptr(), n_class.data_ptr(), part.data_ptr(),
-        done.data_ptr(), cand.data_ptr(), cand_score.data_ptr(),
-        counters.data_ptr(), lo, chunk, N, R, cand.shape[1],
-        part.numel() // (TOPK_CLASSES_PER_BLOCK * 32),
-        torch.cuda.current_stream().cuda_stream)
+        part.numel(), done.data_ptr(), done.numel(), cand.data_ptr(),
+        cand_score.data_ptr(), counters.data_ptr(), lo, chunk, N, R,
+        cand.shape[1], grid, torch.cuda.current_stream().cuda_stream)
     _launched("blocks_topk", err)
     topk_cuda.launches += 1
 

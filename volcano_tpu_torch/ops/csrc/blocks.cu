@@ -41,14 +41,15 @@
 //   loaded a round ahead. Up to K bidding rounds, to their fixpoint
 //   (nothing accepted, no choice or slot changed, found by
 //   __syncthreads_or). Each round a block-wide bitonic sort (32-bit keys
-//   below 2^23 - 1 nodes) groups the chunk by node: on each node its
-//   accepted tasks, then its bidders, each in task order. A task's claimed
-//   capacity is the accepted tasks' sum on its bid node; three waves
-//   decide acceptance in the reference's sequence: acc = wave(all),
+//   below 2^23 - 1 nodes, 64-bit keys from there: the card world
+//   n-past-2^23 holds that path) groups the chunk by node: on each node
+//   its accepted tasks, then its bidders, each in task order. A task's
+//   claimed capacity is the accepted tasks' sum on its bid node; three
+//   waves decide acceptance in the reference's sequence: acc = wave(all),
 //   acc |= wave(acc), acc = wave(acc), where a wave sums the earlier live
-//   bidders on the node. Then
-//   one more sort groups the accepted tasks by node for exactly nine steps
-//   of the alloc/pipe split (the same sums against Idle) and the deltas.
+//   bidders on the node. Then one more sort groups the accepted tasks by
+//   node for exactly nine steps of the alloc/pipe split (the same sums
+//   against Idle) and the deltas.
 //   Two sum modes, chosen per chunk:
 //   * exact (every partial sum of the chunk's requests is a whole number of
 //     the solve's unit below 2^24 units): segmented scans over the sorted
@@ -99,7 +100,7 @@ constexpr int kAllocSteps = 9;
 constexpr int kFreeBlock = 256;
 constexpr int kTopkThreads = 256;
 constexpr int kTopkWarps = kTopkThreads / 32;
-constexpr int kCPB = 4;               // ops/blocks.py TOPK_CLASSES_PER_BLOCK
+constexpr int kCPB = 4;               // classes a work group, at most
 constexpr int kMinSplit = 512;        // nodes a split of the node axis takes
 constexpr int kRoundWarps = kMaxChunk / 32;
 constexpr int kFreeThreads = 256;
@@ -447,7 +448,8 @@ __device__ __forceinline__ Key block_sort(Key v, Key (*buf)[kMaxChunk]) {
 // The chunk's tasks grouped by node: sorted keys (node << 32 | kBidBit for
 // a bidder | task), kNone | task for a task on no node. Where node numbers
 // fit in 23 bits the sort runs on 32-bit keys (node << 9 | bidder << 8 |
-// task), half the shuffles.
+// task): a 64-bit shuffle is two, and the 32-bit sort takes the round
+// kernel about a ninth less time on the 20k and 100k solves (PERF.md).
 __device__ __forceinline__ u64 group_by_node(u64 key, bool narrow,
                                              u64 (*buf)[kMaxChunk]) {
   if (!narrow) return block_sort<u64>(key, buf);
@@ -1177,8 +1179,17 @@ bool shape_ok(int chunk, int N, int R, int K) {
 
 }  // namespace
 
+// The scratch of vt_blocks_topk on a grid of ``grid`` blocks: the i64
+// entries of ``part`` and the i32 entries of ``done`` (zeroed once).
+extern "C" void vt_blocks_topk_scratch(int grid, int* part_entries,
+                                       int* done_entries) {
+  *part_entries = grid * kCPB * 32;
+  *done_entries = kMaxChunk / kCPB;
+}
+
 // The candidates of chunk [lo, lo + chunk): one list a class with work, on
-// a grid of ``grid`` blocks of 256 threads.
+// a grid of ``grid`` blocks of 256 threads, with the scratch that
+// vt_blocks_topk_scratch sizes (refused if smaller).
 extern "C" int vt_blocks_topk(const float* fidle, const float* used,
                               const int* nt, const float* alloc,
                               const int* maxt, const float* rw,
@@ -1188,11 +1199,15 @@ extern "C" int vt_blocks_topk(const float* fidle, const float* used,
                               const int* assign, const float* ms, float bw,
                               float lw, float mw, float balw, const int* cls,
                               const int* class_rep, const int* n_class,
-                              void* part, int* done, int* cand,
+                              void* part, int part_entries, int* done,
+                              int done_entries, int* cand,
                               float* cand_score, int* counters, int lo,
                               int chunk, int N, int R, int K, int grid,
                               cudaStream_t stream) {
-  if (!shape_ok(chunk, N, R, K) || grid < 1 || lo % chunk)
+  int need_part = 0, need_done = 0;
+  vt_blocks_topk_scratch(grid, &need_part, &need_done);
+  if (!shape_ok(chunk, N, R, K) || grid < 1 || lo % chunk ||
+      part_entries < need_part || done_entries < need_done)
     return static_cast<int>(cudaErrorInvalidValue);
   const TopkArgs a{fidle, used, nt, alloc, maxt, rw, req, valid, job_ix,
                    job_dead, assign, ms, bw, lw, mw, balw, cls, class_rep,
