@@ -86,9 +86,25 @@
    baseline_config("1k", seed=3) with engine callbacks (host), tpu-strict
    and tpu-fused (card): callbacks binds as tpu-strict does and admits the
    gangs tpu-fused admits, with as many binds.
-12. Prints one JSON line with each kernel's launches, times, bound and
-   error, then the card's name and power limit, then the result line
-   ``{"ok": true, "device": {...}}``.
+12. Runs the sim (``python -m volcano_tpu_torch.sim``, direct mode) on the
+   card under deploy/scheduler.conf: baseline-10k (10,000 pods / 2,000
+   nodes, 31 cycles), preempt-burst, skew, and smoke with 20% bind/evict
+   chaos and kills at cycles 5 and 12, each kernel's count set to 0 just
+   before each run. Each run's decision plane (the bytes ``--deterministic``
+   prints) and its side-effect sequence (every bind's node and every
+   eviction, in order) must hash to the JAX package's digests in
+   tests/sim_reference_digests.json (tools/sim_reference.py), with no
+   action failure and no double bind; the placement kernel must launch in
+   every run and the walk in preempt-burst. Prints each run's cycles,
+   binds, evictions, launches, pipeline_e2e_ms and per-action ms, and the
+   card's name and power limit.
+13. Prints one JSON line with each kernel's launches, times, bound and
+   error (and its launches in each sim run), then the card's name and
+   power limit, then the result line ``{"ok": true, "device": {...}}``.
+
+Every ``Scheduler.run_once`` must return no isolated action failure: the
+shell isolates a failing action (a kernel that does not launch, say), and
+the script counts that as a failed check.
 
 Any failed check raises, and the script exits non-zero without the result
 line; so it does without a CUDA device, and outside the repository.
@@ -996,9 +1012,11 @@ def run_deployed(name, device, conf_text=None, keep_cache=False):
     for wrapper in counters.values():
         wrapper.launches = 0
     try:
-        sched.run_once()
+        errors = sched.run_once()
     finally:
         scheduler.close_session = real_close
+    check(errors == [], f"deployed {name}: isolated action failures "
+                        f"{[(n, repr(e)) for n, e in errors]}")
     launches = {k: w.launches for k, w in counters.items()}
     ssn = closed[0]
     got = {
@@ -1017,6 +1035,92 @@ def run_deployed(name, device, conf_text=None, keep_cache=False):
            None if preempt is None else preempt.last_stats, alloc.last_stats)
     return out + (cache,) if keep_cache else out
 
+
+
+# ---------------------------------------------------------------------------
+# the sim
+# ---------------------------------------------------------------------------
+
+# the sim runs on the card, each held to the JAX package's decision-plane
+# digest in tests/sim_reference_digests.json (tools/sim_reference.py)
+SIM_RUNS = (
+    ("baseline-10k", ("--conf", "deploy/scheduler.conf")),
+    ("preempt-burst", ("--conf", "deploy/scheduler.conf")),
+    ("skew", ("--conf", "deploy/scheduler.conf")),
+    ("smoke", ("--conf", "deploy/scheduler.conf", "--chaos-rate", "0.2",
+               "--kill-cycles", "5,12")),
+)
+
+
+def sim_digests() -> dict:
+    with open(os.path.join(_ROOT, "tests",
+                           "sim_reference_digests.json")) as f:
+        return {run["key"]: run for run in json.load(f)["runs"]}
+
+
+def run_sim(scenario, args):
+    """``python -m volcano_tpu_torch.sim --scenario S ARGS`` on the card
+    (its entry point, in this process), each kernel's count set to 0 just
+    before; returns the report, the decision plane's bytes as
+    ``--deterministic`` prints them, the run's sequence digest (every
+    bind's node and every eviction, in order), the launches and the wall
+    seconds."""
+    import contextlib
+    import io
+
+    from volcano_tpu_torch import metrics
+    from volcano_tpu_torch.sim.__main__ import main as sim_main
+    from volcano_tpu_torch.sim.report import (deterministic_json,
+                                              percentiles, sequence_digest)
+    counters = kernel_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    out = io.StringIO()
+    mark = metrics.durations_mark()
+    t0 = time.perf_counter()
+    runners = []
+    with contextlib.redirect_stdout(out):
+        rc = sim_main(["--scenario", scenario, *args], runners=runners)
+    wall_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counters.items()}
+    check(rc == 0, f"sim {scenario}: exit {rc}")
+    report = json.loads(out.getvalue())
+    # open_session to close_session, each cycle (the rest of run_once is
+    # the resync pass and the epilogue)
+    report["wallclock"]["schedule_ms"] = percentiles(
+        metrics.durations_since(mark).get(("e2e",), []))
+    text = (deterministic_json(report) + "\n").encode()
+    return report, text, sequence_digest(runners[0]), launches, wall_s
+
+
+def profile_sim(scenario, args) -> dict:
+    """The same sim run again under torch.profiler: the device's busy time
+    by kernel name and its idle share of the run's cycles (the summed
+    pipeline_e2e_ms). Only device events are summed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        report, text, sequence, _, _ = run_sim(scenario, args)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    cycles_ms = (report["wallclock"]["pipeline_e2e_ms"]["mean"]
+                 * report["cycles"])
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "device_busy_ms": busy_ms, "cycles_ms": cycles_ms,
+        "device_idle_share": (1.0 - busy_ms / cycles_ms)
+        if busy_ms else None,
+        "by_kernel_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                         for e in top},
+        "decision_plane_sha256": __import__("hashlib").sha256(
+            text).hexdigest(),
+        "sequence_sha256": sequence["sha256"],
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1042,7 +1146,9 @@ def run_cycle(device, taints, count=False):
         taint_tenth(cache)
     sched = Scheduler(cache, SLICE_CONF, device=device)
     place_cuda.launches = rowdiff_cuda.launches = 0
-    sched.run_once()
+    errors = sched.run_once()
+    check(errors == [], f"cycle {device or 'cuda'}: isolated action "
+                        f"failures {[(n, repr(e)) for n, e in errors]}")
     launches = {"place": place_cuda.launches,
                 "rowdiff": rowdiff_cuda.launches}
     times = {k: v * 1e3 for k, v in sched.last_cycle_s.items()}
@@ -1070,8 +1176,10 @@ def profile_cycle(taints: bool, cycle_ms: float) -> dict:
     sched = Scheduler(cache, SLICE_CONF)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sched.run_once()
+        errors = sched.run_once()
         torch.cuda.synchronize()
+    check(errors == [], f"profiled cycle: isolated action failures "
+                        f"{[(n, repr(e)) for n, e in errors]}")
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU
               and e.self_device_time_total > 0]
@@ -1387,8 +1495,59 @@ def main() -> int:
             "allocate_ms": r[1]["allocate"]} for e, r in runs.items()}),
         flush=True)
 
+    phase("sim")
+    # 12. the sim in direct mode on the card under deploy/scheduler.conf:
+    # every run's decision plane is the JAX package's, byte for byte
+    import hashlib
+    digests = sim_digests()
+    sim_runs = {}
+    for scenario, args in SIM_RUNS:
+        key = " ".join(("--scenario", scenario) + args)
+        report, text, sequence, launches, wall_s = run_sim(scenario, args)
+        want = digests[key]
+        check(hashlib.sha256(text).hexdigest() == want["sha256"]
+              and len(text) == want["bytes"],
+              f"sim {key}: decision plane differs from the JAX package's "
+              f"({len(text)} bytes, want {want['bytes']})")
+        check((sequence["sha256"], sequence["binds"], sequence["evicts"])
+              == (want["sequence_sha256"], want["sequence_binds"],
+                  want["sequence_evicts"]),
+              f"sim {key}: a bind's node or an eviction differs from the "
+              f"JAX package's ({sequence['binds']} binds, "
+              f"{sequence['evicts']} evicts)")
+        check(report["action_failures"] == 0,
+              f"sim {key}: {report['action_failures']} action failures")
+        check(report["double_binds"] == 0,
+              f"sim {key}: {report['double_binds']} double binds")
+        check(launches["place"] > 0,
+              f"sim {key}: the placement kernel never launched")
+        if scenario == "preempt-burst":
+            check(launches["evict_walk"] > 0,
+                  f"sim {key}: the preempt walk never launched")
+        sim_runs[scenario] = launches
+        wall = report["wallclock"]
+        print(f"sim {scenario}:", json.dumps({
+            "args": list(args), "cycles": report["cycles"],
+            "binds": report["binds"], "evicts": report["evicts"],
+            "restarts": report["restarts"],
+            "jobs": report["jobs"], "launches": launches,
+            "pipeline_e2e_ms": wall["pipeline_e2e_ms"],
+            "schedule_ms": wall["schedule_ms"],
+            "actions_ms": wall["actions_ms"], "wall_s": wall_s,
+            "decision_plane_sha256": hashlib.sha256(text).hexdigest(),
+            "sequence_sha256": sequence["sha256"]}),
+            flush=True)
+    prof = profile_sim(*SIM_RUNS[0])
+    want = digests[" ".join(("--scenario",) + SIM_RUNS[0][:1]
+                            + SIM_RUNS[0][1])]
+    check(prof["decision_plane_sha256"] == want["sha256"]
+          and prof["sequence_sha256"] == want["sequence_sha256"],
+          "sim baseline-10k under the profiler: decisions differ")
+    print("profile sim baseline-10k:", json.dumps(prof), flush=True)
+    print("sim card:", card_line(), flush=True)
+
     phase("summary")
-    # 12. the kernels line (launches: the placement kernel's in the 10k
+    # 13. the kernels line (launches: the placement kernel's in the 10k
     # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
     # it a static matrix, the walk's in the deployed cycle of the tight mix,
     # the one where preempt has work, the block auction's in the tpu-blocks
@@ -1486,6 +1645,9 @@ def main() -> int:
             "solve_ms": solve20["ms"],
             "plain_solve_ms": solve20["plain_ms"],
         })
+    for rec in kernels:
+        rec["sim_launches"] = {name: launches[rec["name"]]
+                               for name, launches in sim_runs.items()}
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

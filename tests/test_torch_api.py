@@ -203,9 +203,12 @@ def test_gc_window():
 
 
 def test_failed_cycle_releases_the_gc_window():
-    """A cycle whose action raises re-enables automatic collection. (The
-    JAX package's guard, a finalizer on the session, never fires while
-    collection is off: plugin callbacks hold the session in a cycle.)"""
+    """A cycle whose action raises re-enables automatic collection. The
+    shell isolates the failure (run_once returns it, the session still
+    closes, the rest of the pipeline runs), and the close releases the
+    window. (The JAX package's guard, a finalizer on the session, never
+    fires while collection is off: plugin callbacks hold the session in a
+    cycle.)"""
     import gc
 
     from volcano_tpu_torch import Scheduler
@@ -222,10 +225,13 @@ def test_failed_cycle_releases_the_gc_window():
 
     action.execute, real = explode, action.execute
     try:
-        with pytest.raises(Boom):
-            sched.run_once()
+        errors = sched.run_once()
     finally:
         action.execute = real
+    assert [(name, type(exc)) for name, exc in errors] == \
+        [(action.name(), Boom)]
+    assert set(sched.last_cycle_s) >= {"enqueue", action.name(), "backfill",
+                                       "close_session"}
     assert gc.isenabled()
 
 

@@ -14,7 +14,8 @@ bit. The flag cannot change in the test process itself: XLA reads it once.
 
 Run as a script, this file computes the references:
 ``python tests/torch_parity.py
-{slice|deployed|evict|walk|plugins|place|blocks|engines} OUT NAME...``, or
+{slice|deployed|evict|walk|walk-modes|plugins|place|blocks|engines} OUT
+NAME...``, or
 ``mixed OUT KIND:NAME...``.
 """
 
@@ -1187,15 +1188,41 @@ CARD_WALK_WORLDS = {
 }
 
 
-def jax_walk(world):
+def fill_rank_shrink_world():
+    """Phase 1 under drf alone, one node (total 192 cpu, future idle 1).
+    The preemptor gang (allocation 4, two tasks of 2, quota 2) may evict
+    two victims of group 1 (allocation 12, 3 each); the victim in row 0
+    comes AFTER the one in row 1 in the candidate list (ranks 1 and 0).
+    Task 1 (share 6/192) keeps both (shares 6/192, tied, and 9/192) and
+    evicts row 0. That eviction lowers row 1's share to 6/192, and task 2
+    (share 8/192) drops it: no victim is eligible, the gang misses its
+    quota and rolls back. The JAX walk's closed-form fill keeps row 1's
+    share from the start of the fill and places both tasks (ROADMAP §3)."""
+    inputs, kinds, sizes, gang = hand_walk(
+        fidle=[[1.0]], slots=[[(1, [3.0]), (1, [3.0])]],
+        jalloc=[[4.0], [12.0]], total=[192.0],
+        jobs=[(0, 2, [(2, [2.0], [1.0])])], gang=True,
+        kinds=("drf",), sizes=(0,))
+    rank = np.array([[1, 0]], np.int32)
+    return (inputs._replace(nw=inputs.nw._replace(rank=rank)), kinds, sizes,
+            gang)
+
+
+# walk worlds on which the JAX walk's two modes disagree (a fault of the
+# reference): held by tests/test_torch_sim.py, not by the walk parity tests
+FAULT_WALK_WORLDS = {"fill-rank-shrink": fill_rank_shrink_world}
+
+
+def jax_walk(world, exact: bool = False):
     """build_preempt_walk on a walk world: (task_node, owner, job_done) as
-    NumPy arrays. allow_cheap follows the JAX host's rule."""
+    NumPy arrays. allow_cheap follows the JAX host's rule, unless
+    ``exact`` asks for the per-task formulation (allow_cheap=False)."""
     import jax.numpy as jnp
 
     from volcano_tpu.ops.evict import EvictNW, build_preempt_walk
     inputs, kinds, sizes, gang = world
     allow_cheap = (all(k == "static" for k in kinds[:-1])
-                   and (gang or "drf" not in kinds))
+                   and (gang or "drf" not in kinds)) and not exact
     masks, off = [], 0
     for size in sizes:
         masks.append((jnp.asarray(inputs.tier_masks[off:off + size]),
@@ -1990,7 +2017,9 @@ def jax_reference(kind: str, names, out_path) -> dict:
     process without FMA contraction (module docstring). ``kind`` "slice"
     and "deployed": name -> (world, outcome) of one cycle of that conf;
     "evict": name -> (world, evict_outcome) of one preempt or reclaim;
-    "walk": name -> jax_walk(); "plugins": name -> PLUGIN_CASES[name]();
+    "walk": name -> jax_walk(); "walk-modes": name -> jax_walk() of a
+    FAULT_WALK_WORLDS world in both modes; "plugins": name ->
+    PLUGIN_CASES[name]();
     "place": name -> jax_place(); "blocks": name -> jax_blocks();
     "engines": "engine:world" -> engine_reference(); "mixed": names are
     "kind:name", so one child process serves several kinds."""
@@ -2014,6 +2043,9 @@ def _reference(kind, name):
         return world, evict_outcome(run_jax_action(cache, action), cache)
     if kind == "walk":
         return jax_walk(WALK_WORLDS[name]())
+    if kind == "walk-modes":
+        world = FAULT_WALK_WORLDS[name]()
+        return jax_walk(world), jax_walk(world, exact=True)
     if kind == "plugins":
         return PLUGIN_CASES[name]()
     if kind == "blocks":

@@ -1,12 +1,14 @@
-"""volcano_tpu_torch: the Volcano batch scheduler's allocate cycle in
-PyTorch, with the placement solve as a hand-written CUDA kernel.
+"""volcano_tpu_torch: the Volcano batch scheduler in PyTorch, with its
+device solves as hand-written CUDA kernels.
 
-A port of the ``volcano_tpu`` package (JAX on a TPU), module for module under
-the same paths and names. It runs the actions ``enqueue``, ``allocate-tpu``
-(engine ``tpu-fused``) and ``backfill`` with the plugins ``priority``,
-``gang``, ``nodeorder`` and ``binpack``; a conf naming anything else is
-refused. Entry points solve on the CUDA card unless the caller passes
-``device="cpu"``.
+A port of the ``volcano_tpu`` package (JAX on a TPU), module for module
+under the same paths and names: the scheduler shell (``scheduler.py``),
+the cache with its intent journal and resync queue, the actions and
+plugins of ``deploy/scheduler.conf`` and of the reference's default conf,
+and the sim's direct mode (``python -m volcano_tpu_torch.sim``). A conf
+naming an action, plugin, engine or argument this package lacks is
+refused by name when it loads. Entry points solve on the CUDA card unless
+the caller passes ``device="cpu"``.
 """
 
 from .scheduler import Scheduler

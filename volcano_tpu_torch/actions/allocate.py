@@ -41,6 +41,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import metrics
 from ..api import (FitError, PodGroupPhase, Resource, TaskInfo, TaskStatus)
 from ..api.types import NODE_RESOURCE_FIT_FAILED
 from ..cache.snapshot import (NodeTensors, assemble_feasibility,
@@ -83,9 +84,9 @@ class _AggTask:
         self.resreq = resreq
 
 
-def _action_args(ssn, names):
+def _action_args(configurations, names):
     """The arguments of every configuration block of the named actions."""
-    return [c.arguments for c in ssn.configurations if c.name in names]
+    return [c.arguments for c in configurations if c.name in names]
 
 
 class AllocateAction(Action):
@@ -97,10 +98,12 @@ class AllocateAction(Action):
         # the last execute's phases in host wall seconds and counts
         self.last_stats: Dict[str, object] = {}
 
-    def execute(self, ssn) -> None:
+    def configured_engine(self, configurations):
+        """The engine and strict batch the conf's blocks name for this
+        action; refuses an engine or argument this package lacks."""
         engine = self.engine
         batch = 16
-        for args in _action_args(ssn, (self.NAME, "allocate")):
+        for args in _action_args(configurations, (self.NAME, "allocate")):
             engine = args.get("engine", engine)
             batch = int(args.get("strict-batch", batch))
         if engine in MISSING_ENGINES:
@@ -109,11 +112,19 @@ class AllocateAction(Action):
                              f"{MISSING_ENGINES[engine]}")
         if engine not in ENGINES:
             raise ValueError(f"unknown allocate engine {engine!r}")
-        for args in _action_args(ssn, ("allocate", "allocate-tpu")):
+        for args in _action_args(configurations,
+                                 ("allocate", "allocate-tpu")):
             if float(args.get("topology-weight", 0.0) or 0.0) > 0.0:
                 raise ValueError("allocate topology-weight > 0 is not in "
                                  "volcano_tpu_torch: it needs the "
                                  "zone-anchor solve (B6)")
+        return engine, batch
+
+    def check_conf(self, configurations) -> None:
+        self.configured_engine(configurations)
+
+    def execute(self, ssn) -> None:
+        engine, batch = self.configured_engine(ssn.configurations)
         if engine == "callbacks":
             t0 = time.perf_counter()
             _execute_interleaved(ssn, _CallbackJobPlacer(ssn))
@@ -592,7 +603,8 @@ def _execute_fused(ssn, blocks: bool = False,
             if inputs is None:
                 solution = None
                 break
-            solution = _fused_solution(inputs, blocks, blocks_stats)
+            with metrics.solver_trace("allocate-solve"):
+                solution = _fused_solution(inputs, blocks, blocks_stats)
             stats["solve"] += time.perf_counter() - t2
             stats["solves"] += 1
             kept_uids = {solution.jobs_list[jx].uid

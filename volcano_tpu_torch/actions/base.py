@@ -13,6 +13,11 @@ class Action:
     def initialize(self) -> None:
         pass
 
+    def check_conf(self, configurations) -> None:
+        """Refuse, when the conf is loaded, a configuration block this
+        action cannot run (an engine or argument this package lacks), so
+        the refusal never becomes a failure isolated inside a cycle."""
+
     def execute(self, ssn) -> None:
         raise NotImplementedError
 

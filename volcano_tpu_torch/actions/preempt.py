@@ -32,11 +32,11 @@ def validate_victims(preemptor: TaskInfo, node, victims: List[TaskInfo]) -> bool
     return preemptor.init_resreq.less_equal(future_idle)
 
 
-def action_engine(ssn, name: str, default: str) -> str:
+def action_engine(configurations, name: str, default: str) -> str:
     """The engine a preempt/reclaim configuration block names; refuses one
     this package does not have."""
     engine = default
-    for conf in ssn.configurations:
+    for conf in configurations:
         if conf.name == name:
             engine = conf.arguments.get("engine", engine)
     if engine not in ENGINES:
@@ -56,9 +56,13 @@ class PreemptAction(Action):
         # walk ran
         self.last_stats: Dict[str, float] = {}
 
+    def check_conf(self, configurations) -> None:
+        action_engine(configurations, self.NAME, self.engine)
+
     def execute(self, ssn) -> None:
         self.last_stats = {}
-        if action_engine(ssn, self.NAME, self.engine) == "tpu":
+        if action_engine(ssn.configurations, self.NAME,
+                         self.engine) == "tpu":
             from .evict_tpu import execute_preempt_tpu
             self.last_stats = execute_preempt_tpu(ssn)
             return

@@ -24,8 +24,12 @@ class ReclaimAction(Action):
     def __init__(self, engine: Optional[str] = None):
         self.engine = engine or self.DEFAULT_ENGINE
 
+    def check_conf(self, configurations) -> None:
+        action_engine(configurations, self.NAME, self.engine)
+
     def execute(self, ssn) -> None:
-        if action_engine(ssn, self.NAME, self.engine) == "tpu":
+        if action_engine(ssn.configurations, self.NAME,
+                         self.engine) == "tpu":
             from .evict_tpu import execute_reclaim_tpu
             return execute_reclaim_tpu(ssn)
         return self._execute_callbacks(ssn)

@@ -110,13 +110,15 @@ class PodGroup:
 
     def __init__(self, name: str = "", namespace: str = "default", queue: str = "default",
                  min_member: int = 0, min_resources: Optional[Resource] = None,
-                 phase: PodGroupPhase = PodGroupPhase.PENDING):
+                 phase: PodGroupPhase = PodGroupPhase.PENDING,
+                 annotations: Optional[Dict[str, str]] = None):
         self.name = name
         self.namespace = namespace
         self.queue = queue
         self.min_member = min_member
         self.min_resources = min_resources
         self.phase = phase
+        self.annotations = dict(annotations or {})
         self.conditions: List[dict] = []
         self.conditions_dirty = False
         self.running = 0
@@ -151,6 +153,9 @@ class JobInfo:
         self.total_request = Resource()
 
         self.creation_timestamp = creation_timestamp if creation_timestamp is not None else _time.time()
+        # when the cache ingested the job (SchedulerCache.add_job stamps it
+        # from the cache's clock)
+        self.schedule_start_timestamp: Optional[float] = None
         self.podgroup = podgroup or PodGroup(name=self.name, namespace=namespace,
                                              queue=queue, min_member=min_available)
 
@@ -174,6 +179,16 @@ class JobInfo:
             self.total_request.add(task.resreq)
         if allocated_status(task.status):
             self.allocated.add(task.resreq)
+
+    def delete_task_info(self, task: TaskInfo) -> None:
+        own = self.tasks.pop(task.uid, None)
+        if own is None:
+            return
+        if allocated_status(own.status):
+            self.allocated.sub(own.resreq)
+        if own.status == TaskStatus.PENDING or allocated_status(own.status):
+            self.total_request.sub(own.resreq)
+        self._del_index(own)
 
     def update_task_status(self, task: TaskInfo, status: TaskStatus) -> None:
         own = self.tasks.get(task.uid)
@@ -251,6 +266,7 @@ class JobInfo:
                       queue=self.queue, priority=self.priority,
                       min_available=self.min_available, podgroup=self.podgroup,
                       creation_timestamp=self.creation_timestamp)
+        job.schedule_start_timestamp = self.schedule_start_timestamp
         job.task_min_available = dict(self.task_min_available)
         job.task_min_available_total = self.task_min_available_total
         for task in self.tasks.values():

@@ -1,33 +1,238 @@
 """SchedulerCache: the live cluster model the scheduler snapshots each cycle
-(mirrors pkg/scheduler/cache/cache.go). Holds nodes, queues
-and jobs, clones them into a per-cycle ClusterInfo, and funnels binds to the
-Binder."""
+(mirrors pkg/scheduler/cache/cache.go:75-893).
+
+Holds nodes, queues and jobs; clones them into a per-cycle ClusterInfo;
+and executes bind/evict side effects through swappable executors. A
+failed side effect rolls the optimistic cache state back and goes to a
+rate-limited resync queue (the reference's errTasks, cache.go:777-799);
+one that exhausts its retry budget parks in a bounded dead-letter set.
+Every side effect is journaled before its executor runs (cache/journal.py)
+and armed in the in-flight ledger until the cluster acks it
+(cache/inflight.py, cache/feedback.py).
+
+The snapshot is a full clone of every ready node and every job each
+cycle. The ``mark_*_dirty`` calls keep the mutation contract the JAX
+package's incremental snapshot reads; a full clone has nothing to
+invalidate, so they record nothing here.
+"""
 
 from __future__ import annotations
 
+import heapq
+import itertools
+import logging
+import os
 import threading
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
-from ..api import (ClusterInfo, JobInfo, NodeInfo, QueueInfo,
-                   Resource, TaskInfo, TaskStatus)
+from ..api import (ClusterInfo, JobInfo, NodeInfo, QueueInfo, Resource,
+                   TaskInfo, TaskStatus, allocated_status)
+from ..obs.trace import TRACE as OBS_TRACE
 from .executors import (Binder, Evictor, FakeBinder, FakeEvictor,
                         StatusUpdater)
+from .feedback import FeedbackChannel
+from .inflight import InflightLedger
+from .journal import IntentJournal, journal_enabled
+
+log = logging.getLogger(__name__)
+
+
+class RateLimitedQueue:
+    """workqueue.RateLimitingInterface analogue (the errTasks queue,
+    cache.go:115,777-799): per-item exponential backoff — the k8s
+    ItemExponentialFailureRateLimiter (base * 2^failures, capped) — plus a
+    per-item retry budget: once an item has failed ``max_retries`` times,
+    add_rate_limited refuses it (returns False) so a permanently failing
+    side effect cannot spin in the queue forever. The caller dead-letters
+    refused items (SchedulerCache.dead_letter)."""
+
+    def __init__(self, base_delay: float = 0.005, max_delay: float = 10.0,
+                 max_retries: Optional[int] = None,
+                 time_fn=time.monotonic):
+        self.base_delay = base_delay
+        self.max_delay = max_delay
+        self.max_retries = max_retries
+        # injectable time source: the sim pins this to its virtual clock
+        # so retry backoff expires on deterministic virtual cycles
+        self.time_fn = time_fn
+        self._heap: List[Tuple[float, int, str, object]] = []
+        self._failures: Dict[str, int] = {}
+        self._seq = itertools.count()
+        self._lock = threading.Lock()
+
+    def add_rate_limited(self, key: str, item: object) -> bool:
+        with self._lock:
+            n = self._failures.get(key, 0)
+            if self.max_retries is not None and n >= self.max_retries:
+                # keep the failure count: a later add for the same key is
+                # refused again instead of restarting a full retry burst —
+                # only forget() (redrive) grants a fresh budget
+                return False
+            self._failures[key] = n + 1
+            delay = min(self.base_delay * (2 ** n), self.max_delay)
+            heapq.heappush(self._heap,
+                           (self.time_fn() + delay, next(self._seq), key,
+                            item))
+            return True
+
+    def failures(self, key: str) -> int:
+        with self._lock:
+            return self._failures.get(key, 0)
+
+    def forget(self, key: str) -> None:
+        with self._lock:
+            self._failures.pop(key, None)
+
+    def pop_ready(self, max_items: Optional[int] = None
+                  ) -> List[Tuple[str, object]]:
+        """Items whose backoff expired, oldest-deadline first.
+        ``max_items`` bounds the per-call work: items past the cap stay
+        queued, already ready, and drain on the next call."""
+        now = self.time_fn()
+        out = []
+        with self._lock:
+            while self._heap and self._heap[0][0] <= now:
+                if max_items is not None and len(out) >= max_items:
+                    break
+                _, _, key, item = heapq.heappop(self._heap)
+                out.append((key, item))
+        return out
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._heap)
+
+
+# A bind/evict that fails this many RETRIES (after the initial attempt)
+# dead-letters instead of re-queueing — with the default 5ms base delay
+# the budget spans ~20s of exponential backoff.
+DEFAULT_RESYNC_MAX_RETRIES = 12
+
+
+def _dead_letter_max() -> int:
+    """Cap on the dead-letter set: past it the OLDEST entry is evicted and
+    counted (redrive can no longer recover it). <=0 disables the cap."""
+    try:
+        return int(os.environ.get("VOLCANO_TPU_DEAD_LETTER_MAX", 4096))
+    except ValueError:
+        return 4096
 
 
 class SchedulerCache:
     def __init__(self, binder: Optional[Binder] = None,
                  evictor: Optional[Evictor] = None,
                  status_updater: Optional[StatusUpdater] = None,
-                 default_queue: str = "default"):
+                 default_queue: Optional[str] = "default",
+                 resync_max_retries: Optional[int]
+                 = DEFAULT_RESYNC_MAX_RETRIES,
+                 journal: Optional[IntentJournal] = None,
+                 time_fn=time.time):
         self._lock = threading.RLock()
+        # injectable wall-clock source: stamps schedule_start_timestamp on
+        # ingested jobs; the sim pins it to its virtual clock
+        self.time_fn = time_fn
         self.jobs: Dict[str, JobInfo] = {}
         self.nodes: Dict[str, NodeInfo] = {}
         self.queues: Dict[str, QueueInfo] = {}
         self.binder = binder or FakeBinder()
         self.evictor = evictor or FakeEvictor()
         self.status_updater = status_updater or StatusUpdater()
+        self.default_queue = default_queue
         if default_queue:
             self.queues[default_queue] = QueueInfo(name=default_queue)
+        self.err_tasks: List[TaskInfo] = []       # failure record (tests)
+        self.resync_queue = RateLimitedQueue(     # errTasks (cache.go:777-799)
+            max_retries=resync_max_retries)
+        # side effects that exhausted their retry budget, key -> (op, task);
+        # insertion-ordered so the cap evicts the oldest
+        self.dead_letter: Dict[str, Tuple[str, TaskInfo]] = {}
+        self.dead_letter_max = _dead_letter_max()
+        self.dead_letter_evicted = 0
+        # write-ahead intent journal; VOLCANO_TPU_JOURNAL=0 detaches it
+        self.journal = journal if (journal is not None
+                                   and journal_enabled()) else None
+        self.last_reconcile: Optional[dict] = None
+        # the issuing leadership's fencing epoch, stamped on every intent
+        # (0 standalone: this package has no leader election yet)
+        self.fencing_epoch_fn: Callable[[], int] = lambda: 0
+        # task uid -> node of binds in flight asynchronously; the snapshot
+        # skips their nodes (cache.go:822-827). Binds are synchronous here,
+        # so only recovery paths touch it.
+        self.binding_tasks: Dict[str, str] = {}
+        # the feedback plane: every executor-accepted bind/evict arms an
+        # ack deadline in the in-flight ledger; the FeedbackChannel is the
+        # one funnel cluster acks enter the cache through, and the
+        # scheduler epilogue's watchdog (process_expired_inflight)
+        # re-validates expired entries
+        self.inflight = InflightLedger()
+        self.feedback = FeedbackChannel(self)
+        # cluster-truth probe for the watchdog: entry -> True / False /
+        # None (unknown, presumed executed)
+        self.inflight_oracle_fn: Optional[Callable] = None
+
+    # -- intent journal (cache/journal.py) ----------------------------------
+
+    def fencing_epoch(self) -> int:
+        return self.fencing_epoch_fn()
+
+    def _journal_intent(self, op: str, task: TaskInfo, node: str = "",
+                        via: str = "", sync: bool = True,
+                        fresh: bool = True) -> Optional[int]:
+        """Record a side-effect intent, stamped with the fencing epoch.
+        ``sync=True`` makes it durable before the caller runs the
+        executor; batch funnels journal every intent first and flush once.
+        ``fresh`` marks a NEW placement (vs a re-bind of a placed task),
+        which decides whether a crash-window rollback may strip it."""
+        epoch = self.fencing_epoch()
+        if op == "bind":
+            OBS_TRACE.flow_step("bind_intent", f"job:{task.job}",
+                                task=task.uid)
+        if self.journal is None:
+            return None
+        seq = self.journal.record_intent(op, task, node, via, fresh,
+                                         epoch=epoch)
+        if sync:
+            self.journal.flush()
+        return seq
+
+    def _journal_ack(self, seq: Optional[int], ok: bool) -> None:
+        if seq is not None and self.journal is not None:
+            self.journal.ack(seq, ok)
+
+    def _register_inflight(self, op: str, task: TaskInfo, node: str = "",
+                           seq: Optional[int] = None) -> None:
+        """Arm the in-flight ledger's ack deadline for an intent about to
+        execute; an executor failure aborts the entry, the cluster's ack
+        (or the watchdog) resolves it otherwise."""
+        self.inflight.register(op, task.uid, task.job,
+                               node or task.node_name or "", seq)
+
+    def reconcile_journal(self, cluster_binds=None, cluster_evicts=None):
+        """Startup reconciliation: settle the journal's crash window
+        against cache truth (journal.reconcile). None without a journal."""
+        if self.journal is None:
+            return None
+        from .journal import reconcile
+        return reconcile(self, self.journal, cluster_binds, cluster_evicts)
+
+    # -- dirty marks --------------------------------------------------------
+
+    def mark_node_dirty(self, name: str) -> None:
+        """``name``'s live state changed outside the cache's own mutators
+        (a drain, a test's direct mutation)."""
+
+    def mark_job_dirty(self, uid: str) -> None:
+        pass
+
+    def mark_queue_dirty(self, uid: str) -> None:
+        pass
+
+    def mark_all_dirty(self) -> None:
+        pass
+
+    def _mark_task_dirty(self, task: TaskInfo) -> None:
+        pass
 
     # -- ingestion (event_handlers.go analogues) ----------------------------
 
@@ -35,23 +240,92 @@ class SchedulerCache:
         with self._lock:
             self.nodes[node.name] = node
 
+    def remove_node(self, name: str) -> None:
+        with self._lock:
+            self.nodes.pop(name, None)
+
     def add_queue(self, queue: QueueInfo) -> None:
         with self._lock:
             self.queues[queue.uid] = queue
 
+    def remove_queue(self, uid: str) -> None:
+        with self._lock:
+            self.queues.pop(uid, None)
+
     def add_job(self, job: JobInfo) -> None:
         with self._lock:
+            if job.schedule_start_timestamp is None:
+                job.schedule_start_timestamp = self.time_fn()
             self.jobs[job.uid] = job
+
+    def remove_job(self, uid: str) -> None:
+        with self._lock:
+            job = self.jobs.pop(uid, None)
+            if job is not None:
+                for task_uid in job.tasks:
+                    self._drop_retry_state(task_uid)
+                    self.inflight.task_deleted(task_uid)
+                    self.binding_tasks.pop(task_uid, None)
+                # a parked podgroup-status flush for a removed job is moot
+                key = f"pg_status/{uid}"
+                if self.dead_letter.pop(key, None) is not None:
+                    from .. import metrics
+                    metrics.set_dead_letter_size(len(self.dead_letter))
+                self.resync_queue.forget(key)
+
+    def get_or_create_job(self, uid: str, **kwargs) -> JobInfo:
+        with self._lock:
+            if uid not in self.jobs:
+                self.jobs[uid] = JobInfo(uid=uid, **kwargs)
+            return self.jobs[uid]
+
+    def add_task(self, task: TaskInfo) -> None:
+        """Pod added: index into its job and, if placed, its node
+        (event_handlers.go addTask)."""
+        with self._lock:
+            job = self.get_or_create_job(task.job)
+            job.add_task_info(task)
+            if task.node_name and task.node_name in self.nodes:
+                self.nodes[task.node_name].add_task(task)
+
+    def update_task_status(self, task: TaskInfo, status: TaskStatus) -> None:
+        with self._lock:
+            job = self.jobs.get(task.job)
+            if job is None:
+                return
+            job.update_task_status(job.tasks[task.uid], status)
+            if task.node_name and task.node_name in self.nodes:
+                self.nodes[task.node_name].update_task(job.tasks[task.uid])
+        if status == TaskStatus.RUNNING:
+            # however the RUNNING confirmation reached the cache, the bind
+            # is no longer in flight
+            self.inflight.resolve("bind", task.uid)
+
+    def delete_task(self, task: TaskInfo) -> None:
+        with self._lock:
+            job = self.jobs.get(task.job)
+            if job is not None:
+                job.delete_task_info(task)
+            if task.node_name and task.node_name in self.nodes:
+                self.nodes[task.node_name].remove_task(task)
+            self._drop_retry_state(task.uid)
+            self.binding_tasks.pop(task.uid, None)
+        # the pod left the cluster: a pending evict entry is thereby
+        # CONFIRMED, a pending bind entry is moot (cache/inflight.py)
+        self.inflight.task_deleted(task.uid)
 
     # -- snapshot (cache.go:801-893) ----------------------------------------
 
     def snapshot(self) -> ClusterInfo:
         """A full clone of ready nodes, queues and jobs: the session
-        mutates only this copy."""
-        with self._lock:
+        mutates only this copy. Nodes with binds in flight are skipped
+        (cache.go:822-827)."""
+        from ..obs import trace as obs_trace
+        with obs_trace.span("snapshot_clone"), self._lock:
             ci = ClusterInfo()
+            inflight_nodes = set(self.binding_tasks.values())
             for name, node in self.nodes.items():
-                if node.ready:
+                if node.ready and name not in inflight_nodes:
                     ci.nodes[name] = node.clone()
             for uid, q in self.queues.items():
                 ci.queues[uid] = q.clone()
@@ -60,105 +334,437 @@ class SchedulerCache:
                     ci.jobs[uid] = job.clone()
         return ci
 
-    # -- binds --------------------------------------------------------------
+    # -- side effects (cache.go:549-666) ------------------------------------
 
-    def _mark_bound(self, task: TaskInfo) -> Tuple[Optional[TaskInfo], bool]:
-        """Mark the cached copy of ``task`` BOUND. Returns ``(cached,
-        newly_placed)``: a newly placed task still has to be added to its
-        node's accounting by the caller; a re-bind of a placed task is
-        re-accounted here; an unknown task gives ``(None, False)``. Caller
-        holds the lock."""
-        job = self.jobs.get(task.job)
-        if job is None or task.uid not in job.tasks:
-            return None, False
-        cached = job.tasks[task.uid]
-        if cached.node_name:
-            job.update_task_status(cached, TaskStatus.BOUND)
-            if cached.node_name in self.nodes:
-                self.nodes[cached.node_name].update_task(cached)
-            return cached, False
-        cached.node_name = task.node_name
-        job.update_task_status(cached, TaskStatus.BOUND)
-        return cached, True
-
-    def _unbind(self, task: TaskInfo) -> None:
-        """Roll back what _mark_bound and the node accounting did for a
-        newly placed task whose Binder call failed."""
+    def bind(self, task: TaskInfo) -> None:
+        """Mark the optimistic Bound state FIRST, then execute the bind
+        through the Binder (the reference's AddBindingTask-then-Bind
+        order, cache.go:602-666). A Binder failure rolls the cache back
+        and queues the bind for a rate-limited retry."""
+        newly_placed = False
+        prev_status = None
         with self._lock:
             job = self.jobs.get(task.job)
             if job is not None and task.uid in job.tasks:
                 cached = job.tasks[task.uid]
-                node = self.nodes.get(cached.node_name)
-                if node is not None:
-                    node.remove_task(cached)
-                job.update_task_status(cached, TaskStatus.PENDING)
-                cached.node_name = ""
-
-    def bind(self, task: TaskInfo) -> None:
-        """Mark the optimistic Bound state FIRST, then execute the bind
-        through the Binder (the reference's AddBindingTask-then-Bind order,
-        cache.go:602-666). A Binder failure rolls the cache back and
-        raises."""
-        with self._lock:
-            cached, newly = self._mark_bound(task)
-            if newly and task.node_name in self.nodes:
-                self.nodes[task.node_name].add_task(cached)
-        if cached is None:
-            return
+                prev_status = cached.status
+                prev_node = cached.node_name
+                if not prev_node:
+                    newly_placed = True
+                    cached.node_name = task.node_name
+                    job.update_task_status(cached, TaskStatus.BOUND)
+                    if task.node_name in self.nodes:
+                        self.nodes[task.node_name].add_task(cached)
+                else:
+                    job.update_task_status(cached, TaskStatus.BOUND)
+                    if prev_node in self.nodes:
+                        self.nodes[prev_node].update_task(cached)
+        seq = self._journal_intent("bind", task, task.node_name,
+                                   fresh=newly_placed)
+        self._register_inflight("bind", task, task.node_name, seq)
         try:
             self.binder.bind(task, task.node_name)
+            self._journal_ack(seq, True)
         except Exception:
-            if newly:
-                self._unbind(task)
-            raise
+            # roll back exactly what the optimistic phase did
+            with self._lock:
+                job = self.jobs.get(task.job)
+                if job is not None and task.uid in job.tasks:
+                    cached = job.tasks[task.uid]
+                    if newly_placed:
+                        if cached.node_name in self.nodes:
+                            self.nodes[cached.node_name].remove_task(cached)
+                        job.update_task_status(cached, TaskStatus.PENDING)
+                        cached.node_name = ""
+                    elif prev_status is not None:
+                        job.update_task_status(cached, prev_status)
+                        if cached.node_name in self.nodes:
+                            self.nodes[cached.node_name].update_task(cached)
+                self.err_tasks.append(task)
+            self._journal_ack(seq, False)
+            self.inflight.abort("bind", task.uid)
+            self.resync_task(task)
 
     def bind_batch(self, tasks: List[TaskInfo]) -> None:
         """Batched bind: one optimistic pass with per-node aggregated
-        accounting, then the Binder calls. Semantics match bind() per task;
-        the aggregation removes the per-task Resource arithmetic that
-        dominates a 10k-bind cycle."""
+        accounting, then the Binder calls, with per-task rollback on a
+        Binder failure. Semantics match bind() per task; the aggregation
+        removes the per-task Resource arithmetic that dominates a 10k-bind
+        cycle."""
         agg: Dict[str, Resource] = {}
         placed = []
         with self._lock:
             for task in tasks:
-                cached, newly = self._mark_bound(task)
-                if cached is None:
+                job = self.jobs.get(task.job)
+                if job is None or task.uid not in job.tasks:
                     continue
+                cached = job.tasks[task.uid]
+                if cached.node_name:
+                    # re-bind of an already-placed task: rare; full path
+                    job.update_task_status(cached, TaskStatus.BOUND)
+                    if cached.node_name in self.nodes:
+                        self.nodes[cached.node_name].update_task(cached)
+                    placed.append((task, False))
+                    continue
+                cached.node_name = task.node_name
+                job.update_task_status(cached, TaskStatus.BOUND)
                 node = self.nodes.get(task.node_name)
-                if newly and node is not None:
+                if node is not None:
                     # the clone keeps status BOUND so a later
                     # remove_task/update_task re-accounts correctly
                     node.tasks[cached.uid] = cached.clone()
                     agg.setdefault(task.node_name, Resource()).add(
                         cached.resreq)
-                placed.append((task, newly))
+                placed.append((task, True))
             for name, r in agg.items():
                 node = self.nodes[name]
                 node.idle.sub(r)
                 node.used.add(r)
-        for i, (task, _) in enumerate(placed):
+        # group commit: journal EVERY intent of the batch before the first
+        # executor call
+        seqs = [self._journal_intent("bind", task, task.node_name,
+                                     sync=False, fresh=newly)
+                for task, newly in placed]
+        if self.journal is not None and placed:
+            self.journal.flush()
+        for (task, newly), seq in zip(placed, seqs):
+            self._register_inflight("bind", task, task.node_name, seq)
+        for (task, newly), seq in zip(placed, seqs):
             try:
                 self.binder.bind(task, task.node_name)
+                self._journal_ack(seq, True)
             except Exception:
-                for t, newly in placed[i:]:
-                    if newly:
-                        self._unbind(t)
-                raise
-
-    # -- evictions ----------------------------------------------------------
+                with self._lock:
+                    job = self.jobs.get(task.job)
+                    if job is not None and task.uid in job.tasks:
+                        cached = job.tasks[task.uid]
+                        if newly:
+                            node = self.nodes.get(cached.node_name)
+                            if node is not None:
+                                node.remove_task(cached)
+                            job.update_task_status(cached,
+                                                   TaskStatus.PENDING)
+                            cached.node_name = ""
+                    self.err_tasks.append(task)
+                self._journal_ack(seq, False)
+                self.inflight.abort("bind", task.uid)
+                self.resync_task(task)
 
     def evict(self, task: TaskInfo, reason: str) -> None:
         """Execute an eviction through the Evictor, then mark the cached
         task RELEASING on its job and node (cache.go:549-599). An Evictor
-        failure leaves the cache as it was and raises."""
-        self.evictor.evict(task, reason)
+        failure leaves the cache as it was and queues a retry."""
+        seq = self._journal_intent("evict", task)
+        self._register_inflight("evict", task, seq=seq)
+        try:
+            self.evictor.evict(task, reason)
+            self._journal_ack(seq, True)
+        except Exception:
+            with self._lock:
+                self.err_tasks.append(task)
+            self._journal_ack(seq, False)
+            self.inflight.abort("evict", task.uid)
+            self.resync_task(task, op="evict")
+            return
         with self._lock:
             job = self.jobs.get(task.job)
             if job is not None and task.uid in job.tasks:
-                cached = job.tasks[task.uid]
-                job.update_task_status(cached, TaskStatus.RELEASING)
-                if cached.node_name in self.nodes:
-                    self.nodes[cached.node_name].update_task(cached)
+                job.update_task_status(job.tasks[task.uid],
+                                       TaskStatus.RELEASING)
+                if task.node_name in self.nodes:
+                    self.nodes[task.node_name].update_task(
+                        job.tasks[task.uid])
+
+    def requeue_lost_member(self, jid: str, uid: str,
+                            lost_node: Optional[str] = None,
+                            detach: bool = True) -> bool:
+        """Validate-then-requeue for a gang member the cluster lost (its
+        node died). Only a member the cache still places on ``lost_node``
+        (or an unplaced one) requeues; its in-flight entry and binding
+        marker resolve with it. ``detach=False`` skips the node-mirror
+        detach when the node itself is about to leave the cache. Returns
+        whether the member was requeued."""
+        with self._lock:
+            job = self.jobs.get(jid)
+            cached = job.tasks.get(uid) if job is not None else None
+            if cached is None:
+                return False
+            if lost_node is not None and cached.node_name \
+                    and cached.node_name != lost_node:
+                return False
+            node = self.nodes.get(cached.node_name)
+            if detach and node is not None and uid in node.tasks:
+                node.remove_task(cached)
+            cached.node_name = ""
+            job.update_task_status(cached, TaskStatus.PENDING)
+            self.binding_tasks.pop(uid, None)
+        self.inflight.resolve(None, uid, "lost")
+        return True
+
+    def rearm_inflight_from_state(self) -> int:
+        """Rebuild the (volatile) in-flight ledger from cache truth after a
+        restart: BOUND tasks await their RUNNING ack, RELEASING ones their
+        delete confirmation. Returns the number of entries armed."""
+        pending: List[Tuple[str, str, str, str]] = []
+        with self._lock:
+            for jid, job in self.jobs.items():
+                for uid, task in job.tasks.items():
+                    if task.status == TaskStatus.BOUND and task.node_name:
+                        pending.append(("bind", uid, jid, task.node_name))
+                    elif task.status == TaskStatus.RELEASING:
+                        pending.append(("evict", uid, jid,
+                                        task.node_name or ""))
+        for op, uid, jid, node in pending:
+            self.inflight.register(op, uid, jid, node)
+        return len(pending)
+
+    # -- in-flight watchdog -------------------------------------------------
+
+    def process_expired_inflight(self) -> Dict[str, int]:
+        """The ack watchdog, driven from the scheduler epilogue:
+        re-validate every in-flight entry whose ack deadline passed and
+        resolve it through the repair machinery. Returns {resolution:
+        count}."""
+        from .. import metrics
+        ledger = self.inflight
+        now = ledger.time_fn()
+        out: Dict[str, int] = {}
+        for entry in ledger.expired(now):
+            try:
+                resolution = self._resolve_expired_inflight(entry)
+            except Exception:
+                log.exception("resolving expired in-flight entry %r "
+                              "failed; it stays armed", entry)
+                continue
+            if resolution:
+                out[resolution] = out.get(resolution, 0) + 1
+                metrics.register_inflight_expired(entry.op, resolution)
+        metrics.set_inflight_stats(ledger.open_count(),
+                                   ledger.oldest_age(now))
+        return out
+
+    def _resolve_expired_inflight(self, entry) -> Optional[str]:
+        """Settle ONE expired entry; returns its resolution label."""
+        from .journal import _rollback_bind
+        ledger = self.inflight
+        with self._lock:
+            job = self.jobs.get(entry.job)
+            cached = job.tasks.get(entry.uid) if job is not None else None
+            if cached is None:
+                intended = False
+            elif entry.op == "bind":
+                intended = (cached.status == TaskStatus.BOUND
+                            and cached.node_name == entry.node)
+            else:
+                intended = cached.status == TaskStatus.RELEASING
+        if cached is None:
+            ledger.resolve(entry.op, entry.uid, "gone")
+            return "gone"
+        if not intended:
+            ledger.resolve(entry.op, entry.uid, "superseded")
+            return "superseded"
+        truth = None
+        if self.inflight_oracle_fn is not None:
+            truth = self.inflight_oracle_fn(entry)
+        if entry.op == "bind":
+            if truth is False:
+                _rollback_bind(self, job, cached, entry.node, fresh=True)
+                with self._lock:
+                    self.binding_tasks.pop(entry.uid, None)
+                ledger.resolve("bind", entry.uid, "rolled_back")
+                return "rolled_back"
+            self.feedback.ack_running(entry.job, entry.uid, entry.node,
+                                      source="watchdog")
+            ledger.resolve("bind", entry.uid, "repaired")
+            return "repaired"
+        if truth is False:
+            ledger.resolve("evict", entry.uid, "reissued")
+            self.resync_task(cached.clone(), op="evict")
+            return "reissued"
+        self.feedback.ack_evicted(entry.job, entry.uid, source="watchdog")
+        ledger.resolve("evict", entry.uid, "repaired")
+        return "repaired"
+
+    # -- resync queue and dead letters (cache.go:777-799) -------------------
+
+    def resync_task(self, task: TaskInfo, op: str = "bind") -> None:
+        """Queue a failed side effect for rate-limited retry; a task past
+        its retry budget moves to the dead-letter set instead."""
+        self._resync_or_dead_letter(f"{op}/{task.uid}", op, task)
+
+    def _resync_or_dead_letter(self, key: str, op: str,
+                               task: TaskInfo) -> None:
+        if self.resync_queue.add_rate_limited(key, (op, task)):
+            return
+        from .. import metrics
+        evicted = 0
+        with self._lock:
+            fresh = key not in self.dead_letter
+            # re-parking an existing key refreshes its age
+            self.dead_letter.pop(key, None)
+            self.dead_letter[key] = (op, task)
+            while 0 < self.dead_letter_max < len(self.dead_letter):
+                oldest = next(iter(self.dead_letter))
+                self.dead_letter.pop(oldest)
+                self.resync_queue.forget(oldest)
+                self.dead_letter_evicted += 1
+                evicted += 1
+            size = len(self.dead_letter)
+        metrics.set_dead_letter_size(size)
+        if evicted:
+            metrics.register_dead_letter_evicted(evicted)
+            log.error("dead-letter set overflowed its cap (%d): evicted %d "
+                      "oldest side effect(s)", self.dead_letter_max, evicted)
+        if fresh:
+            # count logical events, not cycles
+            metrics.register_dead_letter(op)
+
+    def _drop_retry_state(self, task_uid: str) -> None:
+        """A deleted task's queued retries and dead-letter entry are moot.
+        Caller holds self._lock."""
+        dropped = False
+        for key in (f"bind/{task_uid}", f"evict/{task_uid}"):
+            dropped = (self.dead_letter.pop(key, None)
+                       is not None) or dropped
+            self.resync_queue.forget(key)
+        if dropped:
+            from .. import metrics
+            metrics.set_dead_letter_size(len(self.dead_letter))
+
+    def redrive_dead_letter(self) -> int:
+        """Re-queue every dead-lettered side effect with a fresh retry
+        budget (after the underlying fault is fixed). Returns how many
+        moved."""
+        with self._lock:
+            items = list(self.dead_letter.items())
+            self.dead_letter.clear()
+        moved = 0
+        for key, (op, task) in items:
+            self.resync_queue.forget(key)
+            if self.resync_queue.add_rate_limited(key, (op, task)):
+                moved += 1
+            else:
+                with self._lock:
+                    self.dead_letter[key] = (op, task)
+        from .. import metrics
+        metrics.set_dead_letter_size(len(self.dead_letter))
+        return moved
+
+    def _resync_stale(self, op: str, task: TaskInfo) -> bool:
+        """A queued retry is STALE when the cluster moved on while it sat
+        in backoff: the task was deleted, or (bind) a later cycle already
+        re-placed the rolled-back task."""
+        with self._lock:
+            job = self.jobs.get(task.job)
+            cached = job.tasks.get(task.uid) if job is not None else None
+            if cached is None:
+                return True
+            if op == "bind" and (allocated_status(cached.status)
+                                 or (cached.node_name
+                                     and cached.node_name != task.node_name)):
+                return True
+        return False
+
+    def _resync_bind_valid(self, task: TaskInfo) -> bool:
+        """A queued bind retry is only re-executable while it is still a
+        placement the scheduler would stand behind: the task is PENDING
+        and unplaced (or still on the retry's target), and the target
+        node is present, ready and can hold it now on idle and future
+        idle."""
+        with self._lock:
+            job = self.jobs.get(task.job)
+            cached = job.tasks.get(task.uid) if job is not None else None
+            node = self.nodes.get(task.node_name)
+            if (cached is None or node is None or not node.ready
+                    or cached.status != TaskStatus.PENDING
+                    or cached.node_name not in ("", task.node_name)):
+                return False
+            if cached.node_name == task.node_name \
+                    and cached.uid in node.tasks:
+                return True
+            return (task.init_resreq.less_equal(node.idle)
+                    and task.init_resreq.less_equal(node.future_idle()))
+
+    def process_resync_tasks(self, max_items: Optional[int] = None) -> int:
+        """Retry side effects whose backoff expired (processResyncTask,
+        cache.go:781-799); the scheduler shell calls this every cycle.
+        Stale or no-longer-valid retries are dropped. Returns the number
+        of successful retries."""
+        done = 0
+        for key, (op, task) in self.resync_queue.pop_ready(max_items):
+            if op == "pg_status":
+                # a parked podgroup status flush: re-flush the job's
+                # LATEST status; drop it when the job is gone
+                with self._lock:
+                    live = self.jobs.get(task.uid)
+                if live is None or live.podgroup is None:
+                    self.resync_queue.forget(key)
+                    continue
+                try:
+                    self.status_updater.update_pod_group(live)
+                    self.resync_queue.forget(key)
+                    done += 1
+                except Exception:
+                    self._resync_or_dead_letter(key, op, live)
+                continue
+            if self._resync_stale(op, task):
+                self.resync_queue.forget(key)
+                continue
+            if op == "bind" and not self._resync_bind_valid(task):
+                # the allocate loop re-places pending tasks every cycle
+                self.resync_queue.forget(key)
+                continue
+            seq = self._journal_intent(op, task, task.node_name,
+                                       via="resync")
+            self._register_inflight(op, task, task.node_name, seq)
+            try:
+                if op == "bind":
+                    self.binder.bind(task, task.node_name)
+                    with self._lock:
+                        job = self.jobs.get(task.job)
+                        if job is not None and task.uid in job.tasks:
+                            cached = job.tasks[task.uid]
+                            cached.node_name = task.node_name
+                            job.update_task_status(cached, TaskStatus.BOUND)
+                            node = self.nodes.get(task.node_name)
+                            if node is not None \
+                                    and cached.uid not in node.tasks:
+                                node.add_task(cached)
+                else:
+                    self.evictor.evict(task, "resync")
+                    with self._lock:
+                        job = self.jobs.get(task.job)
+                        if job is not None and task.uid in job.tasks:
+                            cached = job.tasks[task.uid]
+                            job.update_task_status(cached,
+                                                   TaskStatus.RELEASING)
+                            # the node mirror holds a CLONE: keep its
+                            # accounting in step with the job's
+                            if cached.node_name in self.nodes:
+                                self.nodes[cached.node_name].update_task(
+                                    cached)
+                self._journal_ack(seq, True)
+                self.resync_queue.forget(key)
+                done += 1
+            except Exception:
+                self._journal_ack(seq, False)
+                self.inflight.abort(op, task.uid)
+                self._resync_or_dead_letter(key, op, task)
+        return done
 
     def update_job_status(self, job: JobInfo) -> None:
-        self.status_updater.update_pod_group(job)
+        try:
+            self.status_updater.update_pod_group(job)
+        except Exception:
+            # the cycle must not crash on a failed status write: park a
+            # pg_status retry, which re-flushes the job's latest status
+            log.exception("podgroup status write for %s failed; queued "
+                          "for resync", job.uid)
+            self._resync_or_dead_letter(f"pg_status/{job.uid}",
+                                        "pg_status", job)
+        with self._lock:
+            cached = self.jobs.get(job.uid)
+            if cached is not None and cached.podgroup is not job.podgroup:
+                # the PodGroup is normally aliased between the live job
+                # and its snapshot clones; only a replacement needs copying
+                cached.podgroup = job.podgroup

@@ -1,0 +1,233 @@
+"""The scheduler's metrics, in process: duration series, counters, gauges
+and the health verdict, under the JAX package's function names.
+
+This is the subset the serial cycle, the cache and the sim read and
+write: the end-to-end and per-action duration series (fed from the
+shell's spans), the mark/since API the sim's wall-clock plane reads,
+action failures, the dead-letter gauge, the crash-loop guard's health
+verdict, and the feedback-plane and journal counters. There is no
+Prometheus exposition yet.
+
+``solver_trace`` marks a device solve as a named range in a
+``torch.profiler`` trace, behind the JAX package's own switch
+(``VOLCANO_TPU_JAX_PROFILE``, which there hooks ``jax.profiler``).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import os
+import threading
+from typing import Dict, Tuple
+
+# Each duration series is RING-BOUNDED (a long-running scheduler must not
+# grow a list forever at one observation per cycle): the deque keeps the
+# newest ``cap`` observations while ``count``/``total`` keep the all-time
+# view the mark/since API needs. VOLCANO_TPU_METRICS_RING overrides the cap.
+DEFAULT_DURATION_CAP = 4096
+
+
+def _duration_cap() -> int:
+    try:
+        return max(1, int(os.environ.get("VOLCANO_TPU_METRICS_RING",
+                                         DEFAULT_DURATION_CAP)))
+    except ValueError:
+        return DEFAULT_DURATION_CAP
+
+
+class _Series:
+    __slots__ = ("data", "count", "total")
+
+    def __init__(self):
+        self.data = collections.deque(maxlen=_duration_cap())
+        self.count = 0              # all-time observations (never truncated)
+        self.total = 0.0
+
+    def observe(self, v: float) -> None:
+        self.data.append(v)
+        self.count += 1
+        self.total += v
+
+
+_lock = threading.Lock()
+_durations: Dict[Tuple[str, ...], _Series] = collections.defaultdict(_Series)
+_gauges: Dict[Tuple[str, ...], float] = {}
+_counters: Dict[Tuple[str, ...], float] = collections.defaultdict(float)
+
+# scheduler health: "healthy" | "degraded", plus the consecutive failed
+# cycle count the crash-loop guard (Scheduler.run) publishes
+HEALTHY = "healthy"
+DEGRADED = "degraded"
+_health = {"state": HEALTHY, "consecutive_failures": 0}
+
+
+def _count(key: Tuple[str, ...], n: float = 1) -> None:
+    with _lock:
+        _counters[key] += n
+
+
+# -- durations ---------------------------------------------------------------
+
+def update_e2e_duration(seconds: float) -> None:
+    """One cycle's schedule span (open_session to close_session), in ms."""
+    with _lock:
+        _durations[("e2e",)].observe(seconds * 1e3)
+
+
+def update_action_duration(action: str, seconds: float) -> None:
+    """One action's span, in µs."""
+    with _lock:
+        _durations[("action", action)].observe(seconds * 1e6)
+
+
+def local_durations() -> Dict[Tuple[str, ...], list]:
+    """The retained window of every duration series."""
+    with _lock:
+        return {k: list(v.data) for k, v in _durations.items()}
+
+
+def local_counters() -> Dict[Tuple[str, ...], float]:
+    with _lock:
+        return dict(_counters)
+
+
+def durations_mark() -> Dict[Tuple[str, ...], int]:
+    """The ALL-TIME observation count of every duration series. Pair with
+    durations_since to read only what was recorded after the mark (how the
+    sim attributes per-action latency to one run). Marks are counts, not
+    list indices, so ring truncation cannot misattribute old samples."""
+    with _lock:
+        return {k: v.count for k, v in _durations.items()}
+
+
+def durations_since(mark: Dict[Tuple[str, ...], int]
+                    ) -> Dict[Tuple[str, ...], list]:
+    """Every series' observations recorded after ``mark`` (series born
+    since are returned whole): ms for ("e2e",), µs for ("action", name).
+    If more arrived than the ring keeps, the newest survivors are
+    returned — never pre-mark samples."""
+    with _lock:
+        out: Dict[Tuple[str, ...], list] = {}
+        for k, v in _durations.items():
+            new = v.count - mark.get(k, 0)
+            if new <= 0:
+                out[k] = []
+            else:
+                data = list(v.data)
+                out[k] = data[-new:] if new < len(data) else data
+        return out
+
+
+def reset_local() -> None:
+    with _lock:
+        _durations.clear()
+        _gauges.clear()
+        _counters.clear()
+        _health["state"] = HEALTHY
+        _health["consecutive_failures"] = 0
+
+
+# -- health and failures -----------------------------------------------------
+
+def set_health(state: str, consecutive_failures: int = 0) -> None:
+    with _lock:
+        _health["state"] = state
+        _health["consecutive_failures"] = consecutive_failures
+        _gauges[("scheduler_healthy",)] = 1.0 if state == HEALTHY else 0.0
+
+
+def health() -> Tuple[str, int]:
+    with _lock:
+        return _health["state"], _health["consecutive_failures"]
+
+
+def register_action_failure(action: str) -> None:
+    """An action (or the resync pass) raised inside run_once and was
+    isolated."""
+    _count(("action_failures", action))
+
+
+def register_cycle_budget_exhausted(action: str) -> None:
+    _count(("cycle_budget_exhausted", action))
+
+
+def register_deferred_actions(n: int) -> None:
+    _count(("deferred_actions",), n)
+
+
+# -- resync queue, journal, feedback plane -----------------------------------
+
+def set_dead_letter_size(size: int) -> None:
+    with _lock:
+        _gauges[("resync_dead_letter_size",)] = float(size)
+
+
+def dead_letter_size() -> int:
+    with _lock:
+        return int(_gauges.get(("resync_dead_letter_size",), 0))
+
+
+def register_dead_letter(op: str) -> None:
+    _count(("resync_dead_letter", op))
+
+
+def register_dead_letter_evicted(n: int = 1) -> None:
+    _count(("dead_letter_evicted",), n)
+
+
+def register_journal_replay(result: str, n: int = 1) -> None:
+    _count(("journal_replayed", result), n)
+
+
+def register_inflight_expired(op: str, resolution: str) -> None:
+    _count(("inflight_expired", op, resolution))
+
+
+def set_inflight_stats(open_count: int, oldest_s: float,
+                       detail=None) -> None:
+    with _lock:
+        _gauges[("inflight_open",)] = float(open_count)
+        _gauges[("inflight_oldest_seconds",)] = float(oldest_s)
+
+
+def register_feedback_ack(kind: str, verdict: str) -> None:
+    _count(("feedback_acks", kind, verdict))
+
+
+# -- device profiling --------------------------------------------------------
+
+_profile_lock = threading.Lock()
+_profiler = None
+
+
+def solver_trace(name: str):
+    """A ``torch.profiler`` range around a device solve, so the solve
+    shows up by name in a trace. Enabled by VOLCANO_TPU_JAX_PROFILE=1 (the
+    switch the JAX package reads for the same hook); with
+    VOLCANO_TPU_JAX_PROFILE_DIR set, the first annotated solve also starts
+    a profiler capture that is exported there as a Chrome trace at
+    interpreter exit."""
+    if not os.environ.get("VOLCANO_TPU_JAX_PROFILE"):
+        return contextlib.nullcontext()
+    import torch
+    trace_dir = os.environ.get("VOLCANO_TPU_JAX_PROFILE_DIR")
+    global _profiler
+    start = False
+    with _profile_lock:
+        if trace_dir and _profiler is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            _profiler = torch.profiler.profile(activities=acts)
+            start = True
+    if start:
+        import atexit
+        _profiler.start()
+
+        def _stop(prof=_profiler, out=trace_dir):
+            prof.stop()
+            os.makedirs(out, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(out, "solve_trace.json"))
+        atexit.register(_stop)
+    return torch.profiler.record_function(name)
