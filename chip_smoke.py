@@ -98,7 +98,24 @@
    every run and the walk in preempt-burst. Prints each run's cycles,
    binds, evictions, launches, pipeline_e2e_ms and per-action ms, and the
    card's name and power limit.
-13. Prints one JSON line with each kernel's launches, times, bound and
+13. Runs the incremental snapshot and the persistent node tensors on the
+   card, under deploy/scheduler.conf, each kernel's count set to 0 just
+   before each run: baseline-10k (the slice's full width) with the switch
+   on and again with VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0, steady-10k
+   (10,500 gangs on 300 nodes), and the traces of tools/sim_traces.py:
+   ``churn`` (node-flap with two node deaths and two fresh nodes) and
+   ``hole-10k`` (the 10k world with spare nodes, one dying empty and a
+   fresh one taking its row). Each run's decision plane, side-effect
+   sequence and solve-by-solve node-tensor path (persistent rows or a
+   fresh build, full rebuild or scatter and its rows, each drift the
+   shadow verifier repaired) must equal the JAX package's record in
+   tests/sim_reference_digests.json, which the port's CPU run equals too;
+   no action failure, no double bind, the placement kernel launched, no
+   persistent read with the switch off, and at least one scatter in
+   steady-10k and the hole world. Prints each run's schedule and session
+   open (snapshot) ms p50/p99, the refreshes' scatter rows and ms, the
+   drift counts, and baseline-10k's on and off side by side.
+14. Prints one JSON line with each kernel's launches, times, bound and
    error (and its launches in each sim run), then the card's name and
    power limit, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -1058,10 +1075,11 @@ def sim_digests() -> dict:
         return {run["key"]: run for run in json.load(f)["runs"]}
 
 
-def run_sim(scenario, args):
+def run_sim(scenario, args, source_argv=None):
     """``python -m volcano_tpu_torch.sim --scenario S ARGS`` on the card
-    (its entry point, in this process), each kernel's count set to 0 just
-    before; returns the report, the decision plane's bytes as
+    (its entry point, in this process; ``source_argv`` replaces
+    ``--scenario S``, e.g. with ``--trace FILE``), each kernel's count set
+    to 0 just before; returns the report, the decision plane's bytes as
     ``--deterministic`` prints them, the run's sequence digest (every
     bind's node and every eviction, in order), the launches and the wall
     seconds."""
@@ -1079,8 +1097,9 @@ def run_sim(scenario, args):
     mark = metrics.durations_mark()
     t0 = time.perf_counter()
     runners = []
+    src = source_argv or ["--scenario", scenario]
     with contextlib.redirect_stdout(out):
-        rc = sim_main(["--scenario", scenario, *args], runners=runners)
+        rc = sim_main([*src, *args], runners=runners)
     wall_s = time.perf_counter() - t0
     launches = {k: w.launches for k, w in counters.items()}
     check(rc == 0, f"sim {scenario}: exit {rc}")
@@ -1121,6 +1140,172 @@ def profile_sim(scenario, args) -> dict:
             text).hexdigest(),
         "sequence_sha256": sequence["sha256"],
     }
+
+
+# ---------------------------------------------------------------------------
+# incremental state
+# ---------------------------------------------------------------------------
+
+OFF_ENV = (("VOLCANO_TPU_INCREMENTAL_SNAPSHOT", "0"),)
+# (source, sim arguments, environment), each held to its entry in
+# tests/sim_reference_digests.json (tools/sim_reference.py's keys): the
+# slice's full width with the incremental snapshot and the persistent
+# node tensors on (the default) and off, steady-10k, and the traces of
+# tools/sim_traces.py (node churn, and the full-width hole world)
+INCREMENTAL_RUNS = (
+    ("baseline-10k", ("--conf", "deploy/scheduler.conf"), ()),
+    ("baseline-10k", ("--conf", "deploy/scheduler.conf"), OFF_ENV),
+    ("steady-10k", ("--conf", "deploy/scheduler.conf"), ()),
+    ("trace:churn", ("--conf", "deploy/scheduler.conf"), ()),
+    ("trace:hole-10k", ("--conf", "deploy/scheduler.conf"), ()),
+)
+
+
+def sim_tools():
+    """tools/sim_reference.py (run keys, trace arguments) and
+    tools/sim_traces.py (the traces, the tensor-path recorder); neither
+    imports JAX."""
+    sys.path.insert(0, os.path.join(_ROOT, "tools"))
+    import sim_reference
+    import sim_traces
+    return sim_reference, sim_traces
+
+
+def run_incremental(source, args, env, trace_dir):
+    """One sim run of INCREMENTAL_RUNS on the card with ``env`` set: the
+    run_sim results, the summary of the solves' node-tensor paths, each
+    session open's ms (with its snapshot's clone ms), and each tensor
+    refresh's host ms, full flag and rows. Nothing here synchronizes the
+    card, so switch-on and switch-off runs are timed alike: a scatter's
+    device work is queued and lands in the solve that reads it."""
+    from volcano_tpu_torch import scheduler as shell
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache import SchedulerCache
+    tool, traces = sim_tools()
+    opens, snaps, refreshes = [], [], []
+    real_open = shell.open_session
+    real_refresh = SchedulerCache.tensor_refresh
+
+    def timed_open(cache, *a, **kw):
+        t0 = time.perf_counter()
+        ssn = real_open(cache, *a, **kw)
+        opens.append((time.perf_counter() - t0) * 1e3)
+        snaps.append(cache.last_snapshot_stats["clone_s"] * 1e3)
+        return ssn
+
+    def timed_refresh(cache, *a, **kw):
+        t0 = time.perf_counter()
+        tc = real_refresh(cache, *a, **kw)
+        if tc is not None:
+            refreshes.append(((time.perf_counter() - t0) * 1e3,
+                              tc.last_refresh["full"],
+                              tc.last_refresh["rows"]))
+        return tc
+
+    saved = {k: os.environ.get(k) for k, _ in env}
+    os.environ.update(dict(env))
+    shell.open_session = timed_open
+    SchedulerCache.tensor_refresh = timed_refresh
+    paths = traces.TensorPathRecorder(allocate, SchedulerCache)
+    try:
+        out = run_sim(None, args, tool.sim_argv(source, trace_dir))
+    finally:
+        paths.close()
+        shell.open_session = real_open
+        SchedulerCache.tensor_refresh = real_refresh
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out, paths.summary(), opens, snaps, refreshes
+
+
+def incremental_phase(digests, sim_runs, runs=INCREMENTAL_RUNS,
+                      extra_args=()):
+    """Step 13: each run of ``runs`` on the card, held to the JAX package's
+    record: its decision plane, side-effect sequence and solve-by-solve
+    node-tensor path (with the drift repairs); baseline-10k with the switch
+    on and off in this call. Adds each run's launches to ``sim_runs``."""
+    import hashlib
+    import tempfile
+
+    from volcano_tpu_torch import metrics
+    from volcano_tpu_torch.sim.report import percentiles
+    tool, _ = sim_tools()
+    inc_runs = {}
+    with tempfile.TemporaryDirectory() as trace_dir:
+        for source, args, env in runs:
+            key = tool.run_key(source, args, env)
+            drift0 = {k[1]: v for k, v in metrics.local_counters().items()
+                      if k[0] == "state_drift"}
+            (report, text, sequence, launches, wall_s), paths, opens, \
+                snaps, refreshes = run_incremental(
+                    source, (*args, *extra_args), env, trace_dir)
+            drift = {k[1]: v - drift0.get(k[1], 0)
+                     for k, v in metrics.local_counters().items()
+                     if k[0] == "state_drift"}
+            want = digests[key]
+            check(hashlib.sha256(text).hexdigest() == want["sha256"]
+                  and len(text) == want["bytes"],
+                  f"incremental {key}: decision plane differs from the JAX "
+                  f"package's ({len(text)} bytes, want {want['bytes']})")
+            check((sequence["sha256"], sequence["binds"],
+                   sequence["evicts"])
+                  == (want["sequence_sha256"], want["sequence_binds"],
+                      want["sequence_evicts"]),
+                  f"incremental {key}: a bind's node or an eviction "
+                  f"differs from the JAX package's")
+            check(paths == want["tensor_paths"],
+                  f"incremental {key}: node-tensor paths {paths} differ "
+                  f"from the JAX package's {want['tensor_paths']} (the "
+                  f"port's CPU run equals them: "
+                  f"tests/test_torch_sim_incremental.py)")
+            check(report["action_failures"] == 0
+                  and report["double_binds"] == 0,
+                  f"incremental {key}: {report['action_failures']} action "
+                  f"failures, {report['double_binds']} double binds")
+            check(launches["place"] > 0,
+                  f"incremental {key}: the placement kernel never "
+                  f"launched")
+            if env:
+                check(paths["persistent"] == 0,
+                      f"incremental {key}: a solve read persistent rows "
+                      f"with the switch off")
+            elif source in ("steady-10k", "trace:hole-10k"):
+                check(paths["scatter"] > 0,
+                      f"incremental {key}: no scatter refresh")
+            scatters = [r for r in refreshes if not r[1] and r[2]]
+            wall = report["wallclock"]
+            rec = {
+                "cycles": report["cycles"], "binds": report["binds"],
+                "evicts": report["evicts"], "launches": launches,
+                "schedule_ms": wall["schedule_ms"],
+                "pipeline_e2e_ms": wall["pipeline_e2e_ms"],
+                "open_ms": percentiles(opens),
+                "snapshot_clone_ms": percentiles(snaps),
+                "tensor_paths": {k: v for k, v in paths.items()
+                                 if k != "sha256"},
+                "refreshes": len(refreshes),
+                "scatter_rows": percentiles([r[2] for r in scatters]),
+                "scatter_refresh_host_ms": percentiles(
+                    [r[0] for r in scatters]),
+                "full_refresh_host_ms": percentiles(
+                    [r[0] for r in refreshes if r[1]]),
+                "drift_repairs": len(paths["drift"]),
+                "state_drift": drift, "wall_s": wall_s,
+                "decision_plane_sha256": hashlib.sha256(text).hexdigest(),
+                "sequence_sha256": sequence["sha256"]}
+            inc_runs[key] = rec
+            sim_runs[key] = launches
+            print(f"incremental {key}:", json.dumps(rec), flush=True)
+    on = inc_runs[tool.run_key(*runs[0])]
+    off = inc_runs[tool.run_key(*runs[1])]
+    print("incremental baseline-10k on vs off:", json.dumps({
+        k: {"on": on[k], "off": off[k]}
+        for k in ("schedule_ms", "open_ms", "snapshot_clone_ms",
+                  "pipeline_e2e_ms", "tensor_paths")}), flush=True)
+    print("incremental card:", card_line(), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1546,8 +1731,12 @@ def main() -> int:
     print("profile sim baseline-10k:", json.dumps(prof), flush=True)
     print("sim card:", card_line(), flush=True)
 
+    phase("incremental")
+    # 13. the incremental snapshot and the persistent node tensors
+    incremental_phase(digests, sim_runs)
+
     phase("summary")
-    # 13. the kernels line (launches: the placement kernel's in the 10k
+    # 14. the kernels line (launches: the placement kernel's in the 10k
     # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
     # it a static matrix, the walk's in the deployed cycle of the tight mix,
     # the one where preempt has work, the block auction's in the tpu-blocks

@@ -8,7 +8,11 @@ and on the tpu-blocks engine's first solve at 20,000 pods; its two card
 worlds (20,000 nodes with few request classes, which splits the candidate
 kernel's node axis; a fractional world of 20,000 tasks, whose chunks all
 keep the reference's sum order), both sum modes, and the per-solve class
-ids and exactness flags computed on the card as on the CPU.
+ids and exactness flags computed on the card as on the CPU. The cache's
+persistent node rows (scattered with an out-of-place ``index_copy``) on
+the card equal the CPU's, the shell's prewarm uploads them, and the hole
+worlds (holes in the placement kernel's node axis) decide on the card as
+on the CPU.
 
 These tests need an NVIDIA card and nvcc; without a card they skip. On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -31,7 +35,8 @@ from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
 from torch_parity import (BLOCK_WORLDS, CARD_BLOCK_WORLDS, CARD_WALK_WORLDS,
-                          PLACE_WORLDS, WALK_WORLDS, blocks_args)
+                          HOLE_WORLDS, PLACE_WORLDS, WALK_WORLDS, blocks_args,
+                          hole_world_run)
 
 pytestmark = pytest.mark.cuda
 
@@ -343,3 +348,89 @@ def test_strict_batches_carry_the_same_state(card):
             state[name] = out[1:]
     for g, w in zip(state["cuda"], state["plain"]):
         assert torch.equal(g, w)
+
+
+def _churned_caches():
+    """Two equal caches, node churn applied to both: rows with holes."""
+    from volcano_tpu_torch.api import NodeInfo, QueueInfo, Resource
+    from volcano_tpu_torch.cache import FakeBinder, FakeEvictor, SchedulerCache
+    from volcano_tpu_torch.cache.synthetic import make_cluster, make_jobs
+    gi = 1 << 30
+    caches = []
+    for _ in range(2):
+        cache = SchedulerCache(binder=FakeBinder(), evictor=FakeEvictor())
+        cache.add_queue(QueueInfo(name="q1", weight=1))
+        for n in make_cluster(300, cpu_milli=8000, mem=32 * gi, pods=20):
+            cache.add_node(n)
+        for j in make_jobs(40, 8, ["q1"], seed=3):
+            cache.add_job(j)
+        caches.append(cache)
+    return caches, NodeInfo, Resource
+
+
+def test_persistent_rows_on_the_card_match_the_cpu(card):
+    """The scatter path on the card: each refresh leaves the same rows,
+    holes and future idle as on the CPU, bit for bit."""
+    from volcano_tpu_torch.cache.snapshot import discover_resource_names
+    (gpu, cpu), NodeInfo, Resource = _churned_caches()
+    rn = discover_resource_names(list(cpu.nodes.values()),
+                                 [t for j in cpu.jobs.values()
+                                  for t in j.tasks.values()])
+
+    def refresh_both():
+        out = []
+        for cache, dev in ((gpu, card), (cpu, torch.device("cpu"))):
+            snap = cache.snapshot()
+            out.append(cache.tensor_refresh(snap.nodes, rn, dev,
+                                            snap.snap_epoch))
+        tg, tc = out
+        assert tg.names == tc.names and tg.last_refresh["full"] \
+            == tc.last_refresh["full"]
+        for f in ("idle", "used", "releasing", "pipelined", "allocatable",
+                  "max_tasks", "ntasks", "zone_code", "future_idle"):
+            assert getattr(tg, f).device.type == "cuda"
+            assert torch.equal(getattr(tg, f).cpu(), getattr(tc, f)), f
+        return tg
+
+    assert refresh_both().last_refresh["full"]
+    alloc = Resource(8000, 32 << 30)
+    alloc.max_task_num = 20
+    for cache in (gpu, cpu):
+        for name in ("node-00007", "node-00100", "node-00201"):
+            cache.remove_node(name)
+    tg = refresh_both()
+    assert not tg.last_refresh["full"] and tg.last_refresh["rows"] == 3
+    for cache in (gpu, cpu):
+        cache.add_node(NodeInfo(name="zz-new", allocatable=alloc))
+        cache.mark_node_dirty("node-00050")
+    tg = refresh_both()
+    assert tg.index["zz-new"] == 7 and tg.names[100] == ""
+
+
+def test_prewarm_uploads_the_persistent_tensors(card):
+    """Scheduler.prewarm builds the kernels and, once the cache has nodes,
+    puts the persistent rows on the card."""
+    import os
+    from volcano_tpu_torch import Scheduler
+    from volcano_tpu_torch.cache.snapshot import NodeTensors
+    (cache, _), _, _ = _churned_caches()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "deploy", "scheduler.conf")) as f:
+        conf = f.read()
+    assert Scheduler(cache, conf, device="cuda").prewarm() > 0
+    tc = cache.tensor_cache
+    assert tc is not None and tc.device.type == "cuda"
+    fresh = NodeTensors(list(cache.nodes.values()), tc.rnames, card)
+    assert tc.names == fresh.names
+    assert torch.equal(tc.idle, fresh.idle)
+    assert torch.equal(tc.future_idle, fresh.future_idle)
+
+
+@pytest.mark.parametrize("name", HOLE_WORLDS + ("drain:on",))
+def test_hole_worlds_decide_on_the_card_as_on_the_cpu(name, card):
+    """The hole worlds (tests/test_torch_incremental.py holds the CPU run
+    to the JAX package) bind alike on the card, with the same node-tensor
+    path: the placement kernel reads hole rows as unselectable."""
+    got = hole_world_run(True, name, device="cuda")
+    assert got == hole_world_run(True, name)
+

@@ -61,8 +61,7 @@ def scheduler(cache, **kw):
 
 
 def same(a: Resource, b: Resource) -> bool:
-    """Value equality of two Resources (the port's Resource compares by
-    identity)."""
+    """Value equality of two Resources, in every dimension within 1e-9."""
     names = set(a.resource_names()) | set(b.resource_names())
     return all(abs(a.get(n) - b.get(n)) < 1e-9 for n in names)
 

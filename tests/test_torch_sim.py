@@ -22,12 +22,15 @@ import hashlib
 import importlib.util
 import io
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from volcano_tpu_torch.actions import allocate as torch_allocate
+from volcano_tpu_torch.cache import SchedulerCache
 from volcano_tpu_torch.chaos import ChaosBinder
 from volcano_tpu_torch.sim import (SimRunner, TraceEvent, baseline_trace,
                                    deterministic_json, load_trace,
@@ -40,6 +43,9 @@ from torch_parity import (FAULT_WALK_WORLDS, jax_reference,  # noqa: F401
                           port_gc_windows)
 
 REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO / "tools"))
+from sim_traces import TensorPathRecorder  # noqa: E402
+
 SEED = 20260803
 DEPLOYED = "deploy/scheduler.conf"
 CHAOS = ("--chaos-rate", "0.2", "--kill-cycles", "5,12")
@@ -79,28 +85,40 @@ def _key(scenario, args):
 
 def port_run(scenario, args):
     """What ``python -m volcano_tpu_torch.sim --device cpu --scenario S
-    --deterministic ARGS`` prints, and the run's sequence digest (every
-    bind's node and every eviction, in order: sim/report.py)."""
+    --deterministic ARGS`` prints, the run's sequence digest (every bind's
+    node and every eviction, in order: sim/report.py) and the summary of
+    its allocate solves' node-tensor paths (tools/sim_traces.py)."""
     out = io.StringIO()
     runners = []
-    with contextlib.redirect_stdout(out):
-        rc = sim_main(["--device", "cpu", "--scenario", scenario,
-                       "--deterministic", *args], runners=runners)
+    paths = TensorPathRecorder(torch_allocate, SchedulerCache)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = sim_main(["--device", "cpu", "--scenario", scenario,
+                           "--deterministic", *args], runners=runners)
+    finally:
+        paths.close()
     assert rc == 0
-    return out.getvalue().encode(), sequence_digest(runners[0])
+    return out.getvalue().encode(), sequence_digest(runners[0]), \
+        paths.summary()
+
+
+def _jax_result(finished):
+    text, record = finished
+    paths = record.pop("tensor_paths")
+    return text, record, paths
 
 
 @pytest.fixture(scope="module")
 def jax_live(tmp_path_factory):
-    """The JAX sim's bytes and sequence digest for LIVE_RUNS, the
-    children started at once."""
+    """The JAX sim's bytes, sequence digest and node-tensor paths for
+    LIVE_RUNS, the children started at once."""
     tool = _tool()
     conf = tmp_path_factory.mktemp("conf") / "callbacks.conf"
     conf.write_text(_callbacks_conf())
     procs = {_key(s, a): tool.start(s, a)
              for s, a in LIVE_RUNS + [BUDGET_RUN]}
     procs[CALLBACKS_KEY] = tool.start("preempt-burst", ("--conf", str(conf)))
-    return {key: tool.finish(proc, timeout=900)
+    return {key: _jax_result(tool.finish_record(proc, timeout=900))
             for key, proc in procs.items()}
 
 
@@ -328,18 +346,21 @@ def test_sim_cli_list_and_restart_equivalence(capsys):
                          ids=[_key(s, a) for s, a in LIVE_RUNS])
 def test_sim_bytes_match_jax(jax_live, scenario, args):
     """The port's decision plane is the JAX package's, byte for byte, and
-    so is every bind's node and every eviction, in order."""
-    want, want_sequence = jax_live[_key(scenario, args)]
-    text, sequence = port_run(scenario, args)
+    so is every bind's node and every eviction, in order, and every
+    allocate solve's node-tensor path (a kill and restart starts a cold
+    tensor cache in both)."""
+    want, want_sequence, want_paths = jax_live[_key(scenario, args)]
+    text, sequence, paths = port_run(scenario, args)
     assert text == want
     assert sequence == want_sequence
+    assert paths == want_paths
 
 
 def test_sim_cycle_budget_bytes_match_jax(jax_live):
     """--cycle-budget reaches the shell's budget: actions defer with
     carry-over exactly as in the JAX package."""
-    text, sequence = port_run(*BUDGET_RUN)
-    assert (text, sequence) == jax_live[_key(*BUDGET_RUN)]
+    text, sequence, paths = port_run(*BUDGET_RUN)
+    assert (text, sequence, paths) == jax_live[_key(*BUDGET_RUN)]
     budget = json.loads(text)["overload"]["cycle_budget"]
     assert budget["exhausted"] > 0 and budget["deferred_actions"] > 0
 
@@ -351,8 +372,9 @@ def test_digest_file_holds_the_jax_package(jax_live, digests, scenario,
     """The committed digests cannot drift from the JAX package: the
     smoke entries are recomputed from it here."""
     run = digests[_key(scenario, args)]
-    text, sequence = jax_live[_key(scenario, args)]
+    text, sequence, paths = jax_live[_key(scenario, args)]
     assert run["sha256"] == hashlib.sha256(text).hexdigest()
+    assert run["tensor_paths"] == paths
     assert run["bytes"] == len(text)
     assert (run["sequence_sha256"], run["sequence_binds"],
             run["sequence_evicts"]) == (sequence["sha256"],
@@ -368,14 +390,16 @@ def test_digest_file_holds_the_jax_package(jax_live, digests, scenario,
 def test_sim_bytes_match_committed_digest(digests, scenario, args):
     """skew (reclaim), preempt-burst (the preempt walk, B3's plain
     version here) and baseline-10k (BASELINE config 3) under
-    deploy/scheduler.conf, held to the JAX package's digests."""
-    text, sequence = port_run(scenario, args)
+    deploy/scheduler.conf, held to the JAX package's digests, node-tensor
+    paths included."""
+    text, sequence, paths = port_run(scenario, args)
     run = digests[_key(scenario, args)]
     assert hashlib.sha256(text).hexdigest() == run["sha256"]
     assert len(text) == run["bytes"]
     assert (sequence["sha256"], sequence["binds"], sequence["evicts"]) \
         == (run["sequence_sha256"], run["sequence_binds"],
             run["sequence_evicts"])
+    assert paths == run["tensor_paths"]
     report = json.loads(text)
     assert report["action_failures"] == 0 and report["double_binds"] == 0
     if scenario == "baseline-10k":
@@ -403,8 +427,12 @@ def test_walk_fill_schedule_fault_recorded(tmp_path):
                      .read_text())
     differs = sorted(run["key"] for run in doc["runs"]
                      if run["default_walk_sha256"] != run["sha256"])
-    assert differs == sorted(_key(s, ("--conf", DEPLOYED))
-                             for s in ("preempt-burst", "skew"))
+    # preempt-burst twice: with the incremental snapshot on and off
+    off = "VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0 "
+    assert differs == sorted([_key(s, ("--conf", DEPLOYED))
+                              for s in ("preempt-burst", "skew")]
+                             + [off + _key("preempt-burst",
+                                           ("--conf", DEPLOYED))])
 
 
 def test_walk_fault_witnessed_by_the_callbacks_engine(tmp_path, digests,
@@ -419,10 +447,10 @@ def test_walk_fault_witnessed_by_the_callbacks_engine(tmp_path, digests,
     reference."""
     conf = tmp_path / "callbacks.conf"
     conf.write_text(_callbacks_conf())
-    text, sequence = port_run("preempt-burst", ("--conf", str(conf)))
+    text, sequence, paths = port_run("preempt-burst",
+                                     ("--conf", str(conf)))
     run = digests[_key("preempt-burst", ("--conf", DEPLOYED))]
     assert hashlib.sha256(text).hexdigest() == run["sha256"]
     assert hashlib.sha256(text).hexdigest() != run["default_walk_sha256"]
-    want, want_sequence = jax_live[CALLBACKS_KEY]
-    assert (text, sequence) == (want, want_sequence)
+    assert (text, sequence, paths) == jax_live[CALLBACKS_KEY]
     assert sequence["evicts"] > 0

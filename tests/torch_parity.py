@@ -14,8 +14,8 @@ bit. The flag cannot change in the test process itself: XLA reads it once.
 
 Run as a script, this file computes the references:
 ``python tests/torch_parity.py
-{slice|deployed|evict|walk|walk-modes|plugins|place|blocks|engines} OUT
-NAME...``, or
+{slice|deployed|evict|walk|walk-modes|plugins|place|blocks|engines|incremental}
+OUT NAME...``, or
 ``mixed OUT KIND:NAME...``.
 """
 
@@ -1998,6 +1998,193 @@ def run_torch_cycle(cache, conf_text=SLICE_CONF):
     return ssn
 
 
+# the hole worlds: NAME:on / NAME:off run with the incremental snapshot and
+# the persistent node tensors on (the JAX package's default) or off
+HOLE_WORLDS = ("hole:on", "hole:off", "hole-open:on", "hole-open:off",
+               "drain:off")
+# drain:on meets the JAX package's refresh fault (ROADMAP §3): the port's
+# run is held to drain:mended, the JAX package with that fault mended
+DRAIN_WORLDS = ("drain:on", "drain:mended")
+
+
+def _mend_jax_refresh(cls):
+    """Patch the JAX package's ``PersistentNodeTensors.refresh`` (in this
+    process only) so that a name changed and then removed before the
+    refresh is left out of the touch loop, as the port's refresh does. The
+    rebuild test keeps counting it, as the JAX package's does. Returns the
+    original method."""
+    orig = cls.refresh
+
+    def refresh(self, nodes, changed):
+        removed = [n for n in self.index if n not in nodes]
+        added = [n for n in nodes if n not in self.index]
+        touch = [n for n in changed if n in self.index]
+        base = len(self.index)
+        full = (base == 0 or (len(removed) + len(added) + len(touch)) / base
+                > self.rebuild_ratio
+                or len(added) > len(removed) + len(self._free))
+        if not full:
+            changed = {n for n in changed if n in nodes}
+        return orig(self, nodes, changed)
+
+    cls.refresh = refresh
+    return orig
+
+
+def _stale_rows(cache, torch_port: bool):
+    """Refresh the persistent tensors on a fresh snapshot and name the rows
+    whose device values differ from the host mirror ("" for a hole), or
+    None when the cache holds no persistent tensors."""
+    snap = cache.snapshot()
+    tc = cache.tensor_cache
+    if tc is None:
+        return None
+    if torch_port:
+        tc = cache.tensor_refresh(snap.nodes, tc.rnames, tc.device)
+        dev = {f: t.cpu().numpy() for f, t in tc._ensure_device().items()}
+        host = tc.host
+    else:
+        tc = cache.tensor_refresh(snap.nodes, tc.rnames)
+        dev = {f: np.asarray(a) for f, a in tc._ensure_device().items()}
+        host = {f: getattr(tc, f) for f in dev}
+    return sorted(tc.names[i] for i in range(len(tc.names))
+                  if any((dev[f][i] != host[f][i]).any() for f in dev))
+
+
+def hole_world_run(torch_port: bool, name: str, device: str = "cpu") -> dict:
+    """Cycles of deploy/scheduler.conf over node churn, through the port on
+    the CPU or the JAX package, recording every bind in order, each solve's
+    node-tensor path (tools/sim_traces.py::TensorPathRecorder) and, at the
+    end, the persistent rows whose device values differ from the host
+    mirror (``_stale_rows``).
+
+    ``hole``: 32 nodes of 8 CPU / 32 GiB / 20 pods, queue q1; cycle 1 binds
+    two 2-pod gangs on node-00000..00003; then node-00004 (empty) leaves,
+    zz-new (the same shape) joins, and two gangs of one 7.9-8 CPU pod
+    arrive. With the persistent tensors zz-new takes node-00004's row, so
+    the argmax tie among empty nodes picks it first; a fresh build puts it
+    last.
+
+    ``hole-open``: the same, with a PreferNoSchedule taint on node-00008
+    and node-00009 (nodeorder's static matrix is on) and node-00006 leaving
+    too, so a hole stays open through cycle 2; then three fresh nodes join
+    (more than the holes: a full rebuild) and two more whole-node gangs
+    arrive for cycle 3.
+
+    ``drain``: 16 such nodes; cycle 1 binds two 2-pod gangs of 1-1.1 CPU
+    pods, cycle 2 one more pod, so the persistent rows hold cycle 1's
+    binds. Then every task on a-job-00000-0's node X completes, cycle 3
+    has nothing pending (its snapshot marks X's row changed, no solve
+    consumes the mark), X drains, zz-new joins, and cycle 4 places one
+    pod: its refresh meets X both removed and changed. Cycle 5 brings one
+    gang of 7.9-8 CPU pods, a pod for each empty node, zz-new included.
+
+    The switch is ``on``, ``off`` or ``mended`` (the JAX package only:
+    on, with ``_mend_jax_refresh``). ``device`` is where the port solves."""
+    import sys as _sys
+    _sys.path.insert(0, os.path.join(_REPO, "tools"))
+    from sim_traces import TensorPathRecorder
+    if torch_port:
+        import volcano_tpu_torch.actions.allocate as alloc
+        from volcano_tpu_torch import Scheduler
+        from volcano_tpu_torch.api import NodeInfo, QueueInfo, Resource
+        from volcano_tpu_torch.cache import (FakeBinder, FakeEvictor,
+                                             SchedulerCache)
+        from volcano_tpu_torch.cache.synthetic import make_cluster, make_jobs
+
+        def scheduler(cache):
+            return Scheduler(cache, DEPLOYED_CONF, device=device)
+    else:
+        import volcano_tpu.actions.allocate as alloc
+        from volcano_tpu.api import NodeInfo, QueueInfo, Resource
+        from volcano_tpu.cache import FakeBinder, FakeEvictor, SchedulerCache
+        from volcano_tpu.cache.snapshot import PersistentNodeTensors
+        from volcano_tpu.cache.synthetic import make_cluster, make_jobs
+        from volcano_tpu.scheduler import Scheduler
+
+        def scheduler(cache):
+            return Scheduler(cache, DEPLOYED_CONF)
+    world, switch = name.split(":")
+    assert switch in ("on", "off") or (switch == "mended" and not torch_port)
+    gi = 1 << 30
+    taint = [{"key": "spot", "value": "true", "effect": "PreferNoSchedule"}]
+
+    def node(n, tainted=False):
+        alloc_r = Resource(8000, 32 * gi)
+        alloc_r.max_task_num = 20
+        return NodeInfo(name=n, allocatable=alloc_r,
+                        taints=taint if tainted else None)
+
+    def jobs(n_tasks, n_jobs, cpu, seed, prefix=""):
+        for j in make_jobs(n_tasks, n_jobs, ["q1"],
+                           cpu_range=(cpu, cpu + 100),
+                           mem_range=(gi, gi + 1), seed=seed,
+                           name_prefix=prefix):
+            cache.add_job(j)
+
+    old_env = os.environ.get("VOLCANO_TPU_INCREMENTAL_SNAPSHOT")
+    os.environ["VOLCANO_TPU_INCREMENTAL_SNAPSHOT"] = \
+        "0" if switch == "off" else "1"
+    rec = TensorPathRecorder(alloc, SchedulerCache)
+    orig_refresh = (_mend_jax_refresh(PersistentNodeTensors)
+                    if switch == "mended" else None)
+    try:
+        binder = FakeBinder()
+        cache = SchedulerCache(binder=binder, evictor=FakeEvictor())
+        cache.add_queue(QueueInfo(name="q1", weight=1))
+        n_nodes = 16 if world == "drain" else 32
+        for n in make_cluster(n_nodes, cpu_milli=8000, mem=32 * gi, pods=20):
+            if world == "hole-open" and n.name in ("node-00008",
+                                                   "node-00009"):
+                n = node(n.name, tainted=True)
+            cache.add_node(n)
+        sched = scheduler(cache)
+        if world == "drain":
+            jobs(4, 2, 1000, 0, "a-")
+            failures = list(sched.run_once())
+            jobs(1, 1, 1000, 1, "b-")
+            failures += sched.run_once()
+            drained = binder.binds["default/a-job-00000-0"]
+            for job in list(cache.jobs.values()):
+                for task in list(job.tasks.values()):
+                    if task.node_name == drained:
+                        cache.delete_task(task)
+            failures += sched.run_once()
+            cache.remove_node(drained)
+            cache.add_node(node("zz-new"))
+            jobs(1, 1, 1000, 2, "c-")
+            failures += sched.run_once()
+            empty = sum(1 for n in cache.nodes.values() if not n.tasks)
+            jobs(empty, 1, 7900, 3, "d-")
+            failures += sched.run_once()
+        else:
+            jobs(4, 2, 1000, 0)
+            failures = list(sched.run_once())
+            cache.remove_node("node-00004")
+            if world == "hole-open":
+                cache.remove_node("node-00006")
+            cache.add_node(node("zz-new"))
+            jobs(2, 2, 7900, 1, "b-")
+            failures += sched.run_once()
+        if world == "hole-open":
+            for n in ("zz-a", "zz-b", "zz-c"):
+                cache.add_node(node(n))
+            jobs(2, 2, 7900, 2, "c-")
+            failures += sched.run_once()
+        stale = _stale_rows(cache, torch_port)
+    finally:
+        rec.close()
+        if orig_refresh is not None:
+            PersistentNodeTensors.refresh = orig_refresh
+        if old_env is None:
+            os.environ.pop("VOLCANO_TPU_INCREMENTAL_SNAPSHOT", None)
+        else:
+            os.environ["VOLCANO_TPU_INCREMENTAL_SNAPSHOT"] = old_env
+    return {"binds": list(binder.binds.items()), "paths": rec.paths,
+            "drift": rec.drift, "failures": [n for n, _ in failures],
+            "stale_rows": stale}
+
+
 def jax_reference_script(argv, out_path, names=()) -> dict:
     """Run ``python *argv out_path *names`` in a child process without FMA
     contraction and load the pickle it writes to ``out_path``."""
@@ -2021,7 +2208,9 @@ def jax_reference(kind: str, names, out_path) -> dict:
     FAULT_WALK_WORLDS world in both modes; "plugins": name ->
     PLUGIN_CASES[name]();
     "place": name -> jax_place(); "blocks": name -> jax_blocks();
-    "engines": "engine:world" -> engine_reference(); "mixed": names are
+    "engines": "engine:world" -> engine_reference(); "incremental":
+    name -> hole_world_run() of a HOLE_WORLDS or DRAIN_WORLDS world;
+    "mixed": names are
     "kind:name", so one child process serves several kinds."""
     return jax_reference_script([os.path.abspath(__file__), kind], out_path,
                                 names)
@@ -2052,6 +2241,8 @@ def _reference(kind, name):
         return jax_blocks(BLOCK_WORLDS[name]())
     if kind == "engines":
         return engine_reference(name)
+    if kind == "incremental":
+        return hole_world_run(False, name)
     return jax_place(PLACE_WORLDS[name](), name in INTEGER_PLACE_WORLDS)
 
 

@@ -10,9 +10,18 @@ printed plane counts binds and evictions but never names a node, so the
 child also records the SHA-256 of the run's side-effect sequence: every
 bind as [task uid, node] and every eviction's task uid, in the order they
 reached the cluster (``volcano_tpu_torch/sim/report.py::decision_sequence``
-serializes the port's run the same way). The digests go to
+serializes the port's run the same way). It records too, solve by
+solve, the node-tensor path the JAX allocate took (its persistent,
+scatter-updated rows or a fresh build; a full rebuild or a scatter and its
+rows) and each drift the shadow verifier repaired
+(``tools/sim_traces.py::TensorPathRecorder``). The digests go to
 ``tests/sim_reference_digests.json``, which ``chip_smoke.py`` holds the
 card's runs to, since the card has no JAX.
+
+A run is a named scenario or a trace of ``tools/sim_traces.py`` (``churn``,
+``hole-10k``), written to a JSONL file and replayed with ``--trace``, and
+may set environment switches: ``VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0`` runs
+the JAX package with its incremental snapshot and persistent tensors off.
 
 The JAX preempt walk (``volcano_tpu/ops/evict.py::build_preempt_walk``)
 has two modes: its per-task formulation (``allow_cheap=False``) and a
@@ -26,9 +35,12 @@ port's walk is the per-task one, so the reference here runs the JAX walk
 in that mode ("exact"); the default mode's digests are recorded beside
 them.
 
-Regenerate the file (CPU, about ten minutes)::
+Regenerate the file (CPU, about fifteen minutes), or only the named runs
+(merged into the file)::
 
     JAX_PLATFORMS=cpu python tools/sim_reference.py --write
+    JAX_PLATFORMS=cpu python tools/sim_reference.py --write \
+        --keys "--trace churn --conf deploy/scheduler.conf"
 
 Print one run's bytes::
 
@@ -52,35 +64,68 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tools"))
 DIGESTS = os.path.join(REPO, "tests", "sim_reference_digests.json")
 DEPLOYED = "deploy/scheduler.conf"
 NO_FMA_XLA_FLAGS = "--xla_backend_optimization_level=0"
 MAPS_LIMIT = 40000
+# JAX children at once under --write: each holds one to two GiB
+JOBS = 6
 # the child's last line on stderr: this marker, then the sequence digest
 SEQUENCE_MARKER = "sim-reference-sequence "
 
-# (scenario, sim arguments): every run chip_smoke.py drives on the card,
-# and the CPU tests' runs
+# the switch that turns the incremental snapshot and the persistent node
+# tensors off, in both packages
+OFF = (("VOLCANO_TPU_INCREMENTAL_SNAPSHOT", "0"),)
+
+# (source, sim arguments, environment): every run chip_smoke.py drives on
+# the card, and the CPU tests' runs. A source is a scenario name or
+# "trace:NAME" of tools/sim_traces.py.
 RUNS = (
-    ("smoke", ()),
-    ("smoke", ("--conf", DEPLOYED)),
-    ("smoke", ("--chaos-rate", "0.2", "--kill-cycles", "5,12")),
+    ("smoke", (), ()),
+    ("smoke", ("--conf", DEPLOYED), ()),
+    ("smoke", ("--chaos-rate", "0.2", "--kill-cycles", "5,12"), ()),
     ("smoke", ("--conf", DEPLOYED, "--chaos-rate", "0.2",
-               "--kill-cycles", "5,12")),
-    ("skew", ("--conf", DEPLOYED)),
-    ("preempt-burst", ("--conf", DEPLOYED)),
-    ("baseline-10k", ("--conf", DEPLOYED)),
+               "--kill-cycles", "5,12"), ()),
+    ("skew", ("--conf", DEPLOYED), ()),
+    ("preempt-burst", ("--conf", DEPLOYED), ()),
+    ("baseline-10k", ("--conf", DEPLOYED), ()),
+    ("steady-10k", ("--conf", DEPLOYED), ()),
+    ("trace:churn", ("--conf", DEPLOYED), ()),
+    ("trace:hole-10k", ("--conf", DEPLOYED), ()),
+    ("smoke", ("--conf", DEPLOYED), OFF),
+    ("preempt-burst", ("--conf", DEPLOYED), OFF),
+    ("baseline-10k", ("--conf", DEPLOYED), OFF),
+    ("trace:churn", ("--conf", DEPLOYED), OFF),
+    ("trace:hole-10k", ("--conf", DEPLOYED), OFF),
 )
 
 
-def run_key(scenario: str, args) -> str:
-    return " ".join(("--scenario", scenario) + tuple(args))
+def run_key(source: str, args, env=()) -> str:
+    src = (("--trace", source[len("trace:"):])
+           if source.startswith("trace:") else ("--scenario", source))
+    return " ".join([f"{k}={v}" for k, v in env] + list(src)
+                    + list(args))
 
 
-def _child_env() -> dict:
-    env = dict(os.environ)
+def sim_argv(source: str, trace_dir: str) -> list:
+    """The sim's source arguments: ``--scenario S``, or ``--trace FILE``
+    with the trace of tools/sim_traces.py written into ``trace_dir``."""
+    if not source.startswith("trace:"):
+        return ["--scenario", source]
+    from sim_traces import write_trace_file
+    name = source[len("trace:"):]
+    path = os.path.join(trace_dir, f"{name}.jsonl")
+    if not os.path.exists(path):
+        write_trace_file(name, path)
+    return ["--trace", path]
+
+
+def _child_env(env=()) -> dict:
+    env = dict(os.environ, **dict(env))
     env["JAX_PLATFORMS"] = "cpu"
     flags = env.get("XLA_FLAGS", "")
     if NO_FMA_XLA_FLAGS not in flags:
@@ -90,19 +135,31 @@ def _child_env() -> dict:
     return env
 
 
-def start(scenario: str, args=(), walk: str = "exact") -> subprocess.Popen:
+_TRACE_DIR = None
+
+
+def _trace_dir() -> str:
+    global _TRACE_DIR
+    if _TRACE_DIR is None:
+        _TRACE_DIR = tempfile.mkdtemp(prefix="sim-traces-")
+    return _TRACE_DIR
+
+
+def start(source: str, args=(), walk: str = "exact",
+          env=()) -> subprocess.Popen:
     """Start the JAX sim for one run in a child process; its stdout is the
     decision plane's canonical JSON. ``walk`` picks the JAX preempt walk's
-    mode: "exact" (its per-task formulation) or "default"."""
+    mode: "exact" (its per-task formulation) or "default"; ``env`` adds
+    environment switches."""
     cmd = [sys.executable, os.path.abspath(__file__), "--child", walk,
-           "--scenario", scenario, "--deterministic", *args]
-    return subprocess.Popen(cmd, cwd=REPO, env=_child_env(),
+           *sim_argv(source, _trace_dir()), "--deterministic", *args]
+    return subprocess.Popen(cmd, cwd=REPO, env=_child_env(env),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
 
-def finish(proc: subprocess.Popen, timeout: float = 3600):
+def finish_record(proc: subprocess.Popen, timeout: float = 3600):
     """Wait for a child of ``start``: returns the decision plane's bytes
-    and the run's sequence digest ({sha256, binds, evicts})."""
+    and the child's record ({sha256, binds, evicts, tensor_paths})."""
     out, err = proc.communicate(timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"JAX sim failed (exit {proc.returncode}):\n"
@@ -112,6 +169,14 @@ def finish(proc: subprocess.Popen, timeout: float = 3600):
     if len(lines) != 1:
         raise RuntimeError("JAX sim child printed no sequence digest")
     return out, json.loads(lines[0][len(SEQUENCE_MARKER):])
+
+
+def finish(proc: subprocess.Popen, timeout: float = 3600):
+    """Wait for a child of ``start``: returns the decision plane's bytes
+    and the run's sequence digest ({sha256, binds, evicts})."""
+    out, record = finish_record(proc, timeout)
+    record.pop("tensor_paths")
+    return out, record
 
 
 def sequence_digest(runner) -> dict:
@@ -136,7 +201,10 @@ def _child(walk: str, argv) -> int:
     its per-task formulation. Prints the reported run's sequence digest
     to stderr after SEQUENCE_MARKER."""
     import jax
+    from sim_traces import TensorPathRecorder
     from volcano_tpu import scheduler as jax_scheduler
+    from volcano_tpu.actions import allocate as jax_allocate
+    from volcano_tpu.cache import SchedulerCache
     from volcano_tpu.ops import evict as jax_evict
     from volcano_tpu.sim.__main__ import main
     from volcano_tpu.sim.runner import SimRunner
@@ -174,12 +242,44 @@ def _child(walk: str, argv) -> int:
         return sim_run(self)
 
     SimRunner.run = recorded_run
+    paths = TensorPathRecorder(jax_allocate, SchedulerCache)
     rc = main(argv)
     if rc == 0:
         sys.stdout.flush()
-        print(SEQUENCE_MARKER + json.dumps(sequence_digest(runners[0])),
-              file=sys.stderr)
+        record = dict(sequence_digest(runners[0]),
+                      tensor_paths=paths.summary())
+        print(SEQUENCE_MARKER + json.dumps(record), file=sys.stderr)
     return rc
+
+
+def _entry(source, run_args, env, exact, default) -> dict:
+    out, record = exact
+    other_out, other_record = default
+    other = digest(other_out)
+    return {"key": run_key(source, run_args, env),
+            "source": source, "args": list(run_args),
+            "env": dict(env), **digest(out),
+            "sequence_sha256": record["sha256"],
+            "sequence_binds": record["binds"],
+            "sequence_evicts": record["evicts"],
+            "tensor_paths": record["tensor_paths"],
+            "default_walk_sha256": other["sha256"],
+            "default_walk_bytes": other["bytes"],
+            "default_walk_sequence_sha256": other_record["sha256"]}
+
+
+def _run_all(runs) -> dict:
+    """Each run in both walk modes, at most JOBS children at once:
+    (run, walk) -> (plane bytes, record)."""
+    pending = [(run, walk) for run in runs for walk in ("exact", "default")]
+    running, results = [], {}
+    while pending or running:
+        while pending and len(running) < JOBS:
+            (source, run_args, env), walk = item = pending.pop(0)
+            running.append((item, start(source, run_args, walk, env)))
+        item, proc = running.pop(0)
+        results[item] = finish_record(proc)
+    return results
 
 
 def main(argv=None) -> int:
@@ -188,41 +288,42 @@ def main(argv=None) -> int:
         return _child(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--write", action="store_true",
-                    help=f"compute every run of RUNS and write {DIGESTS}")
-    ap.add_argument("--run", metavar="SCENARIO",
-                    help="print one run's decision plane")
+                    help=f"compute the runs of RUNS and write {DIGESTS}")
+    ap.add_argument("--keys", nargs="+", metavar="KEY",
+                    help="with --write: compute only these runs and merge "
+                         "them into the file")
+    ap.add_argument("--run", metavar="SOURCE",
+                    help="print one run's decision plane (a scenario, or "
+                         "trace:NAME)")
     ap.add_argument("--walk", choices=("exact", "default"),
                     default="exact",
                     help="the JAX preempt walk's mode for --run")
     args, rest = ap.parse_known_args(argv)
     if args.run:
-        out, sequence = finish(start(args.run, rest, args.walk))
+        out, record = finish_record(start(args.run, rest, args.walk))
         sys.stdout.buffer.write(out)
-        print(f"sequence: {json.dumps(sequence)}", file=sys.stderr)
+        print(f"record: {json.dumps(record)}", file=sys.stderr)
         return 0
     if not args.write:
         ap.error("one of --write / --run is required")
-    procs = [(scenario, run_args, start(scenario, run_args, "exact"),
-              start(scenario, run_args, "default"))
-             for scenario, run_args in RUNS]
-    entries = []
-    for scenario, run_args, exact, default in procs:
-        out, sequence = finish(exact)
-        other_out, other_sequence = finish(default)
-        other = digest(other_out)
-        entries.append({"key": run_key(scenario, run_args),
-                        "scenario": scenario, "args": list(run_args),
-                        **digest(out),
-                        "sequence_sha256": sequence["sha256"],
-                        "sequence_binds": sequence["binds"],
-                        "sequence_evicts": sequence["evicts"],
-                        "default_walk_sha256": other["sha256"],
-                        "default_walk_bytes": other["bytes"],
-                        "default_walk_sequence_sha256":
-                            other_sequence["sha256"]})
-        print(f"{run_key(scenario, run_args)}: {entries[-1]['bytes']} bytes"
-              f"{'' if other['sha256'] == entries[-1]['sha256'] else ' (default walk differs)'}",
+    runs = [r for r in RUNS
+            if args.keys is None or run_key(*r) in args.keys]
+    if args.keys is not None and len(runs) != len(args.keys):
+        ap.error(f"unknown keys; known: {[run_key(*r) for r in RUNS]}")
+    results = _run_all(runs)
+    fresh = {}
+    for run in runs:
+        entry = _entry(*run, results[(run, "exact")],
+                       results[(run, "default")])
+        fresh[entry["key"]] = entry
+        print(f"{entry['key']}: {entry['bytes']} bytes"
+              f"{'' if entry['default_walk_sha256'] == entry['sha256'] else ' (default walk differs)'}",
               file=sys.stderr)
+    old = {}
+    if args.keys is not None:
+        with open(DIGESTS) as f:
+            old = {run["key"]: run for run in json.load(f)["runs"]}
+    entries = [fresh.get(run_key(*r)) or old[run_key(*r)] for r in RUNS]
     doc = {"schema": "volcano-tpu-sim-report/v1",
            "command": "JAX_PLATFORMS=cpu python tools/sim_reference.py "
                       "--write",

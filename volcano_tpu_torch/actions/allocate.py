@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import metrics
+from ..obs import trace as obs_trace
 from ..api import (FitError, PodGroupPhase, Resource, TaskInfo, TaskStatus)
 from ..api.types import NODE_RESOURCE_FIT_FAILED
 from ..cache.snapshot import (NodeTensors, assemble_feasibility,
@@ -66,6 +67,12 @@ MISSING_ENGINES = {
     "callbacks-parallel": "the 16-way threaded callbacks engine",
 }
 BLOCKS_BIG_T = 12000    # above this many tasks the blocks budgets are 5/4
+
+
+# the last execute's node-tensor assembly: "tensor_s", host seconds summed
+# over its solves, and "tensor_incremental", whether the last solve read
+# the cache's persistent tensors (True) or a fresh build (False)
+LAST_STATS: Dict[str, object] = {}
 
 
 class SolverFault(RuntimeError):
@@ -125,6 +132,8 @@ class AllocateAction(Action):
 
     def execute(self, ssn) -> None:
         engine, batch = self.configured_engine(ssn.configurations)
+        LAST_STATS.pop("tensor_s", None)      # accumulates within one cycle
+        LAST_STATS.pop("tensor_incremental", None)
         if engine == "callbacks":
             t0 = time.perf_counter()
             _execute_interleaved(ssn, _CallbackJobPlacer(ssn))
@@ -143,6 +152,23 @@ class AllocateAction(Action):
 class AllocateTPUAction(AllocateAction):
     NAME = "allocate-tpu"
     DEFAULT_ENGINE = "tpu-fused"
+
+
+def _node_tensors(ssn, rnames):
+    """Node-state tensors for a device solve: the cache's persistent,
+    scatter-updated rows when the session can prove its snapshot untouched
+    (Session.snapshot_node_tensors), else a fresh NodeTensors in snapshot
+    order on the session's device. Timed into LAST_STATS, which also
+    records the path, and traced as the ``tensor_assembly`` span."""
+    with obs_trace.span("tensor_assembly") as sp:
+        node_t = ssn.snapshot_node_tensors(rnames)
+        incremental = node_t is not None
+        if node_t is None:
+            node_t = NodeTensors(list(ssn.nodes.values()), rnames,
+                                 ssn.device)
+    LAST_STATS["tensor_s"] = LAST_STATS.get("tensor_s", 0.0) + sp.dur_s
+    LAST_STATS["tensor_incremental"] = incremental
+    return node_t
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +396,7 @@ class _StrictSolver:
         nodes = list(ssn.nodes.values())
         self.ssn = ssn
         self.rnames = discover_resource_names(nodes, tasks_all)
-        self.node_t = NodeTensors(nodes, self.rnames, ssn.device)
+        self.node_t = _node_tensors(ssn, self.rnames)
         self.weights = assemble_weights(ssn, self.rnames)
         nt = self.node_t
         self.state = (nt.idle, nt.future_idle, nt.used, nt.ntasks)
@@ -680,7 +706,7 @@ def placement_inputs(ssn, ordered_jobs) -> Optional[PlacementInputs]:
     if not tasks or not ssn.nodes:
         return None
     rnames = discover_resource_names(list(ssn.nodes.values()), tasks)
-    node_t = NodeTensors(list(ssn.nodes.values()), rnames, ssn.device)
+    node_t = _node_tensors(ssn, rnames)
     req = task_requests(tasks, rnames)
     feas = assemble_feasibility(ssn, tasks, node_t)
     static = assemble_static_score(ssn, tasks, node_t)
@@ -845,7 +871,8 @@ def _replay_fused_fast(ssn, sol: _FusedSolution) -> None:
     job_alloc: Dict[int, Resource] = {}
     binds: List[TaskInfo] = []
     names = sol.node_t.names
-    node_objs = [ssn.nodes[nm] for nm in names]
+    # a hole row of the persistent tensors (name "") is never placed on
+    node_objs = [ssn.nodes.get(nm) if nm else None for nm in names]
     for k in range(len(placed_ix)):
         task = sol.tasks[placed_ix[k]]
         jx = int(jx_arr[k])
@@ -882,10 +909,13 @@ def _replay_fused_fast(ssn, sol: _FusedSolution) -> None:
         ssn._fire_allocate(_AggTask(job.uid, agg))
     for row, r in alloc_agg.items():
         node = node_objs[row]
+        node._touched = True          # direct aggregate mutation below
         node.idle.sub(r)
         node.used.add(r)
     for row, r in pipe_agg.items():
-        node_objs[row].pipelined.add(r)
+        node = node_objs[row]
+        node._touched = True
+        node.pipelined.add(r)
     ssn.cache.bind_batch(binds)
 
 

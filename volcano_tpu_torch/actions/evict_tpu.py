@@ -809,6 +809,7 @@ def _fast_pipeline(ssn, task: TaskInfo, host: str) -> None:
     ssn.jobs[task.job].update_task_status(task, TaskStatus.PIPELINED)
     task.node_name = host
     node = ssn.nodes[host]
+    node._touched = True       # direct mutation: the snapshot's witness
     ti = task.clone()
     node.tasks[task.uid] = ti
     for port in ti.host_ports:
@@ -821,6 +822,7 @@ def _fast_unpipeline(ssn, task: TaskInfo) -> None:
     ssn.jobs[task.job].update_task_status(task, TaskStatus.PENDING)
     node = ssn.nodes.get(task.node_name)
     if node is not None:
+        node._touched = True
         node.tasks.pop(task.uid, None)
         for port in task.host_ports:
             left = node.used_ports.get(port, 0) - 1
@@ -841,6 +843,7 @@ def _fast_evict(ssn, vt: TaskInfo) -> TaskInfo:
     job.update_task_status(own, TaskStatus.RELEASING)
     node = ssn.nodes.get(own.node_name)
     if node is not None:
+        node._touched = True
         mirror = node.tasks.get(own.uid)
         if mirror is not None:
             mirror.status = TaskStatus.RELEASING
@@ -853,6 +856,7 @@ def _fast_unevict(ssn, own: TaskInfo) -> None:
     ssn.jobs[own.job].update_task_status(own, TaskStatus.RUNNING)
     node = ssn.nodes.get(own.node_name)
     if node is not None:
+        node._touched = True
         mirror = node.tasks.get(own.uid)
         if mirror is not None:
             mirror.status = TaskStatus.RUNNING

@@ -158,13 +158,21 @@ class JobInfo:
         self.schedule_start_timestamp: Optional[float] = None
         self.podgroup = podgroup or PodGroup(name=self.name, namespace=namespace,
                                              queue=queue, min_member=min_available)
+        # Mutation witness for the incremental snapshot (cache/cache.py):
+        # every task-state mutation funnels through _add_index/_del_index
+        # (add_task_info, update_task_status, delete_task_info, the fused
+        # batched replay), so the flag marks any job whose gang state moved
+        # since clone().
+        self._touched = False
 
     # -- task bookkeeping (job_info.go:375-437) -----------------------------
 
     def _add_index(self, task: TaskInfo) -> None:
+        self._touched = True
         self.task_status_index.setdefault(task.status, {})[task.uid] = task
 
     def _del_index(self, task: TaskInfo) -> None:
+        self._touched = True
         bucket = self.task_status_index.get(task.status)
         if bucket is not None:
             bucket.pop(task.uid, None)
@@ -271,6 +279,7 @@ class JobInfo:
         job.task_min_available_total = self.task_min_available_total
         for task in self.tasks.values():
             job.add_task_info(task.clone())
+        job._touched = False        # a fresh clone starts clean
         return job
 
     def __repr__(self) -> str:

@@ -12,6 +12,7 @@ from typing import Dict, List, Optional
 
 from .job_info import TaskInfo
 from .resource import Resource
+from ..elastic_gang.membership import TOPOLOGY_ZONE_LABEL
 from .types import TaskStatus
 
 
@@ -41,7 +42,17 @@ class NodeInfo:
         self.labels = dict(labels or {})
         self.taints = list(taints or [])
         self.unschedulable = unschedulable
+        # the volcano.sh/topology-zone label names the node's interconnect
+        # locality group (cache/snapshot.py zone_code)
+        self.topology_zone = self.labels.get(TOPOLOGY_ZONE_LABEL, "")
         self.tasks: Dict[str, TaskInfo] = {}
+        # Mutation witness for the incremental snapshot (cache/cache.py):
+        # add_task/remove_task, the funnel every placement-accounting
+        # mutation goes through, set it; clone() starts the copy clean. The
+        # cache reuses a previous snapshot's clone only while both the live
+        # node and that clone are untouched, so a session mutation can
+        # never leak into the next cycle's snapshot.
+        self._touched = False
         # (host_ip, protocol, port) -> claim count for tasks on this node
         # (k8s nodeports bookkeeping; predicates.go:321 Filter input)
         self.used_ports: Dict[tuple, int] = {}
@@ -76,6 +87,7 @@ class NodeInfo:
         if task.uid in self.tasks:
             raise ValueError(f"task {task.key()} already on node {self.name}")
 
+        self._touched = True
         ti = task.clone()
         if ti.status == TaskStatus.RELEASING:
             self._allocate_idle(ti)
@@ -97,6 +109,7 @@ class NodeInfo:
         own = self.tasks.get(task.uid)
         if own is None:
             return
+        self._touched = True
         if own.status == TaskStatus.RELEASING:
             self.releasing.sub(own.resreq)
             self.idle.add(own.resreq)
@@ -133,8 +146,10 @@ class NodeInfo:
         n.labels = self.labels
         n.taints = self.taints
         n.unschedulable = self.unschedulable
+        n.topology_zone = self.topology_zone
         n.used_ports = dict(self.used_ports)
         n.ready = self.ready
+        n._touched = False
         n.tasks = {}
         for uid, task in self.tasks.items():
             ti = task.clone()

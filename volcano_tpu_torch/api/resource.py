@@ -154,6 +154,14 @@ class Resource:
                 return False
         return True
 
+    def __eq__(self, rr: object) -> bool:
+        """Equal in every dimension within 1e-9 (the drift verifier's
+        comparison of a cached clone with the live node)."""
+        if not isinstance(rr, Resource):
+            return NotImplemented
+        names = set(self.resource_names()) | set(rr.resource_names())
+        return all(abs(self.get(n) - rr.get(n)) < 1e-9 for n in names)
+
     def __repr__(self) -> str:
         s = f"cpu {self.cpu:0.2f}, memory {self.memory:0.2f}"
         for n, q in sorted(self.scalars.items()):

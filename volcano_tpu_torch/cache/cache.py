@@ -10,10 +10,16 @@ Every side effect is journaled before its executor runs (cache/journal.py)
 and armed in the in-flight ledger until the cluster acks it
 (cache/inflight.py, cache/feedback.py).
 
-The snapshot is a full clone of every ready node and every job each
-cycle. The ``mark_*_dirty`` calls keep the mutation contract the JAX
-package's incremental snapshot reads; a full clone has nothing to
-invalidate, so they record nothing here.
+The snapshot is clone-on-dirty (the JAX package's default,
+``volcano_tpu/cache/cache.py``): every mutator records the node, job or
+queue keys it touched, and a snapshot re-clones only those (and what a
+session mutated, by the ``_touched`` witness on NodeInfo and JobInfo),
+sharing the rest with the previous snapshot. The cache also keeps the
+persistent node tensors the allocate solves read
+(``snapshot.PersistentNodeTensors``, refreshed from the dirty rows), and a
+shadow verifier that re-derives both from scratch and repairs drift.
+``VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0`` turns both off: a full clone every
+cycle and a fresh NodeTensors every solve.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import logging
 import os
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from ..api import (ClusterInfo, JobInfo, NodeInfo, QueueInfo, Resource,
                    TaskInfo, TaskStatus, allocated_status)
@@ -36,6 +42,14 @@ from .inflight import InflightLedger
 from .journal import IntentJournal, journal_enabled
 
 log = logging.getLogger(__name__)
+
+
+def incremental_snapshot_enabled() -> bool:
+    """The kill switch of the incremental snapshot and the persistent node
+    tensors. On by default; VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0 forces a
+    full clone every cycle and a fresh NodeTensors every solve."""
+    return os.environ.get("VOLCANO_TPU_INCREMENTAL_SNAPSHOT", "1") \
+        .lower() not in ("0", "false", "off")
 
 
 class RateLimitedQueue:
@@ -170,6 +184,25 @@ class SchedulerCache:
         # cluster-truth probe for the watchdog: entry -> True / False /
         # None (unknown, presumed executed)
         self.inflight_oracle_fn: Optional[Callable] = None
+        # Incremental snapshot state: every mutator records the node, job
+        # and queue keys it touched; snapshot() re-clones only those and
+        # shares the rest with the previous snapshot. _dirty_all forces a
+        # full rebuild (initial state, bulk external mutation, drift
+        # repair, the kill switch).
+        self._dirty_nodes: Set[str] = set()
+        self._dirty_jobs: Set[str] = set()
+        self._dirty_queues: Set[str] = set()
+        self._dirty_all = True
+        self._snap_nodes: Dict[str, NodeInfo] = {}
+        self._snap_jobs: Dict[str, JobInfo] = {}
+        self._snap_queues: Dict[str, QueueInfo] = {}
+        self._snap_epoch = 0
+        # node names whose snapshot row changed since the persistent
+        # tensors last refreshed (snapshot.PersistentNodeTensors)
+        self._tensor_dirty: Set[str] = set()
+        self.tensor_cache = None
+        # host-clock breakdown and dirty ratio of the last snapshot()
+        self.last_snapshot_stats: Dict[str, object] = {}
 
     # -- intent journal (cache/journal.py) ----------------------------------
 
@@ -216,51 +249,65 @@ class SchedulerCache:
         from .journal import reconcile
         return reconcile(self, self.journal, cluster_binds, cluster_evicts)
 
-    # -- dirty marks --------------------------------------------------------
+    # -- dirty marks (incremental snapshot) ---------------------------------
 
     def mark_node_dirty(self, name: str) -> None:
         """``name``'s live state changed outside the cache's own mutators
-        (a drain, a test's direct mutation)."""
+        (a drain, a test's direct mutation): the next snapshot re-clones
+        it instead of reusing the cached clone."""
+        self._dirty_nodes.add(name)
 
     def mark_job_dirty(self, uid: str) -> None:
-        pass
+        self._dirty_jobs.add(uid)
 
     def mark_queue_dirty(self, uid: str) -> None:
-        pass
+        self._dirty_queues.add(uid)
 
     def mark_all_dirty(self) -> None:
-        pass
+        """Invalidate every cached clone (bulk external mutation)."""
+        self._dirty_all = True
 
     def _mark_task_dirty(self, task: TaskInfo) -> None:
-        pass
+        """One task moved: its job's gang state and (when placed) its
+        node's accounting changed. Caller holds self._lock."""
+        if task.job:
+            self._dirty_jobs.add(task.job)
+        if task.node_name:
+            self._dirty_nodes.add(task.node_name)
 
     # -- ingestion (event_handlers.go analogues) ----------------------------
 
     def add_node(self, node: NodeInfo) -> None:
         with self._lock:
             self.nodes[node.name] = node
+            self._dirty_nodes.add(node.name)
 
     def remove_node(self, name: str) -> None:
         with self._lock:
             self.nodes.pop(name, None)
+            self._dirty_nodes.add(name)
 
     def add_queue(self, queue: QueueInfo) -> None:
         with self._lock:
             self.queues[queue.uid] = queue
+            self._dirty_queues.add(queue.uid)
 
     def remove_queue(self, uid: str) -> None:
         with self._lock:
             self.queues.pop(uid, None)
+            self._dirty_queues.add(uid)
 
     def add_job(self, job: JobInfo) -> None:
         with self._lock:
             if job.schedule_start_timestamp is None:
                 job.schedule_start_timestamp = self.time_fn()
             self.jobs[job.uid] = job
+            self._dirty_jobs.add(job.uid)
 
     def remove_job(self, uid: str) -> None:
         with self._lock:
             job = self.jobs.pop(uid, None)
+            self._dirty_jobs.add(uid)
             if job is not None:
                 for task_uid in job.tasks:
                     self._drop_retry_state(task_uid)
@@ -277,6 +324,7 @@ class SchedulerCache:
         with self._lock:
             if uid not in self.jobs:
                 self.jobs[uid] = JobInfo(uid=uid, **kwargs)
+                self._dirty_jobs.add(uid)
             return self.jobs[uid]
 
     def add_task(self, task: TaskInfo) -> None:
@@ -287,6 +335,7 @@ class SchedulerCache:
             job.add_task_info(task)
             if task.node_name and task.node_name in self.nodes:
                 self.nodes[task.node_name].add_task(task)
+            self._mark_task_dirty(task)
 
     def update_task_status(self, task: TaskInfo, status: TaskStatus) -> None:
         with self._lock:
@@ -296,6 +345,7 @@ class SchedulerCache:
             job.update_task_status(job.tasks[task.uid], status)
             if task.node_name and task.node_name in self.nodes:
                 self.nodes[task.node_name].update_task(job.tasks[task.uid])
+            self._mark_task_dirty(task)
         if status == TaskStatus.RUNNING:
             # however the RUNNING confirmation reached the cache, the bind
             # is no longer in flight
@@ -303,6 +353,8 @@ class SchedulerCache:
 
     def delete_task(self, task: TaskInfo) -> None:
         with self._lock:
+            # mark BEFORE mutating: node.remove_task clears task.node_name
+            self._mark_task_dirty(task)
             job = self.jobs.get(task.job)
             if job is not None:
                 job.delete_task_info(task)
@@ -317,22 +369,313 @@ class SchedulerCache:
     # -- snapshot (cache.go:801-893) ----------------------------------------
 
     def snapshot(self) -> ClusterInfo:
-        """A full clone of ready nodes, queues and jobs: the session
-        mutates only this copy. Nodes with binds in flight are skipped
-        (cache.go:822-827)."""
+        """Clone-on-dirty snapshot of ready nodes, queues and jobs: a node
+        or job whose key no mutator marked since the previous snapshot, and
+        whose previous clone no session mutated (the ``_touched`` witness),
+        is SHARED with the previous snapshot instead of cloned again. The
+        shared clone equals what a fresh ``clone()`` would give, by the
+        witness. Nodes with binds in flight are skipped (cache.go:822-827).
+        A full clone of everything when VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0
+        or after mark_all_dirty()."""
         from ..obs import trace as obs_trace
-        with obs_trace.span("snapshot_clone"), self._lock:
+        with obs_trace.span("snapshot_clone"):
+            return self._snapshot_impl()
+
+    def _snapshot_impl(self) -> ClusterInfo:
+        """One clone-on-dirty ClusterInfo; consumes the bookkeeping: stores
+        the clone maps, clears the dirty sets and bumps ``snap_epoch``."""
+        t0 = time.perf_counter()
+        with self._lock:
+            incremental = incremental_snapshot_enabled()
+            full = self._dirty_all or not incremental
             ci = ClusterInfo()
             inflight_nodes = set(self.binding_tasks.values())
+            reused_nodes = cloned_nodes = 0
             for name, node in self.nodes.items():
-                if node.ready and name not in inflight_nodes:
+                if not node.ready or name in inflight_nodes:
+                    continue
+                prev = None if full else self._snap_nodes.get(name)
+                if (prev is not None
+                        and name not in self._dirty_nodes
+                        and not prev._touched and not node._touched
+                        and prev.unschedulable == node.unschedulable):
+                    ci.nodes[name] = prev
+                    reused_nodes += 1
+                else:
                     ci.nodes[name] = node.clone()
+                    node._touched = False
+                    self._tensor_dirty.add(name)
+                    cloned_nodes += 1
             for uid, q in self.queues.items():
-                ci.queues[uid] = q.clone()
+                prev = None if full else self._snap_queues.get(uid)
+                if (prev is not None and uid not in self._dirty_queues
+                        and prev.weight == q.weight
+                        and prev.state == q.state
+                        and prev.reclaimable == q.reclaimable
+                        and prev.capability is q.capability):
+                    ci.queues[uid] = prev
+                else:
+                    ci.queues[uid] = q.clone()
+            reused_jobs = 0
             for uid, job in self.jobs.items():
-                if job.podgroup is not None:
+                if job.podgroup is None:
+                    continue
+                prev = None if full else self._snap_jobs.get(uid)
+                if (prev is not None
+                        and uid not in self._dirty_jobs
+                        and not prev._touched and not job._touched
+                        and prev.podgroup is job.podgroup
+                        and prev.priority == job.priority
+                        and prev.min_available == job.min_available
+                        and prev.queue == job.queue):
+                    # per-cycle scratch a fresh clone would start without
+                    if prev.nodes_fit_errors:
+                        prev.nodes_fit_errors = {}
+                    if prev.job_fit_errors:
+                        prev.job_fit_errors = ""
+                    ci.jobs[uid] = prev
+                    reused_jobs += 1
+                else:
                     ci.jobs[uid] = job.clone()
+                    job._touched = False
+            n_nodes = len(ci.nodes)
+            stats = {
+                "full": full,
+                "clone_s": time.perf_counter() - t0,
+                "dirty_nodes": cloned_nodes,
+                "reused_nodes": reused_nodes,
+                "reused_jobs": reused_jobs,
+                "dirty_ratio": (cloned_nodes / n_nodes) if n_nodes else 0.0,
+            }
+            if incremental:
+                self._snap_nodes = dict(ci.nodes)
+                self._snap_jobs = dict(ci.jobs)
+                self._snap_queues = dict(ci.queues)
+                self._dirty_all = False
+            else:
+                # keep nothing: a later re-enable must rebuild from scratch
+                self._snap_nodes = {}
+                self._snap_jobs = {}
+                self._snap_queues = {}
+                self._dirty_all = True
+            self._dirty_nodes.clear()
+            self._dirty_jobs.clear()
+            self._dirty_queues.clear()
+            self._snap_epoch += 1
+            ci.snap_epoch = self._snap_epoch
+            self.last_snapshot_stats = stats
+        if full:
+            from .. import metrics
+            metrics.register_snapshot_full_rebuild("clone")
         return ci
+
+    # -- persistent node tensors --------------------------------------------
+
+    def tensor_refresh(self, snapshot_nodes: Dict[str, NodeInfo], rnames,
+                       device, snap_epoch: Optional[int] = None):
+        """The persistent node tensors on ``device`` for the CURRENT
+        snapshot: rewrites only the rows the dirty set named since the last
+        refresh. ``snapshot_nodes`` must be the node dict the latest
+        snapshot() returned, before any session mutation; ``snap_epoch``
+        refuses a stale session's delta over a newer snapshot. Returns None
+        when the incremental path is off (kill switch) or refused (epoch
+        mismatch); callers then build a fresh NodeTensors. An error in the
+        refresh, a device error in the scatter included, drops the
+        persistent tensors and propagates: no rebuild in this cycle hides
+        it, and the next refresh rebuilds every row."""
+        if not incremental_snapshot_enabled():
+            return None
+        import torch
+        from .snapshot import PersistentNodeTensors
+        with self._lock:
+            if snap_epoch is not None and snap_epoch != self._snap_epoch:
+                return None
+            tc = self.tensor_cache
+            if (tc is None or tc.rnames.names != rnames.names
+                    or tc.device != torch.device(device)):
+                tc = PersistentNodeTensors(rnames, device)
+                self.tensor_cache = tc
+            dirty = self._tensor_dirty
+            self._tensor_dirty = set()
+            try:
+                stats = tc.refresh(snapshot_nodes, dirty)
+            except BaseException:
+                # a refresh applies in full or not at all: rows half
+                # written on the host and never scattered would be stale
+                # on the device, so the next refresh rebuilds every row
+                self.tensor_cache = None
+                raise
+        if stats["full"]:
+            from .. import metrics
+            metrics.register_snapshot_full_rebuild("tensor")
+        return tc
+
+    def invalidate_device_state(self) -> None:
+        """Retire the device-resident state: bump the snapshot epoch (an
+        open session's tensor_refresh then refuses its delta) and drop the
+        persistent tensors, so the next device consumer rebuilds from host
+        truth."""
+        with self._lock:
+            self._snap_epoch += 1
+            self.tensor_cache = None
+            self._tensor_dirty = set()
+
+    # -- drift self-healing -------------------------------------------------
+
+    def verify_state_integrity(self, repair: bool = True) -> dict:
+        """Shadow verifier: re-derive what a from-scratch snapshot and
+        tensor build would give and diff it against the incremental caches
+        the NEXT cycle would reuse. A mismatch is state drift, a missed
+        dirty mark or witness that clone-on-dirty would serve as a stale
+        placement input; it is counted (``state_drift`` by layer) and, with
+        ``repair``, repaired by the full-rebuild paths: mark_all_dirty()
+        for the clone layer, dropping ``tensor_cache`` for the tensor
+        layer. Entries the next snapshot re-clones anyway (dirty-marked,
+        witnessed, or a guard field changed) are skipped. The scheduler
+        shell runs it after the cycle's timed window, every
+        ``drift_verify_every`` cycles. Ported as the JAX package writes it
+        (``volcano_tpu/cache/cache.py``), including its tensor-row check,
+        which compares each row with the previous snapshot's clone whether
+        or not a session mutated that clone since (ROADMAP §3)."""
+        t0 = time.perf_counter()
+        drift = {"node": [], "job": [], "tensor": []}
+        # phase 1 (lock): the candidate key/object pairs only
+        with self._lock:
+            node_cand = [] if self._dirty_all else [
+                (name, prev, self.nodes.get(name))
+                for name, prev in self._snap_nodes.items()]
+            job_cand = [] if self._dirty_all else [
+                (uid, prev, self.jobs.get(uid))
+                for uid, prev in self._snap_jobs.items()]
+            tc = self.tensor_cache
+            tensor_cand = [] if tc is None else [
+                (name, prev, tc.index.get(name))
+                for name, prev in self._snap_nodes.items()]
+            checked_nodes = len(self._snap_nodes)
+            checked_jobs = len(self._snap_jobs)
+        # phase 2 (no lock): the O(cluster) diff; an entry a concurrent
+        # mutator races is skipped: that mutation dirty-marks it
+        suspects = {"node": [], "job": [], "tensor": []}
+        for name, prev, live in node_cand:
+            try:
+                if (live is not None and live.ready
+                        and not prev._touched and not live._touched
+                        and prev.unschedulable == live.unschedulable
+                        and not self._node_matches(prev, live)):
+                    suspects["node"].append(name)
+            except Exception:
+                continue
+        for uid, prev, live in job_cand:
+            try:
+                if (live is not None and live.podgroup is not None
+                        and not prev._touched and not live._touched
+                        and prev.podgroup is live.podgroup
+                        and prev.priority == live.priority
+                        and prev.min_available == live.min_available
+                        and prev.queue == live.queue
+                        and not self._job_matches(prev, live)):
+                    suspects["job"].append(uid)
+            except Exception:
+                continue
+        rn = tc.rnames if tc is not None else None
+        for name, prev, i in tensor_cand:
+            try:
+                if i is not None \
+                        and not self._tensor_row_matches(tc, i, prev, rn):
+                    suspects["tensor"].append(name)
+            except Exception:
+                continue
+        # phase 3 (lock): confirm each suspect against the CURRENT skip
+        # conditions, then repair
+        with self._lock:
+            if not self._dirty_all:
+                for name in suspects["node"]:
+                    live = self.nodes.get(name)
+                    prev = self._snap_nodes.get(name)
+                    if (prev is not None and live is not None and live.ready
+                            and name not in self._dirty_nodes
+                            and not prev._touched and not live._touched
+                            and prev.unschedulable == live.unschedulable
+                            and not self._node_matches(prev, live)):
+                        drift["node"].append(name)
+                for uid in suspects["job"]:
+                    live = self.jobs.get(uid)
+                    prev = self._snap_jobs.get(uid)
+                    if (prev is not None and live is not None
+                            and live.podgroup is not None
+                            and uid not in self._dirty_jobs
+                            and not prev._touched and not live._touched
+                            and prev.podgroup is live.podgroup
+                            and not self._job_matches(prev, live)):
+                        drift["job"].append(uid)
+            if self.tensor_cache is tc and tc is not None:
+                for name in suspects["tensor"]:
+                    i = tc.index.get(name)
+                    prev = self._snap_nodes.get(name)
+                    if (i is not None and prev is not None
+                            and name not in self._tensor_dirty
+                            and not self._tensor_row_matches(tc, i, prev,
+                                                             rn)):
+                        drift["tensor"].append(name)
+            repaired = False
+            if repair:
+                if drift["node"] or drift["job"]:
+                    self._dirty_all = True
+                    repaired = True
+                if drift["tensor"]:
+                    self.tensor_cache = None
+                    self._tensor_dirty = set()
+                    repaired = True
+            stats = {
+                "drift": {k: sorted(v) for k, v in drift.items() if v},
+                "drift_total": sum(len(v) for v in drift.values()),
+                "repaired": repaired,
+                "checked_nodes": checked_nodes,
+                "checked_jobs": checked_jobs,
+                "verify_s": time.perf_counter() - t0,
+            }
+        from .. import metrics
+        for layer, names in drift.items():
+            if names:
+                metrics.register_state_drift(layer, len(names))
+        return stats
+
+    @staticmethod
+    def _node_matches(prev: NodeInfo, live: NodeInfo) -> bool:
+        """Would reusing ``prev`` equal a fresh ``live.clone()``?"""
+        if (prev.allocatable is not live.allocatable
+                or prev.used_ports != live.used_ports):
+            return False
+        for field in ("idle", "used", "releasing", "pipelined"):
+            if getattr(prev, field) != getattr(live, field):
+                return False
+        return ({u: (t.status, t.node_name) for u, t in prev.tasks.items()}
+                == {u: (t.status, t.node_name)
+                    for u, t in live.tasks.items()})
+
+    @staticmethod
+    def _job_matches(prev: JobInfo, live: JobInfo) -> bool:
+        if prev.allocated != live.allocated:
+            return False
+        return ({u: t.status for u, t in prev.tasks.items()}
+                == {u: t.status for u, t in live.tasks.items()})
+
+    @staticmethod
+    def _tensor_row_matches(tc, i: int, node: NodeInfo, rnames) -> bool:
+        """Host row ``i`` of the persistent tensors against what a fresh
+        build would derive from ``node`` today."""
+        import numpy as np
+        from .snapshot import BIG_MAX_TASKS, RES_FIELDS, zone_code
+        for field in RES_FIELDS:
+            if not np.array_equal(tc.host[field][i],
+                                  getattr(node, field).to_vector(rnames)):
+                return False
+        want_max = node.max_task_num if node.max_task_num > 0 \
+            else BIG_MAX_TASKS
+        return (int(tc.host["max_tasks"][i]) == want_max
+                and int(tc.host["ntasks"][i]) == len(node.tasks)
+                and int(tc.host["zone_code"][i])
+                == zone_code(node.topology_zone))
 
     # -- side effects (cache.go:549-666) ------------------------------------
 
@@ -346,9 +689,14 @@ class SchedulerCache:
         with self._lock:
             job = self.jobs.get(task.job)
             if job is not None and task.uid in job.tasks:
+                self._dirty_jobs.add(task.job)
+                if task.node_name:
+                    self._dirty_nodes.add(task.node_name)
                 cached = job.tasks[task.uid]
                 prev_status = cached.status
                 prev_node = cached.node_name
+                if prev_node:
+                    self._dirty_nodes.add(prev_node)
                 if not prev_node:
                     newly_placed = True
                     cached.node_name = task.node_name
@@ -398,9 +746,13 @@ class SchedulerCache:
                 job = self.jobs.get(task.job)
                 if job is None or task.uid not in job.tasks:
                     continue
+                self._dirty_jobs.add(task.job)
+                if task.node_name:
+                    self._dirty_nodes.add(task.node_name)
                 cached = job.tasks[task.uid]
                 if cached.node_name:
                     # re-bind of an already-placed task: rare; full path
+                    self._dirty_nodes.add(cached.node_name)
                     job.update_task_status(cached, TaskStatus.BOUND)
                     if cached.node_name in self.nodes:
                         self.nodes[cached.node_name].update_task(cached)
@@ -469,6 +821,7 @@ class SchedulerCache:
         with self._lock:
             job = self.jobs.get(task.job)
             if job is not None and task.uid in job.tasks:
+                self._mark_task_dirty(task)
                 job.update_task_status(job.tasks[task.uid],
                                        TaskStatus.RELEASING)
                 if task.node_name in self.nodes:
@@ -492,6 +845,9 @@ class SchedulerCache:
             if lost_node is not None and cached.node_name \
                     and cached.node_name != lost_node:
                 return False
+            if cached.node_name:
+                self._dirty_nodes.add(cached.node_name)
+            self._dirty_jobs.add(jid)
             node = self.nodes.get(cached.node_name)
             if detach and node is not None and uid in node.tasks:
                 node.remove_task(cached)
@@ -723,6 +1079,7 @@ class SchedulerCache:
                     with self._lock:
                         job = self.jobs.get(task.job)
                         if job is not None and task.uid in job.tasks:
+                            self._mark_task_dirty(task)
                             cached = job.tasks[task.uid]
                             cached.node_name = task.node_name
                             job.update_task_status(cached, TaskStatus.BOUND)
@@ -735,6 +1092,7 @@ class SchedulerCache:
                     with self._lock:
                         job = self.jobs.get(task.job)
                         if job is not None and task.uid in job.tasks:
+                            self._mark_task_dirty(task)
                             cached = job.tasks[task.uid]
                             job.update_task_status(cached,
                                                    TaskStatus.RELEASING)
@@ -766,5 +1124,6 @@ class SchedulerCache:
             cached = self.jobs.get(job.uid)
             if cached is not None and cached.podgroup is not job.podgroup:
                 # the PodGroup is normally aliased between the live job
-                # and its snapshot clones; only a replacement needs copying
+                # and its snapshot clones; only a replacement re-dirties
                 cached.podgroup = job.podgroup
+                self._dirty_jobs.add(job.uid)

@@ -21,7 +21,10 @@ GI = 1 << 30
 
 
 def make_cluster(num_nodes: int, cpu_milli: int = 32000,
-                 mem: int = 128 * GI, pods: int = 110) -> List[NodeInfo]:
+                 mem: int = 128 * GI, pods: int = 110,
+                 seed: int = 0) -> List[NodeInfo]:
+    """``num_nodes`` equal nodes; ``seed`` is the JAX package's argument,
+    which draws nothing."""
     nodes = []
     for i in range(num_nodes):
         alloc = Resource(cpu_milli, mem)
@@ -34,11 +37,13 @@ def make_jobs(num_tasks: int, num_jobs: int, queues: List[str],
               cpu_range=(500, 4000), mem_range=(1 * GI, 8 * GI),
               running_fraction: float = 0.0,
               nodes: Optional[List[NodeInfo]] = None,
-              seed: int = 0) -> List[JobInfo]:
+              seed: int = 0, name_prefix: str = "") -> List[JobInfo]:
     """num_tasks split over num_jobs; each job is a whole gang (minAvailable
     = its task count) whose tasks share one request. running_fraction of
     the jobs are pre-placed RUNNING onto ``nodes``, round-robin wherever a
-    task fits (the preempt and reclaim worlds); the others are Inqueue."""
+    task fits (the preempt and reclaim worlds); the others are Inqueue.
+    ``name_prefix`` keeps a later batch's uids distinct from a live
+    cluster's."""
     rng = random.Random(seed)
     sizes = _split(num_tasks, num_jobs, rng)
     jobs: List[JobInfo] = []
@@ -47,7 +52,7 @@ def make_jobs(num_tasks: int, num_jobs: int, queues: List[str],
         queue = queues[j % len(queues)]
         running = rng.random() < running_fraction
         min_avail = size
-        name = f"job-{j:05d}"
+        name = f"{name_prefix}job-{j:05d}"
         pg = PodGroup(name=name, queue=queue, min_member=min_avail,
                       phase=PodGroupPhase.RUNNING if running
                       else PodGroupPhase.INQUEUE)

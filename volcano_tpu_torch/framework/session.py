@@ -72,6 +72,10 @@ class Session:
         snapshot = cache.snapshot()
         self.jobs: Dict[str, JobInfo] = snapshot.jobs
         self.nodes: Dict[str, NodeInfo] = snapshot.nodes
+        # the snapshot generation this session opened on: the persistent
+        # tensor refresh refuses a stale session's delta over a newer
+        # snapshot's (cache.tensor_refresh)
+        self.snap_epoch = getattr(snapshot, "snap_epoch", None)
         self.queues: Dict[str, QueueInfo] = snapshot.queues
         self.namespaces = snapshot.namespaces
 
@@ -408,3 +412,25 @@ class Session:
 
     def statement(self) -> Statement:
         return Statement(self)
+
+    # -- persistent node tensors --------------------------------------------
+
+    def snapshot_node_tensors(self, rnames):
+        """The cache's persistent node tensors for this session's snapshot
+        on the session's device (cache.tensor_refresh), or None. They mirror
+        snapshot-time values, so they are valid only while no session
+        mutation has touched node state: after the first statement replays
+        (the ``_touched`` witness every NodeInfo mutation sets), mid-cycle
+        consumers such as the stateful re-solve rounds marshal from the
+        live session objects instead. None also when the kill switch is off
+        or the epoch moved; the caller then builds a fresh NodeTensors.
+
+        Unlike the JAX package, which catches any exception here, feeds a
+        device fault into its cool-down and rebuilds, a CUDA error raised
+        by the refresh propagates (the cache drops its persistent tensors
+        first): the port has no cool-down yet (ROADMAP item 10), and a
+        caught device fault would hide the device."""
+        if any(node._touched for node in self.nodes.values()):
+            return None
+        return self.cache.tensor_refresh(self.nodes, rnames, self.device,
+                                         self.snap_epoch)

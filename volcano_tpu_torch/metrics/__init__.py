@@ -5,7 +5,8 @@ This is the subset the serial cycle, the cache and the sim read and
 write: the end-to-end and per-action duration series (fed from the
 shell's spans), the mark/since API the sim's wall-clock plane reads,
 action failures, the dead-letter gauge, the crash-loop guard's health
-verdict, and the feedback-plane and journal counters. There is no
+verdict, the feedback-plane and journal counters, and the incremental
+snapshot's (full rebuilds by layer, state drift by layer). There is no
 Prometheus exposition yet.
 
 ``solver_trace`` marks a device solve as a named range in a
@@ -193,6 +194,21 @@ def set_inflight_stats(open_count: int, oldest_s: float,
 
 def register_feedback_ack(kind: str, verdict: str) -> None:
     _count(("feedback_acks", kind, verdict))
+
+
+# -- incremental snapshot and persistent tensors ------------------------------
+
+def register_snapshot_full_rebuild(layer: str) -> None:
+    """A snapshot (layer "clone") or a persistent-tensor refresh (layer
+    "tensor") rebuilt everything: expected at start-up and after bulk
+    mutation; a steady stream of these is a fallback storm."""
+    _count(("snapshot_full_rebuilds", layer))
+
+
+def register_state_drift(layer: str, n: int = 1) -> None:
+    """The shadow verifier found ``n`` drifted entries in ``layer``
+    (node, job or tensor) and repaired them."""
+    _count(("state_drift", layer), n)
 
 
 # -- device profiling --------------------------------------------------------

@@ -15,6 +15,7 @@ from typing import Dict
 
 import numpy as np
 
+from ..cache.snapshot import node_infos_for
 from .base import Plugin
 
 MAX_NODE_SCORE = 100.0
@@ -143,7 +144,7 @@ class NodeOrderPlugin(Plugin):
         or None when it would add the same constant to every node of a
         task — no effect on node choice, so the solve skips the [T,N]
         matrix entirely."""
-        nodes = [ssn.nodes[name] for name in node_t.names]
+        nodes = node_infos_for(ssn, node_t)
         T, N = len(tasks), len(nodes)
         tainted = [(ni, n) for ni, n in enumerate(nodes)
                    if any(t.get("effect") == "PreferNoSchedule"

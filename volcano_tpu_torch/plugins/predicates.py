@@ -26,6 +26,7 @@ from ..api import FitError
 from ..api.types import (NODE_AFFINITY_FAILED, NODE_POD_NUMBER_EXCEEDED,
                          NODE_PORTS_FAILED, NODE_UNSCHEDULABLE,
                          TAINTS_UNTOLERATED)
+from ..cache.snapshot import node_infos_for
 from .base import Plugin
 from .nodeorder import _toleration_matches, match_node_selector_terms
 
@@ -117,7 +118,7 @@ class PredicatesPlugin(Plugin):
             raise PredicateError(task, node, TAINTS_UNTOLERATED)
 
     def feasibility_mask(self, ssn, tasks, node_t):
-        node_infos = [ssn.nodes[name] for name in node_t.names]
+        node_infos = node_infos_for(ssn, node_t)
         T, N = len(tasks), len(node_infos)
         any_taints = any(n.taints for n in node_infos)
         any_unsched = any(n.unschedulable for n in node_infos)

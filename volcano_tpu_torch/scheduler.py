@@ -52,6 +52,12 @@ DEFAULT_BACKOFF_JITTER = 0.2
 # pass runs before the budget exists, so it carries its own work bound
 DEFAULT_RESYNC_MAX_PER_CYCLE = 256
 
+# shadow-verifier cadence: every N cycles the cache re-derives its snapshot
+# and tensor state from scratch after the cycle's timed window and repairs
+# any drift. 0 disables; VOLCANO_TPU_DRIFT_VERIFY_EVERY overrides the
+# constructor default.
+DEFAULT_DRIFT_VERIFY_EVERY = 64
+
 # constructor arguments of the JAX package's shell that name modes this
 # package does not have yet, and where they come from
 REFUSED_MODES = {
@@ -65,6 +71,14 @@ _MODE_ENV = {"pipelined": "VOLCANO_TPU_PIPELINED",
 
 def _env_flag(name: str) -> bool:
     return os.environ.get(name, "").lower() in ("1", "true", "on", "yes")
+
+
+def _drift_verify_default() -> int:
+    try:
+        return int(os.environ.get("VOLCANO_TPU_DRIFT_VERIFY_EVERY",
+                                  DEFAULT_DRIFT_VERIFY_EVERY))
+    except ValueError:
+        return DEFAULT_DRIFT_VERIFY_EVERY
 
 
 class WallClock:
@@ -115,6 +129,7 @@ class Scheduler:
                  budget_cost_fn: Optional[Callable] = None,
                  solve_deadline_s: Optional[float] = None,
                  resync_max_per_cycle: Optional[int] = None,
+                 drift_verify_every: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None):
         asked = {"pipelined": pipelined, "fast_admit": fast_admit,
                  "solve_deadline_s": solve_deadline_s}
@@ -146,7 +161,11 @@ class Scheduler:
         # action count as failed (chaos.ActionFaultInjector plugs in here)
         self.action_fault_hook: Optional[Callable] = None
         self.consecutive_failures = 0
+        # the epilogue counts cycles and runs the shadow drift verifier
+        # every drift_verify_every of them
         self._cycles_run = 0
+        self.drift_verify_every = _drift_verify_default() \
+            if drift_verify_every is None else drift_verify_every
         self._reconciled = False
         # overload: a per-cycle work bound. None (the default) is
         # unbounded; with a budget every action checks it before dispatch
@@ -330,8 +349,8 @@ class Scheduler:
 
     def _cycle_epilogue(self) -> None:
         """Off-cycle bookkeeping, run on both run_once exits: flush the
-        journal's buffered ack tail and run the in-flight ack watchdog."""
-        self._cycles_run += 1
+        journal's buffered ack tail, run the in-flight ack watchdog and
+        tick the drift-verify cadence."""
         with obs_trace.TRACE.span("epilogue"):
             journal = getattr(self.cache, "journal", None)
             if journal is not None:
@@ -345,6 +364,25 @@ class Scheduler:
                         self.cache.process_expired_inflight()
                 except Exception:
                     log.exception("in-flight ack watchdog failed")
+            self._maybe_verify_drift()
+
+    def _maybe_verify_drift(self) -> None:
+        """Every ``drift_verify_every`` cycles, after the cycle's timed
+        window closed, have the cache re-derive its snapshot and tensor
+        state from scratch and repair any drift. Isolated like an action
+        (``drift-verify``): a verifier fault costs no cycle."""
+        self._cycles_run += 1
+        if not self.drift_verify_every \
+                or self._cycles_run % self.drift_verify_every:
+            return
+        try:
+            stats = self.cache.verify_state_integrity()
+            if stats["drift_total"]:
+                log.error("state drift detected and repaired: %s",
+                          stats["drift"])
+        except Exception:
+            log.exception("shadow drift verification failed")
+            metrics.register_action_failure("drift-verify")
 
     def startup_reconcile(self, cluster_binds=None, cluster_evicts=None):
         """Settle the intent journal's crash window before the first cycle
@@ -416,10 +454,11 @@ class Scheduler:
 
     def prewarm(self) -> int:
         """Pay the card's start-up costs before the first cycle: open the
-        CUDA context and build and load every kernel of ``ops/csrc`` (one
-        nvcc per source, all at once). There are no shape-keyed compiles
-        to warm. Returns the number of kernel libraries loaded; on the
-        CPU it does nothing and returns 0."""
+        CUDA context, build and load every kernel of ``ops/csrc`` (one
+        nvcc per source, all at once) and, once the cache has nodes, upload
+        the persistent node tensors of its current snapshot. There are no
+        shape-keyed compiles to warm. Returns the number of kernel
+        libraries loaded; on the CPU it does nothing and returns 0."""
         if self.device.type != "cuda":
             return 0
         from .ops import build
@@ -427,7 +466,19 @@ class Scheduler:
         build.build_all(build.KERNELS)
         for name in build.KERNELS:
             build.load(name)
+        if self.cache.nodes:
+            self._prewarm_tensors()
         return len(build.KERNELS)
+
+    def _prewarm_tensors(self) -> None:
+        from .cache.snapshot import discover_resource_names
+        snap = self.cache.snapshot()
+        tasks = [t for j in snap.jobs.values() for t in j.tasks.values()]
+        rnames = discover_resource_names(list(snap.nodes.values()), tasks)
+        tc = self.cache.tensor_refresh(snap.nodes, rnames, self.device,
+                                       snap.snap_epoch)
+        if tc is not None:
+            tc._ensure_device()
 
     def start(self) -> threading.Thread:
         thread = threading.Thread(target=self.run, daemon=True,

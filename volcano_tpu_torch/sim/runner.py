@@ -559,7 +559,8 @@ class SimRunner:
         starting against the same cluster. The cache's object graph
         stands in for what a restart rebuilds from the API server, so the
         restart drops exactly the state a process death loses — the
-        resync queue, the dead-letter set, the in-flight ledger — then
+        resync queue, the dead-letter set, the in-flight ledger, every
+        cached snapshot clone and the persistent node tensors — then
         settles the journal's crash window against the executors' record
         and replaces the shell."""
         c = self.cache
@@ -575,7 +576,11 @@ class SimRunner:
         c.resync_queue = RateLimitedQueue(
             max_retries=c.resync_queue.max_retries,
             time_fn=self.clock.time)
+        # the new process starts cold: every cached clone and the
+        # persistent node tensors die with the old one
         c.mark_all_dirty()
+        c.tensor_cache = None
+        c._tensor_dirty = set()
         self._harvest_budget(self.sched)
         self.sched = self._new_scheduler()
         # the crash window holds at most ONE unacked intent (execution is
