@@ -115,7 +115,32 @@
    steady-10k and the hole world. Prints each run's schedule and session
    open (snapshot) ms p50/p99, the refreshes' scatter rows and ms, the
    drift counts, and baseline-10k's on and off side by side.
-14. Prints one JSON line with each kernel's launches, times, bound and
+14. Holds B7, the speculative solve's device decode
+   (``decode_packed_cuda``, csrc/place.cu), against its plain version to
+   the bit: on the words of B1 solves of step 2's worlds and of the 10k
+   cycle's solve (timed: CUDA events, warm, median; its bound is the
+   bytes once over HBM bandwidth), and on seeded wires with jobs of no
+   boundary row, jobs of several and rows of zero flags. Then
+   ``dispatch_speculative_solve`` on the baseline-10k world's speculative
+   session under ``torch.cuda.set_sync_debug_mode("error")`` must raise
+   nothing, and its fetched solution must equal the serial solve's.
+15. Runs the sim under ``--pipelined`` on the card (runner.
+   PIPELINED_SIM_CONF), each kernel's count set to 0 before each run:
+   pipelined-steady (seed 3, with --verify-pipelined-equivalence),
+   pipelined-conflict with --fast-admit, pipelined-conflict with kills at
+   cycles 3, 8 and 14 (kill seed 5: two land between a speculative
+   dispatch and its commit) and tools/sim_traces.py's ``backlog-16k``
+   (2,000 gangs, ~16,000 pods on 300 nodes, a standing backlog). Each
+   run's decision plane (with its speculation verdicts), side-effect
+   sequence and node-tensor path record must equal the JAX package's in
+   tests/sim_reference_digests.json, with no action failure and no double
+   bind; B7 must launch once for each dispatched speculation and B1 at
+   least as often. backlog-16k runs again with the serial shell in the
+   same call (the same terminal accounting); prints both sides'
+   schedule_ms and pipeline_e2e_ms p50/p99, and for each fetched
+   speculation whether its event had completed at the fetch (a count),
+   the dispatch's host ms and the fetch's wait ms.
+16. Prints one JSON line with each kernel's launches, times, bound and
    error (and its launches in each sim run), then the card's name and
    power limit, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -1001,8 +1026,10 @@ def kernel_counters():
     from volcano_tpu_torch.ops.blocks import (free_cuda, prep_cuda,
                                               round_cuda, topk_cuda)
     from volcano_tpu_torch.ops.evict import walk_cuda
-    from volcano_tpu_torch.ops.place import place_cuda, rowdiff_cuda
+    from volcano_tpu_torch.ops.place import (decode_packed_cuda, place_cuda,
+                                             rowdiff_cuda)
     return {"place": place_cuda, "rowdiff": rowdiff_cuda,
+            "decode_packed": decode_packed_cuda,
             "evict_walk": walk_cuda, "blocks_prep": prep_cuda,
             "blocks_topk": topk_cuda, "blocks_round": round_cuda,
             "blocks_free": free_cuda}
@@ -1306,6 +1333,301 @@ def incremental_phase(digests, sim_runs, runs=INCREMENTAL_RUNS,
         for k in ("schedule_ms", "open_ms", "snapshot_clone_ms",
                   "pipeline_e2e_ms", "tensor_paths")}), flush=True)
     print("incremental card:", card_line(), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined cycle and B7
+# ---------------------------------------------------------------------------
+
+# (source, sim arguments, arguments past the digest's), each held to its
+# entry in tests/sim_reference_digests.json (tools/sim_reference.py's
+# pipelined RUNS): the no-conflict world (with its serial oracle), churn
+# with fast admit, churn with kills (two of them between a speculative
+# dispatch and its commit) and the full-width standing backlog
+PIPELINED_RUNS = (
+    ("pipelined-steady", ("--seed", "3", "--pipelined"),
+     ("--verify-pipelined-equivalence",)),
+    ("pipelined-conflict", ("--pipelined", "--fast-admit"), ()),
+    ("pipelined-conflict", ("--pipelined", "--kill-cycles", "3,8,14",
+                            "--kill-seed", "5"), ()),
+    ("trace:backlog-16k", ("--pipelined",), ()),
+)
+
+
+def job_index(flags):
+    """Each task's job index from the solve's FIRST flags."""
+    return (np.cumsum((np.asarray(flags) & 2) != 0) - 1).astype(np.int32)
+
+
+def compare_decode(label, packed, job_ix, J, timed=False):
+    """decode_packed_cuda against decode_packed_plain on the same CUDA
+    tensors, to the bit; with ``timed`` also both times and the bound
+    (each word and job index read once, the wire written once, over HBM
+    bandwidth)."""
+    import torch
+
+    from volcano_tpu_torch.ops.place import (decode_packed_cuda,
+                                             decode_packed_plain)
+    got = decode_packed_cuda(packed, job_ix, J)
+    torch.cuda.synchronize()
+    want = decode_packed_plain(packed, job_ix, J)
+    check(got.dtype == want.dtype and torch.equal(got, want),
+          f"decode {label}: kernel and plain wires differ")
+    T = int(packed.shape[0])
+    rec = {"world": label, "T": T, "J": int(J), "max_abs_err": 0.0,
+           "boundary_rows": int(((packed & 12) != 0).sum())}
+    if timed:
+        rec["ms"] = time_cuda_ms(lambda: decode_packed_cuda(packed, job_ix,
+                                                            J), reps=21)
+        rec["plain_ms"] = time_host_ms(
+            lambda: decode_packed_plain(packed, job_ix, J))
+        rec["bound_ms"] = (2 * T + 2 * T + 2 * J) * 4 / HBM_BYTES_PER_S * 1e3
+        rec["bound_by"] = "bytes"
+    print("kernel decode_packed", json.dumps(rec), flush=True)
+    return rec
+
+
+def decode_worlds(dev):
+    """B7 on the wires of B1 solves of step 2's worlds and of the 10k
+    cycle's solve (B1 on the card, its words then decoded), and on seeded
+    wires with jobs of no boundary row, jobs of several and rows of zero
+    flags. Returns the records; the 10k cycle's is timed."""
+    import torch
+
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+    from volcano_tpu_torch.ops.place import place_cuda
+    out = []
+    solves = [("b1-random-0", kernel_args(random_world(
+                   0, T=400, N=300, J=40, R=3, tight=False), dev)),
+              ("b1-tight-0", kernel_args(random_world(
+                   100, T=600, N=64, J=60, R=2, tight=True), dev)),
+              ("b1-rollback-then-same",
+               kernel_args(rollback_then_same_world(64), dev)),
+              ("b1-slice-10k", slice_args(baseline_config("10k")[0]))]
+    for label, args in solves:
+        packed = place_cuda(*args)[0]
+        flags = args[7].cpu().numpy()
+        jix = job_index(flags)
+        J = int(jix[-1]) + 1 if len(jix) else 0
+        out.append(compare_decode(
+            label, packed, torch.tensor(jix, device=dev), J,
+            timed=label == "b1-slice-10k"))
+    rng = np.random.default_rng(7)
+    for T, J in ((1, 1), (1000, 40), (20000, 3000), (5000, 5000), (0, 5)):
+        jix = np.sort(rng.integers(0, J, T)).astype(np.int32)
+        fl = rng.integers(0, 16, T)
+        fl[rng.random(T) < 0.25] = 0
+        packed = ((rng.integers(0, 2000, T) + 1) << 4 | fl).astype(np.int32)
+        out.append(compare_decode(
+            f"seeded-T{T}-J{J}", torch.tensor(packed, device=dev),
+            torch.tensor(jix, device=dev), J))
+    return out
+
+
+def nosync_dispatch(dev):
+    """dispatch_speculative_solve on the baseline-10k world's speculative
+    session under torch.cuda.set_sync_debug_mode("error"), then its fetch
+    against the serial solve on the same session; returns the dispatch's
+    host ms and the fetch's wait ms."""
+    import torch
+
+    from volcano_tpu_torch import Scheduler
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+    from volcano_tpu_torch.framework import abandon_session, open_session
+    from volcano_tpu_torch.ops.place import max_cluster
+    from volcano_tpu_torch.sim.runner import PIPELINED_SIM_CONF
+    cache = baseline_config("10k")[0]
+    sched = Scheduler(cache, PIPELINED_SIM_CONF, device=dev, pipelined=True)
+    sched.prewarm()
+    max_cluster()
+    ssn = open_session(cache, sched.conf.tiers, sched.conf.configurations,
+                       device=dev, speculative=True)
+    try:
+        sched.actions[0].execute(ssn)        # enqueue, as the cycle before
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = allocate.dispatch_speculative_solve(ssn, "tpu-fused")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(pending is not None and pending.event is not None,
+              "the 10k speculative session dispatched nothing")
+        got = allocate.finalize_speculative_dispatch(pending)
+        want = allocate._fused_solution(
+            allocate.placement_inputs(ssn, pending.ordered_jobs))
+        for f in ("task_node", "pipelined", "job_ready", "job_kept"):
+            check(np.array_equal(np.asarray(getattr(got, f)),
+                                 np.asarray(getattr(want, f))),
+                  f"the dispatched solve's {f} differs from the serial "
+                  f"solve's")
+        check(int((np.asarray(got.task_node) >= 0).sum())
+              == len(pending.tasks),
+              "the dispatched 10k solve did not place every pod")
+        rec = {"dispatch_host_ms": pending.dispatch_s * 1e3,
+               "fetch_wait_ms": pending.wait_s * 1e3,
+               "done_at_fetch": bool(pending.done_at_fetch),
+               "tasks": len(pending.tasks)}
+    finally:
+        abandon_session(ssn)
+    print("pipelined nosync dispatch 10k:", json.dumps(rec), flush=True)
+    return rec
+
+
+def run_pipelined(source, args, extra, trace_dir):
+    """One run of PIPELINED_RUNS on the card: the run_sim results, the
+    tensor-path summary of its first (reported) run, and each dispatched
+    speculation's dispatch host ms, with, where it was fetched, whether
+    its event had completed at the fetch and the fetch's wait ms."""
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.sim.runner import SimRunner
+    tool, traces = sim_tools()
+    dispatched, fetched = [], []
+    real_dispatch = allocate.dispatch_speculative_solve
+    real_finalize = allocate.finalize_speculative_dispatch
+    real_run = SimRunner.run
+    first = {}
+
+    def dispatch(*a, **kw):
+        pending = real_dispatch(*a, **kw)
+        if pending is not None:
+            dispatched.append(pending)
+        return pending
+
+    def finalize(pending):
+        sol = real_finalize(pending)
+        fetched.append(pending)
+        return sol
+
+    def run(runner):
+        report = real_run(runner)
+        first.setdefault("paths", len(paths.paths))
+        first.setdefault("drift", len(paths.drift))
+        return report
+
+    allocate.dispatch_speculative_solve = dispatch
+    allocate.finalize_speculative_dispatch = finalize
+    SimRunner.run = run
+    paths = traces.TensorPathRecorder(allocate, SchedulerCache)
+    try:
+        out = run_sim(None, (*args, *extra), tool.sim_argv(source, trace_dir))
+    finally:
+        paths.close()
+        allocate.dispatch_speculative_solve = real_dispatch
+        allocate.finalize_speculative_dispatch = real_finalize
+        SimRunner.run = real_run
+    paths.paths = paths.paths[:first["paths"]]
+    paths.drift = paths.drift[:first["drift"]]
+    return out, paths.summary(), dispatched, fetched
+
+
+def pipelined_phase(digests, sim_runs, runs=PIPELINED_RUNS, extra_args=()):
+    """Step 15: B7 against its plain version, the no-sync dispatch, and
+    the sim's pipelined runs on the card, each held to the JAX package's
+    record, with backlog-16k's serial run in the same call. Adds each
+    run's launches to ``sim_runs``; returns B7's timed record, the no-sync
+    record and the pipelined runs' records."""
+    import hashlib
+    import tempfile
+
+    from volcano_tpu_torch.framework import resolve_device
+    from volcano_tpu_torch.sim.report import percentiles, terminal_accounting
+    dev = resolve_device(None)
+    decode_records = decode_worlds(dev)
+    nosync = nosync_dispatch(dev)
+    tool, _ = sim_tools()
+    out = {}
+    with tempfile.TemporaryDirectory() as trace_dir:
+        for source, args, extra in runs:
+            key = tool.run_key(source, args)
+            (report, text, sequence, launches, wall_s), paths, dispatched, \
+                fetched = run_pipelined(source, (*args, *extra_args),
+                                        extra, trace_dir)
+            want = digests[key]
+            check(hashlib.sha256(text).hexdigest() == want["sha256"]
+                  and len(text) == want["bytes"],
+                  f"pipelined {key}: decision plane differs from the JAX "
+                  f"package's ({len(text)} bytes, want {want['bytes']})")
+            check((sequence["sha256"], sequence["binds"],
+                   sequence["evicts"])
+                  == (want["sequence_sha256"], want["sequence_binds"],
+                      want["sequence_evicts"]),
+                  f"pipelined {key}: a bind's node or an eviction differs "
+                  f"from the JAX package's")
+            check(paths == want["tensor_paths"],
+                  f"pipelined {key}: node-tensor paths {paths} differ from "
+                  f"the JAX package's {want['tensor_paths']}")
+            check(report["action_failures"] == 0
+                  and report["double_binds"] == 0,
+                  f"pipelined {key}: {report['action_failures']} action "
+                  f"failures, {report['double_binds']} double binds")
+            check(report["jobs"]["completed"] == report["jobs"]["arrived"],
+                  f"pipelined {key}: not every arrived job completed")
+            n = len(dispatched)
+            check(n > 0, f"pipelined {key}: no speculation was dispatched")
+            check(launches["decode_packed"] == n,
+                  f"pipelined {key}: B7 launched {launches['decode_packed']}"
+                  f" times for {n} dispatched speculations")
+            check(launches["place"] >= n,
+                  f"pipelined {key}: B1 launched {launches['place']} times "
+                  f"for {n} dispatched speculations")
+            wall = report["wallclock"]
+            rec = {
+                "args": list(args) + list(extra), "cycles": report["cycles"],
+                "binds": report["binds"], "restarts": report["restarts"],
+                "speculation": report["speculation"],
+                "fast_admit": report.get("fast_admit"),
+                "dispatched": n, "fetched": len(fetched),
+                "done_at_fetch": sum(1 for p in fetched if p.done_at_fetch),
+                "dispatch_host_ms": percentiles(
+                    [p.dispatch_s * 1e3 for p in dispatched]),
+                "fetch_wait_ms": percentiles(
+                    [p.wait_s * 1e3 for p in fetched]),
+                "launches": launches,
+                "schedule_ms": wall["schedule_ms"],
+                "pipeline_e2e_ms": wall["pipeline_e2e_ms"],
+                "tensor_paths": {k: v for k, v in paths.items()
+                                 if k != "sha256"},
+                "ttfb_p99_cycles": report.get("ttfb_p99_cycles"),
+                "wall_s": wall_s,
+                "decision_plane_sha256": hashlib.sha256(text).hexdigest(),
+                "sequence_sha256": sequence["sha256"]}
+            out[key] = (rec, report)
+            sim_runs[key] = launches
+            print(f"pipelined {key}:", json.dumps(rec), flush=True)
+        # backlog-16k's serial shell on the same trace and conf, same call
+        from volcano_tpu_torch.sim.runner import PIPELINED_SIM_CONF
+        conf = os.path.join(trace_dir, "pipelined.conf")
+        with open(conf, "w") as f:
+            f.write(PIPELINED_SIM_CONF)
+        src = tool.sim_argv("trace:backlog-16k", trace_dir)
+        report, text, sequence, launches, wall_s = run_sim(
+            None, ("--conf", conf, *extra_args), src)
+        piped_rec, piped = out[tool.run_key("trace:backlog-16k",
+                                            ("--pipelined",))]
+        check(terminal_accounting(report) == terminal_accounting(piped)
+              and report["binds"] == piped["binds"],
+              "backlog-16k: the serial run's terminal accounting differs "
+              "from the pipelined run's")
+        check(launches["decode_packed"] == 0,
+              "backlog-16k serial: B7 launched")
+        sim_runs["trace:backlog-16k serial"] = launches
+        wall = report["wallclock"]
+        side = {
+            "pipelined": {k: piped_rec[k] for k in (
+                "schedule_ms", "pipeline_e2e_ms", "speculation",
+                "done_at_fetch", "fetched", "dispatch_host_ms",
+                "fetch_wait_ms", "cycles", "wall_s")},
+            "serial": {"schedule_ms": wall["schedule_ms"],
+                       "pipeline_e2e_ms": wall["pipeline_e2e_ms"],
+                       "cycles": report["cycles"], "wall_s": wall_s,
+                       "launches": launches}}
+        print("pipelined backlog-16k pipelined vs serial:",
+              json.dumps(side), flush=True)
+    print("pipelined card:", card_line(), flush=True)
+    timed = [r for r in decode_records if "ms" in r][0]
+    return timed, decode_records, nosync, out
 
 
 # ---------------------------------------------------------------------------
@@ -1735,8 +2057,14 @@ def main() -> int:
     # 13. the incremental snapshot and the persistent node tensors
     incremental_phase(digests, sim_runs)
 
+    phase("pipelined")
+    # 14-15. the pipelined cycle: B7, the no-sync dispatch, the sim
+    decode_rec, decode_records, _, pipelined_runs = pipelined_phase(
+        digests, sim_runs)
+    backlog_key = "--trace backlog-16k --pipelined"
+
     phase("summary")
-    # 14. the kernels line (launches: the placement kernel's in the 10k
+    # 16. the kernels line (launches: the placement kernel's in the 10k
     # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
     # it a static matrix, the walk's in the deployed cycle of the tight mix,
     # the one where preempt has work, the block auction's in the tpu-blocks
@@ -1788,6 +2116,20 @@ def main() -> int:
         "bulks": walk_main["bulks"],
         "in_smem": walk_main["in_smem"],
         "threads": walk_main["threads"],
+    }, {
+        "name": "decode_packed",
+        "route": "cuda",
+        "source": "volcano_tpu_torch/ops/csrc/place.cu",
+        "replaces": "volcano_tpu/ops/pallas_place.py:471",
+        "launches": pipelined_runs[backlog_key][0]["launches"][
+            "decode_packed"],
+        "max_abs_err": max(r["max_abs_err"] for r in decode_records),
+        "ms": decode_rec["ms"],
+        "plain_ms": decode_rec["plain_ms"],
+        "bound_ms": decode_rec["bound_ms"],
+        "bound_by": decode_rec["bound_by"],
+        "library_ms": None,
+        "T": decode_rec["T"], "J": decode_rec["J"],
     }]
     solve20 = big_blocks["20k"]
     extra = {

@@ -83,10 +83,6 @@ def test_scheduler_run_once():
     (SLICE_CONF.replace("backfill", "reserve"), "reserve"),
     (SLICE_CONF.replace("engine: tpu-fused", "engine: callbacks-parallel"),
      "callbacks-parallel"),
-    (SLICE_CONF.replace("engine: tpu-fused", "engine: tpu-scan"),
-     "tpu-scan"),
-    (SLICE_CONF.replace("engine: tpu-fused", "engine: tpu-pallas"),
-     "tpu-pallas"),
     (SLICE_CONF.replace("engine: tpu-fused",
                         "engine: tpu-fused\n    topology-weight: 3"),
      "topology-weight"),

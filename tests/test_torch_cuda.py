@@ -434,3 +434,65 @@ def test_hole_worlds_decide_on_the_card_as_on_the_cpu(name, card):
     got = hole_world_run(True, name, device="cuda")
     assert got == hole_world_run(True, name)
 
+
+
+# ---------------------------------------------------------------------------
+# B7 and the speculative dispatch
+# ---------------------------------------------------------------------------
+
+def _seeded_wire(seed, T, J, device):
+    rng = np.random.default_rng(seed)
+    job_ix = np.sort(rng.integers(0, J, T)).astype(np.int32)
+    flags = rng.integers(0, 16, T)
+    flags[rng.random(T) < 0.2] = 0          # rows with zero flags
+    packed = ((rng.integers(0, 5000, T) + 1) << 4 | flags).astype(np.int32)
+    t = lambda a: torch.tensor(a, device=device)  # noqa: E731
+    return t(packed), t(job_ix)
+
+
+@pytest.mark.parametrize("seed, T, J", [(0, 1, 1), (1, 100, 7),
+                                        (2, 10000, 200), (3, 5000, 5000),
+                                        (4, 0, 4), (5, 70000, 33)])
+def test_decode_kernel_matches_plain(seed, T, J, card):
+    """To the bit, on wires with jobs of no boundary row and of several."""
+    from volcano_tpu_torch.ops.place import (decode_packed_cuda,
+                                             decode_packed_plain)
+    packed, job_ix = _seeded_wire(seed, T, J, card)
+    got = decode_packed_cuda(packed, job_ix, J)
+    torch.cuda.synchronize()
+    assert torch.equal(got, decode_packed_plain(packed, job_ix, J))
+
+
+def test_dispatch_does_not_synchronize_and_equals_the_serial_solve(card):
+    """dispatch_speculative_solve raises nothing under the sync debug mode
+    "error", and its fetched solution equals the serial solve's on the
+    same speculative session."""
+    from volcano_tpu_torch import Scheduler
+    from volcano_tpu_torch.actions import allocate as alloc
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+    from volcano_tpu_torch.framework import abandon_session, open_session
+    from volcano_tpu_torch.ops.place import max_cluster as probe
+    from torch_parity import PIPELINED_CONF
+    cache = baseline_config("10k")[0]
+    sched = Scheduler(cache, PIPELINED_CONF, device=card, pipelined=True)
+    probe()
+    ssn = open_session(cache, sched.conf.tiers, sched.conf.configurations,
+                       device=card, speculative=True)
+    try:
+        # the previous cycle's enqueue, which the sim's speculation follows
+        sched.actions[0].execute(ssn)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = alloc.dispatch_speculative_solve(ssn, "tpu-fused")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert pending is not None and pending.event is not None
+        got = alloc.finalize_speculative_dispatch(pending)
+        want = alloc._fused_solution(
+            alloc.placement_inputs(ssn, pending.ordered_jobs))
+        for f in ("task_node", "pipelined", "job_ready", "job_kept"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        assert (np.asarray(got.task_node) >= 0).sum() == 10000
+    finally:
+        abandon_session(ssn)

@@ -783,8 +783,7 @@ tiers:
 REFUSED_CONFS = [
     (SIMPLE_CONF + "configurations:\n- name: allocate\n  arguments:\n"
      f"    engine: {engine}\n", engine)
-    for engine in ("tpu-sharded", "tpu-scan", "tpu-pallas",
-                   "callbacks-parallel")
+    for engine in ("tpu-sharded", "callbacks-parallel")
 ] + [
     (SIMPLE_CONF + "configurations:\n- name: allocate\n  arguments:\n"
      "    topology-weight: 3\n", "topology-weight"),
@@ -891,19 +890,10 @@ def test_pod_affinity_refusal_propagates_from_the_cycle():
     assert gc.isenabled()
 
 
-@pytest.mark.parametrize("mode, value", [
-    ("pipelined", True), ("fast_admit", True), ("solve_deadline_s", 0.5)])
+@pytest.mark.parametrize("mode, value", [("solve_deadline_s", 0.5)])
 def test_refused_scheduler_modes(mode, value):
     with pytest.raises(NotImplementedError, match=mode):
         Scheduler(SchedulerCache(), device="cpu", **{mode: value})
-
-
-@pytest.mark.parametrize("env", ["VOLCANO_TPU_PIPELINED",
-                                 "VOLCANO_TPU_FAST_ADMIT"])
-def test_refused_scheduler_modes_by_environment(monkeypatch, env):
-    monkeypatch.setenv(env, "1")
-    with pytest.raises(NotImplementedError):
-        Scheduler(SchedulerCache(), device="cpu")
 
 
 def test_every_refused_sim_flag_exits_by_name(capsys):

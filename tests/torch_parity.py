@@ -2185,6 +2185,106 @@ def hole_world_run(torch_port: bool, name: str, device: str = "cpu") -> dict:
             "stale_rows": stale}
 
 
+# the JAX package's tests/test_pipelined.py conf (runner.PIPELINED_SIM_CONF)
+PIPELINED_CONF = """
+actions: "enqueue, allocate-tpu, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+"""
+# tests/test_pipelined.py's drive worlds: a standing backlog (no mutation
+# between cycles), bind acks with a late arrival each cycle, and two gang
+# completions each cycle
+PIPELINED_WORLDS = ("standing", "acks", "completions")
+
+
+def pipelined_drive(torch_port: bool, name: str) -> dict:
+    """tests/test_pipelined.py's ``drive``: 10 cycles of PIPELINED_CONF
+    over 30 two-pod gangs of 1 CPU on 4 nodes of 2 CPU, with the world's
+    mutation after each cycle, through the port on the CPU or the JAX
+    package. ``name`` is "WORLD:serial" or "WORLD:pipelined". Returns each
+    cycle's plane (every task's uid, node and status), each cycle's
+    speculation verdict and the binds in order."""
+    world, mode = name.split(":")
+    gi = 1 << 30
+    if torch_port:
+        from volcano_tpu_torch import Scheduler
+        from volcano_tpu_torch.api import (JobInfo, NodeInfo, PodGroup,
+                                           PodGroupPhase, QueueInfo,
+                                           Resource, TaskInfo, TaskStatus)
+        from volcano_tpu_torch.cache import SchedulerCache, SequenceBinder
+
+        def scheduler(cache, pipelined):
+            return Scheduler(cache, conf_text=PIPELINED_CONF,
+                             pipelined=pipelined, device="cpu")
+    else:
+        from volcano_tpu.api import (JobInfo, NodeInfo, PodGroup,
+                                     PodGroupPhase, QueueInfo, Resource,
+                                     TaskInfo, TaskStatus)
+        from volcano_tpu.cache import SchedulerCache
+        from volcano_tpu.cache.executors import SequenceBinder
+        from volcano_tpu.scheduler import Scheduler
+
+        def scheduler(cache, pipelined):
+            return Scheduler(cache, conf_text=PIPELINED_CONF,
+                             pipelined=pipelined)
+
+    def mkjob(uid, ts, cpu=1000, tasks=2):
+        pg = PodGroup(name=uid, queue="q1", min_member=tasks,
+                      phase=PodGroupPhase.PENDING)
+        job = JobInfo(uid=uid, name=uid, queue="q1", min_available=tasks,
+                      podgroup=pg, creation_timestamp=ts)
+        for t in range(tasks):
+            job.add_task_info(TaskInfo(
+                uid=f"{uid}-{t}", name=f"{uid}-{t}", job=uid,
+                resreq=Resource(cpu, gi), creation_timestamp=ts + t * 1e-6))
+        return job
+
+    binder = SequenceBinder()
+    cache = SchedulerCache(binder=binder, default_queue=None)
+    cache.add_queue(QueueInfo(name="q1", weight=1))
+    for i in range(4):
+        alloc_r = Resource(2000, 64 * gi)
+        alloc_r.max_task_num = 100
+        cache.add_node(NodeInfo(name=f"n{i}", allocatable=alloc_r))
+    for j in range(30):
+        cache.add_job(mkjob(f"j{j}", float(j)))
+
+    def mutate(cyc):
+        if world == "acks":
+            for job in cache.jobs.values():
+                for t in list(job.tasks.values()):
+                    if t.status == TaskStatus.BOUND:
+                        cache.update_task_status(t, TaskStatus.RUNNING)
+            cache.add_job(mkjob(f"late{cyc}", 1000.0 + cyc, cpu=500))
+        elif world == "completions":
+            done = [j for j in cache.jobs.values()
+                    if j.ready_task_num() >= j.min_available][:2]
+            for job in done:
+                for task in list(job.tasks.values()):
+                    cache.delete_task(task)
+                cache.remove_job(job.uid)
+
+    sched = scheduler(cache, mode == "pipelined")
+    planes, outcomes = [], []
+    for cyc in range(10):
+        errs = sched.run_once()
+        assert not errs, errs
+        outcomes.append(sched.last_speculation.get("outcome"))
+        planes.append(sorted(
+            (t.uid, t.node_name, str(t.status).rsplit(".", 1)[-1])
+            for j in cache.jobs.values() for t in j.tasks.values()))
+        mutate(cyc)
+    return {"planes": planes, "outcomes": outcomes,
+            "binds": list(binder.sequence)}
+
+
 def jax_reference_script(argv, out_path, names=()) -> dict:
     """Run ``python *argv out_path *names`` in a child process without FMA
     contraction and load the pickle it writes to ``out_path``."""
@@ -2210,6 +2310,7 @@ def jax_reference(kind: str, names, out_path) -> dict:
     "place": name -> jax_place(); "blocks": name -> jax_blocks();
     "engines": "engine:world" -> engine_reference(); "incremental":
     name -> hole_world_run() of a HOLE_WORLDS or DRAIN_WORLDS world;
+    "pipelined": name -> pipelined_drive();
     "mixed": names are
     "kind:name", so one child process serves several kinds."""
     return jax_reference_script([os.path.abspath(__file__), kind], out_path,
@@ -2243,6 +2344,8 @@ def _reference(kind, name):
         return engine_reference(name)
     if kind == "incremental":
         return hole_world_run(False, name)
+    if kind == "pipelined":
+        return pipelined_drive(False, name)
     return jax_place(PLACE_WORLDS[name](), name in INTEGER_PLACE_WORLDS)
 
 

@@ -19,7 +19,7 @@ rows) and each drift the shadow verifier repaired
 card's runs to, since the card has no JAX.
 
 A run is a named scenario or a trace of ``tools/sim_traces.py`` (``churn``,
-``hole-10k``), written to a JSONL file and replayed with ``--trace``, and
+``hole-10k``, ``backlog-16k``), written to a JSONL file and replayed with ``--trace``, and
 may set environment switches: ``VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0`` runs
 the JAX package with its incremental snapshot and persistent tensors off.
 
@@ -101,6 +101,16 @@ RUNS = (
     ("baseline-10k", ("--conf", DEPLOYED), OFF),
     ("trace:churn", ("--conf", DEPLOYED), OFF),
     ("trace:hole-10k", ("--conf", DEPLOYED), OFF),
+    # the pipelined shell under its own conf (runner.PIPELINED_SIM_CONF):
+    # the no-conflict world, churn with fast admit, churn with kills (kill
+    # seed 5 draws post_cycle, speculate, speculate: two of them land
+    # between a speculative dispatch and its commit), and the full-width
+    # standing backlog
+    ("pipelined-steady", ("--seed", "3", "--pipelined"), ()),
+    ("pipelined-conflict", ("--pipelined", "--fast-admit"), ()),
+    ("pipelined-conflict", ("--pipelined", "--kill-cycles", "3,8,14",
+                            "--kill-seed", "5"), ()),
+    ("trace:backlog-16k", ("--pipelined",), ()),
 )
 
 

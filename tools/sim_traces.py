@@ -20,6 +20,13 @@ file (``--trace``).
   the scatter path, spare-x takes spare-1's row, and the three gangs land
   on spare-x, spare-2 and spare-3 in row order with the persistent
   tensors on, in snapshot order (spare-2, spare-3, spare-x) with them off.
+- ``backlog-16k``: the ``pipelined-steady`` scenario scaled up to
+  steady-10k's cluster, a full-width world with a standing backlog: 2,000
+  gangs of 4, 8 or 16 pods (about 16,000 pods, 1 or 2 CPU and 1 GiB each,
+  30-45 s each) land at about t = 0 on 300 nodes of 32 CPU / 128 GiB / 110
+  pods, so about 26,000 CPU of demand face 9,600 of capacity and the
+  cluster drains the gangs in waves over about 100 cycles. Each cycle
+  leaves a backlog for the pipelined shell to speculate over.
 
 Run as a script, it writes one trace: ``python tools/sim_traces.py NAME
 OUT.jsonl``.
@@ -74,6 +81,17 @@ def hole_trace(seed: int = 0):
     return validate_trace(_merge(baseline_trace("10k", seed=seed), extra))
 
 
+def backlog_trace(seed: int = 0):
+    from volcano_tpu_torch.sim.trace import validate_trace
+    from volcano_tpu_torch.sim.workload import synthetic_trace
+    return validate_trace(synthetic_trace(
+        2000, 300, seed=seed, arrival_rate=1000.0, duration_mean=30.0,
+        duration_cap=45.0, tail_alpha=4.0,
+        gang_sizes=((4, 0.4), (8, 0.4), (16, 0.2)), queues=(("q1", 1),),
+        cpu_choices=(1000, 2000), mem_choices=(GI,),
+        priority_choices=(0,)))
+
+
 def _merge(trace, extra):
     """``extra`` after every event of ``trace`` at the same time, in its
     own order."""
@@ -86,7 +104,8 @@ def _merge(trace, extra):
     return out
 
 
-TRACES = {"churn": churn_trace, "hole-10k": hole_trace}
+TRACES = {"churn": churn_trace, "hole-10k": hole_trace,
+          "backlog-16k": backlog_trace}
 
 
 def write_trace_file(name: str, path: str) -> str:
@@ -99,8 +118,8 @@ class TensorPathRecorder:
     """Records, solve by solve, which node-tensor path a package's allocate
     took (``actions/allocate.py::_node_tensors``: the persistent rows or a
     fresh build; for the persistent rows whether the refresh rebuilt them
-    all and how many rows it scattered), and every drift the shadow
-    verifier repaired. Works on either package: pass its allocate module
+    all and how many rows it scattered; a pipelined run's speculative
+    solves too), and every drift the shadow verifier repaired. Works on either package: pass its allocate module
     and its SchedulerCache class. ``close`` restores both."""
 
     def __init__(self, alloc_module, cache_cls):
@@ -115,7 +134,9 @@ class TensorPathRecorder:
         def node_tensors(ssn, rnames):
             node_t = real_nt(ssn, rnames)
             if alloc_module.LAST_STATS["tensor_incremental"]:
-                refresh = node_t.last_refresh
+                # a speculative solve reads a pinned epoch of the
+                # persistent tensors; its owner holds the refresh's stats
+                refresh = getattr(node_t, "_owner", node_t).last_refresh
                 rec.paths.append(["persistent", bool(refresh["full"]),
                                   int(refresh["rows"])])
             else:

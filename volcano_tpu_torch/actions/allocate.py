@@ -26,11 +26,21 @@ is Ready. The engines (the JAX package's actions/allocate.py):
 - ``tpu-blocks``: tpu-fused's fixed point with the block auction
   (ops/blocks.py) as the solve.
 
+- ``tpu-scan`` and ``tpu-pallas``: the JAX package's XLA scan and Pallas
+  forms of tpu-fused's solve; both compute B1's function, so here both run
+  tpu-fused (the placement kernel).
+
 The action ``allocate`` defaults to callbacks and ``allocate-tpu`` to
 tpu-fused. A conf that asks for an engine this package lacks
-(``tpu-sharded``, ``tpu-scan``, ``tpu-pallas``, ``callbacks-parallel``) or
-for a positive ``topology-weight`` is refused by name. A device solve that
-fails raises: there is no fallback placer and no device cool-down.
+(``tpu-sharded``, ``callbacks-parallel``) or for a positive
+``topology-weight`` is refused by name. A device solve that fails raises:
+there is no fallback placer and no device cool-down.
+
+The pipelined shell splits tpu-fused's first solve in two:
+``dispatch_speculative_solve`` orders, assembles and launches it on a side
+CUDA stream with no host synchronization, and at the next cycle's commit
+boundary ``finalize_speculative_dispatch`` fetches it and
+``_execute_fused(first_solution=...)`` continues the fixed point from it.
 """
 
 from __future__ import annotations
@@ -50,7 +60,8 @@ from ..cache.snapshot import (NodeTensors, assemble_feasibility,
                               discover_resource_names, task_requests)
 from ..ops.blocks import (JobMeta, NodeState, padded_task_len,
                           place_blocks_unified)
-from ..ops.place import NEG, NO_NODE, place
+from ..ops.place import (NEG, NO_NODE, fetch_packed, place, place_dispatch,
+                         upload)
 from ..ops.scores import ScoreWeights
 from ..utils import PriorityQueue
 from ..utils.scheduler_helper import (predicate_nodes, prioritize_nodes,
@@ -58,12 +69,13 @@ from ..utils.scheduler_helper import (predicate_nodes, prioritize_nodes,
 from .base import Action
 
 ENGINES = ("callbacks", "tpu-strict", "tpu-strict-perjob", "tpu-fused",
-           "tpu-blocks")
+           "tpu-scan", "tpu-pallas", "tpu-blocks")
+# the engines whose first solve the pipelined shell may dispatch ahead: all
+# three name the placement kernel here
+SPECULATIVE_ENGINES = ("tpu-fused", "tpu-scan", "tpu-pallas")
 # engines of the JAX package this one lacks, and why
 MISSING_ENGINES = {
     "tpu-sharded": "the node-sharded solve over a device mesh (B5)",
-    "tpu-scan": "the XLA scan solve, whose function place.cu computes",
-    "tpu-pallas": "the Pallas solve, whose function place.cu computes",
     "callbacks-parallel": "the 16-way threaded callbacks engine",
 }
 BLOCKS_BIG_T = 12000    # above this many tasks the blocks budgets are 5/4
@@ -213,12 +225,15 @@ def _pending_tasks(ssn, job) -> List[TaskInfo]:
     return out
 
 
-def _build_interleave(ssn):
+def _build_interleave(ssn, only_jobs: Optional[set] = None):
     """The namespace -> queue -> job priority queues the popping loop
-    mutates (allocate.go:123-142)."""
+    mutates (allocate.go:123-142), over the uids of ``only_jobs`` when
+    given."""
     namespaces = PriorityQueue(ssn.namespace_order_fn)
     jobs_map: Dict[str, Dict[str, PriorityQueue]] = {}
     for job in _eligible_jobs(ssn):
+        if only_jobs is not None and job.uid not in only_jobs:
+            continue
         ns = job.namespace
         if ns not in jobs_map:
             namespaces.push(ns)
@@ -279,15 +294,18 @@ def _assume_allocated(ssn, job) -> Optional[_AggTask]:
     return agg
 
 
-def _fixed_job_order(ssn, assumed_admitted: Optional[set] = None) -> List:
+def _fixed_job_order(ssn, assumed_admitted: Optional[set] = None,
+                     only_jobs: Optional[set] = None) -> List:
     """Precompute the interleave for the fused solve: the popping loop with
     every popped job in ``assumed_admitted`` (all jobs when None) assumed to
     allocate all of its pending tasks, its allocate events fired so that
     share updates and overused gating order queues as the live loop would;
     all events are undone before returning. The fused executor iterates this
     to a fixed point on the actually admitted set, so gang failures feed
-    back into the ordering."""
-    namespaces, jobs_map = _build_interleave(ssn)
+    back into the ordering. ``only_jobs`` restricts the interleave to those
+    uids: the pipelined commit's suffix solve orders exactly the jobs a
+    committed speculation could not know."""
+    namespaces, jobs_map = _build_interleave(ssn, only_jobs)
     ordered: List = []
     simulated: List[_AggTask] = []
     try:
@@ -593,7 +611,11 @@ def _execute_strict_batched(ssn, batch: int = 16) -> Dict[str, object]:
 # ---------------------------------------------------------------------------
 
 def _execute_fused(ssn, blocks: bool = False,
-                   max_order_iters: int = 4) -> Dict[str, object]:
+                   max_order_iters: int = 4,
+                   first_solution: Optional["_FusedSolution"] = None,
+                   first_ordered: Optional[List] = None,
+                   first_assumed: Optional[set] = None,
+                   only_jobs: Optional[set] = None) -> Dict[str, object]:
     """tpu-fused, or with ``blocks`` tpu-blocks: iterate (order simulation
     → one device solve) until the admitted-job set stabilizes, then replay
     the final solve. Convergence is usually immediate; gang rollbacks
@@ -606,6 +628,17 @@ def _execute_fused(ssn, blocks: bool = False,
     two more rounds re-solve them against the fresh session state — the
     batched analogue of the reference's per-task re-evaluation.
 
+    ``first_solution``/``first_ordered`` seed the fixed point with a first
+    iteration already solved: the pipelined commit's speculative solve,
+    from the same snapshot values, order and kernel the serial cycle would
+    have used. When its admitted set does not match its premise
+    (``first_assumed``: None for all admitted, the empty set for a solve
+    warm-started at the ∅ fixed point) the loop goes on as the serial cycle
+    would. ``only_jobs`` restricts the execution to those uids (the
+    commit's suffix solve). LAST_STATS["final_kept_empty"] records whether
+    the fixed point converged at the empty admitted set, the witness of the
+    next speculation's warm start.
+
     Returns the phases' host wall seconds: "order" (the order simulation),
     "assemble" (the solve's tensors, built and copied to the device),
     "solve" (the kernels, the one device-to-host copy and the decode),
@@ -615,24 +648,33 @@ def _execute_fused(ssn, blocks: bool = False,
                                 "replay": 0.0, "solves": 0}
     blocks_stats = stats["blocks"] = {} if blocks else None
     max_rounds = 3 if ssn.stateful_predicates else 1
+    seeded = first_solution
+    kept_uids: Optional[set] = None
+    solution = None
     for _ in range(max_rounds):
         assumed: Optional[set] = None
         solution = None
         for _ in range(max_order_iters):
-            t0 = time.perf_counter()
-            ordered_jobs = _fixed_job_order(ssn, assumed)
-            t1 = time.perf_counter()
-            stats["order"] += t1 - t0
-            inputs = placement_inputs(ssn, ordered_jobs)
-            t2 = time.perf_counter()
-            stats["assemble"] += t2 - t1
-            if inputs is None:
-                solution = None
-                break
-            with metrics.solver_trace("allocate-solve"):
-                solution = _fused_solution(inputs, blocks, blocks_stats)
-            stats["solve"] += time.perf_counter() - t2
-            stats["solves"] += 1
+            if seeded is not None:
+                # iteration 1 ran in the speculate window
+                ordered_jobs, solution = first_ordered, seeded
+                assumed = first_assumed
+                seeded = None
+            else:
+                t0 = time.perf_counter()
+                ordered_jobs = _fixed_job_order(ssn, assumed, only_jobs)
+                t1 = time.perf_counter()
+                stats["order"] += t1 - t0
+                inputs = placement_inputs(ssn, ordered_jobs)
+                t2 = time.perf_counter()
+                stats["assemble"] += t2 - t1
+                if inputs is None:
+                    solution = None
+                    break
+                with metrics.solver_trace("allocate-solve"):
+                    solution = _fused_solution(inputs, blocks, blocks_stats)
+                stats["solve"] += time.perf_counter() - t2
+                stats["solves"] += 1
             kept_uids = {solution.jobs_list[jx].uid
                          for jx in range(len(solution.jobs_list))
                          if solution.job_kept[jx]}
@@ -650,6 +692,9 @@ def _execute_fused(ssn, blocks: bool = False,
         stats["replay"] += time.perf_counter() - t0
         if not rejected:
             break
+    LAST_STATS["final_kept_empty"] = bool(solution is not None
+                                          and kept_uids is not None
+                                          and not kept_uids)
     if blocks_stats is None:
         del stats["blocks"]
     return stats
@@ -724,7 +769,7 @@ def placement_inputs(ssn, ordered_jobs) -> Optional[PlacementInputs]:
     min_av, base_r, base_p = _gang_meta(jobs_list)
     return PlacementInputs(
         tasks=tasks, jobs_list=jobs_list, node_t=node_t,
-        req=torch.tensor(req, device=ssn.device),
+        req=upload(req, ssn.device),
         job_ix=np.asarray(job_ix, np.int32),
         masked_static=_masked_static(feas, static, len(tasks),
                                      len(node_t.names), ssn.device),
@@ -742,8 +787,7 @@ def _masked_static(feas, static, T: int, N: int, device):
         return None
     f = np.ones((T, N), bool) if feas is None else feas
     s = np.zeros((T, N), np.float32) if static is None else static
-    return torch.tensor(np.where(f, s, NEG).astype(np.float32),
-                        device=device)
+    return upload(np.where(f, s, NEG).astype(np.float32), device)
 
 
 def solve(inputs: PlacementInputs, blocks: bool = False,
@@ -961,3 +1005,155 @@ def _replay_fused(ssn, sol: _FusedSolution) -> int:
         elif not ssn.job_pipelined(job):
             stmt.discard()
     return rejected
+
+
+# ---------------------------------------------------------------------------
+# the speculative dispatch/await split (the pipelined cycle)
+# ---------------------------------------------------------------------------
+
+_SIDE_STREAMS: Dict[torch.device, object] = {}
+
+
+def speculation_stream(device: torch.device):
+    """The side CUDA stream the speculative solves of ``device`` run on,
+    made at first use; None on the CPU."""
+    if device.type != "cuda":
+        return None
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return stream
+
+
+class PendingFusedSolution:
+    """A dispatched, not yet fetched, first solve of tpu-fused's fixed
+    point, with what the commit boundary needs to fetch and replay it.
+    Holding it is the overlap: the card solves on the side stream while
+    the host commits the previous cycle."""
+
+    __slots__ = ("ordered_jobs", "tasks", "job_ix", "jobs_list", "node_t",
+                 "wire", "event", "eligible_uids", "assumed_hint",
+                 "dispatch_s", "done_at_fetch", "wait_s")
+
+    def __init__(self, ordered_jobs, tasks, job_ix, jobs_list, node_t,
+                 wire, event, eligible_uids, assumed_hint=None,
+                 dispatch_s=0.0):
+        self.ordered_jobs = ordered_jobs
+        self.tasks = tasks
+        self.job_ix = job_ix
+        self.jobs_list = jobs_list
+        self.node_t = node_t
+        self.wire = wire            # i32 [2T + 2J] on the solve's device
+        self.event = event          # recorded after the decode; None on CPU
+        # every job eligible at speculation time, covered or not: the
+        # commit suffix-solves the jobs eligible then that are not here
+        self.eligible_uids = eligible_uids
+        # None: the all-admitted premise (the serial iteration 1); set():
+        # warm-started at the ∅ fixed point, which the commit must verify
+        self.assumed_hint = assumed_hint
+        # host seconds of the dispatch; at the fetch, whether the card had
+        # finished (counted only, never branched on) and the seconds waited
+        self.dispatch_s = dispatch_s
+        self.done_at_fetch: Optional[bool] = None
+        self.wait_s: Optional[float] = None
+
+
+def dispatch_speculative_solve(ssn, engine: str = "tpu-fused",
+                               assumed_hint: Optional[set] = None
+                               ) -> Optional[PendingFusedSolution]:
+    """Order, assemble and launch the first solve of tpu-fused's fixed
+    point for ``ssn`` (a speculative session) without synchronizing the
+    host: on the card the solve and B7's decode run on the side stream
+    (``speculation_stream``) and this returns as soon as they are queued;
+    ``finalize_speculative_dispatch`` fetches the wire at the commit
+    boundary. The assembly is the serial solve's own
+    (``placement_inputs``: ``_collect_pending_ordered``, ``_gang_meta``,
+    ``_masked_static``), so a committed speculation equals the serial
+    cycle's solve. ``assumed_hint`` set() starts the order at the ∅ fixed
+    point (the previous cycle converged there); None is the serial start.
+    Returns None when speculation cannot run this cycle: stateful
+    predicates, no nodes, an engine that is not the placement kernel,
+    nothing pending, or non-finite inputs (the serial solve's SolverFault
+    owns those)."""
+    if ssn.stateful_predicates or not ssn.nodes:
+        return None
+    if engine not in SPECULATIVE_ENGINES:
+        return None
+    t0 = time.perf_counter()
+    with obs_trace.span("order", speculative=True):
+        ordered_jobs = _fixed_job_order(ssn, assumed_hint)
+    if not ordered_jobs:
+        return None
+    try:
+        inputs = placement_inputs(ssn, ordered_jobs)
+    except SolverFault:
+        return None
+    if inputs is None:
+        return None
+    nt = inputs.node_t
+    with obs_trace.span("solve", speculative=True, dispatch=True):
+        wire, event = place_dispatch(
+            nt.idle, nt.future_idle, nt.used, nt.ntasks, nt.allocatable,
+            nt.max_tasks, inputs.req, inputs.job_ix, inputs.masked_static,
+            inputs.min_available, inputs.base_ready, inputs.base_pipelined,
+            inputs.weights, speculation_stream(inputs.req.device))
+    return PendingFusedSolution(
+        ordered_jobs, inputs.tasks, inputs.job_ix, inputs.jobs_list, nt,
+        wire, event, {j.uid for j in _eligible_jobs(ssn)},
+        assumed_hint=assumed_hint, dispatch_s=time.perf_counter() - t0)
+
+
+def finalize_speculative_dispatch(pending: PendingFusedSolution
+                                  ) -> _FusedSolution:
+    """The dispatched solve's one fetch: always waits on its event, so
+    what it returns never depends on how fast the card was. Raises
+    SolverFault on a node index out of range (the shell then re-solves
+    the cycle serially)."""
+    T, J = len(pending.tasks), len(pending.jobs_list)
+    with obs_trace.span("solve", speculative=True):
+        pending.done_at_fetch = (pending.event is None
+                                 or pending.event.query())
+        t0 = time.perf_counter()
+        task_node, pipelined, job_ready, job_kept = fetch_packed(
+            pending.wire, pending.event, T, J)
+        pending.wait_s = time.perf_counter() - t0
+    return _FusedSolution(pending.tasks, pending.job_ix, pending.jobs_list,
+                          pending.node_t, task_node, pipelined, job_ready,
+                          job_kept)
+
+
+def remap_speculative_solution(sol: _FusedSolution, ordered_jobs, ssn):
+    """Re-anchor a speculative solution onto the commit session's objects
+    by uid; sound because the conflict check proved the covered jobs' and
+    the placed-on nodes' decision inputs unchanged since the speculative
+    snapshot (on a promotion the session is the speculative one and this
+    is the identity). Returns ``(solution, ordered)``, or ``(None, None)``
+    when a covered job, task or node vanished or a task is no longer
+    pending (the shell counts a conflict)."""
+    jobs_list = []
+    for job in sol.jobs_list:
+        live = ssn.jobs.get(job.uid)
+        if live is None:
+            return None, None
+        jobs_list.append(live)
+    ordered = []
+    for job in ordered_jobs:
+        live = ssn.jobs.get(job.uid)
+        if live is None:
+            return None, None
+        ordered.append(live)
+    tasks = []
+    for t in sol.tasks:
+        job = ssn.jobs.get(t.job)
+        live = job.tasks.get(t.uid) if job is not None else None
+        if live is None or live.status != TaskStatus.PENDING:
+            return None, None
+        tasks.append(live)
+    tn = np.asarray(sol.task_node)
+    for n in np.unique(tn[tn != NO_NODE]):
+        if sol.node_t.names[int(n)] not in ssn.nodes:
+            return None, None
+    mapped = _FusedSolution(tasks, sol.job_ix, jobs_list, sol.node_t,
+                            sol.task_node, sol.pipelined, sol.job_ready,
+                            sol.job_kept)
+    return mapped, ordered

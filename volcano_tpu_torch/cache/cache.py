@@ -203,6 +203,18 @@ class SchedulerCache:
         self.tensor_cache = None
         # host-clock breakdown and dirty ratio of the last snapshot()
         self.last_snapshot_stats: Dict[str, object] = {}
+        # the pipelined cycle's outstanding speculative basis:
+        # speculative_snapshot MOVES the dirty sets into it, so mutations
+        # after the stage land in empty sets and the commit boundary's
+        # delta is exact (a re-mutation of a key already dirty at stage
+        # time included). The moved keys live here until adopt consumes
+        # them, discard gives them back, or a real snapshot reabsorbs them.
+        self._spec_dirt: Optional[dict] = None
+        # the fast-admit arrival feed: with it on, add_job records each
+        # arrival so Scheduler.fast_admit scans only what arrived since
+        # its last drain. Off by default: an unconsumed feed would grow.
+        self.fast_admit_feed = False
+        self._new_job_uids: Set[str] = set()
 
     # -- intent journal (cache/journal.py) ----------------------------------
 
@@ -303,6 +315,16 @@ class SchedulerCache:
                 job.schedule_start_timestamp = self.time_fn()
             self.jobs[job.uid] = job
             self._dirty_jobs.add(job.uid)
+            if self.fast_admit_feed:
+                self._new_job_uids.add(job.uid)
+
+    def drain_new_jobs(self) -> List[str]:
+        """Consume the fast-admit arrival feed, sorted; empty unless
+        ``fast_admit_feed`` is on."""
+        with self._lock:
+            uids = sorted(self._new_job_uids)
+            self._new_job_uids.clear()
+        return uids
 
     def remove_job(self, uid: str) -> None:
         with self._lock:
@@ -381,11 +403,20 @@ class SchedulerCache:
         with obs_trace.span("snapshot_clone"):
             return self._snapshot_impl()
 
-    def _snapshot_impl(self) -> ClusterInfo:
-        """One clone-on-dirty ClusterInfo; consumes the bookkeeping: stores
-        the clone maps, clears the dirty sets and bumps ``snap_epoch``."""
+    def _snapshot_impl(self, stage: bool = False):
+        """One clone-on-dirty ClusterInfo. By default it consumes the
+        bookkeeping: stores the clone maps, clears the dirty sets and bumps
+        ``snap_epoch``. ``stage=True`` (speculative_snapshot) consumes
+        nothing: it defers the witness resets and the tensor marks, moves
+        the dirty sets into the returned basis and returns ``(ci,
+        staged)``, what ``adopt_speculative_snapshot`` installs later.
+        Either way an outstanding speculative basis is reabsorbed first."""
         t0 = time.perf_counter()
+        touched_nodes: List[str] = []
+        touched_jobs: List[str] = []
+        tensor_rows: Set[str] = set()
         with self._lock:
+            self._reabsorb_spec_dirt_locked()
             incremental = incremental_snapshot_enabled()
             full = self._dirty_all or not incremental
             ci = ClusterInfo()
@@ -403,9 +434,16 @@ class SchedulerCache:
                     reused_nodes += 1
                 else:
                     ci.nodes[name] = node.clone()
-                    node._touched = False
-                    self._tensor_dirty.add(name)
+                    if stage:
+                        # reset at adopt time: a discarded speculation
+                        # leaves the next real snapshot's re-clone
+                        # decision as it was
+                        touched_nodes.append(name)
+                    else:
+                        node._touched = False
+                        self._tensor_dirty.add(name)
                     cloned_nodes += 1
+                    tensor_rows.add(name)
             for uid, q in self.queues.items():
                 prev = None if full else self._snap_queues.get(uid)
                 if (prev is not None and uid not in self._dirty_queues
@@ -437,7 +475,10 @@ class SchedulerCache:
                     reused_jobs += 1
                 else:
                     ci.jobs[uid] = job.clone()
-                    job._touched = False
+                    if stage:
+                        touched_jobs.append(uid)
+                    else:
+                        job._touched = False
             n_nodes = len(ci.nodes)
             stats = {
                 "full": full,
@@ -447,6 +488,30 @@ class SchedulerCache:
                 "reused_jobs": reused_jobs,
                 "dirty_ratio": (cloned_nodes / n_nodes) if n_nodes else 0.0,
             }
+            if stage:
+                # the clone maps and the epoch stay; the snapshot carries
+                # the epoch it gets if adopted
+                ci.snap_epoch = self._snap_epoch + 1
+                staged = {
+                    "epoch": self._snap_epoch,
+                    "dirty_all": self._dirty_all,
+                    "incremental": incremental,
+                    "nodes": dict(ci.nodes),
+                    "jobs": dict(ci.jobs),
+                    "queues": dict(ci.queues),
+                    "dirty_nodes": frozenset(self._dirty_nodes),
+                    "dirty_jobs": frozenset(self._dirty_jobs),
+                    "dirty_queues": frozenset(self._dirty_queues),
+                    "touched_nodes": touched_nodes,
+                    "touched_jobs": touched_jobs,
+                    "tensor_rows": tensor_rows,
+                    "stats": stats,
+                }
+                self._spec_dirt = staged
+                self._dirty_nodes.clear()
+                self._dirty_jobs.clear()
+                self._dirty_queues.clear()
+                return ci, staged
             if incremental:
                 self._snap_nodes = dict(ci.nodes)
                 self._snap_jobs = dict(ci.jobs)
@@ -468,6 +533,96 @@ class SchedulerCache:
             from .. import metrics
             metrics.register_snapshot_full_rebuild("clone")
         return ci
+
+    # -- the speculative snapshot (the pipelined cycle) ---------------------
+
+    def speculative_snapshot(self):
+        """The snapshot ``snapshot()`` would build now, for the pipelined
+        shell's speculative session, consuming nothing: dirty sets (moved
+        into the basis), clone maps, epoch and witnesses stay, so the next
+        real snapshot is the same whether the speculation commits or is
+        discarded. Returns ``(ci, staged)``."""
+        from ..obs import trace as obs_trace
+        with obs_trace.span("snapshot_clone", speculative=True):
+            return self._snapshot_impl(stage=True)
+
+    def _reabsorb_spec_dirt_locked(self) -> None:
+        """Merge an outstanding basis's moved dirty keys back into the live
+        dirty sets (caller holds the lock): a snapshot built while a
+        speculation is in flight, or after one was dropped, never reuses a
+        stale clone."""
+        sd = self._spec_dirt
+        if sd is None:
+            return
+        self._spec_dirt = None
+        self._dirty_nodes.update(sd["dirty_nodes"])
+        self._dirty_jobs.update(sd["dirty_jobs"])
+        self._dirty_queues.update(sd["dirty_queues"])
+
+    def discard_speculative_snapshot(self, staged) -> None:
+        """Give the basis's moved dirty keys back (a conflict, an abandoned
+        speculation). A no-op if a real snapshot already reabsorbed them or
+        a newer speculation staged since."""
+        with self._lock:
+            if self._spec_dirt is staged:
+                self._reabsorb_spec_dirt_locked()
+
+    def speculation_delta(self, staged) -> Dict[str, object]:
+        """What mutated since ``staged`` was staged: the dirty keys marked
+        since (re-mutations of keys dirty at stage time included), and
+        whether the epoch moved (another snapshot ran, the device state was
+        invalidated, or a mark_all_dirty such as a drift repair). The
+        commit boundary's conflict check is a function of this."""
+        with self._lock:
+            stale = (self._spec_dirt is not staged
+                     or self._dirty_all != staged["dirty_all"])
+            return {
+                "epoch_moved": stale or self._snap_epoch != staged["epoch"],
+                "nodes": set(self._dirty_nodes),
+                "jobs": set(self._dirty_jobs),
+                "queues": set(self._dirty_queues),
+            }
+
+    def adopt_speculative_snapshot(self, staged) -> bool:
+        """Make a staged snapshot THE snapshot, exactly what ``snapshot()``
+        would have built had nothing mutated since the stage, which is the
+        precondition: installs the clone maps, runs the deferred witness
+        resets and tensor marks, consumes the moved dirt and bumps the
+        epoch. Returns False, adopting nothing, on any mutation since."""
+        with self._lock:
+            if self._spec_dirt is not staged \
+                    or self._snap_epoch != staged["epoch"] \
+                    or self._dirty_all != staged["dirty_all"] \
+                    or self._dirty_nodes or self._dirty_jobs \
+                    or self._dirty_queues:
+                return False
+            self._spec_dirt = None
+            if staged["incremental"]:
+                self._snap_nodes = dict(staged["nodes"])
+                self._snap_jobs = dict(staged["jobs"])
+                self._snap_queues = dict(staged["queues"])
+                self._dirty_all = False
+            else:
+                self._snap_nodes = {}
+                self._snap_jobs = {}
+                self._snap_queues = {}
+                self._dirty_all = True
+            for name in staged["touched_nodes"]:
+                node = self.nodes.get(name)
+                if node is not None:
+                    node._touched = False
+            for uid in staged["touched_jobs"]:
+                job = self.jobs.get(uid)
+                if job is not None:
+                    job._touched = False
+            self._tensor_dirty.update(staged["tensor_rows"])
+            self._snap_epoch += 1
+            stats = staged["stats"]
+            self.last_snapshot_stats = stats
+        if stats["full"]:
+            from .. import metrics
+            metrics.register_snapshot_full_rebuild("clone")
+        return True
 
     # -- persistent node tensors --------------------------------------------
 
@@ -509,6 +664,42 @@ class SchedulerCache:
             from .. import metrics
             metrics.register_snapshot_full_rebuild("tensor")
         return tc
+
+    def tensor_refresh_speculative(self, snapshot_nodes: Dict[str, NodeInfo],
+                                   rnames, device, staged):
+        """The persistent node tensors for a SPECULATIVE snapshot: writes
+        the union of the pending tensor-dirty rows and the staged clones'
+        rows (a write of the same values the next real refresh writes
+        again, since ``_tensor_dirty`` is deliberately not consumed), then
+        pins the epoch, so the in-flight solve reads stable rows while the
+        committing cycle's binds publish new ones. Returns the pinned
+        ``TensorEpochView`` (release it with ``retire_epoch``), or None
+        when the incremental path is off or the epoch moved. Like
+        ``tensor_refresh``, a refresh error drops the tensors and
+        propagates."""
+        if not incremental_snapshot_enabled():
+            return None
+        import torch
+        from .snapshot import PersistentNodeTensors
+        with self._lock:
+            if staged["epoch"] != self._snap_epoch:
+                return None
+            tc = self.tensor_cache
+            if (tc is None or tc.rnames.names != rnames.names
+                    or tc.device != torch.device(device)):
+                tc = PersistentNodeTensors(rnames, device)
+                self.tensor_cache = tc
+            dirty = set(self._tensor_dirty) | set(staged["tensor_rows"])
+            try:
+                stats = tc.refresh(snapshot_nodes, dirty)
+                view = tc.pin_epoch()
+            except BaseException:
+                self.tensor_cache = None
+                raise
+        if stats["full"]:
+            from .. import metrics
+            metrics.register_snapshot_full_rebuild("tensor")
+        return view
 
     def invalidate_device_state(self) -> None:
         """Retire the device-resident state: bump the snapshot epoch (an

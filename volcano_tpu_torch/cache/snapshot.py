@@ -72,9 +72,12 @@ def _write_row(rows: Dict[str, np.ndarray], i: int, node: NodeInfo,
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    # torch.tensor copies: the tensor never aliases the host array, which
-    # PersistentNodeTensors mutates in place on every refresh
-    return torch.tensor(a, device=device)
+    # a copy that never aliases the host array, which PersistentNodeTensors
+    # mutates in place on every refresh; on the card through pinned memory
+    # and without synchronizing the host, so a speculative refresh queues
+    # its scatter behind the solve it feeds
+    from ..ops.place import upload
+    return upload(a, torch.device(device))
 
 
 def _row_property(field: str) -> property:
@@ -294,6 +297,20 @@ class PersistentNodeTensors(_DeviceRows):
             return
         view.retired = True
         self.live_pins = max(self.live_pins - 1, 0)
+
+    def prewarm_epoch_pair(self) -> None:
+        """Pay the epoch pair's cold costs before the first pipelined
+        cycle: the first device upload, the pinned view's host copies and
+        its future-idle rows allocate here, so ``pin_epoch`` on the live
+        path is bookkeeping and copies of warm sizes. A no-op without
+        rows."""
+        if not self.names:
+            return
+        view = self.pin_epoch()
+        try:
+            view.future_idle
+        finally:
+            self.retire_epoch(view)
 
 
 # what a hole row of the persistent tensors stands for: unschedulable, empty

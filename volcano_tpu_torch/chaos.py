@@ -175,6 +175,20 @@ class KillPointEvictor(Evictor):
         self.inner.evict(task, reason)
 
 
+def arm_speculation_kill(sched) -> None:
+    """Arm the ``speculate`` kill point on a pipelined scheduler shell: the
+    process dies right after its next speculative dispatch, before the
+    commit that would use it, the window in which the pipeline must have
+    journaled nothing. The hook disarms itself when it fires; a cycle that
+    dispatches nothing leaves it armed."""
+
+    def _hook(spec, _sched=sched):
+        _sched.spec_fault_hook = None
+        raise SimKill("between speculative dispatch and commit")
+
+    sched.spec_fault_hook = _hook
+
+
 class ActionFaultInjector:
     """Raise inside chosen actions on chosen cycles — the hook the
     scheduler shell calls before each action (Scheduler.action_fault_hook).

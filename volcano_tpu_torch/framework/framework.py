@@ -81,16 +81,29 @@ def _gc_resume(window: "_GCWindow") -> None:
 def open_session(cache, tiers: List[Tier],
                  configurations: List[Configuration] = (),
                  time_fn=None,
-                 device: Optional[Union[str, torch.device]] = None) -> Session:
+                 device: Optional[Union[str, torch.device]] = None,
+                 speculative: bool = False) -> Session:
     # Automatic (threshold-triggered) collection is suspended from before
     # the snapshot to close_session: a 10k-pod cycle allocates enough
     # tracked objects (task clones, Resources, statement entries) to trip
     # full-heap collections inside the cycle. close_session resumes it and
     # runs one bounded young-generation pass.
+    # A speculative open (the pipelined cycle) runs the same plugin opens
+    # in a window of its own, nested in no other session's, on the cache's
+    # staged snapshot: nothing of the cache's bookkeeping is consumed until
+    # the shell adopts or discards the speculation.
     window = _gc_suspend()
     try:
-        ssn = Session(cache, tiers, list(configurations),
-                      resolve_device(device), time_fn=time_fn)
+        if speculative:
+            ci, basis = cache.speculative_snapshot()
+            ssn = Session(cache, tiers, list(configurations),
+                          resolve_device(device), time_fn=time_fn,
+                          snapshot=ci)
+            ssn.speculative = True
+            ssn.spec_basis = basis
+        else:
+            ssn = Session(cache, tiers, list(configurations),
+                          resolve_device(device), time_fn=time_fn)
         for tier in tiers:
             for opt in tier.plugins:
                 plugin = get_plugin_builder(opt.name)(opt.arguments)
@@ -103,10 +116,24 @@ def open_session(cache, tiers: List[Tier],
     return ssn
 
 
+def _retire_session_pin(ssn: Session) -> None:
+    """Release the session's pinned tensor epoch, if any (a speculative
+    session pins one for its in-flight solve). Idempotent."""
+    view = ssn._pinned_epoch
+    if view is None:
+        return
+    ssn._pinned_epoch = None
+    view._owner.retire_epoch(view)
+
+
 def abandon_session(ssn: Session) -> None:
-    """End a session whose cycle failed: release its garbage-collection
-    window without the plugins' close or any status writeback."""
-    _gc_resume(ssn._gc_window)
+    """End a session whose cycle failed, or a discarded speculation:
+    release its pinned tensor epoch and its garbage-collection window
+    without the plugins' close or any status writeback."""
+    try:
+        _retire_session_pin(ssn)
+    finally:
+        _gc_resume(ssn._gc_window)
 
 
 def close_session(ssn: Session) -> None:
@@ -116,4 +143,9 @@ def close_session(ssn: Session) -> None:
         # writeback of job/podgroup status (job_updater.go:95-108)
         update_all(ssn)
     finally:
-        _gc_resume(ssn._gc_window)
+        # a promoted speculative session's pin is retired at the commit;
+        # this releases one that was not
+        try:
+            _retire_session_pin(ssn)
+        finally:
+            _gc_resume(ssn._gc_window)

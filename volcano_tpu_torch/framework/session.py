@@ -57,7 +57,8 @@ class Session:
     def __init__(self, cache, tiers: List[Tier],
                  configurations: List[Configuration],
                  device: torch.device,
-                 time_fn: Optional[Callable[[], float]] = None):
+                 time_fn: Optional[Callable[[], float]] = None,
+                 snapshot=None):
         self.uid = str(uuid.uuid4())
         self.cache = cache
         self.tiers = tiers
@@ -69,7 +70,15 @@ class Session:
         # through ssn.now(), so a shell can pin it to its own clock
         self._time_fn: Callable[[], float] = time_fn or time.time
 
-        snapshot = cache.snapshot()
+        # a speculative session (the pipelined cycle) opens on the cache's
+        # staged snapshot; open_session sets speculative and spec_basis. It
+        # either promotes to the cycle's session at the commit boundary or
+        # is abandoned, its pinned tensor epoch retired with it.
+        self.speculative = False
+        self.spec_basis = None
+        self._pinned_epoch = None
+        if snapshot is None:
+            snapshot = cache.snapshot()
         self.jobs: Dict[str, JobInfo] = snapshot.jobs
         self.nodes: Dict[str, NodeInfo] = snapshot.nodes
         # the snapshot generation this session opened on: the persistent
@@ -430,7 +439,18 @@ class Session:
         by the refresh propagates (the cache drops its persistent tensors
         first): the port has no cool-down yet (ROADMAP item 10), and a
         caught device fault would hide the device."""
+        if self.speculative:
+            if self.spec_basis is None:
+                return None
         if any(node._touched for node in self.nodes.values()):
             return None
+        if self.speculative:
+            # the staged refresh consumes nothing and pins its epoch, held
+            # here for the shell to retire at commit or discard
+            view = self.cache.tensor_refresh_speculative(
+                self.nodes, rnames, self.device, self.spec_basis)
+            if view is not None:
+                self._pinned_epoch = view
+            return view
         return self.cache.tensor_refresh(self.nodes, rnames, self.device,
                                          self.snap_epoch)

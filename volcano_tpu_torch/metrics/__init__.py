@@ -211,6 +211,36 @@ def register_state_drift(layer: str, n: int = 1) -> None:
     _count(("state_drift", layer), n)
 
 
+# -- the pipelined cycle and fast admit -------------------------------------
+
+def register_speculation(outcome: str) -> None:
+    """One commit-boundary verdict of the pipelined cycle: ``hit`` (the
+    speculative session promoted), ``partial`` (the speculative solve
+    replayed onto a fresh session) or ``conflict`` (speculation discarded,
+    the cycle re-solved serially). The sim's report reads these."""
+    _count(("speculation", outcome))
+
+
+def speculation_counts() -> Dict[str, float]:
+    """The speculation verdicts so far, {outcome: n}; take a before/after
+    delta for one run's."""
+    with _lock:
+        return {k[1]: v for k, v in _counters.items()
+                if k[0] == "speculation"}
+
+
+def register_fast_admit(gangs: int, binds: int) -> None:
+    with _lock:
+        _counters[("fast_admit_gangs",)] += gangs
+        _counters[("fast_admit_binds",)] += binds
+
+
+def fast_admit_counts() -> Dict[str, float]:
+    with _lock:
+        return {"gangs": _counters.get(("fast_admit_gangs",), 0.0),
+                "binds": _counters.get(("fast_admit_binds",), 0.0)}
+
+
 # -- device profiling --------------------------------------------------------
 
 _profile_lock = threading.Lock()

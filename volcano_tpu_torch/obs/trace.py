@@ -19,6 +19,12 @@ Overhead contract:
   is noise against a multi-ms cycle.
 - **enabled**: each span appends two small dicts under one lock.
 
+The pipelined cycle adds the spans ``conflict_check`` (the commit
+boundary), ``speculate`` (the next cycle's dispatch, with its engine),
+``speculate_commit`` (with the verdict) and ``fast_admit``; the speculative
+session's ``snapshot_clone``, ``order`` and ``solve`` spans carry
+``speculative=True``.
+
 Determinism: event timestamps come from the recorder's ``time_fn``
 (wall ``perf_counter`` by default). In ``logical=True`` mode the clock is
 a per-recorder event counter instead, so the same span sequence produces

@@ -906,7 +906,69 @@ bool plan_ok(int R, int T, int N, int C, int threads, int slice, int in_smem,
   return want == smem;
 }
 
+// B7, the speculative solve's device decode (replaces the XLA program
+// volcano_tpu/ops/pallas_place.py::_packed_decoder): B1's words into the
+// wire [task_node | pipelined | ready | kept], ops/place.py::
+// decode_packed_plain. Bound by bytes (2T words read, 2T+2J written: about
+// 0.05 us at T=10,000 over 3.35 TB/s); a launch costs more than that, so
+// the design is only two small launches after a memset. A job's ready and
+// kept are the OR over its boundary rows, as the reference's segment sum
+// > 0, on any wire (B1 gives each job one boundary row).
+__global__ void decode_flags_kernel(const int* __restrict__ packed,
+                                    const int* __restrict__ job_ix, int T,
+                                    int J, int* __restrict__ ready,
+                                    int* __restrict__ kept) {
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < T;
+       t += gridDim.x * blockDim.x) {
+    const int f = packed[t] & 0xF;
+    const int j = job_ix[t];
+    if ((f & (kReady | kKeep)) == 0 || j < 0 || j >= J) continue;
+    if (f & kReady) atomicOr(ready + j, 1);
+    if (f & kKeep) atomicOr(kept + j, 1);
+  }
+}
+
+__global__ void decode_tasks_kernel(const int* __restrict__ packed,
+                                    const int* __restrict__ job_ix, int T,
+                                    int J, const int* __restrict__ kept,
+                                    int* __restrict__ task_node,
+                                    int* __restrict__ pipe) {
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < T;
+       t += gridDim.x * blockDim.x) {
+    const int w = packed[t];
+    const int j = job_ix[t];
+    const bool keep = j >= 0 && j < J && kept[j] != 0;
+    task_node[t] = keep && (w & kPlace) ? (w >> 4) - 1 : -1;
+    pipe[t] = (w & kPipe) ? 1 : 0;
+  }
+}
+
 }  // namespace
+
+// Plain C entry, bound with ctypes (ops/place.py::decode_packed_cuda):
+// decodes packed [T] with job_ix [T] (values in [0, J)) into out
+// [2T + 2J]. Launches on `stream` and returns the first failed call's
+// cudaError_t (0 on success).
+extern "C" int vt_decode_packed(const int* packed, const int* job_ix, int T,
+                                int J, int* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* ready = out + 2 * static_cast<size_t>(T);
+  int* kept = ready + J;
+  if (J > 0) {
+    cudaError_t err = cudaMemsetAsync(ready, 0, 2 * sizeof(int) * J, s);
+    if (err != cudaSuccess) return err;
+  }
+  if (T < 1) return cudaGetLastError();
+  const int threads = 256;
+  const int blocks = min((T + threads - 1) / threads, 1024);
+  decode_flags_kernel<<<blocks, threads, 0, s>>>(packed, job_ix, T, J, ready,
+                                                 kept);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_tasks_kernel<<<blocks, threads, 0, s>>>(packed, job_ix, T, J, kept,
+                                                 out, out + T);
+  return cudaGetLastError();
+}
 
 // Plain C entry, bound with ctypes (ops/place.py::rowdiff_cuda): marks in
 // out [T] each task whose row of ms [T,N] differs bitwise from the row

@@ -23,6 +23,12 @@ Both versions emit one packed i32 word per task, ``(node+1)<<4 | flags``,
 and the final node state. ``place`` picks the version by the tensors'
 device — the plain one only for CPU tensors — and decodes the words after
 one device-to-host copy.
+
+The pipelined cycle's speculative solve decodes on the device instead:
+``place_dispatch`` launches the solve and the decode (``decode_packed_cuda``,
+B7, beside its plain version ``decode_packed_plain``) on a stream the caller
+gives and returns without synchronizing the host; ``fetch_packed`` is its one
+device-to-host copy.
 """
 
 from __future__ import annotations
@@ -153,16 +159,27 @@ def place_plain(idle: torch.Tensor, future_idle: torch.Tensor,
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
+           device: torch.device, fn: str = "place_cuda") -> None:
     if t.device != device:
-        raise ValueError(f"place_cuda: {name} is on {t.device}, not {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, not {device}")
     if t.dtype != dtype:
-        raise TypeError(f"place_cuda: {name} is {t.dtype}, not {dtype}")
+        raise TypeError(f"{fn}: {name} is {t.dtype}, not {dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"place_cuda: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
                          f"not {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"place_cuda: {name} is not contiguous")
+        raise ValueError(f"{fn}: {name} is not contiguous")
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A host array as a new tensor on ``device``, without synchronizing
+    the host: on a CUDA device the copy goes through pinned memory,
+    non-blocking on the current stream (the caching host allocator keeps
+    the pinned block until the copy is done)."""
+    t = torch.from_numpy(np.array(a, copy=True, order="C"))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 # Launch plan of the kernel (csrc/place.cu): a cluster of CTAs over the
@@ -269,6 +286,8 @@ def _lib():
     lib.vt_place_active_clusters.restype = ctypes.c_int
     lib.vt_rowdiff.argtypes = [p, i, i, p, p]
     lib.vt_rowdiff.restype = ctypes.c_int
+    lib.vt_decode_packed.argtypes = [p, p, i, i, p, p]
+    lib.vt_decode_packed.restype = ctypes.c_int
     return lib
 
 
@@ -347,8 +366,7 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
     state = torch.stack([idle.t(), future_idle.t(), used.t()]).contiguous()
     nt = ntasks.clone()
     alloc_rn = allocatable.t().contiguous()
-    res = torch.as_tensor(weights.binpack_res, dtype=torch.float32,
-                          device=device).contiguous()
+    res = upload(np.asarray(weights.binpack_res, np.float32), device)
     if tuple(res.shape) != (R,):
         raise ValueError(f"place_cuda: binpack_res has shape "
                          f"{tuple(res.shape)}, not ({R},)")
@@ -526,3 +544,139 @@ def place(idle: torch.Tensor, future_idle: torch.Tensor, used: torch.Tensor,
         packed.cpu().numpy(), job_ix, len(min_available))
     return PlacementResult(task_node, pipelined, job_ready, job_kept,
                            f_idle, f_fidle, f_used, f_nt)
+
+
+# ---------------------------------------------------------------------------
+# the speculative solve: B7 and the non-blocking dispatch
+# ---------------------------------------------------------------------------
+
+def decode_packed_plain(packed: torch.Tensor, job_ix: torch.Tensor,
+                        J: int) -> torch.Tensor:
+    """B1's words decoded into the wire ``[task_node | pipelined | ready |
+    kept]``, i32 ``[2T + 2J]``, on any device: a job is ready (kept) when
+    any of its boundary rows (a row whose word carries READY or KEEP)
+    carries READY (KEEP); a task keeps its node when it was placed and its
+    job was kept, else ``NO_NODE``. ``job_ix`` i32 ``[T]`` in ``[0, J)``.
+    B1 gives each job one boundary row, its last task's, where this equals
+    ``unpack_placement``."""
+    node = (packed >> 4) - 1
+    flags = packed & 0xF
+    boundary = (flags & (F_READY | F_KEEP)) != 0
+    jix = job_ix.long()
+    ready = torch.zeros(J, dtype=torch.int32, device=packed.device)
+    ready.index_add_(0, jix, (boundary & ((flags & F_READY) != 0)).int())
+    kept = torch.zeros(J, dtype=torch.int32, device=packed.device)
+    kept.index_add_(0, jix, (boundary & ((flags & F_KEEP) != 0)).int())
+    ready, kept = ready > 0, kept > 0
+    placed = kept[jix] & ((flags & F_PLACE) != 0)
+    task_node = torch.where(placed, node, torch.full_like(node, NO_NODE))
+    pipe = (flags & F_PIPE) != 0
+    return torch.cat([task_node.int(), pipe.int(), ready.int(), kept.int()])
+
+
+def decode_packed_cuda(packed: torch.Tensor, job_ix: torch.Tensor,
+                       J: int) -> torch.Tensor:
+    """``decode_packed_plain`` as ``csrc/place.cu``'s decode kernels (one
+    memset and two launches) on the current stream; ``packed`` and
+    ``job_ix`` contiguous i32 ``[T]`` CUDA tensors on one device. Raises
+    on a tensor it does not take, a failed build or a failed launch."""
+    device = packed.device
+    if device.type != "cuda":
+        raise ValueError(f"decode_packed_cuda: the words are on {device}, "
+                         f"not a CUDA device")
+    T = packed.shape[0] if packed.dim() == 1 else -1
+    _check("packed", packed, torch.int32, (T,), device, "decode_packed_cuda")
+    _check("job_ix", job_ix, torch.int32, (T,), device, "decode_packed_cuda")
+    if J < 0:
+        raise ValueError(f"decode_packed_cuda: J = {J}")
+    wire = torch.empty(2 * T + 2 * J, dtype=torch.int32, device=device)
+    if T or J:
+        with torch.cuda.device(device):
+            err = _lib().vt_decode_packed(
+                packed.data_ptr() or None, job_ix.data_ptr() or None, T, J,
+                wire.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"decode_packed_cuda: kernel launch failed "
+                               f"with cudaError_t {err}")
+        decode_packed_cuda.launches += 1
+    return wire
+
+
+decode_packed_cuda.launches = 0
+
+
+def place_dispatch(idle: torch.Tensor, future_idle: torch.Tensor,
+                   used: torch.Tensor, ntasks: torch.Tensor,
+                   allocatable: torch.Tensor, max_tasks: torch.Tensor,
+                   req: torch.Tensor, job_ix: np.ndarray,
+                   masked_static: Optional[torch.Tensor],
+                   min_available: np.ndarray, base_ready: np.ndarray,
+                   base_pipelined: np.ndarray, weights: ScoreWeights,
+                   stream=None):
+    """``place``'s solve with the decode on the device, without
+    synchronizing the host: on CUDA tensors the rowdiff pre-pass (with a
+    static matrix), ``place_cuda`` and ``decode_packed_cuda`` launch on
+    ``stream`` after it waits for the current stream (whose work wrote the
+    inputs), and every input is marked as used there, so the caching
+    allocator reuses none of them before the stream is done with it.
+    Returns ``(wire, event)``: the device wire of ``decode_packed_plain``
+    and a ``torch.cuda.Event`` recorded after the decode. On CPU tensors it
+    runs ``place_plain`` and ``decode_packed_plain`` at once and the event
+    is None. ``fetch_packed`` reads the wire."""
+    device = idle.device
+    J = len(min_available)
+    if device.type == "cpu":
+        flags, ready_need, keep_need = (
+            torch.from_numpy(a) for a in task_flags(
+                job_ix, min_available, base_ready, base_pipelined))
+        packed = place_plain(idle, future_idle, used, ntasks, allocatable,
+                             max_tasks, req, flags, ready_need, keep_need,
+                             masked_static, weights)[0]
+        return decode_packed_plain(
+            packed, torch.from_numpy(np.asarray(job_ix, np.int32)), J), None
+    if device.type != "cuda":
+        raise ValueError(f"place_dispatch: no placement kernel for device "
+                         f"{device}")
+    if stream is None:
+        raise ValueError("place_dispatch: a CUDA solve needs a stream")
+    flags, ready_need, keep_need = (
+        upload(a, device) for a in task_flags(
+            job_ix, min_available, base_ready, base_pipelined))
+    jix = upload(np.asarray(job_ix, np.int32), device)
+    inputs = [idle, future_idle, used, ntasks, allocatable, max_tasks, req,
+              flags, ready_need, keep_need, jix]
+    if masked_static is not None:
+        inputs.append(masked_static)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    for t in inputs:
+        t.record_stream(stream)
+    with torch.cuda.stream(stream):
+        packed = place_cuda(idle, future_idle, used, ntasks, allocatable,
+                            max_tasks, req, flags, ready_need, keep_need,
+                            masked_static, weights)[0]
+        wire = decode_packed_cuda(packed, jix, J)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return wire, event
+
+
+def fetch_packed(wire: torch.Tensor, event, T: int, J: int
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The dispatched solve's one device-to-host copy: waits on ``event``
+    (None for a wire already on the CPU), copies the wire into pinned
+    memory and slices it into (task_node, task_pipelined, job_ready,
+    job_kept), as ``unpack_placement`` returns them."""
+    if wire.numel() != 2 * T + 2 * J:
+        raise ValueError(f"fetch_packed: a wire of {wire.numel()} words is "
+                         f"not one of T={T} tasks and J={J} jobs")
+    if event is not None:
+        event.synchronize()
+    if wire.device.type == "cuda":
+        host = torch.empty(wire.shape, dtype=torch.int32, pin_memory=True)
+        host.copy_(wire)
+    else:
+        host = wire
+    w = host.numpy()
+    return (w[:T].copy(), w[T:2 * T] != 0, w[2 * T:2 * T + J] != 0,
+            w[2 * T + J:] != 0)

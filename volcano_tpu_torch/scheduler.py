@@ -14,6 +14,17 @@ What isolation must not hide is refused before any cycle runs: every
 action, plugin and configuration block of the conf is checked when the
 conf loads (construction and hot-reload), and a constructor argument
 asking for a mode this package lacks raises ``NotImplementedError``.
+
+The pipelined cycle (``pipelined=True`` or VOLCANO_TPU_PIPELINED=1)
+overlaps cycle N+1's allocate solve with cycle N's host commit: after a
+cycle closes, a speculative session opens on the cache's staged snapshot
+and the solve is dispatched (on the card, on a side CUDA stream); at the
+next cycle's start a conflict check on what mutated since decides whether
+the speculative session becomes the cycle's session (hit), its solve
+replays onto a fresh session (partial), or it is discarded and the cycle
+solves serially (conflict). Decisions equal the serial cycle's. Fast admit
+(``fast_admit=True`` or VOLCANO_TPU_FAST_ADMIT=1) binds gangs that
+trivially fit one node between cycles.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import actions as _actions  # noqa: F401  (registers the actions)
@@ -37,6 +49,42 @@ from .framework.conf import SchedulerConfiguration
 from .obs import trace as obs_trace
 
 log = logging.getLogger(__name__)
+
+# the actions whose slot a committed speculation fills
+_ALLOCATE_ACTIONS = ("allocate", "allocate-tpu")
+
+
+class _Speculation:
+    """One in-flight speculation: the speculative session (a staged
+    snapshot, its own GC window, a pinned tensor epoch) and the dispatched
+    solve. In memory only: nothing is journaled before the commit, so a
+    crash between dispatch and commit loses this object and nothing
+    else."""
+
+    __slots__ = ("ssn", "pending")
+
+    def __init__(self, ssn, pending):
+        self.ssn = ssn
+        self.pending = pending
+
+
+class _SpecCommitPlan:
+    """A conflict-check verdict that lets the speculation commit, carried
+    into the cycle's allocate slot. ``promoted``: the speculative session
+    became the cycle's session (a hit). ``avoid_nodes``: nodes that only
+    shed tasks since the stage, admitted on the promise that the solve
+    placed nothing there, checked once the solution is fetched."""
+
+    __slots__ = ("pending", "outcome", "spec_ssn", "promoted", "avoid_nodes")
+
+    def __init__(self, spec: _Speculation, outcome: str, promoted: bool,
+                 avoid_nodes=frozenset()):
+        self.pending = spec.pending
+        self.outcome = outcome
+        self.spec_ssn = spec.ssn
+        self.promoted = promoted
+        self.avoid_nodes = frozenset(avoid_nodes)
+
 
 DEFAULT_SCHEDULE_PERIOD = 1.0
 
@@ -61,12 +109,8 @@ DEFAULT_DRIFT_VERIFY_EVERY = 64
 # constructor arguments of the JAX package's shell that name modes this
 # package does not have yet, and where they come from
 REFUSED_MODES = {
-    "pipelined": "the pipelined cycle (speculative solve, ROADMAP item 8)",
-    "fast_admit": "event-driven fast admit (ROADMAP item 8)",
     "solve_deadline_s": "the device-fault cool-down (ROADMAP item 10)",
 }
-_MODE_ENV = {"pipelined": "VOLCANO_TPU_PIPELINED",
-             "fast_admit": "VOLCANO_TPU_FAST_ADMIT"}
 
 
 def _env_flag(name: str) -> bool:
@@ -131,16 +175,11 @@ class Scheduler:
                  resync_max_per_cycle: Optional[int] = None,
                  drift_verify_every: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        asked = {"pipelined": pipelined, "fast_admit": fast_admit,
-                 "solve_deadline_s": solve_deadline_s}
-        for mode, value in asked.items():
-            env = _MODE_ENV.get(mode)
-            if value is None and env is not None and _env_flag(env):
-                value = True
-            if value:
-                raise NotImplementedError(
-                    f"Scheduler({mode}=...) is not in volcano_tpu_torch "
-                    f"yet: it needs {REFUSED_MODES[mode]}")
+        if solve_deadline_s:
+            raise NotImplementedError(
+                f"Scheduler(solve_deadline_s=...) is not in "
+                f"volcano_tpu_torch yet: it needs "
+                f"{REFUSED_MODES['solve_deadline_s']}")
         self.cache = cache
         self.device = resolve_device(device)
         self.conf_path = conf_path
@@ -186,6 +225,30 @@ class Scheduler:
         # close); an action that uses the device reads its result back
         # before it returns, so its time includes the device's
         self.last_cycle_s: Dict[str, float] = {}
+        # this package has no leader election: the elector stays None, and
+        # a shell given one would run serial cycles (a speculation never
+        # crosses a leadership boundary)
+        self.elector = None
+        # the pipelined cycle: standalone only
+        self.pipelined = _env_flag("VOLCANO_TPU_PIPELINED") \
+            if pipelined is None else bool(pipelined)
+        self._spec: Optional[_Speculation] = None
+        # sim hook: called with the in-flight speculation right after its
+        # dispatch, so a seeded SimKill lands between dispatch and commit
+        self.spec_fault_hook: Optional[Callable] = None
+        # the last commit boundary's verdict: {"outcome": hit | partial |
+        # conflict, "promoted": bool}
+        self.last_speculation: dict = {}
+        # did the last cycle's allocate fixed point converge at the empty
+        # admitted set? The warm-start witness of the next dispatch, kept
+        # here because a commit's suffix run overwrites LAST_STATS
+        self._warmstart_empty = False
+        # event-driven fast admit: gangs that trivially fit one node bind
+        # between cycles through the journaled bind funnel
+        self.fast_admit_enabled = _env_flag("VOLCANO_TPU_FAST_ADMIT") \
+            if fast_admit is None else bool(fast_admit)
+        if self.fast_admit_enabled:
+            self.cache.fast_admit_feed = True
         self._load_conf(conf_text)
 
     @property
@@ -258,6 +321,7 @@ class Scheduler:
                 errors.append(("resync", exc))
         runnable = [(name, get_action(name)) for name in self.conf.actions]
         if not runnable:
+            self._discard_speculation("conflict")
             self._cycle_epilogue()
             return errors
         # cycle budget: rotate the pipeline to the carry-over cursor
@@ -273,16 +337,33 @@ class Scheduler:
                     ix = names.index(self._carryover)
                     runnable = runnable[ix:] + runnable[:ix]
                 self._carryover = None
+        # the pipelined commit boundary, before anything opens: a clean
+        # delta promotes the speculative session (no open at all), a
+        # tolerable one opens a fresh session the speculative solve replays
+        # onto, anything else discards the speculation and the cycle
+        # solves serially
+        pipelined = self.pipelined and self.elector is None
+        ssn = None
+        commit = None
+        if self._spec is not None:
+            spec, self._spec = self._spec, None
+            if pipelined and any(n in _ALLOCATE_ACTIONS
+                                 for n, _ in runnable):
+                with rec.span("conflict_check"):
+                    ssn, commit = self._check_speculation(rec, spec)
+            else:
+                self._abandon_speculation(spec, "conflict")
         times: Dict[str, float] = {}
         sched_sp = rec.span("schedule")
         crashed = False
         with sched_sp:
-            with rec.span("open_session") as sp:
-                ssn = open_session(self.cache, self.conf.tiers,
-                                   self.conf.configurations,
-                                   time_fn=self.clock.now,
-                                   device=self.device)
-            times["open_session"] = sp.dur_s
+            if ssn is None:
+                with rec.span("open_session") as sp:
+                    ssn = open_session(self.cache, self.conf.tiers,
+                                       self.conf.configurations,
+                                       time_fn=self.clock.now,
+                                       device=self.device)
+                times["open_session"] = sp.dur_s
             try:
                 for act_ix, (name, action) in enumerate(runnable):
                     if budget is not None and act_ix > 0 \
@@ -306,7 +387,18 @@ class Scheduler:
                             try:
                                 if self.action_fault_hook is not None:
                                     self.action_fault_hook(name, ssn)
-                                action.execute(ssn)
+                                if commit is not None \
+                                        and name in _ALLOCATE_ACTIONS:
+                                    plan, commit = commit, None
+                                    self._commit_speculation(ssn, plan,
+                                                             action)
+                                elif pipelined \
+                                        and name in _ALLOCATE_ACTIONS:
+                                    action.execute(ssn)
+                                    self._warmstart_empty = \
+                                        self._allocate_kept_empty()
+                                else:
+                                    action.execute(ssn)
                             except Exception as exc:
                                 log.exception("action %s failed; skipping "
                                               "it this cycle", name)
@@ -325,6 +417,11 @@ class Scheduler:
                         except Exception:
                             log.exception("budget cost model failed; "
                                           "action %s not charged", name)
+                if commit is not None:
+                    # the allocate slot never ran (a budget deferral): the
+                    # speculation cannot carry over
+                    plan, commit = commit, None
+                    self._finish_speculation(plan, "conflict")
                 if budget is not None:
                     self.max_cycle_spend_s = max(self.max_cycle_spend_s,
                                                  budget.spent())
@@ -344,6 +441,11 @@ class Scheduler:
         metrics.update_e2e_duration(sched_sp.dur_s)
         times["cycle"] = sched_sp.dur_s
         self.last_cycle_s = times
+        # stage 2 of the pipeline, outside the timed window: dispatch the
+        # next cycle's speculative solve, which the card runs while the
+        # host goes on with the epilogue and the pacing sleep
+        if pipelined:
+            self._dispatch_speculation(rec, runnable)
         self._cycle_epilogue()
         return errors
 
@@ -383,6 +485,392 @@ class Scheduler:
         except Exception:
             log.exception("shadow drift verification failed")
             metrics.register_action_failure("drift-verify")
+
+    # -- the pipelined cycle -------------------------------------------------
+
+    def _check_speculation(self, rec, spec: _Speculation):
+        """The commit boundary's conflict check: what mutated since the
+        speculative snapshot was staged, against what the speculation
+        assumed. Returns ``(session or None, plan or None)``:
+
+        - nothing mutated: the staged snapshot is adopted and the
+          speculative session is the cycle's session (hit);
+        - only decision-neutral changes (bind acks; jobs new since the
+          stage, which the suffix solve covers; jobs gone; nodes that only
+          shed tasks, on the promise checked at the commit): a fresh
+          session opens and the speculative solve replays onto it by uid
+          (partial);
+        - anything else: the speculation is discarded (conflict) and the
+          cycle solves serially.
+        """
+        delta = self.cache.speculation_delta(spec.ssn.spec_basis)
+        clean = not (delta["epoch_moved"] or delta["nodes"]
+                     or delta["jobs"] or delta["queues"])
+        if clean and self.cache.adopt_speculative_snapshot(
+                spec.ssn.spec_basis):
+            ssn = spec.ssn
+            ssn.speculative = False
+            return ssn, _SpecCommitPlan(spec, "hit", promoted=True)
+        if clean or delta["epoch_moved"] or delta["queues"]:
+            # an epoch or queue move is never tolerable (ordering and
+            # overuse inputs)
+            self._abandon_speculation(spec, "conflict")
+            return None, None
+        with rec.span("open_session"):
+            ssn = open_session(self.cache, self.conf.tiers,
+                               self.conf.configurations,
+                               time_fn=self.clock.now, device=self.device)
+        avoid = self._delta_tolerable(spec, ssn, delta)
+        if avoid is None:
+            self._abandon_speculation(spec, "conflict")
+            return ssn, None
+        plan = _SpecCommitPlan(spec, "partial", promoted=False,
+                               avoid_nodes=avoid)
+        # the solution lives on in the plan; the speculative session (GC
+        # window, pinned epoch) ends now, nothing journaled
+        abandon_session(spec.ssn)
+        return ssn, plan
+
+    def _delta_tolerable(self, spec: _Speculation, ssn, delta):
+        """May the speculative solve commit onto ``ssn`` despite the delta?
+        Returns the nodes that only shed tasks, which the commit must find
+        the solution avoided (possibly none), or None when the delta is
+        intolerable: a changed node or known job whose solve inputs differ,
+        a node that appeared or left."""
+        sspec = spec.ssn
+        avoid = set()
+        for name in delta["nodes"]:
+            a = sspec.nodes.get(name)
+            b = ssn.nodes.get(name)
+            if a is None and b is None:
+                continue
+            if a is None or b is None:
+                return None
+            if self._node_decision_equal(a, b):
+                continue
+            if self._node_completion_shrunk(a, b):
+                avoid.add(name)
+                continue
+            return None
+        for uid in delta["jobs"]:
+            a = sspec.jobs.get(uid)
+            if a is None:
+                continue                # new: the suffix solve covers it
+            b = ssn.jobs.get(uid)
+            if b is None:
+                continue                # gone: the remap refuses it
+            if not self._job_decision_equal(a, b):
+                return None
+        return avoid
+
+    @staticmethod
+    def _node_decision_equal(a, b) -> bool:
+        """Do two snapshot clones of one node give the solve the same
+        inputs (accounting, capacity, schedulability, task population)?
+        Task statuses are not compared: that is what makes bind acks
+        tolerable."""
+        if (a.allocatable is not b.allocatable
+                or a.unschedulable != b.unschedulable
+                or a.ready != b.ready
+                or a.max_task_num != b.max_task_num
+                or len(a.tasks) != len(b.tasks)
+                or set(a.tasks) != set(b.tasks)
+                or a.used_ports != b.used_ports):
+            return False
+        for f in ("idle", "used", "releasing", "pipelined"):
+            if getattr(a, f) != getattr(b, f):
+                return False
+        return True
+
+    @staticmethod
+    def _solution_touches(mapped, avoid_nodes) -> bool:
+        """Did the (remapped) speculative solution place a task on one of
+        ``avoid_nodes``?"""
+        from .ops.place import NO_NODE
+        tn = np.asarray(mapped.task_node)
+        placed = {mapped.node_t.names[int(n)]
+                  for n in np.unique(tn[tn != NO_NODE])}
+        return bool(placed & set(avoid_nodes))
+
+    @staticmethod
+    def _node_completion_shrunk(a, b) -> bool:
+        """Did node ``b`` (fresh) differ from ``a`` (speculative) only by
+        tasks leaving: identity and capacity unchanged, the fresh task set
+        a strict subset, every surviving task unchanged?"""
+        if (a.allocatable is not b.allocatable
+                or a.unschedulable != b.unschedulable
+                or a.ready != b.ready
+                or a.max_task_num != b.max_task_num):
+            return False
+        if not set(b.tasks) < set(a.tasks):
+            return False
+        return all(b.tasks[u].status == a.tasks[u].status
+                   and b.tasks[u].node_name == a.tasks[u].node_name
+                   for u in b.tasks)
+
+    @staticmethod
+    def _job_decision_equal(a, b) -> bool:
+        from .api import TaskStatus
+        if (a.queue != b.queue or a.priority != b.priority
+                or a.min_available != b.min_available
+                or a.podgroup is None or b.podgroup is None
+                or a.podgroup.phase != b.podgroup.phase
+                or a.ready_task_num() != b.ready_task_num()
+                or a.waiting_task_num() != b.waiting_task_num()):
+            return False
+        return set(a.task_status_index.get(TaskStatus.PENDING, {})) \
+            == set(b.task_status_index.get(TaskStatus.PENDING, {}))
+
+    def _commit_speculation(self, ssn, plan: _SpecCommitPlan,
+                            action) -> None:
+        """The allocate slot of a cycle whose conflict check passed: fetch
+        the speculative solve, re-anchor it onto ``ssn`` by uid, continue
+        the serial fixed point from it (gang rollbacks re-solve as the
+        serial cycle would), then solve the jobs the speculation could not
+        know (the suffix). Every placement replays through the serial
+        cycle's funnels. A fetched solution that is unusable, broke the
+        avoid promise or left the warm start's premise costs only the
+        speculation: the slot runs the configured action, serially, on the
+        same device."""
+        from .actions import allocate as alloc
+        mapped = ordered = None
+        try:
+            sol = alloc.finalize_speculative_dispatch(plan.pending)
+            mapped, ordered = alloc.remap_speculative_solution(
+                sol, plan.pending.ordered_jobs, ssn)
+        except Exception:
+            log.exception("speculative solve unusable; re-solving the "
+                          "cycle serially")
+        if mapped is not None and plan.avoid_nodes \
+                and self._solution_touches(mapped, plan.avoid_nodes):
+            mapped = None
+        hint = plan.pending.assumed_hint
+        if mapped is not None and hint is not None:
+            kept = {mapped.jobs_list[jx].uid
+                    for jx in range(len(mapped.jobs_list))
+                    if mapped.job_kept[jx]}
+            if kept != hint:
+                mapped = None
+        if mapped is None:
+            self._finish_speculation(plan, "conflict")
+            action.execute(ssn)
+            self._warmstart_empty = self._allocate_kept_empty()
+            return
+        with obs_trace.span("speculate_commit", outcome=plan.outcome):
+            alloc.LAST_STATS.pop("tensor_s", None)
+            alloc.LAST_STATS.pop("tensor_incremental", None)
+            stats = alloc._execute_fused(ssn, first_solution=mapped,
+                                         first_ordered=ordered,
+                                         first_assumed=hint)
+            # the warm-start witness is the MAIN fixed point's verdict
+            main_empty = bool(alloc.LAST_STATS.get("final_kept_empty"))
+            suffix = ({j.uid for j in alloc._eligible_jobs(ssn)}
+                      - plan.pending.eligible_uids)
+            if suffix:
+                alloc._execute_fused(ssn, only_jobs=suffix)
+                main_empty = main_empty and bool(
+                    alloc.LAST_STATS.get("final_kept_empty"))
+            self._warmstart_empty = main_empty
+            action.last_stats = stats
+        self._finish_speculation(plan, plan.outcome)
+
+    def _finish_speculation(self, plan: _SpecCommitPlan,
+                            outcome: str) -> None:
+        from .framework.framework import _retire_session_pin
+        _retire_session_pin(plan.spec_ssn)
+        metrics.register_speculation(outcome)
+        self.last_speculation = {"outcome": outcome,
+                                 "promoted": plan.promoted}
+
+    def _abandon_speculation(self, spec: _Speculation,
+                             outcome: str) -> None:
+        basis = spec.ssn.spec_basis
+        abandon_session(spec.ssn)       # retires the pinned epoch too
+        if basis is not None:
+            # give the moved dirty keys back (a no-op if a real snapshot
+            # already reabsorbed them)
+            self.cache.discard_speculative_snapshot(basis)
+        metrics.register_speculation(outcome)
+        self.last_speculation = {"outcome": outcome, "promoted": False}
+
+    def drop_speculation(self) -> None:
+        """Release the in-flight speculation with no verdict, as a process
+        death does: its session's GC window and pinned epoch go; its
+        staged dirt waits for the next real snapshot."""
+        if self._spec is not None:
+            spec, self._spec = self._spec, None
+            abandon_session(spec.ssn)
+
+    def _discard_speculation(self, outcome: str) -> None:
+        if self._spec is not None:
+            spec, self._spec = self._spec, None
+            self._abandon_speculation(spec, outcome)
+
+    @staticmethod
+    def _allocate_kept_empty() -> bool:
+        from .actions.allocate import LAST_STATS
+        return bool(LAST_STATS.get("final_kept_empty"))
+
+    def _allocate_engine(self, runnable) -> Optional[str]:
+        """The engine the allocate slot will run, when the dispatch/fetch
+        split serves it (the placement kernel's engines), else None."""
+        from .actions.allocate import SPECULATIVE_ENGINES
+        for name, action in runnable:
+            if name not in _ALLOCATE_ACTIONS:
+                continue
+            engine, _ = action.configured_engine(self.conf.configurations)
+            return engine if engine in SPECULATIVE_ENGINES else None
+        return None
+
+    def _dispatch_speculation(self, rec, runnable) -> None:
+        """Stage 2 of the pipeline: open a speculative session on the
+        post-commit state and dispatch the next cycle's solve. Nothing here
+        touches the journal or the executors, so a crash between this and
+        the next commit loses only the speculation. A failed dispatch costs
+        only the speculation: the next cycle solves serially."""
+        engine = self._allocate_engine(runnable)
+        if engine is None:
+            return
+        with rec.span("speculate", engine=engine):
+            sssn = None
+            try:
+                sssn = open_session(self.cache, self.conf.tiers,
+                                    self.conf.configurations,
+                                    time_fn=self.clock.now,
+                                    device=self.device, speculative=True)
+                from .actions.allocate import dispatch_speculative_solve
+                # warm start at the ∅ fixed point iff this cycle's fixed
+                # point converged there (a saturated backlog)
+                hint = set() if self._warmstart_empty else None
+                pending = dispatch_speculative_solve(sssn, engine,
+                                                     assumed_hint=hint)
+                if pending is None:
+                    # the staged basis stays until the next real snapshot
+                    # reabsorbs it, as in the JAX package
+                    abandon_session(sssn)
+                    return
+                self._spec = _Speculation(sssn, pending)
+            except Exception:
+                log.exception("speculative dispatch failed; the next "
+                              "cycle runs serially")
+                if sssn is not None:
+                    abandon_session(sssn)
+                self._spec = None
+                return
+            except BaseException:
+                # a process death in the dispatch: only the speculation is
+                # lost; its GC window ends with it
+                if sssn is not None:
+                    abandon_session(sssn)
+                self._spec = None
+                raise
+            if self.spec_fault_hook is not None:
+                try:
+                    self.spec_fault_hook(self._spec)
+                except BaseException:
+                    # the process dies between dispatch and commit: the
+                    # speculation dies with it, its GC window too
+                    spec, self._spec = self._spec, None
+                    abandon_session(spec.ssn)
+                    raise
+
+    # -- event-driven fast admit ---------------------------------------------
+
+    def fast_admit(self, max_gangs: int = 64) -> int:
+        """Bind gangs that trivially fit between full cycles, so time to
+        first bind drops below one period. Trivial: the whole gang fits
+        one node's idle and future idle (pipelined reservations kept), no
+        placement constraint, and for a PENDING podgroup the unconditional
+        enqueue path (``min_resources`` None, EnqueueAction's gate). Binds
+        go through the journaled ``bind_batch`` funnel; anything not
+        provably trivial waits for the cycle. At most ``max_gangs`` gangs a
+        call. Returns the tasks bound. A bind dirties the cache, so an
+        in-flight speculation over the earlier state conflicts at its
+        commit."""
+        if not self.fast_admit_enabled:
+            return 0
+        if self.elector is not None and not self.elector.leading:
+            return 0
+        cache = self.cache
+        uids = cache.drain_new_jobs()
+        if not uids:
+            return 0
+        from .api import PodGroupPhase
+        gangs = tasks_bound = 0
+        with obs_trace.span("fast_admit", jobs=len(uids)):
+            for uid in uids:
+                if gangs >= max_gangs:
+                    break
+                job = cache.jobs.get(uid)
+                fit = self._trivial_fit(job)
+                if fit is None:
+                    continue
+                node, gang = fit
+                if job.podgroup.phase == PodGroupPhase.PENDING:
+                    job.podgroup.phase = PodGroupPhase.INQUEUE
+                    cache.mark_job_dirty(uid)
+                    cache.update_job_status(job)
+                # the funnel convention: the argument task carries the
+                # placement and the cached task stays unplaced, which
+                # routes bind_batch onto its fresh-placement path
+                placed = []
+                for task in gang:
+                    ti = task.clone()
+                    ti.node_name = node.name
+                    placed.append(ti)
+                cache.bind_batch(placed)
+                gangs += 1
+                tasks_bound += len(gang)
+        if gangs:
+            metrics.register_fast_admit(gangs, tasks_bound)
+        return tasks_bound
+
+    def _trivial_fit(self, job):
+        """(node, gang tasks) when the whole gang provably fits one node
+        under the placer's resource rule with no interaction, else None:
+        the first fitting node in cache order."""
+        from .api import PodGroupPhase, Resource, TaskStatus
+        cache = self.cache
+        if job is None or job.podgroup is None:
+            return None
+        if job.podgroup.phase not in (PodGroupPhase.PENDING,
+                                      PodGroupPhase.INQUEUE):
+            return None
+        if job.podgroup.phase == PodGroupPhase.PENDING \
+                and job.podgroup.min_resources is not None:
+            return None                 # enqueue's vote path
+        if job.queue not in cache.queues:
+            return None
+        gang = [t for t in job.tasks.values()
+                if t.status == TaskStatus.PENDING
+                and not t.resreq.is_empty()]
+        if not gang or len(gang) != len(job.tasks):
+            return None                 # partly placed: the full cycle
+        if not (0 < job.min_available <= len(gang)):
+            return None
+        total = Resource()
+        for task in gang:
+            # (this package's tasks carry no topology policy or revocable
+            # zone, and its nodes no GPU devices or NUMA topology, which
+            # the JAX package's gate also declines)
+            if task.node_selector or task.affinity or task.tolerations:
+                return None             # placement constraints
+            total.add(task.init_resreq)
+        inflight = set(cache.binding_tasks.values())
+        for node in cache.nodes.values():
+            if (not node.ready or node.unschedulable
+                    or node.name in inflight):
+                continue
+            if any(t.get("effect") in ("NoSchedule", "NoExecute")
+                   for t in node.taints):
+                continue
+            if node.max_task_num > 0 \
+                    and len(node.tasks) + len(gang) > node.max_task_num:
+                continue
+            if total.less_equal(node.idle) \
+                    and total.less_equal(node.future_idle()):
+                return node, gang
+        return None
 
     def startup_reconcile(self, cluster_binds=None, cluster_evicts=None):
         """Settle the intent journal's crash window before the first cycle
@@ -427,6 +915,13 @@ class Scheduler:
                 log.exception("startup journal reconciliation failed; "
                               "continuing (side effects may retry)")
         while not self._stop.is_set():
+            if self.fast_admit_enabled:
+                # arrivals that came during the pacing sleep bind now
+                try:
+                    self.fast_admit()
+                except Exception:
+                    log.exception("fast-admit pass failed; the full cycle "
+                                  "will pick the jobs up")
             cycle_start = time.perf_counter()
             cycle_fault = False
             try:
@@ -457,8 +952,10 @@ class Scheduler:
         CUDA context, build and load every kernel of ``ops/csrc`` (one
         nvcc per source, all at once) and, once the cache has nodes, upload
         the persistent node tensors of its current snapshot. There are no
-        shape-keyed compiles to warm. Returns the number of kernel
-        libraries loaded; on the CPU it does nothing and returns 0."""
+        shape-keyed compiles to warm. Pipelined, also ask the card its
+        largest cluster once, make the side stream and pay the epoch pair's
+        first pin. Returns the number of kernel libraries loaded; on the
+        CPU it does nothing and returns 0."""
         if self.device.type != "cuda":
             return 0
         from .ops import build
@@ -466,8 +963,17 @@ class Scheduler:
         build.build_all(build.KERNELS)
         for name in build.KERNELS:
             build.load(name)
+        if self.pipelined:
+            from .actions.allocate import speculation_stream
+            from .ops.place import max_cluster
+            with torch.cuda.device(self.device):
+                max_cluster()
+            speculation_stream(self.device)
         if self.cache.nodes:
             self._prewarm_tensors()
+            tc = self.cache.tensor_cache
+            if self.pipelined and tc is not None:
+                tc.prewarm_epoch_pair()
         return len(build.KERNELS)
 
     def _prewarm_tensors(self) -> None:

@@ -13,6 +13,12 @@ Crash-recovery soak::
     python -m volcano_tpu_torch.sim --scenario smoke --chaos-rate 0.2 \\
         --kill-cycles 3,7,12 --verify-restart-equivalence
 
+The pipelined cycle against its serial oracle::
+
+    python -m volcano_tpu_torch.sim --device cpu --scenario \\
+        pipelined-steady --seed 3 --pipelined \\
+        --verify-pipelined-equivalence --deterministic
+
 The run goes to the CUDA card unless ``--device cpu`` asks for the CPU;
 with no card and no such request it exits non-zero. With the same
 arguments, ``--deterministic`` prints the same bytes as ``python -m
@@ -68,10 +74,6 @@ REFUSED_FLAGS = {
     "--verify-overload-equivalence": (
         False, "admission backpressure and overload bursts "
                "(ROADMAP item 9)"),
-    "--pipelined": (False, "the pipelined cycle (ROADMAP item 8)"),
-    "--fast-admit": (False, "event-driven fast admit (ROADMAP item 8)"),
-    "--verify-pipelined-equivalence": (
-        False, "the pipelined cycle (ROADMAP item 8)"),
     "--elastic-gangs": (False, "elastic gangs (ROADMAP item 7)"),
     "--topology-weight": (True, "elastic gangs and B6 (ROADMAP item 7)"),
     "--verify-elastic-gang-equivalence": (
@@ -141,6 +143,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-cycle deadline budget in virtual seconds "
                          "(0 = unbounded); actions defer past it with "
                          "carry-over ordering")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="run the pipelined scheduler shell (the next "
+                         "cycle's solve dispatched while the host commits "
+                         "this one)")
+    ap.add_argument("--fast-admit", action="store_true",
+                    help="bind trivially fitting gangs between full "
+                         "cycles through the journaled funnel")
+    ap.add_argument("--verify-pipelined-equivalence", action="store_true",
+                    help="also run the serial oracle and assert: a "
+                         "byte-identical decision plane when nothing could "
+                         "diverge (no kills, no fast admit, no conflicted "
+                         "or partial commit), else equal terminal "
+                         "accounting; zero double binds and every arrived "
+                         "job completed (exit 1 otherwise)")
     ap.add_argument("--device", default="cuda",
                     help="where sessions solve: cuda (default) or cpu")
     ap.set_defaults(refused=[])
@@ -184,6 +200,11 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
     if args.conf:
         with open(args.conf) as f:
             conf_text = f.read()
+    elif args.pipelined or args.fast_admit:
+        # pinned, so the serial oracle of --verify-pipelined-equivalence
+        # runs the same actions and engine: the diff isolates the pipeline
+        from .runner import PIPELINED_SIM_CONF
+        conf_text = PIPELINED_SIM_CONF
 
     chaos_seed = args.seed if args.chaos_seed is None else args.chaos_seed
     kill_seed = args.seed if args.kill_seed is None else args.kill_seed
@@ -202,7 +223,7 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                 lambda e: ChaosEvictor(e, failure_rate=args.chaos_rate,
                                        seed=chaos_seed))
 
-    def run(kills):
+    def run(kills, pipelined=None, fast_admit=None):
         bw, ew = wraps()
         runner = SimRunner(trace, conf_text=conf_text, period=args.period,
                            seed=args.seed, max_cycles=args.max_cycles,
@@ -210,7 +231,11 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                            evictor_wrap=ew, kill_cycles=kills,
                            kill_seed=kill_seed,
                            cycle_budget_s=cycle_budget,
-                           budget_cost_per_task=budget_cost, device=device)
+                           budget_cost_per_task=budget_cost, device=device,
+                           pipelined=args.pipelined if pipelined is None
+                           else pipelined,
+                           fast_admit=args.fast_admit if fast_admit is None
+                           else fast_admit)
         if runners is not None:
             runners.append(runner)
         return runner.run()
@@ -245,6 +270,48 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
         print(f"restart-equivalence OK: {report['restarts']} restarts, "
               f"journal={report['journal_replayed']}, "
               f"accounting={got}", file=sys.stderr)
+    if args.verify_pipelined_equivalence:
+        import json
+        from .report import pipelined_oracle_part
+        baseline = run([], pipelined=False, fast_admit=False)
+        problems = []
+        spec = report.get("speculation", {})
+        mode = "byte-identical"
+        # a conflicted speculation re-solves serially on the true
+        # snapshot, so the whole plane usually matches; it must whenever
+        # nothing could legitimately diverge
+        got_json = json.dumps(pipelined_oracle_part(report),
+                              sort_keys=True, separators=(",", ":"))
+        want_json = json.dumps(pipelined_oracle_part(baseline),
+                               sort_keys=True, separators=(",", ":"))
+        if got_json != want_json:
+            diverger = bool(kill_cycles or args.fast_admit
+                            or spec.get("conflicts", 0)
+                            or spec.get("partial", 0))
+            if not diverger:
+                problems.append("conflict-free pipelined decision plane "
+                                "differs from the serial oracle")
+            mode = "terminal"
+            got = terminal_accounting(report)
+            want = terminal_accounting(baseline)
+            if got != want:
+                problems.append(f"terminal accounting diverged: "
+                                f"pipelined={got} serial={want}")
+        if report.get("double_binds"):
+            problems.append(f"double-binds in pipelined run: "
+                            f"{report['double_binds']}")
+        if report["jobs"]["completed"] != report["jobs"]["arrived"]:
+            problems.append("pipelined run did not complete every arrived "
+                            "job")
+        if problems:
+            for p in problems:
+                print(f"pipelined-equivalence FAILED: {p}", file=sys.stderr)
+            return 1
+        print(f"pipelined-equivalence OK: speculation={spec}, "
+              f"fast_admit={report.get('fast_admit', {})}, "
+              f"restarts={report.get('restarts', 0)}, "
+              f"ttfb_p99_cycles={report.get('ttfb_p99_cycles')}, "
+              f"mode={mode}", file=sys.stderr)
     return 0
 
 

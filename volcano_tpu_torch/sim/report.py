@@ -200,6 +200,12 @@ def build_report(runner, actions_ms: Dict[tuple, list],
         # on the deterministic cost model, so decision-plane material —
         # and only emitted on overload runs
         report["overload"] = runner.overload_stats()
+    if getattr(runner, "pipelined_mode", False):
+        # the pipeline's mechanism, not its decisions:
+        # pipelined_oracle_part strips it for the serial-oracle diff
+        report["speculation"] = runner.speculation_stats()
+    if getattr(runner, "fast_admit_mode", False):
+        report["fast_admit"] = runner.fast_admit_stats()
     return report
 
 
@@ -220,6 +226,16 @@ def terminal_accounting(report: dict) -> dict:
         "unfinished": report["jobs"]["unfinished"],
         "double_binds": report.get("double_binds", 0),
     }
+
+
+def pipelined_oracle_part(report: dict) -> dict:
+    """The decision plane a ``--pipelined`` run of a conflict-free trace
+    must reproduce byte for byte against the serial oracle: everything but
+    the speculation and fast-admit counters, which the oracle has not."""
+    part = deterministic_part(report)
+    part.pop("speculation", None)
+    part.pop("fast_admit", None)
+    return part
 
 
 def deterministic_part(report: dict) -> dict:

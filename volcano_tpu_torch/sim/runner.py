@@ -29,6 +29,12 @@ process "dies" at a seeded kill point and restarts: volatile state (resync
 queue, dead letters, in-flight ledger) is lost, the intent journal
 survives, and startup reconciliation settles the crash window against the
 executors' record before the next cycle.
+
+``pipelined`` runs the pipelined shell (a speculative solve dispatched
+after each cycle, committed or discarded at the next one's start) and adds
+the ``speculate`` kill point; ``fast_admit`` binds trivially fitting gangs
+as they arrive, before the cycle. Both default to ``PIPELINED_SIM_CONF``,
+and the report gains their counters.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from ..cache import SchedulerCache
 from ..cache.cache import RateLimitedQueue
 from ..cache.executors import SequenceBinder, SequenceEvictor
 from ..cache.journal import IntentJournal
-from ..chaos import KillPointBinder, KillPointEvictor, SimKill
+from ..chaos import (KillPointBinder, KillPointEvictor, SimKill,
+                     arm_speculation_kill)
 from ..elastic_gang.membership import (ELASTIC_DESIRED_ANNOTATION,
                                        TOPOLOGY_ZONE_LABEL, is_elastic)
 from ..obs.trace import TRACE as OBS_TRACE
@@ -59,6 +66,25 @@ from . import report as report_mod
 # engines; pass conf_text to run the sim against those).
 SIM_CONF = """
 actions: "enqueue, allocate, preempt, reclaim, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+"""
+
+
+# the conf of --pipelined and --fast-admit runs: the speculative
+# dispatch/fetch split serves the placement kernel's engine, so the allocate
+# slot runs allocate-tpu; the serial oracle of
+# --verify-pipelined-equivalence runs this same conf, so the comparison
+# isolates the pipeline
+PIPELINED_SIM_CONF = """
+actions: "enqueue, allocate-tpu, backfill"
 tiers:
 - plugins:
   - name: priority
@@ -138,7 +164,9 @@ class SimRunner:
                  journal: Optional[IntentJournal] = None,
                  cycle_budget_s: float = 0.0,
                  budget_cost_per_task: float = 0.0,
-                 device=None):
+                 device=None,
+                 pipelined: bool = False,
+                 fast_admit: bool = False):
         self.trace = list(trace)
         self.period = period
         self.seed = seed
@@ -187,7 +215,14 @@ class SimRunner:
         self.authority = None
         self.ledger = None
         self._ack_wire = _AckWire(self.clock)
-        self.conf_text = conf_text if conf_text is not None else SIM_CONF
+        self.pipelined_mode = bool(pipelined)
+        self.fast_admit_mode = bool(fast_admit)
+        if conf_text is not None:
+            self.conf_text = conf_text
+        elif self.pipelined_mode or self.fast_admit_mode:
+            self.conf_text = PIPELINED_SIM_CONF
+        else:
+            self.conf_text = SIM_CONF
 
         self.cache = SchedulerCache(binder=binder, evictor=evictor,
                                     default_queue=None,
@@ -199,6 +234,9 @@ class SimRunner:
         self._pin_feedback(self.cache)
         self.sched = self._new_scheduler()
         self.caches = [self.cache]
+        # the process-wide counters, marked so the report shows this run's
+        self._spec_mark = dict(metrics.speculation_counts())
+        self._fa_mark = dict(metrics.fast_admit_counts())
 
         # decision-plane bookkeeping
         self.arrival_time: Dict[str, float] = {}
@@ -237,7 +275,8 @@ class SimRunner:
         return Scheduler(self.cache, conf_text=self.conf_text,
                          schedule_period=self.period, clock=self.clock,
                          rng=random.Random(self.seed), device=self.device,
-                         **kwargs)
+                         pipelined=self.pipelined_mode,
+                         fast_admit=self.fast_admit_mode, **kwargs)
 
     # -- overload plumbing --------------------------------------------------
 
@@ -541,8 +580,12 @@ class SimRunner:
     def _arm_kill(self) -> str:
         """Pick (seeded) where this cycle's crash lands and arm the
         matching kill point. Returns the mode; "post_cycle" crashes
-        cleanly between run_once and the next cycle instead."""
-        mode = self._kill_rng.choice(self._KILL_MODES)
+        cleanly between run_once and the next cycle instead. Pipelined
+        runs add "speculate": the process dies between the speculative
+        dispatch and its commit."""
+        modes = self._KILL_MODES + ("speculate",) if self.pipelined_mode \
+            else self._KILL_MODES
+        mode = self._kill_rng.choice(modes)
         at = self._kill_rng.randint(1, 5)
         if mode == "bind_before":
             self._kill_binder.arm(at, before=True)
@@ -552,6 +595,8 @@ class SimRunner:
             self._kill_evictor.arm(at, before=True)
         elif mode == "evict_after":
             self._kill_evictor.arm(at, before=False)
+        elif mode == "speculate":
+            arm_speculation_kill(self.sched)
         return mode
 
     def _crash_restart(self, kill_mode: Optional[str] = None) -> None:
@@ -582,6 +627,8 @@ class SimRunner:
         c.tensor_cache = None
         c._tensor_dirty = set()
         self._harvest_budget(self.sched)
+        # a speculation in flight dies with the process
+        self.sched.drop_speculation()
         self.sched = self._new_scheduler()
         # the crash window holds at most ONE unacked intent (execution is
         # synchronous) and the kill mode says whether its executor ran:
@@ -603,6 +650,25 @@ class SimRunner:
                         self._journal_replayed.get(k, 0) + v
         self.restarts += 1
 
+    def speculation_stats(self) -> Dict[str, object]:
+        """This run's speculation verdicts; hit_rate counts committed
+        speculations (hits and partial replays) over all verdicts."""
+        now = metrics.speculation_counts()
+        d = {k: int(now.get(k, 0) - self._spec_mark.get(k, 0))
+             for k in set(now) | set(self._spec_mark)}
+        hits = d.get("hit", 0)
+        partial = d.get("partial", 0)
+        conflicts = d.get("conflict", 0)
+        total = hits + partial + conflicts
+        return {"hits": hits, "partial": partial, "conflicts": conflicts,
+                "hit_rate": round((hits + partial) / total, 4)
+                if total else 0.0}
+
+    def fast_admit_stats(self) -> Dict[str, int]:
+        now = metrics.fast_admit_counts()
+        return {k: int(now.get(k, 0) - self._fa_mark.get(k, 0))
+                for k in ("gangs", "binds")}
+
     def run(self) -> dict:
         """Run the trace to completion (or stall/max_cycles); returns the
         report dict (sim/report.py)."""
@@ -614,6 +680,12 @@ class SimRunner:
             now = self.clock.time()
             self._apply_trace_until(now)
             self._fire_completions_until(now)
+            if self.fast_admit_mode:
+                # the arrivals just applied bind now, through the journaled
+                # funnel; the feedback pass stamps their first bind at this
+                # virtual time, before the full cycle
+                if self.sched.fast_admit():
+                    self._feedback(now)
             kill_mode = None
             if self.cycles in self.kill_cycles:
                 kill_mode = self._arm_kill()
@@ -646,6 +718,8 @@ class SimRunner:
             last_sig = sig
             if stall >= self.stall_limit:
                 break                # wedged backlog: report what's left
+        # the run is over: a speculation still in flight is never committed
+        self.sched.drop_speculation()
         wall_s = time.perf_counter() - wall0
         # runs longer than the bounded metrics ring lose their oldest
         # per-action samples: flag the affected series
