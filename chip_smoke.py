@@ -140,7 +140,25 @@
    schedule_ms and pipeline_e2e_ms p50/p99, and for each fetched
    speculation whether its event had completed at the fetch (a count),
    the dispatch's host ms and the fetch's wait ms.
-16. Prints one JSON line with each kernel's launches, times, bound and
+16. Holds B6, the placement kernel's zone-anchor mode
+   (``place_topo_cuda``), against ``place_topo_plain`` to the bit at every
+   cluster size, on tests/torch_parity.py's zone-anchor worlds at their
+   weights and a 6,005-node wide-ties world in 13 interleaved zones (a
+   cluster of CTAs at the default plan); then
+   runs the sim with elastic gangs on the card (tools/sim_reference.py's
+   elastic runs: ``elastic-churn`` under the JAX sim's elastic conf and
+   under deploy/scheduler.conf with elastic gangs, at topology weights 10
+   and 0, at 10 also with the incremental snapshot off, and
+   tools/sim_traces.py's full-width ``elastic-10k``, 10,000 elastic pods on
+   2,000 nodes in 125 zones, under the latter at weight 10), each kernel's
+   count set to 0 before each run. Each run's decision plane, side-effect
+   sequence and node-tensor path record must equal the JAX package's in
+   tests/sim_reference_digests.json, with no action failure, no double
+   bind and no below-min eviction; B6 must launch once for each allocate
+   solve of a weight-10 deployed run and never elsewhere, and each of its
+   solves is held against the plain version on its own inputs.
+   elastic-10k's first solve is timed beside B1 on the same inputs.
+17. Prints one JSON line with each kernel's launches, times, bound and
    error (and its launches in each sim run), then the card's name and
    power limit, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -399,7 +417,7 @@ def larger(t_bytes, t_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def place_bound(args, counts):
+def place_bound(args, counts, zone=False):
     """Least time the card could take for one solve, from what these inputs
     need: each input byte read once and each output byte written once over
     HBM bandwidth, against the operations over the FP32 rate. ``counts``
@@ -412,13 +430,15 @@ def place_bound(args, counts):
     N/32 group maxima, two operations a 64-bit compare. Returns (bound_ms,
     "bytes" or "operations", all_pairs_ms): the last is PR 1's operation
     count, every node scored for every evaluated task, kept so that the two
-    kernels' bounds compare."""
+    kernels' bounds compare. With ``zone`` (B6) the zone-code column is
+    read too."""
     idle, _, _, _, _, _, req, _, _, _, ms, _ = args
     N, R = idle.shape
     T = req.shape[0]
     state_bytes = 3 * N * R * 4 + N * 4
     in_bytes = (T * R * 4 + 3 * T * 4 + N * R * 4 + N * 4 + state_bytes
-                + R * 4 + (T * N * 4 if ms is not None else 0))
+                + R * 4 + (T * N * 4 if ms is not None else 0)
+                + (N * 4 if zone else 0))
     out_bytes = T * 4 + state_bytes
     groups = -(-int(N) // 32)
     per_pair = 10 * R + 41
@@ -1027,8 +1047,9 @@ def kernel_counters():
                                               round_cuda, topk_cuda)
     from volcano_tpu_torch.ops.evict import walk_cuda
     from volcano_tpu_torch.ops.place import (decode_packed_cuda, place_cuda,
-                                             rowdiff_cuda)
-    return {"place": place_cuda, "rowdiff": rowdiff_cuda,
+                                             place_topo_cuda, rowdiff_cuda)
+    return {"place": place_cuda, "place_topo": place_topo_cuda,
+            "rowdiff": rowdiff_cuda,
             "decode_packed": decode_packed_cuda,
             "evict_walk": walk_cuda, "blocks_prep": prep_cuda,
             "blocks_topk": topk_cuda, "blocks_round": round_cuda,
@@ -1631,6 +1652,221 @@ def pipelined_phase(digests, sim_runs, runs=PIPELINED_RUNS, extra_args=()):
 
 
 # ---------------------------------------------------------------------------
+# elastic gangs and B6
+# ---------------------------------------------------------------------------
+
+# tools/sim_reference.py's elastic RUNS, each held to its entry in
+# tests/sim_reference_digests.json: elastic-churn under the JAX sim's
+# elastic conf and under deploy/scheduler.conf with elastic gangs (B6 at
+# weight 10), each at weights 10 and 0, the latter at 10 with the switch
+# off, and the full-width elastic-10k under it, the path's main run
+ELASTIC_MAIN = "--trace elastic-10k --elastic-gangs --conf " \
+    "conf:elastic-deployed-10"
+
+
+def elastic_runs():
+    tool, _ = sim_tools()
+    return [r for r in tool.RUNS if "--elastic-gangs" in r[1]]
+
+
+def compare_topo(label, args, zone, weight, timed=False):
+    """place_topo_cuda against place_topo_plain on the same CUDA tensors,
+    at the default plan and at every cluster size the card launches; with
+    ``timed`` also both times, B1's time on the same inputs without the
+    term (same call), the scorings the cache rule requires and the bound
+    (place_bound's, with the zone column read once)."""
+    import torch
+
+    from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, launch_plan,
+                                             max_cluster, place_cuda,
+                                             place_topo_cuda,
+                                             place_topo_plain, task_rescores)
+    got = place_topo_cuda(*args, zone, weight)
+    torch.cuda.synchronize()
+    plain = {}
+    plain_ms = time_host_ms(lambda: plain.setdefault(
+        "out", place_topo_plain(*args, zone, weight)))
+    want = plain["out"]
+    err = same_result(label, got, want)
+    for c in [c for c in CLUSTER_SIZES if c <= max_cluster()]:
+        err = max(err, same_result(
+            f"{label} cluster {c}",
+            place_topo_cuda(*args, zone, weight, cluster=c), want))
+    torch.cuda.synchronize()
+    words = got[0].cpu().numpy()
+    flags = args[7].cpu().numpy()
+    last = (flags & 4) != 0
+    N, R = args[0].shape
+    ms = args[10]
+    plan = launch_plan(N, R, ms is not None, max_cluster(), topo=True)
+    rec = {"world": label, "T": int(args[6].shape[0]), "N": int(N),
+           "R": int(R), "weight": float(weight), "static": ms is not None,
+           "zones": int(torch.unique(zone).numel()),
+           "placed": int(((words & 1) != 0).sum()),
+           "jobs": int(last.sum()),
+           "rolled_back": int(((words[last] & 8) == 0).sum()),
+           "max_abs_err": err, "cluster": plan.cluster,
+           "in_smem": plan.in_smem}
+    if timed:
+        counts = task_rescores(words, flags, args[6].cpu().numpy(),
+                               None if ms is None else ms.cpu().numpy(),
+                               int(N), zone.cpu().numpy())
+        b1_counts = task_rescores(
+            place_cuda(*args)[0].cpu().numpy(), flags,
+            args[6].cpu().numpy(), None if ms is None else ms.cpu().numpy(),
+            int(N))
+        rec.update(
+            scored_pairs=int(counts.sum()),
+            b1_scored_pairs=int(b1_counts.sum()),
+            ms=time_cuda_ms(lambda: place_topo_cuda(*args, zone, weight)),
+            b1_ms=time_cuda_ms(lambda: place_cuda(*args)),
+            plain_ms=plain_ms)
+        rec["bound_ms"], rec["bound_by"], _ = place_bound(args, counts,
+                                                          zone=True)
+    print("kernel place_topo", json.dumps(rec), flush=True)
+    return rec
+
+
+def topo_worlds(dev):
+    """B6 against its plain version on tests/torch_parity.py's zone-anchor
+    worlds (NumPy only) at their weights, and on a wide-ties world of 6,005
+    nodes in 13 interleaved zones, whose default plan is a cluster."""
+    sys.path.insert(0, os.path.join(_ROOT, "tests"))
+    from torch_parity import TOPO_CASES, TOPO_WORLDS, topo_args
+    out = []
+    for name, weight in TOPO_CASES:
+        args = topo_args(TOPO_WORLDS[name](), dev)
+        out.append(compare_topo(f"{name}@{weight}", args[:12], args[12],
+                                weight))
+    w = wide_ties_world(2000, 4000)
+    args = kernel_args(w, dev)
+    import torch
+    zone = torch.tensor(1 + np.arange(len(w["max_tasks"])) % 13,
+                        dtype=torch.int32, device=dev)
+    out.append(compare_topo("wide-ties-n6005@10", args, zone, 10.0))
+    check(out[-1]["cluster"] > 1, "the 6,005-node world ran on one CTA")
+    return out
+
+
+def run_elastic(source, args, env, trace_dir):
+    """One elastic run on the card with ``env`` set: the run_sim results,
+    the tensor-path summary, and the arguments of each B6 launch the run's
+    allocate solves made (cloned)."""
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.ops import place as place_mod
+    tool, traces = sim_tools()
+    solves = []
+    real = place_mod._place_launch
+
+    def recorded(wrapper, *a):
+        # a: place_cuda's twelve arguments, the cluster, the zone codes
+        # and the weight
+        if wrapper is place_mod.place_topo_cuda:
+            solves.append(tuple(x.clone() if hasattr(x, "clone") else x
+                                for x in a[:12] + a[13:]))
+        return real(wrapper, *a)
+
+    saved = {k: os.environ.get(k) for k, _ in env}
+    os.environ.update(dict(env))
+    place_mod._place_launch = recorded
+    paths = traces.TensorPathRecorder(allocate, SchedulerCache)
+    try:
+        out = run_sim(None, tool.conf_args(args, trace_dir),
+                      tool.sim_argv(source, trace_dir))
+    finally:
+        paths.close()
+        place_mod._place_launch = real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out, paths.summary(), solves
+
+
+def elastic_phase(digests, sim_runs, runs=None, extra_args=()):
+    """Step 16: B6 against its plain version on the zone-anchor worlds,
+    then each elastic run on the card, held to the JAX package's record
+    (plane, sequence, node-tensor paths), with every B6 solve a run made
+    held against the plain version on its own inputs; the main run's first
+    solve (elastic-10k: about 9,600 core members on 2,000 nodes in 125
+    zones) timed beside B1 on the same inputs. Adds each run's launches to
+    ``sim_runs``; returns the timed record, every B6 record and the runs'
+    records."""
+    import hashlib
+    import tempfile
+
+    from volcano_tpu_torch.framework import resolve_device
+    from volcano_tpu_torch.sim.report import percentiles
+    dev = resolve_device(None)
+    records = topo_worlds(dev)
+    tool, _ = sim_tools()
+    out, timed = {}, None
+    with tempfile.TemporaryDirectory() as trace_dir:
+        for source, args, env in runs or elastic_runs():
+            key = tool.run_key(source, args, env)
+            (report, text, sequence, launches, wall_s), paths, solves = \
+                run_elastic(source, (*args, *extra_args), env, trace_dir)
+            want = digests[key]
+            check(hashlib.sha256(text).hexdigest() == want["sha256"]
+                  and len(text) == want["bytes"],
+                  f"elastic {key}: decision plane differs from the JAX "
+                  f"package's ({len(text)} bytes, want {want['bytes']})")
+            check((sequence["sha256"], sequence["binds"],
+                   sequence["evicts"])
+                  == (want["sequence_sha256"], want["sequence_binds"],
+                      want["sequence_evicts"]),
+                  f"elastic {key}: a bind's node or an eviction differs "
+                  f"from the JAX package's")
+            check(paths == want["tensor_paths"],
+                  f"elastic {key}: node-tensor paths {paths} differ from "
+                  f"the JAX package's {want['tensor_paths']}")
+            eg = report["elastic_gangs"]
+            check(report["action_failures"] == 0
+                  and report["double_binds"] == 0
+                  and eg["below_min_evictions"] == 0,
+                  f"elastic {key}: {report['action_failures']} action "
+                  f"failures, {report['double_binds']} double binds, "
+                  f"{eg['below_min_evictions']} below-min evictions")
+            b6 = "conf:elastic-deployed-10" in args
+            check(launches["place_topo"] == len(solves)
+                  == (paths["solves"] if b6 else 0),
+                  f"elastic {key}: B6 launched {launches['place_topo']} "
+                  f"times for {paths['solves']} solves")
+            check(b6 or "conf:elastic-deployed-0" not in args
+                  or launches["place"] == paths["solves"] > 0,
+                  f"elastic {key}: B1 launched {launches['place']} times")
+            for k, a in enumerate(solves):
+                rec = compare_topo(f"{source}-solve-{k}", a[:12], a[12],
+                                   a[13], timed=key == ELASTIC_MAIN
+                                   and k == 0)
+                records.append(rec)
+                if "ms" in rec:
+                    timed = rec
+            wall = report["wallclock"]
+            rec = {
+                "env": dict(env), "cycles": report["cycles"],
+                "binds": report["binds"], "evicts": report["evicts"],
+                "jobs": report["jobs"], "elastic_gangs": eg,
+                "launches": launches, "b6_solves": len(solves),
+                "schedule_ms": wall["schedule_ms"],
+                "pipeline_e2e_ms": wall["pipeline_e2e_ms"],
+                "actions_ms": wall["actions_ms"],
+                "tensor_paths": {k: v for k, v in paths.items()
+                                 if k != "sha256"},
+                "wall_s": wall_s,
+                "decision_plane_sha256": hashlib.sha256(text).hexdigest(),
+                "sequence_sha256": sequence["sha256"]}
+            out[key] = rec
+            sim_runs[key] = launches
+            print(f"elastic {key}:", json.dumps(rec), flush=True)
+    check(timed is not None, "elastic: the main run made no B6 solve")
+    print("elastic card:", card_line(), flush=True)
+    return timed, records, out
+
+
+# ---------------------------------------------------------------------------
 # the cycle
 # ---------------------------------------------------------------------------
 
@@ -2063,8 +2299,12 @@ def main() -> int:
         digests, sim_runs)
     backlog_key = "--trace backlog-16k --pipelined"
 
+    phase("elastic")
+    # 16. elastic gangs and B6
+    topo_rec, topo_records, elastic_out = elastic_phase(digests, sim_runs)
+
     phase("summary")
-    # 16. the kernels line (launches: the placement kernel's in the 10k
+    # 17. the kernels line (launches: the placement kernel's in the 10k
     # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
     # it a static matrix, the walk's in the deployed cycle of the tight mix,
     # the one where preempt has work, the block auction's in the tpu-blocks
@@ -2085,6 +2325,22 @@ def main() -> int:
         "library_ms": None,
         "cluster": slice_rec["cluster"],
         "scored_pairs": slice_rec["scored_pairs"],
+    }, {
+        "name": "place_topo",
+        "route": "cuda",
+        "source": "volcano_tpu_torch/ops/csrc/place.cu",
+        "replaces": "volcano_tpu/ops/place.py:249",
+        "launches": elastic_out[ELASTIC_MAIN]["launches"]["place_topo"],
+        "max_abs_err": max(r["max_abs_err"] for r in topo_records),
+        "ms": topo_rec["ms"],
+        "plain_ms": topo_rec["plain_ms"],
+        "bound_ms": topo_rec["bound_ms"],
+        "bound_by": topo_rec["bound_by"],
+        "library_ms": None,
+        "b1_ms_same_inputs": topo_rec["b1_ms"],
+        "T": topo_rec["T"], "N": topo_rec["N"],
+        "scored_pairs": topo_rec["scored_pairs"],
+        "b1_scored_pairs": topo_rec["b1_scored_pairs"],
     }, {
         "name": "rowdiff",
         "route": "cuda",

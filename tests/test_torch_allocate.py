@@ -83,14 +83,32 @@ def test_scheduler_run_once():
     (SLICE_CONF.replace("backfill", "reserve"), "reserve"),
     (SLICE_CONF.replace("engine: tpu-fused", "engine: callbacks-parallel"),
      "callbacks-parallel"),
-    (SLICE_CONF.replace("engine: tpu-fused",
-                        "engine: tpu-fused\n    topology-weight: 3"),
-     "topology-weight"),
 ])
 def test_refuses_what_is_not_ported(conf_text, refused):
     cache = torch_synthetic.baseline_config("tiny")[0]
     with pytest.raises(ValueError, match=refused):
         Scheduler(cache, conf_text, device="cpu").run_once()
+
+
+@pytest.mark.parametrize("engine", ["tpu-fused", "tpu-scan", "tpu-pallas"])
+def test_topology_weight_runs_the_zone_anchor_solve(engine, monkeypatch):
+    """A positive topology-weight, once refused, runs: each engine that
+    names the placement kernel solves with B6's plain version on the CPU
+    (the JAX package's scan takes place_scan_topo at every one of them),
+    and the unzoned tiny world binds as it does without the term."""
+    from volcano_tpu_torch.ops import place as place_mod
+    calls = []
+    real = place_mod.place_topo_plain
+    monkeypatch.setattr(place_mod, "place_topo_plain",
+                        lambda *a: calls.append(a) or real(*a))
+    conf = SLICE_CONF.replace("engine: tpu-fused",
+                              f"engine: {engine}\n    topology-weight: 3")
+    cache, binder, _ = torch_synthetic.baseline_config("tiny")
+    assert Scheduler(cache, conf, device="cpu").run_once() == []
+    assert calls and calls[0][-1] == 3.0
+    plain, plain_binder, _ = torch_synthetic.baseline_config("tiny")
+    assert Scheduler(plain, SLICE_CONF, device="cpu").run_once() == []
+    assert binder.binds == plain_binder.binds and binder.binds
 
 
 def test_refuses_pod_affinity():

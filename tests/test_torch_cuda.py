@@ -12,7 +12,10 @@ ids and exactness flags computed on the card as on the CPU. The cache's
 persistent node rows (scattered with an out-of-place ``index_copy``) on
 the card equal the CPU's, the shell's prewarm uploads them, and the hole
 worlds (holes in the placement kernel's node axis) decide on the card as
-on the CPU.
+on the CPU. B6, the placement kernel's zone-anchor mode
+(``place_topo_cuda``), equals ``place_topo_plain`` on every zone-anchor
+world at every cluster size and in a device-memory plan, equals B1 at
+weight 0, and is what ``place`` launches at a positive weight.
 
 These tests need an NVIDIA card and nvcc; without a card they skip. On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -24,7 +27,8 @@ import torch
 
 from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, NEG, launch_plan,
                                          max_cluster, place, place_cuda,
-                                         place_plain, rowdiff_cuda,
+                                         place_plain, place_topo_cuda,
+                                         place_topo_plain, rowdiff_cuda,
                                          rowdiff_plain, task_flags)
 from volcano_tpu_torch.ops.evict import (launch_plan as walk_plan,
                                          to_device, walk, walk_cuda,
@@ -35,8 +39,9 @@ from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
 from torch_parity import (BLOCK_WORLDS, CARD_BLOCK_WORLDS, CARD_WALK_WORLDS,
-                          HOLE_WORLDS, PLACE_WORLDS, WALK_WORLDS, blocks_args,
-                          hole_world_run)
+                          HOLE_WORLDS, PLACE_WORLDS, TOPO_CASES, TOPO_WORLDS,
+                          WALK_WORLDS, blocks_args, hole_world_run,
+                          topo_args)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,6 +103,65 @@ def test_device_memory_planes_match_plain(card):
             t(ready_need), t(keep_need), None, default_weights(R))
     assert not launch_plan(N, R, False, max_cluster()).in_smem
     _assert_same(place_cuda(*args), place_plain(*args), "device memory")
+
+
+@pytest.mark.parametrize("world,topo_weight", TOPO_CASES,
+                         ids=[f"{w}@{tw}" for w, tw in TOPO_CASES])
+def test_topo_kernel_matches_plain(world, topo_weight, card):
+    """B6's words and final state equal place_topo_plain's to the bit, at
+    the default plan and at every cluster size the card launches."""
+    args = topo_args(TOPO_WORLDS[world](), card)
+    want = place_topo_plain(*args[:12], args[12], topo_weight)
+    _assert_same(place_topo_cuda(*args[:12], args[12], topo_weight), want,
+                 "default")
+    for c in CLUSTER_SIZES:
+        if c <= max_cluster():
+            _assert_same(place_topo_cuda(*args[:12], args[12], topo_weight,
+                                         cluster=c), want, f"cluster {c}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("world", list(TOPO_WORLDS))
+def test_topo_kernel_at_weight_zero_is_b1(world, card):
+    args = topo_args(TOPO_WORLDS[world](), card)
+    _assert_same(place_topo_cuda(*args[:12], args[12], 0.0),
+                 place_cuda(*args[:12]), "weight 0")
+
+
+def test_topo_device_memory_planes_match_plain(card):
+    """R=8 at 40,000 nodes in zones of 16: B6 with its planes and zone
+    codes in device memory."""
+    rng = np.random.RandomState(6)
+    N, R, T, J = 40000, 8, 200, 20
+    cap = rng.choice([2000.0, 4000.0, 8000.0], size=(N, R)).astype(np.float32)
+    used = (cap * rng.uniform(0, 0.6, (N, R))).astype(np.float32)
+    req = rng.choice([250.0, 500.0, 1000.0], (T, R)).astype(np.float32)
+    job_ix = np.sort(rng.randint(0, J, T)).astype(np.int32)
+    min_avail = rng.randint(1, 8, J).astype(np.int32)
+    zeros = np.zeros(J, np.int32)
+    flags, ready_need, keep_need = task_flags(job_ix, min_avail, zeros, zeros)
+    t = lambda a: torch.tensor(a, device=card)  # noqa: E731
+    args = (t(cap - used), t(cap - used), t(used),
+            t(rng.randint(0, 3, N).astype(np.int32)), t(cap),
+            t(rng.randint(2, 60, N).astype(np.int32)), t(req), t(flags),
+            t(ready_need), t(keep_need), None, default_weights(R))
+    zone = t((1 + np.arange(N) // 16).astype(np.int32))
+    assert not launch_plan(N, R, False, max_cluster(), topo=True).in_smem
+    _assert_same(place_topo_cuda(*args, zone, 10.0),
+                 place_topo_plain(*args, zone, 10.0), "device memory")
+
+
+def test_place_takes_b6_at_a_positive_weight(card):
+    w = TOPO_WORLDS["unzoned-first"]()
+    args = topo_args(w, card)
+    zeros = np.zeros(len(w["min_available"]), np.int32)
+    b1, b6 = place_cuda.launches, place_topo_cuda.launches
+    place(*args[:7], w["job_ix"], args[10], w["min_available"], zeros, zeros,
+          args[11], args[12], 0.0)
+    assert (place_cuda.launches, place_topo_cuda.launches) == (b1 + 1, b6)
+    place(*args[:7], w["job_ix"], args[10], w["min_available"], zeros, zeros,
+          args[11], args[12], 10.0)
+    assert (place_cuda.launches, place_topo_cuda.launches) == (b1 + 1, b6 + 1)
 
 
 def test_place_dispatches_cuda_tensors_to_the_kernel(card):

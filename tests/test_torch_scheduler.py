@@ -785,8 +785,6 @@ REFUSED_CONFS = [
      f"    engine: {engine}\n", engine)
     for engine in ("tpu-sharded", "callbacks-parallel")
 ] + [
-    (SIMPLE_CONF + "configurations:\n- name: allocate\n  arguments:\n"
-     "    topology-weight: 3\n", "topology-weight"),
     (DEPLOYED_CONF.replace("engine: tpu\n- name: reclaim",
                            "engine: tpu-sharded\n- name: reclaim"),
      "tpu-sharded"),
@@ -845,6 +843,52 @@ def test_refusal_raises_at_reload_not_as_action_failure(tmp_path,
     os.utime(conf_path)
     assert sched.run_once() == []
     assert sched.run_once() == []
+
+
+# confs the port once refused and now runs: (conf text, what it names)
+ACCEPTED_CONFS = [
+    (SIMPLE_CONF + "configurations:\n- name: allocate\n  arguments:\n"
+     "    topology-weight: 3\n", "topology-weight"),
+    (DEPLOYED_CONF.replace("engine: tpu-fused\n",
+                           "engine: tpu-fused\n    topology-weight: 10\n")
+     .replace("  - name: gang\n", "  - name: gang\n  - name: elastic-gang\n")
+     .replace("allocate-tpu, preempt", "allocate-tpu, grow-shrink, preempt"),
+     "elastic-gang"),
+]
+
+
+@pytest.mark.parametrize("conf_text, named", ACCEPTED_CONFS,
+                         ids=[n for _, n in ACCEPTED_CONFS])
+def test_accepted_conf_constructs_and_runs(conf_text, named):
+    assert named in conf_text
+    cache = make_world(FakeBinder(), n_jobs=2)
+    sched = Scheduler(cache, conf_text, device="cpu")
+    assert sched.run_once() == []
+    assert len(cache.binder.binds) == 6
+
+
+@pytest.mark.parametrize("conf_text, named", ACCEPTED_CONFS,
+                         ids=[n for _, n in ACCEPTED_CONFS])
+def test_accepted_conf_hot_reloads(tmp_path, conf_text, named):
+    """A hot reload to a conf naming the topology term or the elastic-gang
+    plugin and stage takes effect at the next cycle, with no action
+    failure."""
+    metrics.reset_local()
+    conf_path = tmp_path / "scheduler.conf"
+    conf_path.write_text(SIMPLE_CONF)
+    cache = make_world(FakeBinder(), n_jobs=2)
+    sched = scheduler(cache, conf_path=str(conf_path))
+    time.sleep(0.01)
+    conf_path.write_text(conf_text)
+    os.utime(conf_path)
+    assert sched.run_once() == []
+    reloaded = [c.arguments.get("topology-weight")
+                for c in sched.conf.configurations] + sched.conf.actions \
+        + [o.name for t in sched.conf.tiers for o in t.plugins]
+    assert any(x for x in reloaded if x in ("3", 3, "elastic-gang"))
+    assert not [k for k in metrics.local_counters()
+                if k[0] == "action_failures"]
+    assert len(cache.binder.binds) == 6
 
 
 def test_refused_reload_keeps_run_degraded(tmp_path):

@@ -14,8 +14,8 @@ bit. The flag cannot change in the test process itself: XLA reads it once.
 
 Run as a script, this file computes the references:
 ``python tests/torch_parity.py
-{slice|deployed|evict|walk|walk-modes|plugins|place|blocks|engines|incremental}
-OUT NAME...``, or
+{slice|deployed|evict|walk|walk-modes|plugins|place|blocks|engines|incremental|
+pipelined|topo|topo-dispatch} OUT NAME...``, or
 ``mixed OUT KIND:NAME...``.
 """
 
@@ -429,6 +429,301 @@ def jax_place(inst, pallas: bool):
                          got.job_kept, got.idle, got.future_idle, got.used,
                          got.ntasks.astype(np.int32))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the zone-anchor solve's worlds (B6): dicts of NumPy arrays — node state
+# with a zone code a node, tasks, gangs, a feasibility mask and static
+# scores (None: every pair feasible, no static score) — and the weights
+# each world runs at
+# ---------------------------------------------------------------------------
+
+def topo_small_world(seed, N=5, T=7, J=3, R=2):
+    """tests/test_elastic_gang.py::_small_world, draw for draw, as NumPy
+    (the card's machine has no JAX)."""
+    rng = np.random.RandomState(seed)
+    used = rng.uniform(0.0, 3.0, (N, R)).astype(np.float32)
+    idle = rng.uniform(2.0, 8.0, (N, R)).astype(np.float32)
+    releasing = rng.uniform(0.0, 1.0, (N, R)).astype(np.float32)
+    ntasks = rng.randint(0, 2, N).astype(np.int32)
+    allocatable = used + idle + releasing
+    max_tasks = rng.randint(3, 6, N).astype(np.int32)
+    zone_code = rng.randint(0, 3, N).astype(np.int32)
+    cuts = np.sort(rng.choice(np.arange(1, T), J - 1, replace=False))
+    job_ix = np.zeros(T, np.int32)
+    for c in cuts:
+        job_ix[c:] += 1
+    sizes = np.bincount(job_ix, minlength=J)
+    req = rng.uniform(0.5, 3.0, (T, R)).astype(np.float32)
+    feas = rng.random((T, N)) < 0.85
+    static = rng.uniform(0.0, 5.0, (T, N)).astype(np.float32)
+    return {"idle": idle, "future_idle": idle + releasing, "used": used,
+            "ntasks": ntasks, "allocatable": allocatable,
+            "max_tasks": max_tasks, "zone_code": zone_code, "req": req,
+            "job_ix": job_ix, "feas": feas, "static": static,
+            "min_available": np.maximum(1, sizes - 1).astype(np.int32)}
+
+
+def _topo_nodes(zones, cpu, used=None, max_tasks=30):
+    """Nodes of ``cpu`` milli-CPU and 4x as much memory, in the given zone
+    codes, ``used`` of each taken."""
+    N = len(zones)
+    cap = np.stack([np.full(N, cpu, np.float32),
+                    np.full(N, 4.0 * cpu, np.float32)], axis=1)
+    used = np.zeros((N, 2), np.float32) if used is None else \
+        np.asarray(used, np.float32)
+    return {"idle": cap - used, "future_idle": cap - used, "used": used,
+            "ntasks": np.zeros(N, np.int32), "allocatable": cap,
+            "max_tasks": np.full(N, max_tasks, np.int32),
+            "zone_code": np.asarray(zones, np.int32)}
+
+
+def _topo_gangs(world, sizes, cpu, min_available=None, static=None):
+    job_ix = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    T = len(job_ix)
+    world.update(
+        req=np.tile(np.asarray([cpu, 4.0 * cpu], np.float32), (T, 1)),
+        job_ix=job_ix, feas=None if static is None else
+        np.ones((T, len(world["zone_code"])), bool),
+        static=static, min_available=np.asarray(
+            sizes if min_available is None else min_available, np.int32))
+    return world
+
+
+def _topo_unzoned_first():
+    """The emptiest nodes are unzoned, so a gang's first pick leaves the
+    anchor at 0 and a later pick on a zoned node anchors it."""
+    used = [[0, 0], [0, 0], [1000, 4000], [1000, 4000], [1500, 6000],
+            [1500, 6000], [500, 2000], [2000, 8000]]
+    w = _topo_nodes([0, 0, 11, 11, 22, 22, 33, 33], 4000, used,
+                    max_tasks=3)
+    return _topo_gangs(w, [5, 4, 6, 3], 1000)
+
+
+def _topo_rollback():
+    """Gangs that roll back between gangs that fit: the anchor resets at
+    each gang's first task whatever the last one left."""
+    used = [[0, 0]] * 3 + [[2000, 8000]] * 3
+    w = _topo_nodes([7, 7, 8, 8, 9, 9], 4000, used, max_tasks=4)
+    sizes = [4, 9, 3, 12, 2]
+    static = ((np.arange(sum(sizes))[:, None] * 7
+               + np.arange(6)[None, :] * 3) % 11).astype(np.float32)
+    return _topo_gangs(w, sizes, 1000, static=static)
+
+
+def _topo_single_zone():
+    """One zone: once a gang anchors, every node gets the bonus."""
+    used = [[i * 300, i * 1200] for i in range(6)]
+    w = _topo_nodes([5] * 6, 8000, used)
+    return _topo_gangs(w, [3, 5, 2, 6], 1500)
+
+
+def _topo_wide_ties():
+    """Identical nodes at N = 197 in 13 zones taken in turn (node i in zone
+    1 + i % 13), identical tasks three to a node: ties across zones and
+    across every cluster size's CTA slices. Without the term each gang
+    fills nodes in index order, so across zones; with it a gang stays in
+    its first node's zone while the zone has room."""
+    N = 197
+    w = _topo_nodes(1 + np.arange(N) % 13, 8000, max_tasks=3)
+    return _topo_gangs(w, [20] * 24, 1000)
+
+
+def _topo_holes():
+    """Hole rows of the persistent tensors (an all-zero row: pod limit 0,
+    zone 0) between zoned nodes, never placed on."""
+    w = _topo_nodes([3, 0, 3, 4, 0, 4, 5, 5], 4000, max_tasks=4)
+    for k in ("idle", "future_idle", "used", "allocatable"):
+        w[k][[1, 4]] = 0.0
+    w["max_tasks"][[1, 4]] = 0
+    return _topo_gangs(w, [4, 6, 4, 3], 1000)
+
+
+TOPO_WORLDS = {
+    **{f"small-{s}": (lambda s=s: topo_small_world(s)) for s in (11, 12, 13)},
+    "unzoned-first": _topo_unzoned_first,
+    "rollback": _topo_rollback,
+    "single-zone": _topo_single_zone,
+    "wide-ties": _topo_wide_ties,
+    "holes": _topo_holes,
+}
+# the weights each world runs at: the small worlds at test_elastic_gang.py's
+# 0 and 3, the hand-built ones at the sim's 10 (and 0 where it matters)
+TOPO_CASES = [(w, tw) for w in TOPO_WORLDS
+              for tw in ((0.0, 3.0) if w.startswith("small-")
+                         else (0.0, 10.0) if w == "wide-ties" else (10.0,))]
+
+
+def jax_topo(world, topo_weight):
+    """place_scan_topo_packed on one world: (packed wire i32[2T+2J], idle,
+    future_idle, used, ntasks) as NumPy arrays."""
+    import jax.numpy as jnp
+
+    from volcano_tpu.ops.place import (JobMeta, NodeState, PlacementTasks,
+                                       place_scan_topo_packed)
+    from volcano_tpu.ops.scores import default_weights
+    req, job_ix = world["req"], world["job_ix"]
+    T, R = req.shape
+    N = len(world["zone_code"])
+    J = len(world["min_available"])
+    first = np.ones(T, bool)
+    first[1:] = job_ix[1:] != job_ix[:-1]
+    last = np.ones(T, bool)
+    last[:-1] = job_ix[1:] != job_ix[:-1]
+    feas = np.ones((T, N), bool) if world["feas"] is None else world["feas"]
+    static = (np.zeros((T, N), np.float32) if world["static"] is None
+              else world["static"])
+    packed, nodes = place_scan_topo_packed(
+        NodeState(idle=jnp.asarray(world["idle"]),
+                  future_idle=jnp.asarray(world["future_idle"]),
+                  used=jnp.asarray(world["used"]),
+                  ntasks=jnp.asarray(world["ntasks"])),
+        PlacementTasks(req=jnp.asarray(req), job_ix=jnp.asarray(job_ix),
+                       valid=jnp.ones(T, bool), feas=jnp.asarray(feas),
+                       static_score=jnp.asarray(static),
+                       first_of_job=jnp.asarray(first),
+                       last_of_job=jnp.asarray(last)),
+        JobMeta(min_available=jnp.asarray(world["min_available"]),
+                base_ready=jnp.zeros(J, jnp.int32),
+                base_pipelined=jnp.zeros(J, jnp.int32)),
+        default_weights(R), jnp.asarray(world["allocatable"]),
+        jnp.asarray(world["max_tasks"]), jnp.asarray(world["zone_code"]),
+        jnp.float32(topo_weight))
+    return tuple(np.asarray(a) for a in (packed, *nodes))
+
+
+def topo_args(world, device):
+    """place_topo_plain/place_topo_cuda's arguments for a world on
+    ``device``, without the weight: the masked static matrix is None when
+    the world has no mask and no static score."""
+    import torch
+
+    from volcano_tpu_torch.ops.place import task_flags
+    from volcano_tpu_torch.ops.scores import default_weights
+    J = len(world["min_available"])
+    zeros = np.zeros(J, np.int32)
+    flags, ready_need, keep_need = task_flags(
+        world["job_ix"], world["min_available"], zeros, zeros)
+    ms = None
+    if world["feas"] is not None or world["static"] is not None:
+        T, N = len(world["job_ix"]), len(world["zone_code"])
+        f = np.ones((T, N), bool) if world["feas"] is None else world["feas"]
+        st = (np.zeros((T, N), np.float32) if world["static"] is None
+              else world["static"])
+        ms = np.where(f, st, NEG_MASK).astype(np.float32)
+
+    def t(a):
+        return None if a is None else torch.tensor(a, device=device)
+
+    return (t(world["idle"]), t(world["future_idle"]), t(world["used"]),
+            t(world["ntasks"]), t(world["allocatable"]),
+            t(world["max_tasks"]), t(world["req"]), t(flags), t(ready_need),
+            t(keep_need), t(ms), default_weights(world["req"].shape[1]),
+            t(world["zone_code"]))
+
+
+# volcano_tpu_torch.ops.place.NEG, without importing torch at module load
+NEG_MASK = -1e30
+
+
+def mend_jax_zone_codes():
+    """Give the JAX package's PersistentNodeTensors the ``device_zone_code``
+    its positive-weight solve calls and lacks (ROADMAP §3;
+    tools/sim_reference.py mends its children alike): the zone-code row its
+    device rows already hold."""
+    from volcano_tpu.cache.snapshot import PersistentNodeTensors
+    if not hasattr(PersistentNodeTensors, "device_zone_code"):
+        PersistentNodeTensors.device_zone_code = \
+            lambda self: self._device["zone_code"]
+
+
+TOPO_CONF = """
+actions: "enqueue, allocate-tpu, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+configurations:
+- name: allocate-tpu
+  arguments:
+    engine: tpu-fused
+    topology-weight: 10.0
+"""
+
+
+def topo_dispatch(torch_port: bool) -> dict:
+    """One speculative zone-anchor dispatch (``dispatch_speculative_solve``
+    then ``finalize_speculative_dispatch``) on a zoned drive world: 12
+    nodes of 4 CPU in 3 zones, one cycle of TOPO_CONF over 8 gangs of 3
+    pods (1 CPU each), then 10 more gangs, and the speculative session's
+    solve. Returns the solution's task uids, node names, pipelined flags
+    and each job's ready and kept verdicts."""
+    gi = 1 << 30
+    if torch_port:
+        from volcano_tpu_torch import Scheduler
+        from volcano_tpu_torch.actions import allocate as alloc
+        from volcano_tpu_torch.api import (JobInfo, NodeInfo, PodGroup,
+                                           PodGroupPhase, QueueInfo,
+                                           Resource, TaskInfo)
+        from volcano_tpu_torch.cache import SchedulerCache
+        from volcano_tpu_torch.framework import abandon_session, open_session
+        kw = {"device": "cpu"}
+    else:
+        from volcano_tpu.actions import allocate as alloc
+        from volcano_tpu.api import (JobInfo, NodeInfo, PodGroup,
+                                     PodGroupPhase, QueueInfo, Resource,
+                                     TaskInfo)
+        from volcano_tpu.cache import SchedulerCache
+        from volcano_tpu.framework import abandon_session, open_session
+        from volcano_tpu.scheduler import Scheduler
+        kw = {}
+        mend_jax_zone_codes()
+
+    def mkjob(uid, ts, phase=PodGroupPhase.PENDING):
+        pg = PodGroup(name=uid, queue="q1", min_member=3, phase=phase)
+        job = JobInfo(uid=uid, name=uid, queue="q1", min_available=3,
+                      podgroup=pg, creation_timestamp=ts)
+        for t in range(3):
+            job.add_task_info(TaskInfo(
+                uid=f"{uid}-{t}", name=f"{uid}-{t}", job=uid,
+                resreq=Resource(1000, gi), creation_timestamp=ts + t * 1e-6))
+        return job
+
+    cache = SchedulerCache(default_queue=None)
+    cache.add_queue(QueueInfo(name="q1", weight=1))
+    for i in range(12):
+        r = Resource(4000, 16 * gi)
+        r.max_task_num = 40
+        cache.add_node(NodeInfo(name=f"n{i:02d}", allocatable=r,
+                                labels={"volcano.sh/topology-zone":
+                                        f"z{i // 4}"}))
+    for j in range(8):
+        cache.add_job(mkjob(f"a{j}", float(j)))
+    sched = Scheduler(cache, conf_text=TOPO_CONF, **kw)
+    assert sched.run_once() == []
+    for j in range(10):
+        # admitted by an enqueue the drive does not run
+        cache.add_job(mkjob(f"b{j}", 100.0 + j, PodGroupPhase.INQUEUE))
+    ssn = open_session(cache, sched.conf.tiers, sched.conf.configurations,
+                       speculative=True, **kw)
+    try:
+        pending = alloc.dispatch_speculative_solve(ssn, "tpu-fused")
+        sol = alloc.finalize_speculative_dispatch(pending)
+        names = list(sol.node_t.names)
+        return {"tasks": [t.uid for t in sol.tasks],
+                "nodes": [names[int(n)] if int(n) >= 0 else None
+                          for n in sol.task_node],
+                "pipelined": [bool(p) for p in sol.pipelined],
+                # the JAX solution pads the job axis to a power of two
+                "ready": [bool(r) for r in sol.job_ready[:len(sol.jobs_list)]],
+                "kept": [bool(k) for k in sol.job_kept[:len(sol.jobs_list)]]}
+    finally:
+        abandon_session(ssn)
 
 
 # ---------------------------------------------------------------------------
@@ -2310,7 +2605,8 @@ def jax_reference(kind: str, names, out_path) -> dict:
     "place": name -> jax_place(); "blocks": name -> jax_blocks();
     "engines": "engine:world" -> engine_reference(); "incremental":
     name -> hole_world_run() of a HOLE_WORLDS or DRAIN_WORLDS world;
-    "pipelined": name -> pipelined_drive();
+    "pipelined": name -> pipelined_drive(); "topo": "world@weight" ->
+    jax_topo(); "topo-dispatch": any name -> topo_dispatch();
     "mixed": names are
     "kind:name", so one child process serves several kinds."""
     return jax_reference_script([os.path.abspath(__file__), kind], out_path,
@@ -2346,6 +2642,11 @@ def _reference(kind, name):
         return hole_world_run(False, name)
     if kind == "pipelined":
         return pipelined_drive(False, name)
+    if kind == "topo":
+        world, weight = name.split("@")
+        return jax_topo(TOPO_WORLDS[world](), float(weight))
+    if kind == "topo-dispatch":
+        return topo_dispatch(False)
     return jax_place(PLACE_WORLDS[name](), name in INTEGER_PLACE_WORLDS)
 
 

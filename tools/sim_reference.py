@@ -19,9 +19,24 @@ rows) and each drift the shadow verifier repaired
 card's runs to, since the card has no JAX.
 
 A run is a named scenario or a trace of ``tools/sim_traces.py`` (``churn``,
-``hole-10k``, ``backlog-16k``), written to a JSONL file and replayed with ``--trace``, and
-may set environment switches: ``VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0`` runs
-the JAX package with its incremental snapshot and persistent tensors off.
+``hole-10k``, ``backlog-16k``, ``elastic-10k``), written to a JSONL file
+and replayed with ``--trace``, and may set environment switches:
+``VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0`` runs the JAX package with its
+incremental snapshot and persistent tensors off. A ``--conf`` of the form
+``conf:NAME`` names a conf of ``tools/sim_traces.py::CONFS``
+(``elastic-deployed-10``, ``elastic-deployed-0``), written to a file.
+
+The JAX package's persistent node tensors
+(``volcano_tpu/cache/snapshot.py::PersistentNodeTensors``) have no
+``device_zone_code``, which ``_solve_fused`` calls at a positive
+``topology-weight`` (``actions/allocate.py:1406``): with its incremental
+snapshot on (the default) every such solve raises AttributeError and the
+cycle falls back to the sequential placer, so the zone-anchor solve never
+runs. The child mends that: it gives the class the method, returning the
+zone-code row its device rows already hold (as ``NodeTensors`` and
+``TensorEpochView`` do). Nothing else reads it, so only runs with a
+positive topology weight change. With the switch off the JAX package builds
+fresh ``NodeTensors`` and needs no mend; the elastic runs include one so.
 
 The JAX preempt walk (``volcano_tpu/ops/evict.py::build_preempt_walk``)
 has two modes: its per-task formulation (``allow_cheap=False``) and a
@@ -111,6 +126,22 @@ RUNS = (
     ("pipelined-conflict", ("--pipelined", "--kill-cycles", "3,8,14",
                             "--kill-seed", "5"), ()),
     ("trace:backlog-16k", ("--pipelined",), ()),
+    # elastic gangs: the JAX sim's own conf (runner.elastic_sim_conf, the
+    # callbacks engine and the plugin's zone bonus) at weights 10 and 0;
+    # deploy/scheduler.conf with elastic gangs (tools/sim_traces.py::
+    # elastic_deployed_conf: tpu-fused, at weight 10 the zone-anchor solve)
+    # at 10 and 0, at 10 also with the switch off; and the full-width
+    # elastic-10k world under it
+    ("elastic-churn", ("--elastic-gangs",), ()),
+    ("elastic-churn", ("--elastic-gangs", "--topology-weight", "0"), ()),
+    ("elastic-churn", ("--elastic-gangs", "--conf",
+                       "conf:elastic-deployed-10"), ()),
+    ("elastic-churn", ("--elastic-gangs", "--topology-weight", "0",
+                       "--conf", "conf:elastic-deployed-0"), ()),
+    ("elastic-churn", ("--elastic-gangs", "--conf",
+                       "conf:elastic-deployed-10"), OFF),
+    ("trace:elastic-10k", ("--elastic-gangs", "--conf",
+                           "conf:elastic-deployed-10"), ()),
 )
 
 
@@ -132,6 +163,21 @@ def sim_argv(source: str, trace_dir: str) -> list:
     if not os.path.exists(path):
         write_trace_file(name, path)
     return ["--trace", path]
+
+
+def conf_args(args, conf_dir: str) -> list:
+    """``args`` with each ``--conf conf:NAME`` replaced by the path of that
+    conf of tools/sim_traces.py::CONFS, written into ``conf_dir``."""
+    from sim_traces import write_conf_file
+    out = list(args)
+    for i, a in enumerate(out):
+        if a.startswith("conf:") and i and out[i - 1] == "--conf":
+            name = a[len("conf:"):]
+            path = os.path.join(conf_dir, f"{name}.conf")
+            if not os.path.exists(path):
+                write_conf_file(name, path)
+            out[i] = path
+    return out
 
 
 def _child_env(env=()) -> dict:
@@ -162,7 +208,8 @@ def start(source: str, args=(), walk: str = "exact",
     mode: "exact" (its per-task formulation) or "default"; ``env`` adds
     environment switches."""
     cmd = [sys.executable, os.path.abspath(__file__), "--child", walk,
-           *sim_argv(source, _trace_dir()), "--deterministic", *args]
+           *sim_argv(source, _trace_dir()), "--deterministic",
+           *conf_args(args, _trace_dir())]
     return subprocess.Popen(cmd, cwd=REPO, env=_child_env(env),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
@@ -215,6 +262,7 @@ def _child(walk: str, argv) -> int:
     from volcano_tpu import scheduler as jax_scheduler
     from volcano_tpu.actions import allocate as jax_allocate
     from volcano_tpu.cache import SchedulerCache
+    from volcano_tpu.cache.snapshot import PersistentNodeTensors
     from volcano_tpu.ops import evict as jax_evict
     from volcano_tpu.sim.__main__ import main
     from volcano_tpu.sim.runner import SimRunner
@@ -227,6 +275,11 @@ def _child(walk: str, argv) -> int:
             return build(kinds, sizes, gang_commit, False, axis)
 
         jax_evict.build_preempt_walk = build_exact
+
+    if not hasattr(PersistentNodeTensors, "device_zone_code"):
+        # the module docstring's mend
+        PersistentNodeTensors.device_zone_code = \
+            lambda self: self._device["zone_code"]
 
     def map_count() -> int:
         try:

@@ -27,9 +27,23 @@ file (``--trace``).
   pods, so about 26,000 CPU of demand face 9,600 of capacity and the
   cluster drains the gangs in waves over about 100 cycles. Each cycle
   leaves a backlog for the pipelined shell to speculate over.
+- ``elastic-10k``: BASELINE config 3 (as ``hole-10k``) with topology and
+  elastic gangs: node i joins zone ``z{i // 16:03d}`` (125 zones of 16
+  nodes, 512 CPU a zone against a mean gang of about 110 CPU) and every
+  gang is elastic with ``desired`` its task count and ``min_available``
+  two below it (at least 1). Under ``elastic_deployed_conf(10)``
+  allocate's zone-anchor solve (B6) places the core members and
+  grow-shrink the other two of each gang.
+
+``elastic_deployed_conf(w)`` is ``deploy/scheduler.conf`` as written with
+three changes: the elastic-gang plugin in tier 1 with ``topology-weight:
+w``, grow-shrink right after allocate-tpu, and ``topology-weight: w`` under
+allocate-tpu, whose engine stays tpu-fused: at ``w > 0`` its solve is the
+zone-anchor mode. ``CONFS`` names it at weights 10 and 0.
 
 Run as a script, it writes one trace: ``python tools/sim_traces.py NAME
-OUT.jsonl``.
+OUT.jsonl``, or one conf: ``python tools/sim_traces.py --conf NAME
+OUT.conf``.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ import sys
 from typing import Dict, List
 
 GI = 1 << 30
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # node-flap's node shape (synthetic_trace's defaults)
 NODE_SHAPE = {"cpu_milli": 32000, "mem": 128 * GI, "pods": 110, "gpus": 0}
 
@@ -92,6 +107,46 @@ def backlog_trace(seed: int = 0):
         priority_choices=(0,)))
 
 
+def elastic_10k_trace(seed: int = 0):
+    from volcano_tpu_torch.sim.trace import TraceEvent, validate_trace
+    from volcano_tpu_torch.sim.workload import baseline_trace
+    out = []
+    nodes = 0
+    for ev in baseline_trace("10k", seed=seed):
+        d = dict(ev.data)
+        if ev.kind == "node_add":
+            d["zone"] = f"z{nodes // 16:03d}"
+            nodes += 1
+        elif ev.kind == "job_arrival":
+            d["desired"] = d["tasks"]
+            d["min_available"] = max(1, d["tasks"] - 2)
+        out.append(TraceEvent(ev.t, ev.kind, d))
+    return validate_trace(out)
+
+
+def elastic_deployed_conf(w: float) -> str:
+    """deploy/scheduler.conf with elastic gangs and the topology term at
+    weight ``w`` (module docstring)."""
+    with open(os.path.join(REPO, "deploy", "scheduler.conf")) as f:
+        text = f.read()
+    w = float(w)
+    edits = (
+        ('actions: "enqueue, allocate-tpu, preempt, reclaim, backfill"',
+         'actions: "enqueue, allocate-tpu, grow-shrink, preempt, reclaim, '
+         'backfill"'),
+        ("  - name: gang\n",
+         f"  - name: gang\n  - name: elastic-gang\n    arguments:\n"
+         f"      topology-weight: {w}\n"),
+        ("    engine: tpu-fused\n",
+         f"    engine: tpu-fused\n    topology-weight: {w}\n"))
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"deploy/scheduler.conf: {old!r} is not there "
+                             f"once")
+        text = text.replace(old, new)
+    return text
+
+
 def _merge(trace, extra):
     """``extra`` after every event of ``trace`` at the same time, in its
     own order."""
@@ -105,12 +160,20 @@ def _merge(trace, extra):
 
 
 TRACES = {"churn": churn_trace, "hole-10k": hole_trace,
-          "backlog-16k": backlog_trace}
+          "backlog-16k": backlog_trace, "elastic-10k": elastic_10k_trace}
+CONFS = {"elastic-deployed-10": lambda: elastic_deployed_conf(10),
+         "elastic-deployed-0": lambda: elastic_deployed_conf(0)}
 
 
 def write_trace_file(name: str, path: str) -> str:
     from volcano_tpu_torch.sim.trace import write_trace
     write_trace(path, TRACES[name]())
+    return path
+
+
+def write_conf_file(name: str, path: str) -> str:
+    with open(path, "w") as f:
+        f.write(CONFS[name]())
     return path
 
 
@@ -173,6 +236,8 @@ class TensorPathRecorder:
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    write_trace_file(sys.argv[1], sys.argv[2])
+    sys.path.insert(0, REPO)
+    if sys.argv[1] == "--conf":
+        write_conf_file(sys.argv[2], sys.argv[3])
+    else:
+        write_trace_file(sys.argv[1], sys.argv[2])

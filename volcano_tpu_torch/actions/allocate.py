@@ -30,11 +30,17 @@ is Ready. The engines (the JAX package's actions/allocate.py):
   forms of tpu-fused's solve; both compute B1's function, so here both run
   tpu-fused (the placement kernel).
 
+A positive ``topology-weight`` (an ``allocate`` or ``allocate-tpu``
+argument) turns tpu-fused's solve into B6, the placement kernel's
+zone-anchor mode, as the JAX package's scan takes ``place_scan_topo``; the
+other engines do not read it, as there. The elastic-gang plugin's pending
+filter narrows an elastic gang's pending set in every engine.
+
 The action ``allocate`` defaults to callbacks and ``allocate-tpu`` to
 tpu-fused. A conf that asks for an engine this package lacks
-(``tpu-sharded``, ``callbacks-parallel``) or for a positive
-``topology-weight`` is refused by name. A device solve that fails raises:
-there is no fallback placer and no device cool-down.
+(``tpu-sharded``, ``callbacks-parallel``) is refused by name. A device
+solve that fails raises: there is no fallback placer and no device
+cool-down.
 
 The pipelined shell splits tpu-fused's first solve in two:
 ``dispatch_speculative_solve`` orders, assembles and launches it on a side
@@ -131,12 +137,6 @@ class AllocateAction(Action):
                              f"{MISSING_ENGINES[engine]}")
         if engine not in ENGINES:
             raise ValueError(f"unknown allocate engine {engine!r}")
-        for args in _action_args(configurations,
-                                 ("allocate", "allocate-tpu")):
-            if float(args.get("topology-weight", 0.0) or 0.0) > 0.0:
-                raise ValueError("allocate topology-weight > 0 is not in "
-                                 "volcano_tpu_torch: it needs the "
-                                 "zone-anchor solve (B6)")
         return engine, batch
 
     def check_conf(self, configurations) -> None:
@@ -164,6 +164,20 @@ class AllocateAction(Action):
 class AllocateTPUAction(AllocateAction):
     NAME = "allocate-tpu"
     DEFAULT_ENGINE = "tpu-fused"
+
+
+def _topology_weight(ssn) -> float:
+    """The allocate action's ``topology-weight`` argument (0: the term is
+    off), the last ``allocate`` or ``allocate-tpu`` block's; unparsable
+    reads as 0, a negative weight as 0."""
+    w = 0.0
+    for args in _action_args(ssn.configurations,
+                             ("allocate", "allocate-tpu")):
+        try:
+            w = float(args.get("topology-weight", w))
+        except (TypeError, ValueError):
+            w = 0.0
+    return max(w, 0.0)
 
 
 def _node_tensors(ssn, rnames):
@@ -206,6 +220,12 @@ def _pending_tasks(ssn, job) -> List[TaskInfo]:
     tasks = [t for t in job.task_status_index.get(TaskStatus.PENDING,
                                                   {}).values()
              if not t.resreq.is_empty()]
+    # the elastic decision class: with the elastic-gang plugin in the conf,
+    # an elastic gang shows its core members until admission and nothing
+    # after (grow-shrink owns growth toward desired)
+    flt = getattr(ssn, "elastic_pending_filter", None)
+    if flt is not None:
+        tasks = flt(job, tasks)
     # the ENABLED comparator chain decides whether a key sort is equivalent
     enabled = [name for tier in ssn.tiers for opt in tier.plugins
                if opt.is_enabled("enabledTaskOrder")
@@ -742,6 +762,7 @@ class PlacementInputs(NamedTuple):
     base_ready: np.ndarray
     base_pipelined: np.ndarray
     weights: ScoreWeights
+    topo_weight: float              # B6's weight; 0 solves with B1
 
 
 def placement_inputs(ssn, ordered_jobs) -> Optional[PlacementInputs]:
@@ -761,10 +782,11 @@ def placement_inputs(ssn, ordered_jobs) -> Optional[PlacementInputs]:
     if not np.isfinite(req).all() or (
             static is not None and not np.isfinite(static).all()):
         raise SolverFault("non-finite task requests or static scores")
+    topo_w = _topology_weight(ssn)
     if not (np.isfinite(weights.binpack_res).all()
             and all(np.isfinite(w) for w in (
                 weights.binpack_weight, weights.least_req_weight,
-                weights.most_req_weight, weights.balanced_weight))):
+                weights.most_req_weight, weights.balanced_weight, topo_w))):
         raise SolverFault("non-finite score weights")
     min_av, base_r, base_p = _gang_meta(jobs_list)
     return PlacementInputs(
@@ -774,7 +796,7 @@ def placement_inputs(ssn, ordered_jobs) -> Optional[PlacementInputs]:
         masked_static=_masked_static(feas, static, len(tasks),
                                      len(node_t.names), ssn.device),
         min_available=min_av, base_ready=base_r, base_pipelined=base_p,
-        weights=weights)
+        weights=weights, topo_weight=topo_w)
 
 
 def _masked_static(feas, static, T: int, N: int, device):
@@ -792,17 +814,20 @@ def _masked_static(feas, static, T: int, N: int, device):
 
 def solve(inputs: PlacementInputs, blocks: bool = False,
           stats: Optional[Dict[str, int]] = None):
-    """One solve of ``inputs``: the placement kernel (ops/place.place), or
-    with ``blocks`` the block auction (ops/blocks.place_blocks_unified) at
-    the reference's size-scaled budgets, 5 sweeps and 4 passes above
-    BLOCKS_BIG_T tasks, else 3 and 3 (allocate.py:1387-1393). Returns
-    (task_node, task_pipelined, job_ready, job_kept) as NumPy arrays."""
+    """One solve of ``inputs``: the placement kernel (ops/place.place), B6
+    at a positive topology weight (allocate.py:1402-1406), or with
+    ``blocks`` the block auction (ops/blocks.place_blocks_unified, which has
+    no anchor term) at the reference's size-scaled budgets, 5 sweeps and 4
+    passes above BLOCKS_BIG_T tasks, else 3 and 3 (allocate.py:1387-1393).
+    Returns (task_node, task_pipelined, job_ready, job_kept) as NumPy
+    arrays."""
     nt = inputs.node_t
     if not blocks:
         res = place(nt.idle, nt.future_idle, nt.used, nt.ntasks,
                     nt.allocatable, nt.max_tasks, inputs.req, inputs.job_ix,
                     inputs.masked_static, inputs.min_available,
-                    inputs.base_ready, inputs.base_pipelined, inputs.weights)
+                    inputs.base_ready, inputs.base_pipelined, inputs.weights,
+                    nt.zone_code, inputs.topo_weight)
         return res.task_node, res.task_pipelined, res.job_ready, res.job_kept
     T = len(inputs.tasks)
     J = len(inputs.min_available)
@@ -1096,7 +1121,8 @@ def dispatch_speculative_solve(ssn, engine: str = "tpu-fused",
             nt.idle, nt.future_idle, nt.used, nt.ntasks, nt.allocatable,
             nt.max_tasks, inputs.req, inputs.job_ix, inputs.masked_static,
             inputs.min_available, inputs.base_ready, inputs.base_pipelined,
-            inputs.weights, speculation_stream(inputs.req.device))
+            inputs.weights, speculation_stream(inputs.req.device),
+            nt.zone_code, inputs.topo_weight)
     return PendingFusedSolution(
         ordered_jobs, inputs.tasks, inputs.job_ix, inputs.jobs_list, nt,
         wire, event, {j.uid for j in _eligible_jobs(ssn)},

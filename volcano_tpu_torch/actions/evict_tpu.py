@@ -26,8 +26,10 @@ walk. Exact by construction.
 
 Mirrors volcano_tpu/actions/evict_tpu.py without its node-sharded walk,
 its compile prewarm, its pow2 shape padding (which existed only for XLA's
-compile cache) and the elastic-gang and conformance victim rules (those
-plugins are not in this package).
+compile cache) and the conformance plugin's victim rules (that plugin is
+not in this package). The elastic gangs' victim tier is in: an elastic
+gang's above-min members lead the eviction order
+(``_elastic_victims_first``).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..api import PodGroupPhase, Resource, TaskInfo, TaskStatus
 from ..cache.snapshot import (NodeTensors, assemble_feasibility,
                               assemble_static_score, assemble_weights,
                               discover_resource_names)
+from ..elastic_gang.membership import is_elastic, shrink_allowance
 from ..framework.session import ABSTAIN
 from ..ops.evict import (BIG, MAX_R, MAX_W, NO_NODE, EvictNW, WalkInputs,
                          to_device, walk)
@@ -221,17 +224,18 @@ def _task_order_chain(ssn) -> List[str]:
 
 
 def _eviction_order(ssn, victims: List[TaskInfo]) -> List[TaskInfo]:
-    """Reversed TaskOrderFn — lowest priority first (preempt.go:237-244).
-    Key sort when only the priority plugin orders tasks (Python's
-    reverse=True is stable, so tie order matches the stable comparator
-    sort); comparator sort otherwise."""
+    """Reversed TaskOrderFn — lowest priority first (preempt.go:237-244),
+    then the elastic victim tier moved to the front. Key sort when only the
+    priority plugin orders tasks (Python's reverse=True is stable, so tie
+    order matches the stable comparator sort); comparator sort
+    otherwise."""
     chain = _task_order_chain(ssn)
     if chain == ["priority"]:
-        return sorted(victims, key=lambda t: (-t.priority,
-                                              t.creation_timestamp, t.uid),
-                      reverse=True)
+        return _elastic_victims_first(ssn, sorted(
+            victims, key=lambda t: (-t.priority, t.creation_timestamp,
+                                    t.uid), reverse=True))
     if not chain:
-        return list(victims)
+        return _elastic_victims_first(ssn, list(victims))
 
     def cmp(l, r):
         if ssn.task_order_fn(l, r):
@@ -239,7 +243,37 @@ def _eviction_order(ssn, victims: List[TaskInfo]) -> List[TaskInfo]:
         if ssn.task_order_fn(r, l):
             return -1
         return 0
-    return sorted(victims, key=cmp_to_key(cmp))
+    return _elastic_victims_first(ssn, sorted(victims, key=cmp_to_key(cmp)))
+
+
+def _elastic_victims_first(ssn, ordered: List[TaskInfo]) -> List[TaskInfo]:
+    """The elastic victim tier: an elastic gang's above-min members are the
+    cheapest victims, so they move to the front of the eviction order, each
+    gang's highest-uid victims up to its shrink allowance (never a path
+    below min: the live chain re-validates allowances on every attempt).
+    The list comes back as it was when no elastic gang has an allowance."""
+    allow: Dict[str, int] = {}
+    for t in ordered:
+        if t.job in allow:
+            continue
+        job = ssn.jobs.get(t.job)
+        allow[t.job] = shrink_allowance(job) \
+            if job is not None and is_elastic(job) else 0
+    if not any(allow.values()):
+        return ordered
+    surplus = set()
+    by_job: Dict[str, List[TaskInfo]] = {}
+    for t in ordered:
+        by_job.setdefault(t.job, []).append(t)
+    for uid, ts in by_job.items():
+        a = allow[uid]
+        if a <= 0:
+            continue
+        for t in sorted(ts, key=lambda x: x.uid, reverse=True)[:a]:
+            surplus.add(t.uid)
+    front = [t for t in ordered if t.uid in surplus]
+    rest = [t for t in ordered if t.uid not in surplus]
+    return front + rest
 
 
 def _collect_victims(ssn) -> List[TaskInfo]:

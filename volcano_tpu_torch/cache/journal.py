@@ -215,6 +215,22 @@ class IntentJournal:
             self._append(rec)
         return seq
 
+    def record_control(self, kind: str, fields: Optional[dict] = None
+                       ) -> int:
+        """Journal a control record (an elastic gang's command, grow or
+        shrink): durable and synced at once, in the intents' seq space, but
+        it opens no crash window: it never enters the open set, compaction
+        drops it, and recovery and ``reconcile()`` read only its seq.
+        Returns the seq."""
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
+            rec = {"kind": kind, "seq": seq}
+            if fields:
+                rec.update(fields)
+            self._append(rec, sync_now=True)
+        return seq
+
     def ack(self, seq: int, ok: bool = True) -> None:
         """Journal the executor outcome. ``ok=False`` records a failure
         whose cache rollback already ran — the intent is settled either

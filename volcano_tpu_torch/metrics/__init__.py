@@ -6,7 +6,8 @@ write: the end-to-end and per-action duration series (fed from the
 shell's spans), the mark/since API the sim's wall-clock plane reads,
 action failures, the dead-letter gauge, the crash-loop guard's health
 verdict, the feedback-plane and journal counters, and the incremental
-snapshot's (full rebuilds by layer, state drift by layer). There is no
+snapshot's (full rebuilds by layer, state drift by layer), and the
+elastic gangs' grows, shrinks, below-min witness and gauges. There is no
 Prometheus exposition yet.
 
 ``solver_trace`` marks a device solve as a named range in a
@@ -239,6 +240,54 @@ def fast_admit_counts() -> Dict[str, float]:
     with _lock:
         return {"gangs": _counters.get(("fast_admit_gangs",), 0.0),
                 "binds": _counters.get(("fast_admit_binds",), 0.0)}
+
+
+# -- elastic gangs ------------------------------------------------------------
+
+def set_elastic_members(n: int) -> None:
+    """The bound above-min members across elastic gangs, as the
+    grow-shrink stage left them."""
+    with _lock:
+        _gauges[("elastic_members",)] = float(n)
+
+
+def register_gang_growth(n: int = 1) -> None:
+    """The grow-shrink stage placed ``n`` elastic members beyond
+    admission (toward desired)."""
+    _count(("gang_growths",), n)
+
+
+def register_gang_shrink(reason: str, n: int = 1) -> None:
+    """An elastic decision evicted ``n`` gang members
+    (reason=scale|pressure|suspend)."""
+    _count(("gang_shrinks", reason), n)
+
+
+def set_topology_spread(n: int) -> None:
+    """The multi-member gangs spanning more than one topology zone."""
+    with _lock:
+        _gauges[("topology_spread",)] = float(n)
+
+
+def register_below_min_eviction(n: int = 1) -> None:
+    """An eviction took an elastic gang below min outside a full-gang
+    decision: the never-below-min witness, expected 0."""
+    _count(("elastic_below_min_evictions",), n)
+
+
+def elastic_counts() -> Dict[str, float]:
+    """The elastic-gang outcomes so far: ``grows``, ``shrink/<reason>``
+    and ``below_min``; the sim takes a before/after delta for one run's."""
+    with _lock:
+        out: Dict[str, float] = {}
+        for k, v in _counters.items():
+            if k[0] == "gang_growths":
+                out["grows"] = out.get("grows", 0.0) + v
+            elif k[0] == "gang_shrinks":
+                out[f"shrink/{k[1]}"] = v
+            elif k[0] == "elastic_below_min_evictions":
+                out["below_min"] = v
+        return out
 
 
 # -- device profiling --------------------------------------------------------

@@ -64,6 +64,22 @@
 //   after that CTA read p. A final cluster barrier keeps every CTA's shared
 //   memory alive until the last remote access.
 //
+// B6, the zone-anchor mode (replaces the XLA program
+// volcano_tpu/ops/place.py::place_scan_topo, a mode of the same scan): a
+// compile-time mode of the same kernel (place_kernel<R, true>) that adds
+// topo_w to the score of every node whose zone code equals the job's anchor
+// zone, in the reference's order, (static + dynamic) + topo_w * 1 (or * 0).
+// The anchor is the zone code of the job's first placement, 0 (none) until
+// then and again at the next job's first task; a first placement on an
+// unzoned node leaves it 0. Each CTA keeps its nodes' zone codes beside
+// their state, and every CTA takes the anchor from the exchanged pick's
+// zone code in device memory, so all of them agree. The key cache carries
+// the anchor its keys were scored with: when the anchor moves, the nodes of
+// the old and the new anchor zone are stale and the bulk path re-scores
+// them (at most twice a job); the leader's one-node re-score adds the term
+// for its node. The plain version is ops/place.py::place_topo_plain. With
+// the mode off (place_kernel<R, false>, B1) none of this is compiled in.
+//
 // The key orders candidates exactly as the reference's argmax with the
 // lowest index winning a tie (the rule better() of node_key's note):
 // the high word is the score's bits made monotone as an unsigned integer
@@ -186,7 +202,7 @@ __device__ __forceinline__ void mbar_wait(unsigned addr, unsigned parity) {
 // every lane divides binpack's sum and takes the balanced square root. Every
 // operation is dynamic_score's, on the same operands, so the bits are the
 // same. Node state comes in registers, alike in every lane.
-template <int R>
+template <int R, bool kTopo>
 __device__ __forceinline__ u64 warp_key(const float (&q)[R],
                                         const float (&idle)[R],
                                         const float (&fidle)[R],
@@ -195,7 +211,8 @@ __device__ __forceinline__ u64 warp_key(const float (&q)[R],
                                         const float (&rw)[R], int nt, int mt,
                                         bool has_static, float st, int n,
                                         float bw, float lw, float mw,
-                                        float balw, int lane) {
+                                        float balw, int lane, bool same,
+                                        float tw) {
   bool fit = nt < mt;
   if (has_static) fit = fit && st > kNegTest;
   bool fit_idle = true;
@@ -266,6 +283,7 @@ __device__ __forceinline__ u64 warp_key(const float (&q)[R],
   s = s + balw * bal;
   if (!fit) return 0;
   if (has_static) s = st + s;
+  if constexpr (kTopo) s = s + tw * (same ? 1.f : 0.f);
   return node_key(s, n, fit_idle);
 }
 
@@ -291,11 +309,15 @@ struct PlaceArgs {
   int slice;                 // nodes per CTA
   int in_smem;               // node arrays in shared memory
   int ro_smem;               // alloc and max_tasks in shared memory too
+  // B6 (last, so B1's parameter offsets are what they were)
+  const int* zone;           // [N] zone codes; null in B1
+  float topo_w;              // the anchor zone's weight
 };
 
-// A bulk operation, written by the leader before kBarCommand.
+// A bulk operation, written by the leader before kBarCommand. B6: the
+// anchor to score with and the one the cached keys were scored with.
 struct Command {
-  int op, task, job, q_changed, row_changed, pad[3];
+  int op, task, job, q_changed, row_changed, anchor, prev_anchor, pad;
   float q[8];
 };
 
@@ -307,31 +329,34 @@ __host__ __device__ constexpr int fixed_bytes(int R) {
          2 * kChunk * (4 + R) * 4;
 }
 __host__ __device__ constexpr int node_bytes(int R, bool has_static,
-                                             bool ro) {
+                                             bool ro, bool topo) {
   return 8 + (3 * R + 1) * 4 + 4 + 1 + (has_static ? 4 : 0) +
-         (ro ? R * 4 + 4 : 0);
+         (ro ? R * 4 + 4 : 0) + (topo ? 4 : 0);
 }
 __host__ __device__ constexpr int groups(int slice) {
   return (slice + 31) / 32;
 }
 
 // One CTA's view of its node slice; j is a node's index in the slice.
-template <int R>
+template <int R, bool kTopo>
 struct Slice {
   u64 *key, *gbest;          // a key per node, the best key per 32 nodes
   float *idle, *fidle, *used, *stc;
   int *nt, *tag;
   const float* al;
   const int* mt;
+  const int* zc;             // B6: zone codes
   unsigned char* dirty;
   int ps, as;                // plane strides of the state and of alloc
   int lo, nloc, G;
 
-  // node j's key for request q and static value st (one thread)
+  // node j's key for request q, static value st and (B6) the anchor zone
+  // (one thread)
   __device__ __forceinline__ u64 score(const PlaceArgs& a,
                                        const float (&q)[R],
                                        const float (&rw)[R], int j,
-                                       bool has_static, float st) const {
+                                       bool has_static, float st,
+                                       int anchor) const {
     bool fit = nt[j] < mt[j];
     if (has_static) fit = fit && st > kNegTest;
     float u[R], alr[R];
@@ -346,6 +371,8 @@ struct Slice {
     if (!fit) return 0;
     float s = vt::dynamic_score<R>(q, u, alr, rw, a.bw, a.lw, a.mw, a.balw);
     if (has_static) s = st + s;
+    if constexpr (kTopo)
+      s = s + a.topo_w * (zc[j] == anchor && anchor != 0 ? 1.f : 0.f);
     return node_key(s, lo + j, fit_idle);
   }
 
@@ -360,9 +387,10 @@ struct Slice {
 // A bulk operation, run by every thread of the CTA (node j belongs to
 // thread j % threads). kOpScore re-scores the stale nodes and rebuilds the
 // best key of each 32 nodes; kOpRestore copies back the saved state of the
-// nodes the rejected job tagged.
-template <int R>
-__device__ void bulk(const Slice<R>& sl, const PlaceArgs& a,
+// nodes the rejected job tagged. B6: a node in the old or the new anchor
+// zone is stale when the anchor moved.
+template <int R, bool kTopo>
+__device__ void bulk(const Slice<R, kTopo>& sl, const PlaceArgs& a,
                      const Command* cmd, const float (&rw)[R], int tid,
                      int nth) {
   const int op = cmd->op;
@@ -396,8 +424,18 @@ __device__ void bulk(const Slice<R>& sl, const PlaceArgs& a,
       has_static && cmd->row_changed
           ? a.mstatic + static_cast<size_t>(cmd->task) * N + sl.lo
           : nullptr;
+  int anchor = 0, prev = 0;
+  if constexpr (kTopo) {
+    anchor = cmd->anchor;
+    prev = cmd->prev_anchor;
+  }
   for (int j = tid; j < sl.nloc; j += nth) {
     bool stale = q_changed || sl.dirty[j];
+    if constexpr (kTopo) {
+      const int z = sl.zc[j];
+      stale = stale ||
+              (anchor != prev && z != 0 && (z == anchor || z == prev));
+    }
     float st = has_static ? sl.stc[j] : 0.f;
     if (srow) {
       const float v = srow[j];
@@ -407,7 +445,7 @@ __device__ void bulk(const Slice<R>& sl, const PlaceArgs& a,
       }
     }
     if (stale) {
-      sl.key[j] = sl.score(a, q, rw, j, has_static, st);
+      sl.key[j] = sl.score(a, q, rw, j, has_static, st, anchor);
       sl.dirty[j] = 0;
       if (has_static) sl.stc[j] = st;
     }
@@ -442,7 +480,7 @@ __global__ void rowdiff_kernel(const float* __restrict__ ms, int T, int N,
   }
 }
 
-template <int R>
+template <int R, bool kTopo>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 place_kernel(const PlaceArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -467,7 +505,7 @@ place_kernel(const PlaceArgs a) {
   int* c_rowdiff = reinterpret_cast<int*>(p);   p += 2 * kChunk * 4;
   float* c_req = reinterpret_cast<float*>(p);   p += 2 * kChunk * R * 4;
 
-  Slice<R> sl;
+  Slice<R, kTopo> sl;
   sl.lo = min(rank * a.slice, N);
   sl.nloc = min(sl.lo + a.slice, N) - sl.lo;
   sl.G = groups(a.slice);
@@ -503,6 +541,12 @@ place_kernel(const PlaceArgs a) {
       sl.mt = a.max_tasks + sl.lo;
       sl.as = N;
     }
+    if constexpr (kTopo) {
+      int* zc_s = reinterpret_cast<int*>(p);
+      p += S * 4;
+      for (int j = tid; j < sl.nloc; j += nth) zc_s[j] = a.zone[sl.lo + j];
+      sl.zc = zc_s;
+    }
     sl.dirty = p;
     for (int j = tid; j < sl.nloc; j += nth) {
 #pragma unroll
@@ -534,6 +578,7 @@ place_kernel(const PlaceArgs a) {
     sl.nt = a.ntasks + sl.lo;
     sl.al = a.alloc + sl.lo;
     sl.mt = a.max_tasks + sl.lo;
+    if constexpr (kTopo) sl.zc = a.zone + sl.lo;
   }
   // every node starts stale and untouched by any job
   for (int j = tid; j < sl.nloc; j += nth) {
@@ -559,7 +604,7 @@ place_kernel(const PlaceArgs a) {
     for (;;) {
       named_barrier(kBarCommand, nth);
       if (cmd->op == kOpExit) break;
-      bulk<R>(sl, a, cmd, rw, tid, nth);
+      bulk<R, kTopo>(sl, a, cmd, rw, tid, nth);
     }
   } else {
     // the leader warp walks the task stream; every lane holds the same
@@ -608,6 +653,9 @@ place_kernel(const PlaceArgs a) {
 
     int cnt_alloc = 0, cnt_pipe = 0, job = -1;
     bool broken = false, have_q = false, pending = true, row_dirty = false;
+    // B6: the job's anchor zone, and the one the cached keys were scored
+    // with
+    int anchor = 0, scored_anchor = 0;
     u64 cta_best = 0;         // the slice's best key
     unsigned xs = 0;          // cluster exchanges so far
     float last_q[R];
@@ -615,7 +663,7 @@ place_kernel(const PlaceArgs a) {
     for (int r = 0; r < R; ++r) last_q[r] = 0.f;
     // this CTA's node picked by the last scored task, and its state after
     // the pick (in registers, alike in every lane)
-    int dj = -1, d_nt = 0, d_mt = 0;
+    int dj = -1, d_nt = 0, d_mt = 0, d_zc = 0;
     u64 group_rest = 0, other_groups = 0;   // the tree without node dj
     // the last re-score's writes, in registers until the warp syncs
     int w_node = -1, w_group = -1;
@@ -648,6 +696,7 @@ place_kernel(const PlaceArgs a) {
         ++job;
         cnt_alloc = cnt_pipe = 0;
         broken = false;
+        anchor = 0;
       }
 
       int word = 0;
@@ -661,19 +710,25 @@ place_kernel(const PlaceArgs a) {
         }
         have_q = true;
 
-        if (q_changed || row_dirty || pending) {
+        if (q_changed || row_dirty || pending ||
+            (kTopo && anchor != scored_anchor)) {
           // bulk: every warp re-scores its stale nodes and the group keys
           if (lane == 0) {
             cmd->op = kOpScore;
             cmd->task = i;
             cmd->q_changed = q_changed;
             cmd->row_changed = row_dirty;
+            if constexpr (kTopo) {
+              cmd->anchor = anchor;
+              cmd->prev_anchor = scored_anchor;
+            }
 #pragma unroll
             for (int r = 0; r < R; ++r) cmd->q[r] = q[r];
           }
           __syncwarp();
           named_barrier(kBarCommand, nth);
-          bulk<R>(sl, a, cmd, rw, tid, nth);
+          bulk<R, kTopo>(sl, a, cmd, rw, tid, nth);
+          scored_anchor = anchor;
           cta_best = sl.root(lane);
           pending = row_dirty = false;
           w_node = w_group = -1;
@@ -681,10 +736,10 @@ place_kernel(const PlaceArgs a) {
           // only the last pick is stale: re-score it and take the maximum
           // with the rest of its group and the other groups (both read at
           // the pick)
-          const u64 kv = warp_key<R>(q, d_idle, d_fidle, d_used, d_al, rw,
-                                     d_nt, d_mt, has_static, d_st,
-                                     sl.lo + dj, a.bw, a.lw, a.mw, a.balw,
-                                     lane);
+          const u64 kv = warp_key<R, kTopo>(
+              q, d_idle, d_fidle, d_used, d_al, rw, d_nt, d_mt, has_static,
+              d_st, sl.lo + dj, a.bw, a.lw, a.mw, a.balw, lane,
+              d_zc == anchor && anchor != 0, a.topo_w);
           w_node = dj;
           w_key = kv;
           w_group = dj >> 5;
@@ -749,6 +804,7 @@ place_kernel(const PlaceArgs a) {
             const int o_nt = sl.nt[j];
             const int o_tag = sl.tag[j];
             d_mt = sl.mt[j];
+            if constexpr (kTopo) d_zc = sl.zc[j];
             d_st = has_static ? sl.stc[j] : 0.f;
             u64 ot = max64(e0, e1);
             for (int k = lane + 64; k < sl.G; k += 32)
@@ -792,6 +848,10 @@ place_kernel(const PlaceArgs a) {
             }
             dj = j;
           }
+          // B6: the job's first placement on a zoned node anchors it, in
+          // every CTA alike
+          if constexpr (kTopo)
+            if (anchor == 0) anchor = a.zone[n];
           if (fit_idle)
             ++cnt_alloc;
           else
@@ -814,7 +874,7 @@ place_kernel(const PlaceArgs a) {
           }
           __syncwarp();
           named_barrier(kBarCommand, nth);
-          bulk<R>(sl, a, cmd, rw, tid, nth);
+          bulk<R, kTopo>(sl, a, cmd, rw, tid, nth);
           pending = true;
           dj = -1;
         }
@@ -843,15 +903,17 @@ place_kernel(const PlaceArgs a) {
   if (C > 1) cluster.sync();
 }
 
-template <int R>
+template <int R, bool kTopo>
 cudaError_t configure(int C, int threads, int smem, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr) {
   cudaError_t err = cudaFuncSetAttribute(
-      place_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      place_kernel<R, kTopo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   if (C > 8) {
-    err = cudaFuncSetAttribute(
-        place_kernel<R>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(place_kernel<R, kTopo>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
     if (err != cudaSuccess) return err;
   }
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -866,31 +928,45 @@ cudaError_t configure(int C, int threads, int smem, cudaLaunchConfig_t* cfg,
   return cudaSuccess;
 }
 
-template <int R>
+template <int R, bool kTopo>
 cudaError_t launch(const PlaceArgs& a, int C, int threads, int smem,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<R>(C, threads, smem, &cfg, &attr);
+  cudaError_t err = configure<R, kTopo>(C, threads, smem, &cfg, &attr);
   if (err != cudaSuccess) return err;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, place_kernel<R>, a);
+  err = cudaLaunchKernelEx(&cfg, place_kernel<R, kTopo>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int R>
+template <int R, bool kTopo>
 cudaError_t active_clusters(int C, int threads, int smem, int* count) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<R>(C, threads, smem, &cfg, &attr);
+  cudaError_t err = configure<R, kTopo>(C, threads, smem, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(count, (const void*)place_kernel<R>,
-                                        &cfg);
+  return cudaOccupancyMaxActiveClusters(
+      count, (const void*)place_kernel<R, kTopo>, &cfg);
+}
+
+template <int R>
+cudaError_t launch_mode(const PlaceArgs& a, int C, int threads, int smem,
+                        cudaStream_t stream) {
+  return a.zone != nullptr ? launch<R, true>(a, C, threads, smem, stream)
+                           : launch<R, false>(a, C, threads, smem, stream);
+}
+
+template <int R>
+cudaError_t active_clusters_mode(bool topo, int C, int threads, int smem,
+                                 int* count) {
+  return topo ? active_clusters<R, true>(C, threads, smem, count)
+              : active_clusters<R, false>(C, threads, smem, count);
 }
 
 bool plan_ok(int R, int T, int N, int C, int threads, int slice, int in_smem,
-             int ro_smem, bool has_static, int smem) {
+             int ro_smem, bool has_static, bool topo, int smem) {
   if (C < 1 || C > kMaxCluster || (C & (C - 1)) != 0) return false;
   if (threads < kMinThreads || threads > kMaxThreads || threads % 32 != 0)
     return false;
@@ -900,7 +976,7 @@ bool plan_ok(int R, int T, int N, int C, int threads, int slice, int in_smem,
   const long long want =
       fixed_bytes(R) +
       (in_smem ? static_cast<long long>(slice) *
-                         node_bytes(R, has_static, ro_smem != 0) +
+                         node_bytes(R, has_static, ro_smem != 0, topo) +
                      8LL * groups(slice)
                : 0);
   return want == smem;
@@ -988,7 +1064,8 @@ extern "C" int vt_rowdiff(const float* ms, int T, int N, int* out,
 // rowdiff [T], vt_rowdiff's marks of mstatic (null without mstatic),
 // launched before on the same stream; alloc, and each of the three
 // planes of state (idle, future idle, used) and saved, [R,N];
-// max_tasks/ntasks/saved_nt [N]; scratch ops/place.py::scratch_bytes bytes
+// max_tasks/ntasks/saved_nt [N]; zone [N] zone codes for B6 with its
+// weight topo_w (null for B1); scratch ops/place.py::scratch_bytes bytes
 // when the node arrays stay in device memory, else null. state and ntasks
 // hold the initial node state on entry and the final state on return. The
 // launch plan (cluster size, threads, nodes per CTA, where the node arrays
@@ -1001,14 +1078,15 @@ extern "C" int vt_place(const float* req, const int* flags,
                         const float* mstatic, const int* rowdiff,
                         const float* alloc, const int* max_tasks,
                         const float* binpack_res, float bw, float lw,
-                        float mw, float balw, float* state, int* ntasks,
+                        float mw, float balw, const int* zone, float topo_w,
+                        float* state, int* ntasks,
                         float* saved, int* saved_nt, void* scratch, int* out,
                         int T, int N, int R, int cluster, int threads,
                         int slice, int in_smem, int ro_smem, int smem_bytes,
                         void* stream) {
   if (R < 2 || R > 8) return -1;
   if (!plan_ok(R, T, N, cluster, threads, slice, in_smem, ro_smem,
-               mstatic != nullptr, smem_bytes) ||
+               mstatic != nullptr, zone != nullptr, smem_bytes) ||
       (mstatic != nullptr && rowdiff == nullptr) ||
       (!in_smem && scratch == nullptr))
     return -2;
@@ -1026,6 +1104,8 @@ extern "C" int vt_place(const float* req, const int* flags,
   a.lw = lw;
   a.mw = mw;
   a.balw = balw;
+  a.zone = zone;
+  a.topo_w = topo_w;
   a.state = state;
   a.ntasks = ntasks;
   a.saved = saved;
@@ -1039,31 +1119,41 @@ extern "C" int vt_place(const float* req, const int* flags,
   a.ro_smem = ro_smem;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (R) {
-    case 2: return launch<2>(a, cluster, threads, smem_bytes, s);
-    case 3: return launch<3>(a, cluster, threads, smem_bytes, s);
-    case 4: return launch<4>(a, cluster, threads, smem_bytes, s);
-    case 5: return launch<5>(a, cluster, threads, smem_bytes, s);
-    case 6: return launch<6>(a, cluster, threads, smem_bytes, s);
-    case 7: return launch<7>(a, cluster, threads, smem_bytes, s);
-    default: return launch<8>(a, cluster, threads, smem_bytes, s);
+    case 2: return launch_mode<2>(a, cluster, threads, smem_bytes, s);
+    case 3: return launch_mode<3>(a, cluster, threads, smem_bytes, s);
+    case 4: return launch_mode<4>(a, cluster, threads, smem_bytes, s);
+    case 5: return launch_mode<5>(a, cluster, threads, smem_bytes, s);
+    case 6: return launch_mode<6>(a, cluster, threads, smem_bytes, s);
+    case 7: return launch_mode<7>(a, cluster, threads, smem_bytes, s);
+    default: return launch_mode<8>(a, cluster, threads, smem_bytes, s);
   }
 }
 
 // How many clusters of `cluster` CTAs, each of `threads` threads and
 // `smem_bytes` of dynamic shared memory, the card can hold at once (into
-// *count); 0 means such a launch would be refused. Returns the query's
-// cudaError_t, or -1 for an R this file was not built for.
-extern "C" int vt_place_active_clusters(int R, int cluster, int threads,
-                                        int smem_bytes, int* count) {
+// *count) for B1 (topo 0) or B6 (topo 1); 0 means such a launch would be
+// refused. Returns the query's cudaError_t, or -1 for an R this file was
+// not built for.
+extern "C" int vt_place_active_clusters(int R, int topo, int cluster,
+                                        int threads, int smem_bytes,
+                                        int* count) {
   *count = 0;
+  const bool t = topo != 0;
   switch (R) {
-    case 2: return active_clusters<2>(cluster, threads, smem_bytes, count);
-    case 3: return active_clusters<3>(cluster, threads, smem_bytes, count);
-    case 4: return active_clusters<4>(cluster, threads, smem_bytes, count);
-    case 5: return active_clusters<5>(cluster, threads, smem_bytes, count);
-    case 6: return active_clusters<6>(cluster, threads, smem_bytes, count);
-    case 7: return active_clusters<7>(cluster, threads, smem_bytes, count);
-    case 8: return active_clusters<8>(cluster, threads, smem_bytes, count);
+    case 2: return active_clusters_mode<2>(t, cluster, threads, smem_bytes,
+                                           count);
+    case 3: return active_clusters_mode<3>(t, cluster, threads, smem_bytes,
+                                           count);
+    case 4: return active_clusters_mode<4>(t, cluster, threads, smem_bytes,
+                                           count);
+    case 5: return active_clusters_mode<5>(t, cluster, threads, smem_bytes,
+                                           count);
+    case 6: return active_clusters_mode<6>(t, cluster, threads, smem_bytes,
+                                           count);
+    case 7: return active_clusters_mode<7>(t, cluster, threads, smem_bytes,
+                                           count);
+    case 8: return active_clusters_mode<8>(t, cluster, threads, smem_bytes,
+                                           count);
     default: return -1;
   }
 }

@@ -24,6 +24,14 @@ and the final node state. ``place`` picks the version by the tensors'
 device — the plain one only for CPU tensors — and decodes the words after
 one device-to-host copy.
 
+B6, the zone-anchor solve (the JAX package's ``place_scan_topo``), is a
+mode of the same kernel (``place_topo_cuda``) and of the same plain loop
+(``place_topo_plain``): every node whose zone code equals the job's anchor
+zone scores ``+topo_weight``, the anchor being the zone of the job's first
+placement.
+``place`` takes it when given zone codes and a positive weight, and B1
+otherwise, as the JAX package dispatches ``place_scan`` at weight 0.
+
 The pipelined cycle's speculative solve decodes on the device instead:
 ``place_dispatch`` launches the solve and the decode (``decode_packed_cuda``,
 B7, beside its plain version ``decode_packed_plain``) on a stream the caller
@@ -111,7 +119,40 @@ def place_plain(idle: torch.Tensor, future_idle: torch.Tensor,
     ``keep_need [T]`` i32, ``masked_static [T,N]`` or None. Returns
     ``(packed [T] i32, idle, future_idle, used, ntasks)``; the inputs are
     not modified."""
+    return _plain_loop(idle, future_idle, used, ntasks, allocatable,
+                       max_tasks, req, flags, ready_need, keep_need,
+                       masked_static, weights, None, 0.0)
+
+
+def place_topo_plain(idle: torch.Tensor, future_idle: torch.Tensor,
+                     used: torch.Tensor, ntasks: torch.Tensor,
+                     allocatable: torch.Tensor, max_tasks: torch.Tensor,
+                     req: torch.Tensor, flags: torch.Tensor,
+                     ready_need: torch.Tensor, keep_need: torch.Tensor,
+                     masked_static: Optional[torch.Tensor],
+                     weights: ScoreWeights, zone_code: torch.Tensor,
+                     topo_weight: float) -> PlaceOutput:
+    """B6's plain version: ``place_plain`` with the anchor term of the JAX
+    package's ``place_scan_topo`` step. ``zone_code`` i32 ``[N]`` (0 for an
+    unzoned node or a hole row); ``topo_weight`` rounds to f32. A job's
+    anchor is 0 at its first task and becomes the zone code of its first
+    placement; while it is not 0, each node's score is
+    ``(static + dynamic) + topo_weight * (zone_code == anchor)``."""
+    return _plain_loop(idle, future_idle, used, ntasks, allocatable,
+                       max_tasks, req, flags, ready_need, keep_need,
+                       masked_static, weights, zone_code, topo_weight)
+
+
+def _plain_loop(idle, future_idle, used, ntasks, allocatable, max_tasks,
+                req, flags, ready_need, keep_need, masked_static, weights,
+                zone_code: Optional[torch.Tensor],
+                topo_weight: float) -> PlaceOutput:
     state = [idle.clone(), future_idle.clone(), used.clone(), ntasks.clone()]
+    if zone_code is not None:
+        tw = torch.tensor(topo_weight, dtype=torch.float32,
+                          device=idle.device)
+        zone_h = zone_code.tolist()
+    anchor = 0
     flags_h = flags.tolist()
     ready_h = ready_need.tolist()
     keep_h = keep_need.tolist()
@@ -124,6 +165,7 @@ def place_plain(idle: torch.Tensor, future_idle: torch.Tensor,
             saved = [t.clone() for t in state]
             cnt_alloc = cnt_pipe = 0
             broken = False
+            anchor = 0
         word = 0
         if f & VALID and not broken:
             tidle, tfidle, tused, tnt = state
@@ -133,11 +175,16 @@ def place_plain(idle: torch.Tensor, future_idle: torch.Tensor,
             if masked_static is not None:
                 fit = fit & (masked_static[i] > NEG_TEST)
                 score = masked_static[i] + score
+            if zone_code is not None:
+                same = (zone_code == anchor) & (anchor != 0)
+                score = score + tw * same.to(score.dtype)
             best = int(torch.argmax(torch.where(fit, score, -torch.inf)))
             if not bool(fit[best]):
                 broken = True
             else:
                 on_idle = bool((q < tidle[best] + EPS).all())
+                if zone_code is not None and anchor == 0:
+                    anchor = zone_h[best]
                 tfidle[best] = tfidle[best] - q
                 tnt[best] = tnt[best] + 1
                 if on_idle:
@@ -211,12 +258,14 @@ def fixed_bytes(R: int) -> int:
     return 2 * 8 + 2 * 16 * 8 + 64 + 2 * CHUNK * (4 + R) * 4
 
 
-def node_bytes(R: int, has_static: bool, ro: bool) -> int:
+def node_bytes(R: int, has_static: bool, ro: bool,
+               topo: bool = False) -> int:
     """Shared memory per node of a slice: the cached key (8), the mutable
     planes and pod count, the job tag, the stale flag; with a static matrix
-    the cached static value; with ``ro`` alloc and max_tasks."""
+    the cached static value; with ``ro`` alloc and max_tasks; in B6's mode
+    (``topo``) the zone code."""
     return (8 + (3 * R + 1) * 4 + 4 + 1 + (4 if has_static else 0)
-            + (R * 4 + 4 if ro else 0))
+            + (R * 4 + 4 if ro else 0) + (4 if topo else 0))
 
 
 def tree_bytes(slice_: int) -> int:
@@ -224,13 +273,15 @@ def tree_bytes(slice_: int) -> int:
     return 8 * -(-slice_ // 32)
 
 
-def _smem(R: int, has_static: bool, ro: bool, slice_: int) -> int:
-    return (fixed_bytes(R) + slice_ * node_bytes(R, has_static, ro)
+def _smem(R: int, has_static: bool, ro: bool, slice_: int,
+          topo: bool) -> int:
+    return (fixed_bytes(R) + slice_ * node_bytes(R, has_static, ro, topo)
             + tree_bytes(slice_))
 
 
 def launch_plan(N: int, R: int, has_static: bool, max_cluster: int = 16,
-                cluster: Optional[int] = None) -> LaunchPlan:
+                cluster: Optional[int] = None,
+                topo: bool = False) -> LaunchPlan:
     """Where the solve runs: ``cluster`` CTAs of one thread a node of the
     slice (a multiple of 32, 64 to 512). The node arrays live in shared
     memory exactly when a slice's fit beside the fixed part; alloc and
@@ -244,24 +295,25 @@ def launch_plan(N: int, R: int, has_static: bool, max_cluster: int = 16,
     10k-pod / 2k-node solve (one CTA's worth of nodes, fastest at C=1), on
     R=3 at 8,192 nodes with a new request every task, and on gangs of one
     request at 8,192 and 16,384 nodes (both fastest at C=16); PERF.md has
-    the H100 numbers."""
+    the H100 numbers. ``topo``: B6's mode, which keeps a zone code a node
+    beside the rest."""
     sizes = [c for c in CLUSTER_SIZES if c <= max_cluster]
     if not sizes:
         raise ValueError(f"launch_plan: no cluster size within {max_cluster}")
     if cluster is None:
-        one = _smem(R, has_static, False, max(1, N)) <= SMEM_MAX
+        one = _smem(R, has_static, False, max(1, N), topo) <= SMEM_MAX
         cluster = 1 if one else sizes[-1]
     if cluster not in sizes:
         raise ValueError(f"launch_plan: cluster {cluster} not in {sizes}")
     slice_ = max(1, -(-N // cluster))
     threads = min(MAX_THREADS, max(MIN_THREADS, -(-slice_ // 32) * 32))
-    if _smem(R, has_static, True, slice_) <= SMEM_MAX:
+    if _smem(R, has_static, True, slice_, topo) <= SMEM_MAX:
         in_smem, ro = True, True
-    elif _smem(R, has_static, False, slice_) <= SMEM_MAX:
+    elif _smem(R, has_static, False, slice_, topo) <= SMEM_MAX:
         in_smem, ro = True, False
     else:
         in_smem, ro = False, False
-    smem = (_smem(R, has_static, ro, slice_) if in_smem
+    smem = (_smem(R, has_static, ro, slice_, topo) if in_smem
             else fixed_bytes(R))
     return LaunchPlan(cluster, threads, slice_, smem, in_smem, ro)
 
@@ -278,10 +330,10 @@ def scratch_bytes(plan: LaunchPlan, N: int) -> int:
 def _lib():
     lib = build.load("place")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vt_place.argtypes = [p, p, p, p, p, p, p, p, p, f, f, f, f, p, p, p,
-                             p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.vt_place.argtypes = [p, p, p, p, p, p, p, p, p, f, f, f, f, p, f, p,
+                             p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.vt_place.restype = ctypes.c_int
-    lib.vt_place_active_clusters.argtypes = [i, i, i, i,
+    lib.vt_place_active_clusters.argtypes = [i, i, i, i, i,
                                              ctypes.POINTER(ctypes.c_int)]
     lib.vt_place_active_clusters.restype = ctypes.c_int
     lib.vt_rowdiff.argtypes = [p, i, i, p, p]
@@ -291,12 +343,13 @@ def _lib():
     return lib
 
 
-def active_clusters(R: int, plan: LaunchPlan) -> int:
-    """How many clusters of this plan the card holds at once; 0 means the
-    launch would be refused. Raises if the query itself fails."""
+def active_clusters(R: int, plan: LaunchPlan, topo: bool = False) -> int:
+    """How many clusters of this plan the card holds at once (of B6's mode
+    with ``topo``); 0 means the launch would be refused. Raises if the
+    query itself fails."""
     count = ctypes.c_int(0)
-    err = _lib().vt_place_active_clusters(R, plan.cluster, plan.threads,
-                                          plan.smem_bytes,
+    err = _lib().vt_place_active_clusters(R, int(topo), plan.cluster,
+                                          plan.threads, plan.smem_bytes,
                                           ctypes.byref(count))
     if err != 0:
         raise RuntimeError(f"place_cuda: cluster query failed with "
@@ -335,6 +388,37 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
     CUDA device. ``cluster`` overrides the launch plan's cluster size (tests
     and chip_smoke.py run every size). Raises on a tensor it does not take,
     a cluster the card cannot launch, a failed build or a failed launch."""
+    return _place_launch(place_cuda, idle, future_idle, used, ntasks,
+                         allocatable, max_tasks, req, flags, ready_need,
+                         keep_need, masked_static, weights, cluster, None,
+                         0.0)
+
+
+def place_topo_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
+                    used: torch.Tensor, ntasks: torch.Tensor,
+                    allocatable: torch.Tensor, max_tasks: torch.Tensor,
+                    req: torch.Tensor, flags: torch.Tensor,
+                    ready_need: torch.Tensor, keep_need: torch.Tensor,
+                    masked_static: Optional[torch.Tensor],
+                    weights: ScoreWeights, zone_code: torch.Tensor,
+                    topo_weight: float,
+                    cluster: Optional[int] = None) -> PlaceOutput:
+    """B6: ``place_topo_plain`` as one launch of ``csrc/place.cu``'s
+    zone-anchor mode, with ``place_cuda``'s inputs, outputs, launch plan
+    and checks, and ``zone_code`` an i32 ``[N]`` tensor on the same
+    device."""
+    return _place_launch(place_topo_cuda, idle, future_idle, used, ntasks,
+                         allocatable, max_tasks, req, flags, ready_need,
+                         keep_need, masked_static, weights, cluster,
+                         zone_code, topo_weight)
+
+
+def _place_launch(wrapper, idle, future_idle, used, ntasks, allocatable,
+                  max_tasks, req, flags, ready_need, keep_need,
+                  masked_static, weights, cluster, zone_code,
+                  topo_weight) -> PlaceOutput:
+    """One launch of the placement kernel, B6's mode with ``zone_code``;
+    counts it in ``wrapper.launches``."""
     device = idle.device
     if device.type != "cuda":
         raise ValueError(f"place_cuda: tensors are on {device}, not a CUDA "
@@ -360,6 +444,9 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
         _check(name, t, dtype, shape, device)
     if masked_static is not None:
         _check("masked_static", masked_static, torch.float32, (T, N), device)
+    topo = zone_code is not None
+    if topo:
+        _check("zone_code", zone_code, torch.int32, (N,), device)
 
     # node-major [N,R] -> resource-major [R,N]: a CTA copies each resource
     # row of its slice coalesced
@@ -376,8 +463,8 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
     if T:
         with torch.cuda.device(device):
             plan = launch_plan(N, R, masked_static is not None,
-                               max_cluster(), cluster)
-            if cluster is not None and active_clusters(R, plan) == 0:
+                               max_cluster(), cluster, topo)
+            if cluster is not None and active_clusters(R, plan, topo) == 0:
                 raise RuntimeError(f"place_cuda: the card cannot launch "
                                    f"{plan}")
             scratch = torch.empty(scratch_bytes(plan, N), dtype=torch.uint8,
@@ -393,6 +480,7 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
                 alloc_rn.data_ptr(), max_tasks.data_ptr(), res.data_ptr(),
                 weights.binpack_weight, weights.least_req_weight,
                 weights.most_req_weight, weights.balanced_weight,
+                zone_code.data_ptr() if topo else None, float(topo_weight),
                 state.data_ptr(), nt.data_ptr(), saved.data_ptr(),
                 saved_nt.data_ptr(), scratch.data_ptr() or None,
                 packed.data_ptr(), T, N, R, plan.cluster, plan.threads,
@@ -401,13 +489,14 @@ def place_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"place_cuda: kernel launch failed with "
                                f"cudaError_t {err} ({plan})")
-        place_cuda.launches += 1
+        wrapper.launches += 1
     return (packed, state[0].t().contiguous(), state[1].t().contiguous(),
             state[2].t().contiguous(), nt)
 
 
 # kernel launches since the count was last reset (chip_smoke.py reads it)
 place_cuda.launches = 0
+place_topo_cuda.launches = 0
 
 
 def rowdiff_plain(masked_static: torch.Tensor) -> torch.Tensor:
@@ -450,29 +539,35 @@ rowdiff_cuda.launches = 0
 
 
 def task_rescores(packed: np.ndarray, flags: np.ndarray, req: np.ndarray,
-                  masked_static: Optional[np.ndarray], N: int) -> np.ndarray:
+                  masked_static: Optional[np.ndarray], N: int,
+                  zone_code: Optional[np.ndarray] = None) -> np.ndarray:
     """The nodes the kernel's cache rule re-scores for each task the solve
     evaluated (valid, its job not yet broken), in task order, given these
     inputs and this solve's packed words: every node when the task's
     request differs from the last evaluated task's, else only the nodes
     whose static entry differs from that task's, that were picked since, or
     that a rejected gang restored since (the nodes its tasks' words
-    name)."""
+    name). With ``zone_code`` (B6), also the nodes of the old and the new
+    anchor zone when the job's anchor moved since the last evaluated
+    task."""
     packed = np.asarray(packed)
     flags = np.asarray(flags)
     req = np.asarray(req, np.float32).view(np.uint32)
     ms = (None if masked_static is None
           else np.asarray(masked_static, np.float32).view(np.uint32))
+    zone = None if zone_code is None else np.asarray(zone_code)
     counts = []
     last = -1
     dirty = set()
     job_nodes = []
     broken = False
+    anchor = scored = 0
     for i, f in enumerate(flags.tolist()):
         w = int(packed[i])
         if f & FIRST:
             job_nodes = []
             broken = False
+            anchor = 0
         if f & VALID and not broken:
             if last < 0 or (req[i] != req[last]).any():
                 counts.append(N)
@@ -480,13 +575,20 @@ def task_rescores(packed: np.ndarray, flags: np.ndarray, req: np.ndarray,
                 stale = set(dirty)
                 if ms is not None:
                     stale.update(np.flatnonzero(ms[i] != ms[last]).tolist())
+                if zone is not None and anchor != scored:
+                    stale.update(np.flatnonzero(
+                        (zone != 0) & ((zone == anchor) | (zone == scored))
+                    ).tolist())
                 counts.append(len(stale))
             dirty = set()
             last = i
+            scored = anchor
             if w & F_PLACE:
                 node = (w >> 4) - 1
                 dirty.add(node)
                 job_nodes.append(node)
+                if zone is not None and anchor == 0:
+                    anchor = int(zone[node])
             else:
                 broken = True
         if f & VALID and f & LAST and not w & F_KEEP:
@@ -519,21 +621,35 @@ def unpack_placement(packed: np.ndarray, job_ix: np.ndarray, J: int
     return task_node, (flags & F_PIPE) != 0, job_ready, job_kept
 
 
+def _solver(device: torch.device, zone_code: Optional[torch.Tensor],
+            topo_weight: float, fn: str):
+    """The solve for tensors on ``device``, a callable of place_plain's
+    arguments: the CUDA kernel, or the plain version on the CPU; B6's mode
+    when there are zone codes and a positive weight, else B1."""
+    topo = zone_code is not None and topo_weight > 0.0
+    if device.type == "cuda":
+        if not topo:
+            return place_cuda
+        return lambda *a: place_topo_cuda(*a, zone_code, topo_weight)
+    if device.type == "cpu":
+        if not topo:
+            return place_plain
+        return lambda *a: place_topo_plain(*a, zone_code, topo_weight)
+    raise ValueError(f"{fn}: no placement kernel for device {device}")
+
+
 def place(idle: torch.Tensor, future_idle: torch.Tensor, used: torch.Tensor,
           ntasks: torch.Tensor, allocatable: torch.Tensor,
           max_tasks: torch.Tensor, req: torch.Tensor, job_ix: np.ndarray,
           masked_static: Optional[torch.Tensor], min_available: np.ndarray,
           base_ready: np.ndarray, base_pipelined: np.ndarray,
-          weights: ScoreWeights) -> PlacementResult:
+          weights: ScoreWeights, zone_code: Optional[torch.Tensor] = None,
+          topo_weight: float = 0.0) -> PlacementResult:
     """Solve a job-contiguous task list on the node tensors' device: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors; with
+    zone codes and a positive ``topo_weight``, B6's zone-anchor mode."""
     device = idle.device
-    if device.type == "cuda":
-        solve = place_cuda
-    elif device.type == "cpu":
-        solve = place_plain
-    else:
-        raise ValueError(f"place: no placement kernel for device {device}")
+    solve = _solver(device, zone_code, topo_weight, "place")
     flags, ready_need, keep_need = (
         torch.tensor(a, device=device) for a in task_flags(
             job_ix, min_available, base_ready, base_pipelined))
@@ -613,7 +729,8 @@ def place_dispatch(idle: torch.Tensor, future_idle: torch.Tensor,
                    masked_static: Optional[torch.Tensor],
                    min_available: np.ndarray, base_ready: np.ndarray,
                    base_pipelined: np.ndarray, weights: ScoreWeights,
-                   stream=None):
+                   stream=None, zone_code: Optional[torch.Tensor] = None,
+                   topo_weight: float = 0.0):
     """``place``'s solve with the decode on the device, without
     synchronizing the host: on CUDA tensors the rowdiff pre-pass (with a
     static matrix), ``place_cuda`` and ``decode_packed_cuda`` launch on
@@ -623,21 +740,20 @@ def place_dispatch(idle: torch.Tensor, future_idle: torch.Tensor,
     Returns ``(wire, event)``: the device wire of ``decode_packed_plain``
     and a ``torch.cuda.Event`` recorded after the decode. On CPU tensors it
     runs ``place_plain`` and ``decode_packed_plain`` at once and the event
-    is None. ``fetch_packed`` reads the wire."""
+    is None. With zone codes and a positive ``topo_weight`` the solve is
+    B6's mode, as in ``place``. ``fetch_packed`` reads the wire."""
     device = idle.device
     J = len(min_available)
+    solve = _solver(device, zone_code, topo_weight, "place_dispatch")
     if device.type == "cpu":
         flags, ready_need, keep_need = (
             torch.from_numpy(a) for a in task_flags(
                 job_ix, min_available, base_ready, base_pipelined))
-        packed = place_plain(idle, future_idle, used, ntasks, allocatable,
-                             max_tasks, req, flags, ready_need, keep_need,
-                             masked_static, weights)[0]
+        packed = solve(idle, future_idle, used, ntasks, allocatable,
+                       max_tasks, req, flags, ready_need, keep_need,
+                       masked_static, weights)[0]
         return decode_packed_plain(
             packed, torch.from_numpy(np.asarray(job_ix, np.int32)), J), None
-    if device.type != "cuda":
-        raise ValueError(f"place_dispatch: no placement kernel for device "
-                         f"{device}")
     if stream is None:
         raise ValueError("place_dispatch: a CUDA solve needs a stream")
     flags, ready_need, keep_need = (
@@ -648,13 +764,15 @@ def place_dispatch(idle: torch.Tensor, future_idle: torch.Tensor,
               flags, ready_need, keep_need, jix]
     if masked_static is not None:
         inputs.append(masked_static)
+    if zone_code is not None:
+        inputs.append(zone_code)
     stream.wait_stream(torch.cuda.current_stream(device))
     for t in inputs:
         t.record_stream(stream)
     with torch.cuda.stream(stream):
-        packed = place_cuda(idle, future_idle, used, ntasks, allocatable,
-                            max_tasks, req, flags, ready_need, keep_need,
-                            masked_static, weights)[0]
+        packed = solve(idle, future_idle, used, ntasks, allocatable,
+                       max_tasks, req, flags, ready_need, keep_need,
+                       masked_static, weights)[0]
         wire = decode_packed_cuda(packed, jix, J)
         event = torch.cuda.Event()
         event.record(stream)

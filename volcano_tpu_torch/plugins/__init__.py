@@ -2,13 +2,13 @@
 
 Importing this package registers the plugins this package has: priority,
 gang, drf, predicates, proportion, nodeorder and binpack — the plugins of
-deploy/scheduler.conf.
+deploy/scheduler.conf — and elastic-gang.
 """
 
 from ..framework.registry import register_plugin_builder
 from .base import Plugin
-from . import (binpack, drf, gang, nodeorder, predicates, priority,
-               proportion)
+from . import (binpack, drf, elastic_gang, gang, nodeorder, predicates,
+               priority, proportion)
 
 register_plugin_builder("gang", gang.New)
 register_plugin_builder("priority", priority.New)
@@ -17,5 +17,6 @@ register_plugin_builder("nodeorder", nodeorder.New)
 register_plugin_builder("drf", drf.New)
 register_plugin_builder("predicates", predicates.New)
 register_plugin_builder("proportion", proportion.New)
+register_plugin_builder("elastic-gang", elastic_gang.New)
 
 __all__ = ["Plugin"]

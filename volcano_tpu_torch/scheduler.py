@@ -225,6 +225,11 @@ class Scheduler:
         # close); an action that uses the device reads its result back
         # before it returns, so its time includes the device's
         self.last_cycle_s: Dict[str, float] = {}
+        # elastic-gang lifecycle verbs: a CommandFunnel when command-driven
+        # suspend/resume/scale is on, drained once a cycle after the resync
+        # pass and before the snapshot, so a verb's annotation rewrite is
+        # whole or absent in every cycle
+        self.command_funnel = None
         # this package has no leader election: the elector stays None, and
         # a shell given one would run serial cycles (a speculation never
         # crosses a leadership boundary)
@@ -319,6 +324,14 @@ class Scheduler:
                 log.exception("resync processing failed")
                 metrics.register_action_failure("resync")
                 errors.append(("resync", exc))
+        if self.command_funnel is not None:
+            try:
+                with rec.span("commands"):
+                    self.command_funnel.consume()
+            except Exception as exc:
+                log.exception("command funnel consume failed")
+                metrics.register_action_failure("commands")
+                errors.append(("commands", exc))
         runnable = [(name, get_action(name)) for name in self.conf.actions]
         if not runnable:
             self._discard_speculation("conflict")
@@ -952,7 +965,9 @@ class Scheduler:
         CUDA context, build and load every kernel of ``ops/csrc`` (one
         nvcc per source, all at once) and, once the cache has nodes, upload
         the persistent node tensors of its current snapshot. There are no
-        shape-keyed compiles to warm. Pipelined, also ask the card its
+        shape-keyed compiles to warm: the placement kernel's library holds
+        B1 and B6 (the zone-anchor mode a positive ``topology-weight``
+        takes) alike. Pipelined, also ask the card its
         largest cluster once, make the side stream and pay the epoch pair's
         first pin. Returns the number of kernel libraries loaded; on the
         CPU it does nothing and returns 0."""

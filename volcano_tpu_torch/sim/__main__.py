@@ -19,6 +19,11 @@ The pipelined cycle against its serial oracle::
         pipelined-steady --seed 3 --pipelined \\
         --verify-pipelined-equivalence --deterministic
 
+Elastic gangs, with the elastic-gang contract checked::
+
+    python -m volcano_tpu_torch.sim --device cpu --scenario elastic-churn \\
+        --elastic-gangs --deterministic --verify-elastic-gang-equivalence
+
 The run goes to the CUDA card unless ``--device cpu`` asks for the CPU;
 with no card and no such request it exits non-zero. With the same
 arguments, ``--deterministic`` prints the same bytes as ``python -m
@@ -74,10 +79,6 @@ REFUSED_FLAGS = {
     "--verify-overload-equivalence": (
         False, "admission backpressure and overload bursts "
                "(ROADMAP item 9)"),
-    "--elastic-gangs": (False, "elastic gangs (ROADMAP item 7)"),
-    "--topology-weight": (True, "elastic gangs and B6 (ROADMAP item 7)"),
-    "--verify-elastic-gang-equivalence": (
-        False, "elastic gangs (ROADMAP item 7)"),
     "--sharded": (False, "the node-sharded engine (ROADMAP item 10)"),
     "--sharded-devices": (True, "the node-sharded engine "
                                 "(ROADMAP item 10)"),
@@ -157,6 +158,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "or partial commit), else equal terminal "
                          "accounting; zero double binds and every arrived "
                          "job completed (exit 1 otherwise)")
+    ap.add_argument("--elastic-gangs", action="store_true",
+                    help="elastic gang membership: gangs with a desired "
+                         "count admit at min, grow-shrink expands them "
+                         "toward desired as capacity frees and shrinks "
+                         "them first under pressure, and suspend/resume/"
+                         "scale verbs go through the journaled command "
+                         "funnel (not with --pipelined or --fast-admit)")
+    ap.add_argument("--topology-weight", type=float, default=10.0,
+                    metavar="W",
+                    help="zone-compactness weight of --elastic-gangs (the "
+                         "allocate anchor term and the plugin's node-order "
+                         "bonus); 0 is the topology-unaware baseline "
+                         "(default 10.0)")
+    ap.add_argument("--verify-elastic-gang-equivalence",
+                    action="store_true",
+                    help="check the elastic-gang contract: grows and "
+                         "shrinks fired, no below-min eviction outside a "
+                         "full-gang decision, no rejected command, every "
+                         "arrived gang completed with no double bind, the "
+                         "report byte-identical on a second run (exit 1 "
+                         "otherwise)")
     ap.add_argument("--device", default="cuda",
                     help="where sessions solve: cuda (default) or cpu")
     ap.set_defaults(refused=[])
@@ -189,6 +211,12 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
         ap.error("one of --scenario/--trace/--list is required")
     if args.write_trace:
         write_trace(args.write_trace, trace)
+    if args.elastic_gangs and (args.pipelined or args.fast_admit):
+        ap.error("--elastic-gangs is a serial-cycle mode (not --pipelined "
+                 "/ --fast-admit)")
+    if args.verify_elastic_gang_equivalence and not args.elastic_gangs:
+        ap.error("--verify-elastic-gang-equivalence requires "
+                 "--elastic-gangs")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -235,7 +263,9 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                            pipelined=args.pipelined if pipelined is None
                            else pipelined,
                            fast_admit=args.fast_admit if fast_admit is None
-                           else fast_admit)
+                           else fast_admit,
+                           elastic_gangs=args.elastic_gangs,
+                           topology_weight=args.topology_weight)
         if runners is not None:
             runners.append(runner)
         return runner.run()
@@ -312,6 +342,50 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
               f"restarts={report.get('restarts', 0)}, "
               f"ttfb_p99_cycles={report.get('ttfb_p99_cycles')}, "
               f"mode={mode}", file=sys.stderr)
+    if args.verify_elastic_gang_equivalence:
+        eg = report.get("elastic_gangs") or {}
+        cmds = eg.get("commands") or {}
+        problems = []
+        if not eg.get("enabled"):
+            problems.append("no elastic_gangs section in the report: the "
+                            "mode never engaged")
+        if not eg.get("grows"):
+            problems.append("no elastic grow fired")
+        if not eg.get("shrinks"):
+            problems.append("no elastic shrink fired")
+        if eg.get("below_min_evictions"):
+            problems.append(f"{eg['below_min_evictions']} eviction(s) took "
+                            f"a gang below min outside a full-gang "
+                            f"decision")
+        if cmds.get("rejected"):
+            problems.append(f"{cmds['rejected']} lifecycle command(s) "
+                            f"rejected by the funnel")
+        if cmds.get("submitted", 0) != cmds.get("applied", 0) \
+                + cmds.get("dropped", 0):
+            problems.append(f"command ledger does not balance: {cmds}")
+        if report["jobs"]["completed"] != report["jobs"]["arrived"] \
+                or report["jobs"]["unfinished"]:
+            problems.append(f"not every arrived gang completed: "
+                            f"{report['jobs']}")
+        if report.get("double_binds"):
+            problems.append(f"double-binds under elastic churn: "
+                            f"{report['double_binds']}")
+        rerun = run(kill_cycles)
+        if deterministic_json(report) != deterministic_json(rerun):
+            problems.append("elastic-gang run not byte-deterministic x2")
+        if problems:
+            for p in problems:
+                print(f"elastic-gang-equivalence FAILED: {p}",
+                      file=sys.stderr)
+            return 1
+        print(f"elastic-gang-equivalence OK: grows={eg.get('grows')}, "
+              f"shrinks={eg.get('shrinks')}, "
+              f"continues={eg.get('elastic_continues')}, "
+              f"colocation_rate={eg.get('colocation_rate')}, "
+              f"commands={cmds}, "
+              f"restarts={report.get('restarts', 0)}, "
+              f"accounting={terminal_accounting(report)}",
+              file=sys.stderr)
     return 0
 
 

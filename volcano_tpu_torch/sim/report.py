@@ -206,6 +206,10 @@ def build_report(runner, actions_ms: Dict[tuple, list],
         report["speculation"] = runner.speculation_stats()
     if getattr(runner, "fast_admit_mode", False):
         report["fast_admit"] = runner.fast_admit_stats()
+    if getattr(runner, "elastic_gangs", False) \
+            or getattr(runner, "_command_funnel", None) is not None:
+        # only when the mode (or a job_command trace) is live
+        report["elastic_gangs"] = runner.elastic_gang_stats()
     return report
 
 

@@ -35,6 +35,12 @@ after each cycle, committed or discarded at the next one's start) and adds
 the ``speculate`` kill point; ``fast_admit`` binds trivially fitting gangs
 as they arrive, before the cycle. Both default to ``PIPELINED_SIM_CONF``,
 and the report gains their counters.
+
+``elastic_gangs`` runs elastic gangs (``elastic_sim_conf`` unless a conf
+is given): ``job_command`` events go through the command funnel, the
+scheduler drains it at each cycle boundary, and the report gains the
+``elastic_gangs`` section (grows, shrinks, the below-min witness, elastic
+continues, co-location at completion, the funnel's ledger).
 """
 
 from __future__ import annotations
@@ -94,6 +100,34 @@ tiers:
   - name: predicates
   - name: proportion
   - name: nodeorder
+"""
+
+
+def elastic_sim_conf(topology_weight: float = 10.0) -> str:
+    """The conf of ``--elastic-gangs`` runs: the default action chain with
+    grow-shrink between allocate and preempt, the elastic-gang plugin in
+    tier 1, and the topology weight given to both the plugin's node-order
+    bonus and the allocate engine's anchor term. Weight 0 is the
+    topology-unaware baseline."""
+    w = float(topology_weight)
+    return f"""
+actions: "enqueue, allocate, grow-shrink, preempt, reclaim, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: elastic-gang
+    arguments:
+      topology-weight: {w}
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+configurations:
+- name: allocate
+  arguments:
+    topology-weight: {w}
 """
 
 
@@ -166,7 +200,9 @@ class SimRunner:
                  budget_cost_per_task: float = 0.0,
                  device=None,
                  pipelined: bool = False,
-                 fast_admit: bool = False):
+                 fast_admit: bool = False,
+                 elastic_gangs: bool = False,
+                 topology_weight: float = 10.0):
         self.trace = list(trace)
         self.period = period
         self.seed = seed
@@ -217,8 +253,14 @@ class SimRunner:
         self._ack_wire = _AckWire(self.clock)
         self.pipelined_mode = bool(pipelined)
         self.fast_admit_mode = bool(fast_admit)
+        self.elastic_gangs = bool(elastic_gangs)
+        self.topology_weight = float(topology_weight)
+        self._wants_commands = any(ev.kind == "job_command"
+                                   for ev in self.trace)
         if conf_text is not None:
             self.conf_text = conf_text
+        elif self.elastic_gangs:
+            self.conf_text = elastic_sim_conf(self.topology_weight)
         elif self.pipelined_mode or self.fast_admit_mode:
             self.conf_text = PIPELINED_SIM_CONF
         else:
@@ -237,6 +279,19 @@ class SimRunner:
         # the process-wide counters, marked so the report shows this run's
         self._spec_mark = dict(metrics.speculation_counts())
         self._fa_mark = dict(metrics.fast_admit_counts())
+        # elastic gangs: the command funnel (it holds the cache, cluster
+        # truth here, so it outlives a crash restart, which re-attaches it
+        # to the new shell), the metric mark for this run's deltas, and the
+        # co-location counters taken at each gang's completion
+        self._command_funnel = None
+        self._elastic_continues = 0
+        self.colocated_gangs = 0
+        self.spread_gangs = 0
+        self._eg_mark = dict(metrics.elastic_counts())
+        if self.elastic_gangs or self._wants_commands:
+            from ..elastic_gang import CommandFunnel
+            self._command_funnel = CommandFunnel(self.cache)
+            self.sched.command_funnel = self._command_funnel
 
         # decision-plane bookkeeping
         self.arrival_time: Dict[str, float] = {}
@@ -369,9 +424,10 @@ class SimRunner:
                 self._complete_job(d["name"], ev.t)
             return
         if ev.kind == "job_command":
-            raise NotImplementedError(
-                "job_command trace events need the elastic-gang command "
-                "funnel, which is not in volcano_tpu_torch yet")
+            # a lifecycle verb changes nothing here: it goes through the
+            # journaled funnel and applies at the next cycle boundary
+            self._command_funnel.submit(d["verb"], d["name"], d.get("value"))
+            return
         cache = self.cache
         if ev.kind == "queue_add":
             cache.add_queue(QueueInfo(name=d["name"], weight=d["weight"]))
@@ -465,6 +521,7 @@ class SimRunner:
                     and vjob.ready_task_num() >= max(vjob.min_available, 1)):
                 # elastic-continue: the gang still holds >= min, so its
                 # completion timer keeps running
+                self._elastic_continues += 1
                 return
             # the gang dropped below min_available: cancel its pending
             # completion (the epoch bump makes it stale) and re-admit
@@ -484,6 +541,7 @@ class SimRunner:
         job = cache.jobs.get(uid)
         if job is None:
             return
+        self._note_colocation(job)
         uids = list(job.tasks)
         for task in list(job.tasks.values()):
             cache.delete_task(task)
@@ -495,6 +553,25 @@ class SimRunner:
         self.jct.append(t - self.arrival_time[uid])
         OBS_TRACE.flow_end("complete", f"job:{uid}")
         self.completed += 1
+
+    def _note_colocation(self, job) -> None:
+        """The topology witness at completion: did the gang finish with all
+        its placed members in one zone? Counted for gangs of two or more
+        placed members, all on zoned nodes."""
+        if not self.elastic_gangs:
+            return
+        zones = []
+        for task in job.tasks.values():
+            if not task.node_name:
+                continue
+            node = self.cache.nodes.get(task.node_name)
+            zones.append(node.topology_zone if node is not None else "")
+        if len(zones) < 2 or not all(zones):
+            return
+        if len(set(zones)) == 1:
+            self.colocated_gangs += 1
+        else:
+            self.spread_gangs += 1
 
     # -- post-cycle feedback ------------------------------------------------
 
@@ -570,7 +647,11 @@ class SimRunner:
         return (self._trace_ix >= len(self.trace)
                 and not self._completions
                 and not self.unfinished_jobs()
-                and not self._ack_wire.pending())
+                and not self._ack_wire.pending()
+                # a submitted verb meets its cycle boundary (applied or
+                # journaled dropped) before the run ends
+                and (self._command_funnel is None
+                     or not self._command_funnel.pending_count()))
 
     # -- crash/restart ------------------------------------------------------
 
@@ -630,6 +711,9 @@ class SimRunner:
         # a speculation in flight dies with the process
         self.sched.drop_speculation()
         self.sched = self._new_scheduler()
+        # the funnel outlives the shell: verbs submitted before the crash
+        # apply at the new incarnation's first cycle boundary
+        self.sched.command_funnel = self._command_funnel
         # the crash window holds at most ONE unacked intent (execution is
         # synchronous) and the kill mode says whether its executor ran:
         # only an after-execute kill makes the executor's last record the
@@ -663,6 +747,32 @@ class SimRunner:
         return {"hits": hits, "partial": partial, "conflicts": conflicts,
                 "hit_rate": round((hits + partial) / total, 4)
                 if total else 0.0}
+
+    def elastic_gang_stats(self) -> Dict[str, object]:
+        """The report's elastic-gangs section: this run's grows and shrinks
+        (deltas of the process-wide counters), the below-min witness
+        (expected 0), elastic continues, co-location at completion and the
+        command funnel's ledger."""
+        now = metrics.elastic_counts()
+        d = {k: int(now.get(k, 0) - self._eg_mark.get(k, 0))
+             for k in set(now) | set(self._eg_mark)}
+        shrinks = {k.split("/", 1)[1]: v for k, v in d.items()
+                   if k.startswith("shrink/") and v}
+        placed = self.colocated_gangs + self.spread_gangs
+        return {
+            "enabled": self.elastic_gangs,
+            "topology_weight": self.topology_weight,
+            "grows": d.get("grows", 0),
+            "shrinks": dict(sorted(shrinks.items())),
+            "below_min_evictions": d.get("below_min", 0),
+            "elastic_continues": self._elastic_continues,
+            "colocated_gangs": self.colocated_gangs,
+            "spread_gangs": self.spread_gangs,
+            "colocation_rate": round(self.colocated_gangs / placed, 4)
+            if placed else 0.0,
+            "commands": self._command_funnel.stats()
+            if self._command_funnel is not None else {},
+        }
 
     def fast_admit_stats(self) -> Dict[str, int]:
         now = metrics.fast_admit_counts()
