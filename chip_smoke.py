@@ -158,7 +158,24 @@
    solve of a weight-10 deployed run and never elsewhere, and each of its
    solves is held against the plain version on its own inputs.
    elastic-10k's first solve is timed beside B1 on the same inputs.
-17. Prints one JSON line with each kernel's launches, times, bound and
+17. Runs the flight recorder on the card (``--deterministic --lifecycle
+   --trace-out``): baseline-10k and preempt-burst under
+   deploy/scheduler.conf and elastic-churn under the deployed elastic conf
+   at weight 10, each kernel's count set to 0 before each run, the
+   decision-audit ring holding every cycle. Each run's report (with its
+   latency and slo sections), sequence and node-tensor paths, and the
+   digests of its trace (each ``solve`` span's ``kernel`` attribute, the
+   solve's route, replaced by one placeholder), audit records and job
+   timelines must equal the JAX package's in
+   tests/sim_reference_digests.json; the trace must pass
+   ``validate_chrome_trace``; without the latency and slo sections the
+   plane and sequence must be those of the run without the flags, and
+   every kernel must launch as often as in that run (steps 12 and 16).
+   Then baseline-10k runs without the flags with the audit and timelines
+   recording (the default) and with both off, alternated twice: prints
+   each run's pipeline_e2e_ms p50 and p99, the phase's seconds and the
+   card's name and power limit.
+18. Prints one JSON line with each kernel's launches, times, bound and
    error (and its launches in each sim run), then the card's name and
    power limit, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -1867,6 +1884,173 @@ def elastic_phase(digests, sim_runs, runs=None, extra_args=()):
 
 
 # ---------------------------------------------------------------------------
+# the flight recorder
+# ---------------------------------------------------------------------------
+
+# tools/sim_reference.py's flight-recorder runs held here: the slice's full
+# width (B1), preempt-burst (B3) and elastic-churn under the deployed
+# elastic conf at weight 10 (B6); smoke and pipelined-conflict are the CPU
+# tests'
+OBS_SOURCES = ("baseline-10k", "preempt-burst", "elastic-churn")
+# the recorder's cost: baseline-10k with audit and timelines on (the
+# default) and off, alternated this many times each
+OBS_OVERHEAD_REPS = 2
+
+
+def obs_runs():
+    tool, _ = sim_tools()
+    return [r for r in tool.OBS_RUNS if r[0] in OBS_SOURCES]
+
+
+def run_obs(source, args, env, trace_dir, extra_args=()):
+    """One flight-recorder run (``--deterministic ... --trace-out FILE``)
+    on the card through the sim's entry point, with the audit ring the
+    run's environment names, each kernel's count set to 0 just before:
+    the printed plane, the sequence digest, the launches, the node-tensor
+    paths, the trace object, the recorder's state and the wall seconds."""
+    import contextlib
+    import io
+
+    from volcano_tpu_torch import obs
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.obs import audit
+    from volcano_tpu_torch.obs import trace as obs_trace
+    from volcano_tpu_torch.sim.__main__ import main as sim_main
+    from volcano_tpu_torch.sim.report import sequence_digest
+    tool, traces = sim_tools()
+    path = os.path.join(trace_dir, "obs-trace.json")
+    argv = [*tool.sim_argv(source, trace_dir), "--deterministic",
+            *tool.conf_args(args, trace_dir), path, *extra_args]
+    counters = kernel_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    obs.AUDIT.configure(int(dict(env)["VOLCANO_TPU_AUDIT_CYCLES"]))
+    paths = traces.TensorPathRecorder(allocate, SchedulerCache)
+    out = io.StringIO()
+    runners = []
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = sim_main(argv, runners=runners)
+        state = tool.recorder_state(obs)
+    finally:
+        wall_s = time.perf_counter() - t0
+        paths.close()
+        obs.AUDIT.configure(audit._default_cycles())
+        obs.TRACE.configure(max_cycles=obs_trace.DEFAULT_MAX_CYCLES,
+                            logical=False)
+    launches = {k: w.launches for k, w in counters.items()}
+    check(rc == 0, f"obs {source}: exit {rc}")
+    with open(path) as f:
+        trace = json.load(f)
+    return (out.getvalue().encode(), sequence_digest(runners[0]), launches,
+            paths.summary(), trace, state, wall_s)
+
+
+def recorder_overhead(extra_args=()):
+    """baseline-10k under deploy/scheduler.conf, without the recorder's
+    flags, with the decision audit and the timelines recording (the
+    default) and with both off (what VOLCANO_TPU_AUDIT_CYCLES=0 and
+    VOLCANO_TPU_TIMELINE=0 give at start-up), alternated: each run's
+    pipeline_e2e_ms p50 and p99."""
+    from volcano_tpu_torch import obs
+    from volcano_tpu_torch.obs import audit, lifecycle
+    out = {"on": [], "off": []}
+    for _ in range(OBS_OVERHEAD_REPS):
+        for mode in ("on", "off"):
+            if mode == "off":
+                obs.AUDIT.configure(0)
+                obs.TIMELINE.enabled = False
+            try:
+                report, _, _, _, wall_s = run_sim(
+                    "baseline-10k",
+                    ("--conf", "deploy/scheduler.conf", *extra_args))
+            finally:
+                obs.AUDIT.configure(audit._default_cycles())
+                obs.TIMELINE.enabled = lifecycle._env_enabled()
+            e2e = report["wallclock"]["pipeline_e2e_ms"]
+            out[mode].append({"p50": e2e["p50"], "p99": e2e["p99"],
+                              "wall_s": wall_s})
+    return out
+
+
+def obs_phase(digests, sim_runs, runs=None, extra_args=()):
+    """Step 17: each flight-recorder run on the card, held to the JAX
+    package's records (the report with its latency and slo sections, the
+    sequence, the node-tensor paths, and the trace, audit and timeline
+    digests), its trace checked by ``validate_chrome_trace``, and without
+    the latency and slo sections the plane and sequence of the run without
+    the flags, whose launches (counted in an earlier phase) each kernel
+    must repeat; then the recorder's on/off cost at baseline-10k. Adds each
+    run's launches to ``sim_runs``; returns the runs' records and the
+    overhead."""
+    import hashlib
+    import tempfile
+
+    from volcano_tpu_torch.obs import validate_chrome_trace
+    tool, _ = sim_tools()
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as trace_dir:
+        for source, args, env in runs or obs_runs():
+            key = tool.run_key(source, args, env)
+            plain = tool.run_key(source, tuple(
+                a for a in args if a not in tool.OBS))
+            text, sequence, launches, paths, trace, state, wall_s = \
+                run_obs(source, args, env, trace_dir, extra_args)
+            want = digests[key]
+            check(hashlib.sha256(text).hexdigest() == want["sha256"]
+                  and len(text) == want["bytes"],
+                  f"obs {key}: report differs from the JAX package's "
+                  f"({len(text)} bytes, want {want['bytes']})")
+            check((sequence["sha256"], sequence["binds"],
+                   sequence["evicts"])
+                  == (want["sequence_sha256"], want["sequence_binds"],
+                      want["sequence_evicts"]),
+                  f"obs {key}: a bind's node or an eviction differs from "
+                  f"the JAX package's")
+            check(paths == want["tensor_paths"],
+                  f"obs {key}: node-tensor paths differ from the JAX "
+                  f"package's")
+            got = tool.obs_digests(trace, *state)
+            check(got == want["obs"],
+                  f"obs {key}: recorder digests {got} differ from the JAX "
+                  f"package's {want['obs']}")
+            spans = validate_chrome_trace(trace)
+            report = json.loads(text)
+            report.pop("latency")
+            report.pop("slo")
+            stripped = (json.dumps(report, sort_keys=True,
+                                   separators=(",", ":")) + "\n").encode()
+            check(hashlib.sha256(stripped).hexdigest()
+                  == digests[plain]["sha256"]
+                  and sequence["sha256"]
+                  == digests[plain]["sequence_sha256"],
+                  f"obs {key}: the flags changed the decision plane")
+            base = sim_runs.get(plain, sim_runs.get(source))
+            check(base is not None and launches == base,
+                  f"obs {key}: launches {launches} differ from the run "
+                  f"without the flags {base}")
+            check(report["action_failures"] == 0
+                  and report["double_binds"] == 0,
+                  f"obs {key}: {report['action_failures']} action "
+                  f"failures, {report['double_binds']} double binds")
+            rec = {"cycles": report["cycles"], "binds": report["binds"],
+                   "evicts": report["evicts"], "launches": launches,
+                   "spans": spans, **got, "wall_s": wall_s}
+            out[key] = rec
+            sim_runs["obs " + source] = launches
+            print(f"obs {key}:", json.dumps(rec), flush=True)
+        overhead = recorder_overhead(extra_args)
+    print("obs overhead baseline-10k pipeline_e2e_ms:",
+          json.dumps(overhead), flush=True)
+    print(f"obs phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print("obs card:", card_line(), flush=True)
+    return out, overhead
+
+
+# ---------------------------------------------------------------------------
 # the cycle
 # ---------------------------------------------------------------------------
 
@@ -2303,8 +2487,12 @@ def main() -> int:
     # 16. elastic gangs and B6
     topo_rec, topo_records, elastic_out = elastic_phase(digests, sim_runs)
 
+    phase("obs")
+    # 17. the flight recorder
+    obs_phase(digests, sim_runs)
+
     phase("summary")
-    # 17. the kernels line (launches: the placement kernel's in the 10k
+    # 18. the kernels line (launches: the placement kernel's in the 10k
     # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
     # it a static matrix, the walk's in the deployed cycle of the tight mix,
     # the one where preempt has work, the block auction's in the tpu-blocks

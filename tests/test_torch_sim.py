@@ -427,12 +427,18 @@ def test_walk_fill_schedule_fault_recorded(tmp_path):
                      .read_text())
     differs = sorted(run["key"] for run in doc["runs"]
                      if run["default_walk_sha256"] != run["sha256"])
-    # preempt-burst twice: with the incremental snapshot on and off
+    # preempt-burst three times: with the incremental snapshot on and
+    # off, and under the flight recorder's flags
     off = "VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0 "
+    recorded = "VOLCANO_TPU_AUDIT_CYCLES=100000 "
     assert differs == sorted([_key(s, ("--conf", DEPLOYED))
                               for s in ("preempt-burst", "skew")]
                              + [off + _key("preempt-burst",
-                                           ("--conf", DEPLOYED))])
+                                           ("--conf", DEPLOYED))]
+                             + [recorded + _key(
+                                 "preempt-burst",
+                                 ("--conf", DEPLOYED, "--lifecycle",
+                                  "--trace-out"))])
 
 
 def test_walk_fault_witnessed_by_the_callbacks_engine(tmp_path, digests,

@@ -62,6 +62,16 @@ Print one run's bytes::
     JAX_PLATFORMS=cpu python tools/sim_reference.py --run smoke \\
         --conf deploy/scheduler.conf --chaos-rate 0.2 --kill-cycles 5,12
 
+A run whose arguments end in ``--trace-out`` (no value: the child writes
+the trace to a temporary file) is a flight-recorder run: beside the
+plane and the sequence, the child records ``obs_digests`` of what the
+recorder saw — the Chrome trace with each ``solve`` span's ``kernel``
+attribute replaced by one placeholder (it names the solve's route, which
+differs between the packages by design), every decision-audit record
+(``AUDIT.records()``; such runs set ``VOLCANO_TPU_AUDIT_CYCLES`` large, so
+the ring keeps every cycle) and every job's timeline events, in job
+order.
+
 Long runs under ``deploy/scheduler.conf`` compile one XLA executable per
 new shape and keep them all; past the kernel's limit on memory maps
 (65,530 by default) LLVM can no longer map new code and the process
@@ -95,6 +105,14 @@ SEQUENCE_MARKER = "sim-reference-sequence "
 # the switch that turns the incremental snapshot and the persistent node
 # tensors off, in both packages
 OFF = (("VOLCANO_TPU_INCREMENTAL_SNAPSHOT", "0"),)
+# a decision-audit ring that keeps every cycle of a flight-recorder run
+# (the default keeps 32; preempt-burst runs 83)
+AUDIT_ALL = (("VOLCANO_TPU_AUDIT_CYCLES", "100000"),)
+# the flight recorder's arguments: the latency and slo report sections and
+# the trace (the child supplies the file)
+OBS = ("--lifecycle", "--trace-out")
+# the placeholder a trace's solve-span kernel attribute is compared under
+KERNEL_PLACEHOLDER = "*"
 
 # (source, sim arguments, environment): every run chip_smoke.py drives on
 # the card, and the CPU tests' runs. A source is a scenario name or
@@ -144,6 +162,22 @@ RUNS = (
                            "conf:elastic-deployed-10"), ()),
 )
 
+# the flight-recorder runs, apart from RUNS (whose readers drive each run
+# as is): each ends in --trace-out, which the caller gives a file
+OBS_RUNS = (
+    # the flight recorder (latency and slo sections, the trace, the audit
+    # and the timelines) on the default conf, deploy/scheduler.conf (B1 at
+    # full width, and B3), the elastic deployed conf (B6) and the pipelined
+    # shell with fast admit
+    ("smoke", OBS, AUDIT_ALL),
+    ("preempt-burst", ("--conf", DEPLOYED) + OBS, AUDIT_ALL),
+    ("baseline-10k", ("--conf", DEPLOYED) + OBS, AUDIT_ALL),
+    ("elastic-churn", ("--elastic-gangs", "--conf",
+                       "conf:elastic-deployed-10") + OBS, AUDIT_ALL),
+    ("pipelined-conflict", ("--pipelined", "--fast-admit") + OBS,
+     AUDIT_ALL),
+)
+
 
 def run_key(source: str, args, env=()) -> str:
     src = (("--trace", source[len("trace:"):])
@@ -180,6 +214,59 @@ def conf_args(args, conf_dir: str) -> list:
     return out
 
 
+def trace_args(args, trace_dir: str) -> list:
+    """``args`` with a trailing ``--trace-out`` given a file in
+    ``trace_dir``."""
+    out = list(args)
+    if out[-1:] == ["--trace-out"]:
+        fd, path = tempfile.mkstemp(suffix=".json", dir=trace_dir)
+        os.close(fd)
+        out.append(path)
+    return out
+
+
+def normalized_trace(obj: dict) -> dict:
+    """A Chrome trace object with every ``solve`` span's ``kernel``
+    attribute replaced by KERNEL_PLACEHOLDER: the attribute names the
+    solve's route (the JAX package's kernel selector, the port's CUDA
+    kernel or plain version), the one field the packages' traces may
+    differ in."""
+    events = []
+    for ev in obj["traceEvents"]:
+        args = ev.get("args")
+        if ev.get("name") == "solve" and args and "kernel" in args:
+            ev = dict(ev, args=dict(args, kernel=KERNEL_PLACEHOLDER))
+        events.append(ev)
+    return dict(obj, traceEvents=events)
+
+
+def _sha(value) -> str:
+    return hashlib.sha256(json.dumps(
+        value, sort_keys=True, separators=(",", ":")).encode()).hexdigest()
+
+
+def obs_digests(trace_obj: dict, audit_records, timelines) -> dict:
+    """The flight recorder's digests for one run: the normalized trace,
+    the decision-audit records (``AUDIT.records()``) and the timelines
+    (``[[job, TIMELINE.events(job)], ...]`` in ``TIMELINE.jobs()``
+    order), each as canonical JSON's SHA-256 with its count."""
+    trace = normalized_trace(trace_obj)
+    return {"trace_sha256": _sha(trace),
+            "trace_events": len(trace["traceEvents"]),
+            "audit_sha256": _sha(list(audit_records)),
+            "audit_records": len(audit_records),
+            "timeline_sha256": _sha([list(t) for t in timelines]),
+            "timeline_events": sum(len(ev) for _, ev in timelines)}
+
+
+def recorder_state(obs_module) -> tuple:
+    """(audit records, timelines) of a package's ``obs`` module after a
+    run."""
+    tl = obs_module.TIMELINE
+    return (obs_module.AUDIT.records(),
+            [(job, tl.events(job)) for job in tl.jobs()])
+
+
 def _child_env(env=()) -> dict:
     env = dict(os.environ, **dict(env))
     env["JAX_PLATFORMS"] = "cpu"
@@ -209,7 +296,7 @@ def start(source: str, args=(), walk: str = "exact",
     environment switches."""
     cmd = [sys.executable, os.path.abspath(__file__), "--child", walk,
            *sim_argv(source, _trace_dir()), "--deterministic",
-           *conf_args(args, _trace_dir())]
+           *trace_args(conf_args(args, _trace_dir()), _trace_dir())]
     return subprocess.Popen(cmd, cwd=REPO, env=_child_env(env),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
@@ -233,6 +320,7 @@ def finish(proc: subprocess.Popen, timeout: float = 3600):
     and the run's sequence digest ({sha256, binds, evicts})."""
     out, record = finish_record(proc, timeout)
     record.pop("tensor_paths")
+    record.pop("obs", None)
     return out, record
 
 
@@ -311,6 +399,11 @@ def _child(walk: str, argv) -> int:
         sys.stdout.flush()
         record = dict(sequence_digest(runners[0]),
                       tensor_paths=paths.summary())
+        if "--trace-out" in argv:
+            from volcano_tpu import obs
+            with open(argv[argv.index("--trace-out") + 1]) as f:
+                trace = json.load(f)
+            record["obs"] = obs_digests(trace, *recorder_state(obs))
         print(SEQUENCE_MARKER + json.dumps(record), file=sys.stderr)
     return rc
 
@@ -328,7 +421,8 @@ def _entry(source, run_args, env, exact, default) -> dict:
             "tensor_paths": record["tensor_paths"],
             "default_walk_sha256": other["sha256"],
             "default_walk_bytes": other["bytes"],
-            "default_walk_sequence_sha256": other_record["sha256"]}
+            "default_walk_sequence_sha256": other_record["sha256"],
+            **({"obs": record["obs"]} if "obs" in record else {})}
 
 
 def _run_all(runs) -> dict:
@@ -351,7 +445,8 @@ def main(argv=None) -> int:
         return _child(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--write", action="store_true",
-                    help=f"compute the runs of RUNS and write {DIGESTS}")
+                    help=f"compute the runs of RUNS and OBS_RUNS and write "
+                         f"{DIGESTS}")
     ap.add_argument("--keys", nargs="+", metavar="KEY",
                     help="with --write: compute only these runs and merge "
                          "them into the file")
@@ -369,10 +464,11 @@ def main(argv=None) -> int:
         return 0
     if not args.write:
         ap.error("one of --write / --run is required")
-    runs = [r for r in RUNS
+    every = RUNS + OBS_RUNS
+    runs = [r for r in every
             if args.keys is None or run_key(*r) in args.keys]
     if args.keys is not None and len(runs) != len(args.keys):
-        ap.error(f"unknown keys; known: {[run_key(*r) for r in RUNS]}")
+        ap.error(f"unknown keys; known: {[run_key(*r) for r in every]}")
     results = _run_all(runs)
     fresh = {}
     for run in runs:
@@ -386,7 +482,7 @@ def main(argv=None) -> int:
     if args.keys is not None:
         with open(DIGESTS) as f:
             old = {run["key"]: run for run in json.load(f)["runs"]}
-    entries = [fresh.get(run_key(*r)) or old[run_key(*r)] for r in RUNS]
+    entries = [fresh.get(run_key(*r)) or old[run_key(*r)] for r in every]
     doc = {"schema": "volcano-tpu-sim-report/v1",
            "command": "JAX_PLATFORMS=cpu python tools/sim_reference.py "
                       "--write",

@@ -180,6 +180,19 @@ def _topology_weight(ssn) -> float:
     return max(w, 0.0)
 
 
+def _solve_route(ssn, blocks: bool) -> str:
+    """The ``kernel`` attribute of a fused solve's span: the wrapper the
+    solve goes through and its route on the session's device, the kernel
+    (``_cuda``) or its plain version (``_plain``)."""
+    if blocks:
+        name = "blocks"
+    elif _topology_weight(ssn) > 0:
+        name = "place_topo"
+    else:
+        name = "place"
+    return name + ("_cuda" if ssn.device.type == "cuda" else "_plain")
+
+
 def _node_tensors(ssn, rnames):
     """Node-state tensors for a device solve: the cache's persistent,
     scatter-updated rows when the session can prove its snapshot untouched
@@ -351,6 +364,12 @@ def _execute_interleaved(ssn, placer) -> None:
     """The live popping loop (allocate.go:143-274): each popped job's tasks
     go to ``placer`` inside a Statement, committed if the gang is ready,
     kept if it is pipelined, else discarded."""
+    with obs_trace.span("interleave",
+                        placer=type(placer).__name__.lstrip("_")):
+        _run_interleaved(ssn, placer)
+
+
+def _run_interleaved(ssn, placer) -> None:
     namespaces, jobs_map = _build_interleave(ssn)
     pending: Dict[str, List[TaskInfo]] = {}
     while True:
@@ -500,7 +519,8 @@ class _DeviceJobPlacer(_StrictSolver):
         if not tasks or not self.node_t.names:
             tasks.clear()
             return
-        res, _ = self.solve([(job, tasks)], self.state)
+        with obs_trace.span("solve", batch=1):
+            res, _ = self.solve([(job, tasks)], self.state)
         if bool(res.job_kept[0]):
             self.state = _new_state(res)
         # every task is consumed: the reference pops each task from its
@@ -581,7 +601,8 @@ def _execute_strict_batched(ssn, batch: int = 16) -> Dict[str, object]:
         solvable = [(j, live_tasks(j)) for j in predicted if live_tasks(j)]
         start = solver.state
         if solvable:
-            res, slices = solver.solve(solvable, start)
+            with obs_trace.span("solve", batch=len(solvable)):
+                res, slices = solver.solve(solvable, start)
         solved_ix = {id(j): k for k, (j, _) in enumerate(solvable)}
 
         verified: List[tuple] = []
@@ -681,20 +702,29 @@ def _execute_fused(ssn, blocks: bool = False,
                 assumed = first_assumed
                 seeded = None
             else:
-                t0 = time.perf_counter()
-                ordered_jobs = _fixed_job_order(ssn, assumed, only_jobs)
-                t1 = time.perf_counter()
-                stats["order"] += t1 - t0
-                inputs = placement_inputs(ssn, ordered_jobs)
-                t2 = time.perf_counter()
-                stats["assemble"] += t2 - t1
+                with obs_trace.span("order") as sp:
+                    ordered_jobs = _fixed_job_order(ssn, assumed, only_jobs)
+                stats["order"] += sp.dur_s
+                if not ordered_jobs:
+                    solution = None
+                    break
+                # the span covers the assembly too, where the JAX
+                # package's solve span opens
+                with obs_trace.span("solve",
+                                    kernel=_solve_route(ssn, blocks)):
+                    t1 = time.perf_counter()
+                    inputs = placement_inputs(ssn, ordered_jobs)
+                    t2 = time.perf_counter()
+                    stats["assemble"] += t2 - t1
+                    if inputs is not None:
+                        with metrics.solver_trace("allocate-solve"):
+                            solution = _fused_solution(inputs, blocks,
+                                                       blocks_stats)
+                        stats["solve"] += time.perf_counter() - t2
+                        stats["solves"] += 1
                 if inputs is None:
                     solution = None
                     break
-                with metrics.solver_trace("allocate-solve"):
-                    solution = _fused_solution(inputs, blocks, blocks_stats)
-                stats["solve"] += time.perf_counter() - t2
-                stats["solves"] += 1
             kept_uids = {solution.jobs_list[jx].uid
                          for jx in range(len(solution.jobs_list))
                          if solution.job_kept[jx]}
@@ -707,9 +737,9 @@ def _execute_fused(ssn, blocks: bool = False,
             assumed = kept_uids
         if solution is None:
             break
-        t0 = time.perf_counter()
-        rejected = _replay_fused(ssn, solution)
-        stats["replay"] += time.perf_counter() - t0
+        with obs_trace.span("replay") as sp:
+            rejected = _replay_fused(ssn, solution)
+        stats["replay"] += sp.dur_s
         if not rejected:
             break
     LAST_STATS["final_kept_empty"] = bool(solution is not None
@@ -985,7 +1015,14 @@ def _replay_fused_fast(ssn, sol: _FusedSolution) -> None:
         node = node_objs[row]
         node._touched = True
         node.pipelined.add(r)
-    ssn.cache.bind_batch(binds)
+    # the statement-free path never goes through session.dispatch, so it
+    # feeds the decision audit here (a no-op unless the audit is on)
+    for task in binds:
+        ssn._audit_event("bind", task, task.node_name)
+    # bind_batch records every bound task/node in the cache's dirty set, so
+    # the NEXT cycle's snapshot+tensor delta is exactly this cycle's binds
+    with obs_trace.span("bind_commit", binds=len(binds)):
+        ssn.cache.bind_batch(binds)
 
 
 def _replay_fused(ssn, sol: _FusedSolution) -> int:
@@ -1116,13 +1153,14 @@ def dispatch_speculative_solve(ssn, engine: str = "tpu-fused",
     if inputs is None:
         return None
     nt = inputs.node_t
-    with obs_trace.span("solve", speculative=True, dispatch=True):
-        wire, event = place_dispatch(
-            nt.idle, nt.future_idle, nt.used, nt.ntasks, nt.allocatable,
-            nt.max_tasks, inputs.req, inputs.job_ix, inputs.masked_static,
-            inputs.min_available, inputs.base_ready, inputs.base_pipelined,
-            inputs.weights, speculation_stream(inputs.req.device),
-            nt.zone_code, inputs.topo_weight)
+    # no span of its own: the launch is timed by the shell's "speculate"
+    # span, as the JAX package's dispatch is
+    wire, event = place_dispatch(
+        nt.idle, nt.future_idle, nt.used, nt.ntasks, nt.allocatable,
+        nt.max_tasks, inputs.req, inputs.job_ix, inputs.masked_static,
+        inputs.min_available, inputs.base_ready, inputs.base_pipelined,
+        inputs.weights, speculation_stream(inputs.req.device),
+        nt.zone_code, inputs.topo_weight)
     return PendingFusedSolution(
         ordered_jobs, inputs.tasks, inputs.job_ix, inputs.jobs_list, nt,
         wire, event, {j.uid for j in _eligible_jobs(ssn)},

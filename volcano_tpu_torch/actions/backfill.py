@@ -7,6 +7,7 @@ Mirrors pkg/scheduler/actions/backfill/backfill.go:40-92.
 from __future__ import annotations
 
 from ..api import FitErrors, PodGroupPhase, TaskStatus
+from ..obs import trace as obs_trace
 from .base import Action
 
 
@@ -14,6 +15,10 @@ class BackfillAction(Action):
     NAME = "backfill"
 
     def execute(self, ssn) -> None:
+        with obs_trace.span("backfill_scan"):
+            self._execute(ssn)
+
+    def _execute(self, ssn) -> None:
         for job in list(ssn.jobs.values()):
             if job.podgroup.phase == PodGroupPhase.PENDING:
                 continue

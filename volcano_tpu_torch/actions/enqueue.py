@@ -6,6 +6,7 @@ Mirrors pkg/scheduler/actions/enqueue/enqueue.go:43-102.
 from __future__ import annotations
 
 from ..api import PodGroupPhase
+from ..obs import trace as obs_trace
 from ..utils import PriorityQueue
 from .base import Action
 
@@ -14,6 +15,10 @@ class EnqueueAction(Action):
     NAME = "enqueue"
 
     def execute(self, ssn) -> None:
+        with obs_trace.span("enqueue_gate"):
+            self._execute(ssn)
+
+    def _execute(self, ssn) -> None:
         queues = PriorityQueue(ssn.queue_order_fn)
         queue_set = set()
         jobs_map = {}

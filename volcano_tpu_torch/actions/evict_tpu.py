@@ -47,6 +47,7 @@ from ..cache.snapshot import (NodeTensors, assemble_feasibility,
                               discover_resource_names)
 from ..elastic_gang.membership import is_elastic, shrink_allowance
 from ..framework.session import ABSTAIN
+from ..obs import trace as obs_trace
 from ..ops.evict import (BIG, MAX_R, MAX_W, NO_NODE, EvictNW, WalkInputs,
                          to_device, walk)
 from ..ops.scores import combined_dynamic_score
@@ -806,10 +807,13 @@ def _preempt_phase(ssn, pjobs, victims, inter_job: bool,
 
     P = len(ptasks)
     N, W = tensors.vslot.shape
-    out = walk(to_device(inputs, ssn.device), stack.kinds, stack.sizes,
-               gang_commit=inter_job)                       # one upload
-    packed = torch.cat([out.task_node, out.owner.reshape(-1),
-                        out.job_done.to(torch.int32)]).cpu().numpy()
+    with obs_trace.span("upload", phase=key):
+        dev_inputs = to_device(inputs, ssn.device)          # one upload
+    with obs_trace.span("solve", phase=key):
+        out = walk(dev_inputs, stack.kinds, stack.sizes,
+                   gang_commit=inter_job)
+        packed = torch.cat([out.task_node, out.owner.reshape(-1),
+                            out.job_done.to(torch.int32)]).cpu().numpy()
     task_node = packed[:P]                                  # one fetch
     owner_nw = packed[P:P + N * W].reshape(N, W)
     # per-group verdicts -> per kept job via its alloc-group index
@@ -821,9 +825,10 @@ def _preempt_phase(ssn, pjobs, victims, inter_job: bool,
     t2 = time.perf_counter()
     stats[key + "_solve_s"] = t2 - t1
     stats[key + "_steps"] = out.steps
-    _replay_preempt(ssn, ptasks, pjob_ix, kept_jobs, tensors, task_node,
-                    owner_nw, job_done, inter_job, stack)
-    stats[key + "_replay_s"] = time.perf_counter() - t2
+    with obs_trace.span("replay", phase=key) as sp:
+        _replay_preempt(ssn, ptasks, pjob_ix, kept_jobs, tensors,
+                        task_node, owner_nw, job_done, inter_job, stack)
+    stats[key + "_replay_s"] = sp.dur_s
 
 
 def _fast_evict_ok(ssn, stack: "_TierStack") -> bool:
@@ -960,6 +965,7 @@ def _replay_preempt_fast(ssn, ptasks, pjob_ix, kept_jobs, tensors,
     for uid, r in dealloc_agg.items():
         ssn._fire_deallocate(_AggTask(uid, r))
     for v in cache_evicts:
+        ssn._audit_event("evict", v, "preempt")
         ssn.cache.evict(v, "preempt")
 
 

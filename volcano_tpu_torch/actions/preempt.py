@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional
 
 from ..api import PodGroupPhase, Resource, TaskInfo, TaskStatus
+from ..obs import trace as obs_trace
 from ..utils import PriorityQueue
 from ..utils.scheduler_helper import (predicate_nodes, prioritize_nodes,
                                       sort_nodes)
@@ -96,11 +97,15 @@ class PreemptAction(Action):
                 preemptor_tasks[job.uid] = pq
 
         # preemption between jobs within a queue (preempt.go:83-144)
-        self._inter_job_pass(ssn, queues, preemptors_map, preemptor_tasks)
+        with obs_trace.span("preempt_inter_job"):
+            self._inter_job_pass(ssn, queues, preemptors_map,
+                                 preemptor_tasks)
         # preemption between tasks within one job — ONE pass after the
         # per-queue loop (preempt.go:146-183 sits outside it)
-        self._intra_job_pass(ssn, under_request, preemptor_tasks)
-        self._victim_tasks(ssn)
+        with obs_trace.span("preempt_intra_job"):
+            self._intra_job_pass(ssn, under_request, preemptor_tasks)
+        with obs_trace.span("victim_tasks"):
+            self._victim_tasks(ssn)
 
     def _inter_job_pass(self, ssn, queues, preemptors_map,
                         preemptor_tasks) -> None:

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..api import PodGroupPhase, Resource, TaskStatus
+from ..obs import trace as obs_trace
 from ..utils import PriorityQueue
 from .base import Action
 from .preempt import action_engine
@@ -28,11 +29,12 @@ class ReclaimAction(Action):
         action_engine(configurations, self.NAME, self.engine)
 
     def execute(self, ssn) -> None:
-        if action_engine(ssn.configurations, self.NAME,
-                         self.engine) == "tpu":
+        engine = action_engine(ssn.configurations, self.NAME, self.engine)
+        if engine == "tpu":
             from .evict_tpu import execute_reclaim_tpu
             return execute_reclaim_tpu(ssn)
-        return self._execute_callbacks(ssn)
+        with obs_trace.span("reclaim_rotation", engine=engine):
+            return self._execute_callbacks(ssn)
 
     def _execute_callbacks(self, ssn, screener=None) -> None:
         """The reference rotation verbatim. ``screener`` (optional) is a

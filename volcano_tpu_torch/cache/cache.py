@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from ..api import (ClusterInfo, JobInfo, NodeInfo, QueueInfo, Resource,
                    TaskInfo, TaskStatus, allocated_status)
+from ..obs.lifecycle import TIMELINE
 from ..obs.trace import TRACE as OBS_TRACE
 from .executors import (Binder, Evictor, FakeBinder, FakeEvictor,
                         StatusUpdater)
@@ -215,6 +216,10 @@ class SchedulerCache:
         # its last drain. Off by default: an unconsumed feed would grow.
         self.fast_admit_feed = False
         self._new_job_uids: Set[str] = set()
+        # lifecycle-timeline attribution (obs/lifecycle.py): the partition
+        # id this cache's funnel events are stamped with, 0 for a single
+        # scheduler. Observability only: nothing decision-plane reads it.
+        self.obs_part = 0
 
     # -- intent journal (cache/journal.py) ----------------------------------
 
@@ -230,13 +235,22 @@ class SchedulerCache:
         ``fresh`` marks a NEW placement (vs a re-bind of a placed task),
         which decides whether a crash-window rollback may strip it."""
         epoch = self.fencing_epoch()
+        # lifecycle stamp (obs/lifecycle.py): the intent's correlation ctx
+        # both records the timeline event HERE and rides inside the
+        # durable record, so a restart continues the same timeline
+        # exactly-once (dedupe on the ctx's part+eid)
+        ctx = TIMELINE.stamp(part=self.obs_part, epoch=epoch)
+        if ctx is not None:
+            TIMELINE.record(task.job, f"{op}_intent", ctx=ctx,
+                            node=node or task.node_name or None,
+                            via=via or None)
         if op == "bind":
             OBS_TRACE.flow_step("bind_intent", f"job:{task.job}",
                                 task=task.uid)
         if self.journal is None:
             return None
         seq = self.journal.record_intent(op, task, node, via, fresh,
-                                         epoch=epoch)
+                                         epoch=epoch, ctx=ctx)
         if sync:
             self.journal.flush()
         return seq

@@ -31,6 +31,7 @@ import logging
 from typing import Callable, Dict, Optional, Tuple
 
 from ..api import TaskStatus
+from ..obs.lifecycle import TIMELINE
 from ..obs.trace import TRACE as OBS_TRACE
 
 log = logging.getLogger(__name__)
@@ -56,10 +57,13 @@ class FeedbackChannel:
     # -- the normalizer -----------------------------------------------------
 
     def ack_running(self, jid: str, uid: str, node: Optional[str] = None,
-                    source: str = "cluster") -> str:
+                    source: str = "cluster",
+                    ctx: Optional[dict] = None) -> str:
         """Consume one kubelet RUNNING ack for (task, node). ``node=None``
         skips the placement check (the HA convergence sweep, which swept
-        cluster-confirmed binds before this funnel existed). Returns the
+        cluster-confirmed binds before this funnel existed). An optional
+        ``ctx`` (a correlation stamp carried by a replayed verdict) is
+        ingested exactly-once instead of minting a fresh one. Returns the
         verdict."""
         cache = self.cache
         with cache._lock:
@@ -88,6 +92,13 @@ class FeedbackChannel:
                 cache.update_task_status(cached, TaskStatus.RUNNING)
                 cache.binding_tasks.pop(uid, None)
         if verdict == "applied":
+            # lifecycle witness: the applied verdict is the RUNNING
+            # milestone of the job's timeline, stamped with the owning
+            # cache's partition, deduped on a carried ctx
+            if ctx is None:
+                ctx = TIMELINE.stamp(part=getattr(cache, "obs_part", None))
+            TIMELINE.record(jid, "running", ctx=ctx,
+                            node=node or None, source=source, task=uid)
             OBS_TRACE.flow_step("running_ack", f"job:{jid}", task=uid)
         if source != "converge" or verdict == "applied":
             # the HA convergence sweep probes every live bind each cycle;
@@ -96,12 +107,14 @@ class FeedbackChannel:
         return verdict
 
     def ack_evicted(self, jid: str, uid: str,
-                    source: str = "cluster") -> str:
+                    source: str = "cluster",
+                    ctx: Optional[dict] = None) -> str:
         """Consume one eviction confirmation (pod delete + controller
         recreate, collapsed): a RELEASING task requeues PENDING; a
         PENDING-unplaced task means the requeue already happened (a
         replayed confirmation — ``duplicate``, a no-op); anything else
-        is a superseded intent's ack and is dropped. Returns the verdict."""
+        is a superseded intent's ack and is dropped. An optional ``ctx``
+        dedupes like ``ack_running``'s. Returns the verdict."""
         cache = self.cache
         with cache._lock:
             job = cache.jobs.get(jid)
@@ -133,6 +146,12 @@ class FeedbackChannel:
         if verdict == "applied":
             cache.inflight.resolve(
                 "evict", uid, "acked" if source == "cluster" else "repaired")
+            # lifecycle witness: the applied eviction IS the
+            # evicted-and-requeued milestone of the timeline
+            if ctx is None:
+                ctx = TIMELINE.stamp(part=getattr(cache, "obs_part", None))
+            TIMELINE.record(jid, "evicted", ctx=ctx, source=source,
+                            task=uid)
             if source == "watchdog" and self.on_watchdog_evict is not None:
                 self.on_watchdog_evict(jid, uid)
         self._count("evicted", verdict)

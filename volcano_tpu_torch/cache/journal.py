@@ -64,16 +64,22 @@ class Intent:
     """One journaled side-effect intent (decoded view)."""
 
     __slots__ = ("seq", "op", "task", "job", "node", "via", "fresh",
-                 "epoch")
+                 "epoch", "ctx")
 
     def __init__(self, seq: int, op: str, task: str, job: str, node: str,
-                 via: str = "", fresh: bool = True, epoch: int = 0):
+                 via: str = "", fresh: bool = True, epoch: int = 0,
+                 ctx: Optional[dict] = None):
         self.seq = seq
         self.op = op                  # "bind" | "evict"
         self.task = task              # task uid
         self.job = job                # owning job uid
         self.node = node              # bind target / evictee's node
         self.via = via                # "" (scheduler cycle) | "resync"
+        # optional correlation context (obs/lifecycle.py): the logical
+        # {cycle, part, epoch, eid} stamp that lets a restart continue the
+        # job's timeline exactly-once. None keeps the record byte-identical
+        # to the pre-ctx shape.
+        self.ctx = ctx
         # fresh=True: a NEW placement (the optimistic phase moved the
         # task from unplaced to this node). False: a RE-bind of a task
         # already validly placed — rolling that back must not strip the
@@ -143,7 +149,8 @@ class IntentJournal:
                                      rec.get("job", ""), rec.get("node", ""),
                                      rec.get("via", ""),
                                      bool(rec.get("fresh", True)),
-                                     int(rec.get("epoch", 0)))
+                                     int(rec.get("epoch", 0)),
+                                     rec.get("ctx"))
         elif rec.get("kind") == "ack":
             self._open.pop(seq, None)
 
@@ -183,6 +190,8 @@ class IntentJournal:
                        "task": it.task, "job": it.job, "node": it.node,
                        "via": it.via, "fresh": it.fresh,
                        "epoch": it.epoch}
+                if it.ctx is not None:
+                    rec["ctx"] = it.ctx
                 f.write(json.dumps(rec, separators=(",", ":")) + "\n")
             f.flush()
             os.fsync(f.fileno())
@@ -197,21 +206,25 @@ class IntentJournal:
 
     def record_intent(self, op: str, task, node: str = "",
                       via: str = "", fresh: bool = True,
-                      epoch: int = 0) -> int:
+                      epoch: int = 0, ctx: Optional[dict] = None) -> int:
         """Journal a side-effect intent BEFORE the executor runs, stamped
-        with the issuing leader's fencing ``epoch``. Returns the seq to ack
-        with."""
+        with the issuing leader's fencing ``epoch`` and (optionally) its
+        correlation ``ctx`` — the lifecycle-timeline stamp a restarted
+        process ingests to continue the job's story (obs/lifecycle.py).
+        Returns the seq to ack with."""
         with self._lock:
             self._seq += 1
             seq = self._seq
             intent = Intent(seq, op, task.uid, task.job,
                             node or task.node_name or "", via, fresh,
-                            epoch)
+                            epoch, ctx)
             self._open[seq] = intent
             rec = {"kind": "intent", "seq": seq, "op": op,
                    "task": intent.task, "job": intent.job,
                    "node": intent.node, "via": via, "fresh": fresh,
                    "epoch": epoch}
+            if ctx is not None:
+                rec["ctx"] = ctx
             self._append(rec)
         return seq
 
@@ -271,6 +284,45 @@ class IntentJournal:
     def __len__(self) -> int:
         with self._lock:
             return len(self._open)
+
+
+# journal record kind -> the lifecycle event a reader of the record stream
+# continues the timeline with (obs/lifecycle.py); intents map to
+# "<op>_intent"
+_TIMELINE_KINDS = {"elastic_grow": "grow", "elastic_shrink": "shrink"}
+
+
+def ingest_timeline(rec: dict) -> None:
+    """Continue a job's timeline from the ctx stamp riding one journal
+    record — what lets a process that replays the stream hold the events
+    it never witnessed. Exactly-once: the store dedupes on the ctx's
+    (part, eid), so a re-read of a record already held is a no-op. The
+    JAX package's warm standby (``JournalFollower``) reads its stream
+    through the same rule."""
+    from ..obs.lifecycle import TIMELINE
+    if rec.get("kind") == "queue_move_done":
+        # one record per queue; per-job ctx stamps ride in "jobs"
+        jobs = rec.get("jobs")
+        if isinstance(jobs, dict):
+            for job, ctx in jobs.items():
+                if isinstance(ctx, dict):
+                    TIMELINE.ingest(job, "move", ctx,
+                                    queue=rec.get("queue"),
+                                    frm=rec.get("frm"), to=rec.get("to"))
+        return
+    ctx = rec.get("ctx")
+    job = rec.get("job", "")
+    if not isinstance(ctx, dict) or not job:
+        return
+    if rec.get("kind") == "intent":
+        ev = f"{rec.get('op', 'bind')}_intent"
+    else:
+        ev = _TIMELINE_KINDS.get(rec.get("kind"))
+        if ev is None:
+            return
+    TIMELINE.ingest(job, ev, ctx, node=rec.get("node") or None,
+                    reason=rec.get("reason") or None,
+                    frm=rec.get("frm"), to=rec.get("to"))
 
 
 class ReconcileReport:

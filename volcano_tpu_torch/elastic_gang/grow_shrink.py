@@ -31,6 +31,7 @@ from ..metrics import (register_below_min_eviction, register_gang_growth,
                        register_gang_shrink, set_elastic_members,
                        set_topology_spread)
 from ..obs import trace as obs_trace
+from ..obs.lifecycle import TIMELINE
 from ..utils.scheduler_helper import (predicate_nodes, prioritize_nodes,
                                       select_best_node)
 from .membership import (active_members, desired_members, grow_candidates,
@@ -63,14 +64,28 @@ class GrowShrinkAction(Action):
 
     def _journal_elastic(self, ssn, kind: str, task, reason: str) -> None:
         """A durable, epoch-stamped control record of an elastic mutation,
-        beside the bind or evict intent the session funnel wrote."""
+        beside the bind or evict intent the session funnel wrote. It
+        carries a lifecycle ctx stamp, so a reader of the journal continues
+        the job's timeline; the local store records the same event first
+        and dedupes the replay."""
         cache = ssn.cache
+        epoch = cache.fencing_epoch()
+        ctx = TIMELINE.stamp(part=getattr(cache, "obs_part", None),
+                             epoch=epoch)
+        if ctx is not None:
+            ev = "grow" if kind == "elastic_grow" else "shrink"
+            TIMELINE.record(task.job, ev, ctx=ctx,
+                            node=task.node_name or None,
+                            reason=reason or None)
         journal = getattr(cache, "journal", None)
         if journal is None:
             return
-        journal.record_control(kind, {
+        fields = {
             "job": task.job, "task": task.uid, "node": task.node_name,
-            "reason": reason, "epoch": cache.fencing_epoch()})
+            "reason": reason, "epoch": epoch}
+        if ctx is not None:
+            fields["ctx"] = ctx
+        journal.record_control(kind, fields)
 
     def _shrink_one(self, ssn, job, task, reason: str,
                     full_gang: bool = False) -> bool:

@@ -10,6 +10,7 @@ from typing import List, Optional, Union
 
 import torch
 
+from ..obs import trace as obs_trace
 from .conf import Configuration, Tier
 from .job_updater import update_all
 from .registry import get_plugin_builder
@@ -95,20 +96,24 @@ def open_session(cache, tiers: List[Tier],
     window = _gc_suspend()
     try:
         if speculative:
-            ci, basis = cache.speculative_snapshot()
-            ssn = Session(cache, tiers, list(configurations),
-                          resolve_device(device), time_fn=time_fn,
-                          snapshot=ci)
-            ssn.speculative = True
-            ssn.spec_basis = basis
+            with obs_trace.span("snapshot", speculative=True):
+                ci, basis = cache.speculative_snapshot()
+                ssn = Session(cache, tiers, list(configurations),
+                              resolve_device(device), time_fn=time_fn,
+                              snapshot=ci)
+                ssn.speculative = True
+                ssn.spec_basis = basis
         else:
-            ssn = Session(cache, tiers, list(configurations),
-                          resolve_device(device), time_fn=time_fn)
+            with obs_trace.span("snapshot"):
+                ssn = Session(cache, tiers, list(configurations),
+                              resolve_device(device), time_fn=time_fn)
         for tier in tiers:
             for opt in tier.plugins:
                 plugin = get_plugin_builder(opt.name)(opt.arguments)
                 ssn.plugins[plugin.name()] = plugin
-                plugin.on_session_open(ssn)
+                with obs_trace.span("plugin:" + plugin.name(),
+                                    event="OnSessionOpen"):
+                    plugin.on_session_open(ssn)
     except BaseException:
         _gc_resume(window)
         raise
@@ -139,9 +144,12 @@ def abandon_session(ssn: Session) -> None:
 def close_session(ssn: Session) -> None:
     try:
         for plugin in ssn.plugins.values():
-            plugin.on_session_close(ssn)
+            with obs_trace.span("plugin:" + plugin.name(),
+                                event="OnSessionClose"):
+                plugin.on_session_close(ssn)
         # writeback of job/podgroup status (job_updater.go:95-108)
-        update_all(ssn)
+        with obs_trace.span("job_updater"):
+            update_all(ssn)
     finally:
         # a promoted speculative session's pin is retired at the commit;
         # this releases one that was not

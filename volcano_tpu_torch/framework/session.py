@@ -20,6 +20,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..api import JobInfo, NodeInfo, QueueInfo, TaskInfo, TaskStatus
+from ..obs.audit import AUDIT
 from .conf import Configuration, Tier
 from .statement import Statement
 
@@ -123,6 +124,10 @@ class Session:
         # proportion publishes its per-queue deserved vectors here for the
         # reclaim screener's over-deserved gate
         self.queue_deserved: Dict[str, "Resource"] = {}
+        # decision-audit feed (obs.audit): (kind, task_uid, job_uid, extra)
+        # tuples appended by dispatch/evict/statement commits, harvested by
+        # the scheduler shell after close_session
+        self.audit_events: list = []
 
     def now(self) -> float:
         return self._time_fn()
@@ -389,8 +394,16 @@ class Session:
         if self.job_ready(job):
             self.dispatch(task)
 
+    def _audit_event(self, kind: str, task: TaskInfo,
+                     extra: str = "") -> None:
+        """Feed the decision audit (obs.audit) — a no-op unless the audit
+        ring is enabled."""
+        if AUDIT.enabled:
+            self.audit_events.append((kind, task.uid, task.job, extra))
+
     def dispatch(self, task: TaskInfo) -> None:
         self.jobs[task.job].update_task_status(task, TaskStatus.BINDING)
+        self._audit_event("bind", task, task.node_name)
         self.cache.bind(task)
 
     def evict(self, reclaimee: TaskInfo, reason: str) -> None:
@@ -401,6 +414,7 @@ class Session:
         node = self.nodes[reclaimee.node_name]
         node.update_task(job.tasks[reclaimee.uid])
         self._fire_deallocate(reclaimee)
+        self._audit_event("evict", reclaimee, reason)
         self.cache.evict(reclaimee, reason)
 
     def update_pod_group_condition(self, job: JobInfo, condition: dict) -> None:

@@ -99,5 +99,6 @@ class Statement:
             if op.name == ALLOCATE:
                 self.ssn.dispatch(op.task)
             elif op.name == EVICT:
+                self.ssn._audit_event("evict", op.task, op.reason)
                 self.ssn.cache.evict(op.task, op.reason)
         self.operations.clear()

@@ -6,9 +6,11 @@ write: the end-to-end and per-action duration series (fed from the
 shell's spans), the mark/since API the sim's wall-clock plane reads,
 action failures, the dead-letter gauge, the crash-loop guard's health
 verdict, the feedback-plane and journal counters, and the incremental
-snapshot's (full rebuilds by layer, state drift by layer), and the
-elastic gangs' grows, shrinks, below-min witness and gauges. There is no
-Prometheus exposition yet.
+snapshot's (full rebuilds by layer, state drift by layer), the
+elastic gangs' grows, shrinks, below-min witness and gauges, and the
+flight recorder's (the SLO compliance and burn-rate gauges, the audit's
+bounded-map evictions), with ``health_detail()``'s sections for them.
+There is no Prometheus exposition yet.
 
 ``solver_trace`` marks a device solve as a named range in a
 ``torch.profiler`` trace, behind the JAX package's own switch
@@ -62,6 +64,9 @@ _counters: Dict[Tuple[str, ...], float] = collections.defaultdict(float)
 HEALTHY = "healthy"
 DEGRADED = "degraded"
 _health = {"state": HEALTHY, "consecutive_failures": 0}
+# structured sections published by their owners (the SLO engine's last
+# evaluation) for health_detail()
+_health_detail: Dict[str, object] = {}
 
 
 def _count(key: Tuple[str, ...], n: float = 1) -> None:
@@ -126,6 +131,7 @@ def reset_local() -> None:
         _durations.clear()
         _gauges.clear()
         _counters.clear()
+        _health_detail.clear()
         _health["state"] = HEALTHY
         _health["consecutive_failures"] = 0
 
@@ -142,6 +148,32 @@ def set_health(state: str, consecutive_failures: int = 0) -> None:
 def health() -> Tuple[str, int]:
     with _lock:
         return _health["state"], _health["consecutive_failures"]
+
+
+def health_detail() -> dict:
+    """The structured health payload, the JAX package's sections that
+    this package feeds: the shell's verdict, the decision audit's
+    bounded-map evictions (a warning: records were dropped to stay
+    bounded) and the SLO engine's last published evaluation."""
+    with _lock:
+        audit_evicted = int(_counters.get(("audit_latest_evicted",), 0))
+        warnings = []
+        if audit_evicted:
+            warnings.append(
+                f"audit_latest_evicted={audit_evicted}: decision-audit "
+                f"records were evicted under job-churn pressure; why() may "
+                f"miss old jobs")
+        return {
+            "state": _health["state"],
+            "consecutive_failures": _health["consecutive_failures"],
+            "overload": {
+                "audit_latest_evicted_total": audit_evicted,
+                "warnings": warnings,
+            },
+            # the SLO plane: the engine's last published evaluation
+            # (compliance + per-window burn rates)
+            "slo": [dict(obj) for obj in _health_detail.get("slo", [])],
+        }
 
 
 def register_action_failure(action: str) -> None:
@@ -288,6 +320,39 @@ def elastic_counts() -> Dict[str, float]:
             elif k[0] == "elastic_below_min_evictions":
                 out["below_min"] = v
         return out
+
+
+# -- the flight recorder ------------------------------------------------------
+
+def set_slo_status(status) -> None:
+    """Publish one SLO-engine evaluation (obs/slo.py): the
+    ``slo_compliance{slo}`` / ``slo_burn_rate{slo,window}`` gauges plus
+    the ``slo`` section of health_detail(). Replaces the previous
+    evaluation wholesale — objectives that disappeared (a per-class
+    expansion whose class drained away) must not linger as stale
+    samples."""
+    with _lock:
+        for k in [k for k in _gauges
+                  if k[0] in ("slo_compliance", "slo_burn_rate")]:
+            del _gauges[k]
+        for obj in status:
+            name = str(obj.get("slo", ""))
+            _gauges[("slo_compliance", name)] = float(
+                obj.get("compliance", 1.0))
+            for window, rate in (obj.get("burn_rate") or {}).items():
+                _gauges[("slo_burn_rate", name, str(window))] = float(rate)
+        _health_detail["slo"] = [dict(obj) for obj in status]
+
+
+def local_gauges() -> Dict[Tuple[str, ...], float]:
+    with _lock:
+        return dict(_gauges)
+
+
+def register_audit_evicted(n: int = 1) -> None:
+    """The decision audit's per-live-job map evicted its oldest records
+    to stay bounded under pathological job-churn cardinality."""
+    _count(("audit_latest_evicted",), n)
 
 
 # -- device profiling --------------------------------------------------------

@@ -87,10 +87,8 @@ class TraceRecorder:
         self._cycles: collections.deque = collections.deque(
             maxlen=max_cycles or None)
         self._current: Optional[List[dict]] = None
-        # process lane: the pid stamped on every event. Standalone stays
-        # 1 (the historical shape); a federated sim sets the partition id
-        # at each cycle boundary so a merged trace renders one process
-        # lane per partition (docs/observability.md).
+        # process lane: the pid stamped on every event; 1 for a single
+        # scheduler (set_pid gives a merged trace one lane a scheduler)
         self._pid = 1
         # flow-event state (s/t/f phases connecting events across lanes):
         # insertion-ordered key -> id map keeps flow ids deterministic,
@@ -138,6 +136,13 @@ class TraceRecorder:
         self._pid = 1
         self._flow_ids.clear()
         self._flow_open.clear()
+
+    def set_pid(self, pid: int) -> None:
+        """Pin the process lane subsequent events are stamped with (1 for
+        a single scheduler); a merged trace of several schedulers gives
+        each its own lane."""
+        with self._lock:
+            self._pid = int(pid)
 
     # -- hot path -----------------------------------------------------------
 
@@ -235,9 +240,30 @@ class TraceRecorder:
         with self._lock:
             return len(self._cycles)
 
+    def dump(self, path: Optional[str] = None) -> str:
+        """Chrome trace-event JSON of the ring; optionally written to
+        ``path`` (the sim's ``--trace-out`` payload)."""
+        from .export import chrome_trace
+        import json
+        events = self.chrome_events()
+        # "enabled" marks whether this artifact holds a real recording —
+        # stamped from the events, not the live flag, so a dump taken
+        # after disable() (sim --trace-out stops recording before writing)
+        # isn't mislabelled as an empty disabled-recorder dump
+        text = json.dumps(chrome_trace(events,
+                                       enabled=self._recording
+                                       or bool(events),
+                                       logical=self._logical),
+                          sort_keys=True)
+        if path:
+            with open(path, "w") as f:
+                f.write(text + "\n")
+        return text
+
 
 # The process-wide recorder every wiring point uses. VOLCANO_TPU_TRACE=1
-# enables it at import; runtime callers call TRACE.enable()/disable().
+# enables it at import; runtime callers (sim --trace-out) call
+# TRACE.enable()/disable().
 TRACE = TraceRecorder()
 
 

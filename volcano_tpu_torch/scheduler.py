@@ -46,6 +46,8 @@ from .framework import (abandon_session, close_session, get_action,
                         get_plugin_builder, open_session,
                         parse_scheduler_conf, resolve_device)
 from .framework.conf import SchedulerConfiguration
+from .obs import audit as obs_audit
+from .obs import lifecycle as obs_lifecycle
 from .obs import trace as obs_trace
 
 log = logging.getLogger(__name__)
@@ -234,6 +236,9 @@ class Scheduler:
         # a shell given one would run serial cycles (a speculation never
         # crosses a leadership boundary)
         self.elector = None
+        # decision-audit records of fast-admit binds made between cycles,
+        # harvested with the next cycle's session
+        self._fast_admit_audit: list = []
         # the pipelined cycle: standalone only
         self.pipelined = _env_flag("VOLCANO_TPU_PIPELINED") \
             if pipelined is None else bool(pipelined)
@@ -260,6 +265,9 @@ class Scheduler:
     def actions(self) -> list:
         """The action objects of the conf's pipeline, in order."""
         return [get_action(name) for name in self.conf.actions]
+
+    def current_fencing_epoch(self) -> int:
+        return self.elector.fencing_epoch if self.elector is not None else 0
 
     def _load_conf(self, conf_text: Optional[str] = None) -> None:
         mtime = None
@@ -295,10 +303,17 @@ class Scheduler:
         the rest of the pipeline still runs; only a failure OUTSIDE the
         action loop (conf reload, snapshot/open_session, close_session)
         propagates. Every run_once is one span tree (cycle → resync /
-        schedule → open_session / action:* / close_session → epilogue) and the per-action and end-to-end metrics are fed from
+        schedule → open_session / action:* / close_session → audit /
+        epilogue) and the per-action and end-to-end metrics are fed from
         the spans."""
         rec = obs_trace.TRACE
         cycle = self._cycles_run
+        # pin the ambient correlation context (obs/lifecycle.py) every
+        # funnel-level stamp of this cycle inherits
+        part = getattr(self.cache, "obs_part", 0)
+        obs_lifecycle.TIMELINE.set_context(
+            cycle=cycle, part=part, epoch=self.current_fencing_epoch(),
+            t=self.clock.time())
         began = rec.enabled
         if began:
             rec.begin_cycle(cycle)
@@ -377,6 +392,12 @@ class Scheduler:
                                        time_fn=self.clock.now,
                                        device=self.device)
                 times["open_session"] = sp.dur_s
+            if self._fast_admit_audit and obs_audit.AUDIT.enabled:
+                # fast-admit binds since the last cycle ride this cycle's
+                # audit harvest (their jobs read "admitted" with the bind
+                # count they earned between cycles)
+                ssn.audit_events.extend(self._fast_admit_audit)
+                self._fast_admit_audit.clear()
             try:
                 for act_ix, (name, action) in enumerate(runnable):
                     if budget is not None and act_ix > 0 \
@@ -454,6 +475,15 @@ class Scheduler:
         metrics.update_e2e_duration(sched_sp.dur_s)
         times["cycle"] = sched_sp.dur_s
         self.last_cycle_s = times
+        # decision audit: harvested after close_session, so the gang
+        # plugin's job_fit_errors writeback is the denial reason, outside
+        # the timed window; a recorder fault is logged, never the cycle's
+        if obs_audit.AUDIT.enabled:
+            try:
+                with rec.span("audit"):
+                    obs_audit.harvest_cycle(ssn, cycle, self.clock.time())
+            except Exception:
+                log.exception("decision-audit harvest failed")
         # stage 2 of the pipeline, outside the timed window: dispatch the
         # next cycle's speculative solve, which the card runs while the
         # host goes on with the epilogue and the pacing sleep
@@ -834,6 +864,10 @@ class Scheduler:
                 cache.bind_batch(placed)
                 gangs += 1
                 tasks_bound += len(gang)
+                if obs_audit.AUDIT.enabled:
+                    for task in gang:
+                        self._fast_admit_audit.append(
+                            ("bind", task.uid, task.job, "fast-admit"))
         if gangs:
             metrics.register_fast_admit(gangs, tasks_bound)
         return tasks_bound

@@ -19,6 +19,14 @@ The pipelined cycle against its serial oracle::
         pipelined-steady --seed 3 --pipelined \\
         --verify-pipelined-equivalence --deterministic
 
+The flight recorder: every cycle's span tree as a Chrome trace
+(Perfetto-loadable; the logical clock under ``--deterministic``, so the
+file is byte-reproducible) and the per-class latency and SLO sections::
+
+    python -m volcano_tpu_torch.sim --device cpu --scenario smoke \
+        --deterministic --lifecycle --trace-out trace.json
+    python -m volcano_tpu_torch.obs.validate trace.json
+
 Elastic gangs, with the elastic-gang contract checked::
 
     python -m volcano_tpu_torch.sim --device cpu --scenario elastic-churn \\
@@ -47,7 +55,6 @@ from .workload import SCENARIOS, make_scenario
 # the JAX package's sim flags that name modes this package lacks:
 # flag -> (takes a value, what it needs)
 REFUSED_FLAGS = {
-    "--trace-out": (True, "the trace export (ROADMAP item 9)"),
     "--ha": (True, "the HA control plane (ROADMAP item 9)"),
     "--lease-loss-cycles": (True, "the HA control plane (ROADMAP item 9)"),
     "--verify-ha-equivalence": (False,
@@ -89,8 +96,6 @@ REFUSED_FLAGS = {
     "--mesh-fault-seed": (True, "the mesh ladder (ROADMAP item 10)"),
     "--verify-mesh-equivalence": (False,
                                   "the mesh ladder (ROADMAP item 10)"),
-    "--lifecycle": (False, "the lifecycle latency export "
-                           "(ROADMAP item 9)"),
 }
 
 
@@ -124,6 +129,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print ONLY the decision plane as canonical JSON "
                          "(byte-comparable across runs and with the JAX "
                          "package's sim)")
+    ap.add_argument("--trace-out",
+                    help="record the flight recorder for the whole run and "
+                         "write the merged Chrome trace-event JSON "
+                         "(Perfetto-loadable) to this file; with "
+                         "--deterministic the recorder uses its logical "
+                         "clock, so the artifact is byte-reproducible")
+    ap.add_argument("--lifecycle", action="store_true",
+                    help="derive the latency and slo report sections from "
+                         "the per-job lifecycle timelines (obs/lifecycle.py):"
+                         " per-class ttfb/admission/ack/jct percentiles and "
+                         "the SLO burn-rate evaluation; off by default so "
+                         "decision planes without it keep their bytes")
     ap.add_argument("--chaos-rate", type=float, default=0.0,
                     help="seeded bind/evict failure rate (chaos wrappers; "
                          "0 = off)")
@@ -265,12 +282,24 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                            fast_admit=args.fast_admit if fast_admit is None
                            else fast_admit,
                            elastic_gangs=args.elastic_gangs,
-                           topology_weight=args.topology_weight)
+                           topology_weight=args.topology_weight,
+                           lifecycle=args.lifecycle)
         if runners is not None:
             runners.append(runner)
         return runner.run()
 
+    if args.trace_out:
+        from ..obs import TRACE
+        # an unbounded ring for the run: --trace-out merges EVERY cycle
+        # into one artifact instead of keeping only the live tail
+        TRACE.configure(max_cycles=0, logical=args.deterministic)
+        TRACE.enable()
     report = run(kill_cycles)
+    if args.trace_out:
+        TRACE.disable()
+        TRACE.dump(args.trace_out)
+        print(f"trace: {TRACE.cycles_recorded()} cycles -> "
+              f"{args.trace_out}", file=sys.stderr)
     text = deterministic_json(report) if args.deterministic \
         else to_json(report)
     print(text)

@@ -206,6 +206,14 @@ def build_report(runner, actions_ms: Dict[tuple, list],
         report["speculation"] = runner.speculation_stats()
     if getattr(runner, "fast_admit_mode", False):
         report["fast_admit"] = runner.fast_admit_stats()
+    if getattr(runner, "lifecycle", False):
+        # the cluster-causal plane (obs/lifecycle.py + obs/slo.py): per-class
+        # latency from the job timelines and the SLO engine's burn rates at
+        # the run's end. Both are pure functions of the virtual-time event
+        # stream, so decision-plane material — and only emitted under
+        # --lifecycle, so every run without it keeps its bytes.
+        report["latency"] = runner.lifecycle_stats()
+        report["slo"] = runner.slo_status()
     if getattr(runner, "elastic_gangs", False) \
             or getattr(runner, "_command_funnel", None) is not None:
         # only when the mode (or a job_command trace) is live

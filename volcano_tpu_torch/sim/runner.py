@@ -62,6 +62,8 @@ from ..chaos import (KillPointBinder, KillPointEvictor, SimKill,
                      arm_speculation_kill)
 from ..elastic_gang.membership import (ELASTIC_DESIRED_ANNOTATION,
                                        TOPOLOGY_ZONE_LABEL, is_elastic)
+from ..obs.lifecycle import TIMELINE, latency_classes
+from ..obs.slo import SLOEngine
 from ..obs.trace import TRACE as OBS_TRACE
 from ..scheduler import Scheduler
 from .trace import TraceEvent
@@ -202,7 +204,8 @@ class SimRunner:
                  pipelined: bool = False,
                  fast_admit: bool = False,
                  elastic_gangs: bool = False,
-                 topology_weight: float = 10.0):
+                 topology_weight: float = 10.0,
+                 lifecycle: bool = False):
         self.trace = list(trace)
         self.period = period
         self.seed = seed
@@ -212,6 +215,16 @@ class SimRunner:
         self.device = device
 
         self.clock = VirtualClock()
+        # lifecycle timelines (obs/lifecycle.py): the store records in
+        # every run (it observes, never influences), but the derived report
+        # sections (latency, slo) are emitted only under ``lifecycle``, so
+        # a run without it keeps its decision plane. Cleared here so
+        # back-to-back runs in one process mint the same event ids.
+        self.lifecycle = bool(lifecycle)
+        self._timeline = TIMELINE
+        self._timeline.clear()
+        self._slo_engine = SLOEngine(period=period) if self.lifecycle \
+            else None
         self.binder = SequenceBinder()
         self.evictor = SequenceEvictor()
         binder = binder_wrap(self.binder) if binder_wrap else self.binder
@@ -482,6 +495,7 @@ class SimRunner:
         self.arrival_time[name] = t
         self.duration[name] = d["duration"]
         self.arrived += 1
+        self._timeline.record(name, "arrival", t=t, queue=d["queue"])
 
     def _fail_node(self, name: str) -> None:
         """The node dies with its tasks: lost members re-queue PENDING and
@@ -513,6 +527,11 @@ class SimRunner:
                                                 detach=on_node)
         if not touched:
             return
+        if not via_ack:
+            # cluster-initiated loss: the ack funnel never saw it, so the
+            # runner records the requeue milestone itself
+            self._timeline.record(jid, "requeue", task=uid,
+                                  node=lost_node or None)
         self._note_requeue(uid)
         self.requeues += 1
         if jid in self.admitted_at:
@@ -551,6 +570,7 @@ class SimRunner:
             self._live_bound.discard(tuid)
         self.admitted_at.pop(uid, None)
         self.jct.append(t - self.arrival_time[uid])
+        self._timeline.record(uid, "complete", t=t)
         OBS_TRACE.flow_end("complete", f"job:{uid}")
         self.completed += 1
 
@@ -582,6 +602,9 @@ class SimRunner:
         executor records) is cluster truth and stamps the runner's
         bookkeeping at once; the acks ride the _AckWire and are consumed
         by the cache's FeedbackChannel normalizer."""
+        # feedback runs between cycles: timeline events minted here carry
+        # the feedback instant, not the previous cycle's
+        self._timeline.set_context(t=now)
         cache = self.cache
         touched: Dict[str, bool] = {}
         seq = self.binder.sequence
@@ -608,6 +631,9 @@ class SimRunner:
             if jid not in self.first_bind:
                 self.first_bind[jid] = now
                 self.queueing_delay.append(now - self.arrival_time[jid])
+                # the harvested first bind, the instant queueing_delay
+                # samples, so timeline ttfb and the report agree
+                self._timeline.record(jid, "bind", t=now, node=host)
             touched[jid] = True
         eseq = self.evictor.sequence
         while self._evicts_seen < len(eseq):
@@ -630,6 +656,7 @@ class SimRunner:
                     and job.ready_task_num() >= job.min_available:
                 self.admitted_at[jid] = now
                 self.gang_admission.append(now - self.arrival_time[jid])
+                self._timeline.record(jid, "admitted", t=now)
                 epoch = self._admit_epoch.get(jid, 0)
                 heapq.heappush(self._completions,
                                (now + self.duration[jid], next(self._cseq),
@@ -773,6 +800,33 @@ class SimRunner:
             "commands": self._command_funnel.stats()
             if self._command_funnel is not None else {},
         }
+
+    def lifecycle_stats(self) -> Dict[str, object]:
+        """The report's ``latency`` section (``lifecycle`` only): per queue
+        class, percentiles of every timeline-derived latency — ttfb_s
+        agrees with ``queueing_delay_s`` and jct_s with ``jct_s``, because
+        both planes sample the same virtual instants."""
+        classes = latency_classes(self._timeline)
+        stats = self._timeline.stats()
+        return {
+            "classes": {
+                cls: {kind: report_mod.percentiles(vals)
+                      for kind, vals in sorted(kinds.items())}
+                for cls, kinds in sorted(classes.items())},
+            "timeline": {
+                "jobs": stats["jobs"],
+                "events": stats["events"],
+                "lru_evicted": stats["evicted"],
+                "duplicates_dropped": stats["duplicates_dropped"],
+            },
+        }
+
+    def slo_status(self) -> List[dict]:
+        """End-of-run SLO evaluation (``lifecycle`` only), published to the
+        metrics as it goes, so ``metrics.health_detail()`` and the gauges
+        agree with the report."""
+        return self._slo_engine.publish(self._timeline,
+                                        now=self.clock.time())
 
     def fast_admit_stats(self) -> Dict[str, int]:
         now = metrics.fast_admit_counts()
