@@ -175,9 +175,47 @@
    recording (the default) and with both off, alternated twice: prints
    each run's pipeline_e2e_ms p50 and p99, the phase's seconds and the
    card's name and power limit.
-18. Prints one JSON line with each kernel's launches, times, bound and
+18. Device containment on the card, on ``baseline_config("1k")`` under
+   deploy/scheduler.conf, the cool-down on an injected clock, with 40 late
+   pods in 10 gangs arriving after each cycle: cycle 1's allocate hook
+   asks the caching allocator for more than the card holds, a real
+   ``torch.cuda.OutOfMemoryError`` that must classify as "oom", open the
+   cool-down and finish the cycle on the sequential placer (B1 not
+   launched); cycle 2 is degraded (the hook not called, B1 not launched);
+   cycle 3, past the window, probes: the hook is called, B1 launches and
+   ``record_ok`` closes the window. Each cycle's binds must equal the CPU
+   path's under the same script (an injected "oom" there), and
+   ``LAST_FALLBACK``, ``last_stats["fallback"]``, the counters and
+   ``health_detail()["device"]`` must show each step. Then a
+   ``solve_deadline_s`` of 1e-9 s must open the window after a cycle that
+   launched B1, and a launch the placement kernel's C entry fails
+   (cudaError_t 719, injected at the entry) must fail the allocate action
+   with every fallback counter unchanged. Last, a child process runs one
+   cycle whose solve launches B1 and then gathers past its tensor on the
+   card: the card raises a real device-side assert at the sync, which
+   must fail the allocate action, count one ``device_faults{device_lost}``
+   and open the cool-down, with no solver fallback and no bind.
+19. The object store and the feedback watch path on the card
+   (tools/sim_reference.py's STORE_RUNS): smoke under deploy/scheduler.conf
+   with ``--store-wired``, ``--store-chaos``, ``--ack-chaos`` and
+   ``--store-wired --ack-chaos``, preempt-burst with ``--store-chaos``,
+   pipelined-conflict with ``--pipelined --ack-chaos`` and the full-width
+   baseline-10k with ``--store-wired`` (10,000 pods on 2,000 nodes, every
+   pod, podgroup and queue a store object, the cache fed by informers),
+   each kernel's count set to 0 before each run. Each run's report (with
+   its store and feedback sections) and side-effect sequence must equal
+   the JAX package's in tests/sim_reference_digests.json, with no action
+   failure and no double bind; B1 must launch in every run, B3 in
+   preempt-burst and B7 in pipelined-conflict. Prints each run's B1, B3
+   and B7 launches and baseline-10k's pipeline_e2e_ms store-wired beside
+   step 12's direct run.
+20. Prints one JSON line with each kernel's launches, times, bound and
    error (and its launches in each sim run), then the card's name and
    power limit, then the result line ``{"ok": true, "device": {...}}``.
+
+Every phase but step 18 ends with no solver fallback, no device fault and
+no degraded cycle counted since the last containment check, and the
+device cool-down closed: a fallback nobody asked for is a failed run.
 
 Every ``Scheduler.run_once`` must return no isolated action failure: the
 shell isolates a failing action (a kernel that does not launch, say), and
@@ -2051,6 +2089,389 @@ def obs_phase(digests, sim_runs, runs=None, extra_args=()):
 
 
 # ---------------------------------------------------------------------------
+# device containment
+# ---------------------------------------------------------------------------
+
+# the containment counters as step 18 left them: every other phase must end
+# with the same counts (no fallback nobody asked for)
+_CONTAINMENT_MARK: dict = {}
+
+
+def containment_counts() -> dict:
+    """The nonzero solver-fallback, device-fault and degraded-cycle
+    counters (volcano_tpu_torch.metrics), flat."""
+    from volcano_tpu_torch import metrics
+    return {k: v for k, v in metrics.containment_counts().items() if v}
+
+
+def check_contained(label: str) -> None:
+    """The end of a phase that injects no fault: the containment counters
+    are where the containment phase left them (0 before it), the device
+    cool-down is closed and no fault hook is installed."""
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.device_health import DEVICE_HEALTH
+    got = containment_counts()
+    check(got == _CONTAINMENT_MARK and DEVICE_HEALTH.available()
+          and allocate.DEVICE_FAULT_HOOK is None,
+          f"{label}: containment counters {got} (want "
+          f"{_CONTAINMENT_MARK}), device available "
+          f"{DEVICE_HEALTH.available()}: a fallback nobody asked for")
+
+
+def card_oom() -> None:
+    """A real out-of-memory error from the card: ask the caching
+    allocator for more bytes than the card holds."""
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.empty(total + (1 << 30), dtype=torch.uint8, device="cuda")
+
+
+def injected_oom() -> None:
+    from volcano_tpu_torch.device_health import DeviceFaultError
+    raise DeviceFaultError("oom")
+
+
+def containment_drive(device, oom) -> list:
+    """Three cycles of deploy/scheduler.conf on baseline_config("1k") on
+    ``device`` (None: the card), the allocate hook calling ``oom`` at its
+    first solve attempt, 40 late pods in 10 gangs added after each cycle,
+    the cool-down on a virtual clock moved past its window before cycle
+    3. Returns each cycle's new binds, B1 launches, hook calls,
+    LAST_FALLBACK, ``last_stats["fallback"]``, availability, the
+    ``device`` section of health_detail() and the counter deltas."""
+    from volcano_tpu_torch import Scheduler, metrics
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache.synthetic import baseline_config, make_jobs
+    from volcano_tpu_torch.device_health import DEVICE_HEALTH
+    clock = [0.0]
+    DEVICE_HEALTH.reset(time_fn=lambda: clock[0])
+    cache, binder, _ = baseline_config("1k")
+    queues = sorted(cache.queues)
+    sched = Scheduler(cache, deployed_conf(), device=device)
+    calls = []
+
+    def hook(engine):
+        calls.append(engine)
+        if len(calls) == 1:
+            oom()
+
+    counters = kernel_counters()
+    mark = dict(metrics.containment_counts())
+    allocate.DEVICE_FAULT_HOOK = hook
+    cycles = []
+    try:
+        for cyc in range(3):
+            if cyc == 2:
+                clock[0] += DEVICE_HEALTH.cooldown_remaining() + 1.0
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            before, n_calls = dict(binder.binds), len(calls)
+            errors = sched.run_once()
+            check(errors == [], f"containment cycle {cyc + 1}: isolated "
+                                f"action failures "
+                                f"{[(n, repr(e)) for n, e in errors]}")
+            now = metrics.containment_counts()
+            alloc = [a for a in sched.actions if a.name() == "allocate-tpu"]
+            cycles.append({
+                "binds": {k: v for k, v in binder.binds.items()
+                          if k not in before},
+                "place": counters["place"].launches,
+                "hook_calls": len(calls) - n_calls,
+                "fallback": dict(allocate.LAST_FALLBACK),
+                "last_stats_fallback": alloc[0].last_stats.get("fallback"),
+                "available": DEVICE_HEALTH.available(),
+                "health_device": metrics.health_detail()["device"],
+                "counts": {k: now[k] - mark.get(k, 0) for k in now
+                           if now[k] != mark.get(k, 0)},
+            })
+            mark = dict(now)
+            for job in make_jobs(40, 10, queues, seed=100 + cyc,
+                                 name_prefix=f"late{cyc}-"):
+                cache.add_job(job)
+    finally:
+        allocate.DEVICE_FAULT_HOOK = None
+        DEVICE_HEALTH.reset(time_fn=time.monotonic)
+    return cycles
+
+
+class _FailingPlaceLib:
+    """The placement library with its launch entry failing as the card
+    would report a failed launch (cudaErrorLaunchFailure, 719), without
+    launching; every other entry is the real one."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def vt_place(self, *args):
+        return 719
+
+
+# the child's allocate-only pipeline: nothing after allocate touches the
+# card whose context the child's fault leaves dead
+_SYNC_CHILD_CONF = SLICE_CONF.replace(
+    'actions: "enqueue, allocate-tpu, backfill"',
+    'actions: "enqueue, allocate-tpu"')
+_SYNC_CHILD_FLAG = "--cuda-error-at-sync"
+
+
+def cuda_error_child() -> int:
+    """One cycle of baseline_config("1k") whose solve launches B1, then
+    gathers at an index past its tensor on the card and synchronizes: a
+    real device-side assert, raised by the card at the sync as a faulty
+    kernel's would be. Prints one JSON line of the cycle's isolated
+    failures, B1 launches, binds, LAST_FALLBACK, the cool-down and the
+    counters, then leaves without tearing down the dead context."""
+    import torch
+
+    from volcano_tpu_torch import Scheduler, metrics
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+    from volcano_tpu_torch.device_health import DEVICE_HEALTH
+    counters = kernel_counters()
+    real_place = allocate.place
+
+    def place_then_sync(*args, **kwargs):
+        res = real_place(*args, **kwargs)
+        row = torch.zeros(4, device=res.idle.device)
+        index = torch.full((1,), 1 << 20, dtype=torch.long,
+                           device=res.idle.device)
+        row[index]
+        torch.cuda.synchronize()
+        return res
+
+    allocate.place = place_then_sync
+    cache, binder, _ = baseline_config("1k")
+    sched = Scheduler(cache, _SYNC_CHILD_CONF, device=None)
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    try:
+        errors = [(n, type(e).__name__, str(e).splitlines()[0][:120])
+                  for n, e in sched.run_once()]
+        raised = None
+    except BaseException as exc:       # reported, judged by the parent
+        errors, raised = [], f"{type(exc).__name__}: {exc}"[:300]
+    print("cuda-error-child:", json.dumps({
+        "errors": errors, "raised": raised,
+        "place": counters["place"].launches, "binds": len(binder.binds),
+        "fallback": dict(allocate.LAST_FALLBACK),
+        "available": DEVICE_HEALTH.available(),
+        "last_kind": DEVICE_HEALTH.detail()["last_kind"],
+        "counts": containment_counts()}), flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def cuda_error_at_sync() -> dict:
+    """Runs ``cuda_error_child`` in a process of its own (the fault kills
+    its CUDA context) and returns its record."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          _SYNC_CHILD_FLAG], cwd=_ROOT, capture_output=True,
+                         text=True, timeout=300)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("cuda-error-child: ")]
+    check(out.returncode == 0 and len(lines) == 1,
+          f"containment cuda error at sync: the child exited "
+          f"{out.returncode}: {out.stdout[-800:]} {out.stderr[-1500:]}")
+    return json.loads(lines[0].split(": ", 1)[1])
+
+
+def containment_phase():
+    """Step 18; returns the card's cycles and the deadline, launch
+    failure and CUDA-error-at-sync records."""
+    import torch
+
+    from volcano_tpu_torch import Scheduler, metrics
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+    from volcano_tpu_torch.device_health import DEVICE_HEALTH
+    from volcano_tpu_torch.ops import place as place_mod
+    from volcano_tpu_torch.ops.build import KernelError
+    global _CONTAINMENT_MARK
+    t_phase = time.perf_counter()
+    card = containment_drive(None, card_oom)
+    torch.cuda.empty_cache()
+    cpu = containment_drive("cpu", injected_oom)
+    for i, (c, h) in enumerate(zip(card, cpu)):
+        check(c["binds"] == h["binds"],
+              f"containment cycle {i + 1}: the card's binds differ from "
+              f"the CPU path's under the same script")
+        check(c["counts"] == h["counts"] and c["available"] == h["available"]
+              and c["hook_calls"] == h["hook_calls"],
+              f"containment cycle {i + 1}: card {c['counts']} "
+              f"available={c['available']} against the CPU path's "
+              f"{h['counts']} available={h['available']}")
+    c1, c2, c3 = card
+    check("OutOfMemoryError" in c1["fallback"].get("error", "")
+          and c1["fallback"].get("engine") == "tpu-fused"
+          and c1["last_stats_fallback"] == c1["fallback"]
+          and c1["counts"] == {"solver_fallback/allocate-tpu": 1,
+                               "device_faults/oom": 1}
+          and not c1["available"] and c1["place"] == 0
+          and c1["hook_calls"] == 1 and c1["binds"]
+          and c1["health_device"]["last_kind"] == "oom",
+          f"containment cycle 1: the card's OOM was not contained as "
+          f"an oom fallback: {json.dumps(c1, default=str)[:600]}")
+    check(c2["fallback"] == {"engine": "tpu-fused",
+                             "error": "device cool-down"}
+          and c2["counts"] == {"device_degraded_cycles": 1}
+          and c2["hook_calls"] == 0 and c2["place"] == 0
+          and not c2["available"] and c2["binds"],
+          f"containment cycle 2: not a degraded cycle: "
+          f"{json.dumps(c2, default=str)[:600]}")
+    check(c3["fallback"] == {} and c3["counts"] == {}
+          and c3["hook_calls"] == 1 and c3["place"] > 0
+          and c3["available"] and c3["binds"]
+          and c3["health_device"]["consecutive_faults"] == 0,
+          f"containment cycle 3: the probe did not launch B1 and close "
+          f"the window: {json.dumps(c3, default=str)[:600]}")
+    counters = kernel_counters()
+    # a hard solve deadline no solve meets opens the window
+    DEVICE_HEALTH.reset(time_fn=time.monotonic)
+    mark = dict(metrics.containment_counts())
+    cache, _, _ = baseline_config("1k")
+    sched = Scheduler(cache, deployed_conf(), device=None,
+                      solve_deadline_s=1e-9)
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    errors = sched.run_once()
+    now = metrics.containment_counts()
+    deadline = {"errors": [n for n, _ in errors],
+                "place": counters["place"].launches,
+                "available": DEVICE_HEALTH.available(),
+                "last_kind": DEVICE_HEALTH.detail()["last_kind"],
+                "counts": {k: now[k] - mark.get(k, 0) for k in now
+                           if now[k] != mark.get(k, 0)}}
+    check(deadline["errors"] == [] and deadline["place"] > 0
+          and not deadline["available"]
+          and deadline["counts"] == {"device_faults/slow_solve": 1},
+          f"containment deadline: {deadline}")
+    DEVICE_HEALTH.reset(time_fn=time.monotonic)
+    # a launch the C entry fails stays a failed action, no fallback
+    mark = dict(metrics.containment_counts())
+    real_lib = place_mod._lib
+    place_mod._lib = lambda: _FailingPlaceLib(real_lib())
+    try:
+        cache, binder, _ = baseline_config("1k")
+        sched = Scheduler(cache, deployed_conf(), device=None)
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        errors = sched.run_once()
+    finally:
+        place_mod._lib = real_lib
+    now = metrics.containment_counts()
+    launch = {"errors": [(n, type(e).__name__, str(e)[:120])
+                         for n, e in errors],
+              "place": counters["place"].launches,
+              "binds": len(binder.binds),
+              "available": DEVICE_HEALTH.available(),
+              "fallback": dict(allocate.LAST_FALLBACK),
+              "counts": {k: now[k] - mark.get(k, 0) for k in now
+                         if now[k] != mark.get(k, 0)}}
+    check([n for n, *_ in launch["errors"]] == ["allocate-tpu"]
+          and isinstance(errors[0][1], KernelError)
+          and "719" in str(errors[0][1])
+          and launch["counts"] == {} and launch["available"]
+          and launch["fallback"] == {} and launch["place"] == 0
+          and launch["binds"] == 0,
+          f"containment launch failure: {launch}")
+    # a CUDA error the card raises at a sync after B1 launched fails the
+    # action: counted and cooling down, but no fallback
+    sync = cuda_error_at_sync()
+    check(sync["raised"] is None
+          and [n for n, *_ in sync["errors"]] == ["allocate-tpu"]
+          and "device-side assert" in sync["errors"][0][2]
+          and sync["counts"] == {"device_faults/device_lost": 1}
+          and sync["fallback"] == {} and not sync["available"]
+          and sync["last_kind"] == "device_lost"
+          and sync["place"] > 0 and sync["binds"] == 0,
+          f"containment cuda error at sync: {sync}")
+    _CONTAINMENT_MARK = containment_counts()
+    for i, c in enumerate(card):
+        print(f"containment cycle {i + 1}:", json.dumps({
+            "binds": len(c["binds"]), "place_launches": c["place"],
+            "hook_calls": c["hook_calls"], "fallback": c["fallback"],
+            "available": c["available"], "counts": c["counts"],
+            "device": c["health_device"]}, default=str), flush=True)
+    print("containment deadline:", json.dumps(deadline), flush=True)
+    print("containment launch failure:", json.dumps(launch), flush=True)
+    print("containment cuda error at sync:", json.dumps(sync), flush=True)
+    print(f"containment phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    print("containment card:", card_line(), flush=True)
+    return card, deadline, launch
+
+
+# ---------------------------------------------------------------------------
+# the object store and the feedback watch path
+# ---------------------------------------------------------------------------
+
+# baseline-10k's direct-mode pipeline_e2e_ms from step 12, beside which
+# step 19 prints the store-wired run's
+_DIRECT_E2E: dict = {}
+
+
+def store_phase(digests, sim_runs, runs=None, extra_args=()):
+    """Step 19: each store-wired or ack-chaos run on the card, held to the
+    JAX package's report and sequence; adds each run's launches to
+    ``sim_runs`` and returns the runs' records."""
+    import hashlib
+    tool, _ = sim_tools()
+    t_phase = time.perf_counter()
+    out = {}
+    for source, args, env in runs or tool.STORE_RUNS:
+        key = tool.run_key(source, args, env)
+        report, text, sequence, launches, wall_s = run_sim(
+            source, tuple(args) + tuple(extra_args))
+        want = digests[key]
+        check(hashlib.sha256(text).hexdigest() == want["sha256"]
+              and len(text) == want["bytes"],
+              f"store {key}: report differs from the JAX package's "
+              f"({len(text)} bytes, want {want['bytes']})")
+        check((sequence["sha256"], sequence["binds"], sequence["evicts"])
+              == (want["sequence_sha256"], want["sequence_binds"],
+                  want["sequence_evicts"]),
+              f"store {key}: a bind's node or an eviction differs from the "
+              f"JAX package's ({sequence['binds']} binds, "
+              f"{sequence['evicts']} evicts)")
+        check(report["action_failures"] == 0
+              and report["double_binds"] == 0,
+              f"store {key}: {report['action_failures']} action failures, "
+              f"{report['double_binds']} double binds")
+        check(launches["place"] > 0,
+              f"store {key}: the placement kernel never launched")
+        if source == "preempt-burst":
+            check(launches["evict_walk"] > 0,
+                  f"store {key}: the preempt walk never launched")
+        if "--pipelined" in args:
+            check(launches["decode_packed"] > 0,
+                  f"store {key}: the speculative decode never launched")
+        wall = report["wallclock"]
+        rec = {"cycles": report["cycles"], "binds": report["binds"],
+               "evicts": report["evicts"], "jobs": report["jobs"],
+               "B1": launches["place"], "B3": launches["evict_walk"],
+               "B7": launches["decode_packed"],
+               "store": report.get("store"),
+               "feedback": report.get("feedback"),
+               "pipeline_e2e_ms": wall["pipeline_e2e_ms"],
+               "schedule_ms": wall["schedule_ms"], "wall_s": wall_s}
+        out[key] = rec
+        sim_runs["store " + key] = launches
+        print(f"store {key}:", json.dumps(rec), flush=True)
+    base = "--scenario baseline-10k --conf deploy/scheduler.conf"
+    wired = out.get(base + " --store-wired")
+    if wired is not None and _DIRECT_E2E:
+        print("store baseline-10k pipeline_e2e_ms:", json.dumps({
+            "store_wired": wired["pipeline_e2e_ms"],
+            "direct": _DIRECT_E2E}), flush=True)
+    print(f"store phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print("store card:", card_line(), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the cycle
 # ---------------------------------------------------------------------------
 
@@ -2139,7 +2560,13 @@ def main() -> int:
     # 1. the card and the build
     started = time.perf_counter()
 
+    current = []
+
     def phase(name):
+        # every phase but containment ends with no fallback nobody asked for
+        if current:
+            check_contained(current[-1])
+        current.append(name)
         print(f"phase {name} at {time.perf_counter() - started:.1f} s, "
               f"clocks {clocks_line()}", flush=True)
 
@@ -2453,6 +2880,8 @@ def main() -> int:
                   f"sim {key}: the preempt walk never launched")
         sim_runs[scenario] = launches
         wall = report["wallclock"]
+        if scenario == "baseline-10k":
+            _DIRECT_E2E.update(wall["pipeline_e2e_ms"])
         print(f"sim {scenario}:", json.dumps({
             "args": list(args), "cycles": report["cycles"],
             "binds": report["binds"], "evicts": report["evicts"],
@@ -2490,6 +2919,15 @@ def main() -> int:
     phase("obs")
     # 17. the flight recorder
     obs_phase(digests, sim_runs)
+
+    phase("containment")
+    # 18. device containment: a real OOM, the cool-down, the probe, the
+    # deadline and a failed launch
+    containment_phase()
+
+    phase("store")
+    # 19. the object store and the feedback watch path
+    store_phase(digests, sim_runs)
 
     phase("summary")
     # 18. the kernels line (launches: the placement kernel's in the 10k
@@ -2623,6 +3061,7 @@ def main() -> int:
     for rec in kernels:
         rec["sim_launches"] = {name: launches[rec["name"]]
                                for name, launches in sim_runs.items()}
+    check_contained("summary")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -2632,4 +3071,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [_SYNC_CHILD_FLAG]:
+        sys.exit(cuda_error_child())
     sys.exit(main())

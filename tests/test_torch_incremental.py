@@ -475,19 +475,64 @@ def test_fused_replay_sets_touched_witness():
 
 
 def test_refresh_error_propagates():
-    """No quiet fallback: an error raised by the persistent refresh (a CUDA
-    error on the card) fails the allocate action instead of rebuilding."""
+    """No quiet rebuild: an error of the persistent refresh that is not a
+    fault the card reports (classify_device_fault gives None) fails the
+    allocate action instead of rebuilding, and opens no cool-down (the
+    JAX package catches every exception here)."""
+    from volcano_tpu_torch.device_health import DEVICE_HEALTH
+    metrics.reset_local()
     cache = _world()
     sched = Scheduler(cache, CYCLE_CONF.format(allocate="allocate-tpu"),
                       device="cpu")
 
     def broken(*args, **kwargs):
-        raise RuntimeError("CUDA error: an illegal memory access")
+        raise RuntimeError("refresh bug: a row index out of range")
 
     cache.tensor_refresh = broken
     errors = sched.run_once()
     assert [name for name, _ in errors] == ["allocate-tpu"]
-    assert "illegal memory access" in str(errors[0][1])
+    assert "refresh bug" in str(errors[0][1])
+    assert DEVICE_HEALTH.available()
+    assert metrics.containment_counts() == {}
+
+
+def test_refresh_cuda_error_opens_the_cool_down():
+    """A CUDA error raised by the persistent refresh is a fault the card
+    reports: as in the JAX package (session.py:518-540) it opens the
+    cool-down, drops the device state and the session builds fresh, so the
+    cycle completes with the binds of an undisturbed cycle
+    (tests/test_torch_device_health.py holds the same script to the JAX
+    package cycle by cycle)."""
+    import time as _time
+
+    from volcano_tpu_torch.device_health import DEVICE_HEALTH
+    metrics.reset_local()
+    clock = [0.0]
+    DEVICE_HEALTH.reset(time_fn=lambda: clock[0])
+    try:
+        want = _world()
+        Scheduler(want, CYCLE_CONF.format(allocate="allocate-tpu"),
+                  device="cpu").run_once()
+        cache = _world()
+        sched = Scheduler(cache, CYCLE_CONF.format(allocate="allocate-tpu"),
+                          device="cpu")
+        epoch = cache._snap_epoch
+
+        def broken(*args, **kwargs):
+            raise RuntimeError("CUDA error: an illegal memory access was "
+                               "encountered")
+
+        cache.tensor_refresh = broken
+        assert sched.run_once() == []
+        assert cache.binder.binds == want.binder.binds
+        assert cache._snap_epoch > epoch
+        assert DEVICE_HEALTH.detail()["last_kind"] == "device_lost"
+        # the same cycle's solve succeeded, which closes the window again
+        assert DEVICE_HEALTH.available()
+        assert metrics.containment_counts() == {
+            "device_faults/device_lost": 1.0}
+    finally:
+        DEVICE_HEALTH.reset(time_fn=_time.monotonic)
 
 
 def test_refresh_error_drops_the_persistent_tensors(monkeypatch):

@@ -326,8 +326,7 @@ def test_modes_construct_and_read_the_environment(monkeypatch):
     monkeypatch.setenv("VOLCANO_TPU_FAST_ADMIT", "1")
     sched = scheduler(build_cache(n_jobs=1))
     assert sched.pipelined and sched.fast_admit_enabled
-    with pytest.raises(NotImplementedError, match="solve_deadline_s"):
-        scheduler(cache, solve_deadline_s=0.5)
+    assert scheduler(cache, solve_deadline_s=0.5).solve_deadline_s == 0.5
 
 
 # ---------------------------------------------------------------------------

@@ -936,8 +936,19 @@ def test_pod_affinity_refusal_propagates_from_the_cycle():
 
 @pytest.mark.parametrize("mode, value", [("solve_deadline_s", 0.5)])
 def test_refused_scheduler_modes(mode, value):
-    with pytest.raises(NotImplementedError, match=mode):
-        Scheduler(SchedulerCache(), device="cpu", **{mode: value})
+    """The JAX shell's constructor modes the port once refused now run:
+    ``solve_deadline_s`` is a hard deadline on the allocate action, and a
+    span past it opens the device cool-down (the behaviour is held in
+    tests/test_torch_device_health.py)."""
+    import time as _time
+
+    from volcano_tpu_torch.device_health import DEVICE_HEALTH
+    sched = Scheduler(make_world(FakeBinder(), n_jobs=1), device="cpu",
+                      **{mode: value})
+    assert getattr(sched, mode) == value
+    DEVICE_HEALTH.reset(time_fn=_time.monotonic)
+    assert sched.run_once() == []
+    assert DEVICE_HEALTH.available()     # a small cycle meets 0.5 s
 
 
 def test_every_refused_sim_flag_exits_by_name(capsys):

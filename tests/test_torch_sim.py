@@ -427,8 +427,9 @@ def test_walk_fill_schedule_fault_recorded(tmp_path):
                      .read_text())
     differs = sorted(run["key"] for run in doc["runs"]
                      if run["default_walk_sha256"] != run["sha256"])
-    # preempt-burst three times: with the incremental snapshot on and
-    # off, and under the flight recorder's flags
+    # preempt-burst four times: with the incremental snapshot on and
+    # off, under the flight recorder's flags and store-wired under store
+    # chaos
     off = "VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0 "
     recorded = "VOLCANO_TPU_AUDIT_CYCLES=100000 "
     assert differs == sorted([_key(s, ("--conf", DEPLOYED))
@@ -438,7 +439,10 @@ def test_walk_fill_schedule_fault_recorded(tmp_path):
                              + [recorded + _key(
                                  "preempt-burst",
                                  ("--conf", DEPLOYED, "--lifecycle",
-                                  "--trace-out"))])
+                                  "--trace-out"))]
+                             + [_key("preempt-burst",
+                                     ("--conf", DEPLOYED,
+                                      "--store-chaos"))])
 
 
 def test_walk_fault_witnessed_by_the_callbacks_engine(tmp_path, digests,

@@ -2580,6 +2580,167 @@ def pipelined_drive(torch_port: bool, name: str) -> dict:
             "binds": list(binder.sequence)}
 
 
+CONTAINMENT_CONF = """
+actions: "enqueue, allocate-tpu, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+configurations:
+- name: allocate-tpu
+  arguments:
+    engine: {engine}
+    solver-fallback: {fallback}
+"""
+CONTAINMENT_ENGINES = ("tpu-fused", "tpu-strict", "tpu-strict-perjob",
+                       "tpu-blocks")
+# each script: (injector plan, solver-fallback, solve_deadline_s, refresh
+# fault cycle or None, the clock's advance before each cycle: "w" moves it
+# one second past the open window)
+CONTAINMENT_SCRIPTS = {
+    "oom": ({"oom": [1]}, True, None, None, (0, 0, "w", 0, 0)),
+    "lost-twice": ({"device_lost": [1, 2]}, True, None, None,
+                   (0, 0, "w", 0, "w")),
+    "no-fallback": ({"oom": [1]}, False, None, None, (0, 0, "w", 0, 0)),
+    "deadline": ({}, True, 1e-9, None, (0, 0, "w", 0, 0)),
+    "refresh": ({}, True, None, 2, (0, 0, 0, "w", 0)),
+}
+CONTAINMENT_CASES = [f"{e}:{s}" for e in CONTAINMENT_ENGINES
+                     for s in CONTAINMENT_SCRIPTS
+                     if e == "tpu-fused" or s == "oom"]
+
+
+def containment_drive(torch_port: bool, name: str) -> dict:
+    """Five cycles of CONTAINMENT_CONF over 30 two-pod gangs of 1 CPU on 4
+    nodes of 2 CPU (two admitted gangs complete after each cycle), through
+    the port on the CPU or the JAX package, with ``name`` = "ENGINE:SCRIPT"
+    (CONTAINMENT_SCRIPTS): a DeviceFaultInjector at the allocate hook, the
+    solver-fallback key, a solve deadline, a classified fault raised by the
+    persistent tensor refresh, and the cool-down's clock moved past its
+    window before chosen cycles. Returns each cycle's isolated failures,
+    new binds, LAST_FALLBACK, the cool-down's state, the hook's attempts
+    and the containment counters' deltas."""
+    import time as _time
+    engine, script = name.split(":")
+    plan, fallback, deadline, refresh_cycle, advances = \
+        CONTAINMENT_SCRIPTS[script]
+    gi = 1 << 30
+    if torch_port:
+        from volcano_tpu_torch import Scheduler, metrics
+        from volcano_tpu_torch.actions import allocate
+        from volcano_tpu_torch.api import (JobInfo, NodeInfo, PodGroup,
+                                           PodGroupPhase, QueueInfo,
+                                           Resource, TaskInfo)
+        from volcano_tpu_torch.cache import SchedulerCache, SequenceBinder
+        from volcano_tpu_torch.chaos import DeviceFaultInjector
+        from volcano_tpu_torch.device_health import DEVICE_HEALTH
+        extra = {"device": "cpu"}
+
+        def device_error():
+            return RuntimeError("CUDA error: an illegal memory access was "
+                                "encountered")
+    else:
+        from volcano_tpu import metrics
+        from volcano_tpu.actions import allocate
+        from volcano_tpu.api import (JobInfo, NodeInfo, PodGroup,
+                                     PodGroupPhase, QueueInfo, Resource,
+                                     TaskInfo)
+        from volcano_tpu.cache import SchedulerCache
+        from volcano_tpu.cache.executors import SequenceBinder
+        from volcano_tpu.chaos import DeviceFaultInjector
+        from volcano_tpu.device_health import DEVICE_HEALTH
+        from volcano_tpu.scheduler import Scheduler
+        extra = {}
+
+        def device_error():
+            return type("XlaRuntimeError", (RuntimeError,), {})(
+                "DEVICE_LOST: device lost")
+
+    def mkjob(uid, ts):
+        pg = PodGroup(name=uid, queue="q1", min_member=2,
+                      phase=PodGroupPhase.PENDING)
+        job = JobInfo(uid=uid, name=uid, queue="q1", min_available=2,
+                      podgroup=pg, creation_timestamp=ts)
+        for t in range(2):
+            job.add_task_info(TaskInfo(
+                uid=f"{uid}-{t}", name=f"{uid}-{t}", job=uid,
+                resreq=Resource(1000, gi), creation_timestamp=ts + t * 1e-6))
+        return job
+
+    clock = [0.0]
+    DEVICE_HEALTH.reset(time_fn=lambda: clock[0])
+    metrics.reset_local()
+    binder = SequenceBinder()
+    cache = SchedulerCache(binder=binder, default_queue=None)
+    cache.add_queue(QueueInfo(name="q1", weight=1))
+    for i in range(4):
+        alloc_r = Resource(2000, 64 * gi)
+        alloc_r.max_task_num = 100
+        cache.add_node(NodeInfo(name=f"n{i}", allocatable=alloc_r))
+    for j in range(30):
+        cache.add_job(mkjob(f"j{j}", float(j)))
+    conf = CONTAINMENT_CONF.format(engine=engine,
+                                   fallback=str(fallback).lower())
+    sched = Scheduler(cache, conf_text=conf, solve_deadline_s=deadline,
+                      **extra)
+    injector = DeviceFaultInjector(plan, seed=7)
+    allocate.DEVICE_FAULT_HOOK = injector
+    real_refresh = cache.tensor_refresh
+
+    def refresh(*args, **kwargs):
+        if cycle[0] == refresh_cycle:
+            raise device_error()
+        return real_refresh(*args, **kwargs)
+
+    cache.tensor_refresh = refresh
+    cycle = [0]
+    keys = ("solver_fallback", "device_faults", "device_degraded_cycles")
+
+    def counts():
+        return {"/".join(k): v for k, v in metrics.local_counters().items()
+                if k[0] in keys}
+
+    out = []
+    try:
+        for cyc, adv in enumerate(advances, start=1):
+            cycle[0] = cyc
+            if adv == "w":
+                clock[0] += DEVICE_HEALTH.cooldown_remaining() + 1.0
+            seen, attempts, before = len(binder.sequence), \
+                injector.attempt, counts()
+            errors = sched.run_once()
+            now = counts()
+            d = DEVICE_HEALTH.detail()
+            out.append({
+                "errors": [(n, type(e).__name__) for n, e in errors],
+                "binds": list(binder.sequence[seen:]),
+                "fallback": dict(allocate.LAST_FALLBACK),
+                "available": d["available"],
+                "consecutive_faults": d["consecutive_faults"],
+                "total_faults": d["total_faults"],
+                "last_kind": d["last_kind"],
+                "cooldown_remaining_s": d["cooldown_remaining_s"],
+                "attempts": injector.attempt - attempts,
+                "counts": {k: now[k] - before.get(k, 0) for k in now
+                           if now[k] != before.get(k, 0)},
+            })
+            done = [j for j in cache.jobs.values()
+                    if j.ready_task_num() >= j.min_available][:2]
+            for job in done:
+                for task in list(job.tasks.values()):
+                    cache.delete_task(task)
+                cache.remove_job(job.uid)
+    finally:
+        allocate.DEVICE_FAULT_HOOK = None
+        DEVICE_HEALTH.reset(time_fn=_time.monotonic)
+    return {"cycles": out, "injected": list(injector.injected)}
+
+
 def jax_reference_script(argv, out_path, names=()) -> dict:
     """Run ``python *argv out_path *names`` in a child process without FMA
     contraction and load the pickle it writes to ``out_path``."""
@@ -2607,8 +2768,8 @@ def jax_reference(kind: str, names, out_path) -> dict:
     name -> hole_world_run() of a HOLE_WORLDS or DRAIN_WORLDS world;
     "pipelined": name -> pipelined_drive(); "topo": "world@weight" ->
     jax_topo(); "topo-dispatch": any name -> topo_dispatch();
-    "mixed": names are
-    "kind:name", so one child process serves several kinds."""
+    "containment": "ENGINE:SCRIPT" -> containment_drive(); "mixed":
+    names are "kind:name", so one child process serves several kinds."""
     return jax_reference_script([os.path.abspath(__file__), kind], out_path,
                                 names)
 
@@ -2647,6 +2808,8 @@ def _reference(kind, name):
         return jax_topo(TOPO_WORLDS[world](), float(weight))
     if kind == "topo-dispatch":
         return topo_dispatch(False)
+    if kind == "containment":
+        return containment_drive(False, name)
     return jax_place(PLACE_WORLDS[name](), name in INTEGER_PLACE_WORLDS)
 
 

@@ -179,6 +179,23 @@ OBS_RUNS = (
 )
 
 
+# the object store and the feedback watch path: every pod, podgroup and
+# queue a store object behind the retrying transport (--store-wired), with
+# seeded verb faults and torn watch streams (--store-chaos), and seeded ack
+# faults on the ack wire or, store-wired, on the watch path (--ack-chaos);
+# deploy/scheduler.conf throughout but for the pipelined run, which takes
+# the runner's pipelined conf
+STORE_RUNS = (
+    ("smoke", ("--conf", DEPLOYED, "--store-wired"), ()),
+    ("smoke", ("--conf", DEPLOYED, "--store-chaos"), ()),
+    ("smoke", ("--conf", DEPLOYED, "--ack-chaos"), ()),
+    ("smoke", ("--conf", DEPLOYED, "--store-wired", "--ack-chaos"), ()),
+    ("preempt-burst", ("--conf", DEPLOYED, "--store-chaos"), ()),
+    ("pipelined-conflict", ("--pipelined", "--ack-chaos"), ()),
+    ("baseline-10k", ("--conf", DEPLOYED, "--store-wired"), ()),
+)
+
+
 def run_key(source: str, args, env=()) -> str:
     src = (("--trace", source[len("trace:"):])
            if source.startswith("trace:") else ("--scenario", source))
@@ -445,8 +462,8 @@ def main(argv=None) -> int:
         return _child(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--write", action="store_true",
-                    help=f"compute the runs of RUNS and OBS_RUNS and write "
-                         f"{DIGESTS}")
+                    help=f"compute the runs of RUNS, OBS_RUNS and "
+                         f"STORE_RUNS and write {DIGESTS}")
     ap.add_argument("--keys", nargs="+", metavar="KEY",
                     help="with --write: compute only these runs and merge "
                          "them into the file")
@@ -464,7 +481,7 @@ def main(argv=None) -> int:
         return 0
     if not args.write:
         ap.error("one of --write / --run is required")
-    every = RUNS + OBS_RUNS
+    every = RUNS + OBS_RUNS + STORE_RUNS
     runs = [r for r in every
             if args.keys is None or run_key(*r) in args.keys]
     if args.keys is not None and len(runs) != len(args.keys):

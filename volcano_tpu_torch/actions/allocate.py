@@ -38,9 +38,20 @@ filter narrows an elastic gang's pending set in every engine.
 
 The action ``allocate`` defaults to callbacks and ``allocate-tpu`` to
 tpu-fused. A conf that asks for an engine this package lacks
-(``tpu-sharded``, ``callbacks-parallel``) is refused by name. A device
-solve that fails raises: there is no fallback placer and no device
-cool-down.
+(``tpu-sharded``, ``callbacks-parallel``) is refused by name.
+
+Device containment (``AllocateAction._with_fallback``, the JAX package's,
+narrowed): a device engine's solve that fails on a ``SolverFault``
+(non-finite inputs), on an out-of-memory error from the caching allocator
+or on an injected ``DeviceFaultError`` finishes the same cycle with the
+sequential placer, and a device fault opens ``device_health.DEVICE_HEALTH``'s
+cool-down, in which the device engines run the sequential placer without
+touching the card until the window's probe. A CUDA error raised at a sync
+or fetch opens the cool-down too but fails the action, since a hand
+kernel's own fault surfaces there the same way. A kernel that does not
+build, launch or give a well-formed wire (``ops.build.KernelError``) and
+every other error stays a failed action. ``solver-fallback: false`` turns
+the fallback off.
 
 The pipelined shell splits tpu-fused's first solve in two:
 ``dispatch_speculative_solve`` orders, assembles and launches it on a side
@@ -51,6 +62,7 @@ boundary ``finalize_speculative_dispatch`` fetches it and
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, List, NamedTuple, Optional
 
@@ -66,6 +78,7 @@ from ..cache.snapshot import (NodeTensors, assemble_feasibility,
                               discover_resource_names, task_requests)
 from ..ops.blocks import (JobMeta, NodeState, padded_task_len,
                           place_blocks_unified)
+from ..ops.build import KernelError
 from ..ops.place import (NEG, NO_NODE, fetch_packed, place, place_dispatch,
                          upload)
 from ..ops.scores import ScoreWeights
@@ -86,6 +99,8 @@ MISSING_ENGINES = {
 }
 BLOCKS_BIG_T = 12000    # above this many tasks the blocks budgets are 5/4
 
+log = logging.getLogger(__name__)
+
 
 # the last execute's node-tensor assembly: "tensor_s", host seconds summed
 # over its solves, and "tensor_incremental", whether the last solve read
@@ -94,8 +109,37 @@ LAST_STATS: Dict[str, object] = {}
 
 
 class SolverFault(RuntimeError):
-    """The device solve produced an unusable result (a node index out of
-    range, non-finite inputs)."""
+    """The device solve's inputs are unusable (non-finite requests, scores
+    or weights): the card is fine, so the sequential placer may finish
+    the cycle."""
+
+
+class ReplayFault(RuntimeError):
+    """A failure inside the batched, statement-free replay: its aggregate
+    mutations are not statement-tracked, so the session cannot be proven
+    consistent and the sequential fallback must not run.
+    ``poisons_session`` makes the scheduler shell abort the rest of the
+    cycle too; the next cycle opens a fresh snapshot."""
+
+    poisons_session = True
+
+
+# What the last degradation did: {"engine": the failed engine, "error":
+# repr of the error, or "device cool-down"}; empty when the last cycle ran
+# its configured engine end to end.
+LAST_FALLBACK: Dict[str, str] = {}
+
+# Pre-solve hook for device-fault injection (chaos.DeviceFaultInjector):
+# called with the engine name before every device solve attempt; raising
+# device_health.DeviceFaultError simulates a device fault at the point the
+# card's own error would surface.
+DEVICE_FAULT_HOOK = None
+
+
+def _device_available() -> bool:
+    """Is the device cool-down window closed (device_health)?"""
+    from ..device_health import DEVICE_HEALTH
+    return DEVICE_HEALTH.available()
 
 
 class _AggTask:
@@ -144,21 +188,146 @@ class AllocateAction(Action):
 
     def execute(self, ssn) -> None:
         engine, batch = self.configured_engine(ssn.configurations)
+        fallback = True
+        for args in _action_args(ssn.configurations, (self.NAME, "allocate")):
+            fallback = args.get_bool("solver-fallback", True)
+        LAST_FALLBACK.clear()
         LAST_STATS.pop("tensor_s", None)      # accumulates within one cycle
         LAST_STATS.pop("tensor_incremental", None)
+        if engine.startswith("tpu-") and not _device_available():
+            # the device cool-down is open: this cycle runs the sequential
+            # placer without touching the card; the window's expiry lets
+            # the next cycle probe the device engine. With
+            # ``solver-fallback: false`` the cycle raises instead
+            from ..device_health import DEVICE_HEALTH
+            if not fallback:
+                raise RuntimeError(
+                    f"device cool-down active "
+                    f"({DEVICE_HEALTH.cooldown_remaining():.1f}s "
+                    f"remaining) and solver-fallback is disabled")
+            log.warning("device cool-down active (%.1fs remaining): "
+                        "allocate degraded to the sequential placer",
+                        DEVICE_HEALTH.cooldown_remaining())
+            metrics.register_device_degraded_cycle()
+            LAST_FALLBACK.update(engine=engine, error="device cool-down")
+            self.last_stats = self._sequential(ssn)
+            return
         if engine == "callbacks":
-            t0 = time.perf_counter()
-            _execute_interleaved(ssn, _CallbackJobPlacer(ssn))
-            self.last_stats = {"interleave": time.perf_counter() - t0}
+            self.last_stats = self._sequential(ssn, record=False)
         elif engine == "tpu-strict":
-            self.last_stats = _execute_strict_batched(ssn, batch=batch)
+            self._with_fallback(
+                ssn, engine, fallback,
+                lambda: _execute_strict_batched(ssn, batch=batch))
         elif engine == "tpu-strict-perjob":
-            placer = _DeviceJobPlacer(ssn)
-            _execute_interleaved(ssn, placer)
-            self.last_stats = placer.stats
+            def perjob():
+                placer = _DeviceJobPlacer(ssn)
+                _execute_interleaved(ssn, placer)
+                return placer.stats
+            self._with_fallback(ssn, engine, fallback, perjob)
         else:
-            self.last_stats = _execute_fused(
-                ssn, blocks=engine == "tpu-blocks")
+            self._with_fallback(
+                ssn, engine, fallback,
+                lambda: _execute_fused(ssn, blocks=engine == "tpu-blocks"))
+
+    def _sequential(self, ssn, record: bool = True) -> Dict[str, object]:
+        """The callbacks engine's interleave over ``ssn``: the callbacks
+        engine itself, or (``record``) the sequential placer a fallback or
+        a degraded cycle runs, with LAST_FALLBACK under ``fallback``."""
+        t0 = time.perf_counter()
+        _execute_interleaved(ssn, _CallbackJobPlacer(ssn))
+        stats: Dict[str, object] = {"interleave": time.perf_counter() - t0}
+        if record:
+            stats["fallback"] = dict(LAST_FALLBACK)
+        return stats
+
+    def _with_fallback(self, ssn, engine: str, enabled: bool, run) -> None:
+        """Run a device engine (``run`` returns its stats) and contain
+        what the card reports (the JAX package's ``_with_fallback`` at one
+        device, its catch narrowed).
+
+        What enters the fallback, which finishes the SAME cycle with the
+        sequential placer: exactly three cases (``_enters_fallback``).
+
+        - a ``SolverFault`` the port raises on non-finite inputs;
+        - ``torch.cuda.OutOfMemoryError``: the caching allocator refused
+          an allocation, so no kernel of the solve ran on it;
+        - a ``DeviceFaultError`` from ``DEVICE_FAULT_HOOK``.
+
+        A device fault (the last two) also opens the cool-down
+        (``DEVICE_HEALTH.record_fault``) and drops the cache's device
+        tensors (``invalidate_device_state``): after an OOM or a lost
+        context they are poison.
+
+        What never enters it, and stays a failed action with its own
+        error:
+
+        - a CUDA error raised at a sync or a fetch (illegal address,
+          misaligned address, unspecified launch failure, a device-side
+          assert, any other): the card reports it, but a hand kernel's
+          own fault surfaces there the same way, later than its launch.
+          It is counted (``device_faults{kind}``), opens the cool-down
+          and drops the device tensors, as an OOM does, and then
+          re-raises, so the cycle that met it is an action error;
+        - a kernel that does not build (nvcc failing or missing), whose
+          library does not load, whose launch the C entry refuses or
+          fails, or whose wire is malformed (a node index out of range),
+          all ``ops.build.KernelError``;
+        - the wrappers' type, shape and device checks; a missing GPU;
+        - a ``ReplayFault`` (the statement-free replay left the session
+          unprovable); any other exception.
+
+        The JAX package falls back on any exception; the port narrows the
+        catch so that a broken kernel is never hidden behind a CPU cycle
+        (ROADMAP section 3).
+
+        What is visible of every cycle that falls back: ``LAST_FALLBACK``
+        (engine and error), ``last_stats["fallback"]``, the
+        ``solver_fallback{action}`` counter (and ``device_faults{kind}``
+        for a device fault), the ``device`` section of
+        ``metrics.health_detail()``, and an error log line. The shell
+        sees no action error, as the JAX package's does not.
+
+        The fused and strict engines mutate the session only when they
+        replay a finished solve through Statements, and every replay
+        loop discards its open Statement on a raise, so at the fault each
+        task not yet replayed is still PENDING and the sequential placer
+        takes them all; tasks an earlier committed statement placed stay
+        placed. ``enabled`` False (``solver-fallback: false``) re-raises
+        after the containment bookkeeping."""
+        from ..device_health import DEVICE_HEALTH, classify_device_fault
+        try:
+            if DEVICE_FAULT_HOOK is not None:
+                DEVICE_FAULT_HOOK(engine)
+            self.last_stats = run()
+            DEVICE_HEALTH.record_ok()
+            return
+        except ReplayFault:
+            raise
+        except Exception as exc:
+            kind = classify_device_fault(exc)
+            if kind is not None:
+                window = DEVICE_HEALTH.record_fault(kind)
+                ssn.cache.invalidate_device_state()
+                log.error("device fault (%s) in allocate engine %s: "
+                          "cooling down for %.1fs, device tensor state "
+                          "invalidated", kind, engine, window)
+            if not enabled or not _enters_fallback(exc):
+                raise
+            log.exception("allocate engine %s failed; completing the "
+                          "cycle with the sequential placer", engine)
+            metrics.register_solver_fallback(self.NAME)
+            LAST_FALLBACK.update(engine=engine, error=repr(exc))
+            self.last_stats = self._sequential(ssn)
+
+
+def _enters_fallback(exc: BaseException) -> bool:
+    """May the sequential placer finish the cycle ``exc`` broke? Only a
+    SolverFault (non-finite inputs), an out-of-memory error from the
+    caching allocator and an injected DeviceFaultError: the contract of
+    ``AllocateAction._with_fallback``."""
+    from ..device_health import DeviceFaultError
+    return isinstance(exc, (SolverFault, DeviceFaultError,
+                            torch.cuda.OutOfMemoryError))
 
 
 class AllocateTPUAction(AllocateAction):
@@ -483,6 +652,7 @@ class _StrictSolver:
                     torch.tensor(req, device=ssn.device),
                     np.asarray(job_ix, np.int32), masked, min_av, base_r,
                     base_p, self.weights)
+        _check_wire(res.task_node, len(nt.names))
         self.stats["solves"] += 1
         self.stats["batches"].append(len(jobs_with_tasks))
         self.stats["solve"] += time.perf_counter() - t0
@@ -879,17 +1049,20 @@ def solve(inputs: PlacementInputs, blocks: bool = False,
             packed[2 * Tp + J:].astype(bool))
 
 
+def _check_wire(task_node, n_nodes: int) -> None:
+    """The garbage-output guard: an out-of-range node index would corrupt
+    host accounting at replay. The kernel wrote it, so it is the kernel's
+    fault (KernelError) and stays a failed action."""
+    tn = np.asarray(task_node)
+    if tn.size and (int(tn.min()) < NO_NODE or int(tn.max()) >= n_nodes):
+        raise KernelError(f"device solve returned node indices outside "
+                          f"[{NO_NODE}, {n_nodes})")
+
+
 class _FusedSolution:
     def __init__(self, tasks, job_ix, jobs_list, node_t, task_node,
                  pipelined, job_ready, job_kept):
-        # garbage-output guard: an out-of-range node index here would
-        # corrupt host accounting at replay
-        tn = np.asarray(task_node)
-        if tn.size and (int(tn.min()) < NO_NODE
-                        or int(tn.max()) >= len(node_t.names)):
-            raise SolverFault(
-                f"device solve returned node indices outside "
-                f"[{NO_NODE}, {len(node_t.names)})")
+        _check_wire(task_node, len(node_t.names))
         self.tasks = tasks
         self.job_ix = job_ix
         self.jobs_list = jobs_list
@@ -1032,7 +1205,13 @@ def _replay_fused(ssn, sol: _FusedSolution) -> int:
     number of proposals the live stateful re-check rejected (the caller
     re-solves those tasks against fresh state)."""
     if _fast_replay_ok(ssn):
-        _replay_fused_fast(ssn, sol)
+        try:
+            _replay_fused_fast(ssn, sol)
+        except Exception as exc:
+            # its aggregate mutations are not statement-tracked: a raise
+            # half way leaves state the fallback cannot reason about
+            raise ReplayFault(
+                f"batched replay failed mid-apply: {exc!r}") from exc
         return 0
     per_job_tasks: Dict[int, List[int]] = {}
     for i, jx in enumerate(sol.job_ix):
@@ -1134,12 +1313,14 @@ def dispatch_speculative_solve(ssn, engine: str = "tpu-fused",
     cycle's solve. ``assumed_hint`` set() starts the order at the ∅ fixed
     point (the previous cycle converged there); None is the serial start.
     Returns None when speculation cannot run this cycle: stateful
-    predicates, no nodes, an engine that is not the placement kernel,
-    nothing pending, or non-finite inputs (the serial solve's SolverFault
-    owns those)."""
+    predicates, no nodes, an engine that is not the placement kernel, the
+    device cool-down, nothing pending, or non-finite inputs (the serial
+    solve's SolverFault owns those)."""
     if ssn.stateful_predicates or not ssn.nodes:
         return None
     if engine not in SPECULATIVE_ENGINES:
+        return None
+    if not _device_available():
         return None
     t0 = time.perf_counter()
     with obs_trace.span("order", speculative=True):
@@ -1171,7 +1352,7 @@ def finalize_speculative_dispatch(pending: PendingFusedSolution
                                   ) -> _FusedSolution:
     """The dispatched solve's one fetch: always waits on its event, so
     what it returns never depends on how fast the card was. Raises
-    SolverFault on a node index out of range (the shell then re-solves
+    KernelError on a node index out of range (the shell then re-solves
     the cycle serially)."""
     T, J = len(pending.tasks), len(pending.jobs_list)
     with obs_trace.span("solve", speculative=True):

@@ -58,7 +58,12 @@ class TaskInfo:
                  tolerations: Optional[List[dict]] = None,
                  affinity: Optional[dict] = None,
                  creation_timestamp: Optional[float] = None,
-                 host_ports: Optional[List] = None):
+                 host_ports: Optional[List] = None,
+                 labels: Optional[Dict[str, str]] = None,
+                 annotations: Optional[Dict[str, str]] = None,
+                 preemptable: bool = False, revocable_zone: str = "",
+                 topology_policy: str = "",
+                 pod: object = None):
         self.uid = uid or _new_uid("task")
         self.name = name or self.uid
         self.namespace = namespace
@@ -87,6 +92,13 @@ class TaskInfo:
         # (host_ip, protocol, port) tuples the pod claims on its node
         # (nodeports predicate); treated as immutable after construction.
         self.host_ports: List[tuple] = normalize_host_ports(host_ports)
+        # what a store-fed task carries of its pod (store_wiring.pod_to_task)
+        self.labels = dict(labels or {})
+        self.annotations = dict(annotations or {})
+        self.preemptable = preemptable
+        self.revocable_zone = revocable_zone
+        self.topology_policy = topology_policy
+        self.pod = pod                      # backing store object, if any
         self.creation_timestamp = creation_timestamp if creation_timestamp is not None else _time.time()
 
     def clone(self) -> "TaskInfo":
@@ -111,14 +123,18 @@ class PodGroup:
     def __init__(self, name: str = "", namespace: str = "default", queue: str = "default",
                  min_member: int = 0, min_resources: Optional[Resource] = None,
                  phase: PodGroupPhase = PodGroupPhase.PENDING,
-                 annotations: Optional[Dict[str, str]] = None):
+                 annotations: Optional[Dict[str, str]] = None,
+                 priority_class_name: str = "",
+                 labels: Optional[Dict[str, str]] = None):
         self.name = name
         self.namespace = namespace
         self.queue = queue
         self.min_member = min_member
         self.min_resources = min_resources
+        self.priority_class_name = priority_class_name
         self.phase = phase
         self.annotations = dict(annotations or {})
+        self.labels = dict(labels or {})
         self.conditions: List[dict] = []
         self.conditions_dirty = False
         self.running = 0

@@ -53,6 +53,50 @@ class QueueState(str, enum.Enum):
     UNKNOWN = "Unknown"
 
 
+class JobPhase(str, enum.Enum):
+    """batch/v1alpha1 Job phases (vendor .../batch/v1alpha1/job.go)."""
+
+    PENDING = "Pending"
+    ABORTING = "Aborting"
+    ABORTED = "Aborted"
+    RUNNING = "Running"
+    RESTARTING = "Restarting"
+    COMPLETING = "Completing"
+    COMPLETED = "Completed"
+    TERMINATING = "Terminating"
+    TERMINATED = "Terminated"
+    FAILED = "Failed"
+
+
+class BusAction(str, enum.Enum):
+    """bus/v1alpha1 Actions (vendor .../bus/v1alpha1/actions.go:20-60)."""
+
+    ABORT_JOB = "AbortJob"
+    RESTART_JOB = "RestartJob"
+    RESTART_TASK = "RestartTask"
+    TERMINATE_JOB = "TerminateJob"
+    COMPLETE_JOB = "CompleteJob"
+    RESUME_JOB = "ResumeJob"
+    SYNC_JOB = "SyncJob"
+    ENQUEUE_JOB = "EnqueueJob"
+    SYNC_QUEUE = "SyncQueue"
+    OPEN_QUEUE = "OpenQueue"
+    CLOSE_QUEUE = "CloseQueue"
+
+
+class BusEvent(str, enum.Enum):
+    """bus/v1alpha1 Events (vendor .../bus/v1alpha1/events.go)."""
+
+    ANY = "*"
+    POD_FAILED = "PodFailed"
+    POD_EVICTED = "PodEvicted"
+    JOB_UNKNOWN = "Unknown"
+    TASK_COMPLETED = "TaskCompleted"
+    OUT_OF_SYNC = "OutOfSync"
+    COMMAND_ISSUED = "CommandIssued"
+    JOB_UPDATED = "JobUpdated"
+
+
 # predicate failure reasons (types.go:108-167)
 NODE_POD_NUMBER_EXCEEDED = "node(s) pod number exceeded"
 NODE_RESOURCE_FIT_FAILED = "node(s) resource fit failed"

@@ -23,12 +23,20 @@ Applied acks also resolve the in-flight ledger (cache/inflight.py), so
 ledger state and cache state settle together. The ledger's watchdog
 feeds recovered acks back through this same normalizer
 (``source="watchdog"``) — repair is never a raw mutation.
+
+Store-wired deployments route the pod-status watch events here
+(``pod_status_event``); with a seeded ``chaos.AckFaultInjector`` attached,
+RUNNING acks on the watch path are also delayed, dropped or duplicated on
+the injectable clock — the store-wired ack chaos, composing with the torn
+watch streams.
 """
 
 from __future__ import annotations
 
+import heapq
+import itertools
 import logging
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..api import TaskStatus
 from ..obs.lifecycle import TIMELINE
@@ -40,6 +48,13 @@ log = logging.getLogger(__name__)
 class FeedbackChannel:
     def __init__(self, cache):
         self.cache = cache
+        # watch-path ack chaos (store-wired rigs): seeded per-ack faults
+        # and a delayed-delivery heap on the injectable clock
+        # (attach_injector)
+        self.injector = None
+        self.time_fn: Optional[Callable[[], float]] = None
+        self._pending: List[Tuple[float, int, str, str, str]] = []
+        self._seq = itertools.count()
         # watchdog-recovered evict acks hand the requeue to the harness
         # (the sim's controller-recreate analogue) when a hook is set;
         # cache-local state is already settled either way
@@ -156,3 +171,55 @@ class FeedbackChannel:
                 self.on_watchdog_evict(jid, uid)
         self._count("evicted", verdict)
         return verdict
+
+    # -- the watch path (store-wired deployments) ---------------------------
+
+    def pod_status_event(self, cached, status: TaskStatus) -> None:
+        """Route a pod-status watch event: RUNNING flips are kubelet acks
+        and go through the normalizer (fault-injected when an injector is
+        attached); every other transition is watch truth and applies
+        directly."""
+        if status != TaskStatus.RUNNING:
+            self.cache.update_task_status(cached, status)
+            return
+        jid, uid, node = cached.job, cached.uid, cached.node_name
+        fault = self.injector.roll("running") \
+            if self.injector is not None else None
+        if fault == "drop":
+            return                       # the watchdog recovers it
+        if fault in ("delay", "reorder"):
+            self._push(self.injector.delay_s, jid, uid, node)
+            return
+        if fault == "duplicate":
+            self._push(self.injector.delay_s, jid, uid, node)
+        elif fault == "stale":
+            self._push(self.injector.stale_delay_s, jid, uid, node)
+        self.ack_running(jid, uid, node)
+
+    def attach_injector(self, injector, time_fn) -> None:
+        """Arm seeded watch-path ack chaos (store-wired rigs): ``roll``ed
+        per RUNNING ack; delayed deliveries drain on ``deliver_due``
+        (driven by the scheduler epilogue's watchdog step)."""
+        self.injector = injector
+        self.time_fn = time_fn
+
+    def _push(self, delay_s: float, jid: str, uid: str, node: str) -> None:
+        now = self.time_fn() if self.time_fn is not None else 0.0
+        heapq.heappush(self._pending,
+                       (now + delay_s, next(self._seq), jid, uid, node))
+
+    def deliver_due(self, now: Optional[float] = None) -> int:
+        """Apply delayed watch-path acks whose due time passed."""
+        if not self._pending:
+            return 0
+        if now is None:
+            now = self.time_fn() if self.time_fn is not None else 0.0
+        n = 0
+        while self._pending and self._pending[0][0] <= now + 1e-9:
+            _, _, jid, uid, node = heapq.heappop(self._pending)
+            self.ack_running(jid, uid, node)
+            n += 1
+        return n
+
+    def pending(self) -> int:
+        return len(self._pending)

@@ -3,7 +3,11 @@
 Seeded chaos wrappers over the cache's side-effect executors
 (cache/executors.py Binder/Evictor/StatusUpdater) plus an action-level
 exception injector for the scheduler shell's per-action isolation
-(scheduler.Scheduler.action_fault_hook). Everything is driven by one
+(scheduler.Scheduler.action_fault_hook), the store boundary's per-verb
+fault plan (``StoreFaultInjector``, behind
+store_transport.FaultyStoreTransport), the feedback plane's ack faults
+(``AckFaultInjector``) and the allocate solve's device faults
+(``DeviceFaultInjector`` at ``actions.allocate.DEVICE_FAULT_HOOK``). Everything is driven by one
 ``random.Random(seed)`` per wrapper, so a failing chaos test reproduces
 exactly from its printed seed — no global RNG, no wall-clock coupling.
 
@@ -30,7 +34,7 @@ import random
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
-from .cache.executors import Binder, Evictor
+from .cache.executors import Binder, Evictor, StatusUpdater
 
 
 class ChaosError(RuntimeError):
@@ -91,6 +95,206 @@ class ChaosEvictor(_ChaosWrapper, Evictor):
     def evict(self, task, reason: str) -> None:
         self._roll("evict")
         self.inner.evict(task, reason)
+
+
+class ChaosStatusUpdater(_ChaosWrapper, StatusUpdater):
+    def __init__(self, inner: Optional[StatusUpdater] = None,
+                 failure_rate: float = 0.2, latency: float = 0.0,
+                 seed: int = 0):
+        _ChaosWrapper.__init__(self, failure_rate, latency, seed)
+        self.inner = inner or StatusUpdater()
+
+    def update_pod_condition(self, task, condition: dict) -> None:
+        self._roll("update_pod_condition")
+        self.inner.update_pod_condition(task, condition)
+
+    def update_pod_group(self, job) -> None:
+        self._roll("update_pod_group")
+        self.inner.update_pod_group(job)
+
+
+class StoreFaultInjector:
+    """Seeded per-verb fault plan for the API-server boundary — drives
+    :class:`store_transport.FaultyStoreTransport`. Every
+    store verb call rolls ONE seeded coin; a hit picks a fault kind by
+    seeded weighted choice among the kinds legal for that verb:
+
+    - ``transient``  — TransientStoreError (500/etcd-timeout analogue;
+      the retrying transport absorbs it with backoff),
+    - ``conflict``   — ConflictError on WRITE verbs (409; CAS loops
+      re-read, non-CAS writers surface it like any error),
+    - ``latency``    — a slow verb: ``sleep_fn(latency_s)`` then success
+      (virtual seconds under the sim's clock — deterministic).
+
+    Watch streams tear separately: ``roll_tear()`` is consulted per
+    delivered watch event, and the sim additionally schedules whole-
+    stream tears at seeded cycles. All RNG is one ``random.Random(seed)``
+    per injector — a failing soak reproduces from its printed seed."""
+
+    READ_VERBS = ("get", "list")
+    WRITE_VERBS = ("create", "create_batch", "update", "update_status",
+                   "delete", "bind_pod", "evict_pod")
+
+    def __init__(self, failure_rate: float = 0.2, seed: int = 0,
+                 conflict_share: float = 0.25, latency_share: float = 0.25,
+                 latency_s: float = 0.05, tear_rate: float = 0.0,
+                 sleep_fn=None):
+        if not 0.0 <= failure_rate <= 1.0:
+            raise ValueError(f"failure_rate {failure_rate} not in [0, 1]")
+        self.failure_rate = failure_rate
+        self.conflict_share = conflict_share
+        self.latency_share = latency_share
+        self.latency_s = latency_s
+        self.tear_rate = tear_rate
+        self.seed = seed
+        self.sleep_fn = sleep_fn or time.sleep
+        self._rng = random.Random(seed)
+        self.attempts = 0
+        self.injected: Dict[str, int] = {}     # kind -> count
+
+    def _pick_kind(self, verb: str) -> str:
+        r = self._rng.random()
+        if verb not in self.READ_VERBS and r < self.conflict_share:
+            return "conflict"
+        if r < self.conflict_share + self.latency_share:
+            return "latency"
+        return "transient"
+
+    def roll(self, verb: str) -> Optional[str]:
+        """One verb attempt: returns the injected fault kind ("latency"
+        is applied here — the sleep — and reported for counting), or
+        None for a clean call."""
+        self.attempts += 1
+        if self._rng.random() >= self.failure_rate:
+            return None
+        kind = self._pick_kind(verb)
+        self.injected[kind] = self.injected.get(kind, 0) + 1
+        if kind == "latency":
+            if self.latency_s:
+                self.sleep_fn(self.latency_s)
+        return kind
+
+    def roll_tear(self) -> bool:
+        """Per-delivered-watch-event tear roll (a torn stream stops
+        receiving until its owner resumes it)."""
+        if not self.tear_rate:
+            return False
+        if self._rng.random() >= self.tear_rate:
+            return False
+        self.injected["torn_watch"] = self.injected.get("torn_watch", 0) + 1
+        return True
+
+
+class AckFaultInjector:
+    """Seeded fault plan for the cluster→scheduler FEEDBACK plane (the
+    kubelet/status ack wire; docs/robustness.md feedback failure model).
+    Every offered ack rolls ONE seeded coin; a hit picks a kind by
+    seeded weighted choice:
+
+    - ``delay``     — the ack arrives ``delay_s`` late (virtual seconds
+      under the sim's clock — deterministic);
+    - ``drop``      — the ack never arrives; only the in-flight
+      watchdog's re-validation can settle the side effect;
+    - ``duplicate`` — the ack arrives twice (the replay ``delay_s``
+      later); the FeedbackChannel normalizer must make the second a
+      no-op;
+    - ``reorder``   — the ack is delivered AFTER the next ack offered
+      (adjacent swap), the evict-ack/bind-ack inversion drill;
+    - ``stale``     — the ack arrives, then is REPLAYED ``stale_delay_s``
+      later — long enough that the placement it confirms is usually
+      dead (evicted/completed); the replay must not resurrect it.
+
+    One ``random.Random(seed)`` per injector — a failing soak reproduces
+    from its printed seed. Counted in volcano_ack_faults_total{kind}."""
+
+    KINDS = ("delay", "drop", "duplicate", "reorder", "stale")
+    DEFAULT_SHARES = (("delay", 0.35), ("drop", 0.2), ("duplicate", 0.15),
+                      ("reorder", 0.15), ("stale", 0.15))
+
+    def __init__(self, failure_rate: float = 0.3, seed: int = 0,
+                 delay_s: float = 2.5, stale_delay_s: float = 6.5,
+                 shares=None):
+        if not 0.0 <= failure_rate <= 1.0:
+            raise ValueError(f"failure_rate {failure_rate} not in [0, 1]")
+        self.failure_rate = failure_rate
+        self.seed = seed
+        self.delay_s = delay_s
+        self.stale_delay_s = stale_delay_s
+        self.shares = tuple(shares) if shares is not None \
+            else self.DEFAULT_SHARES
+        self._rng = random.Random(seed)
+        self.attempts = 0
+        self.injected: Dict[str, int] = {}     # kind -> count
+
+    def roll(self, ack_kind: str) -> Optional[str]:
+        """One offered ack: returns the injected fault kind, or None for
+        a clean delivery."""
+        self.attempts += 1
+        if self._rng.random() >= self.failure_rate:
+            return None
+        total = sum(w for _, w in self.shares)
+        r = self._rng.random() * total
+        kind = self.shares[-1][0]
+        for name, w in self.shares:
+            if r < w:
+                kind = name
+                break
+            r -= w
+        self.injected[kind] = self.injected.get(kind, 0) + 1
+        from . import metrics
+        metrics.register_ack_fault(kind)
+        return kind
+
+
+class DeviceFaultInjector:
+    """Simulate device errors (OOM / device-lost) at the allocate solve
+    boundary — install as ``actions.allocate.DEVICE_FAULT_HOOK``.
+
+    ``plan`` maps a fault kind ("oom" | "device_lost") to the 1-based
+    SOLVE-ATTEMPT indices on which to raise (each hook call is one
+    device solve attempt); with ``failure_rate`` set, every attempt
+    instead rolls a seeded coin and picks a kind round-robin from
+    ``plan``'s keys (pass {"oom": ()}). Raises
+    ``device_health.DeviceFaultError`` — classified like the card's own
+    error, so the cool-down state machine, the device-state invalidation
+    and the sequential-placer path are exercised end to end::
+
+        from volcano_tpu_torch.actions import allocate
+        allocate.DEVICE_FAULT_HOOK = DeviceFaultInjector(
+            {"oom": [2]})             # second solve attempt OOMs
+    """
+
+    def __init__(self, plan: Dict[str, Iterable[int]],
+                 failure_rate: Optional[float] = None, seed: int = 0):
+        self.plan = {kind: set(attempts) for kind, attempts in plan.items()}
+        self.failure_rate = failure_rate
+        self.seed = seed
+        self._rng = random.Random(seed)
+        self.attempt = 0
+        self.injected: List[tuple] = []    # (attempt, kind)
+
+    def __call__(self, engine: str) -> None:
+        from .device_health import DeviceFaultError
+        self.attempt += 1
+        kind = None
+        if self.failure_rate is not None:
+            if self._rng.random() < self.failure_rate:
+                kinds = sorted(self.plan) or ["oom"]
+                kind = kinds[len(self.injected) % len(kinds)]
+        else:
+            for k, attempts in self.plan.items():
+                if self.attempt in attempts:
+                    kind = k
+                    break
+        if kind is None:
+            return
+        self.injected.append((self.attempt, kind))
+        msg = ("RESOURCE_EXHAUSTED: Out of memory allocating device buffer"
+               if kind == "oom" else
+               "DEVICE_LOST: device lost (simulated)")
+        raise DeviceFaultError(kind, f"chaos: {msg} "
+                                     f"(seed={self.seed}, "
+                                     f"attempt={self.attempt})")
 
 
 class SimKill(BaseException):

@@ -13,6 +13,7 @@ the allocate action assembles into one device solve on ``ssn.device``.
 
 from __future__ import annotations
 
+import logging
 import time
 import uuid
 from typing import Callable, Dict, List, Optional
@@ -23,6 +24,8 @@ from ..api import JobInfo, NodeInfo, QueueInfo, TaskInfo, TaskStatus
 from ..obs.audit import AUDIT
 from .conf import Configuration, Tier
 from .statement import Statement
+
+log = logging.getLogger(__name__)
 
 # Vote values (plugins/util/util.go Permit/Abstain/Reject).
 PERMIT = 1
@@ -448,23 +451,41 @@ class Session:
         live session objects instead. None also when the kill switch is off
         or the epoch moved; the caller then builds a fresh NodeTensors.
 
-        Unlike the JAX package, which catches any exception here, feeds a
-        device fault into its cool-down and rebuilds, a CUDA error raised
-        by the refresh propagates (the cache drops its persistent tensors
-        first): the port has no cool-down yet (ROADMAP item 10), and a
-        caught device fault would hide the device."""
+        The refresh runs device ops, so a fault the card reports can
+        surface here and not only in the solve. A classified device fault
+        (``device_health.classify_device_fault``: an OOM, a CUDA error)
+        opens the cool-down, drops the cache's device state and returns
+        None, so the caller builds fresh on the same device, as the JAX
+        package does. No CPU placement comes of it: the solve still runs
+        on the card, and on a dead context the fresh build's own CUDA
+        error fails the allocate action (``_with_fallback``). Any
+        other error propagates (the cache drops its persistent tensors
+        first, so a refresh applies in full or not at all): the JAX
+        package catches every exception here and rebuilds, which would
+        hide a broken refresh behind a fresh build every cycle."""
         if self.speculative:
             if self.spec_basis is None:
                 return None
         if any(node._touched for node in self.nodes.values()):
             return None
-        if self.speculative:
-            # the staged refresh consumes nothing and pins its epoch, held
-            # here for the shell to retire at commit or discard
-            view = self.cache.tensor_refresh_speculative(
-                self.nodes, rnames, self.device, self.spec_basis)
-            if view is not None:
-                self._pinned_epoch = view
-            return view
-        return self.cache.tensor_refresh(self.nodes, rnames, self.device,
-                                         self.snap_epoch)
+        try:
+            if self.speculative:
+                # the staged refresh consumes nothing and pins its epoch,
+                # held here for the shell to retire at commit or discard
+                view = self.cache.tensor_refresh_speculative(
+                    self.nodes, rnames, self.device, self.spec_basis)
+                if view is not None:
+                    self._pinned_epoch = view
+                return view
+            return self.cache.tensor_refresh(self.nodes, rnames,
+                                             self.device, self.snap_epoch)
+        except Exception as exc:
+            from ..device_health import DEVICE_HEALTH, classify_device_fault
+            kind = classify_device_fault(exc)
+            if kind is None:
+                raise
+            DEVICE_HEALTH.record_fault(kind)
+            self.cache.invalidate_device_state()
+            log.error("device fault (%s) during persistent tensor refresh; "
+                      "cooling down, rebuilding from host truth", kind)
+            return None

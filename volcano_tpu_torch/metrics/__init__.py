@@ -9,8 +9,11 @@ verdict, the feedback-plane and journal counters, and the incremental
 snapshot's (full rebuilds by layer, state drift by layer), the
 elastic gangs' grows, shrinks, below-min witness and gauges, and the
 flight recorder's (the SLO compliance and burn-rate gauges, the audit's
-bounded-map evictions), with ``health_detail()``'s sections for them.
-There is no Prometheus exposition yet.
+bounded-map evictions), device containment's (solver fallbacks, device
+faults by kind, degraded cycles, the cool-down state), and the store
+boundary's (retries, injected faults, watch resumes, ack faults), with
+``health_detail()``'s sections for them. There is no Prometheus
+exposition yet.
 
 ``solver_trace`` marks a device solve as a named range in a
 ``torch.profiler`` trace, behind the JAX package's own switch
@@ -23,7 +26,7 @@ import collections
 import contextlib
 import os
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 # Each duration series is RING-BOUNDED (a long-running scheduler must not
 # grow a list forever at one observation per cycle): the deque keeps the
@@ -154,7 +157,9 @@ def health_detail() -> dict:
     """The structured health payload, the JAX package's sections that
     this package feeds: the shell's verdict, the decision audit's
     bounded-map evictions (a warning: records were dropped to stay
-    bounded) and the SLO engine's last published evaluation."""
+    bounded), the device cool-down's state (DeviceHealth publishes it on
+    every transition), the store boundary's and the SLO engine's last
+    published evaluation."""
     with _lock:
         audit_evicted = int(_counters.get(("audit_latest_evicted",), 0))
         warnings = []
@@ -166,6 +171,17 @@ def health_detail() -> dict:
         return {
             "state": _health["state"],
             "consecutive_failures": _health["consecutive_failures"],
+            "device": dict(_health_detail.get("device",
+                                              {"available": True})),
+            # the store boundary: the retry funnel's and the watch
+            # streams' state pushed by the store world, and the totals
+            "store": dict(_health_detail.get("store", {"wired": False})),
+            "store_faults_total": {
+                "/".join(k[1:]): v for k, v in _counters.items()
+                if k[0] == "store_faults"},
+            "store_retries_total": {
+                "/".join(k[1:]): v for k, v in _counters.items()
+                if k[0] == "store_retries"},
             "overload": {
                 "audit_latest_evicted_total": audit_evicted,
                 "warnings": warnings,
@@ -174,6 +190,93 @@ def health_detail() -> dict:
             # (compliance + per-window burn rates)
             "slo": [dict(obj) for obj in _health_detail.get("slo", [])],
         }
+
+
+def register_solver_fallback(action: str) -> None:
+    """A batched device solve failed on a fault the containment contract
+    admits and the cycle completed through the sequential placer."""
+    _count(("solver_fallback", action))
+
+
+def register_device_degraded_cycle() -> None:
+    """An allocate cycle ran on the sequential placer because the device
+    cool-down window was open."""
+    _count(("device_degraded_cycles",))
+
+
+def register_device_fault(kind: str) -> None:
+    """A device fault (oom|device_lost|xla|slow_solve|...) was classified
+    and fed into the cool-down state machine."""
+    _count(("device_faults", kind))
+
+
+def set_device_health(available: bool, detail: Optional[dict] = None
+                      ) -> None:
+    """Publish the device cool-down state (DeviceHealth pushes it on every
+    transition); ``detail`` is health_detail()'s ``device`` section."""
+    with _lock:
+        _gauges[("device_healthy",)] = 1.0 if available else 0.0
+        _health_detail["device"] = dict(detail) if detail else {
+            "available": available}
+
+
+def containment_counts() -> Dict[str, float]:
+    """The containment counters, flat: ``solver_fallback/<action>``,
+    ``device_faults/<kind>`` and ``device_degraded_cycles``."""
+    with _lock:
+        return {"/".join(k): v for k, v in _counters.items()
+                if k[0] in ("solver_fallback", "device_faults",
+                            "device_degraded_cycles")}
+
+
+# -- the store boundary ------------------------------------------------------
+
+def register_store_retry(verb: str, result: str) -> None:
+    """One store verb attempt through the retrying transport settled with
+    ``result`` (ok|retry|exhausted)."""
+    _count(("store_retries", verb, result))
+
+
+def register_store_fault(verb: str, kind: str) -> None:
+    """A fault (transient|conflict|latency|torn) was injected or observed
+    at the store boundary on ``verb``."""
+    _count(("store_faults", verb, kind))
+
+
+def register_watch_resume(outcome: str) -> None:
+    """A torn watch stream recovered: ``resume`` (backlog replay) or
+    ``relist`` (410 Gone)."""
+    _count(("store_watch_resumes", outcome))
+
+
+def set_store_watch_staleness(lag: int) -> None:
+    with _lock:
+        _gauges[("store_watch_staleness",)] = float(lag)
+
+
+def set_store_detail(detail: dict) -> None:
+    """Publish health_detail()'s ``store`` section."""
+    with _lock:
+        _health_detail["store"] = dict(detail)
+
+
+def store_counts() -> Dict[str, Dict[str, float]]:
+    """The store-boundary counters, grouped."""
+    with _lock:
+        return {
+            "retries": {"/".join(k[1:]): v for k, v in _counters.items()
+                        if k[0] == "store_retries"},
+            "faults": {"/".join(k[1:]): v for k, v in _counters.items()
+                       if k[0] == "store_faults"},
+            "watch_resumes": {k[1]: v for k, v in _counters.items()
+                              if k[0] == "store_watch_resumes"},
+        }
+
+
+def register_ack_fault(kind: str) -> None:
+    """The seeded ack chaos harness injected one feedback-plane fault
+    (delay|drop|duplicate|reorder|stale)."""
+    _count(("ack_faults", kind))
 
 
 def register_action_failure(action: str) -> None:

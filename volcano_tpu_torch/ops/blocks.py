@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import build
+from .build import KernelError
 from .place import EPS, MAX_R, NEG, NEG_TEST, NO_NODE
 from .scores import ScoreWeights, combined_dynamic_score
 
@@ -540,8 +541,8 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
 
 def _launched(name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"blocks_cuda: {name} kernel launch failed with "
-                           f"cudaError_t {err}")
+        raise KernelError(f"blocks_cuda: {name} kernel launch failed with "
+                          f"cudaError_t {err}")
 
 
 class _Events:

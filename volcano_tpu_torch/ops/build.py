@@ -6,7 +6,9 @@ they share. Libraries land in ``ops/_build/``
 (listed in .gitignore) under a name that carries a hash of the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
 ``build_all`` starts one nvcc per source at once and waits for all of them.
-Nothing here runs at import: the CPU tests import every module, and the
+A kernel that does not build, does not load or does not launch raises
+``KernelError``, the one type the allocate action's device-fault
+containment never takes for a fault of the card. Nothing here runs at import: the CPU tests import every module, and the
 CPU-only machines have no nvcc.
 """
 
@@ -37,6 +39,15 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand kernel could not run: nvcc is missing or failed, its library
+    did not load, or its C entry refused or failed the launch. It is the
+    program's fault or the machine's, never a fault the card reported
+    from a running kernel, so it stays a failed action and never enters
+    the solver fallback (``device_health.classify_device_fault`` returns
+    None for it)."""
+
+
 def nvcc_path() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")
@@ -44,7 +55,7 @@ def nvcc_path() -> str:
         return path
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+        raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
                            "to build the CUDA kernels")
     return found
 
@@ -86,7 +97,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         lib.with_suffix(".log").write_text(out)
         os.replace(tmp, lib)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelError("nvcc failed for " + "\n".join(failed))
     return logs
 
 
@@ -133,5 +144,10 @@ def load(name: str) -> ctypes.CDLL:
             path = library_path(name)
             if not path.exists():
                 build_all([name])
-            lib = _loaded[name] = ctypes.CDLL(str(path))
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as exc:
+                raise KernelError(f"the {name} kernel library {path} did "
+                                  f"not load: {exc}") from exc
+            _loaded[name] = lib
         return lib

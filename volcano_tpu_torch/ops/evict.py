@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from . import build
+from .build import KernelError
 
 NO_NODE = -1
 BIG = 1 << 30
@@ -505,10 +506,10 @@ def walk_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
         err = _lib().vt_evict_walk(
             ptrs, cints, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"walk_cuda: kernel launch failed with "
-                           f"cudaError_t {err}" if err > 0 else
-                           f"walk_cuda: the kernel refused plan {plan} "
-                           f"({err})")
+        raise KernelError(f"walk_cuda: kernel launch failed with "
+                          f"cudaError_t {err}" if err > 0 else
+                          f"walk_cuda: the kernel refused plan {plan} "
+                          f"({err})")
     walk_cuda.launches += 1
     steps, redispatched, bulks = stats.tolist()
     return WalkOutput(task_node, owner, job_done.to(b8), steps,

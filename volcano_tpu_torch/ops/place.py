@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from . import build
+from .build import KernelError
 from .scores import ScoreWeights, combined_dynamic_score
 
 EPS = 0.1            # resource_info.go minResource: l <= r is l < r + 0.1
@@ -352,8 +353,8 @@ def active_clusters(R: int, plan: LaunchPlan, topo: bool = False) -> int:
                                           plan.threads, plan.smem_bytes,
                                           ctypes.byref(count))
     if err != 0:
-        raise RuntimeError(f"place_cuda: cluster query failed with "
-                           f"cudaError_t {err}")
+        raise KernelError(f"place_cuda: cluster query failed with "
+                          f"cudaError_t {err}")
     return count.value
 
 
@@ -369,7 +370,7 @@ def max_cluster() -> int:
                 for c in CLUSTER_SIZES]
         ok = [p.cluster for p in full if active_clusters(2, p) > 0]
         if not ok:
-            raise RuntimeError("place_cuda: the card launches no cluster")
+            raise KernelError("place_cuda: the card launches no cluster")
         _max_cluster = max(ok)
     return _max_cluster
 
@@ -465,8 +466,8 @@ def _place_launch(wrapper, idle, future_idle, used, ntasks, allocatable,
             plan = launch_plan(N, R, masked_static is not None,
                                max_cluster(), cluster, topo)
             if cluster is not None and active_clusters(R, plan, topo) == 0:
-                raise RuntimeError(f"place_cuda: the card cannot launch "
-                                   f"{plan}")
+                raise KernelError(f"place_cuda: the card cannot launch "
+                                  f"{plan}")
             scratch = torch.empty(scratch_bytes(plan, N), dtype=torch.uint8,
                                   device=device)
             rowdiff = (None if masked_static is None
@@ -487,8 +488,8 @@ def _place_launch(wrapper, idle, future_idle, used, ntasks, allocatable,
                 plan.slice, int(plan.in_smem), int(plan.ro_smem),
                 plan.smem_bytes, stream)
         if err != 0:
-            raise RuntimeError(f"place_cuda: kernel launch failed with "
-                               f"cudaError_t {err} ({plan})")
+            raise KernelError(f"place_cuda: kernel launch failed with "
+                              f"cudaError_t {err} ({plan})")
         wrapper.launches += 1
     return (packed, state[0].t().contiguous(), state[1].t().contiguous(),
             state[2].t().contiguous(), nt)
@@ -529,8 +530,8 @@ def rowdiff_cuda(masked_static: torch.Tensor) -> torch.Tensor:
                 masked_static.data_ptr(), T, N, out.data_ptr(),
                 torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"rowdiff_cuda: kernel launch failed with "
-                               f"cudaError_t {err}")
+            raise KernelError(f"rowdiff_cuda: kernel launch failed with "
+                              f"cudaError_t {err}")
         rowdiff_cuda.launches += 1
     return out
 
@@ -713,8 +714,8 @@ def decode_packed_cuda(packed: torch.Tensor, job_ix: torch.Tensor,
                 wire.data_ptr(),
                 torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"decode_packed_cuda: kernel launch failed "
-                               f"with cudaError_t {err}")
+            raise KernelError(f"decode_packed_cuda: kernel launch failed "
+                              f"with cudaError_t {err}")
         decode_packed_cuda.launches += 1
     return wire
 

@@ -12,8 +12,12 @@ jitter and flip the exported health to "degraded" until a clean cycle.
 
 What isolation must not hide is refused before any cycle runs: every
 action, plugin and configuration block of the conf is checked when the
-conf loads (construction and hot-reload), and a constructor argument
-asking for a mode this package lacks raises ``NotImplementedError``.
+conf loads (construction and hot-reload).
+
+``solve_deadline_s`` is a hard deadline on the allocate action: a span
+longer than it is contained like a device fault — the device cool-down
+opens (``device_health``) and allocate runs the sequential placer until
+the window's probe.
 
 The pipelined cycle (``pipelined=True`` or VOLCANO_TPU_PIPELINED=1)
 overlaps cycle N+1's allocate solve with cycle N's host commit: after a
@@ -108,13 +112,6 @@ DEFAULT_RESYNC_MAX_PER_CYCLE = 256
 # constructor default.
 DEFAULT_DRIFT_VERIFY_EVERY = 64
 
-# constructor arguments of the JAX package's shell that name modes this
-# package does not have yet, and where they come from
-REFUSED_MODES = {
-    "solve_deadline_s": "the device-fault cool-down (ROADMAP item 10)",
-}
-
-
 def _env_flag(name: str) -> bool:
     return os.environ.get(name, "").lower() in ("1", "true", "on", "yes")
 
@@ -177,11 +174,6 @@ class Scheduler:
                  resync_max_per_cycle: Optional[int] = None,
                  drift_verify_every: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        if solve_deadline_s:
-            raise NotImplementedError(
-                f"Scheduler(solve_deadline_s=...) is not in "
-                f"volcano_tpu_torch yet: it needs "
-                f"{REFUSED_MODES['solve_deadline_s']}")
         self.cache = cache
         self.device = resolve_device(device)
         self.conf_path = conf_path
@@ -201,6 +193,9 @@ class Scheduler:
         # pre-action hook (name, session) -> None; raising makes the
         # action count as failed (chaos.ActionFaultInjector plugs in here)
         self.action_fault_hook: Optional[Callable] = None
+        # hard deadline on the allocate action's span: slower is treated
+        # as a device fault (the cool-down opens). None disables it
+        self.solve_deadline_s = solve_deadline_s
         self.consecutive_failures = 0
         # the epilogue counts cycles and runs the shadow drift verifier
         # every drift_verify_every of them
@@ -416,6 +411,7 @@ class Scheduler:
                             budget.spent(), budget.budget_s, deferred)
                         break
                     action_sp = rec.span("action:" + name, action=name)
+                    poisoned = False
                     try:
                         with action_sp:
                             try:
@@ -438,6 +434,8 @@ class Scheduler:
                                               "it this cycle", name)
                                 metrics.register_action_failure(name)
                                 errors.append((name, exc))
+                                poisoned = getattr(exc, "poisons_session",
+                                                   False)
                     finally:
                         metrics.update_action_duration(name,
                                                        action_sp.dur_s)
@@ -451,9 +449,32 @@ class Scheduler:
                         except Exception:
                             log.exception("budget cost model failed; "
                                           "action %s not charged", name)
+                    if self.solve_deadline_s is not None \
+                            and name in _ALLOCATE_ACTIONS \
+                            and action_sp.dur_s > self.solve_deadline_s:
+                        # a solve past the hard deadline is contained like
+                        # a device fault: the cool-down opens and allocate
+                        # runs the sequential placer until the window's
+                        # probe
+                        from .device_health import DEVICE_HEALTH
+                        DEVICE_HEALTH.record_fault("slow_solve")
+                        log.error(
+                            "device solve took %.3fs (hard deadline "
+                            "%.3fs); opening the device cool-down: "
+                            "allocate degrades to the sequential placer",
+                            action_sp.dur_s, self.solve_deadline_s)
+                    if poisoned:
+                        # the action mutated session state outside any
+                        # undo log (allocate.ReplayFault): later actions
+                        # would schedule against phantom aggregates
+                        log.error("action %s poisoned the session; "
+                                  "aborting the remaining actions this "
+                                  "cycle", name)
+                        break
                 if commit is not None:
-                    # the allocate slot never ran (a budget deferral): the
-                    # speculation cannot carry over
+                    # the allocate slot never ran (a budget deferral or a
+                    # poisoned earlier action): the speculation cannot
+                    # carry over
                     plan, commit = commit, None
                     self._finish_speculation(plan, "conflict")
                 if budget is not None:
@@ -494,8 +515,9 @@ class Scheduler:
 
     def _cycle_epilogue(self) -> None:
         """Off-cycle bookkeeping, run on both run_once exits: flush the
-        journal's buffered ack tail, run the in-flight ack watchdog and
-        tick the drift-verify cadence."""
+        journal's buffered ack tail, keep a store-wired cache's watch
+        streams up, run the in-flight ack watchdog and tick the
+        drift-verify cadence."""
         with obs_trace.TRACE.span("epilogue"):
             journal = getattr(self.cache, "journal", None)
             if journal is not None:
@@ -503,6 +525,17 @@ class Scheduler:
                     journal.flush()
                 except Exception:
                     log.exception("journal flush failed")
+            # store-wired caches: resume torn watch streams, tick
+            # bookmarks, reset the retry funnel's per-cycle budget
+            # (cache/watches.WatchManager); isolated, the next epilogue
+            # retries
+            manager = getattr(self.cache, "watch_manager", None)
+            if manager is not None:
+                try:
+                    with obs_trace.TRACE.span("watch_upkeep"):
+                        manager.step()
+                except Exception:
+                    log.exception("watch-stream upkeep failed")
             if hasattr(self.cache, "process_expired_inflight"):
                 try:
                     with obs_trace.TRACE.span("inflight_watchdog"):
@@ -676,6 +709,7 @@ class Scheduler:
         speculation: the slot runs the configured action, serially, on the
         same device."""
         from .actions import allocate as alloc
+        alloc.LAST_FALLBACK.clear()
         mapped = ordered = None
         try:
             sol = alloc.finalize_speculative_dispatch(plan.pending)

@@ -27,6 +27,14 @@ file is byte-reproducible) and the per-class latency and SLO sections::
         --deterministic --lifecycle --trace-out trace.json
     python -m volcano_tpu_torch.obs.validate trace.json
 
+The object store and the feedback watch path: informer-fed, with seeded
+store faults and torn watch streams, or seeded ack faults::
+
+    python -m volcano_tpu_torch.sim --device cpu --scenario smoke \
+        --conf deploy/scheduler.conf --store-chaos --deterministic
+    python -m volcano_tpu_torch.sim --device cpu --scenario smoke \
+        --store-wired --ack-chaos --verify-ack-equivalence
+
 Elastic gangs, with the elastic-gang contract checked::
 
     python -m volcano_tpu_torch.sim --device cpu --scenario elastic-churn \\
@@ -68,17 +76,6 @@ REFUSED_FLAGS = {
     "--elastic": (False, "the federated control plane (ROADMAP item 9)"),
     "--verify-elastic-equivalence": (
         False, "the federated control plane (ROADMAP item 9)"),
-    "--store-wired": (False, "the object store (ROADMAP item 9)"),
-    "--store-chaos": (False, "the object store (ROADMAP item 9)"),
-    "--store-fault-rate": (True, "the object store (ROADMAP item 9)"),
-    "--store-fault-seed": (True, "the object store (ROADMAP item 9)"),
-    "--torn-watches": (True, "the object store (ROADMAP item 9)"),
-    "--verify-store-equivalence": (False,
-                                   "the object store (ROADMAP item 9)"),
-    "--ack-chaos": (False, "ack-wire chaos (ROADMAP item 9)"),
-    "--ack-fault-rate": (True, "ack-wire chaos (ROADMAP item 9)"),
-    "--ack-fault-seed": (True, "ack-wire chaos (ROADMAP item 9)"),
-    "--verify-ack-equivalence": (False, "ack-wire chaos (ROADMAP item 9)"),
     "--overload-chaos": (False, "admission backpressure and overload "
                                 "bursts (ROADMAP item 9)"),
     "--admission-depth": (True, "admission backpressure (ROADMAP item 9)"),
@@ -196,6 +193,43 @@ def build_parser() -> argparse.ArgumentParser:
                          "arrived gang completed with no double bind, the "
                          "report byte-identical on a second run (exit 1 "
                          "otherwise)")
+    ap.add_argument("--store-wired", action="store_true",
+                    help="cluster truth in an object store behind a "
+                         "retrying transport: informer-fed cache, every "
+                         "pod, podgroup and queue a store object")
+    ap.add_argument("--store-chaos", action="store_true",
+                    help="the store-chaos preset: --store-wired with 20%% "
+                         "seeded verb faults and 2 torn watch streams; "
+                         "individual --store-* flags override it")
+    ap.add_argument("--store-fault-rate", type=float, default=None,
+                    help="seeded per-verb store fault rate (latency, "
+                         "transient, 409; implies --store-wired)")
+    ap.add_argument("--store-fault-seed", type=int, default=None,
+                    help="store fault RNG seed (default: --seed)")
+    ap.add_argument("--torn-watches", type=int, default=None,
+                    help="seeded whole-stream watch tears the resumable "
+                         "informers must recover by backlog replay or "
+                         "410-relist (implies --store-wired)")
+    ap.add_argument("--verify-store-equivalence", action="store_true",
+                    help="also run the SAME trace store-wired with no "
+                         "faults and no kills and assert equal terminal "
+                         "accounting, zero double binds and every arrived "
+                         "job completed (exit 1 otherwise)")
+    ap.add_argument("--ack-chaos", action="store_true",
+                    help="the feedback-plane preset: seeded kubelet/status "
+                         "ack faults at rate 0.3 (delay, drop, duplicate, "
+                         "reorder, stale); direct mode faults the ack "
+                         "wire, --store-wired the watch-path RUNNING acks")
+    ap.add_argument("--ack-fault-rate", type=float, default=None,
+                    help="seeded per-ack fault rate (overrides the "
+                         "--ack-chaos preset)")
+    ap.add_argument("--ack-fault-seed", type=int, default=None,
+                    help="ack fault RNG seed (default: --seed)")
+    ap.add_argument("--verify-ack-equivalence", action="store_true",
+                    help="also run the SAME trace with a clean feedback "
+                         "plane (no ack faults, no kills) and assert equal "
+                         "terminal accounting, no double binds and nothing "
+                         "stuck in flight (exit 1 otherwise)")
     ap.add_argument("--device", default="cuda",
                     help="where sessions solve: cuda (default) or cpu")
     ap.set_defaults(refused=[])
@@ -228,9 +262,37 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
         ap.error("one of --scenario/--trace/--list is required")
     if args.write_trace:
         write_trace(args.write_trace, trace)
-    if args.elastic_gangs and (args.pipelined or args.fast_admit):
-        ap.error("--elastic-gangs is a serial-cycle mode (not --pipelined "
-                 "/ --fast-admit)")
+    # the store-chaos preset: 20% verb faults and 2 torn watch streams
+    # over the store-wired world
+    store_fault_rate = args.store_fault_rate
+    torn_watches = args.torn_watches
+    if args.store_chaos:
+        if store_fault_rate is None:
+            store_fault_rate = 0.2
+        if torn_watches is None:
+            torn_watches = 2
+    # asking for the store-equivalence verdict implies the store-wired
+    # world, or the baseline would be a second direct run
+    store_wired = (args.store_wired or args.store_chaos
+                   or args.verify_store_equivalence
+                   or store_fault_rate is not None
+                   or torn_watches is not None)
+    store_fault_rate = store_fault_rate or 0.0
+    torn_watches = torn_watches or 0
+    # the feedback-plane preset: 30% seeded ack faults
+    ack_fault_rate = args.ack_fault_rate
+    if args.ack_chaos and ack_fault_rate is None:
+        ack_fault_rate = 0.3
+    ack_fault_rate = ack_fault_rate or 0.0
+    if args.elastic_gangs and (args.pipelined or args.fast_admit
+                               or store_wired):
+        ap.error("--elastic-gangs is a direct serial-cycle mode (not "
+                 "--pipelined / --fast-admit / --store-wired)")
+    if args.verify_ack_equivalence and not ack_fault_rate:
+        # without faults the report has no feedback section and every
+        # stuck-state assertion would pass vacuously
+        ap.error("--verify-ack-equivalence requires ack faults "
+                 "(--ack-chaos, or --ack-fault-rate > 0)")
     if args.verify_elastic_gang_equivalence and not args.elastic_gangs:
         ap.error("--verify-elastic-gang-equivalence requires "
                  "--elastic-gangs")
@@ -268,7 +330,8 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                 lambda e: ChaosEvictor(e, failure_rate=args.chaos_rate,
                                        seed=chaos_seed))
 
-    def run(kills, pipelined=None, fast_admit=None):
+    def run(kills, pipelined=None, fast_admit=None, fault_rate=None,
+            torn=None, ack_rate=None):
         bw, ew = wraps()
         runner = SimRunner(trace, conf_text=conf_text, period=args.period,
                            seed=args.seed, max_cycles=args.max_cycles,
@@ -283,7 +346,16 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                            else fast_admit,
                            elastic_gangs=args.elastic_gangs,
                            topology_weight=args.topology_weight,
-                           lifecycle=args.lifecycle)
+                           lifecycle=args.lifecycle,
+                           store_wired=store_wired,
+                           store_fault_rate=store_fault_rate
+                           if fault_rate is None else fault_rate,
+                           store_fault_seed=args.store_fault_seed,
+                           torn_watches=torn_watches if torn is None
+                           else torn,
+                           ack_fault_rate=ack_fault_rate
+                           if ack_rate is None else ack_rate,
+                           ack_fault_seed=args.ack_fault_seed)
         if runners is not None:
             runners.append(runner)
         return runner.run()
@@ -328,6 +400,61 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
             return 1
         print(f"restart-equivalence OK: {report['restarts']} restarts, "
               f"journal={report['journal_replayed']}, "
+              f"accounting={got}", file=sys.stderr)
+    if args.verify_store_equivalence:
+        baseline = run([], fault_rate=0.0, torn=0)
+        got = terminal_accounting(report)
+        want = terminal_accounting(baseline)
+        problems = []
+        if got != want:
+            problems.append(f"terminal accounting diverged: "
+                            f"chaotic={got} clean={want}")
+        if got.get("double_binds"):
+            problems.append(f"double-binds under store chaos: "
+                            f"{got['double_binds']}")
+        if report["jobs"]["completed"] != report["jobs"]["arrived"]:
+            problems.append("store-chaos run did not complete every "
+                            "arrived job")
+        if problems:
+            for p in problems:
+                print(f"store-equivalence FAILED: {p}", file=sys.stderr)
+            return 1
+        st = report.get("store", {})
+        print(f"store-equivalence OK: faults={st.get('faults', {})}, "
+              f"retry_funnel={st.get('retry_funnel', {})}, "
+              f"torn={st.get('torn_watch_events', 0)}, "
+              f"resumes={st.get('watch_resumes', 0)}, "
+              f"relists={st.get('watch_relists', 0)}, "
+              f"restarts={report.get('restarts', 0)}, "
+              f"accounting={got}", file=sys.stderr)
+    if args.verify_ack_equivalence:
+        baseline = run([], ack_rate=0.0)
+        got = terminal_accounting(report)
+        want = terminal_accounting(baseline)
+        fb = report.get("feedback", {})
+        problems = []
+        if got != want:
+            problems.append(f"terminal accounting diverged: "
+                            f"ack-chaotic={got} clean={want}")
+        if got.get("double_binds"):
+            problems.append(f"double-binds under ack chaos: "
+                            f"{got['double_binds']}")
+        if report["jobs"]["completed"] != report["jobs"]["arrived"]:
+            problems.append("ack-chaos run did not complete every "
+                            "arrived job")
+        if fb.get("inflight_open") or fb.get("wire_pending"):
+            problems.append(
+                f"stuck feedback state at run end: "
+                f"inflight_open={fb.get('inflight_open')} "
+                f"wire_pending={fb.get('wire_pending')}")
+        if problems:
+            for p in problems:
+                print(f"ack-equivalence FAILED: {p}", file=sys.stderr)
+            return 1
+        print(f"ack-equivalence OK: faults={fb.get('faults', {})}, "
+              f"acks={fb.get('acks', {})}, "
+              f"watchdog_fired={fb.get('watchdog_fired', 0)}, "
+              f"restarts={report.get('restarts', 0)}, "
               f"accounting={got}", file=sys.stderr)
     if args.verify_pipelined_equivalence:
         import json

@@ -195,6 +195,16 @@ def build_report(runner, actions_ms: Dict[tuple, list],
     if actions_truncated:
         report["wallclock"]["actions_ms_truncated"] = \
             list(actions_truncated)
+    if getattr(runner, "store_wired", False):
+        # the hostile-store plane: all seeded (faults injected, the retry
+        # funnel's absorption, torn-stream recoveries), so decision-plane
+        # material and byte-reproducible
+        report["store"] = runner.store_detail()
+    if getattr(runner, "ack_chaos", False):
+        # the hostile feedback plane: seeded and timed on the virtual
+        # clock, so decision-plane material; only on ack-chaos runs, so a
+        # fault-free report keeps its bytes
+        report["feedback"] = runner.feedback_stats()
     if getattr(runner, "overload", False):
         # the overload plane: cycle-budget exhaustion and deferral, priced
         # on the deterministic cost model, so decision-plane material —

@@ -36,6 +36,16 @@ the ``speculate`` kill point; ``fast_admit`` binds trivially fitting gangs
 as they arrive, before the cycle. Both default to ``PIPELINED_SIM_CONF``,
 and the report gains their counters.
 
+``store_wired`` puts cluster truth in an ``ObjectStore``
+(sim/store_world.py): every pod, podgroup and queue is a store object, the
+cache is fed by resumable informers, and the executors write through a
+retrying transport over a seeded faulty one (``store_fault_rate``:
+latency, transients, 409s; ``torn_watches`` whole-stream tears the
+epilogue's watch upkeep must resume or relist). ``ack_fault_rate`` puts
+seeded faults on the feedback plane: on the ack wire in direct mode, on
+the watch path's RUNNING acks store-wired. The report gains the ``store``
+and ``feedback`` sections.
+
 ``elastic_gangs`` runs elastic gangs (``elastic_sim_conf`` unless a conf
 is given): ``job_command`` events go through the command funnel, the
 scheduler drains it at each cycle boundary, and the report gains the
@@ -58,8 +68,8 @@ from ..cache import SchedulerCache
 from ..cache.cache import RateLimitedQueue
 from ..cache.executors import SequenceBinder, SequenceEvictor
 from ..cache.journal import IntentJournal
-from ..chaos import (KillPointBinder, KillPointEvictor, SimKill,
-                     arm_speculation_kill)
+from ..chaos import (AckFaultInjector, KillPointBinder, KillPointEvictor,
+                     SimKill, arm_speculation_kill)
 from ..elastic_gang.membership import (ELASTIC_DESIRED_ANNOTATION,
                                        TOPOLOGY_ZONE_LABEL, is_elastic)
 from ..obs.lifecycle import TIMELINE, latency_classes
@@ -155,23 +165,57 @@ class VirtualClock:
 
 
 class _AckWire:
-    """The cluster→scheduler feedback wire: every kubelet/status ack the
-    cluster owes the scheduler (RUNNING flip, eviction confirmation)
-    rides this queue and is delivered in offer order at the instant it
-    is offered. The wire is CLUSTER state: it survives scheduler kills."""
+    """The cluster→scheduler feedback wire of the direct mode: every
+    kubelet/status ack the cluster owes the scheduler (RUNNING flip,
+    eviction confirmation) rides this queue, and a seeded
+    ``chaos.AckFaultInjector`` reshapes deliveries — latency on the
+    virtual clock, drops, duplicates, adjacent-swap reorders, and stale
+    replays that land after the placement they confirm is dead. With no
+    injector every ack delivers at once in offer order. The wire is
+    CLUSTER state: it survives scheduler kills."""
 
-    __slots__ = ("clock", "_heap", "_seq", "delivered")
+    __slots__ = ("clock", "injector", "delay_s", "stale_delay_s", "_heap",
+                 "_seq", "delivered")
 
-    def __init__(self, clock):
+    def __init__(self, clock, injector=None, delay_s: float = 2.5,
+                 stale_delay_s: float = 6.5):
         self.clock = clock
+        self.injector = injector
+        self.delay_s = delay_s
+        self.stale_delay_s = stale_delay_s
+        # (due, seq, kind, uid, node); seq is a float so a reordered ack
+        # can slot between the next two offers (adjacent swap)
         self._heap: List[Tuple[float, float, str, str, str]] = []
         self._seq = 0.0
         self.delivered = 0
 
-    def offer(self, kind: str, uid: str, node: str = "") -> None:
+    def _next(self) -> float:
         self._seq += 1.0
-        heapq.heappush(self._heap,
-                       (self.clock.time(), self._seq, kind, uid, node))
+        return self._seq
+
+    def offer(self, kind: str, uid: str, node: str = "") -> None:
+        now = self.clock.time()
+        fault = self.injector.roll(kind) \
+            if self.injector is not None else None
+        seq = self._next()
+        if fault == "drop":
+            return
+        if fault == "delay":
+            heapq.heappush(self._heap,
+                           (now + self.delay_s, seq, kind, uid, node))
+            return
+        if fault == "reorder":
+            # sorts after the NEXT offered ack (seq n+1) but before the
+            # one after it: the adjacent-pair swap
+            heapq.heappush(self._heap, (now, seq + 1.5, kind, uid, node))
+            return
+        heapq.heappush(self._heap, (now, seq, kind, uid, node))
+        if fault == "duplicate":
+            heapq.heappush(self._heap, (now + self.delay_s, self._next(),
+                                        kind, uid, node))
+        elif fault == "stale":
+            heapq.heappush(self._heap, (now + self.stale_delay_s,
+                                        self._next(), kind, uid, node))
 
     def due(self, now: float) -> List[Tuple[str, str, str]]:
         out = []
@@ -205,7 +249,14 @@ class SimRunner:
                  fast_admit: bool = False,
                  elastic_gangs: bool = False,
                  topology_weight: float = 10.0,
-                 lifecycle: bool = False):
+                 lifecycle: bool = False,
+                 store_wired: bool = False,
+                 store_fault_rate: float = 0.0,
+                 store_fault_seed: Optional[int] = None,
+                 store_latency_s: float = 0.05,
+                 torn_watches: int = 0,
+                 ack_fault_rate: float = 0.0,
+                 ack_fault_seed: Optional[int] = None):
         self.trace = list(trace)
         self.period = period
         self.seed = seed
@@ -245,12 +296,53 @@ class SimRunner:
         self._kill_binder: Optional[KillPointBinder] = None
         self._kill_evictor: Optional[KillPointEvictor] = None
         self.journal = journal
+        # store-wired mode: cluster truth in an ObjectStore behind the
+        # hostile transport of store_transport.py (seeded verb faults, torn
+        # watch streams); one scheduler
+        self.store_wired = bool(store_wired)
+        self.store_fault_rate = float(store_fault_rate)
+        self.store_fault_seed = seed if store_fault_seed is None \
+            else store_fault_seed
+        self.store_latency_s = float(store_latency_s)
+        self.torn_watches = int(torn_watches)
+        self.world = None
+        self._store_pending: List[Callable] = []
+        self._tear_rng = random.Random(self.store_fault_seed ^ 0x51F7)
+        self._tear_cycles: List[int] = sorted(
+            self._tear_rng.randint(2, 12) for _ in range(self.torn_watches))
+        self.torn_watch_events = 0
+        # the hostile feedback plane: seeded ack faults. The direct mode
+        # faults the ack wire; store-wired, the watch-path RUNNING acks
+        # inside the cache's FeedbackChannel
+        self.ack_fault_rate = float(ack_fault_rate)
+        self.ack_fault_seed = seed if ack_fault_seed is None \
+            else ack_fault_seed
+        self._ack_injector = AckFaultInjector(
+            failure_rate=self.ack_fault_rate, seed=self.ack_fault_seed,
+            delay_s=2.5 * period, stale_delay_s=6.5 * period) \
+            if self.ack_fault_rate else None
+        self._ack_wire = _AckWire(
+            self.clock,
+            None if self.store_wired else self._ack_injector,
+            delay_s=2.5 * period, stale_delay_s=6.5 * period)
+        self._store_ack_injectors: List[AckFaultInjector] = []
+        if self.store_wired and (pipelined or fast_admit):
+            raise ValueError("store_wired and pipelined/fast_admit are "
+                             "separate modes")
         if self.kill_cycles:
             if self.journal is None:
                 # in memory: survives the simulated process death
                 self.journal = IntentJournal()
-            self._kill_binder = binder = KillPointBinder(binder)
-            self._kill_evictor = evictor = KillPointEvictor(evictor)
+            if not self.store_wired:
+                # store mode builds its executor chain in the store world
+                # and interposes the kill wrappers there
+                self._kill_binder = binder = KillPointBinder(binder)
+                self._kill_evictor = evictor = KillPointEvictor(evictor)
+        # the device cool-down runs on the virtual clock too, so a
+        # DeviceFaultInjector's probe lands on a deterministic cycle; run()
+        # hands it back to wall time
+        from ..device_health import DEVICE_HEALTH
+        DEVICE_HEALTH.reset(time_fn=self.clock.time)
         # the overload plane's cycle budget, priced by a DETERMINISTIC cost
         # model (budget_cost_per_task virtual seconds a pending task an
         # action): exhaustion is a pure function of the decision plane
@@ -263,13 +355,17 @@ class SimRunner:
         self.failovers = 0
         self.authority = None
         self.ledger = None
-        self._ack_wire = _AckWire(self.clock)
         self.pipelined_mode = bool(pipelined)
         self.fast_admit_mode = bool(fast_admit)
         self.elastic_gangs = bool(elastic_gangs)
         self.topology_weight = float(topology_weight)
         self._wants_commands = any(ev.kind == "job_command"
                                    for ev in self.trace)
+        if (self.elastic_gangs or self._wants_commands) \
+                and self.store_wired:
+            raise ValueError(
+                "elastic_gangs / job_command events require the "
+                "direct single-scheduler topology")
         if conf_text is not None:
             self.conf_text = conf_text
         elif self.elastic_gangs:
@@ -279,15 +375,28 @@ class SimRunner:
         else:
             self.conf_text = SIM_CONF
 
-        self.cache = SchedulerCache(binder=binder, evictor=evictor,
-                                    default_queue=None,
-                                    journal=self.journal)
-        # retry backoff, ingestion timestamps and in-flight ack deadlines
-        # all run on virtual time
-        self.cache.resync_queue.time_fn = self.clock.time
-        self.cache.time_fn = self.clock.time
-        self._pin_feedback(self.cache)
-        self.sched = self._new_scheduler()
+        if self.store_wired:
+            from .store_world import StoreWorld
+            self.world = StoreWorld(
+                self.clock, fault_rate=self.store_fault_rate,
+                fault_seed=self.store_fault_seed,
+                latency_s=self.store_latency_s, n_schedulers=1,
+                retry_rng_seed=seed, period=period)
+            # the determinism witnesses: executions that REACHED the store,
+            # recorded inside the executor chain
+            self.binder = self.world.bind_witness
+            self.evictor = self.world.evict_witness
+            self._init_store_single(binder_wrap, evictor_wrap)
+        else:
+            self.cache = SchedulerCache(binder=binder, evictor=evictor,
+                                        default_queue=None,
+                                        journal=self.journal)
+            # retry backoff, ingestion timestamps and in-flight ack
+            # deadlines all run on virtual time
+            self.cache.resync_queue.time_fn = self.clock.time
+            self.cache.time_fn = self.clock.time
+            self._pin_feedback(self.cache)
+            self.sched = self._new_scheduler()
         self.caches = [self.cache]
         # the process-wide counters, marked so the report shows this run's
         self._spec_mark = dict(metrics.speculation_counts())
@@ -396,6 +505,12 @@ class SimRunner:
     def _watchdog_requeued(self, jid: str, uid: str) -> None:
         """The watchdog recovered a LOST eviction ack and requeued the
         member: keep the runner's gang bookkeeping consistent."""
+        if self.store_wired:
+            # the controller-recreate path owns both the idempotency guard
+            # (recreate_pod refuses when the harvest already recreated the
+            # pod) and the requeue bookkeeping
+            self._requeue_task(uid)
+            return
         self._note_requeue(uid)
         self.requeues += 1
         if jid in self.admitted_at:
@@ -412,6 +527,123 @@ class SimRunner:
         elif any(uid == u for u, _ in
                  self.binder.sequence[self._binds_seen:]):
             self._requeue_debt[uid] = self._requeue_debt.get(uid, 0) + 1
+
+    # -- the store-wired world -----------------------------------------------
+
+    def _jid(self, name: str) -> str:
+        """The job uid a trace job name maps to: store mode ingests jobs
+        through the informer path, whose uid is namespace-qualified."""
+        return f"default/{name}" if self.store_wired else name
+
+    def _store_inflight_oracle(self, entry):
+        """Cluster truth for the store-wired watchdog: the pod's state in
+        the raw store."""
+        pod = self.world.store.get("Pod", "default", entry.uid)
+        if entry.op == "bind":
+            return pod is not None and pod.status.node_name == entry.node
+        # the evict took effect iff the pod as placed is gone (the
+        # controller's recreate is a fresh, unplaced pod)
+        return pod is None or not pod.status.node_name
+
+    def _pin_store_feedback(self, cache: SchedulerCache, ix: int) -> None:
+        """Store-wired feedback plumbing: virtual ack deadlines, the
+        store-truth oracle and, under ack chaos, the watch-path injector on
+        the cache's FeedbackChannel."""
+        self._pin_feedback(cache)
+        cache.inflight_oracle_fn = self._store_inflight_oracle
+        if self._ack_injector is not None:
+            inj = AckFaultInjector(
+                failure_rate=self.ack_fault_rate,
+                seed=self.ack_fault_seed * 7919 + ix,
+                delay_s=2.5 * self.period,
+                stale_delay_s=6.5 * self.period)
+            cache.feedback.attach_injector(inj, self.clock.time)
+            self._store_ack_injectors.append(inj)
+
+    def _init_store_single(self, binder_wrap, evictor_wrap) -> None:
+        """One scheduler over the hostile store boundary: the cache is
+        informer-fed (resumable watches) and every executor write rides
+        retry funnel → faulty transport → store."""
+        cache, b, e = self.world.build_cache(
+            0, binder_wrap, evictor_wrap, journal=self.journal)
+        self._pin_store_feedback(cache, 0)
+        if self.kill_cycles:
+            self._kill_binder = KillPointBinder(b)
+            self._kill_evictor = KillPointEvictor(e)
+            cache.binder = self._kill_binder
+            cache.evictor = self._kill_evictor
+        self.cache = cache
+        self.sched = self._new_scheduler()
+
+    def _drain_store_pending(self) -> None:
+        """Re-run client submissions that failed at the store boundary (the
+        client retrying its POSTs next cycle); the thunks are idempotent."""
+        pending, self._store_pending = self._store_pending, []
+        for thunk in pending:
+            try:
+                thunk()
+            except Exception:
+                self._store_pending.append(thunk)
+
+    def store_detail(self) -> Dict[str, object]:
+        """The report's deterministic store-boundary section."""
+        resumes = relists = 0
+        for cache in self.caches:
+            mgr = getattr(cache, "watch_manager", None)
+            if mgr is not None:
+                for w in mgr.watches:
+                    resumes += w.resumes
+                    relists += w.relists
+        return {
+            "fault_rate": self.store_fault_rate,
+            "faults": self.world.faults_detail(),
+            "retry_funnel": self.world.retry_detail(),
+            "torn_watch_events": self.torn_watch_events,
+            "watch_resumes": resumes,
+            "watch_relists": relists,
+            "pending_submissions": len(self._store_pending),
+        }
+
+    @property
+    def ack_chaos(self) -> bool:
+        return self._ack_injector is not None
+
+    def feedback_stats(self) -> Dict[str, object]:
+        """The report's deterministic feedback-plane section: faults
+        injected, normalizer verdicts, in-flight ledger resolutions, and
+        the zero-stuck witnesses (open entries and pending acks at the
+        run's end)."""
+        faults: Dict[str, int] = {}
+        injectors = ([self._ack_injector] if not self.store_wired
+                     else self._store_ack_injectors)
+        for inj in injectors:
+            if inj is None:
+                continue
+            for kind, n in inj.injected.items():
+                faults[kind] = faults.get(kind, 0) + n
+        acks: Dict[str, int] = {}
+        resolved: Dict[str, int] = {}
+        open_entries = 0
+        pending_watch = 0
+        for cache in self.caches:
+            for (kind, verdict), n in cache.feedback.counts.items():
+                key = f"{kind}/{verdict}"
+                acks[key] = acks.get(key, 0) + n
+            for how, n in cache.inflight.resolved.items():
+                resolved[how] = resolved.get(how, 0) + n
+            open_entries += cache.inflight.open_count()
+            pending_watch += cache.feedback.pending()
+        return {
+            "fault_rate": self.ack_fault_rate,
+            "faults": dict(sorted(faults.items())),
+            "acks": dict(sorted(acks.items())),
+            "inflight_resolved": dict(sorted(resolved.items())),
+            "inflight_open": open_entries,
+            "wire_pending": self._ack_wire.pending() + pending_watch,
+            "watchdog_fired": sum(
+                resolved.get(k, 0)
+                for k in ("repaired", "rolled_back", "reissued")),
+        }
 
     # -- trace/event application --------------------------------------------
 
@@ -433,13 +665,24 @@ class SimRunner:
             self._arrive(ev.t, d)
             return
         if ev.kind == "job_complete":
-            if self.cache.jobs.get(d["name"]) is not None:
-                self._complete_job(d["name"], ev.t)
+            jid = self._jid(d["name"])
+            if self.cache.jobs.get(jid) is not None:
+                self._complete_job(jid, ev.t)
             return
         if ev.kind == "job_command":
             # a lifecycle verb changes nothing here: it goes through the
             # journaled funnel and applies at the next cycle boundary
             self._command_funnel.submit(d["verb"], d["name"], d.get("value"))
+            return
+        if self.store_wired and ev.kind == "queue_add":
+            # the queue is a store object; the cache learns it through its
+            # watch. The submission rides the faulted transport and
+            # re-queues on failure like any client POST
+            thunk = self.world.submit_queue(0, d)
+            try:
+                thunk()
+            except Exception:
+                self._store_pending.append(thunk)
             return
         cache = self.cache
         if ev.kind == "queue_add":
@@ -472,6 +715,24 @@ class SimRunner:
 
     def _arrive(self, t: float, d: dict) -> None:
         name = d["name"]
+        if self.store_wired:
+            # informer-path ingestion: the job becomes a PodGroup and pod
+            # objects through the (faulted) transport and the cache learns
+            # it from its watches. Bookkeeping is stamped at the front door;
+            # a failed submission retries next cycle
+            jid = self._jid(name)
+            for i in range(d["tasks"]):
+                self.task_job[f"{name}-{i}"] = jid
+            self.arrival_time[jid] = t
+            self.duration[jid] = d["duration"]
+            self.arrived += 1
+            self._timeline.record(jid, "arrival", t=t, queue=d["queue"])
+            thunk = self.world.submit_job(0, t, d)
+            try:
+                thunk()
+            except Exception:
+                self._store_pending.append(thunk)
+            return
         scalars = {"nvidia.com/gpu": float(d["gpus"])} if d["gpus"] \
             else None
         ann = {ELASTIC_DESIRED_ANNOTATION: str(int(d["desired"]))} \
@@ -501,6 +762,16 @@ class SimRunner:
         """The node dies with its tasks: lost members re-queue PENDING and
         their gang must re-admit (duration restarts — a gang below
         min_available has lost its collective progress)."""
+        if self.store_wired:
+            if name not in self.cache.nodes:
+                return
+            # the kubelet dies with its pods: delete and controller
+            # recreate against cluster truth; the cache follows by watch
+            for uid in self.world.pods_on_node(name):
+                self.world.delete_pod(uid)
+                self._requeue_task(uid, on_node=False)
+            self.cache.remove_node(name)
+            return
         node = self.cache.nodes.get(name)
         if node is None:
             return
@@ -515,6 +786,20 @@ class SimRunner:
                       via_ack: bool = False,
                       lost_node: Optional[str] = None) -> None:
         jid = self.task_job.get(uid, "")
+        if self.store_wired:
+            # the evicted or killed pod was deleted cluster-side; the
+            # controller recreates it (the same logical member) and the
+            # cache converges by watch. recreate_pod refusing (no blueprint:
+            # the gang completed; the pod present: already recreated)
+            # means there is nothing to requeue
+            if not self.world.recreate_pod(uid):
+                return
+            self._note_requeue(uid)
+            self.requeues += 1
+            if jid in self.admitted_at:
+                del self.admitted_at[jid]
+                self._admit_epoch[jid] = self._admit_epoch.get(jid, 0) + 1
+            return
         cache = self.cache
         if via_ack:
             # an eviction confirmation off the ack wire, consumed through
@@ -556,6 +841,23 @@ class SimRunner:
             self._complete_job(uid, t)
 
     def _complete_job(self, uid: str, t: float) -> None:
+        if self.store_wired:
+            # cluster-truth completion: the pods and the PodGroup leave the
+            # store; the cache drains through its watches
+            task_uids = sorted(u for u, j in self.task_job.items()
+                               if j == uid)
+            if not task_uids:
+                return
+            self.world.complete_job(uid, task_uids)
+            for tuid in task_uids:
+                self.task_job.pop(tuid, None)
+                self._live_bound.discard(tuid)
+            self.admitted_at.pop(uid, None)
+            self.jct.append(t - self.arrival_time[uid])
+            self._timeline.record(uid, "complete", t=t)
+            OBS_TRACE.flow_end("complete", f"job:{uid}")
+            self.completed += 1
+            return
         cache = self.cache
         job = cache.jobs.get(uid)
         if job is None:
@@ -627,7 +929,10 @@ class SimRunner:
             job = cache.jobs.get(jid)
             if job is None or uid not in job.tasks:
                 continue
-            self._ack_wire.offer("running", uid, host)
+            if not self.store_wired:
+                # store mode: the RUNNING ack arrives through the watch
+                # stream (possibly after a torn-stream resume)
+                self._ack_wire.offer("running", uid, host)
             if jid not in self.first_bind:
                 self.first_bind[jid] = now
                 self.queueing_delay.append(now - self.arrival_time[jid])
@@ -639,15 +944,27 @@ class SimRunner:
         while self._evicts_seen < len(eseq):
             uid = eseq[self._evicts_seen]
             self._evicts_seen += 1
-            self._ack_wire.offer("evicted", uid)
-        for kind, uid, node in self._ack_wire.due(now):
-            jid = self.task_job.get(uid)
-            if jid is None:
-                continue               # gang completed while the ack flew
-            if kind == "running":
-                cache.feedback.ack_running(jid, uid, node)
+            if self.store_wired:
+                self._requeue_task(uid)
             else:
-                self._requeue_task(uid, via_ack=True)
+                self._ack_wire.offer("evicted", uid)
+        if not self.store_wired:
+            for kind, uid, node in self._ack_wire.due(now):
+                jid = self.task_job.get(uid)
+                if jid is None:
+                    continue           # gang completed while the ack flew
+                if kind == "running":
+                    cache.feedback.ack_running(jid, uid, node)
+                else:
+                    self._requeue_task(uid, via_ack=True)
+        if self.store_wired:
+            # torn watch streams can delay the RUNNING acks past the cycle
+            # that bound the gang: keep re-checking gangs with binds until
+            # they admit, so admission lands on the first cycle the
+            # (resumed) cache shows the gang ready
+            for jid in self.first_bind:
+                if jid not in self.admitted_at:
+                    touched.setdefault(jid, True)
         for jid in touched:
             job = cache.jobs.get(jid)
             if job is None or jid in self.admitted_at:
@@ -675,6 +992,7 @@ class SimRunner:
                 and not self._completions
                 and not self.unfinished_jobs()
                 and not self._ack_wire.pending()
+                and not self.cache.feedback.pending()
                 # a submitted verb meets its cycle boundary (applied or
                 # journaled dropped) before the run ends
                 and (self._command_funnel is None
@@ -738,6 +1056,10 @@ class SimRunner:
         # a speculation in flight dies with the process
         self.sched.drop_speculation()
         self.sched = self._new_scheduler()
+        # so does the device cool-down state (it lives in process memory);
+        # its clock stays virtual
+        from ..device_health import DEVICE_HEALTH
+        DEVICE_HEALTH.reset(time_fn=self.clock.time)
         # the funnel outlives the shell: verbs submitted before the crash
         # apply at the new incarnation's first cycle boundary
         self.sched.command_funnel = self._command_funnel
@@ -844,6 +1166,16 @@ class SimRunner:
             now = self.clock.time()
             self._apply_trace_until(now)
             self._fire_completions_until(now)
+            if self.store_wired:
+                # client submissions that failed at the store boundary
+                # retry here; the seeded torn-watch drill fires at its
+                # cycles (the epilogue's upkeep must then resume or relist)
+                self._drain_store_pending()
+                while self._tear_cycles \
+                        and self._tear_cycles[0] <= self.cycles:
+                    self._tear_cycles.pop(0)
+                    self.torn_watch_events += len(
+                        self.world.tear_streams(1, self._tear_rng))
             if self.fast_admit_mode:
                 # the arrivals just applied bind now, through the journaled
                 # funnel; the feedback pass stamps their first bind at this
@@ -885,6 +1217,10 @@ class SimRunner:
         # the run is over: a speculation still in flight is never committed
         self.sched.drop_speculation()
         wall_s = time.perf_counter() - wall0
+        # hand the process-wide device cool-down back to wall time, so code
+        # after the run is not stuck on a frozen virtual clock
+        from ..device_health import DEVICE_HEALTH
+        DEVICE_HEALTH.reset(time_fn=time.monotonic)
         # runs longer than the bounded metrics ring lose their oldest
         # per-action samples: flag the affected series
         since = metrics.durations_since(mark)
