@@ -2472,6 +2472,202 @@ def store_phase(digests, sim_runs, runs=None, extra_args=()):
 
 
 # ---------------------------------------------------------------------------
+# the HA control plane
+# ---------------------------------------------------------------------------
+
+# the preempt walk's dispatches (B3 launches on the card) the CPU path
+# counts in each HA run that preempts; tests/test_torch_sim_ha.py holds the
+# same counts on the CPU
+HA_CPU_WALKS = {
+    "--scenario preempt-burst --conf deploy/scheduler.conf --ha 3 "
+    "--kill-cycles 10,30,47 --kill-seed 2 --lease-loss-cycles 20": 33,
+}
+
+
+def run_ha(source, args, extra_args=()):
+    """One HA run (three replicas over one cluster) on the card through the
+    sim's entry point: run_sim's results, the summary of the solves'
+    node-tensor paths, each handoff (the new leader's startup_reconcile in
+    ms with its report, then the host ms of its first tensor refresh, a
+    full build on the card, synchronized), and each crash restart: whether
+    the killed replica held persistent node tensors, whether they were
+    freed by the end of that cycle (after the crashed cycle's frames are
+    gone), and the card's allocated bytes before the restart and then."""
+    import gc
+    import weakref
+
+    import torch
+
+    from volcano_tpu_torch import scheduler as shell
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.sim.runner import SimRunner
+    _, traces = sim_tools()
+    handoffs, restarts = [], []
+    real_reconcile = shell.Scheduler.startup_reconcile
+    real_refresh = SchedulerCache.tensor_refresh
+    real_restart = SimRunner._crash_restart_replica
+    real_account = SimRunner._account_leadership
+
+    def timed_reconcile(sched, *a, **kw):
+        t0 = time.perf_counter()
+        rpt = real_reconcile(sched, *a, **kw)
+        handoffs.append({
+            "replica": getattr(sched.elector, "identity", None),
+            "epoch": sched.current_fencing_epoch(),
+            "reconcile_ms": (time.perf_counter() - t0) * 1e3,
+            "report": rpt.as_dict() if rpt is not None else None,
+            "build_ms": None})
+        return rpt
+
+    def timed_refresh(cache, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tc = real_refresh(cache, *a, **kw)
+        torch.cuda.synchronize()
+        if tc is not None and tc.last_refresh["full"] and handoffs \
+                and handoffs[-1]["build_ms"] is None:
+            handoffs[-1]["build_ms"] = (time.perf_counter() - t0) * 1e3
+            handoffs[-1]["rows"] = tc.last_refresh["rows"]
+        return tc
+
+    def counted_restart(runner, rep, mode):
+        tc = rep.cache.tensor_cache
+        restarts.append({"replica": rep.key(), "mode": mode,
+                         "had_tensors": tc is not None,
+                         "ref": weakref.ref(tc) if tc is not None else None,
+                         "allocated_before": torch.cuda.memory_allocated(),
+                         "allocated_after": None, "freed": None})
+        del tc
+        real_restart(runner, rep, mode)
+
+    def accounted(runner):
+        # the end of the cycle's replica loop: a killed replica's frames
+        # are gone, so its tensors must be too
+        for r in restarts:
+            if r["allocated_after"] is None:
+                gc.collect()
+                r["freed"] = r["ref"] is None or r["ref"]() is None
+                r["allocated_after"] = torch.cuda.memory_allocated()
+                r["ref"] = None
+        return real_account(runner)
+
+    shell.Scheduler.startup_reconcile = timed_reconcile
+    SchedulerCache.tensor_refresh = timed_refresh
+    SimRunner._crash_restart_replica = counted_restart
+    SimRunner._account_leadership = accounted
+    paths = traces.TensorPathRecorder(allocate, SchedulerCache)
+    try:
+        out = run_sim(source, tuple(args) + tuple(extra_args))
+    finally:
+        paths.close()
+        shell.Scheduler.startup_reconcile = real_reconcile
+        SchedulerCache.tensor_refresh = real_refresh
+        SimRunner._crash_restart_replica = real_restart
+        SimRunner._account_leadership = real_account
+    return out, paths.summary(), handoffs, restarts
+
+
+def ha_phase(digests, sim_runs, runs=None, extra_args=()):
+    """Step 20: each HA run of tools/sim_reference.py's HA_RUNS on the card,
+    held to the JAX package's report, sequence and solve-by-solve
+    node-tensor path; B1 launches once a solve (the JAX package's count)
+    and B3 as the CPU path counts; no double bind, no action failure,
+    failover within three cycles, and a crash restart drops the killed
+    replica's device tensors. Adds each run's launches to ``sim_runs`` and
+    returns the runs' records."""
+    import gc
+    import hashlib
+
+    import torch
+    tool, _ = sim_tools()
+    t_phase = time.perf_counter()
+    out = {}
+    for source, args, env in runs or tool.HA_RUNS:
+        key = tool.run_key(source, args, env)
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
+        (report, text, sequence, launches, wall_s), paths, handoffs, \
+            restarts = run_ha(source, args, extra_args)
+        gc.collect()
+        mem1 = torch.cuda.memory_allocated()
+        want = digests[key]
+        check(hashlib.sha256(text).hexdigest() == want["sha256"]
+              and len(text) == want["bytes"],
+              f"ha {key}: report differs from the JAX package's "
+              f"({len(text)} bytes, want {want['bytes']})")
+        check((sequence["sha256"], sequence["binds"], sequence["evicts"])
+              == (want["sequence_sha256"], want["sequence_binds"],
+                  want["sequence_evicts"]),
+              f"ha {key}: a bind's node or an eviction differs from the "
+              f"JAX package's ({sequence['binds']} binds, "
+              f"{sequence['evicts']} evicts)")
+        check(paths == want["tensor_paths"],
+              f"ha {key}: node-tensor path {paths} differs from the JAX "
+              f"package's {want['tensor_paths']}")
+        ha = report["ha"]
+        check(report["action_failures"] == 0
+              and report["double_binds"] == 0
+              and report["jobs"]["completed"] == report["jobs"]["arrived"]
+              and ha["failover_cycles_max"] <= 3,
+              f"ha {key}: {report['action_failures']} action failures, "
+              f"{report['double_binds']} double binds, jobs "
+              f"{report['jobs']}, failover {ha}")
+        check(launches["place"] == want["tensor_paths"]["solves"],
+              f"ha {key}: B1 launched {launches['place']} times, the "
+              f"solves {want['tensor_paths']['solves']}")
+        check(launches["evict_walk"] == HA_CPU_WALKS.get(key, 0),
+              f"ha {key}: B3 launched {launches['evict_walk']} times, the "
+              f"CPU path {HA_CPU_WALKS.get(key, 0)}")
+        if "--lease-fault-rate" in args:
+            check(report["failovers"] > 0,
+                  f"ha {key}: the lease faults caused no failover")
+        if source == "baseline-10k":
+            check(report["journal_replayed"].get("replayed", 0) > 0,
+                  f"ha {key}: the kill settled no crash window "
+                  f"({report['journal_replayed']})")
+        for r in restarts:
+            check(r["freed"] and r["allocated_after"]
+                  <= r["allocated_before"],
+                  f"ha {key}: a crash restart kept the killed replica's "
+                  f"device tensors ({r})")
+        check(mem1 <= mem0, f"ha {key}: {mem1 - mem0} bytes of card "
+                            f"memory outlived the run")
+        wall = report["wallclock"]
+        rec = {"cycles": report["cycles"], "binds": report["binds"],
+               "evicts": report["evicts"], "jobs": report["jobs"],
+               "wall_s": wall_s,
+               "pipeline_e2e_ms": wall["pipeline_e2e_ms"],
+               "schedule_ms": wall["schedule_ms"],
+               "failovers": report["failovers"],
+               "failover_cycles": ha["failover_cycles"],
+               "restarts": report["restarts"],
+               "journal_replayed": report["journal_replayed"],
+               "fenced_rejections": report["fenced_rejections"],
+               "B1": launches["place"], "B3": launches["evict_walk"],
+               "solves": paths["solves"], "full_builds": paths["full"],
+               "allocated_before": mem0, "allocated_after": mem1,
+               "restart_allocated": [(r["had_tensors"],
+                                      r["allocated_before"],
+                                      r["allocated_after"])
+                                     for r in restarts]}
+        if source == "baseline-10k":
+            takeovers = [h for h in handoffs if h["report"]
+                         and h["report"]["replayed"]]
+            rec["handoffs"] = [{
+                k: h[k] for k in ("replica", "epoch", "reconcile_ms",
+                                  "build_ms", "report")} for h in takeovers]
+            rec["handoff_ms"] = [h["reconcile_ms"] + (h["build_ms"] or 0.0)
+                                 for h in takeovers]
+        out[key] = rec
+        sim_runs["ha " + key] = launches
+        print(f"ha {key}:", json.dumps(rec), flush=True)
+    print(f"ha phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print("ha card:", card_line(), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the cycle
 # ---------------------------------------------------------------------------
 
@@ -2928,6 +3124,11 @@ def main() -> int:
     phase("store")
     # 19. the object store and the feedback watch path
     store_phase(digests, sim_runs)
+
+    phase("ha")
+    # 20. the HA control plane: fenced leader election, warm standbys, the
+    # shell's role gate, leader kills and a lost lease
+    ha_phase(digests, sim_runs)
 
     phase("summary")
     # 18. the kernels line (launches: the placement kernel's in the 10k

@@ -196,6 +196,35 @@ STORE_RUNS = (
 )
 
 
+# the HA control plane (--ha 3: three replicas over one cluster, fenced
+# leader election, warm standbys tailing the journal): the CI soak's three
+# smoke runs on the sim's default conf (seeded leader kills with a
+# mid-cycle lease loss, the non-contended run, the faulted lease path),
+# each with its --verify-ha-equivalence check; then deploy/scheduler.conf:
+# smoke with the same kills, preempt-burst (B3 across four failovers) and
+# the full-width baseline-10k, whose kill seed 3 is the first from 2 up
+# under which cycle 0's kill lands inside its 10,000-bind funnel (the
+# handoff reconcile settles a real crash window: journal_replayed is not
+# empty)
+HA_KILLS = ("--kill-cycles", "2,5,9,13", "--kill-seed", "2",
+            "--lease-loss-cycles", "7")
+HA_RUNS = (
+    ("smoke", ("--seed", "3", "--ha", "3") + HA_KILLS
+     + ("--verify-ha-equivalence",), ()),
+    ("smoke", ("--seed", "3", "--ha", "3", "--verify-ha-equivalence"), ()),
+    ("smoke", ("--seed", "3", "--ha", "3", "--lease-fault-rate", "0.6",
+               "--verify-ha-equivalence"), ()),
+    ("smoke", ("--seed", "3", "--conf", DEPLOYED, "--ha", "3") + HA_KILLS,
+     ()),
+    ("preempt-burst", ("--conf", DEPLOYED, "--ha", "3", "--kill-cycles",
+                       "10,30,47", "--kill-seed", "2",
+                       "--lease-loss-cycles", "20"), ()),
+    ("baseline-10k", ("--conf", DEPLOYED, "--ha", "3", "--kill-cycles",
+                      "0,3", "--kill-seed", "3", "--lease-loss-cycles",
+                      "5"), ()),
+)
+
+
 def run_key(source: str, args, env=()) -> str:
     src = (("--trace", source[len("trace:"):])
            if source.startswith("trace:") else ("--scenario", source))
@@ -462,8 +491,8 @@ def main(argv=None) -> int:
         return _child(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--write", action="store_true",
-                    help=f"compute the runs of RUNS, OBS_RUNS and "
-                         f"STORE_RUNS and write {DIGESTS}")
+                    help=f"compute the runs of RUNS, OBS_RUNS, "
+                         f"STORE_RUNS and HA_RUNS and write {DIGESTS}")
     ap.add_argument("--keys", nargs="+", metavar="KEY",
                     help="with --write: compute only these runs and merge "
                          "them into the file")
@@ -481,7 +510,7 @@ def main(argv=None) -> int:
         return 0
     if not args.write:
         ap.error("one of --write / --run is required")
-    every = RUNS + OBS_RUNS + STORE_RUNS
+    every = RUNS + OBS_RUNS + STORE_RUNS + HA_RUNS
     runs = [r for r in every
             if args.keys is None or run_key(*r) in args.keys]
     if args.keys is not None and len(runs) != len(args.keys):

@@ -170,8 +170,10 @@ class SchedulerCache:
         self.journal = journal if (journal is not None
                                    and journal_enabled()) else None
         self.last_reconcile: Optional[dict] = None
-        # the issuing leadership's fencing epoch, stamped on every intent
-        # (0 standalone: this package has no leader election yet)
+        # the issuing leadership's fencing epoch, stamped on every intent:
+        # the shell points this at its elector's epoch
+        # (Scheduler.attach_elector), and the fenced executor gates reject
+        # stale-epoch operations. Standalone schedulers stamp 0
         self.fencing_epoch_fn: Callable[[], int] = lambda: 0
         # task uid -> node of binds in flight asynchronously; the snapshot
         # skips their nodes (cache.go:822-827). Binds are synchronous here,

@@ -3,15 +3,102 @@ interfaces, the recording fakes used by action-level tests, the ordered
 recorders the sim replays against, and the executors that write back into
 an ObjectStore (StoreBinder, StoreEvictor, StoreStatusUpdater,
 StoreVolumeBinder) (mirrors pkg/scheduler/cache/cache.go:119-312 and the
-fakes in pkg/scheduler/util/test_utils.go:96-178)."""
+fakes in pkg/scheduler/util/test_utils.go:96-178).
+
+Fencing: ``FencingAuthority`` is the cluster-side epoch watermark, the
+highest lease fencing epoch any acquisition has published.
+``FencedBinder``/``FencedEvictor`` wrap an executor chain and reject any
+operation whose caller's epoch is below the watermark (``FencedError``),
+so a paused or partitioned ex-leader's late bind cannot reach the cluster:
+split-brain safety by construction, not by lease timing."""
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from ..api import TaskInfo
+
+
+class FencedError(RuntimeError):
+    """An executor operation carried a fencing epoch below the highest
+    the cluster has observed: the caller is a deposed leader. A plain
+    Exception on purpose: the cache funnel's rollback path undoes the
+    optimistic state, as for any other executor failure."""
+
+    def __init__(self, op: str, epoch: int, current: int):
+        super().__init__(
+            f"fenced: {op} carries stale fencing epoch {epoch} "
+            f"(cluster has observed {current}); a deposed leader may "
+            f"not mutate cluster state")
+        self.op = op
+        self.epoch = epoch
+        self.current = current
+
+
+class FencingAuthority:
+    """The cluster's monotonic fencing-epoch watermark (in a deployment,
+    the Lease object enforced at admission; in process and in the sim,
+    this shared object). Electors call ``advance`` on every successful
+    lease write; executor gates call ``check`` before every side
+    effect."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._current = 0
+        self.rejections = 0
+
+    def advance(self, epoch: int) -> None:
+        with self._lock:
+            if epoch > self._current:
+                self._current = epoch
+
+    def current(self) -> int:
+        with self._lock:
+            return self._current
+
+    def check(self, op: str, epoch: int) -> None:
+        """Admit an operation stamped with ``epoch``: raises FencedError
+        when it is stale, advances the watermark otherwise (an op from a
+        newer leader than any lease write seen proves that leadership
+        exists)."""
+        with self._lock:
+            if epoch < self._current:
+                self.rejections += 1
+                current = self._current
+            else:
+                self._current = max(self._current, epoch)
+                return
+        from .. import metrics
+        metrics.register_fencing_rejection(op)
+        raise FencedError(op, epoch, current)
+
+
+class FencingRegistry:
+    """Per-partition fencing authorities of a federated control plane:
+    each partition's Lease mints its own epoch sequence and each
+    partition's executor gate checks against its own watermark.
+    Authorities are made on demand and shared by reference."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._authorities: Dict[int, FencingAuthority] = {}
+
+    def authority(self, pid: int) -> FencingAuthority:
+        with self._lock:
+            auth = self._authorities.get(pid)
+            if auth is None:
+                auth = self._authorities[pid] = FencingAuthority()
+            return auth
+
+    def current(self, pid: int) -> int:
+        return self.authority(pid).current()
+
+    def rejections(self) -> int:
+        """Total stale-epoch rejections across every partition."""
+        with self._lock:
+            return sum(a.rejections for a in self._authorities.values())
 
 
 class Binder:
@@ -22,6 +109,37 @@ class Binder:
 class Evictor:
     def evict(self, task: TaskInfo, reason: str) -> None:
         raise NotImplementedError
+
+
+class FencedBinder(Binder):
+    """Binder gate: admits each bind through the authority at the
+    caller's current epoch (``epoch_fn``: the replica's elector epoch, 0
+    standalone, which the authority rejects only once a real leadership
+    exists)."""
+
+    def __init__(self, inner: Binder, epoch_fn: Callable[[], int],
+                 authority: FencingAuthority):
+        self.inner = inner
+        self.epoch_fn = epoch_fn
+        self.authority = authority
+
+    def bind(self, task: TaskInfo, hostname: str) -> None:
+        self.authority.check("bind", self.epoch_fn())
+        self.inner.bind(task, hostname)
+
+
+class FencedEvictor(Evictor):
+    """Evictor twin of FencedBinder."""
+
+    def __init__(self, inner: Evictor, epoch_fn: Callable[[], int],
+                 authority: FencingAuthority):
+        self.inner = inner
+        self.epoch_fn = epoch_fn
+        self.authority = authority
+
+    def evict(self, task: TaskInfo, reason: str) -> None:
+        self.authority.check("evict", self.epoch_fn())
+        self.inner.evict(task, reason)
 
 
 class StatusUpdater:

@@ -76,9 +76,9 @@ class Intent:
         self.node = node              # bind target / evictee's node
         self.via = via                # "" (scheduler cycle) | "resync"
         # optional correlation context (obs/lifecycle.py): the logical
-        # {cycle, part, epoch, eid} stamp that lets a restart continue the
-        # job's timeline exactly-once. None keeps the record byte-identical
-        # to the pre-ctx shape.
+        # {cycle, part, epoch, eid} stamp that lets a follower or restart
+        # continue the job's timeline exactly-once. None keeps the record
+        # byte-identical to the pre-ctx shape.
         self.ctx = ctx
         # fresh=True: a NEW placement (the optimistic phase moved the
         # task from unplaced to this node). False: a RE-bind of a task
@@ -116,6 +116,11 @@ class IntentJournal:
         self.fsyncs = 0
         # seq -> intent, dropped on ack; what reconcile() replays
         self._open: Dict[int, Intent] = {}
+        # the warm-standby transport: every appended record is also
+        # delivered to subscribers. In memory this IS the replication
+        # stream a standby's JournalFollower tails; with a file,
+        # subscribers see the records the file gets
+        self._subscribers: List[Callable[[dict], None]] = []
         self._fh = None
         if path is not None:
             self._recover_existing(path)
@@ -204,14 +209,32 @@ class IntentJournal:
 
     # -- the WAL surface ----------------------------------------------------
 
+    def subscribe(self, fn: Callable[[dict], None]) -> None:
+        """Register a record observer (a standby's JournalFollower),
+        called with each appended record after the journal's own
+        bookkeeping, outside its lock."""
+        with self._lock:
+            self._subscribers.append(fn)
+
+    def unsubscribe(self, fn: Callable[[dict], None]) -> None:
+        with self._lock:
+            if fn in self._subscribers:
+                self._subscribers.remove(fn)
+
+    def _publish(self, rec: dict) -> None:
+        with self._lock:
+            subs = list(self._subscribers)
+        for fn in subs:
+            fn(rec)
+
     def record_intent(self, op: str, task, node: str = "",
                       via: str = "", fresh: bool = True,
                       epoch: int = 0, ctx: Optional[dict] = None) -> int:
         """Journal a side-effect intent BEFORE the executor runs, stamped
         with the issuing leader's fencing ``epoch`` and (optionally) its
-        correlation ``ctx`` — the lifecycle-timeline stamp a restarted
-        process ingests to continue the job's story (obs/lifecycle.py).
-        Returns the seq to ack with."""
+        correlation ``ctx`` — the lifecycle-timeline stamp a follower or
+        restarted process ingests to continue the job's story
+        (obs/lifecycle.py). Returns the seq to ack with."""
         with self._lock:
             self._seq += 1
             seq = self._seq
@@ -226,6 +249,7 @@ class IntentJournal:
             if ctx is not None:
                 rec["ctx"] = ctx
             self._append(rec)
+        self._publish(rec)
         return seq
 
     def record_control(self, kind: str, fields: Optional[dict] = None
@@ -242,6 +266,7 @@ class IntentJournal:
             if fields:
                 rec.update(fields)
             self._append(rec, sync_now=True)
+        self._publish(rec)
         return seq
 
     def ack(self, seq: int, ok: bool = True) -> None:
@@ -252,6 +277,7 @@ class IntentJournal:
             self._open.pop(seq, None)
             rec = {"kind": "ack", "seq": seq, "ok": bool(ok)}
             self._append(rec)
+        self._publish(rec)
 
     def flush(self) -> None:
         with self._lock:
@@ -296,9 +322,9 @@ def ingest_timeline(rec: dict) -> None:
     """Continue a job's timeline from the ctx stamp riding one journal
     record — what lets a process that replays the stream hold the events
     it never witnessed. Exactly-once: the store dedupes on the ctx's
-    (part, eid), so a re-read of a record already held is a no-op. The
-    JAX package's warm standby (``JournalFollower``) reads its stream
-    through the same rule."""
+    (part, eid), so re-seeding, rotation replay or a torn tail re-read is
+    a no-op. The warm standby (``JournalFollower``) reads its stream
+    through this rule."""
     from ..obs.lifecycle import TIMELINE
     if rec.get("kind") == "queue_move_done":
         # one record per queue; per-job ctx stamps ride in "jobs"
@@ -323,6 +349,147 @@ def ingest_timeline(rec: dict) -> None:
     TIMELINE.ingest(job, ev, ctx, node=rec.get("node") or None,
                     reason=rec.get("reason") or None,
                     frm=rec.get("frm"), to=rec.get("to"))
+
+
+class JournalFollower:
+    """Warm-standby replay: applies the leader's journal record stream to
+    a STANDBY's SchedulerCache, so the standby stays converged and
+    failover is lease-acquire → startup_reconcile → resume instead of a
+    cold rebuild.
+
+    The replay contract: an intent alone changes nothing (it is exactly
+    the leader's crash window); the ACK resolves it —
+
+    - bind  + ok    → assert the bind into cache state (_assert_bound);
+    - bind  + !ok   → the leader rolled back (executor failure) or the
+                      reconciler rolled back a crash window: undo any
+                      optimistic state (_rollback_bind; a no-op on a
+                      standby that never applied the intent);
+    - evict + ok    → reflect the eviction (_repair_releasing);
+    - evict + !ok   → nothing happened cluster-side.
+
+    Every apply goes through the cache's dirty marks (``_mark_task_dirty``
+    and the node marks of ``_assert_bound`` and ``_rollback_bind``), so a
+    standby that later leads re-clones those nodes and its persistent node
+    tensors rewrite the rows another leader changed.
+
+    Transports: subscribe to an in-memory journal (``attach``), or poll a
+    journal file with ``FileTailer`` and feed ``apply_record``. ``seed``
+    preloads the journal's open intents, so a follower started (or
+    restarted) mid-stream still resolves acks whose intents predate its
+    subscription."""
+
+    def __init__(self, cache):
+        self.cache = cache
+        self._pending: Dict[int, dict] = {}
+        self.applied = 0            # acks that changed cache state
+        self._journal: Optional[IntentJournal] = None
+
+    # -- transports ---------------------------------------------------------
+
+    def attach(self, journal: IntentJournal) -> None:
+        """Subscribe to an in-memory or live journal and seed from its
+        open intents."""
+        self.seed(journal)
+        journal.subscribe(self.apply_record)
+        self._journal = journal
+
+    def detach(self) -> None:
+        if self._journal is not None:
+            self._journal.unsubscribe(self.apply_record)
+            self._journal = None
+
+    def seed(self, journal: IntentJournal) -> None:
+        for it in journal.unacked():
+            rec = {
+                "kind": "intent", "seq": it.seq, "op": it.op,
+                "task": it.task, "job": it.job, "node": it.node,
+                "via": it.via, "fresh": it.fresh, "epoch": it.epoch}
+            if it.ctx is not None:
+                rec["ctx"] = it.ctx
+            self._pending[it.seq] = rec
+            ingest_timeline(rec)
+
+    # -- the replay ---------------------------------------------------------
+
+    def apply_record(self, rec: dict) -> None:
+        kind = rec.get("kind")
+        ingest_timeline(rec)
+        if kind == "intent":
+            self._pending[int(rec.get("seq", 0))] = rec
+            return
+        if kind != "ack":
+            return
+        intent = self._pending.pop(int(rec.get("seq", 0)), None)
+        if intent is None:
+            return                       # pre-seed history; already settled
+        with self.cache._lock:
+            job = self.cache.jobs.get(intent.get("job", ""))
+            task = job.tasks.get(intent["task"]) if job is not None else None
+        if task is None:
+            return                       # task gone: the ack is moot
+        if intent["op"] == "bind":
+            if rec.get("ok"):
+                _assert_bound(self.cache, job, task, intent["node"])
+            else:
+                _rollback_bind(self.cache, job, task, intent["node"],
+                               bool(intent.get("fresh", True)))
+        elif rec.get("ok"):
+            _repair_releasing(self.cache, job, task)
+        else:
+            return                       # failed evict: nothing happened
+        self.applied += 1
+
+
+class FileTailer:
+    """Poll a journal FILE for new records: the standby transport across
+    processes, where the in-memory subscription does not reach. Tracks a
+    byte offset and restarts from 0 when the file was compacted (rotation
+    rewrites only the open intents via rename); replaying the rewritten
+    open intents is idempotent (intents alone change nothing, and the
+    follower's applies are idempotent). An incomplete tail line (a writer
+    mid-append) is left for the next poll."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._offset = 0
+        self._head: Optional[bytes] = None
+
+    def poll(self) -> List[dict]:
+        if not os.path.exists(self.path):
+            return []
+        # rotation detection must not rely on the file SHRINKING: a
+        # lagging tailer can sit mid-way through the old file while the
+        # compacted rewrite is LARGER than its offset. The first line
+        # identifies the file generation (compaction rewrites starting at
+        # the lowest open seq), so a changed head restarts the tail; the
+        # shrink check backstops a head-preserving rotation.
+        with open(self.path, "rb") as fb:
+            head = fb.readline()
+        if head.endswith(b"\n") and head != self._head:
+            if self._head is not None:
+                self._offset = 0
+            self._head = head
+        size = os.path.getsize(self.path)
+        if size < self._offset:
+            self._offset = 0             # head-preserving rotation
+        if size == self._offset:
+            return []
+        out: List[dict] = []
+        with open(self.path, "r", encoding="utf-8") as f:
+            f.seek(self._offset)
+            while True:
+                line = f.readline()
+                if not line:
+                    break
+                if not line.endswith("\n"):
+                    break                # torn tail: retry next poll
+                self._offset = f.tell()
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    continue
+        return out
 
 
 class ReconcileReport:

@@ -7,7 +7,9 @@ exception injector for the scheduler shell's per-action isolation
 fault plan (``StoreFaultInjector``, behind
 store_transport.FaultyStoreTransport), the feedback plane's ack faults
 (``AckFaultInjector``) and the allocate solve's device faults
-(``DeviceFaultInjector`` at ``actions.allocate.DEVICE_FAULT_HOOK``). Everything is driven by one
+(``DeviceFaultInjector`` at ``actions.allocate.DEVICE_FAULT_HOOK``), and
+the HA control plane's lease revocation (``LeaseLossInjector``) and lease
+clock skew (``ClockSkewInjector``). Everything is driven by one
 ``random.Random(seed)`` per wrapper, so a failing chaos test reproduces
 exactly from its printed seed — no global RNG, no wall-clock coupling.
 
@@ -377,6 +379,66 @@ class KillPointEvictor(Evictor):
                 self.kills.append((self._count, False))
                 raise SimKill(f"evict #{self._count} (after execute)")
         self.inner.evict(task, reason)
+
+
+class LeaseLossInjector:
+    """Revoke a replica's leadership MID-CYCLE at chosen (cycle, action)
+    points, the HA demotion drill: the leader must abandon its open
+    session at the next action boundary instead of half-applying it, and
+    its post-demotion writes must be fenced.
+
+    This is the standalone form for single-scheduler rigs and tests; the
+    HA sim (``sim --ha N --lease-loss-cycles``) runs the same drill inside
+    its per-replica action hook, where the revocation follows whichever
+    replica leads.
+
+    ``plan`` maps 1-based CYCLE indices to the 1-based ACTION ordinal
+    before which the revocation lands (``{3: 2}``: on cycle 3, revoke just
+    before the second action runs). Install as (or compose into)
+    ``Scheduler.action_fault_hook``; it never raises, the scheduler's own
+    demotion check does the rest. ``elector_fn`` returns the live elector
+    (replicas swap electors across restarts)."""
+
+    def __init__(self, elector_fn, plan: Dict[int, int]):
+        self.elector_fn = elector_fn
+        self.plan = dict(plan)
+        self.cycle = 0
+        self._seen_this_cycle: set = set()
+        self.injected: List[tuple] = []    # (cycle, action_ordinal)
+
+    def __call__(self, name: str, ssn) -> None:
+        if name in self._seen_this_cycle:
+            self._seen_this_cycle.clear()
+        if not self._seen_this_cycle:
+            self.cycle += 1
+        self._seen_this_cycle.add(name)
+        at = self.plan.get(self.cycle)
+        if at is None or len(self._seen_this_cycle) != at:
+            return
+        elector = self.elector_fn()
+        if elector is None or not elector.leading:
+            return
+        self.injected.append((self.cycle, at))
+        elector.revoke()
+
+
+class ClockSkewInjector:
+    """Wrap a wall-clock ``time_fn`` with a steerable offset, the NTP step
+    model for lease-clock skew: lease timestamps (cross-process, wall
+    based) skew with the offset while the renew-deadline watchdog keeps
+    reading the untouched monotonic clock. Tests set ``offset`` (or call
+    ``step``) mid-run to model the NTP daemon slewing or stepping the
+    clock."""
+
+    def __init__(self, base_fn, offset: float = 0.0):
+        self.base_fn = base_fn
+        self.offset = offset
+
+    def step(self, delta: float) -> None:
+        self.offset += delta
+
+    def __call__(self) -> float:
+        return self.base_fn() + self.offset
 
 
 def arm_speculation_kill(sched) -> None:

@@ -11,8 +11,9 @@ elastic gangs' grows, shrinks, below-min witness and gauges, and the
 flight recorder's (the SLO compliance and burn-rate gauges, the audit's
 bounded-map evictions), device containment's (solver fallbacks, device
 faults by kind, degraded cycles, the cool-down state), and the store
-boundary's (retries, injected faults, watch resumes, ack faults), with
-``health_detail()``'s sections for them. There is no Prometheus
+boundary's (retries, injected faults, watch resumes, ack faults), and
+the HA control plane's (the leader gauge, fencing rejections by
+operation, failovers), with ``health_detail()``'s sections for them. There is no Prometheus
 exposition yet.
 
 ``solver_trace`` marks a device solve as a named range in a
@@ -158,9 +159,13 @@ def health_detail() -> dict:
     this package feeds: the shell's verdict, the decision audit's
     bounded-map evictions (a warning: records were dropped to stay
     bounded), the device cool-down's state (DeviceHealth publishes it on
-    every transition), the store boundary's and the SLO engine's last
-    published evaluation."""
+    every transition), the store boundary's, the HA role (this
+    replica's role, its fencing epoch, the stale-epoch writes the fencing
+    gate stopped and the failovers) and the SLO engine's last published
+    evaluation."""
     with _lock:
+        fenced = {k[1]: v for k, v in _counters.items()
+                  if k[0] == "fencing_rejections"}
         audit_evicted = int(_counters.get(("audit_latest_evicted",), 0))
         warnings = []
         if audit_evicted:
@@ -182,6 +187,14 @@ def health_detail() -> dict:
             "store_retries_total": {
                 "/".join(k[1:]): v for k, v in _counters.items()
                 if k[0] == "store_retries"},
+            # the HA role: which role this replica is in, its fencing
+            # epoch, and the stale-epoch writes the fencing gate stopped
+            "leader": dict(_health_detail.get("leader",
+                                              {"leading": False,
+                                               "role": "standalone",
+                                               "epoch": 0})),
+            "fencing_rejections_total": fenced,
+            "failovers_total": _counters.get(("failovers",), 0),
             "overload": {
                 "audit_latest_evicted_total": audit_evicted,
                 "warnings": warnings,
@@ -277,6 +290,28 @@ def register_ack_fault(kind: str) -> None:
     """The seeded ack chaos harness injected one feedback-plane fault
     (delay|drop|duplicate|reorder|stale)."""
     _count(("ack_faults", kind))
+
+
+def set_leader(leading: bool, role: str = "", epoch: int = 0) -> None:
+    """Publish this replica's leadership state (the shell's HA gate calls
+    it on every role transition and each gated cycle); role and epoch
+    land in health_detail() under ``leader``."""
+    with _lock:
+        _gauges[("leader",)] = 1.0 if leading else 0.0
+        _health_detail["leader"] = {"leading": bool(leading),
+                                    "role": role, "epoch": int(epoch)}
+
+
+def register_fencing_rejection(op: str) -> None:
+    """The fencing gate rejected a stale-epoch executor operation: a
+    deposed leader tried to mutate cluster state and was stopped."""
+    _count(("fencing_rejections", op))
+
+
+def register_failover() -> None:
+    """A replica took over a foreign or lost lease and resumed
+    scheduling."""
+    _count(("failovers",))
 
 
 def register_action_failure(action: str) -> None:

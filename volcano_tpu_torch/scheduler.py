@@ -29,6 +29,17 @@ replays onto a fresh session (partial), or it is discarded and the cycle
 solves serially (conflict). Decisions equal the serial cycle's. Fast admit
 (``fast_admit=True`` or VOLCANO_TPU_FAST_ADMIT=1) binds gangs that
 trivially fit one node between cycles.
+
+HA: ``attach_elector`` puts the shell under a lease. Each cycle first
+runs one election step; a follower opens no session, takes no snapshot and
+retries no side effect. A fresh acquisition settles the journal's crash
+window (``startup_reconcile``) before its first cycle, and a leader that
+loses the lease mid-cycle stops at the next action boundary and abandons
+the open session (no plugin close, no status flush). Every journaled
+intent carries the elector's fencing epoch, which the fenced executors
+check. ``run_with_leader_election`` is the threaded form. The pipelined
+cycle stays standalone-only: with an elector the shell runs serial
+cycles.
 """
 
 from __future__ import annotations
@@ -58,6 +69,17 @@ log = logging.getLogger(__name__)
 
 # the actions whose slot a committed speculation fills
 _ALLOCATE_ACTIONS = ("allocate", "allocate-tpu")
+
+# the HA role state machine. STANDALONE is the no-elector mode; with an
+# elector attached the shell moves follower -> leader, demotes to FENCED on
+# a mid-cycle lease loss (the open session is abandoned, never half
+# applied), and a fenced replica re-enters as a follower subject to the
+# elector's flap cool-down.
+ROLE_STANDALONE = "standalone"
+ROLE_FOLLOWER = "follower"
+ROLE_CANDIDATE = "candidate"
+ROLE_LEADER = "leader"
+ROLE_FENCED = "fenced"
 
 
 class _Speculation:
@@ -227,10 +249,21 @@ class Scheduler:
         # pass and before the snapshot, so a verb's annotation rewrite is
         # whole or absent in every cycle
         self.command_funnel = None
-        # this package has no leader election: the elector stays None, and
-        # a shell given one would run serial cycles (a speculation never
-        # crosses a leadership boundary)
+        # HA: no elector is the standalone mode; attach_elector puts the
+        # shell into the role state machine (and serial cycles: a
+        # speculation never crosses a leadership boundary)
         self.elector = None
+        self.role = ROLE_STANDALONE
+        self._was_leading = False
+        self.last_handoff_report = None
+        # sim hook: a restart harness points this at the cluster-truth
+        # oracle of the previous leader's crash window, consumed by the
+        # handoff reconcile when this replica becomes leader
+        self.reconcile_oracle_fn: Optional[Callable] = None
+        # sim hook at the close boundary: called with the open session
+        # right before close_session, so a seeded SimKill can land inside
+        # the close (binds executed, writebacks not)
+        self.close_fault_hook: Optional[Callable] = None
         # decision-audit records of fast-admit binds made between cycles,
         # harvested with the next cycle's session
         self._fast_admit_audit: list = []
@@ -261,8 +294,86 @@ class Scheduler:
         """The action objects of the conf's pipeline, in order."""
         return [get_action(name) for name in self.conf.actions]
 
+    # -- the HA role state machine ------------------------------------------
+
+    def attach_elector(self, elector) -> None:
+        """Enter HA mode: this replica schedules only while ``elector``
+        holds the lease. Every journaled side effect is stamped with the
+        elector's fencing epoch (the cache funnels read it through
+        ``fencing_epoch_fn``), so a deposed incarnation's writes are
+        rejectable at the executor gate."""
+        self.elector = elector
+        self.role = ROLE_FOLLOWER
+        # the shell's leadership edge: the become-leader branch of the
+        # gate (handoff reconcile, failover metric) fires on the FIRST
+        # gated cycle of every leadership, whether the threaded
+        # elector.run() or the cycle-driven step() flipped
+        # elector.leading first
+        self._was_leading = False
+        if hasattr(self.cache, "fencing_epoch_fn"):
+            self.cache.fencing_epoch_fn = self.current_fencing_epoch
+        metrics.set_leader(False, self.role, 0)
+
     def current_fencing_epoch(self) -> int:
         return self.elector.fencing_epoch if self.elector is not None else 0
+
+    def _ha_gate(self, rec) -> bool:
+        """The per-cycle leadership gate: one election/renew step. Returns
+        True when this replica may run the cycle (it leads). On a fresh
+        acquisition the handoff runs startup_reconcile BEFORE the first
+        cycle: the journal's crash window (a dead predecessor's unsettled
+        intent) is settled against cluster truth, which bounds failover to
+        lease-acquire -> reconcile -> resume."""
+        elector = self.elector
+        led_before = self._was_leading
+        with rec.span("elect", role=self.role):
+            leading = elector.step()
+        if not leading:
+            self._was_leading = False
+            # a fenced ex-leader re-enters as an ordinary follower: FENCED
+            # describes only the rest of the cycle the lease was lost in
+            self.role = ROLE_FOLLOWER
+            metrics.set_leader(False, self.role, elector.fencing_epoch)
+            return False
+        if not led_before:
+            # epoch 1 is the first leadership ever; any later acquisition
+            # (a takeover, or re-claiming after a loss) is a failover
+            takeover = elector.fencing_epoch > 1
+            with rec.span("handoff", epoch=elector.fencing_epoch,
+                          takeover=takeover):
+                oracle = None
+                if self.reconcile_oracle_fn is not None:
+                    oracle = self.reconcile_oracle_fn()
+                try:
+                    if oracle is not None:
+                        self.last_handoff_report = \
+                            self.startup_reconcile(*oracle)
+                    else:
+                        self.last_handoff_report = self.startup_reconcile()
+                except Exception:
+                    log.exception("handoff journal reconciliation failed; "
+                                  "continuing (side effects may retry)")
+            if takeover:
+                metrics.register_failover()
+            log.warning("replica %s became leader (epoch %d)",
+                        elector.identity, elector.fencing_epoch)
+        self.role = ROLE_LEADER
+        self._was_leading = True
+        metrics.set_leader(True, self.role, elector.fencing_epoch)
+        return True
+
+    def _demoted_mid_cycle(self) -> bool:
+        """True when HA mode is on and leadership was lost since the
+        cycle's gate passed (the renew watchdog or a revocation flipped
+        ``elector.leading``). The action loop checks it between actions;
+        a demoted leader abandons the open session rather than half
+        applying it."""
+        if self.elector is None or self.elector.leading:
+            return False
+        self.role = ROLE_FENCED
+        self._was_leading = False
+        metrics.set_leader(False, self.role, self.elector.fencing_epoch)
+        return True
 
     def _load_conf(self, conf_text: Optional[str] = None) -> None:
         mtime = None
@@ -314,6 +425,11 @@ class Scheduler:
             rec.begin_cycle(cycle)
         try:
             with rec.span("cycle", cycle=cycle):
+                # the HA gate: a replica without the lease runs its
+                # election step and nothing else (no resync retries, no
+                # snapshot, no session)
+                if self.elector is not None and not self._ha_gate(rec):
+                    return []
                 return self._run_once_traced(rec, cycle)
         finally:
             if began:
@@ -379,6 +495,7 @@ class Scheduler:
         times: Dict[str, float] = {}
         sched_sp = rec.span("schedule")
         crashed = False
+        demoted = False
         with sched_sp:
             if ssn is None:
                 with rec.span("open_session") as sp:
@@ -409,6 +526,18 @@ class Scheduler:
                             "cycle budget exhausted (%.3fs spent of %.3fs); "
                             "deferring %s to the next cycle",
                             budget.spent(), budget.budget_s, deferred)
+                        break
+                    if self._demoted_mid_cycle():
+                        # the lease was lost while the cycle ran: stop
+                        # scheduling now. Side effects already executed
+                        # carried a then-valid epoch; anything issued from
+                        # here is a deposed leader's write, and the open
+                        # session must not be half applied, so the close
+                        # writebacks are skipped below
+                        demoted = True
+                        log.warning("lease lost mid-cycle; demoting to "
+                                    "fenced and abandoning the open "
+                                    "session")
                         break
                     action_sp = rec.span("action:" + name, action=name)
                     poisoned = False
@@ -480,6 +609,8 @@ class Scheduler:
                 if budget is not None:
                     self.max_cycle_spend_s = max(self.max_cycle_spend_s,
                                                  budget.spent())
+                if not demoted and self._demoted_mid_cycle():
+                    demoted = True       # lost during the last action
             except BaseException as exc:
                 # a non-Exception escaping here is a (simulated or real)
                 # process death: a killed process runs no close-time
@@ -487,10 +618,22 @@ class Scheduler:
                 crashed = not isinstance(exc, Exception)
                 raise
             finally:
-                if crashed:
+                if crashed or demoted:
+                    # a demoted leader's session rolls back: the GC window
+                    # resumes, but neither the plugins' close nor the
+                    # podgroup status flush runs (a fenced ex-leader may
+                    # not publish decision state it no longer owns)
                     abandon_session(ssn)
                 else:
                     with rec.span("close_session") as sp:
+                        if self.close_fault_hook is not None:
+                            try:
+                                self.close_fault_hook(ssn)
+                            except BaseException:
+                                # a process death inside the close: no
+                                # writeback runs
+                                abandon_session(ssn)
+                                raise
                         close_session(ssn)
                     times["close_session"] = sp.dur_s
         metrics.update_e2e_duration(sched_sp.dur_s)
@@ -499,7 +642,7 @@ class Scheduler:
         # decision audit: harvested after close_session, so the gang
         # plugin's job_fit_errors writeback is the denial reason, outside
         # the timed window; a recorder fault is logged, never the cycle's
-        if obs_audit.AUDIT.enabled:
+        if not demoted and obs_audit.AUDIT.enabled:
             try:
                 with rec.span("audit"):
                     obs_audit.harvest_cycle(ssn, cycle, self.clock.time())
@@ -508,7 +651,7 @@ class Scheduler:
         # stage 2 of the pipeline, outside the timed window: dispatch the
         # next cycle's speculative solve, which the card runs while the
         # host goes on with the epilogue and the pacing sleep
-        if pipelined:
+        if pipelined and not demoted:
             self._dispatch_speculation(rec, runnable)
         self._cycle_epilogue()
         return errors
@@ -1068,6 +1211,20 @@ class Scheduler:
                                        snap.snap_epoch)
         if tc is not None:
             tc._ensure_device()
+
+    def run_with_leader_election(self, store, name: str = "vc-scheduler",
+                                 **lease_kwargs) -> None:
+        """The HA entry point (cmd/scheduler/app/server.go:111-141): block
+        until this replica holds the lease in ``store``, then run the
+        loop; losing the lease stops it. ``lease_kwargs`` go to the
+        LeaderElector (identity, lease_duration, renew_deadline,
+        retry_period, ...)."""
+        from .leaderelection import LeaderElector
+        self._elector = LeaderElector(
+            store, name, on_started_leading=self.run,
+            on_stopped_leading=self.stop, **lease_kwargs)
+        self.attach_elector(self._elector)
+        self._elector.run()
 
     def start(self) -> threading.Thread:
         thread = threading.Thread(target=self.run, daemon=True,

@@ -1,5 +1,6 @@
-"""CLI: run a trace file or a named scenario through the simulator, in the
-JAX package's direct mode (one scheduler over one cache).
+"""CLI: run a trace file or a named scenario through the simulator: the
+JAX package's direct mode (one scheduler over one cache), or its HA
+control plane (``--ha N`` replicas over one cluster).
 
 Examples::
 
@@ -35,6 +36,15 @@ store faults and torn watch streams, or seeded ack faults::
     python -m volcano_tpu_torch.sim --device cpu --scenario smoke \
         --store-wired --ack-chaos --verify-ack-equivalence
 
+The HA control plane: three replicas, seeded leader kills and a
+mid-cycle lease loss, held to the single-scheduler oracle (terminal
+accounting, no double bind; a run without kills or lease losses must
+equal it byte for byte)::
+
+    python -m volcano_tpu_torch.sim --device cpu --scenario smoke \
+        --seed 3 --ha 3 --kill-cycles 2,5,9,13 --kill-seed 2 \
+        --lease-loss-cycles 7 --verify-ha-equivalence --deterministic
+
 Elastic gangs, with the elastic-gang contract checked::
 
     python -m volcano_tpu_torch.sim --device cpu --scenario elastic-churn \\
@@ -63,12 +73,6 @@ from .workload import SCENARIOS, make_scenario
 # the JAX package's sim flags that name modes this package lacks:
 # flag -> (takes a value, what it needs)
 REFUSED_FLAGS = {
-    "--ha": (True, "the HA control plane (ROADMAP item 9)"),
-    "--lease-loss-cycles": (True, "the HA control plane (ROADMAP item 9)"),
-    "--verify-ha-equivalence": (False,
-                                "the HA control plane (ROADMAP item 9)"),
-    "--lease-fault-rate": (True, "the HA control plane (ROADMAP item 9)"),
-    "--lease-fault-seed": (True, "the HA control plane (ROADMAP item 9)"),
     "--federated": (True, "the federated control plane (ROADMAP item 9)"),
     "--verify-federated-equivalence": (
         False, "the federated control plane (ROADMAP item 9)"),
@@ -107,7 +111,8 @@ class _Refused(argparse.Action):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m volcano_tpu_torch.sim",
-        description="Trace-driven cluster simulation, direct mode")
+        description="Trace-driven cluster simulation, direct mode or the "
+                    "HA control plane")
     src = ap.add_mutually_exclusive_group()
     src.add_argument("--scenario", help="named scenario (see --list)")
     src.add_argument("--trace", help="JSONL trace file to replay")
@@ -154,6 +159,28 @@ def build_parser() -> argparse.ArgumentParser:
                          "killed run converged to the same terminal "
                          "accounting with zero double-binds (exit 1 "
                          "otherwise)")
+    ap.add_argument("--ha", type=int, default=1, metavar="N",
+                    help="run N replica schedulers over one virtual "
+                         "cluster (lease-based leadership, fencing epochs, "
+                         "warm journal-tail standbys); --kill-cycles then "
+                         "kills the LEADER at seeded points")
+    ap.add_argument("--lease-loss-cycles", default="",
+                    help="comma-separated virtual cycles on which the "
+                         "leader LOSES ITS LEASE mid-cycle (no process "
+                         "death): it must abandon the open session, demote "
+                         "to fenced, and a standby takes over")
+    ap.add_argument("--verify-ha-equivalence", action="store_true",
+                    help="also run the SAME trace single-replica and "
+                         "assert: a byte-identical decision plane when the "
+                         "HA run is non-contended (no kills, lease losses "
+                         "or lease faults), else equal terminal accounting; "
+                         "zero double binds (exit 1 otherwise)")
+    ap.add_argument("--lease-fault-rate", type=float, default=None,
+                    help="seeded store-fault rate on the HA lease CAS path "
+                         "(acquire and renew ride the retrying transport; "
+                         "--ha only)")
+    ap.add_argument("--lease-fault-seed", type=int, default=None,
+                    help="lease fault RNG seed (default: --seed)")
     ap.add_argument("--cycle-budget", type=float, default=None,
                     help="per-cycle deadline budget in virtual seconds "
                          "(0 = unbounded); actions defer past it with "
@@ -284,10 +311,11 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
     if args.ack_chaos and ack_fault_rate is None:
         ack_fault_rate = 0.3
     ack_fault_rate = ack_fault_rate or 0.0
-    if args.elastic_gangs and (args.pipelined or args.fast_admit
-                               or store_wired):
-        ap.error("--elastic-gangs is a direct serial-cycle mode (not "
-                 "--pipelined / --fast-admit / --store-wired)")
+    lease_fault_rate = args.lease_fault_rate or 0.0
+    if args.elastic_gangs and (args.ha > 1 or args.pipelined
+                               or args.fast_admit or store_wired):
+        ap.error("--elastic-gangs is a direct single-scheduler mode (not "
+                 "--ha / --store-wired / --pipelined / --fast-admit)")
     if args.verify_ack_equivalence and not ack_fault_rate:
         # without faults the report has no feedback section and every
         # stuck-state assertion would pass vacuously
@@ -316,6 +344,8 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
     chaos_seed = args.seed if args.chaos_seed is None else args.chaos_seed
     kill_seed = args.seed if args.kill_seed is None else args.kill_seed
     kill_cycles = [int(c) for c in args.kill_cycles.split(",") if c.strip()]
+    lease_loss = [int(c) for c in args.lease_loss_cycles.split(",")
+                  if c.strip()]
     cycle_budget = args.cycle_budget or 0.0
     # the deterministic cost model prices one pending task an action at
     # 2 ms of budget, scaled by the period like the budget itself
@@ -330,8 +360,9 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                 lambda e: ChaosEvictor(e, failure_rate=args.chaos_rate,
                                        seed=chaos_seed))
 
-    def run(kills, pipelined=None, fast_admit=None, fault_rate=None,
-            torn=None, ack_rate=None):
+    def run(kills, replicas=None, losses=None, pipelined=None,
+            fast_admit=None, fault_rate=None, torn=None, ack_rate=None,
+            lease_rate=None):
         bw, ew = wraps()
         runner = SimRunner(trace, conf_text=conf_text, period=args.period,
                            seed=args.seed, max_cycles=args.max_cycles,
@@ -355,7 +386,14 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                            else torn,
                            ack_fault_rate=ack_fault_rate
                            if ack_rate is None else ack_rate,
-                           ack_fault_seed=args.ack_fault_seed)
+                           ack_fault_seed=args.ack_fault_seed,
+                           ha_replicas=args.ha if replicas is None
+                           else replicas,
+                           lease_loss_cycles=lease_loss if losses is None
+                           else losses,
+                           lease_fault_rate=lease_fault_rate
+                           if lease_rate is None else lease_rate,
+                           lease_fault_seed=args.lease_fault_seed)
         if runners is not None:
             runners.append(runner)
         return runner.run()
@@ -541,6 +579,41 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
               f"commands={cmds}, "
               f"restarts={report.get('restarts', 0)}, "
               f"accounting={terminal_accounting(report)}",
+              file=sys.stderr)
+    if args.verify_ha_equivalence:
+        import json
+        from .report import oracle_part
+        baseline = run([], replicas=1, losses=[], lease_rate=0.0)
+        problems = []
+        contended = bool(kill_cycles or lease_loss or lease_fault_rate)
+        if not contended:
+            got_json = json.dumps(oracle_part(report), sort_keys=True,
+                                  separators=(",", ":"))
+            want_json = json.dumps(oracle_part(baseline), sort_keys=True,
+                                   separators=(",", ":"))
+            if got_json != want_json:
+                problems.append("non-contended HA decision plane differs "
+                                "from the single-scheduler oracle")
+        else:
+            got = terminal_accounting(report)
+            want = terminal_accounting(baseline)
+            if got != want:
+                problems.append(f"terminal accounting diverged: "
+                                f"ha={got} oracle={want}")
+        if report.get("double_binds"):
+            problems.append(f"double-binds in HA run: "
+                            f"{report['double_binds']}")
+        if report["jobs"]["completed"] != report["jobs"]["arrived"]:
+            problems.append("HA run did not complete every arrived job")
+        if problems:
+            for p in problems:
+                print(f"ha-equivalence FAILED: {p}", file=sys.stderr)
+            return 1
+        print(f"ha-equivalence OK: replicas={args.ha}, "
+              f"failovers={report.get('failovers', 0)}, "
+              f"fenced_rejections={report.get('fenced_rejections', 0)}, "
+              f"failover_cycles_max="
+              f"{report.get('ha', {}).get('failover_cycles_max', 0)}",
               file=sys.stderr)
     return 0
 

@@ -158,11 +158,10 @@ def build_report(runner, actions_ms: Dict[tuple, list],
         "double_binds": getattr(runner, "double_binds", 0),
         "journal_replayed": dict(getattr(runner, "_journal_replayed", {})),
         # HA plane: leadership transitions and the fencing gate's
-        # stale-epoch rejections (0 for this package's single scheduler,
-        # as for the JAX package's direct mode)
-        "failovers": getattr(runner, "failovers", 0),
-        "fenced_rejections": runner.authority.rejections
-        if getattr(runner, "authority", None) is not None else 0,
+        # stale-epoch rejections, deterministic from (trace, seed, kill and
+        # lease-loss config); 0 for a single scheduler
+        "failovers": runner.failovers,
+        "fenced_rejections": runner.fencing_rejections(),
         # cross-partition reserve/transfer counters: part of EVERY report,
         # {} for a run without partitions
         "cross_partition_reserves": dict(runner.ledger.counts)
@@ -228,6 +227,13 @@ def build_report(runner, actions_ms: Dict[tuple, list],
             or getattr(runner, "_command_funnel", None) is not None:
         # only when the mode (or a job_command trace) is live
         report["elastic_gangs"] = runner.elastic_gang_stats()
+    if runner.replicas:
+        report["ha"] = {
+            "replicas": runner.ha_replicas,
+            "failover_cycles": list(runner.failover_cycles),
+            "failover_cycles_max": max(runner.failover_cycles, default=0),
+            "lease_losses": len(runner.lease_loss_cycles),
+        }
     return report
 
 
@@ -250,11 +256,24 @@ def terminal_accounting(report: dict) -> dict:
     }
 
 
+def oracle_part(report: dict) -> dict:
+    """The decision plane minus the topology's own section: what an
+    ``--ha N`` run of a non-contended trace must reproduce byte for byte
+    against the single-scheduler oracle. ``failovers``,
+    ``fenced_rejections`` and ``cross_partition_reserves`` stay in: a
+    non-contended run reports 0, 0 and {} for them, as the oracle does."""
+    part = deterministic_part(report)
+    part.pop("ha", None)
+    part.pop("federation", None)
+    part.pop("mesh", None)
+    return part
+
+
 def pipelined_oracle_part(report: dict) -> dict:
     """The decision plane a ``--pipelined`` run of a conflict-free trace
     must reproduce byte for byte against the serial oracle: everything but
     the speculation and fast-admit counters, which the oracle has not."""
-    part = deterministic_part(report)
+    part = oracle_part(report)
     part.pop("speculation", None)
     part.pop("fast_admit", None)
     return part

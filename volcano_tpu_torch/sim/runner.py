@@ -51,6 +51,19 @@ is given): ``job_command`` events go through the command funnel, the
 scheduler drains it at each cycle boundary, and the report gains the
 ``elastic_gangs`` section (grows, shrinks, the below-min witness, elastic
 continues, co-location at completion, the funnel's ledger).
+
+``ha_replicas`` > 1 runs the HA control plane: N replica schedulers over
+one virtual cluster, each with its own cache, shell, elector and journal
+follower, over shared executors (each behind a fencing gate that reads
+its replica's epoch), one in-memory intent journal (the standby's
+replication stream) and one lease store. Exactly one replica leads and
+schedules; the rest run their election step and tail the journal warm.
+``kill_cycles`` then kills the LEADER at seeded points (the direct
+mode's, plus mid-action and inside close_session), ``lease_loss_cycles``
+revokes its lease before a seeded action, and ``lease_fault_rate`` puts
+the lease CAS traffic behind the retrying transport over a seeded faulty
+one. The report gains the ``ha`` section (failover cycles, lease losses,
+replicas) and counts failovers and fenced rejections.
 """
 
 from __future__ import annotations
@@ -66,8 +79,10 @@ from ..api import (JobInfo, NodeInfo, PodGroup, PodGroupPhase, QueueInfo,
                    Resource, TaskInfo)
 from ..cache import SchedulerCache
 from ..cache.cache import RateLimitedQueue
-from ..cache.executors import SequenceBinder, SequenceEvictor
-from ..cache.journal import IntentJournal
+from ..cache.executors import (FencedBinder, FencedEvictor,
+                               FencingAuthority, SequenceBinder,
+                               SequenceEvictor)
+from ..cache.journal import IntentJournal, JournalFollower
 from ..chaos import (AckFaultInjector, KillPointBinder, KillPointEvictor,
                      SimKill, arm_speculation_kill)
 from ..elastic_gang.membership import (ELASTIC_DESIRED_ANNOTATION,
@@ -75,7 +90,7 @@ from ..elastic_gang.membership import (ELASTIC_DESIRED_ANNOTATION,
 from ..obs.lifecycle import TIMELINE, latency_classes
 from ..obs.slo import SLOEngine
 from ..obs.trace import TRACE as OBS_TRACE
-from ..scheduler import Scheduler
+from ..scheduler import ROLE_LEADER, Scheduler
 from .trace import TraceEvent
 from . import report as report_mod
 
@@ -229,6 +244,25 @@ class _AckWire:
         return len(self._heap)
 
 
+class _Replica:
+    """One scheduler replica of the HA control plane: its own cache,
+    shell, elector and standby journal follower over the SHARED cluster
+    (executors, journal transport, lease store)."""
+
+    __slots__ = ("ix", "gen", "cache", "sched", "elector", "follower")
+
+    def __init__(self, ix: int):
+        self.ix = ix
+        self.gen = 0
+        self.cache = None
+        self.sched = None
+        self.elector = None
+        self.follower = None
+
+    def key(self) -> tuple:
+        return (self.ix, self.gen)
+
+
 class SimRunner:
     def __init__(self, trace: List[TraceEvent],
                  conf_text: Optional[str] = None,
@@ -256,7 +290,11 @@ class SimRunner:
                  store_latency_s: float = 0.05,
                  torn_watches: int = 0,
                  ack_fault_rate: float = 0.0,
-                 ack_fault_seed: Optional[int] = None):
+                 ack_fault_seed: Optional[int] = None,
+                 ha_replicas: int = 1,
+                 lease_loss_cycles: Optional[Sequence[int]] = None,
+                 lease_fault_rate: float = 0.0,
+                 lease_fault_seed: Optional[int] = None):
         self.trace = list(trace)
         self.period = period
         self.seed = seed
@@ -296,6 +334,16 @@ class SimRunner:
         self._kill_binder: Optional[KillPointBinder] = None
         self._kill_evictor: Optional[KillPointEvictor] = None
         self.journal = journal
+        # HA mode: N replica schedulers over ONE virtual cluster (shared
+        # executors, shared in-memory intent journal, shared lease store
+        # and fencing authority); one replica holds the lease and
+        # schedules, the rest tail the journal warm
+        self.ha_replicas = max(int(ha_replicas), 1)
+        # the pipelined shell and fast admit do not carry a speculation
+        # across a leadership boundary
+        if (pipelined or fast_admit) and ha_replicas > 1:
+            raise ValueError("pipelined/fast_admit are single-scheduler "
+                             "modes (not --ha / --federated)")
         # store-wired mode: cluster truth in an ObjectStore behind the
         # hostile transport of store_transport.py (seeded verb faults, torn
         # watch streams); one scheduler
@@ -325,7 +373,21 @@ class SimRunner:
             self.clock,
             None if self.store_wired else self._ack_injector,
             delay_s=2.5 * period, stale_delay_s=6.5 * period)
+        if self.ack_fault_rate and ha_replicas > 1:
+            raise ValueError("ack chaos supports single-scheduler and "
+                             "federated topologies (not --ha: the "
+                             "convergence sweep would mask delays)")
         self._store_ack_injectors: List[AckFaultInjector] = []
+        # the HA lease path behind the faulted transport: each replica's
+        # Lease CAS traffic rides retry funnel → faulty transport → lease
+        # store when a rate is set
+        self.lease_fault_rate = float(lease_fault_rate)
+        self.lease_fault_seed = seed if lease_fault_seed is None \
+            else lease_fault_seed
+        self._lease_transports: Dict[int, object] = {}
+        if self.store_wired and ha_replicas > 1:
+            raise ValueError("store_wired supports single-scheduler and "
+                             "federated topologies (not --ha)")
         if self.store_wired and (pipelined or fast_admit):
             raise ValueError("store_wired and pipelined/fast_admit are "
                              "separate modes")
@@ -350,11 +412,24 @@ class SimRunner:
         self.budget_cost_per_task = float(budget_cost_per_task)
         self.overload = bool(self.cycle_budget_s)
         self._budget_base = {"exhausted": 0, "deferred": 0, "spend": 0.0}
-        # what the report's HA and federation planes read: a direct run
-        # has one scheduler and no partitions
-        self.failovers = 0
-        self.authority = None
+        # the report's federation plane: no partitions in this package
         self.ledger = None
+        # the HA plane (a direct run leaves it empty: no failover, no
+        # authority)
+        self.lease_loss_cycles = set(lease_loss_cycles or ())
+        self._lease_rng = random.Random(kill_seed ^ 0x9E3779B9)
+        self.failovers = 0
+        self.failover_cycles: List[int] = []
+        self._vacant_since: Optional[int] = None
+        self._leader_key: Optional[tuple] = None
+        self._feedback_blocked = False
+        self._armed_action: Optional[int] = None
+        self._armed_close = False
+        self._armed_revoke: Optional[int] = None
+        self._had_leader = False
+        self._pending_crash_oracle = None
+        self.replicas: List[_Replica] = []
+        self.authority: Optional[FencingAuthority] = None
         self.pipelined_mode = bool(pipelined)
         self.fast_admit_mode = bool(fast_admit)
         self.elastic_gangs = bool(elastic_gangs)
@@ -362,7 +437,7 @@ class SimRunner:
         self._wants_commands = any(ev.kind == "job_command"
                                    for ev in self.trace)
         if (self.elastic_gangs or self._wants_commands) \
-                and self.store_wired:
+                and (self.store_wired or self.ha_replicas > 1):
             raise ValueError(
                 "elastic_gangs / job_command events require the "
                 "direct single-scheduler topology")
@@ -387,6 +462,8 @@ class SimRunner:
             self.binder = self.world.bind_witness
             self.evictor = self.world.evict_witness
             self._init_store_single(binder_wrap, evictor_wrap)
+        elif self.ha_replicas > 1:
+            self._init_ha(binder, evictor)
         else:
             self.cache = SchedulerCache(binder=binder, evictor=evictor,
                                         default_queue=None,
@@ -397,7 +474,10 @@ class SimRunner:
             self.cache.time_fn = self.clock.time
             self._pin_feedback(self.cache)
             self.sched = self._new_scheduler()
-        self.caches = [self.cache]
+        if not self.replicas:
+            # store-wired and direct: one cache (HA's _init_ha lists every
+            # replica's)
+            self.caches = [self.cache]
         # the process-wide counters, marked so the report shows this run's
         self._spec_mark = dict(metrics.speculation_counts())
         self._fa_mark = dict(metrics.fast_admit_counts())
@@ -442,14 +522,16 @@ class SimRunner:
         # wall-clock plane
         self.pipeline_e2e_ms: List[float] = []
 
-    def _new_scheduler(self) -> Scheduler:
-        """A scheduler shell over the cache: at construction and at every
-        crash restart, with the same clock, seed, budget and device."""
+    def _new_scheduler(self, cache: Optional[SchedulerCache] = None
+                       ) -> Scheduler:
+        """A scheduler shell over ``cache`` (THE cache by default): at
+        construction and at every crash restart, with the same clock,
+        seed, budget and device."""
         kwargs = {}
         if self.cycle_budget_s:
             kwargs = {"cycle_budget_s": self.cycle_budget_s,
                       "budget_cost_fn": self._budget_cost}
-        return Scheduler(self.cache, conf_text=self.conf_text,
+        return Scheduler(cache or self.cache, conf_text=self.conf_text,
                          schedule_period=self.period, clock=self.clock,
                          rng=random.Random(self.seed), device=self.device,
                          pipelined=self.pipelined_mode,
@@ -500,17 +582,23 @@ class SimRunner:
         cache.inflight.time_fn = self.clock.time
         cache.inflight.ack_timeout_s = 3.0 * self.period
         cache.feedback.on_watchdog_evict = \
-            lambda jid, uid: self._watchdog_requeued(jid, uid)
+            lambda jid, uid, c=cache: self._watchdog_requeued(c, jid, uid)
 
-    def _watchdog_requeued(self, jid: str, uid: str) -> None:
-        """The watchdog recovered a LOST eviction ack and requeued the
-        member: keep the runner's gang bookkeeping consistent."""
+    def _watchdog_requeued(self, cache: SchedulerCache, jid: str,
+                           uid: str) -> None:
+        """A cache's watchdog recovered a LOST eviction ack and requeued
+        the member in that cache: do the cluster's half (the requeue fans
+        out to the other replica caches) and keep the runner's gang
+        bookkeeping consistent (one logical requeue)."""
         if self.store_wired:
             # the controller-recreate path owns both the idempotency guard
             # (recreate_pod refuses when the harvest already recreated the
             # pod) and the requeue bookkeeping
             self._requeue_task(uid)
             return
+        for other in self.caches:
+            if other is not cache:
+                other.requeue_lost_member(jid, uid, detach=True)
         self._note_requeue(uid)
         self.requeues += 1
         if jid in self.admitted_at:
@@ -656,7 +744,26 @@ class SimRunner:
             n += 1
         return n
 
+    def _view(self) -> SchedulerCache:
+        """The cache the decision-plane samples and the run's bookkeeping
+        read: the current (or most recent) leader's in HA mode, THE cache
+        otherwise. Replica caches converge through the journal tail and
+        the shared feedback, so the choice matters only during failover
+        windows, and it is deterministic."""
+        return self.caches[self._view_ix] if self.replicas else self.cache
+
+    def _job(self, uid: str):
+        """The live JobInfo for ``uid``: the first replica cache that holds
+        it (replicas converge), THE cache otherwise."""
+        for cache in self.caches:
+            job = cache.jobs.get(uid)
+            if job is not None:
+                return job
+        return None
+
     def _apply_event(self, ev: TraceEvent) -> None:
+        """Apply one trace event to EVERY replica cache (the watch stream
+        every replica sees), and the runner's bookkeeping once."""
         d = ev.data
         if ev.kind == "node_fail":
             self._fail_node(d["name"])
@@ -666,7 +773,7 @@ class SimRunner:
             return
         if ev.kind == "job_complete":
             jid = self._jid(d["name"])
-            if self.cache.jobs.get(jid) is not None:
+            if self._job(jid) is not None:
                 self._complete_job(jid, ev.t)
             return
         if ev.kind == "job_command":
@@ -684,34 +791,41 @@ class SimRunner:
             except Exception:
                 self._store_pending.append(thunk)
             return
-        cache = self.cache
-        if ev.kind == "queue_add":
-            cache.add_queue(QueueInfo(name=d["name"], weight=d["weight"]))
-        elif ev.kind == "node_add":
-            scalars = {"nvidia.com/gpu": float(d["gpus"])} \
-                if d["gpus"] else None
-            alloc = Resource(d["cpu_milli"], d["mem"], scalars)
-            alloc.max_task_num = d["pods"]
-            labels = {TOPOLOGY_ZONE_LABEL: d["zone"]} \
-                if d.get("zone") else None
-            cache.add_node(NodeInfo(name=d["name"], allocatable=alloc,
-                                    labels=labels))
-        elif ev.kind == "node_drain":
-            node = cache.nodes.get(d["name"])
-            if node is not None:
-                node.ready = False
-                cache.mark_node_dirty(node.name)
-        elif ev.kind == "node_restore":
-            node = cache.nodes.get(d["name"])
-            if node is not None:
-                node.ready = True
-                cache.mark_node_dirty(node.name)
+        for cache in self.caches:
+            if ev.kind == "queue_add":
+                cache.add_queue(QueueInfo(name=d["name"],
+                                          weight=d["weight"]))
+            elif ev.kind == "node_add":
+                # a fresh Resource and NodeInfo a cache: live caches keep
+                # their node accounting apart
+                scalars = {"nvidia.com/gpu": float(d["gpus"])} \
+                    if d["gpus"] else None
+                alloc = Resource(d["cpu_milli"], d["mem"], scalars)
+                alloc.max_task_num = d["pods"]
+                labels = {TOPOLOGY_ZONE_LABEL: d["zone"]} \
+                    if d.get("zone") else None
+                cache.add_node(NodeInfo(name=d["name"], allocatable=alloc,
+                                        labels=labels))
+            elif ev.kind == "node_drain":
+                node = cache.nodes.get(d["name"])
+                if node is not None:
+                    node.ready = False
+                    cache.mark_node_dirty(node.name)
+            elif ev.kind == "node_restore":
+                node = cache.nodes.get(d["name"])
+                if node is not None:
+                    node.ready = True
+                    cache.mark_node_dirty(node.name)
 
     def unfinished_jobs(self) -> int:
-        return len(self.cache.jobs)
+        return len(self._view().jobs)
 
     def dead_letter_total(self) -> int:
-        return len(self.cache.dead_letter)
+        return len(self._view().dead_letter)
+
+    def fencing_rejections(self) -> int:
+        return self.authority.rejections if self.authority is not None \
+            else 0
 
     def _arrive(self, t: float, d: dict) -> None:
         name = d["name"]
@@ -733,24 +847,26 @@ class SimRunner:
             except Exception:
                 self._store_pending.append(thunk)
             return
-        scalars = {"nvidia.com/gpu": float(d["gpus"])} if d["gpus"] \
-            else None
-        ann = {ELASTIC_DESIRED_ANNOTATION: str(int(d["desired"]))} \
-            if d.get("desired") is not None else None
-        pg = PodGroup(name=name, queue=d["queue"],
-                      min_member=d["min_available"],
-                      phase=PodGroupPhase.PENDING, annotations=ann)
-        job = JobInfo(uid=name, name=name, queue=d["queue"],
-                      priority=d["priority"],
-                      min_available=d["min_available"], podgroup=pg,
-                      creation_timestamp=t)
-        for i in range(d["tasks"]):
-            uid = f"{name}-{i}"
-            job.add_task_info(TaskInfo(
-                uid=uid, name=uid, job=name,
-                resreq=Resource(d["cpu_milli"], d["mem"], scalars),
-                creation_timestamp=t + i * 1e-6))
-        self.cache.add_job(job)
+        for cache in self.caches:
+            # a fresh JobInfo a replica cache
+            scalars = {"nvidia.com/gpu": float(d["gpus"])} if d["gpus"] \
+                else None
+            ann = {ELASTIC_DESIRED_ANNOTATION: str(int(d["desired"]))} \
+                if d.get("desired") is not None else None
+            pg = PodGroup(name=name, queue=d["queue"],
+                          min_member=d["min_available"],
+                          phase=PodGroupPhase.PENDING, annotations=ann)
+            job = JobInfo(uid=name, name=name, queue=d["queue"],
+                          priority=d["priority"],
+                          min_available=d["min_available"], podgroup=pg,
+                          creation_timestamp=t)
+            for i in range(d["tasks"]):
+                uid = f"{name}-{i}"
+                job.add_task_info(TaskInfo(
+                    uid=uid, name=uid, job=name,
+                    resreq=Resource(d["cpu_milli"], d["mem"], scalars),
+                    creation_timestamp=t + i * 1e-6))
+            cache.add_job(job)
         for i in range(d["tasks"]):
             self.task_job[f"{name}-{i}"] = name
         self.arrival_time[name] = t
@@ -772,15 +888,27 @@ class SimRunner:
                 self._requeue_task(uid, on_node=False)
             self.cache.remove_node(name)
             return
-        node = self.cache.nodes.get(name)
-        if node is None:
+        uids: List[str] = []
+        seen: set = set()
+        present = False
+        for cache in self.caches:
+            node = cache.nodes.get(name)
+            if node is None:
+                continue
+            present = True
+            for uid in list(node.tasks):
+                if uid not in seen:
+                    seen.add(uid)
+                    uids.append(uid)
+        if not present:
             return
-        for uid in list(node.tasks):
+        for uid in uids:
             # the lost members ride the validate-then-requeue resolution
             # (cache.requeue_lost_member): a member mid-bind on the dying
             # node has its in-flight entry resolved with the requeue
             self._requeue_task(uid, on_node=False, lost_node=name)
-        self.cache.remove_node(name)
+        for cache in self.caches:
+            cache.remove_node(name)
 
     def _requeue_task(self, uid: str, on_node: bool = True,
                       via_ack: bool = False,
@@ -800,17 +928,20 @@ class SimRunner:
                 del self.admitted_at[jid]
                 self._admit_epoch[jid] = self._admit_epoch.get(jid, 0) + 1
             return
-        cache = self.cache
-        if via_ack:
-            # an eviction confirmation off the ack wire, consumed through
-            # the cache's FeedbackChannel normalizer
-            touched = cache.feedback.ack_evicted(jid, uid) == "applied"
-        else:
-            # cluster-initiated loss (node death): validate-then-requeue
-            touched = cache.requeue_lost_member(jid, uid,
-                                                lost_node=lost_node,
-                                                detach=on_node)
-        if not touched:
+        touched_any = False
+        for cache in self.caches:
+            if via_ack:
+                # an eviction confirmation off the ack wire, consumed
+                # through the cache's FeedbackChannel normalizer
+                touched = cache.feedback.ack_evicted(jid, uid) == "applied"
+            else:
+                # cluster-initiated loss (node death): validate-then-
+                # requeue
+                touched = cache.requeue_lost_member(jid, uid,
+                                                    lost_node=lost_node,
+                                                    detach=on_node)
+            touched_any = touched or touched_any
+        if not touched_any:
             return
         if not via_ack:
             # cluster-initiated loss: the ack funnel never saw it, so the
@@ -820,7 +951,7 @@ class SimRunner:
         self._note_requeue(uid)
         self.requeues += 1
         if jid in self.admitted_at:
-            vjob = cache.jobs.get(jid)
+            vjob = self._job(jid)
             if (vjob is not None and is_elastic(vjob)
                     and vjob.ready_task_num() >= max(vjob.min_available, 1)):
                 # elastic-continue: the gang still holds >= min, so its
@@ -858,15 +989,18 @@ class SimRunner:
             OBS_TRACE.flow_end("complete", f"job:{uid}")
             self.completed += 1
             return
-        cache = self.cache
-        job = cache.jobs.get(uid)
-        if job is None:
+        vjob = self._job(uid)
+        if vjob is None:
             return
-        self._note_colocation(job)
-        uids = list(job.tasks)
-        for task in list(job.tasks.values()):
-            cache.delete_task(task)
-        cache.remove_job(uid)
+        self._note_colocation(vjob)
+        uids = list(vjob.tasks)
+        for cache in self.caches:
+            job = cache.jobs.get(uid)
+            if job is None:
+                continue
+            for task in list(job.tasks.values()):
+                cache.delete_task(task)
+            cache.remove_job(uid)
         for tuid in uids:
             self.task_job.pop(tuid, None)
             self._live_bound.discard(tuid)
@@ -883,10 +1017,11 @@ class SimRunner:
         if not self.elastic_gangs:
             return
         zones = []
+        view = self._view()
         for task in job.tasks.values():
             if not task.node_name:
                 continue
-            node = self.cache.nodes.get(task.node_name)
+            node = view.nodes.get(task.node_name)
             zones.append(node.topology_zone if node is not None else "")
         if len(zones) < 2 or not all(zones):
             return
@@ -903,11 +1038,11 @@ class SimRunner:
         admission and schedule completion. The HARVEST (reading the
         executor records) is cluster truth and stamps the runner's
         bookkeeping at once; the acks ride the _AckWire and are consumed
-        by the cache's FeedbackChannel normalizer."""
+        by each cache's FeedbackChannel normalizer (the watch stream is
+        cluster-wide, so deliveries fan out to every replica cache)."""
         # feedback runs between cycles: timeline events minted here carry
         # the feedback instant, not the previous cycle's
         self._timeline.set_context(t=now)
-        cache = self.cache
         touched: Dict[str, bool] = {}
         seq = self.binder.sequence
         while self._binds_seen < len(seq):
@@ -926,8 +1061,10 @@ class SimRunner:
             jid = self.task_job.get(uid)
             if jid is None:
                 continue
-            job = cache.jobs.get(jid)
-            if job is None or uid not in job.tasks:
+            placed = any(jid in cache.jobs
+                         and uid in cache.jobs[jid].tasks
+                         for cache in self.caches)
+            if not placed:
                 continue
             if not self.store_wired:
                 # store mode: the RUNNING ack arrives through the watch
@@ -954,7 +1091,8 @@ class SimRunner:
                 if jid is None:
                     continue           # gang completed while the ack flew
                 if kind == "running":
-                    cache.feedback.ack_running(jid, uid, node)
+                    for cache in self.caches:
+                        cache.feedback.ack_running(jid, uid, node)
                 else:
                     self._requeue_task(uid, via_ack=True)
         if self.store_wired:
@@ -965,8 +1103,21 @@ class SimRunner:
             for jid in self.first_bind:
                 if jid not in self.admitted_at:
                     touched.setdefault(jid, True)
+        if self.replicas:
+            # HA: a failover's handoff reconcile can re-assert a
+            # crash-window bind AFTER its kubelet ack was consumed above
+            # (the ack arrived while leadership was vacant and feedback
+            # waited): converge every still-BOUND task the cluster runs
+            # through the normalizer, in sorted uid order
+            for uid in sorted(self._live_bound):
+                jid = self.task_job.get(uid)
+                if jid is None:
+                    continue
+                for cache in self.caches:
+                    cache.feedback.ack_running(jid, uid, node=None,
+                                               source="converge")
         for jid in touched:
-            job = cache.jobs.get(jid)
+            job = self._job(jid)
             if job is None or jid in self.admitted_at:
                 continue
             if job.min_available > 0 \
@@ -985,14 +1136,15 @@ class SimRunner:
         return (self._trace_ix, self._binds_seen, self._evicts_seen,
                 self.completed, self.requeues, self.unfinished_jobs(),
                 self._ack_wire.delivered, self._ack_wire.pending(),
-                len(self.cache.resync_queue), len(self.cache.dead_letter))
+                sum(len(c.resync_queue) for c in self.caches),
+                sum(len(c.dead_letter) for c in self.caches))
 
     def _done(self) -> bool:
         return (self._trace_ix >= len(self.trace)
                 and not self._completions
                 and not self.unfinished_jobs()
                 and not self._ack_wire.pending()
-                and not self.cache.feedback.pending()
+                and not any(c.feedback.pending() for c in self.caches)
                 # a submitted verb meets its cycle boundary (applied or
                 # journaled dropped) before the run ends
                 and (self._command_funnel is None
@@ -1082,6 +1234,290 @@ class SimRunner:
                     self._journal_replayed[k] = \
                         self._journal_replayed.get(k, 0) + v
         self.restarts += 1
+
+    # -- the HA control plane -------------------------------------------------
+
+    def _lease_store_for(self, ix: int):
+        """The store a replica's elector sees: the raw lease store, or,
+        with ``lease_fault_rate``, its Lease CAS traffic behind the
+        hostile-transport composition every other scheduler write rides
+        (retry funnel → seeded faulty transport → store). One transport a
+        replica index, kept across restarts, so its fault stream replays
+        deterministically."""
+        if not self.lease_fault_rate:
+            return self.lease_store
+        transport = self._lease_transports.get(ix)
+        if transport is None:
+            from ..chaos import StoreFaultInjector
+            from ..store_transport import (FaultyStoreTransport,
+                                           RetryingStoreTransport)
+            injector = StoreFaultInjector(
+                failure_rate=self.lease_fault_rate,
+                seed=self.lease_fault_seed * 7919 + ix,
+                latency_s=0.05, sleep_fn=self.clock.sleep)
+            transport = RetryingStoreTransport(
+                FaultyStoreTransport(self.lease_store, injector,
+                                     name=f"lease-{ix}"),
+                sleep_fn=self.clock.sleep, time_fn=self.clock.time,
+                cycle_budget_s=0.5 * self.period,
+                rng=random.Random(self.lease_fault_seed * 31 + ix))
+            self._lease_transports[ix] = transport
+        return transport
+
+    def _init_ha(self, binder, evictor) -> None:
+        """Build the N-replica control plane: a shared lease store,
+        fencing authority and in-memory journal (the standby transport);
+        a cache, shell, elector and follower a replica. Each replica's
+        cache reaches the shared executor chain (kill and chaos wrappers
+        over the sequence recorders) through a fencing gate that reads
+        THAT replica's elector epoch, so a fenced ex-leader's write is
+        rejected before it reaches the cluster."""
+        from ..store import ObjectStore
+        if self.journal is None:
+            self.journal = IntentJournal()
+        self.lease_store = ObjectStore()
+        self.authority = FencingAuthority()
+        self._pending_crash_oracle = None
+        self.caches: List[SchedulerCache] = []
+        self._view_ix = 0
+        for ix in range(self.ha_replicas):
+            rep = _Replica(ix)
+            self._build_replica_cache(rep, binder, evictor)
+            self._build_replica_shell(rep)
+            self.replicas.append(rep)
+            self.caches.append(rep.cache)
+        self.cache = self.caches[0]
+        self.sched = self.replicas[0].sched
+
+    def _build_replica_cache(self, rep: _Replica, binder, evictor) -> None:
+        cache = SchedulerCache(
+            binder=FencedBinder(binder,
+                                lambda r=rep: r.elector.fencing_epoch,
+                                self.authority),
+            evictor=FencedEvictor(evictor,
+                                  lambda r=rep: r.elector.fencing_epoch,
+                                  self.authority),
+            default_queue=None, journal=self.journal)
+        cache.resync_queue.time_fn = self.clock.time
+        cache.time_fn = self.clock.time
+        self._pin_feedback(cache)
+        rep.cache = cache
+        rep.follower = JournalFollower(cache)
+        rep.follower.attach(self.journal)
+
+    def _build_replica_shell(self, rep: _Replica) -> None:
+        """(Re)build a replica's shell and elector: at construction and
+        after each simulated process death (the cache survives; it stands
+        in for the relist a restart performs)."""
+        from ..leaderelection import FlapGuard, LeaderElector
+        ident = f"replica-{rep.ix}" if rep.gen == 0 \
+            else f"replica-{rep.ix}-g{rep.gen}"
+        rep.elector = LeaderElector(
+            self._lease_store_for(rep.ix), "vc-scheduler",
+            on_started_leading=lambda: None,
+            identity=ident,
+            lease_duration=1.6 * self.period,
+            renew_deadline=1.2 * self.period,
+            retry_period=self.period,
+            time_fn=self.clock.time, mono_fn=self.clock.time,
+            authority=self.authority,
+            flap_guard=FlapGuard(cooldown_s=4 * self.period,
+                                 max_cooldown_s=16 * self.period,
+                                 time_fn=self.clock.time))
+        sched = self._new_scheduler(rep.cache)
+        sched.attach_elector(rep.elector)
+        sched.reconcile_oracle_fn = self._take_crash_oracle
+        sched.action_fault_hook = self._mk_action_hook(rep)
+        sched.close_fault_hook = self._close_hook
+        rep.sched = sched
+
+    def _take_crash_oracle(self):
+        oracle, self._pending_crash_oracle = self._pending_crash_oracle, \
+            None
+        return oracle
+
+    def _mk_action_hook(self, rep: _Replica) -> Callable:
+        """A replica's pre-action hook: the seeded mid-action SimKill and
+        the mid-cycle lease revocation both land at action boundaries of
+        whoever LEADS (followers never reach the action loop)."""
+        def hook(name: str, ssn) -> None:
+            if self._armed_action is not None:
+                self._armed_action -= 1
+                if self._armed_action <= 0:
+                    self._armed_action = None
+                    raise SimKill(f"mid-action (before {name})")
+            if self._armed_revoke is not None:
+                self._armed_revoke -= 1
+                if self._armed_revoke <= 0:
+                    self._armed_revoke = None
+                    rep.elector.revoke()
+        return hook
+
+    def _close_hook(self, ssn) -> None:
+        if self._armed_close:
+            self._armed_close = False
+            raise SimKill("inside close_session")
+
+    _HA_EXTRA_KILL_MODES = ("mid_action", "in_close")
+
+    def _arm_kill_ha(self) -> str:
+        """HA kill arming: the direct mode's kill points plus two HA ones,
+        a SimKill before a seeded action and one inside close_session."""
+        mode = self._kill_rng.choice(self._KILL_MODES
+                                     + self._HA_EXTRA_KILL_MODES)
+        at = self._kill_rng.randint(1, 5)
+        if mode == "bind_before":
+            self._kill_binder.arm(at, before=True)
+        elif mode == "bind_after":
+            self._kill_binder.arm(at, before=False)
+        elif mode == "evict_before":
+            self._kill_evictor.arm(at, before=True)
+        elif mode == "evict_after":
+            self._kill_evictor.arm(at, before=False)
+        elif mode == "mid_action":
+            self._armed_action = at
+        elif mode == "in_close":
+            self._armed_close = True
+        return mode
+
+    def _disarm_kills(self) -> None:
+        if self._kill_binder is not None:
+            self._kill_binder.disarm()
+        if self._kill_evictor is not None:
+            self._kill_evictor.disarm()
+        self._armed_action = None
+        self._armed_close = False
+
+    def _crash_restart_replica(self, rep: _Replica,
+                               kill_mode: Optional[str]) -> None:
+        """A replica's process dies and restarts as a FOLLOWER: volatile
+        state is lost (its persistent node tensors with it), the shared
+        journal and lease store survive. The crash-window oracle (exact
+        to the kill mode, as the direct restart's) is parked for whichever
+        replica next acquires the lease: failover IS lease-acquire →
+        startup_reconcile → resume. Cluster feedback waits while
+        leadership is vacant (a real cluster's acks would queue in the new
+        leader's informer sync), so reconcile settles the crash window
+        before any ack is consumed."""
+        self._disarm_kills()
+        c = rep.cache
+        c.binding_tasks.clear()
+        c.inflight.clear()
+        c.dead_letter.clear()
+        metrics.set_dead_letter_size(0)
+        c.err_tasks.clear()
+        c.resync_queue = RateLimitedQueue(
+            max_retries=c.resync_queue.max_retries,
+            time_fn=self.clock.time)
+        c.mark_all_dirty()
+        c.tensor_cache = None
+        c._tensor_dirty = set()
+        from ..device_health import DEVICE_HEALTH
+        DEVICE_HEALTH.reset(time_fn=self.clock.time)
+        # a fresh incarnation: new identity, elector and shell; the
+        # standby follower reseeds from the surviving journal's open
+        # intents so the coming reconcile's acks resolve against it
+        rep.gen += 1
+        if rep.follower is not None:
+            rep.follower.detach()
+        rep.follower = JournalFollower(rep.cache)
+        rep.follower.attach(self.journal)
+        self._harvest_budget(rep.sched)
+        self._build_replica_shell(rep)
+        cluster_binds = dict(self.binder.sequence[-1:]) \
+            if kill_mode == "bind_after" else {}
+        etail = tuple(self.evictor.sequence[-1:]) \
+            if kill_mode == "evict_after" else ()
+
+        def cluster_evicts(uid: str, tail=etail) -> bool:
+            return uid in tail
+
+        self._pending_crash_oracle = (cluster_binds, cluster_evicts)
+        self._feedback_blocked = True
+        self.restarts += 1
+
+    def _account_leadership(self) -> None:
+        """End-of-cycle leadership bookkeeping: failovers, the
+        failover-time-in-cycles samples, the view cache, the handoff
+        report and the feedback gate."""
+        leader = None
+        for rep in self.replicas:
+            if rep.sched.role == ROLE_LEADER and rep.elector.leading:
+                leader = rep
+                break
+        if leader is None:
+            if self._leader_key is not None:
+                self._leader_key = None
+            if self._vacant_since is None:
+                self._vacant_since = self.cycles
+            return
+        self._view_ix = leader.ix
+        key = leader.key()
+        if key != self._leader_key:
+            if self._had_leader:
+                # a failover: across a vacancy (a killed leader's lease had
+                # to expire) or a same-cycle handoff (revocation and
+                # immediate takeover, gap 0)
+                self.failovers += 1
+                gap = 0 if self._vacant_since is None \
+                    else self.cycles - self._vacant_since
+                self.failover_cycles.append(gap)
+            self._vacant_since = None
+            self._leader_key = key
+            self._had_leader = True
+            rpt = getattr(leader.sched, "last_handoff_report", None)
+            leader.sched.last_handoff_report = None
+            if rpt is not None:
+                for k, v in rpt.as_dict().items():
+                    if v:
+                        self._journal_replayed[k] = \
+                            self._journal_replayed.get(k, 0) + v
+        self._feedback_blocked = False
+
+    def _ha_cycle(self, now: float) -> None:
+        """One virtual cycle of the N-replica control plane: seeded kill
+        and lease-loss arming, every replica's run_once in replica order
+        (followers run their election step and nothing else), leadership
+        accounting, then cluster feedback unless a vacancy defers it."""
+        kill_mode: Optional[str] = None
+        if self.cycles in self.kill_cycles:
+            kill_mode = self._arm_kill_ha()
+        if self.cycles in self.lease_loss_cycles:
+            # the leader is revoked just before a seeded action ordinal: it
+            # must abandon its open session at that boundary and demote
+            self._armed_revoke = self._lease_rng.randint(1, 5)
+        for transport in self._lease_transports.values():
+            transport.new_cycle()
+        leader_ran = False
+        for rep in self.replicas:
+            t0 = time.perf_counter()
+            try:
+                errors = rep.sched.run_once()
+            except SimKill:
+                errors = []
+                self._crash_restart_replica(rep, kill_mode)
+                kill_mode = None
+            else:
+                if rep.sched.role == ROLE_LEADER:
+                    leader_ran = True
+                    self.pipeline_e2e_ms.append(
+                        (time.perf_counter() - t0) * 1e3)
+                    if kill_mode is not None:
+                        # the armed kill never fired in the leader's cycle
+                        # (too few side effects, or post_cycle): a death
+                        # at the clean boundary, still a real restart
+                        self._crash_restart_replica(rep, "post_cycle")
+                        kill_mode = None
+            for name, _ in errors:
+                self.action_failures.append((self.cycles, name))
+        if kill_mode is not None and not leader_ran:
+            # a kill armed for a cycle with no leader: nothing to kill;
+            # disarm so the stale arm cannot fire later
+            self._disarm_kills()
+        self._armed_revoke = None
+        self._account_leadership()
+        if not self._feedback_blocked:
+            self._feedback(now)
 
     def speculation_stats(self) -> Dict[str, object]:
         """This run's speculation verdicts; hit_rate counts committed
@@ -1182,26 +1618,31 @@ class SimRunner:
                 # virtual time, before the full cycle
                 if self.sched.fast_admit():
                     self._feedback(now)
-            kill_mode = None
-            if self.cycles in self.kill_cycles:
-                kill_mode = self._arm_kill()
-            t0 = time.perf_counter()
-            try:
-                errors = self.sched.run_once()
-            except SimKill:
-                errors = []
-                self._crash_restart(kill_mode)
+            if self.replicas:
+                self._ha_cycle(now)
             else:
-                if kill_mode is not None:
-                    # "post_cycle", or an armed kill point that never
-                    # fired this cycle: a restart at the clean boundary
-                    # (the crash window is empty)
-                    self._crash_restart("post_cycle")
-            self.pipeline_e2e_ms.append((time.perf_counter() - t0) * 1e3)
-            for name, _ in errors:
-                self.action_failures.append((self.cycles, name))
-            self._feedback(now)
-            sample = [self.cache]
+                kill_mode = None
+                if self.cycles in self.kill_cycles:
+                    kill_mode = self._arm_kill()
+                t0 = time.perf_counter()
+                try:
+                    errors = self.sched.run_once()
+                except SimKill:
+                    errors = []
+                    self._crash_restart(kill_mode)
+                else:
+                    if kill_mode is not None:
+                        # "post_cycle", or an armed kill point that never
+                        # fired this cycle: a restart at the clean
+                        # boundary (the crash window is empty)
+                        self._crash_restart("post_cycle")
+                self.pipeline_e2e_ms.append(
+                    (time.perf_counter() - t0) * 1e3)
+                for name, _ in errors:
+                    self.action_failures.append((self.cycles, name))
+                self._feedback(now)
+            # decision-plane samples read the (converged) view cache
+            sample = [self._view()]
             self.util_cpu.append(report_mod.cpu_utilization_all(sample))
             self.util_mem.append(report_mod.mem_utilization_all(sample))
             self.drf_gap.append(report_mod.drf_fairness_gap_all(sample))
