@@ -4,16 +4,22 @@
     python3 chip_smoke.py        # from the repository root; needs one CUDA
                                  # card, nvcc and nvidia-smi
 
-1. Prints the card's name and power limit, and builds the CUDA kernels
+1. Prints the card's name and power limit, starts the CPU path's
+   reference runs (the cycles, preempt, deployed and engine runs the card's
+   are compared with) and the plain versions that run on the CPU (step 2's
+   placement worlds, step 9's fractional-20k) in four spawned worker
+   processes, which never touch the card, and builds the CUDA kernels
    (volcano_tpu_torch/ops/csrc, one nvcc per source, all at once); ptxas
    must report no stack frame and no spills for any instance of the block
    auction's round kernel (its lane sums stay in registers).
-2. Holds each kernel against its plain PyTorch version on the card, on
+2. Holds the placement kernel against its plain PyTorch version, on
    seeded worlds and on the 10k-pod / 2k-node cycle's own tensors, at the
    default launch plan and at every cluster size the card launches: outputs
    and final node state must be equal (tolerance 0: both round every f32
-   operation alike). Prints the kernel's time (CUDA events, warm, median),
-   the plain version's, the largest state difference, the (task, node)
+   operation alike). The plain version ran on the CPU in step 1, on inputs
+   whose SHA-256 must equal the card's. Prints the kernel's time (CUDA
+   events, warm, median), the plain version's (host clock, in its worker),
+   the largest state difference, the (task, node)
    scorings the inputs require and the bound they give; on slice-10k,
    slice-10k-taints, r3-n8192 (a new request every task) and two gang
    worlds of 8,192 and 16,384 nodes (one request a gang) also the time at
@@ -70,10 +76,12 @@
    ms, and keeps each card cycle's first solve.
 9. Holds the block auction's three kernels (csrc/blocks.cu, B4) against
    blocks_plain on the card, to the bit (packed row and final node state),
-   on tests/torch_parity.py's blocks worlds, on its two card worlds (20,000
+   on tests/torch_parity.py's blocks worlds, on its card worlds (20,000
    nodes with few request classes; a fractional world of 20,000 tasks and
-   5,000 nodes) and on the solves step 8 kept; both of the round kernel's
-   sum modes must have run. Each ``kernel blocks`` line has the solve's
+   5,000 nodes, whose blocks_plain ran on the CPU in step 1 on inputs of
+   the same SHA-256; 2^23 + 64 nodes) and on the solves step 8 kept; both
+   of the round kernel's sum modes must have run. Each ``kernel blocks``
+   line has the solve's
    time, each kernel's time and launches in one solve, the counts (the
    candidate lists computed, the chunks each sum mode took), µs a round and
    a candidate launch, each kernel's bound and one timed run of
@@ -209,7 +217,36 @@
    preempt-burst and B7 in pipelined-conflict. Prints each run's B1, B3
    and B7 launches and baseline-10k's pipeline_e2e_ms store-wired beside
    step 12's direct run.
-20. Prints one JSON line with each kernel's launches, times, bound and
+20. The HA control plane on the card (tools/sim_reference.py's HA_RUNS:
+   three replicas over one cluster, seeded leader kills and lease
+   losses), each run held to the JAX package's report, sequence and
+   solve-by-solve node-tensor path, B1 once a solve, B3 as the CPU path
+   counts, failover within three cycles, and a crash restart freeing the
+   killed replica's device tensors.
+21. The overload plane on the card (OVERLOAD_RUNS: overload-burst under
+   the ``--overload-chaos`` preset with four seeded kills, again under
+   deploy/scheduler.conf, and with ``--lifecycle``), then
+22. the federated control plane (FEDERATED_RUNS: four partitions with
+   partition kills, the non-contended fed-smoke, the reserve-driving
+   fed-starve on the sim's conf and under deploy/scheduler.conf, the
+   rebalancer's fed-hotspot, the merged trace of two partitions, the
+   federated overload soak, the store-backed federation under store chaos
+   and the full-width baseline-10k over four partitions with a kill inside
+   a partition's bind funnel). Each run's report, sequence and
+   node-tensor path (each partition's too) must equal the JAX package's,
+   where its refresh of a node changed and then removed fired with that
+   refresh mended (the port's refresh); the merged trace's recorder
+   digests must too, and its flow arcs validate. B1 launches once a solve
+   (each partition's counted around its run_once), B3 as the CPU path
+   counts; no double bind, no action failure, every admitted gang
+   completed, the cycle spend within twice the budget, the priority-aware
+   shed fired on overload-burst, the rebalancer's moves converged on
+   fed-hotspot, a crash restart frees the killed shell's device tensors
+   and no card memory outlives a run. Prints each run's wall seconds,
+   pipeline_e2e_ms, reserves, transfers and queue moves and B1 by
+   partition, and baseline-10k's pipeline_e2e_ms over four partitions
+   beside step 12's direct run.
+23. Prints one JSON line with each kernel's launches, times, bound and
    error (and its launches in each sim run), then the card's name and
    power limit, then the result line ``{"ok": true, "device": {...}}``.
 
@@ -233,6 +270,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -419,9 +457,9 @@ def kernel_args(world, device):
             default_weights(world["req"].shape[1]))
 
 
-def slice_args(cache):
+def slice_args(cache, device=None):
     """The placement kernel's arguments exactly as the 10k cycle's first
-    solve builds them, on the card."""
+    solve builds them, on ``device`` (the card by default)."""
     import torch
 
     from volcano_tpu_torch.actions import allocate
@@ -429,7 +467,8 @@ def slice_args(cache):
                                              parse_scheduler_conf)
     from volcano_tpu_torch.ops.place import task_flags
     conf = parse_scheduler_conf(SLICE_CONF)
-    ssn = open_session(cache, conf.tiers, conf.configurations)
+    ssn = open_session(cache, conf.tiers, conf.configurations,
+                       device=device)
     get_action("enqueue").execute(ssn)
     inp = allocate.placement_inputs(ssn, allocate._fixed_job_order(ssn))
     nt = inp.node_t
@@ -524,22 +563,108 @@ def same_result(label, got, want) -> float:
     return err
 
 
-def compare_place(label, args, sweep=False):
-    """place_cuda against place_plain on the same CUDA tensors, at the
-    default plan and at every cluster size the card launches; returns a
-    record of the comparison and the times (with ``sweep``, also the time
-    at each cluster size)."""
+def args_digest(args) -> str:
+    """SHA-256 of a kernel's arguments: tensors by dtype, shape and bytes
+    (on whichever device they lie), tuples element by element, anything
+    else by repr."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+
+    def feed(a):
+        if isinstance(a, torch.Tensor):
+            t = a.detach().cpu().contiguous()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.numpy().tobytes())
+        elif isinstance(a, np.ndarray):
+            h.update(f"{a.dtype}{a.shape}".encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+        elif isinstance(a, (tuple, list)):
+            h.update(b"(")
+            for x in a:
+                feed(x)
+            h.update(b")")
+        else:
+            h.update(repr(a).encode())
+    feed(args)
+    return h.hexdigest()
+
+
+def place_worlds():
+    """Step 2's placement worlds in its order: label -> (a function of the
+    device that makes place_cuda/place_plain's arguments there, whether to
+    time every cluster size)."""
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+
+    def tainted_10k():
+        cache = baseline_config("10k")[0]
+        taint_tenth(cache)
+        return cache
+
+    gangs = np.random.RandomState(8).randint(20, 51, 80)
+    worlds = {}
+    for seed in range(3):
+        worlds[f"random-{seed}"] = (lambda dev, s=seed: kernel_args(
+            random_world(s, T=400, N=300, J=40, R=3, tight=False), dev),
+            False)
+        worlds[f"tight-{seed}"] = (lambda dev, s=seed: kernel_args(
+            random_world(100 + s, T=600, N=64, J=60, R=2, tight=True), dev),
+            False)
+    worlds["identical-nodes"] = (lambda dev: kernel_args(
+        identical_world(4000, 2048, 40), dev), False)
+    worlds["r3-n8192"] = (lambda dev: kernel_args(random_world(
+        7, T=4000, N=8192, J=100, R=3, tight=False, static=False), dev), True)
+    for seed, N in ((11, 8192), (12, 16384)):
+        # one request a gang, as in the 10k world, past one CTA's nodes
+        worlds[f"gangs-n{N}"] = (lambda dev, s=seed, n=N: kernel_args(
+            runs_world(s, n, np.random.RandomState(s).randint(20, 51, 100),
+                       static=False), dev), True)
+    worlds["runs"] = (lambda dev: kernel_args(runs_world(8, 2000, gangs),
+                                              dev), False)
+    worlds["static-one-node"] = (lambda dev: kernel_args(
+        static_one_node_world(9, T=1000, N=2000, J=20), dev), False)
+    worlds["rollback-then-same"] = (lambda dev: kernel_args(
+        rollback_then_same_world(64), dev), False)
+    worlds["wide-ties"] = (lambda dev: kernel_args(
+        wide_ties_world(512, 3000), dev), False)
+    worlds["device-memory-r8-n40000"] = (lambda dev: kernel_args(random_world(
+        10, T=500, N=40000, J=50, R=8, tight=False, static=False), dev), False)
+    worlds["slice-10k"] = (lambda dev: slice_args(
+        baseline_config("10k")[0], dev), True)
+    worlds["slice-10k-taints"] = (lambda dev: slice_args(tainted_10k(), dev),
+                                  True)
+    return worlds
+
+
+def place_plain_cpu(label):
+    """place_plain on the CPU on one of step 2's worlds: (the digest of its
+    arguments, its outputs as NumPy arrays, its ms on the host clock)."""
+    from volcano_tpu_torch.ops.place import place_plain
+    args = place_worlds()[label][0]("cpu")
+    t0 = time.perf_counter()
+    out = place_plain(*args)
+    ms = (time.perf_counter() - t0) * 1e3
+    return args_digest(args), tuple(t.numpy() for t in out), ms
+
+
+def compare_place(label, args, plain, sweep=False):
+    """place_cuda on the card against place_plain's result on the CPU on the
+    same inputs (``plain``: place_plain_cpu's), at the default plan and at
+    every cluster size the card launches; returns a record of the
+    comparison and the times (with ``sweep``, also the time at each cluster
+    size)."""
     import torch
 
     from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, launch_plan,
                                              max_cluster, place_cuda,
-                                             place_plain, task_rescores)
+                                             task_rescores)
+    digest, want, plain_ms = plain
+    check(args_digest(args) == digest,
+          f"{label}: the card's inputs differ from the CPU plain run's")
+    want = tuple(torch.from_numpy(a).to(args[0].device) for a in want)
     got = place_cuda(*args)
     torch.cuda.synchronize()
-    plain = {}
-    plain_ms = time_host_ms(lambda: plain.setdefault("out",
-                                                     place_plain(*args)))
-    want = plain["out"]
     err = same_result(label, got, want)
     sizes = [c for c in CLUSTER_SIZES if c <= max_cluster()]
     for c in sizes:
@@ -566,7 +691,7 @@ def compare_place(label, args, sweep=False):
         "in_smem": plan.in_smem,
         "scored_pairs": int(counts.sum()),
         "ms": time_cuda_ms(lambda: place_cuda(*args)),
-        "plain_ms": plain_ms,
+        "plain_ms": plain_ms, "plain_device": "cpu",
     }
     (rec["bound_ms"], rec["bound_by"],
      rec["bound_all_pairs_ms"]) = place_bound(args, counts)
@@ -877,9 +1002,30 @@ def topk_library_ms(args, kw):
     return time_cuda_ms(lambda: torch.topk(masked, min(32, N), dim=1))
 
 
-def compare_blocks(label, args, kw):
-    """blocks_cuda against blocks_plain on the same CUDA tensors: the
-    packed row and the final node state must be equal (tolerance 0). The
+# the card worlds whose blocks_plain runs on the CPU: its in-order sums are
+# Python loops of small tensor operations, several times faster there than
+# as launches on the card
+BLOCKS_PLAIN_ON_CPU = ("fractional-20k",)
+
+
+def blocks_plain_cpu(name):
+    """blocks_plain on the CPU on one of tests/torch_parity.py's card blocks
+    worlds: (the digest of its arguments, its outputs as NumPy arrays, its
+    ms on the host clock)."""
+    from volcano_tpu_torch.ops.blocks import blocks_plain
+    _, card_worlds, world_args = blocks_worlds()
+    args, kw = world_args(card_worlds[name](), "cpu")
+    t0 = time.perf_counter()
+    out = blocks_plain(*args, **kw)
+    ms = (time.perf_counter() - t0) * 1e3
+    return args_digest((args, kw)), tuple(t.numpy() for t in out), ms
+
+
+def compare_blocks(label, args, kw, plain=None):
+    """blocks_cuda against blocks_plain on the same inputs, the plain
+    version on the card or, given ``plain`` (blocks_plain_cpu's result), on
+    the CPU: the packed row and the final node state must be equal
+    (tolerance 0). The
     record has the solve's time (CUDA events around the whole call, warm,
     median of 5), each kernel's device time in one solve (events around
     each launch alone, median of 5), the classes' and exactness flags'
@@ -917,8 +1063,16 @@ def compare_blocks(label, args, kw):
     # the plain version's parts only for the engine's solves (the kernels
     # line reads them): timing them synchronises after every part
     box, plain_parts = {}, ({} if label.startswith("solve-") else None)
-    plain_ms = time_host_ms(lambda: box.setdefault("out", blocks_plain(
-        *args, timing=plain_parts, **kw)))
+    if plain is None:
+        plain_ms = time_host_ms(lambda: box.setdefault("out", blocks_plain(
+            *args, timing=plain_parts, **kw)))
+    else:
+        digest, want, plain_ms = plain
+        check(args_digest((args, kw)) == digest,
+              f"blocks {label}: the card's inputs differ from the CPU plain "
+              f"run's")
+        box["out"] = tuple(torch.from_numpy(a).to(got[0].device)
+                           for a in want)
     for name, g, w in zip(("packed", "idle", "future_idle", "used",
                            "ntasks"), got, box["out"]):
         if not torch.equal(g, w):
@@ -948,6 +1102,7 @@ def compare_blocks(label, args, kw):
            "us_per_chunk": (kernel_ms["blocks_topk"] * 1e3
                             / max(1, launches["blocks_topk"])),
            "plain_ms": plain_ms,
+           "plain_device": "cuda" if plain is None else "cpu",
            "plain_kernel_ms": {k: v * 1e3
                                for k, v in (plain_parts or {}).items()},
            "prep_plain_ms": prep_plain_ms,
@@ -1207,10 +1362,12 @@ def run_sim(scenario, args, source_argv=None):
     launches = {k: w.launches for k, w in counters.items()}
     check(rc == 0, f"sim {scenario}: exit {rc}")
     report = json.loads(out.getvalue())
-    # open_session to close_session, each cycle (the rest of run_once is
-    # the resync pass and the epilogue)
-    report["wallclock"]["schedule_ms"] = percentiles(
-        metrics.durations_since(mark).get(("e2e",), []))
+    if "wallclock" in report:
+        # open_session to close_session, each cycle (the rest of run_once
+        # is the resync pass and the epilogue); a --deterministic run
+        # prints no wall-clock plane
+        report["wallclock"]["schedule_ms"] = percentiles(
+            metrics.durations_since(mark).get(("e2e",), []))
     text = (deterministic_json(report) + "\n").encode()
     return report, text, sequence_digest(runners[0]), launches, wall_s
 
@@ -2408,8 +2565,9 @@ def containment_phase():
 # the object store and the feedback watch path
 # ---------------------------------------------------------------------------
 
-# baseline-10k's direct-mode pipeline_e2e_ms from step 12, beside which
-# step 19 prints the store-wired run's
+# baseline-10k's direct-mode pipeline_e2e_ms and wall seconds from step
+# 12, beside which steps 19 and 22 print the store-wired and federated
+# runs' own
 _DIRECT_E2E: dict = {}
 
 
@@ -2465,7 +2623,7 @@ def store_phase(digests, sim_runs, runs=None, extra_args=()):
     if wired is not None and _DIRECT_E2E:
         print("store baseline-10k pipeline_e2e_ms:", json.dumps({
             "store_wired": wired["pipeline_e2e_ms"],
-            "direct": _DIRECT_E2E}), flush=True)
+            "direct": _DIRECT_E2E["pipeline_e2e_ms"]}), flush=True)
     print(f"store phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     print("store card:", card_line(), flush=True)
     return out
@@ -2668,6 +2826,313 @@ def ha_phase(digests, sim_runs, runs=None, extra_args=()):
 
 
 # ---------------------------------------------------------------------------
+# overload and the federated control plane
+# ---------------------------------------------------------------------------
+
+# the preempt walk's dispatches (B3 launches on the card) the CPU path
+# counts in the overload and federated runs under deploy/scheduler.conf
+# that preempt (both runs of a verifier's pair counted); the store-backed
+# smoke and baseline-10k over four partitions walk none, which
+# tests/test_torch_sim_federated.py holds on the CPU for the smoke
+PARTITIONED_CPU_WALKS = {
+    "--scenario overload-burst --seed 3 --conf deploy/scheduler.conf "
+    "--overload-chaos --kill-cycles 2,5,9,13 --kill-seed 1": 173,
+    "--scenario fed-starve --seed 3 --conf deploy/scheduler.conf "
+    "--federated 4 --verify-federated-equivalence": 762,
+}
+
+
+def run_partitioned(source, args, env, trace_dir, extra_args=()):
+    """One overload or federated run on the card through the sim's entry
+    point, with the environment's timeline ring and audit ring applied to
+    the live objects (what the variables set at start-up): run_sim's
+    results, the summary of the solves' node-tensor paths, B1's launches
+    by partition (counted around each partition's run_once), each crash
+    restart's card memory on either side of the restart and the bytes of
+    the killed shell's node rows, and for a run
+    ending in ``--trace-out`` the trace and the recorder's state."""
+    import gc
+    import weakref
+
+    import torch
+
+    from volcano_tpu_torch import obs
+    from volcano_tpu_torch import scheduler as shell
+    from volcano_tpu_torch.actions import allocate
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.obs import audit
+    from volcano_tpu_torch.obs import trace as obs_trace
+    from volcano_tpu_torch.ops.place import place_cuda
+    from volcano_tpu_torch.sim.runner import SimRunner
+    tool, traces = sim_tools()
+    env = dict(env)
+    argv = list(args)
+    path = None
+    if argv[-1:] == ["--trace-out"]:
+        # the recorder's logical clock, so the trace is the JAX package's
+        path = os.path.join(trace_dir, "partitioned-trace.json")
+        argv = ["--deterministic", *argv, path]
+    by_part: dict = {}
+    restarts = []
+    real_run_once = shell.Scheduler.run_once
+    real_restarts = {name: getattr(SimRunner, name) for name in
+                     ("_crash_restart", "_crash_restart_partition")}
+
+    # a sample a virtual cycle of the federated plane: the sum of its
+    # partitions' run_once times (a killed one's too), the unit of a direct
+    # run's pipeline_e2e_ms, which the report samples a partition leader
+    cycle_ms: list = []
+    real_fed_cycle = SimRunner._federated_cycle
+
+    def timed_fed_cycle(runner, now):
+        cycle_ms.append(0.0)
+        return real_fed_cycle(runner, now)
+
+    def counted_run_once(sched):
+        before = place_cuda.launches
+        t0 = time.perf_counter()
+        try:
+            return real_run_once(sched)
+        finally:
+            if sched.federation is not None:
+                cycle_ms[-1] += (time.perf_counter() - t0) * 1e3
+            pid = sched.federation.pid if sched.federation is not None \
+                else "single"
+            by_part[pid] = by_part.get(pid, 0) \
+                + place_cuda.launches - before
+
+    def restart_hook(name):
+        real = real_restarts[name]
+
+        def counted(runner, *a):
+            # the killed cycle's finished frames hold its session's tensors
+            # until the runner's except block ends: cleared here, the card
+            # memory on either side of the restart is the restart's own,
+            # with no other partition's cycle in between
+            exc = sys.exc_info()[1]
+            if exc is not None:
+                traceback.clear_frames(exc.__traceback__)
+            del exc
+            rep = a[0] if name == "_crash_restart_partition" else None
+            cache = rep.cache if rep is not None else runner.cache
+            tc = cache.tensor_cache
+            device = list((tc._device or {}).values()) if tc is not None \
+                else []
+            storages = {t.untyped_storage().data_ptr():
+                        t.untyped_storage().nbytes() for t in device}
+            rec = {"mode": a[-1] if a else None,
+                   "had_tensors": tc is not None,
+                   "device_bytes": sum(storages.values())}
+            refs = [weakref.ref(t) for t in device] + (
+                [weakref.ref(tc)] if tc is not None else [])
+            del tc, device, cache, rep
+            gc.collect()
+            rec["allocated_before"] = torch.cuda.memory_allocated()
+            out = real(runner, *a)
+            gc.collect()
+            rec["allocated_after"] = torch.cuda.memory_allocated()
+            rec["freed"] = all(w() is None for w in refs)
+            restarts.append(rec)
+            return out
+        return counted
+
+    events = obs.TIMELINE.max_events
+    obs.TIMELINE.max_events = int(env.get("VOLCANO_TPU_TIMELINE_EVENTS",
+                                          events))
+    obs.AUDIT.configure(int(env.get("VOLCANO_TPU_AUDIT_CYCLES",
+                                    audit._default_cycles())))
+    shell.Scheduler.run_once = counted_run_once
+    SimRunner._federated_cycle = timed_fed_cycle
+    for name in real_restarts:
+        setattr(SimRunner, name, restart_hook(name))
+    paths = traces.TensorPathRecorder(allocate, SchedulerCache)
+    try:
+        out = run_sim(source, tuple(argv) + tuple(extra_args))
+        state = tool.recorder_state(obs) if path else None
+    finally:
+        paths.close()
+        shell.Scheduler.run_once = real_run_once
+        SimRunner._federated_cycle = real_fed_cycle
+        for name, real in real_restarts.items():
+            setattr(SimRunner, name, real)
+        obs.TIMELINE.max_events = events
+        obs.AUDIT.configure(audit._default_cycles())
+        obs.TRACE.configure(max_cycles=obs_trace.DEFAULT_MAX_CYCLES,
+                            logical=False)
+    trace = None
+    if path is not None:
+        with open(path) as f:
+            trace = json.load(f)
+    return out, paths.summary(), by_part, restarts, cycle_ms, trace, state
+
+
+def partitioned_phase(kind, runs, digests, sim_runs, extra_args=()):
+    """Steps 21 and 22: each run of ``runs`` (tools/sim_reference.py's
+    OVERLOAD_RUNS or FEDERATED_RUNS) on the card, held to the JAX package's
+    report, sequence and solve-by-solve node-tensor path (each partition's
+    too; where one of the JAX package's faults that the port fixes fired,
+    the package with it mended: ``held_to``), and for the merged trace its
+    recorder digests and
+    flow arcs; B1 launches once a solve, B3 as the CPU path counts; no
+    double bind, no action failure, every admitted gang completed, the
+    cycle spend within twice the budget, the priority-aware shed fired on
+    overload-burst, the rebalancer's moves converged on fed-hotspot, a
+    crash restart drops the killed shell's device tensors, and no card
+    memory outlives a run. Adds each run's launches to ``sim_runs`` and
+    returns the runs' records."""
+    import gc
+    import hashlib
+    import tempfile
+
+    import torch
+
+    from volcano_tpu_torch.obs import validate
+    from volcano_tpu_torch.sim.report import percentiles
+    tool, _ = sim_tools()
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as trace_dir:
+        for run in runs:
+            source, args, env = run
+            key = tool.run_key(*run)
+            gc.collect()
+            mem0 = torch.cuda.memory_allocated()
+            (report, text, sequence, launches, wall_s), paths, by_part, \
+                restarts, cycle_ms, trace, state = run_partitioned(
+                    source, args, env, trace_dir, extra_args)
+            gc.collect()
+            mem1 = torch.cuda.memory_allocated()
+            want, mends = tool.held_to(run, digests)
+            held_to = "+".join(k for k, _ in mends if (k, "1") in tool.MEND
+                               + tool.MEND_RECONCILE) or "as is"
+            check(hashlib.sha256(text).hexdigest() == want["sha256"]
+                  and len(text) == want["bytes"],
+                  f"{kind} {key}: report differs from the JAX package's "
+                  f"({held_to}; {len(text)} bytes, want {want['bytes']})")
+            check((sequence["sha256"], sequence["binds"], sequence["evicts"])
+                  == (want["sequence_sha256"], want["sequence_binds"],
+                      want["sequence_evicts"]),
+                  f"{kind} {key}: a bind's node or an eviction differs "
+                  f"from the JAX package's ({sequence['binds']} binds, "
+                  f"{sequence['evicts']} evicts)")
+            check(paths == want["tensor_paths"],
+                  f"{kind} {key}: node-tensor path {paths} differs from "
+                  f"the JAX package's {want['tensor_paths']}")
+            if "obs" in want:
+                got = tool.obs_digests(trace, *state)
+                check(got == want["obs"],
+                      f"{kind} {key}: recorder digests {got} differ from "
+                      f"the JAX package's {want['obs']}")
+                tpath = os.path.join(trace_dir, "partitioned-trace.json")
+                check(validate.main(["--flows", tpath]) == 0,
+                      f"{kind} {key}: the merged trace's flows do not "
+                      f"validate")
+            check(report["action_failures"] == 0
+                  and report["double_binds"] == 0
+                  and report["jobs"]["completed"]
+                  == report["jobs"]["arrived"]
+                  and not report["jobs"]["unfinished"],
+                  f"{kind} {key}: {report['action_failures']} action "
+                  f"failures, {report['double_binds']} double binds, jobs "
+                  f"{report['jobs']}")
+            check(launches["place"] == want["tensor_paths"]["solves"]
+                  == sum(by_part.values()),
+                  f"{kind} {key}: B1 launched {launches['place']} times "
+                  f"({by_part} by partition), the solves "
+                  f"{want['tensor_paths']['solves']}")
+            walks = PARTITIONED_CPU_WALKS.get(key, 0)
+            check(launches["evict_walk"] == walks,
+                  f"{kind} {key}: B3 launched {launches['evict_walk']} "
+                  f"times, the CPU path {walks}")
+            overload = report.get("overload")
+            if overload is not None:
+                budget = overload["cycle_budget"]
+                check(budget["max_cycle_spend_s"]
+                      <= 2 * budget["budget_s"],
+                      f"{kind} {key}: cycle spend {budget}")
+                if source == "overload-burst":
+                    check(overload["shed"].get("priority_shed", 0) > 0
+                          and overload["retries_pending"] == 0,
+                          f"{kind} {key}: the priority-aware shed "
+                          f"{overload['shed']}")
+            fed = report.get("federation")
+            if fed is not None:
+                check(fed["failover_cycles_max"] <= 3,
+                      f"{kind} {key}: failover {fed['failover_cycles']}")
+                reb = fed.get("rebalance")
+                if source == "fed-hotspot" and reb is not None:
+                    check(reb["move_count"] > 0 and reb["last_move_t"]
+                          <= report["virtual_time_s"] - 10,
+                          f"{kind} {key}: the rebalancer {reb}")
+                if "--kill-cycles" in args and source == "baseline-10k":
+                    check(report["journal_replayed"].get("replayed", 0) > 0,
+                          f"{kind} {key}: the kill settled no crash window "
+                          f"({report['journal_replayed']})")
+            for r in restarts:
+                # every device tensor of the killed shell's node rows is
+                # gone, and the card's memory fell by at least their bytes
+                check(r["freed"] and r["allocated_after"] + r["device_bytes"]
+                      <= r["allocated_before"],
+                      f"{kind} {key}: a crash restart kept the killed "
+                      f"shell's device tensors ({r})")
+            check(mem1 <= mem0, f"{kind} {key}: {mem1 - mem0} bytes of "
+                                f"card memory outlived the run")
+            # a --deterministic run (the merged trace's) prints no
+            # wall-clock plane
+            wall = report.get("wallclock", {})
+            rec = {"held_to": held_to, "cycles": report["cycles"],
+                   "binds": report["binds"], "evicts": report["evicts"],
+                   "jobs": report["jobs"], "wall_s": wall_s,
+                   "pipeline_e2e_ms": wall.get("pipeline_e2e_ms"),
+                   "cycle_sum_ms": percentiles(cycle_ms) if cycle_ms
+                   else None,
+                   "schedule_ms": wall.get("schedule_ms"),
+                   "restarts": report["restarts"],
+                   "failovers": report["failovers"],
+                   "journal_replayed": report["journal_replayed"],
+                   "B1": launches["place"],
+                   "B1_by_partition": {str(k): v
+                                       for k, v in by_part.items()},
+                   "B3": launches["evict_walk"],
+                   "solves": paths["solves"], "full_builds": paths["full"],
+                   "scatter_rows": paths["scatter_rows"],
+                   "drift": paths["drift"],
+                   "allocated_before": mem0, "allocated_after": mem1,
+                   "restart_memory": [
+                       {"rows_bytes": r["device_bytes"],
+                        "fell_by": r["allocated_before"]
+                        - r["allocated_after"]}
+                       for r in restarts if r["had_tensors"]]}
+            if overload is not None:
+                rec["overload"] = {k: overload[k] for k in (
+                    "cycle_budget", "shed", "readmit_attempts",
+                    "burst_jobs")}
+            if fed is not None:
+                rec["federation"] = {k: fed[k] for k in (
+                    "reserves", "node_transfers", "queue_moves", "map")}
+                if "rebalance" in fed:
+                    rec["federation"]["rebalance_moves"] = \
+                        fed["rebalance"]["move_count"]
+            out[key] = rec
+            sim_runs[f"{kind} " + key] = launches
+            print(f"{kind} {key}:", json.dumps(rec), flush=True)
+    base = out.get("--scenario baseline-10k --conf deploy/scheduler.conf "
+                   "--federated 4 --kill-cycles 0,3 --kill-seed 3")
+    if base is not None and _DIRECT_E2E:
+        # a partition leader's run_once, the four partitions' sum a virtual
+        # cycle and the wall seconds, beside the direct run's cycle and wall
+        print(f"{kind} baseline-10k pipeline_e2e_ms:", json.dumps({
+            "federated_4_per_partition": base["pipeline_e2e_ms"],
+            "federated_4_per_cycle": base["cycle_sum_ms"],
+            "federated_wall_s": base["wall_s"],
+            "direct": _DIRECT_E2E["pipeline_e2e_ms"],
+            "direct_wall_s": _DIRECT_E2E["wall_s"]}), flush=True)
+    print(f"{kind} phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"{kind} card:", card_line(), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the cycle
 # ---------------------------------------------------------------------------
 
@@ -2737,6 +3202,83 @@ def profile_cycle(taints: bool, cycle_ms: float) -> dict:
     }
 
 
+# the CPU path's runs the card's are compared with, and the plain versions
+# step 2 and step 9 hold kernels against on the CPU: they need no card, so
+# they run in spawned worker processes (each a fresh process that never
+# touches CUDA) while the kernels build, and main waits for every one of
+# them before its first timed phase, so no time the script prints but the
+# build's is taken while they run
+CPU_REF_WORKERS = 4
+CPU_REF_THREADS = 2
+_CPU_POOL: list = []
+
+
+def _cpu_worker_init() -> None:
+    import torch
+    torch.set_num_threads(CPU_REF_THREADS)
+
+
+def _timed_cpu_run(fn, args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def start_cpu_references() -> dict:
+    """Submit every CPU-path reference run and every plain version that
+    runs on the CPU to a pool of spawned workers, the longest first: key ->
+    its pending result."""
+    import multiprocessing
+    blocks = engine_conf("tpu-blocks")
+    strict = engine_conf("tpu-strict")
+    jobs = [
+        ("deployed 20k-taints tpu-blocks", ("deployed", "20k-taints", blocks),
+         run_deployed, ("20k-taints", "cpu", blocks)),
+        *((f"blocks_plain {name}", ("blocks_plain", name), blocks_plain_cpu,
+           (name,)) for name in BLOCKS_PLAIN_ON_CPU),
+        ("preempt", ("preempt", False), run_preempt, ("cpu", False)),
+        ("preempt intra", ("preempt", True), run_preempt, ("cpu", True)),
+        ("cycle 10k-taints", ("cycle", True), run_cycle, ("cpu", True)),
+        ("deployed 20k tpu-blocks", ("deployed", "20k", blocks),
+         run_deployed, ("20k", "cpu", blocks)),
+        ("deployed 10k tpu-strict", ("deployed", "10k", strict),
+         run_deployed, ("10k", "cpu", strict)),
+        ("cycle 10k", ("cycle", False), run_cycle, ("cpu", False)),
+    ] + [(f"deployed {name}", ("deployed", name, None), run_deployed,
+          (name, "cpu")) for name in ("10k", "pipeline", "tight-mix")]
+    jobs += [(f"place_plain {label}", ("place_plain", label), place_plain_cpu,
+              (label,)) for label in sorted(
+                  place_worlds(), key=lambda k: not k.startswith("slice"))]
+    pool = multiprocessing.get_context("spawn").Pool(
+        CPU_REF_WORKERS, initializer=_cpu_worker_init)
+    _CPU_POOL.append(pool)
+    return {key: (label, pool.apply_async(_timed_cpu_run, (fn, args)))
+            for label, key, fn, args in jobs}
+
+
+def finish_cpu_references(pending: dict) -> dict:
+    """Wait for every CPU-path reference run and stop the workers: key ->
+    the run's result. Prints each run's seconds in its worker."""
+    t0 = time.perf_counter()
+    refs, seconds = {}, {}
+    for key, (label, result) in pending.items():
+        refs[key], seconds[label] = result.get()
+    pool = _CPU_POOL.pop()
+    pool.close()
+    pool.join()
+    print(f"cpu references: {len(refs)} runs, {CPU_REF_WORKERS} workers "
+          f"of {CPU_REF_THREADS} threads, waited "
+          f"{time.perf_counter() - t0:.1f} s after the build; seconds each:",
+          json.dumps(seconds), flush=True)
+    return refs
+
+
+def stop_cpu_references() -> None:
+    """A failed run stops the workers at once (their results are moot)."""
+    while _CPU_POOL:
+        _CPU_POOL.pop().terminate()
+
+
 def main() -> int:
     try:
         import torch
@@ -2753,8 +3295,10 @@ def main() -> int:
               "volcano_tpu_torch package here)", file=sys.stderr)
         return 2
 
-    # 1. the card and the build
+    # 1. the card and the build; the CPU path's reference runs start in
+    # their workers at once, and end before the first timed phase
     started = time.perf_counter()
+    pending = start_cpu_references()
 
     current = []
 
@@ -2786,57 +3330,31 @@ def main() -> int:
         and r.get("spill_loads") == 0 for r in round_ptxas.values()),
           "blocks_round_kernel has a stack frame or spills")
 
+    cpu_refs = finish_cpu_references(pending)
+
     phase("kernels")
-    # 2. each kernel against its plain version
-    from volcano_tpu_torch.cache.synthetic import baseline_config
+    # 2. each kernel against its plain version (the placement kernel's
+    # computed on the CPU while the kernels built); the rowdiff pre-pass on
+    # three worlds' static matrices
     from volcano_tpu_torch.framework import resolve_device
     dev = resolve_device(None)          # the card
-    records = []
-    for seed in range(3):
-        records.append(compare_place(
-            f"random-{seed}", kernel_args(random_world(
-                seed, T=400, N=300, J=40, R=3, tight=False), dev)))
-        records.append(compare_place(
-            f"tight-{seed}", kernel_args(random_world(
-                100 + seed, T=600, N=64, J=60, R=2, tight=True), dev)))
-    records.append(compare_place(
-        "identical-nodes", kernel_args(identical_world(4000, 2048, 40), dev)))
-    records.append(compare_place(
-        "r3-n8192", kernel_args(random_world(
-            7, T=4000, N=8192, J=100, R=3, tight=False, static=False), dev),
-        sweep=True))
-    for seed, N in ((11, 8192), (12, 16384)):
-        # one request a gang, as in the 10k world, past one CTA's nodes
-        records.append(compare_place(
-            f"gangs-n{N}", kernel_args(runs_world(
-                seed, N, np.random.RandomState(seed).randint(20, 51, 100),
-                static=False), dev), sweep=True))
-    gangs = np.random.RandomState(8).randint(20, 51, 80)
-    runs_args = kernel_args(runs_world(8, 2000, gangs), dev)
-    records.append(compare_place("runs", runs_args))
-    one_node_args = kernel_args(static_one_node_world(
-        9, T=1000, N=2000, J=20), dev)
-    records.append(compare_place("static-one-node", one_node_args))
-    records.append(compare_place(
-        "rollback-then-same", kernel_args(rollback_then_same_world(64), dev)))
-    records.append(compare_place(
-        "wide-ties", kernel_args(wide_ties_world(512, 3000), dev)))
-    records.append(compare_place(
-        "device-memory-r8-n40000", kernel_args(random_world(
-            10, T=500, N=40000, J=50, R=8, tight=False, static=False), dev)))
-    check(not records[-1]["in_smem"],
-          "the R=8, 40,000-node world did not take the device-memory path")
-    slice_rec = compare_place("slice-10k", slice_args(
-        baseline_config("10k")[0]), sweep=True)
-    records.append(slice_rec)
-    tainted = baseline_config("10k")[0]
-    taint_tenth(tainted)
-    tainted_args = slice_args(tainted)
-    records.append(compare_place("slice-10k-taints", tainted_args,
-                                 sweep=True))
-    compare_rowdiff("runs", runs_args[10])
-    compare_rowdiff("static-one-node", one_node_args[10])
-    rowdiff_rec = compare_rowdiff("slice-10k-taints", tainted_args[10])
+    records, static = [], {}
+    for label, (make, sweep) in place_worlds().items():
+        args = make(dev)
+        records.append(compare_place(label, args,
+                                     cpu_refs[("place_plain", label)], sweep))
+        if label in ("runs", "static-one-node", "slice-10k-taints"):
+            static[label] = args[10]
+        del args
+        if label == "device-memory-r8-n40000":
+            check(not records[-1]["in_smem"], "the R=8, 40,000-node world "
+                  "did not take the device-memory path")
+        if label == "slice-10k":
+            slice_rec = records[-1]
+    compare_rowdiff("runs", static["runs"])
+    compare_rowdiff("static-one-node", static["static-one-node"])
+    rowdiff_rec = compare_rowdiff("slice-10k-taints",
+                                  static.pop("slice-10k-taints"))
 
     # the preempt walk: seeded worlds, then the preempt world's own walks,
     # recorded on the port's CPU runs (which step 5 compares against)
@@ -2851,12 +3369,12 @@ def main() -> int:
         if name == "n8192":
             check(not where["nodes"] and not where["groups"],
                   f"n8192 kept node or group state in shared memory: {where}")
-    cpu_preempt = run_preempt("cpu")
+    cpu_preempt = cpu_refs[("preempt", False)]
     check(len(cpu_preempt[5]) == 1 and cpu_preempt[5][0][3],
           "the preempt world ran no phase-1 walk")
     walk_main = compare_walk("preempt-p1", cpu_preempt[5][0], dev)
     walk_records.append(walk_main)
-    intra_walks = run_preempt("cpu", intra=True)[5]
+    intra_walks = cpu_refs[("preempt", True)][5]
     phase2 = [w for w in intra_walks if not w[3]]
     check(len(phase2) == 1, "the intra-job preempt world ran no phase-2 walk")
     walk_records.append(compare_walk("preempt-intra-p2", phase2[0], dev))
@@ -2866,7 +3384,7 @@ def main() -> int:
     # the time without first-use costs), and on the CPU
     results = {}
     for label, taints in (("10k", False), ("10k-taints", True)):
-        cpu_binds, cpu_times, _ = run_cycle("cpu", taints)
+        cpu_binds, cpu_times, _ = cpu_refs[("cycle", taints)]
         for run in ("first", "second") if not taints else ("first",):
             binds, times, launches = run_cycle(None, taints)
             check(launches["place"] > 0,
@@ -2910,7 +3428,7 @@ def main() -> int:
     deployed = {}
     tight_walks = []
     for name in ("10k", "pipeline", "tight-mix"):
-        want, cpu_times = run_deployed(name, "cpu")[:2]
+        want, cpu_times = cpu_refs[("deployed", name, None)][:2]
         ran = {}
         walks = record_walks(lambda: ran.setdefault(
             "out", run_deployed(name, None)))
@@ -2951,7 +3469,8 @@ def main() -> int:
     blocks_cycles, solves = {}, {}
     for name in ("20k", "20k-taints", "100k"):
         conf = engine_conf("tpu-blocks")
-        cpu = None if name == "100k" else run_deployed(name, "cpu", conf)
+        cpu = None if name == "100k" else cpu_refs[("deployed", name,
+                                                    conf)]
         ran, seen = record_blocks_solves(
             lambda: run_deployed(name, None, conf, keep_cache=True))
         got, times, launches, _, stats, cache = ran
@@ -2989,7 +3508,8 @@ def main() -> int:
     blocks_records = []
     for name, make in {**worlds, **card_worlds}.items():
         args, kw = world_args(make(), dev)
-        blocks_records.append(compare_blocks(name, args, kw))
+        blocks_records.append(compare_blocks(
+            name, args, kw, cpu_refs.get(("blocks_plain", name))))
     big_blocks = {}
     for name in ("20k", "20k-taints", "100k"):
         args, kw = solves.pop(name)
@@ -3006,8 +3526,8 @@ def main() -> int:
     # 10. tpu-strict at 10k under the deployed conf, card against CPU, and
     # its admissions beside tpu-fused's (step 6)
     strict_conf = engine_conf("tpu-strict")
-    want, cpu_times, _, _, cpu_stats = run_deployed("10k", "cpu",
-                                                    strict_conf)
+    want, cpu_times, _, _, cpu_stats = cpu_refs[("deployed", "10k",
+                                                  strict_conf)]
     got, times, launches, _, stats = run_deployed("10k", None, strict_conf)
     for key in ("binds", "pipelined", "phases", "evicts"):
         check(got[key] == want[key],
@@ -3077,7 +3597,8 @@ def main() -> int:
         sim_runs[scenario] = launches
         wall = report["wallclock"]
         if scenario == "baseline-10k":
-            _DIRECT_E2E.update(wall["pipeline_e2e_ms"])
+            _DIRECT_E2E.update(pipeline_e2e_ms=wall["pipeline_e2e_ms"],
+                               wall_s=wall_s)
         print(f"sim {scenario}:", json.dumps({
             "args": list(args), "cycles": report["cycles"],
             "binds": report["binds"], "evicts": report["evicts"],
@@ -3129,6 +3650,17 @@ def main() -> int:
     # 20. the HA control plane: fenced leader election, warm standbys, the
     # shell's role gate, leader kills and a lost lease
     ha_phase(digests, sim_runs)
+
+    tool, _ = sim_tools()
+    phase("overload")
+    # 21. the overload plane: cycle budgets, bounded admission with the
+    # priority-aware shed, seeded bursts
+    partitioned_phase("overload", tool.OVERLOAD_RUNS, digests, sim_runs)
+
+    phase("federated")
+    # 22. the federated control plane: partitioned schedulers, reserves,
+    # node transfers, queue moves and the rebalancer
+    partitioned_phase("federated", tool.FEDERATED_RUNS, digests, sim_runs)
 
     phase("summary")
     # 18. the kernels line (launches: the placement kernel's in the 10k
@@ -3274,4 +3806,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == [_SYNC_CHILD_FLAG]:
         sys.exit(cuda_error_child())
-    sys.exit(main())
+    try:
+        rc = main()
+    except BaseException:
+        stop_cpu_references()
+        raise
+    sys.exit(rc)

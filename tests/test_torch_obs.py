@@ -5,7 +5,8 @@ equal — the span trace's bytes, the validator's verdicts, the decision
 audit's ring, dedupe and ``why``, the timeline store's exactly-once ingest
 and LRU, the latency math, the SLO engine's windows, flow events, the
 journal's timeline ingest and the metrics' SLO publication. Flows across
-several process lanes wait for the federated control plane."""
+several process lanes: the federated sim's merged trace
+(tests/test_torch_sim_federated.py)."""
 
 import json
 import random

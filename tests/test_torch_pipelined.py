@@ -450,7 +450,7 @@ def test_pipelined_requires_standalone_topology():
         def step(self):
             return True
 
-    sched.elector = AlwaysLeader()
+    sched.attach_elector(AlwaysLeader())
     before = dict(metrics.speculation_counts())
     for _ in range(3):
         assert sched.run_once() == []

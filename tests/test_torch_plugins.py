@@ -152,3 +152,45 @@ def test_predicates_mask_matches_jax(reference):
             assert ok == mask[ti * 7, ni]
     close_session(ssn)
     assert discover_resource_names(nodes, tasks).names == ["cpu", "memory"]
+
+
+@pytest.mark.parametrize("affinity_on, taints_on", [(True, True),
+                                                    (True, False),
+                                                    (False, True)])
+def test_predicates_mask_groups_equal_pairwise(reference, affinity_on,
+                                               taints_on):
+    """The mask computes one row for each task signature; tasks of one gang
+    with different selectors or tolerations must still get their own rows,
+    equal to the static predicates tested pair by pair."""
+    from volcano_tpu_torch.plugins.predicates import (node_selector_ok,
+                                                      taints_tolerated)
+    world = reference["predicates-mask"][0]
+    cache = cache_from_world(world)
+    conf = parse_scheduler_conf(DEPLOYED_CONF)
+    ssn = open_session(cache, conf.tiers, conf.configurations, device="cpu")
+    tasks = [t for j in ssn.jobs.values() for t in j.tasks.values()
+             if t.status == TaskStatus.PENDING]
+    # split gangs: every third task of a gang drops its tolerations, every
+    # fifth gets a selector of its own
+    for i, task in enumerate(tasks):
+        if i % 3 == 1:
+            task.tolerations = []
+        if i % 5 == 2:
+            task.node_selector = {"zone": "a"}
+    plugin = ssn.plugins["predicates"]
+    plugin.node_affinity_enable, plugin.taint_enable = affinity_on, taints_on
+
+    class Axis:
+        names = list(ssn.nodes)
+
+    mask = plugin.feasibility_mask(ssn, tasks, Axis)
+    nodes = list(ssn.nodes.values())
+    want = np.array([[not node.unschedulable
+                      and (not affinity_on or node_selector_ok(task, node))
+                      and (not taints_on or taints_tolerated(task, node))
+                      and not (node.used_ports
+                               and node.has_port_conflict(task))
+                      for node in nodes] for task in tasks])
+    close_session(ssn)
+    np.testing.assert_array_equal(mask, want)
+    assert len({plugin._task_signature(t) for t in tasks}) > 4

@@ -429,9 +429,18 @@ def test_walk_fill_schedule_fault_recorded(tmp_path):
                      if run["default_walk_sha256"] != run["sha256"])
     # preempt-burst four times: with the incremental snapshot on and
     # off, under the flight recorder's flags and store-wired under store
-    # chaos
+    # chaos; and the two overload and federated runs that preempt under
+    # deploy/scheduler.conf, each as is and with the JAX refresh mended
     off = "VOLCANO_TPU_INCREMENTAL_SNAPSHOT=0 "
     recorded = "VOLCANO_TPU_AUDIT_CYCLES=100000 "
+    mended = "VOLCANO_TPU_REFERENCE_MEND_REFRESH=1 "
+    partitioned = [
+        _key("overload-burst", ("--seed", "3", "--conf", DEPLOYED,
+                                "--overload-chaos", "--kill-cycles",
+                                "2,5,9,13", "--kill-seed", "1")),
+        _key("fed-starve", ("--seed", "3", "--conf", DEPLOYED,
+                            "--federated", "4",
+                            "--verify-federated-equivalence"))]
     assert differs == sorted([_key(s, ("--conf", DEPLOYED))
                               for s in ("preempt-burst", "skew")]
                              + [off + _key("preempt-burst",
@@ -442,7 +451,9 @@ def test_walk_fill_schedule_fault_recorded(tmp_path):
                                   "--trace-out"))]
                              + [_key("preempt-burst",
                                      ("--conf", DEPLOYED,
-                                      "--store-chaos"))])
+                                      "--store-chaos"))]
+                             + partitioned
+                             + [mended + k for k in partitioned])
 
 
 def test_walk_fault_witnessed_by_the_callbacks_engine(tmp_path, digests,

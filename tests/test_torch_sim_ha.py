@@ -163,17 +163,19 @@ def test_ha_refuses_the_single_scheduler_modes(extra, message):
 
 def test_ha_cli_errors(capsys):
     """--elastic-gangs with --ha is the parser's error (exit 2), as in the
-    JAX package; --federated, which this package lacks, is refused by name
-    (exit 2)."""
+    JAX package; --federated with --ha raises the JAX runner's ValueError:
+    the two topologies are mutually exclusive."""
     with pytest.raises(SystemExit) as exc:
         sim_main(["--device", "cpu", "--scenario", "smoke", "--ha", "3",
                   "--elastic-gangs"])
     assert exc.value.code == 2
     assert "--elastic-gangs is a direct single-scheduler mode" \
         in capsys.readouterr().err
-    assert sim_main(["--device", "cpu", "--scenario", "smoke", "--ha", "3",
-                     "--federated", "2"]) == 2
-    assert "--federated" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="ha_replicas and "
+                                         "federated_partitions are "
+                                         "mutually exclusive"):
+        sim_main(["--device", "cpu", "--scenario", "smoke", "--ha", "3",
+                  "--federated", "2"])
 
 
 def test_ha_sets_the_leader_metrics():

@@ -2774,6 +2774,77 @@ def jax_reference(kind: str, names, out_path) -> dict:
                                 names)
 
 
+# ---------------------------------------------------------------------------
+# one port sim run of tools/sim_reference.py's lists, on the CPU
+# ---------------------------------------------------------------------------
+
+def sim_port_run(source, args, env=(), out_dir=None, device="cpu"):
+    """One run of ``volcano_tpu_torch.sim`` in this process, as
+    tools/sim_reference.py's child runs the JAX package's: the run's
+    environment switches that the port reads at import are applied to the
+    live objects (``VOLCANO_TPU_TIMELINE_EVENTS`` to the timeline store,
+    ``VOLCANO_TPU_AUDIT_CYCLES`` to the audit ring) and put back after, and
+    a trailing ``--trace-out`` gets a file in ``out_dir``. Returns the exit
+    code, the printed plane, its report, the sequence digest, the
+    node-tensor paths, stderr, every SimRunner built, the trace object and
+    path, and the recorder's state (audit records, timelines)."""
+    import contextlib
+    import io
+    import json
+    import importlib.util
+    from volcano_tpu_torch import obs as pt_obs
+    from volcano_tpu_torch.actions import allocate as torch_allocate
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.obs import audit as pt_audit
+    from volcano_tpu_torch.obs import trace as pt_trace
+    from volcano_tpu_torch.sim.__main__ import main as sim_main
+    from volcano_tpu_torch.sim.report import sequence_digest
+    sys.path.insert(0, os.path.join(_REPO, "tools"))
+    from sim_traces import TensorPathRecorder
+    spec = importlib.util.spec_from_file_location(
+        "sim_reference", os.path.join(_REPO, "tools", "sim_reference.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    env = dict(env)
+    argv = list(args)
+    path = None
+    if argv[-1:] == ["--trace-out"]:
+        path = os.path.join(str(out_dir), "trace.json")
+        argv.append(path)
+    events = pt_obs.TIMELINE.max_events
+    pt_obs.TIMELINE.max_events = int(env.get(
+        "VOLCANO_TPU_TIMELINE_EVENTS", events))
+    pt_obs.AUDIT.configure(int(env.get("VOLCANO_TPU_AUDIT_CYCLES",
+                                       pt_audit._default_cycles())))
+    out, err = io.StringIO(), io.StringIO()
+    runners = []
+    paths = TensorPathRecorder(torch_allocate, SchedulerCache)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = sim_main(["--device", device, "--scenario", source,
+                           "--deterministic", *argv], runners=runners)
+        state = tool.recorder_state(pt_obs)
+    finally:
+        paths.close()
+        pt_obs.TIMELINE.max_events = events
+        pt_obs.AUDIT.configure(pt_audit._default_cycles())
+        # the sim leaves the recorder off; back to the default ring and
+        # clock
+        pt_obs.TRACE.configure(max_cycles=pt_trace.DEFAULT_MAX_CYCLES,
+                               logical=False)
+    text = out.getvalue().encode()
+    trace = None
+    if path is not None and rc == 0:
+        with open(path) as f:
+            trace = json.load(f)
+    return {"rc": rc, "text": text,
+            "report": json.loads(text) if rc == 0 else None,
+            "sequence": sequence_digest(runners[0]) if runners else None,
+            "paths": paths.summary(), "stderr": err.getvalue(),
+            "runners": runners, "trace": trace, "trace_path": path,
+            "state": state, "tool": tool}
+
+
 def _reference(kind, name):
     if kind == "slice":
         cache = SLICE_WORLDS[name]()

@@ -225,6 +225,112 @@ HA_RUNS = (
 )
 
 
+# the overload plane (ROADMAP item 9d): CI's overload soak on the sim's
+# default conf (the full --overload-chaos preset with four seeded kills and
+# --verify-overload-equivalence), the same world under
+# deploy/scheduler.conf (B1, and B3 as the run needs it), and CI's SLO run
+# (--lifecycle with a per-job event ring of 4096)
+OVERLOAD_KILLS = ("--kill-cycles", "2,5,9,13", "--kill-seed", "1")
+OVERLOAD_RUNS = (
+    ("overload-burst", ("--seed", "3", "--overload-chaos") + OVERLOAD_KILLS
+     + ("--verify-overload-equivalence",), ()),
+    ("overload-burst", ("--seed", "3", "--conf", DEPLOYED,
+                        "--overload-chaos") + OVERLOAD_KILLS, ()),
+    ("overload-burst", ("--seed", "3", "--overload-chaos", "--lifecycle"),
+     (("VOLCANO_TPU_TIMELINE_EVENTS", "4096"),)),
+)
+
+# the child's switch that mends the JAX package's refresh of a node changed
+# and then removed (volcano_tpu/cache/snapshot.py::PersistentNodeTensors.
+# refresh builds its touch list before the removal loop and raises
+# KeyError; Session.snapshot_node_tensors swallows it). The port's refresh
+# leaves such a name out, as the mend does.
+MEND = (("VOLCANO_TPU_REFERENCE_MEND_REFRESH", "1"),)
+
+# the federated control plane (ROADMAP item 9e without elastic
+# membership): CI's federated soak (smoke with four seeded partition kills,
+# the non-contended fed-smoke and the reserve-driving fed-starve, each with
+# --verify-federated-equivalence), fed-starve again under
+# deploy/scheduler.conf (each partition's B1 and B3 over its own node
+# tensors, nodes moving between them through the reserve protocol), the
+# rebalancer's fed-hotspot under the overload preset, CI's merged
+# federated trace, the federated overload soak, the store-backed
+# federation under store chaos, and the full-width baseline-10k over four
+# partitions (2,000 nodes sharded four ways, 500 a partition; its queues
+# default, q1, q2 and q3 round-robin, one a partition, so partition 0's
+# queue holds no job and partition 0 places nothing). Kill seed 3 is the
+# first from 2 up whose cycle-0 draw (bind_after, at the fifth bind) lands
+# inside a partition's bind funnel. Each deploy/scheduler.conf run is
+# digested again with the refresh mended (MEND).
+FED_KILLS = ("--kill-cycles", "2,5,9,13", "--kill-seed", "2")
+FEDERATED_RUNS = (
+    ("smoke", ("--seed", "3", "--federated", "4") + FED_KILLS
+     + ("--verify-federated-equivalence",), ()),
+    ("fed-smoke", ("--seed", "3", "--federated", "4",
+                   "--verify-federated-equivalence"), ()),
+    ("fed-starve", ("--seed", "3", "--federated", "4",
+                    "--verify-federated-equivalence"), ()),
+    ("fed-starve", ("--seed", "3", "--conf", DEPLOYED, "--federated", "4",
+                    "--verify-federated-equivalence"), ()),
+    ("fed-hotspot", ("--seed", "3", "--federated", "4", "--overload-chaos",
+                     "--verify-overload-equivalence"), ()),
+    ("fed-hotspot", ("--seed", "3", "--federated", "2", "--trace-out"),
+     AUDIT_ALL),
+    ("overload-burst", ("--seed", "3", "--federated", "4",
+                        "--overload-chaos") + FED_KILLS
+     + ("--verify-overload-equivalence",), ()),
+    ("smoke", ("--seed", "3", "--conf", DEPLOYED, "--store-chaos",
+               "--federated", "4") + FED_KILLS, ()),
+    ("baseline-10k", ("--conf", DEPLOYED, "--federated", "4",
+                      "--kill-cycles", "0,3", "--kill-seed", "3"), ()),
+    # the smallest world whose cycle-0 kill (bind_after, at the third bind)
+    # leaves an open intent while the later partitions take their first
+    # leadership (RECONCILE_RUNS)
+    ("baseline-tiny", ("--federated", "4", "--kill-cycles", "0",
+                       "--kill-seed", "4"), ()),
+)
+# the deploy/scheduler.conf runs of both lists, mended
+MENDED_RUNS = tuple((src, args, env + MEND)
+                    for src, args, env in OVERLOAD_RUNS + FEDERATED_RUNS
+                    if DEPLOYED in args)
+
+# the child's switch that mends the JAX package's reconcile of a journal
+# shared by partitions (volcano_tpu/cache/journal.py::reconcile settles
+# EVERY unacked intent against this cache: a partition's first handoff
+# acks another partition's crash window as stale, so the killed partition's
+# own handoff never rolls its optimistic binds back). Mended, an intent
+# that another partition's cache journaled stays open, as the port's
+# reconcile leaves it. The runs whose kill lands while another partition
+# takes its first leadership are digested with it (baseline-10k also with
+# MEND).
+MEND_RECONCILE = (("VOLCANO_TPU_REFERENCE_MEND_RECONCILE", "1"),)
+RECONCILE_RUNS = (
+    ("baseline-tiny", ("--federated", "4", "--kill-cycles", "0",
+                       "--kill-seed", "4"), MEND_RECONCILE),
+    ("baseline-10k", ("--conf", DEPLOYED, "--federated", "4",
+                      "--kill-cycles", "0,3", "--kill-seed", "3"),
+     MEND_RECONCILE),
+    ("baseline-10k", ("--conf", DEPLOYED, "--federated", "4",
+                      "--kill-cycles", "0,3", "--kill-seed", "3"),
+     MEND + MEND_RECONCILE),
+)
+
+
+def held_to(run, digests) -> tuple:
+    """The JAX record the port's run is held to: the package as is, or with
+    each of its faults that fired in the run (the record counts
+    ``refresh_faults`` and ``reconcile_faults``) mended, as the port's
+    refresh and reconcile are. Returns (record, the switches)."""
+    source, args, env = run
+    plain = digests[run_key(*run)]
+    mends = tuple(env)
+    if plain.get("refresh_faults"):
+        mends += MEND
+    if plain.get("reconcile_faults"):
+        mends += MEND_RECONCILE
+    return digests[run_key(source, args, mends)], mends
+
+
 def run_key(source: str, args, env=()) -> str:
     src = (("--trace", source[len("trace:"):])
            if source.startswith("trace:") else ("--scenario", source))
@@ -410,6 +516,64 @@ def _child(walk: str, argv) -> int:
 
         jax_evict.build_preempt_walk = build_exact
 
+    if os.environ.get(MEND[0][0]) == "1":
+        # MEND's switch: a name changed and then removed before the refresh
+        # is left out of the touch list (tests/torch_parity.py::
+        # _mend_jax_refresh)
+        sys.path.insert(0, os.path.join(REPO, "tests"))
+        from torch_parity import _mend_jax_refresh
+        _mend_jax_refresh(PersistentNodeTensors)
+    from volcano_tpu.cache import journal as jax_journal
+    reconcile_faults = []
+    jax_reconcile = jax_journal.reconcile
+    mend_reconcile = os.environ.get(MEND_RECONCILE[0][0]) == "1"
+    # seq -> the cache whose funnel journaled the intent: the partition
+    # the port's intent records carry (its ``part``), with or without the
+    # lifecycle timeline
+    owners = {}
+    journal_intent = SchedulerCache._journal_intent
+
+    def owned_intent(self, *args, **kwargs):
+        seq = journal_intent(self, *args, **kwargs)
+        if seq is not None:
+            owners[seq] = self
+        return seq
+
+    SchedulerCache._journal_intent = owned_intent
+
+    def partitioned_reconcile(cache, journal, *args, **kwargs):
+        # MEND_RECONCILE's switch: the intents another partition's cache
+        # journaled stay open (the port's reconcile); unmended, count them
+        # as they are settled stale
+        foreign = [i for i in journal.unacked()
+                   if owners.get(i.seq, cache) is not cache]
+        if not mend_reconcile:
+            reconcile_faults.extend(foreign)
+            return jax_reconcile(cache, journal, *args, **kwargs)
+        skip = {i.seq for i in foreign}
+        unacked = journal.unacked
+        journal.unacked = lambda: [i for i in unacked()
+                                   if i.seq not in skip]
+        try:
+            return jax_reconcile(cache, journal, *args, **kwargs)
+        finally:
+            del journal.unacked
+
+    jax_journal.reconcile = partitioned_reconcile
+    refresh_faults = []
+    jax_refresh = PersistentNodeTensors.refresh
+
+    def counted_refresh(self, nodes, changed):
+        # the unmended refresh's KeyError, counted before the session
+        # swallows it
+        try:
+            return jax_refresh(self, nodes, changed)
+        except KeyError as exc:
+            refresh_faults.append(str(exc))
+            raise
+
+    PersistentNodeTensors.refresh = counted_refresh
+
     if not hasattr(PersistentNodeTensors, "device_zone_code"):
         # the module docstring's mend
         PersistentNodeTensors.device_zone_code = \
@@ -445,6 +609,10 @@ def _child(walk: str, argv) -> int:
         sys.stdout.flush()
         record = dict(sequence_digest(runners[0]),
                       tensor_paths=paths.summary())
+        if refresh_faults:
+            record["refresh_faults"] = len(refresh_faults)
+        if reconcile_faults:
+            record["reconcile_faults"] = len(reconcile_faults)
         if "--trace-out" in argv:
             from volcano_tpu import obs
             with open(argv[argv.index("--trace-out") + 1]) as f:
@@ -468,7 +636,9 @@ def _entry(source, run_args, env, exact, default) -> dict:
             "default_walk_sha256": other["sha256"],
             "default_walk_bytes": other["bytes"],
             "default_walk_sequence_sha256": other_record["sha256"],
-            **({"obs": record["obs"]} if "obs" in record else {})}
+            **({"obs": record["obs"]} if "obs" in record else {}),
+            **{k: record[k] for k in ("refresh_faults", "reconcile_faults")
+               if k in record}}
 
 
 def _run_all(runs) -> dict:
@@ -492,7 +662,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--write", action="store_true",
                     help=f"compute the runs of RUNS, OBS_RUNS, "
-                         f"STORE_RUNS and HA_RUNS and write {DIGESTS}")
+                         f"STORE_RUNS, HA_RUNS, OVERLOAD_RUNS, "
+                         f"FEDERATED_RUNS, MENDED_RUNS and RECONCILE_RUNS "
+                         f"and write {DIGESTS}")
     ap.add_argument("--keys", nargs="+", metavar="KEY",
                     help="with --write: compute only these runs and merge "
                          "them into the file")
@@ -510,7 +682,8 @@ def main(argv=None) -> int:
         return 0
     if not args.write:
         ap.error("one of --write / --run is required")
-    every = RUNS + OBS_RUNS + STORE_RUNS + HA_RUNS
+    every = (RUNS + OBS_RUNS + STORE_RUNS + HA_RUNS + OVERLOAD_RUNS
+             + FEDERATED_RUNS + MENDED_RUNS + RECONCILE_RUNS)
     runs = [r for r in every
             if args.keys is None or run_key(*r) in args.keys]
     if args.keys is not None and len(runs) != len(args.keys):

@@ -183,10 +183,16 @@ class TensorPathRecorder:
     fresh build; for the persistent rows whether the refresh rebuilt them
     all and how many rows it scattered; a pipelined run's speculative
     solves too), and every drift the shadow verifier repaired. Works on either package: pass its allocate module
-    and its SchedulerCache class. ``close`` restores both."""
+    and its SchedulerCache class. ``close`` restores both.
+
+    Each solve is also attributed to the partition whose session ran it
+    (the cache's ``obs_part``, 0 outside a federated run): ``summary``
+    adds a ``partitions`` breakdown, each partition's own solve-by-solve
+    record, when more than one partition solved."""
 
     def __init__(self, alloc_module, cache_cls):
         self.paths: List[list] = []
+        self.parts: List[int] = []
         self.drift: List[dict] = []
         self._alloc = alloc_module
         self._cache_cls = cache_cls
@@ -196,6 +202,8 @@ class TensorPathRecorder:
 
         def node_tensors(ssn, rnames):
             node_t = real_nt(ssn, rnames)
+            cache = getattr(ssn, "cache", None)
+            rec.parts.append(int(getattr(cache, "obs_part", 0) or 0))
             if alloc_module.LAST_STATS["tensor_incremental"]:
                 # a speculative solve reads a pinned epoch of the
                 # persistent tensors; its owner holds the refresh's stats
@@ -225,7 +233,7 @@ class TensorPathRecorder:
         persistent = [p for p in self.paths if p[0] == "persistent"]
         scatters = [p for p in persistent if not p[1] and p[2]]
         text = json.dumps(self.paths, separators=(",", ":")).encode()
-        return {"sha256": hashlib.sha256(text).hexdigest(),
+        out = {"sha256": hashlib.sha256(text).hexdigest(),
                 "solves": len(self.paths),
                 "persistent": len(persistent),
                 "fresh": len(self.paths) - len(persistent),
@@ -233,6 +241,23 @@ class TensorPathRecorder:
                 "scatter": len(scatters),
                 "scatter_rows": sum(p[2] for p in scatters),
                 "drift": self.drift}
+        if len(set(self.parts)) > 1:
+            out["partitions"] = {
+                str(pid): self._part_summary(pid)
+                for pid in sorted(set(self.parts))}
+        return out
+
+    def _part_summary(self, pid: int) -> Dict[str, object]:
+        """One partition's solves: their count, how many rebuilt the rows
+        whole, the rows scattered, and the SHA-256 of its own record."""
+        mine = [p for p, part in zip(self.paths, self.parts) if part == pid]
+        text = json.dumps(mine, separators=(",", ":")).encode()
+        return {"sha256": hashlib.sha256(text).hexdigest(),
+                "solves": len(mine),
+                "full": sum(1 for p in mine if p[0] == "persistent"
+                            and p[1]),
+                "scatter_rows": sum(p[2] for p in mine
+                                    if p[0] == "persistent" and not p[1])}
 
 
 if __name__ == "__main__":

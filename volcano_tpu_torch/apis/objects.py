@@ -5,6 +5,7 @@ Field layout mirrors the reference CRDs:
 - PodGroup: vendor/.../scheduling/v1beta1/types.go:165-194
 - Queue:    vendor/.../scheduling/v1beta1/types.go:305-317
 - Command:  vendor/.../bus/v1alpha1
+- PartitionState: the federated control plane's store-backed state
 """
 
 from __future__ import annotations
@@ -239,6 +240,23 @@ class PriorityClass:
     global_default: bool = False
 
     KIND = "PriorityClass"
+
+
+@dataclass
+class PartitionStateCR:
+    """The federated control plane's state as a store object (the
+    store-backed transport): the PartitionMap's queue and node ownership
+    with its pin and drain markers, and the ReserveLedger's open request
+    set, through the same CAS and watch path as every other object.
+    ``spec`` is one plain dict (queue_owner, node_owner, pinned, draining,
+    rr_queue, rr_node, idle, requests, next_rid, version), so the CAS
+    funnel deep-copies and replaces it whole: a partial write cannot
+    exist, which makes an ownership flip atomic at the store."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: Dict = field(default_factory=dict)
+
+    KIND = "PartitionState"
 
 
 @dataclass

@@ -209,6 +209,12 @@ class SchedulerCache:
         # tensors last refreshed (snapshot.PersistentNodeTensors)
         self._tensor_dirty: Set[str] = set()
         self.tensor_cache = None
+        # federation: a per-partition snapshot scope, ClusterInfo ->
+        # ClusterInfo (PartitionMap.scope), applied AFTER the clone-on-dirty
+        # build, so the clone maps and dirty sets stay whole-cluster while
+        # the session sees only this partition's queues, jobs and node
+        # shard. None: unscoped
+        self.snapshot_scope: Optional[Callable] = None
         # host-clock breakdown and dirty ratio of the last snapshot()
         self.last_snapshot_stats: Dict[str, object] = {}
         # the pipelined cycle's outstanding speculative basis:
@@ -227,6 +233,11 @@ class SchedulerCache:
         # id this cache's funnel events are stamped with, 0 for a single
         # scheduler. Observability only: nothing decision-plane reads it.
         self.obs_part = 0
+        # federation: the partition this cache schedules for, set when the
+        # control plane is built. Every journal intent carries it, and the
+        # journal's reconcile leaves another partition's crash window to
+        # that partition. None: a single scheduler
+        self.partition: Optional[int] = None
 
     # -- intent journal (cache/journal.py) ----------------------------------
 
@@ -257,7 +268,8 @@ class SchedulerCache:
         if self.journal is None:
             return None
         seq = self.journal.record_intent(op, task, node, via, fresh,
-                                         epoch=epoch, ctx=ctx)
+                                         epoch=epoch, ctx=ctx,
+                                         part=self.partition)
         if sync:
             self.journal.flush()
         return seq
@@ -422,7 +434,10 @@ class SchedulerCache:
         or after mark_all_dirty()."""
         from ..obs import trace as obs_trace
         with obs_trace.span("snapshot_clone"):
-            return self._snapshot_impl()
+            ci = self._snapshot_impl()
+        if self.snapshot_scope is not None:
+            ci = self.snapshot_scope(ci)
+        return ci
 
     def _snapshot_impl(self, stage: bool = False):
         """One clone-on-dirty ClusterInfo. By default it consumes the
@@ -565,7 +580,10 @@ class SchedulerCache:
         discarded. Returns ``(ci, staged)``."""
         from ..obs import trace as obs_trace
         with obs_trace.span("snapshot_clone", speculative=True):
-            return self._snapshot_impl(stage=True)
+            ci, staged = self._snapshot_impl(stage=True)
+        if self.snapshot_scope is not None:
+            ci = self.snapshot_scope(ci)
+        return ci, staged
 
     def _reabsorb_spec_dirt_locked(self) -> None:
         """Merge an outstanding basis's moved dirty keys back into the live

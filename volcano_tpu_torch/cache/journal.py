@@ -64,11 +64,11 @@ class Intent:
     """One journaled side-effect intent (decoded view)."""
 
     __slots__ = ("seq", "op", "task", "job", "node", "via", "fresh",
-                 "epoch", "ctx")
+                 "epoch", "ctx", "part")
 
     def __init__(self, seq: int, op: str, task: str, job: str, node: str,
                  via: str = "", fresh: bool = True, epoch: int = 0,
-                 ctx: Optional[dict] = None):
+                 ctx: Optional[dict] = None, part: Optional[int] = None):
         self.seq = seq
         self.op = op                  # "bind" | "evict"
         self.task = task              # task uid
@@ -90,6 +90,11 @@ class Intent:
         # journal totally orders side effects across leaderships and a
         # replayed record names the leadership that issued it.
         self.epoch = epoch
+        # the federated partition whose cache journaled the intent, and
+        # whose handoff alone settles it (reconcile): None for a single
+        # scheduler, which keeps the record byte-identical to the
+        # pre-federation shape.
+        self.part = part
 
     def __repr__(self):
         return (f"Intent(seq={self.seq}, op={self.op}, task={self.task}, "
@@ -155,7 +160,7 @@ class IntentJournal:
                                      rec.get("via", ""),
                                      bool(rec.get("fresh", True)),
                                      int(rec.get("epoch", 0)),
-                                     rec.get("ctx"))
+                                     rec.get("ctx"), rec.get("part"))
         elif rec.get("kind") == "ack":
             self._open.pop(seq, None)
 
@@ -197,6 +202,8 @@ class IntentJournal:
                        "epoch": it.epoch}
                 if it.ctx is not None:
                     rec["ctx"] = it.ctx
+                if it.part is not None:
+                    rec["part"] = it.part
                 f.write(json.dumps(rec, separators=(",", ":")) + "\n")
             f.flush()
             os.fsync(f.fileno())
@@ -229,18 +236,20 @@ class IntentJournal:
 
     def record_intent(self, op: str, task, node: str = "",
                       via: str = "", fresh: bool = True,
-                      epoch: int = 0, ctx: Optional[dict] = None) -> int:
+                      epoch: int = 0, ctx: Optional[dict] = None,
+                      part: Optional[int] = None) -> int:
         """Journal a side-effect intent BEFORE the executor runs, stamped
-        with the issuing leader's fencing ``epoch`` and (optionally) its
+        with the issuing leader's fencing ``epoch``, (optionally) its
         correlation ``ctx`` — the lifecycle-timeline stamp a follower or
         restarted process ingests to continue the job's story
-        (obs/lifecycle.py). Returns the seq to ack with."""
+        (obs/lifecycle.py) — and, in a federated control plane, the
+        ``part`` whose cache issued it. Returns the seq to ack with."""
         with self._lock:
             self._seq += 1
             seq = self._seq
             intent = Intent(seq, op, task.uid, task.job,
                             node or task.node_name or "", via, fresh,
-                            epoch, ctx)
+                            epoch, ctx, part)
             self._open[seq] = intent
             rec = {"kind": "intent", "seq": seq, "op": op,
                    "task": intent.task, "job": intent.job,
@@ -248,6 +257,8 @@ class IntentJournal:
                    "epoch": epoch}
             if ctx is not None:
                 rec["ctx"] = ctx
+            if part is not None:
+                rec["part"] = part
             self._append(rec)
         self._publish(rec)
         return seq
@@ -407,6 +418,8 @@ class JournalFollower:
                 "via": it.via, "fresh": it.fresh, "epoch": it.epoch}
             if it.ctx is not None:
                 rec["ctx"] = it.ctx
+            if it.part is not None:
+                rec["part"] = it.part
             self._pending[it.seq] = rec
             ingest_timeline(rec)
 
@@ -532,11 +545,23 @@ def reconcile(cache, journal: IntentJournal,
     a different node. Either way: zero double-binds.
 
     Every examined intent is acked (settled) and the journal compacted.
+
+    A journal shared by the partitions of a federated control plane holds
+    every partition's crash window. An intent that another partition's
+    cache journaled (its ``part`` is not this cache's ``partition``) is
+    left open for that partition's own handoff to settle: acking it here
+    as stale, as the JAX package does
+    (``volcano_tpu/cache/journal.py::reconcile``), strands the killed
+    partition's optimistic binds, which its restart then never rolls back.
     """
     from .. import metrics
 
     report = ReconcileReport()
+    own = getattr(cache, "partition", None)
     for intent in journal.unacked():
+        if own is not None and intent.part is not None \
+                and intent.part != own:
+            continue
         report.replayed += 1
         try:
             _reconcile_one(cache, journal, intent, report,

@@ -6,7 +6,8 @@ exception injector for the scheduler shell's per-action isolation
 (scheduler.Scheduler.action_fault_hook), the store boundary's per-verb
 fault plan (``StoreFaultInjector``, behind
 store_transport.FaultyStoreTransport), the feedback plane's ack faults
-(``AckFaultInjector``) and the allocate solve's device faults
+(``AckFaultInjector``), the overload drills' seeded arrival bursts
+(``OverloadInjector``) and the allocate solve's device faults
 (``DeviceFaultInjector`` at ``actions.allocate.DEVICE_FAULT_HOOK``), and
 the HA control plane's lease revocation (``LeaseLossInjector``) and lease
 clock skew (``ClockSkewInjector``). Everything is driven by one
@@ -246,6 +247,62 @@ class AckFaultInjector:
         from . import metrics
         metrics.register_ack_fault(kind)
         return kind
+
+
+class OverloadInjector:
+    """Seeded arrival-burst generator for the admission-overload drills.
+    Each ``tick()`` (one virtual cycle) rolls ONE seeded coin; a hit
+    yields a burst of ``burst_range`` synthetic jobs on top of whatever
+    the trace already delivers — the flash crowd the backpressure budget
+    must shed and the cycle budget must survive. ``job_spec(n_queues)``
+    draws one burst job's shape (queue index, priority, gang size,
+    resources, duration) from the same seeded RNG, so a whole overload
+    soak is a pure function of its seed and replays byte-identically.
+
+    One ``random.Random(seed)`` per injector — a failing soak
+    reproduces from its printed seed, like every other chaos harness
+    here."""
+
+    def __init__(self, burst_rate: float = 0.15,
+                 burst_range: Tuple[int, int] = (8, 32), seed: int = 0,
+                 priorities: Iterable[int] = (0, 0, 0, 5, 10),
+                 cpu_choices: Iterable[int] = (500, 1000),
+                 duration_range: Tuple[float, float] = (2.0, 6.0)):
+        if not 0.0 <= burst_rate <= 1.0:
+            raise ValueError(f"burst_rate {burst_rate} not in [0, 1]")
+        self.burst_rate = burst_rate
+        self.burst_range = tuple(burst_range)
+        self.seed = seed
+        self.priorities = tuple(priorities)
+        self.cpu_choices = tuple(cpu_choices)
+        self.duration_range = tuple(duration_range)
+        self._rng = random.Random(seed)
+        self.ticks = 0
+        self.injected = 0
+        self.bursts: List[Tuple[int, int]] = []   # (tick, size)
+
+    def tick(self) -> int:
+        """One cycle: 0 (no burst) or the seeded burst size."""
+        self.ticks += 1
+        if self._rng.random() >= self.burst_rate:
+            return 0
+        lo, hi = self.burst_range
+        size = self._rng.randint(int(lo), int(hi))
+        self.bursts.append((self.ticks, size))
+        self.injected += size
+        return size
+
+    def job_spec(self, n_queues: int) -> Dict[str, object]:
+        """One burst job's seeded shape; the caller names it and routes
+        it through the admission front door like any client POST."""
+        lo, hi = self.duration_range
+        return {
+            "queue_ix": self._rng.randrange(max(int(n_queues), 1)),
+            "priority": self._rng.choice(self.priorities),
+            "tasks": self._rng.choice((1, 1, 2)),
+            "cpu_milli": self._rng.choice(self.cpu_choices),
+            "duration": round(self._rng.uniform(lo, hi), 3),
+        }
 
 
 class DeviceFaultInjector:

@@ -13,7 +13,11 @@ bounded-map evictions), device containment's (solver fallbacks, device
 faults by kind, degraded cycles, the cool-down state), and the store
 boundary's (retries, injected faults, watch resumes, ack faults), and
 the HA control plane's (the leader gauge, fencing rejections by
-operation, failovers), with ``health_detail()``'s sections for them. There is no Prometheus
+operation, failovers), the overload plane's (admission backpressure by
+reason, the pending depth), and the federated control plane's (the
+per-partition leader gauge, cross-partition reserves, the rebalancer's
+decisions, the partition count), with ``health_detail()``'s sections for
+them. There is no Prometheus
 exposition yet.
 
 ``solver_trace`` marks a device solve as a named range in a
@@ -156,23 +160,18 @@ def health() -> Tuple[str, int]:
 
 def health_detail() -> dict:
     """The structured health payload, the JAX package's sections that
-    this package feeds: the shell's verdict, the decision audit's
-    bounded-map evictions (a warning: records were dropped to stay
-    bounded), the device cool-down's state (DeviceHealth publishes it on
-    every transition), the store boundary's, the HA role (this
-    replica's role, its fencing epoch, the stale-epoch writes the fencing
-    gate stopped and the failovers) and the SLO engine's last published
-    evaluation."""
+    this package feeds: the shell's verdict, the device cool-down's state
+    (DeviceHealth publishes it on every transition), the store boundary's,
+    the HA role (this replica's role, its fencing epoch, the stale-epoch
+    writes the fencing gate stopped and the failovers), the federated
+    control plane's
+    (per-partition leadership, cross-partition reserves, the partition
+    count), the overload plane's (budget exhaustion, backpressure, the
+    bounded sets' evictions, the rebalancer) and the SLO engine's last
+    published evaluation."""
     with _lock:
         fenced = {k[1]: v for k, v in _counters.items()
                   if k[0] == "fencing_rejections"}
-        audit_evicted = int(_counters.get(("audit_latest_evicted",), 0))
-        warnings = []
-        if audit_evicted:
-            warnings.append(
-                f"audit_latest_evicted={audit_evicted}: decision-audit "
-                f"records were evicted under job-churn pressure; why() may "
-                f"miss old jobs")
         return {
             "state": _health["state"],
             "consecutive_failures": _health["consecutive_failures"],
@@ -195,14 +194,55 @@ def health_detail() -> dict:
                                                "epoch": 0})),
             "fencing_rejections_total": fenced,
             "failovers_total": _counters.get(("failovers",), 0),
-            "overload": {
-                "audit_latest_evicted_total": audit_evicted,
-                "warnings": warnings,
-            },
+            # federation: the per-partition leadership and ownership
+            # entries PartitionMember publishes, the cross-partition
+            # reserve counters and the live partition count
+            "federation": dict(_health_detail.get("federation",
+                                                  {"enabled": False})),
+            "cross_partition_reserves_total": {
+                k[1]: v for k, v in _counters.items()
+                if k[0] == "cross_partition_reserves"},
+            "partition_count": int(_gauges.get(("partition_count",), 0)),
+            "overload": _overload_detail_locked(),
             # the SLO plane: the engine's last published evaluation
             # (compliance + per-window burn rates)
             "slo": [dict(obj) for obj in _health_detail.get("slo", [])],
         }
+
+
+def _overload_detail_locked() -> dict:
+    """Caller holds _lock: health_detail()'s ``overload`` section — cycle
+    budget exhaustion, admission backpressure, the bounded sets' evictions
+    (each a warning: state was dropped to stay bounded) and the
+    rebalancer's state."""
+    exhausted = {k[1]: v for k, v in _counters.items()
+                 if k[0] == "cycle_budget_exhausted"}
+    dl_evicted = int(_counters.get(("dead_letter_evicted",), 0))
+    audit_evicted = int(_counters.get(("audit_latest_evicted",), 0))
+    warnings = []
+    if dl_evicted:
+        warnings.append(
+            f"dead_letter_evicted={dl_evicted}: the bounded dead-letter "
+            f"set overflowed and dropped its oldest side effects — "
+            f"redrive cannot recover them; investigate the failing path")
+    if audit_evicted:
+        warnings.append(
+            f"audit_latest_evicted={audit_evicted}: decision-audit "
+            f"records were evicted under job-churn pressure; why() may "
+            f"miss old jobs")
+    return {
+        "cycle_budget_exhausted_total": exhausted,
+        "deferred_actions_total": int(
+            _counters.get(("deferred_actions",), 0)),
+        "backpressure_total": {k[1]: v for k, v in _counters.items()
+                               if k[0] == "admission_backpressure"},
+        "admission_pending_depth": int(
+            _gauges.get(("admission_pending_depth",), 0)),
+        "dead_letter_evicted_total": dl_evicted,
+        "audit_latest_evicted_total": audit_evicted,
+        "rebalance": dict(_health_detail.get("rebalance", {})),
+        "warnings": warnings,
+    }
 
 
 def register_solver_fallback(action: str) -> None:
@@ -314,6 +354,51 @@ def register_failover() -> None:
     _count(("failovers",))
 
 
+def set_partition_leader(partition: int, leading: bool, epoch: int = 0,
+                         detail: Optional[dict] = None) -> None:
+    """Publish a federation partition's leadership state: the per-partition
+    gauge and that partition's entry of health_detail()'s ``federation``
+    section. Each partition member publishes its own entry; entries merge
+    by partition id."""
+    with _lock:
+        _gauges[("partition_leader", str(partition))] = \
+            1.0 if leading else 0.0
+        fed = _health_detail.setdefault("federation", {"enabled": True})
+        fed["enabled"] = True
+        entry = {"leading": bool(leading), "epoch": int(epoch)}
+        if detail:
+            entry.update(detail)
+        fed[str(partition)] = entry
+
+
+def register_cross_partition_reserve(result: str, n: int = 1) -> None:
+    """A cross-partition reserve/transfer protocol step settled with the
+    given result (requested|granted|rejected|expired|...)."""
+    _count(("cross_partition_reserves", result), n)
+
+
+def register_rebalance_move(result: str) -> None:
+    """One load-driven rebalancer decision settled
+    (result=moved|refused|abstained)."""
+    _count(("rebalance_moves", result))
+
+
+def set_rebalance_detail(partition: int, detail: dict) -> None:
+    """Publish one partition's rebalancer state into health_detail()'s
+    ``overload.rebalance`` section."""
+    with _lock:
+        _health_detail.setdefault("rebalance", {})[str(partition)] = \
+            dict(detail)
+
+
+def set_partition_count(n: int) -> None:
+    """Publish the live federation partition count."""
+    with _lock:
+        _gauges[("partition_count",)] = float(n)
+        fed = _health_detail.setdefault("federation", {"enabled": True})
+        fed["partition_count"] = int(n)
+
+
 def register_action_failure(action: str) -> None:
     """An action (or the resync pass) raised inside run_once and was
     isolated."""
@@ -326,6 +411,20 @@ def register_cycle_budget_exhausted(action: str) -> None:
 
 def register_deferred_actions(n: int) -> None:
     _count(("deferred_actions",), n)
+
+
+def register_backpressure(reason: str, n: int = 1) -> None:
+    """The admission front door refused work under its bounded
+    pending-work budget (reason=queue_depth|bytes|priority_shed)."""
+    _count(("admission_backpressure", reason), n)
+
+
+def set_admission_pending(depth: int, nbytes: float) -> None:
+    """Published by the admission budget on every charge and credit: the
+    accepted-but-unscheduled work the front door carries."""
+    with _lock:
+        _gauges[("admission_pending_depth",)] = float(depth)
+        _gauges[("admission_pending_bytes",)] = float(nbytes)
 
 
 # -- resync queue, journal, feedback plane -----------------------------------

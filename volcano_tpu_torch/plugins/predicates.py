@@ -136,16 +136,21 @@ class PredicatesPlugin(Plugin):
                         mask[ti, ni] = False
         sched = np.asarray([not n.unschedulable for n in node_infos], bool)
         mask &= sched[None, :]
+        # the static predicates read only what _task_signature keys on, and
+        # the tasks of a gang share it: each group's row is computed once
+        groups: Dict[Tuple, list] = {}
         for ti, task in enumerate(tasks):
             if not task.node_selector and not task.affinity and not any_taints:
                 continue
-            for ni, node in enumerate(node_infos):
-                if not mask[ti, ni]:
-                    continue
-                if self.node_affinity_enable and not node_selector_ok(task, node):
-                    mask[ti, ni] = False
-                elif self.taint_enable and not taints_tolerated(task, node):
-                    mask[ti, ni] = False
+            groups.setdefault(self._task_signature(task),
+                              [task, []])[1].append(ti)
+        for task, rows in groups.values():
+            ok = np.fromiter(
+                ((not self.node_affinity_enable
+                  or node_selector_ok(task, node))
+                 and (not self.taint_enable or taints_tolerated(task, node))
+                 for node in node_infos), bool, N)
+            mask[np.asarray(rows)] &= ok
         return mask
 
     def on_session_open(self, ssn) -> None:

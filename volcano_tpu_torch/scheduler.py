@@ -249,6 +249,13 @@ class Scheduler:
         # pass and before the snapshot, so a verb's annotation rewrite is
         # whole or absent in every cycle
         self.command_funnel = None
+        # federation: a PartitionMember when this shell runs one partition
+        # of a federated control plane, driven at the cycle boundaries
+        # (on_cycle_start before the snapshot, so incoming reserves are
+        # granted against pre-cycle state; on_cycle_end in the epilogue)
+        # and only while this replica leads its partition (the hooks sit
+        # behind the HA gate)
+        self.federation = None
         # HA: no elector is the standalone mode; attach_elector puts the
         # shell into the role state machine (and serial cycles: a
         # speculation never crosses a leadership boundary)
@@ -267,7 +274,9 @@ class Scheduler:
         # decision-audit records of fast-admit binds made between cycles,
         # harvested with the next cycle's session
         self._fast_admit_audit: list = []
-        # the pipelined cycle: standalone only
+        # the pipelined cycle: standalone only (with an elector or a
+        # federation member the shell runs serial cycles: a speculation
+        # cannot carry across a leadership or partition boundary)
         self.pipelined = _env_flag("VOLCANO_TPU_PIPELINED") \
             if pipelined is None else bool(pipelined)
         self._spec: Optional[_Speculation] = None
@@ -334,6 +343,10 @@ class Scheduler:
             # describes only the rest of the cycle the lease was lost in
             self.role = ROLE_FOLLOWER
             metrics.set_leader(False, self.role, elector.fencing_epoch)
+            if self.federation is not None:
+                # the leader-gated cycle hooks never run here, so the
+                # partition's follower state is published from the gate
+                self.federation.publish_follower()
             return False
         if not led_before:
             # epoch 1 is the first leadership ever; any later acquisition
@@ -415,11 +428,17 @@ class Scheduler:
         rec = obs_trace.TRACE
         cycle = self._cycles_run
         # pin the ambient correlation context (obs/lifecycle.py) every
-        # funnel-level stamp of this cycle inherits
-        part = getattr(self.cache, "obs_part", 0)
+        # funnel-level stamp of this cycle inherits; a federated member
+        # also claims its own lane (pid) in the merged Chrome trace
+        part = self.federation.pid if self.federation is not None \
+            else getattr(self.cache, "obs_part", 0)
+        if hasattr(self.cache, "obs_part"):
+            self.cache.obs_part = part
         obs_lifecycle.TIMELINE.set_context(
             cycle=cycle, part=part, epoch=self.current_fencing_epoch(),
             t=self.clock.time())
+        if self.federation is not None:
+            rec.set_pid(part + 1)
         began = rec.enabled
         if began:
             rec.begin_cycle(cycle)
@@ -450,6 +469,20 @@ class Scheduler:
                 log.exception("resync processing failed")
                 metrics.register_action_failure("resync")
                 errors.append(("resync", exc))
+        # the federated cycle boundary: expire timed-out reserves, settle
+        # drained queue moves, review incoming reserve requests, before the
+        # snapshot, so grants (evictions, node transfers) shape the state
+        # this cycle schedules against. Isolated like an action; a SimKill
+        # inside a drain eviction tunnels through (it is not an Exception),
+        # as through the funnels it rides
+        if self.federation is not None:
+            try:
+                with rec.span("federation"):
+                    self.federation.on_cycle_start()
+            except Exception as exc:
+                log.exception("federation cycle-start hook failed")
+                metrics.register_action_failure("federation")
+                errors.append(("federation", exc))
         if self.command_funnel is not None:
             try:
                 with rec.span("commands"):
@@ -481,7 +514,8 @@ class Scheduler:
         # tolerable one opens a fresh session the speculative solve replays
         # onto, anything else discards the speculation and the cycle
         # solves serially
-        pipelined = self.pipelined and self.elector is None
+        pipelined = (self.pipelined and self.elector is None
+                     and self.federation is None)
         ssn = None
         commit = None
         if self._spec is not None:
@@ -685,6 +719,12 @@ class Scheduler:
                         self.cache.process_expired_inflight()
                 except Exception:
                     log.exception("in-flight ack watchdog failed")
+            if self.federation is not None:
+                try:
+                    self.federation.on_cycle_end()
+                except Exception:
+                    log.exception("federation cycle-end hook failed")
+                    metrics.register_action_failure("federation")
             self._maybe_verify_drift()
 
     def _maybe_verify_drift(self) -> None:
@@ -1012,6 +1052,13 @@ class Scheduler:
         if self.elector is not None and not self.elector.leading:
             return 0
         cache = self.cache
+        if self.federation is not None:
+            # a partition's ownership is enforced at session scope
+            # (cache.snapshot_scope), and this path reads the whole-cluster
+            # indexes directly: binding here could claim another
+            # partition's job. Drain the feed so it cannot grow unconsumed
+            cache.drain_new_jobs()
+            return 0
         uids = cache.drain_new_jobs()
         if not uids:
             return 0

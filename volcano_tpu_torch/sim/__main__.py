@@ -1,6 +1,7 @@
 """CLI: run a trace file or a named scenario through the simulator: the
-JAX package's direct mode (one scheduler over one cache), or its HA
-control plane (``--ha N`` replicas over one cluster).
+JAX package's direct mode (one scheduler over one cache), its HA control
+plane (``--ha N`` replicas over one cluster), or its federated control
+plane (``--federated N`` partitions of one cluster).
 
 Examples::
 
@@ -45,6 +46,25 @@ equal it byte for byte)::
         --seed 3 --ha 3 --kill-cycles 2,5,9,13 --kill-seed 2 \
         --lease-loss-cycles 7 --verify-ha-equivalence --deterministic
 
+Overload: cycle budgets, bounded admission with priority-aware shedding
+and seeded bursts, with the overload contract checked; with ``--federated``
+the preset adds the load-driven queue rebalancer::
+
+    python -m volcano_tpu_torch.sim --device cpu --scenario overload-burst \
+        --seed 3 --overload-chaos --kill-cycles 2,5,9,13 --kill-seed 1 \
+        --verify-overload-equivalence --deterministic
+    python -m volcano_tpu_torch.sim --device cpu --scenario fed-hotspot \
+        --seed 3 --federated 4 --overload-chaos \
+        --verify-overload-equivalence --deterministic
+
+The federated control plane: four partitions with seeded partition kills,
+held to the single-scheduler oracle (terminal accounting; a non-contended
+run equals it byte for byte)::
+
+    python -m volcano_tpu_torch.sim --device cpu --scenario smoke --seed 3 \
+        --federated 4 --kill-cycles 2,5,9,13 --kill-seed 2 \
+        --verify-federated-equivalence --deterministic
+
 Elastic gangs, with the elastic-gang contract checked::
 
     python -m volcano_tpu_torch.sim --device cpu --scenario elastic-churn \\
@@ -73,20 +93,11 @@ from .workload import SCENARIOS, make_scenario
 # the JAX package's sim flags that name modes this package lacks:
 # flag -> (takes a value, what it needs)
 REFUSED_FLAGS = {
-    "--federated": (True, "the federated control plane (ROADMAP item 9)"),
-    "--verify-federated-equivalence": (
-        False, "the federated control plane (ROADMAP item 9)"),
-    "--rebalance": (False, "the federated control plane (ROADMAP item 9)"),
-    "--elastic": (False, "the federated control plane (ROADMAP item 9)"),
+    "--elastic": (False, "the federation's elastic membership (ROADMAP "
+                         "item 9e\u2032)"),
     "--verify-elastic-equivalence": (
-        False, "the federated control plane (ROADMAP item 9)"),
-    "--overload-chaos": (False, "admission backpressure and overload "
-                                "bursts (ROADMAP item 9)"),
-    "--admission-depth": (True, "admission backpressure (ROADMAP item 9)"),
-    "--burst-rate": (True, "overload bursts (ROADMAP item 9)"),
-    "--verify-overload-equivalence": (
-        False, "admission backpressure and overload bursts "
-               "(ROADMAP item 9)"),
+        False, "the federation's elastic membership (ROADMAP item "
+               "9e\u2032)"),
     "--sharded": (False, "the node-sharded engine (ROADMAP item 10)"),
     "--sharded-devices": (True, "the node-sharded engine "
                                 "(ROADMAP item 10)"),
@@ -111,8 +122,8 @@ class _Refused(argparse.Action):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m volcano_tpu_torch.sim",
-        description="Trace-driven cluster simulation, direct mode or the "
-                    "HA control plane")
+        description="Trace-driven cluster simulation: direct mode, the "
+                    "HA control plane or the federated control plane")
     src = ap.add_mutually_exclusive_group()
     src.add_argument("--scenario", help="named scenario (see --list)")
     src.add_argument("--trace", help="JSONL trace file to replay")
@@ -164,6 +175,24 @@ def build_parser() -> argparse.ArgumentParser:
                          "cluster (lease-based leadership, fencing epochs, "
                          "warm journal-tail standbys); --kill-cycles then "
                          "kills the LEADER at seeded points")
+    ap.add_argument("--federated", type=int, default=0, metavar="N",
+                    help="run N PARTITION schedulers over one virtual "
+                         "cluster (disjoint queue subsets and node shards, "
+                         "a fenced leader a partition, cross-partition "
+                         "reserve/transfer through the shared journal); "
+                         "--kill-cycles then kills a partition's leader at "
+                         "seeded points. N = 1 is the single scheduler")
+    ap.add_argument("--verify-federated-equivalence", action="store_true",
+                    help="also run the SAME trace single-scheduler and "
+                         "assert: a byte-identical aggregate decision plane "
+                         "when the federated run is non-contended (no "
+                         "kills, lease losses, ack or lease faults, no "
+                         "cross-partition reserve), else equal terminal "
+                         "accounting; no double bind and every arrived "
+                         "job completed (exit 1 otherwise)")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="the load-driven partition rebalancer (requires "
+                         "--federated N)")
     ap.add_argument("--lease-loss-cycles", default="",
                     help="comma-separated virtual cycles on which the "
                          "leader LOSES ITS LEASE mid-cycle (no process "
@@ -178,13 +207,36 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lease-fault-rate", type=float, default=None,
                     help="seeded store-fault rate on the HA lease CAS path "
                          "(acquire and renew ride the retrying transport; "
-                         "--ha only)")
+                         "--ha and --federated only)")
     ap.add_argument("--lease-fault-seed", type=int, default=None,
                     help="lease fault RNG seed (default: --seed)")
+    ap.add_argument("--overload-chaos", action="store_true",
+                    help="the overload preset: a cycle budget of 0.5 "
+                         "periods with the deterministic per-pending-task "
+                         "cost model, bounded admission (depth 48 a "
+                         "queue) with priority-aware shedding and "
+                         "retry-after re-offers, seeded arrival bursts "
+                         "and, with --federated, the load-driven queue "
+                         "rebalancer; --cycle-budget, --admission-depth, "
+                         "--burst-rate and --rebalance override it")
     ap.add_argument("--cycle-budget", type=float, default=None,
                     help="per-cycle deadline budget in virtual seconds "
                          "(0 = unbounded); actions defer past it with "
                          "carry-over ordering")
+    ap.add_argument("--admission-depth", type=int, default=None,
+                    help="per-queue accepted-work task cap at the "
+                         "admission front door (0 = unbounded)")
+    ap.add_argument("--burst-rate", type=float, default=None,
+                    help="seeded OverloadInjector burst probability a "
+                         "cycle (0 = off)")
+    ap.add_argument("--verify-overload-equivalence", action="store_true",
+                    help="check the overload contract: bounded per-queue "
+                         "pending depth, max cycle spend within 2x the "
+                         "budget, every admitted gang completed (shed and "
+                         "retried ones included), no double bind, the "
+                         "report byte-identical on a second run; with "
+                         "--federated --rebalance also that queue "
+                         "ownership converged (exit 1 otherwise)")
     ap.add_argument("--pipelined", action="store_true",
                     help="run the pipelined scheduler shell (the next "
                          "cycle's solve dispatched while the host commits "
@@ -312,10 +364,11 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
         ack_fault_rate = 0.3
     ack_fault_rate = ack_fault_rate or 0.0
     lease_fault_rate = args.lease_fault_rate or 0.0
-    if args.elastic_gangs and (args.ha > 1 or args.pipelined
+    if args.elastic_gangs and (args.federated or args.ha > 1 or args.pipelined
                                or args.fast_admit or store_wired):
         ap.error("--elastic-gangs is a direct single-scheduler mode (not "
-                 "--ha / --store-wired / --pipelined / --fast-admit)")
+                 "--federated / --ha / --store-wired / --pipelined / "
+                 "--fast-admit)")
     if args.verify_ack_equivalence and not ack_fault_rate:
         # without faults the report has no feedback section and every
         # stuck-state assertion would pass vacuously
@@ -346,10 +399,33 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
     kill_cycles = [int(c) for c in args.kill_cycles.split(",") if c.strip()]
     lease_loss = [int(c) for c in args.lease_loss_cycles.split(",")
                   if c.strip()]
-    cycle_budget = args.cycle_budget or 0.0
+    # the overload preset: budget, bounded admission and seeded bursts
+    # (and the rebalancer when federated); explicit flags override it
+    cycle_budget = args.cycle_budget
+    admission_depth = args.admission_depth
+    burst_rate = args.burst_rate
+    rebalance = args.rebalance
+    if args.overload_chaos:
+        if cycle_budget is None:
+            cycle_budget = 0.5 * args.period
+        if admission_depth is None:
+            admission_depth = 48
+        if burst_rate is None:
+            burst_rate = 0.2
+        if args.federated:
+            rebalance = True
+    cycle_budget = cycle_budget or 0.0
+    admission_depth = admission_depth or 0
+    burst_rate = burst_rate or 0.0
     # the deterministic cost model prices one pending task an action at
-    # 2 ms of budget, scaled by the period like the budget itself
+    # 2 ms of budget, scaled by the period like the budget itself: with the
+    # preset's 48-task admission cap the worst single action charges ~0.38
+    # periods, under the 0.5 budget, while a saturated 4-queue backlog
+    # walked by a 5-action pipeline charges ~1.5, so exhaustion and
+    # deferral fire in the overload runs
     budget_cost = 0.002 * args.period if cycle_budget else 0.0
+    if rebalance and not args.federated:
+        ap.error("--rebalance requires --federated N")
 
     def wraps():
         if not args.chaos_rate:
@@ -360,9 +436,10 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                 lambda e: ChaosEvictor(e, failure_rate=args.chaos_rate,
                                        seed=chaos_seed))
 
-    def run(kills, replicas=None, losses=None, pipelined=None,
-            fast_admit=None, fault_rate=None, torn=None, ack_rate=None,
-            lease_rate=None):
+    def run(kills, replicas=None, losses=None, federated=None,
+            pipelined=None, fast_admit=None, fault_rate=None, torn=None,
+            ack_rate=None, lease_rate=None):
+        partitions = args.federated if federated is None else federated
         bw, ew = wraps()
         runner = SimRunner(trace, conf_text=conf_text, period=args.period,
                            seed=args.seed, max_cycles=args.max_cycles,
@@ -370,7 +447,9 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                            evictor_wrap=ew, kill_cycles=kills,
                            kill_seed=kill_seed,
                            cycle_budget_s=cycle_budget,
-                           budget_cost_per_task=budget_cost, device=device,
+                           budget_cost_per_task=budget_cost,
+                           admission_depth=admission_depth,
+                           overload_burst_rate=burst_rate, device=device,
                            pipelined=args.pipelined if pipelined is None
                            else pipelined,
                            fast_admit=args.fast_admit if fast_admit is None
@@ -393,7 +472,9 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                            else losses,
                            lease_fault_rate=lease_fault_rate
                            if lease_rate is None else lease_rate,
-                           lease_fault_seed=args.lease_fault_seed)
+                           lease_fault_seed=args.lease_fault_seed,
+                           federated_partitions=partitions,
+                           rebalance=rebalance and bool(partitions))
         if runners is not None:
             runners.append(runner)
         return runner.run()
@@ -536,6 +617,70 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
               f"restarts={report.get('restarts', 0)}, "
               f"ttfb_p99_cycles={report.get('ttfb_p99_cycles')}, "
               f"mode={mode}", file=sys.stderr)
+    if args.verify_overload_equivalence:
+        ov = report.get("overload")
+        problems = []
+        if ov is None:
+            problems.append("no overload section in the report: enable "
+                            "--overload-chaos (or individual overload "
+                            "flags)")
+            ov = {}
+        # the overload machinery (cost model, shed and retry stream,
+        # bursts, rebalancer) is seeded and priced on the virtual clock, so
+        # an identical second run reproduces the report byte for byte
+        rerun = run(kill_cycles)
+        if deterministic_json(report) != deterministic_json(rerun):
+            problems.append("overload run not byte-deterministic x2")
+        budget = ov.get("cycle_budget", {})
+        if budget.get("budget_s"):
+            if budget.get("max_cycle_spend_s", 0.0) \
+                    > 2.0 * budget["budget_s"]:
+                problems.append(
+                    f"cycle spend exceeded 2x the budget: "
+                    f"{budget['max_cycle_spend_s']} vs "
+                    f"{budget['budget_s']}")
+        adm = ov.get("admission", {})
+        if adm:
+            over = {q: d for q, d in adm.get("high_water", {}).items()
+                    if d > adm["max_queue_depth"]}
+            if over:
+                problems.append(f"admission depth bound violated: "
+                                f"{over} > {adm['max_queue_depth']}")
+        if ov.get("retries_pending"):
+            problems.append(f"{ov['retries_pending']} shed arrivals "
+                            f"never re-admitted")
+        if report["jobs"]["completed"] != report["jobs"]["arrived"] \
+                or report["jobs"]["unfinished"]:
+            problems.append("not every admitted gang completed: "
+                            f"{report['jobs']}")
+        if report.get("double_binds"):
+            problems.append(f"double-binds under overload: "
+                            f"{report['double_binds']}")
+        reb = report.get("federation", {}).get("rebalance")
+        if reb is not None and reb.get("enabled"):
+            # a balanced world never moves (hysteresis abstains); the
+            # contract is convergence: whatever moved settled well before
+            # the run ended
+            if reb.get("move_count") and reb["last_move_t"] \
+                    > report["virtual_time_s"] - 10 * args.period:
+                problems.append(
+                    f"rebalancer still moving at run end (last move "
+                    f"t={reb['last_move_t']}): ownership did not "
+                    f"converge")
+        if problems:
+            for p in problems:
+                print(f"overload-equivalence FAILED: {p}",
+                      file=sys.stderr)
+            return 1
+        print(f"overload-equivalence OK: budget={budget}, "
+              f"shed={ov.get('shed', {})}, "
+              f"readmits={ov.get('readmit_attempts', 0)}, "
+              f"bursts={ov.get('burst_jobs', 0)}, "
+              f"rebalance_moves="
+              f"{(reb or {}).get('move_count', 0)}, "
+              f"restarts={report.get('restarts', 0)}, "
+              f"accounting={terminal_accounting(report)}",
+              file=sys.stderr)
     if args.verify_elastic_gang_equivalence:
         eg = report.get("elastic_gangs") or {}
         cmds = eg.get("commands") or {}
@@ -579,6 +724,50 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
               f"commands={cmds}, "
               f"restarts={report.get('restarts', 0)}, "
               f"accounting={terminal_accounting(report)}",
+              file=sys.stderr)
+    if args.verify_federated_equivalence:
+        import json
+        from .report import oracle_part
+        baseline = run([], replicas=1, losses=[], federated=0)
+        problems = []
+        # contended: anything that can legitimately move the aggregate
+        # plane off the oracle's (seeded kills and lease losses, ack and
+        # lease chaos, or the run itself moving capacity between partitions
+        # through cross-partition reserves)
+        contended = bool(kill_cycles or lease_loss
+                         or ack_fault_rate or lease_fault_rate
+                         or report.get("cross_partition_reserves"))
+        if not contended:
+            got_json = json.dumps(oracle_part(report), sort_keys=True,
+                                  separators=(",", ":"))
+            want_json = json.dumps(oracle_part(baseline), sort_keys=True,
+                                   separators=(",", ":"))
+            if got_json != want_json:
+                problems.append("non-contended federated aggregate "
+                                "decision plane differs from the "
+                                "single-scheduler oracle")
+        else:
+            got = terminal_accounting(report)
+            want = terminal_accounting(baseline)
+            if got != want:
+                problems.append(f"terminal accounting diverged: "
+                                f"federated={got} oracle={want}")
+        if report.get("double_binds"):
+            problems.append(f"cross-partition double-binds in federated "
+                            f"run: {report['double_binds']}")
+        if report["jobs"]["completed"] != report["jobs"]["arrived"]:
+            problems.append("federated run did not complete every "
+                            "arrived job")
+        if problems:
+            for p in problems:
+                print(f"federated-equivalence FAILED: {p}", file=sys.stderr)
+            return 1
+        fed = report.get("federation", {})
+        print(f"federated-equivalence OK: partitions={args.federated}, "
+              f"restarts={report.get('restarts', 0)}, "
+              f"failovers={report.get('failovers', 0)}, "
+              f"reserves={report.get('cross_partition_reserves', {})}, "
+              f"node_transfers={fed.get('node_transfers', 0)}",
               file=sys.stderr)
     if args.verify_ha_equivalence:
         import json

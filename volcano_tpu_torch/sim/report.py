@@ -162,10 +162,10 @@ def build_report(runner, actions_ms: Dict[tuple, list],
         # lease-loss config); 0 for a single scheduler
         "failovers": runner.failovers,
         "fenced_rejections": runner.fencing_rejections(),
-        # cross-partition reserve/transfer counters: part of EVERY report,
-        # {} for a run without partitions
-        "cross_partition_reserves": dict(runner.ledger.counts)
-        if getattr(runner, "ledger", None) is not None else {},
+        # cross-partition reserve/transfer counters: part of EVERY report
+        # ({} for a run without partitions, and for a non-contended
+        # federated one: what the federated-equivalence diff checks)
+        "cross_partition_reserves": runner.reserve_counts(),
         "jct_s": percentiles(runner.jct),
         "queueing_delay_s": percentiles(runner.queueing_delay),
         # time-to-first-bind in CYCLE PERIODS (the fast-admit acceptance
@@ -227,7 +227,26 @@ def build_report(runner, actions_ms: Dict[tuple, list],
             or getattr(runner, "_command_funnel", None) is not None:
         # only when the mode (or a job_command trace) is live
         report["elastic_gangs"] = runner.elastic_gang_stats()
-    if runner.replicas:
+    if runner.federated:
+        totals = runner.federation_totals()
+        report["federation"] = {
+            "partitions": runner.federated,
+            "map": runner.pmap.counts(),
+            "map_version": runner.pmap.version,
+            "reserves": report["cross_partition_reserves"],
+            "node_transfers": totals["node_transfers"],
+            "queue_moves": totals["queue_moves"],
+            "failover_cycles": list(runner.failover_cycles),
+            "failover_cycles_max": max(runner.failover_cycles, default=0),
+        }
+        if runner.store_wired:
+            report["federation"]["store_backed"] = True
+        if runner.rebalance:
+            # load-driven queue moves, deterministic from the published
+            # load signals and the virtual clock: the fed-hotspot
+            # convergence witness
+            report["federation"]["rebalance"] = runner.rebalance_stats()
+    elif runner.replicas:
         report["ha"] = {
             "replicas": runner.ha_replicas,
             "failover_cycles": list(runner.failover_cycles),
@@ -258,7 +277,8 @@ def terminal_accounting(report: dict) -> dict:
 
 def oracle_part(report: dict) -> dict:
     """The decision plane minus the topology's own section: what an
-    ``--ha N`` run of a non-contended trace must reproduce byte for byte
+    ``--ha N`` (or ``--federated N``) run of a non-contended trace must
+    reproduce byte for byte
     against the single-scheduler oracle. ``failovers``,
     ``fenced_rejections`` and ``cross_partition_reserves`` stay in: a
     non-contended run reports 0, 0 and {} for them, as the oracle does."""

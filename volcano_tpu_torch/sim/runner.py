@@ -64,6 +64,23 @@ revokes its lease before a seeded action, and ``lease_fault_rate`` puts
 the lease CAS traffic behind the retrying transport over a seeded faulty
 one. The report gains the ``ha`` section (failover cycles, lease losses,
 replicas) and counts failovers and fenced rejections.
+
+The overload plane: ``cycle_budget_s`` bounds each cycle's work on the
+deterministic cost model, ``admission_depth`` puts a bounded admission
+budget at the front door (a shed arrival retries at its retry_after hint)
+and ``overload_burst_rate`` layers the seeded OverloadInjector's bursts on
+the trace's arrival window. The report gains the ``overload`` section.
+
+``federated_partitions`` > 1 runs the federated control plane: N partition
+schedulers over one virtual cluster, each owning a disjoint queue subset
+and node shard (a shared PartitionMap, round-robin in watch order), each
+its own fenced leader (a lease and fencing authority a partition), its own
+cache scoped to its partition, and a PartitionMember on the shell's
+federation hooks; they coordinate only through the shared journal's
+reserve/transfer protocol. ``kill_cycles`` kills a partition's leader,
+``rebalance`` adds the load-driven queue rebalancer, and with
+``store_wired`` the map and the ledger live on the PartitionState store
+object. The report gains the ``federation`` section.
 """
 
 from __future__ import annotations
@@ -278,6 +295,8 @@ class SimRunner:
                  journal: Optional[IntentJournal] = None,
                  cycle_budget_s: float = 0.0,
                  budget_cost_per_task: float = 0.0,
+                 admission_depth: int = 0,
+                 overload_burst_rate: float = 0.0,
                  device=None,
                  pipelined: bool = False,
                  fast_admit: bool = False,
@@ -294,7 +313,9 @@ class SimRunner:
                  ha_replicas: int = 1,
                  lease_loss_cycles: Optional[Sequence[int]] = None,
                  lease_fault_rate: float = 0.0,
-                 lease_fault_seed: Optional[int] = None):
+                 lease_fault_seed: Optional[int] = None,
+                 federated_partitions: int = 0,
+                 rebalance: bool = False):
         self.trace = list(trace)
         self.period = period
         self.seed = seed
@@ -339,14 +360,27 @@ class SimRunner:
         # and fencing authority); one replica holds the lease and
         # schedules, the rest tail the journal warm
         self.ha_replicas = max(int(ha_replicas), 1)
+        # federated mode: N PARTITION schedulers (disjoint queue subsets
+        # and node shards of one virtual cluster), each partition its own
+        # fenced leader (a per-partition lease and authority), coordinating
+        # only through the shared journal's reserve/transfer protocol. One
+        # partition is the single scheduler; --ha is another topology
+        self.federated = max(int(federated_partitions or 0), 0)
+        if self.federated == 1:
+            self.federated = 0
+        if self.federated and self.ha_replicas > 1:
+            raise ValueError("ha_replicas and federated_partitions are "
+                             "mutually exclusive")
         # the pipelined shell and fast admit do not carry a speculation
-        # across a leadership boundary
-        if (pipelined or fast_admit) and ha_replicas > 1:
+        # across a leadership or partition boundary
+        if (pipelined or fast_admit) \
+                and (federated_partitions or ha_replicas > 1):
             raise ValueError("pipelined/fast_admit are single-scheduler "
                              "modes (not --ha / --federated)")
         # store-wired mode: cluster truth in an ObjectStore behind the
         # hostile transport of store_transport.py (seeded verb faults, torn
-        # watch streams); one scheduler
+        # watch streams); one scheduler, or the partitions of a federated
+        # run over the store-backed PartitionState
         self.store_wired = bool(store_wired)
         self.store_fault_rate = float(store_fault_rate)
         self.store_fault_seed = seed if store_fault_seed is None \
@@ -359,6 +393,7 @@ class SimRunner:
         self._tear_cycles: List[int] = sorted(
             self._tear_rng.randint(2, 12) for _ in range(self.torn_watches))
         self.torn_watch_events = 0
+        self.ledgers: List = []
         # the hostile feedback plane: seeded ack faults. The direct mode
         # faults the ack wire; store-wired, the watch-path RUNNING acks
         # inside the cache's FeedbackChannel
@@ -405,15 +440,56 @@ class SimRunner:
         # hands it back to wall time
         from ..device_health import DEVICE_HEALTH
         DEVICE_HEALTH.reset(time_fn=self.clock.time)
-        # the overload plane's cycle budget, priced by a DETERMINISTIC cost
-        # model (budget_cost_per_task virtual seconds a pending task an
-        # action): exhaustion is a pure function of the decision plane
+        # the overload plane: a per-cycle budget priced by a DETERMINISTIC
+        # cost model (budget_cost_per_task virtual seconds a pending task an
+        # action: the virtual clock never advances inside a cycle, so
+        # exhaustion is a pure function of the decision plane), a bounded
+        # admission budget at the front door (shed arrivals re-offer after
+        # their retry_after hint, as a well-behaved client does), and a
+        # seeded OverloadInjector layering arrival bursts on the trace. All
+        # off by default, so a run without them keeps its decision plane
         self.cycle_budget_s = float(cycle_budget_s)
         self.budget_cost_per_task = float(budget_cost_per_task)
-        self.overload = bool(self.cycle_budget_s)
+        self.admission_depth = int(admission_depth)
+        self.overload_burst_rate = float(overload_burst_rate)
+        # and, federated, the load-driven queue rebalancer
+        self.rebalance = bool(rebalance)
+        self.overload = bool(self.cycle_budget_s or self.admission_depth
+                             or self.overload_burst_rate or self.rebalance)
+        self._admission = None
+        if self.admission_depth:
+            from ..webhooks.backpressure import AdmissionBudget
+            self._admission = AdmissionBudget(
+                max_queue_depth=self.admission_depth,
+                cycle_period_s=period, time_fn=self.clock.time)
+        self._overload_inj = None
+        if self.overload_burst_rate:
+            from ..chaos import OverloadInjector
+            self._overload_inj = OverloadInjector(
+                burst_rate=self.overload_burst_rate, seed=seed)
+        self._queue_names: List[str] = []
+        self.sheds = 0
+        self.shed_reasons: Dict[str, int] = {}
+        self.readmit_attempts = 0
+        self._retry_heap: List[tuple] = []    # (due, seq, arrival dict)
+        self._retry_seq = itertools.count()
+        self._burst_seq = itertools.count()
+        self._adm_charge: Dict[str, tuple] = {}   # jid -> (queue, tasks, B)
+        self._drained_tasks = 0
         self._budget_base = {"exhausted": 0, "deferred": 0, "spend": 0.0}
-        # the report's federation plane: no partitions in this package
+        self._rebalance_moves: List[dict] = []
+        self._rebalance_base = {"abstentions": 0, "refused": 0}
+        self._rebalancers: Dict[int, object] = {}
+        self._cache_by_pid: Dict[int, SchedulerCache] = {}
+        # the federation plane (a run without partitions leaves it empty;
+        # the store-backed one keeps a map and ledger mirror and the kill
+        # wrappers of each partition's own store chain)
+        self.pmap = None
         self.ledger = None
+        self.registry = None
+        self._p_maps: Dict[int, object] = {}
+        self._p_ledgers: Dict[int, object] = {}
+        self._store_kill_wrappers: Dict[int, tuple] = {}
         # the HA plane (a direct run leaves it empty: no failover, no
         # authority)
         self.lease_loss_cycles = set(lease_loss_cycles or ())
@@ -437,7 +513,8 @@ class SimRunner:
         self._wants_commands = any(ev.kind == "job_command"
                                    for ev in self.trace)
         if (self.elastic_gangs or self._wants_commands) \
-                and (self.store_wired or self.ha_replicas > 1):
+                and (self.federated or self.store_wired
+                     or self.ha_replicas > 1):
             raise ValueError(
                 "elastic_gangs / job_command events require the "
                 "direct single-scheduler topology")
@@ -455,13 +532,19 @@ class SimRunner:
             self.world = StoreWorld(
                 self.clock, fault_rate=self.store_fault_rate,
                 fault_seed=self.store_fault_seed,
-                latency_s=self.store_latency_s, n_schedulers=1,
+                latency_s=self.store_latency_s,
+                n_schedulers=self.federated or 1,
                 retry_rng_seed=seed, period=period)
             # the determinism witnesses: executions that REACHED the store,
-            # recorded inside the executor chain
+            # recorded inside every scheduler's executor chain
             self.binder = self.world.bind_witness
             self.evictor = self.world.evict_witness
-            self._init_store_single(binder_wrap, evictor_wrap)
+            if self.federated:
+                self._init_federated_store(binder_wrap, evictor_wrap)
+            else:
+                self._init_store_single(binder_wrap, evictor_wrap)
+        elif self.federated:
+            self._init_federated(binder, evictor)
         elif self.ha_replicas > 1:
             self._init_ha(binder, evictor)
         else:
@@ -475,8 +558,8 @@ class SimRunner:
             self._pin_feedback(self.cache)
             self.sched = self._new_scheduler()
         if not self.replicas:
-            # store-wired and direct: one cache (HA's _init_ha lists every
-            # replica's)
+            # store-wired and direct: one cache (HA's and federation's
+            # initialisers list every replica's)
             self.caches = [self.cache]
         # the process-wide counters, marked so the report shows this run's
         self._spec_mark = dict(metrics.speculation_counts())
@@ -522,6 +605,23 @@ class SimRunner:
         # wall-clock plane
         self.pipeline_e2e_ms: List[float] = []
 
+    def rebalance_stats(self) -> Dict[str, object]:
+        moves = list(self._rebalance_moves)
+        for ctrl in self._rebalancers.values():
+            moves.extend(ctrl.moves)
+        moves.sort(key=lambda m: (m["t"], m["queue"]))
+        last_t = max((m["t"] for m in moves), default=0.0)
+        return {
+            "enabled": self.rebalance,
+            "moves": moves,
+            "move_count": len(moves),
+            "last_move_t": last_t,
+            "abstentions": self._rebalance_base["abstentions"] + sum(
+                c.abstentions for c in self._rebalancers.values()),
+            "refused": self._rebalance_base["refused"] + sum(
+                c.refused for c in self._rebalancers.values()),
+        }
+
     def _new_scheduler(self, cache: Optional[SchedulerCache] = None
                        ) -> Scheduler:
         """A scheduler shell over ``cache`` (THE cache by default): at
@@ -558,22 +658,104 @@ class SimRunner:
                                          sched.max_cycle_spend_s)
 
     def budget_stats(self) -> Dict[str, object]:
-        s = self.sched
-        spend = max(self._budget_base["spend"], s.max_cycle_spend_s)
+        scheds = [rep.sched for rep in self.replicas] \
+            if self.replicas else [self.sched]
+        exhausted = self._budget_base["exhausted"] \
+            + sum(s.budget_exhausted_total for s in scheds)
+        deferred = self._budget_base["deferred"] \
+            + sum(s.deferred_actions_total for s in scheds)
+        spend = max([self._budget_base["spend"]]
+                    + [s.max_cycle_spend_s for s in scheds])
         return {"budget_s": self.cycle_budget_s,
-                "exhausted": self._budget_base["exhausted"]
-                + s.budget_exhausted_total,
-                "deferred_actions": self._budget_base["deferred"]
-                + s.deferred_actions_total,
+                "exhausted": exhausted, "deferred_actions": deferred,
                 "max_cycle_spend_s": round(spend, 6)}
 
+    def _admit_arrival(self, t: float, d: dict) -> bool:
+        """The front door's backpressure gate: charge the arrival against
+        the bounded admission budget, or shed it and schedule the client's
+        retry at the refusal's retry_after hint. True: admitted."""
+        if self._admission is None:
+            return True
+        from ..webhooks.backpressure import (BackpressureError,
+                                             estimate_job_bytes)
+        jid = self._jid(d["name"])
+        tasks = int(d["tasks"])
+        nbytes = estimate_job_bytes(tasks)
+        try:
+            self._admission.admit_batch({d["queue"]: tasks}, nbytes,
+                                        int(d.get("priority", 0)))
+        except BackpressureError as exc:
+            self.sheds += 1
+            self.shed_reasons[exc.reason] = \
+                self.shed_reasons.get(exc.reason, 0) + 1
+            # the shed is the job's first timeline event: a gang refused
+            # at the door still explains itself
+            self._timeline.record(jid, "shed", t=t, reason=exc.reason,
+                                  queue=d["queue"])
+            heapq.heappush(self._retry_heap,
+                           (t + exc.retry_after_s,
+                            next(self._retry_seq), dict(d)))
+            return False
+        self._adm_charge[jid] = (d["queue"], tasks, nbytes)
+        return True
+
+    def _credit_admission(self, jid: str) -> None:
+        """The gang left the system (completed): release its admission
+        budget and feed the drain-throughput EWMA."""
+        charge = self._adm_charge.pop(jid, None)
+        if charge is None or self._admission is None:
+            return
+        queue, tasks, nbytes = charge
+        self._admission.credit(queue, tasks, nbytes)
+        self._drained_tasks += tasks
+
+    def _drain_retries(self, now: float) -> None:
+        """Shed clients retry once their retry_after hint expires, through
+        the same gate, so a still-full queue sheds them again with a fresh
+        hint."""
+        while self._retry_heap and self._retry_heap[0][0] <= now + 1e-9:
+            _, _, d = heapq.heappop(self._retry_heap)
+            self.readmit_attempts += 1
+            self._arrive(now, d)
+
+    def _inject_bursts(self, now: float) -> None:
+        """The seeded OverloadInjector's flash crowds: extra single-gang
+        jobs on top of the trace, offered through the same admission gate
+        as any client. Bursts ride the trace's arrival window only: once
+        the trace is spent the crowd stops, the shed retries drain and the
+        run ends."""
+        if self._overload_inj is None or not self._queue_names \
+                or self._trace_ix >= len(self.trace):
+            return
+        n = self._overload_inj.tick()
+        GI = 1 << 30
+        for _ in range(n):
+            spec = self._overload_inj.job_spec(len(self._queue_names))
+            name = f"ovl-{next(self._burst_seq):06d}"
+            self._arrive(now, {
+                "name": name,
+                "queue": self._queue_names[spec["queue_ix"]],
+                "priority": int(spec["priority"]),
+                "tasks": int(spec["tasks"]),
+                "min_available": int(spec["tasks"]),
+                "cpu_milli": int(spec["cpu_milli"]),
+                "mem": GI // 4, "gpus": 0,
+                "duration": float(spec["duration"])})
+
     def overload_stats(self) -> Dict[str, object]:
-        """The report's overload section. Only the cycle budget is in
-        this package: admission shedding and injected bursts are not, so
-        their counters stand at zero."""
-        return {"cycle_budget": self.budget_stats(), "shed_total": 0,
-                "shed": {}, "readmit_attempts": 0, "retries_pending": 0,
-                "burst_jobs": 0}
+        """The report's overload section (overload runs only)."""
+        out: Dict[str, object] = {
+            "cycle_budget": self.budget_stats(),
+            "shed_total": self.sheds,
+            "shed": dict(sorted(self.shed_reasons.items())),
+            "readmit_attempts": self.readmit_attempts,
+            "retries_pending": len(self._retry_heap),
+            "burst_jobs": self._overload_inj.injected
+            if self._overload_inj is not None else 0,
+        }
+        if self._admission is not None:
+            out["admission"] = self._admission.detail()
+        return out
 
     def _pin_feedback(self, cache: SchedulerCache) -> None:
         """In-flight ack deadlines expire on the virtual clock after a few
@@ -682,6 +864,12 @@ class SimRunner:
                 for w in mgr.watches:
                     resumes += w.resumes
                     relists += w.relists
+        for lg in self.ledgers:
+            # the partitions' PartitionState streams
+            w = lg.backend._watch
+            if w is not None:
+                resumes += w.resumes
+                relists += w.relists
         return {
             "fault_rate": self.store_fault_rate,
             "faults": self.world.faults_detail(),
@@ -765,6 +953,18 @@ class SimRunner:
         """Apply one trace event to EVERY replica cache (the watch stream
         every replica sees), and the runner's bookkeeping once."""
         d = ev.data
+        if ev.kind == "queue_add" and d["name"] not in self._queue_names:
+            # the burst injector's routing table, in watch-stream order
+            self._queue_names.append(d["name"])
+        if self.pmap is not None:
+            # federated: the watch stream also feeds the partition map
+            # (deterministic round-robin in stream order)
+            if ev.kind == "queue_add":
+                self.pmap.register_queue(d["name"])
+            elif ev.kind == "node_add":
+                self.pmap.register_node(d["name"])
+            elif ev.kind == "node_fail":
+                self.pmap.forget_node(d["name"])
         if ev.kind == "node_fail":
             self._fail_node(d["name"])
             return
@@ -818,16 +1018,24 @@ class SimRunner:
                     cache.mark_node_dirty(node.name)
 
     def unfinished_jobs(self) -> int:
+        if self.federated:
+            return sum(len(c.jobs) for c in self.caches)
         return len(self._view().jobs)
 
     def dead_letter_total(self) -> int:
+        if self.federated:
+            return sum(len(c.dead_letter) for c in self.caches)
         return len(self._view().dead_letter)
 
     def fencing_rejections(self) -> int:
+        if self.registry is not None:
+            return self.registry.rejections()
         return self.authority.rejections if self.authority is not None \
             else 0
 
     def _arrive(self, t: float, d: dict) -> None:
+        if not self._admit_arrival(t, d):
+            return                 # shed: the client's retry is queued
         name = d["name"]
         if self.store_wired:
             # informer-path ingestion: the job becomes a PodGroup and pod
@@ -847,7 +1055,14 @@ class SimRunner:
             except Exception:
                 self._store_pending.append(thunk)
             return
-        for cache in self.caches:
+        caches = self.caches
+        if self.federated:
+            # partitioned ingestion: the job materializes only in its
+            # queue's owning partition (a server-side filtered watch)
+            pid = self.pmap.owner_of_queue(d["queue"])
+            cache = self._cache_by_pid.get(pid)
+            caches = [cache if cache is not None else self.caches[0]]
+        for cache in caches:
             # a fresh JobInfo a replica cache
             scalars = {"nvidia.com/gpu": float(d["gpus"])} if d["gpus"] \
                 else None
@@ -879,14 +1094,15 @@ class SimRunner:
         their gang must re-admit (duration restarts — a gang below
         min_available has lost its collective progress)."""
         if self.store_wired:
-            if name not in self.cache.nodes:
+            if not any(name in c.nodes for c in self.caches):
                 return
             # the kubelet dies with its pods: delete and controller
-            # recreate against cluster truth; the cache follows by watch
+            # recreate against cluster truth; the caches follow by watch
             for uid in self.world.pods_on_node(name):
                 self.world.delete_pod(uid)
                 self._requeue_task(uid, on_node=False)
-            self.cache.remove_node(name)
+            for cache in self.caches:
+                cache.remove_node(name)
             return
         uids: List[str] = []
         seen: set = set()
@@ -984,6 +1200,7 @@ class SimRunner:
                 self.task_job.pop(tuid, None)
                 self._live_bound.discard(tuid)
             self.admitted_at.pop(uid, None)
+            self._credit_admission(uid)
             self.jct.append(t - self.arrival_time[uid])
             self._timeline.record(uid, "complete", t=t)
             OBS_TRACE.flow_end("complete", f"job:{uid}")
@@ -1005,6 +1222,7 @@ class SimRunner:
             self.task_job.pop(tuid, None)
             self._live_bound.discard(tuid)
         self.admitted_at.pop(uid, None)
+        self._credit_admission(uid)
         self.jct.append(t - self.arrival_time[uid])
         self._timeline.record(uid, "complete", t=t)
         OBS_TRACE.flow_end("complete", f"job:{uid}")
@@ -1103,7 +1321,7 @@ class SimRunner:
             for jid in self.first_bind:
                 if jid not in self.admitted_at:
                     touched.setdefault(jid, True)
-        if self.replicas:
+        if self.replicas and not self.store_wired:
             # HA: a failover's handoff reconcile can re-assert a
             # crash-window bind AFTER its kubelet ack was consumed above
             # (the ack arrived while leadership was vacant and feedback
@@ -1137,12 +1355,17 @@ class SimRunner:
                 self.completed, self.requeues, self.unfinished_jobs(),
                 self._ack_wire.delivered, self._ack_wire.pending(),
                 sum(len(c.resync_queue) for c in self.caches),
-                sum(len(c.dead_letter) for c in self.caches))
+                sum(len(c.dead_letter) for c in self.caches),
+                len(self._retry_heap), self.sheds,
+                self.readmit_attempts)
 
     def _done(self) -> bool:
         return (self._trace_ix >= len(self.trace)
                 and not self._completions
                 and not self.unfinished_jobs()
+                # shed arrivals still waiting out their retry_after hints
+                # land (and complete) before the run ends
+                and not self._retry_heap
                 and not self._ack_wire.pending()
                 and not any(c.feedback.pending() for c in self.caches)
                 # a submitted verb meets its cycle boundary (applied or
@@ -1381,6 +1604,9 @@ class SimRunner:
         return mode
 
     def _disarm_kills(self) -> None:
+        for kb, ke in self._store_kill_wrappers.values():
+            kb.disarm()
+            ke.disarm()
         if self._kill_binder is not None:
             self._kill_binder.disarm()
         if self._kill_evictor is not None:
@@ -1388,17 +1614,12 @@ class SimRunner:
         self._armed_action = None
         self._armed_close = False
 
-    def _crash_restart_replica(self, rep: _Replica,
-                               kill_mode: Optional[str]) -> None:
-        """A replica's process dies and restarts as a FOLLOWER: volatile
-        state is lost (its persistent node tensors with it), the shared
-        journal and lease store survive. The crash-window oracle (exact
-        to the kill mode, as the direct restart's) is parked for whichever
-        replica next acquires the lease: failover IS lease-acquire →
-        startup_reconcile → resume. Cluster feedback waits while
-        leadership is vacant (a real cluster's acks would queue in the new
-        leader's informer sync), so reconcile settles the crash window
-        before any ack is consumed."""
+    def _wipe_volatile(self, rep: _Replica) -> None:
+        """What the death of a replica's or a partition's process loses:
+        the armed kill points, the cache's resync queue, dead letters,
+        in-flight ledger, every cached clone and the persistent node
+        tensors, and the device cool-down state (its clock stays virtual).
+        The incarnation count rises."""
         self._disarm_kills()
         c = rep.cache
         c.binding_tasks.clear()
@@ -1414,16 +1635,12 @@ class SimRunner:
         c._tensor_dirty = set()
         from ..device_health import DEVICE_HEALTH
         DEVICE_HEALTH.reset(time_fn=self.clock.time)
-        # a fresh incarnation: new identity, elector and shell; the
-        # standby follower reseeds from the surviving journal's open
-        # intents so the coming reconcile's acks resolve against it
         rep.gen += 1
-        if rep.follower is not None:
-            rep.follower.detach()
-        rep.follower = JournalFollower(rep.cache)
-        rep.follower.attach(self.journal)
-        self._harvest_budget(rep.sched)
-        self._build_replica_shell(rep)
+
+    def _crash_window_oracle(self, kill_mode: Optional[str]) -> tuple:
+        """The cluster's record of the crash window, exact to the kill
+        mode: only an after-execute kill makes the executor's last record
+        the crash-window op. ``(cluster_binds, cluster_evicts)``."""
         cluster_binds = dict(self.binder.sequence[-1:]) \
             if kill_mode == "bind_after" else {}
         etail = tuple(self.evictor.sequence[-1:]) \
@@ -1432,7 +1649,30 @@ class SimRunner:
         def cluster_evicts(uid: str, tail=etail) -> bool:
             return uid in tail
 
-        self._pending_crash_oracle = (cluster_binds, cluster_evicts)
+        return cluster_binds, cluster_evicts
+
+    def _crash_restart_replica(self, rep: _Replica,
+                               kill_mode: Optional[str]) -> None:
+        """A replica's process dies and restarts as a FOLLOWER: volatile
+        state is lost (its persistent node tensors with it), the shared
+        journal and lease store survive. The crash-window oracle (exact
+        to the kill mode, as the direct restart's) is parked for whichever
+        replica next acquires the lease: failover IS lease-acquire →
+        startup_reconcile → resume. Cluster feedback waits while
+        leadership is vacant (a real cluster's acks would queue in the new
+        leader's informer sync), so reconcile settles the crash window
+        before any ack is consumed."""
+        self._wipe_volatile(rep)
+        # a fresh incarnation: new identity, elector and shell; the
+        # standby follower reseeds from the surviving journal's open
+        # intents so the coming reconcile's acks resolve against it
+        if rep.follower is not None:
+            rep.follower.detach()
+        rep.follower = JournalFollower(rep.cache)
+        rep.follower.attach(self.journal)
+        self._harvest_budget(rep.sched)
+        self._build_replica_shell(rep)
+        self._pending_crash_oracle = self._crash_window_oracle(kill_mode)
         self._feedback_blocked = True
         self.restarts += 1
 
@@ -1519,6 +1759,352 @@ class SimRunner:
         if not self._feedback_blocked:
             self._feedback(now)
 
+    # -- the federated control plane ----------------------------------------
+
+    def _init_federated(self, binder, evictor) -> None:
+        """Build the N-partition control plane: a shared PartitionMap,
+        reserve ledger, in-memory journal and lease store, and a partition
+        each of: a cache (its snapshot scoped to the partition's queue
+        subset and node shard), a fenced executor gate against its OWN
+        authority (epochs namespaced by partition id), a cycle-driven
+        elector on its OWN lease, and a PartitionMember riding the shell's
+        federation hooks."""
+        from ..cache.executors import FencingRegistry
+        from ..federation import PartitionMap, ReserveLedger
+        from ..store import ObjectStore
+        if self.journal is None:
+            self.journal = IntentJournal()
+        self.lease_store = ObjectStore()
+        self.registry = FencingRegistry()
+        self.pmap = PartitionMap(self.federated)
+        self.ledger = ReserveLedger(self.pmap, journal=self.journal,
+                                    registry=self.registry,
+                                    time_fn=self.clock.time,
+                                    timeout_s=8 * self.period)
+        self.caches: List[SchedulerCache] = []
+        self._view_ix = 0
+        self._fed_oracles: Dict[int, tuple] = {}
+        self._p_leader_key: Dict[int, Optional[tuple]] = {}
+        self._p_vacant: Dict[int, Optional[int]] = {}
+        self._p_had: Dict[int, bool] = {}
+        for pid in range(self.federated):
+            rep = _Replica(pid)
+            cache = SchedulerCache(
+                binder=FencedBinder(binder,
+                                    lambda r=rep: r.elector.fencing_epoch,
+                                    self.registry.authority(pid)),
+                evictor=FencedEvictor(evictor,
+                                      lambda r=rep: r.elector.fencing_epoch,
+                                      self.registry.authority(pid)),
+                default_queue=None, journal=self.journal)
+            cache.resync_queue.time_fn = self.clock.time
+            cache.time_fn = self.clock.time
+            self._pin_feedback(cache)
+            cache.snapshot_scope = \
+                lambda ci, p=pid: self.pmap.scope(ci, p)
+            cache.partition = pid
+            rep.cache = cache
+            self._build_partition_shell(rep)
+            self.replicas.append(rep)
+            self.caches.append(cache)
+            self._cache_by_pid[pid] = cache
+            self._p_leader_key[pid] = None
+            self._p_vacant[pid] = None
+            self._p_had[pid] = False
+        self.cache = self.caches[0]
+        self.sched = self.replicas[0].sched
+        metrics.set_partition_count(len(self.replicas))
+
+    def _build_partition_shell(self, rep: _Replica) -> None:
+        """(Re)build one partition's shell, elector and member: at
+        construction and after a simulated partition death (the cache and
+        the shared map, ledger and journal survive)."""
+        from ..federation import PartitionMember
+        from ..leaderelection import (FlapGuard, LeaderElector,
+                                      partition_lease_name)
+        pid = rep.ix
+        ident = f"fed-p{pid}" if rep.gen == 0 else f"fed-p{pid}-g{rep.gen}"
+        rep.elector = LeaderElector(
+            self._lease_store_for(pid),
+            partition_lease_name("vc-scheduler", pid),
+            on_started_leading=lambda: None,
+            identity=ident,
+            lease_duration=1.6 * self.period,
+            renew_deadline=1.2 * self.period,
+            retry_period=self.period,
+            time_fn=self.clock.time, mono_fn=self.clock.time,
+            authority=self.registry.authority(pid),
+            flap_guard=FlapGuard(cooldown_s=4 * self.period,
+                                 max_cooldown_s=16 * self.period,
+                                 time_fn=self.clock.time))
+        sched = self._new_scheduler(rep.cache)
+        sched.attach_elector(rep.elector)
+        sched.reconcile_oracle_fn = \
+            lambda p=pid: self._fed_oracles.pop(p, None)
+        sched.action_fault_hook = self._mk_action_hook(rep)
+        sched.close_fault_hook = self._close_hook
+        # the store-backed federation gives each partition its OWN map and
+        # ledger mirror; in process the partitions share one
+        pmap = self._p_maps.get(pid, self.pmap)
+        ledger = self._p_ledgers.get(pid, self.ledger)
+        member = PartitionMember(
+            pid, pmap, ledger, rep.cache,
+            epoch_fn=lambda r=rep: r.elector.fencing_epoch,
+            time_fn=self.clock.time,
+            starve_after_s=4 * self.period)
+        if self.rebalance:
+            # load-driven rebalancing: each partition's controller moves
+            # only its OWN queues, off published load signals. A restart
+            # loses the flap guard's state (volatile, like the device
+            # cool-down) but never the moves: the runner harvests a dying
+            # incarnation's in _crash_restart_partition
+            from ..federation import RebalanceController
+            ctrl = RebalanceController(
+                pid, pmap, ledger, rep.cache,
+                epoch_fn=lambda r=rep: r.elector.fencing_epoch,
+                time_fn=self.clock.time,
+                exhausted_fn=lambda s=sched: s.budget_exhausted_total,
+                min_depth=8, min_gap=8, ratio=2.0,
+                cooldown_s=8 * self.period,
+                max_cooldown_s=64 * self.period)
+            member.rebalancer = ctrl
+            self._rebalancers[pid] = ctrl
+        sched.federation = member
+        rep.sched = sched
+
+    def _crash_restart_partition(self, rep: _Replica,
+                                 kill_mode: Optional[str]) -> None:
+        """One partition's process dies and restarts: volatile state is
+        lost (its persistent node tensors with it), the shared journal,
+        map, ledger and lease store (and the cache, standing in for the
+        relist) survive. The crash-window oracle, exact to the kill mode,
+        is parked for THIS partition's next leader; the other partitions
+        keep scheduling their own subsets, and cluster feedback waits until
+        every partition has a leader again (the killed partition's handoff
+        reconcile settles its crash window before any ack is consumed)."""
+        self._wipe_volatile(rep)
+        self._harvest_budget(rep.sched)
+        ctrl = self._rebalancers.get(rep.ix)
+        if ctrl is not None:
+            # the controller dies with the shell: fold its moves and
+            # decision counters into the run's totals before the rebuild
+            self._rebalance_moves.extend(ctrl.moves)
+            self._rebalance_base["abstentions"] += ctrl.abstentions
+            self._rebalance_base["refused"] += ctrl.refused
+        self._build_partition_shell(rep)
+        self._fed_oracles[rep.ix] = self._crash_window_oracle(kill_mode)
+        self._feedback_blocked = True
+        self.restarts += 1
+
+    def _account_partitions(self) -> None:
+        """End-of-cycle leadership bookkeeping a partition: failovers and
+        vacancy gaps (the HA report fields), the handoff report's harvest,
+        and the feedback gate, opened once EVERY partition has a live
+        leader."""
+        all_lead = True
+        for rep in self.replicas:
+            pid = rep.ix
+            leads = rep.sched.role == ROLE_LEADER and rep.elector.leading
+            if not leads:
+                all_lead = False
+                self._p_leader_key[pid] = None
+                if self._p_vacant[pid] is None:
+                    self._p_vacant[pid] = self.cycles
+                continue
+            key = rep.key()
+            if key != self._p_leader_key[pid]:
+                if self._p_had[pid]:
+                    self.failovers += 1
+                    gap = 0 if self._p_vacant[pid] is None \
+                        else self.cycles - self._p_vacant[pid]
+                    self.failover_cycles.append(gap)
+                self._p_vacant[pid] = None
+                self._p_leader_key[pid] = key
+                self._p_had[pid] = True
+                rpt = getattr(rep.sched, "last_handoff_report", None)
+                rep.sched.last_handoff_report = None
+                if rpt is not None:
+                    for k, v in rpt.as_dict().items():
+                        if v:
+                            self._journal_replayed[k] = \
+                                self._journal_replayed.get(k, 0) + v
+        if all_lead:
+            self._feedback_blocked = False
+
+    def _federated_cycle(self, now: float) -> None:
+        """One virtual cycle of the N-partition control plane: seeded kill
+        arming (the kill fires inside whichever partition's cycle trips
+        the armed point; an arm that never fires becomes a clean-boundary
+        death of a seeded partition), every partition's run_once in pid
+        order, leadership accounting, then cluster feedback unless a
+        partition vacancy defers it."""
+        kill_mode: Optional[str] = None
+        boundary_rep = self.replicas[0]
+        if self.cycles in self.kill_cycles:
+            live = self.replicas
+            if self.store_wired:
+                # the store world builds kill wrappers a partition (each
+                # has its own store chain): seed the boundary partition
+                # first and arm its wrappers
+                boundary_rep = live[self._kill_rng.randint(
+                    0, len(live) - 1)]
+                self._kill_binder, self._kill_evictor = \
+                    self._store_kill_wrappers[boundary_rep.ix]
+                kill_mode = self._arm_kill_ha()
+            else:
+                kill_mode = self._arm_kill_ha()
+                boundary_rep = live[self._kill_rng.randint(
+                    0, len(live) - 1)]
+        if self.cycles in self.lease_loss_cycles:
+            self._armed_revoke = self._lease_rng.randint(1, 5)
+        for transport in self._lease_transports.values():
+            transport.new_cycle()
+        fired = False
+        for rep in list(self.replicas):
+            t0 = time.perf_counter()
+            try:
+                errors = rep.sched.run_once()
+            except SimKill:
+                errors = []
+                self._crash_restart_partition(rep, kill_mode)
+                kill_mode = None
+                fired = True
+            else:
+                if rep.sched.role == ROLE_LEADER:
+                    self.pipeline_e2e_ms.append(
+                        (time.perf_counter() - t0) * 1e3)
+            for name, _ in errors:
+                self.action_failures.append((self.cycles, name))
+        if kill_mode is not None and not fired:
+            # the armed kill never fired (too few side effects, or
+            # post_cycle): a clean-boundary death of the seeded partition
+            self._crash_restart_partition(boundary_rep, "post_cycle")
+        self._armed_revoke = None
+        self._account_partitions()
+        if not self._feedback_blocked:
+            self._feedback(now)
+
+    def _fed_event_filter(self, pid: int):
+        """The server-side filtered watch of a federated deployment:
+        Pod and PodGroup events reach only their queue's owning partition.
+        Ownership is read from the REGISTRAR map (the raw-store
+        PartitionState, the server's own view, never torn), so the filter
+        stays stable while a partition's faulted streams lag."""
+        from ..cache.store_wiring import GROUP_NAME_ANNOTATION
+
+        def filt(kind: str, obj) -> bool:
+            if kind == "PodGroup":
+                queue = obj.spec.queue
+            else:
+                group = obj.metadata.annotations.get(
+                    GROUP_NAME_ANNOTATION, "")
+                pg = self.world.store.get("PodGroup",
+                                          obj.metadata.namespace, group)
+                queue = pg.spec.queue if pg is not None else None
+            if queue is None:
+                return pid == 0
+            owner = self.pmap.owner_of_queue(queue)
+            return (owner if owner is not None else 0) == pid
+
+        return filt
+
+    def _init_federated_store(self, binder_wrap, evictor_wrap) -> None:
+        """N partitions over the hostile store boundary, with the
+        PartitionMap and ReserveLedger on the PartitionState object: a
+        partition each of its OWN hostile transport, its own map and ledger
+        mirror over it, an informer-fed cache filtered to its queue subset
+        and a fenced executor gate, coordinating only through the store
+        and the shared journal (the multi-process deployment's shape)."""
+        from ..cache.executors import FencingRegistry
+        from ..federation import (StoreBackedPartitionMap,
+                                  StoreBackedReserveLedger,
+                                  StorePartitionBackend)
+        from ..store import ObjectStore
+        if self.journal is None:
+            self.journal = IntentJournal()
+        self.lease_store = ObjectStore()
+        self.registry = FencingRegistry()
+        # the registrar mirror over the RAW store: trace-stream
+        # registration, the server-side ingestion filter and the report's
+        # map
+        self._registrar_backend = StorePartitionBackend(self.world.store,
+                                                        self.federated)
+        self.pmap = StoreBackedPartitionMap(self._registrar_backend)
+        self.caches = []
+        self._view_ix = 0
+        self._fed_oracles = {}
+        self._p_leader_key = {}
+        self._p_vacant = {}
+        self._p_had = {}
+        for pid in range(self.federated):
+            rep = _Replica(pid)
+            backend = StorePartitionBackend(self.world.transports[pid],
+                                            self.federated)
+            pmap_p = StoreBackedPartitionMap(backend)
+            ledger = StoreBackedReserveLedger(
+                pmap_p, backend, journal=self.journal,
+                registry=self.registry, time_fn=self.clock.time,
+                timeout_s=8 * self.period)
+            cache, b, e = self.world.build_cache(
+                pid, binder_wrap, evictor_wrap, journal=self.journal,
+                event_filter=self._fed_event_filter(pid))
+            self._pin_store_feedback(cache, pid)
+            if self.kill_cycles:
+                kb, ke = KillPointBinder(b), KillPointEvictor(e)
+                self._store_kill_wrappers[pid] = (kb, ke)
+                b, e = kb, ke
+            cache.binder = FencedBinder(
+                b, lambda r=rep: r.elector.fencing_epoch,
+                self.registry.authority(pid))
+            cache.evictor = FencedEvictor(
+                e, lambda r=rep: r.elector.fencing_epoch,
+                self.registry.authority(pid))
+            cache.snapshot_scope = \
+                lambda ci, m=pmap_p, p=pid: m.scope(ci, p)
+            cache.partition = pid
+            rep.cache = cache
+            ledger.attach_cache(pid, cache)
+            self._p_maps[pid] = pmap_p
+            self._p_ledgers[pid] = ledger
+            self.ledgers.append(ledger)
+            self._build_partition_shell(rep)
+            self.replicas.append(rep)
+            self.caches.append(cache)
+            self._cache_by_pid[pid] = cache
+            self._p_leader_key[pid] = None
+            self._p_vacant[pid] = None
+            self._p_had[pid] = False
+        # every partition's cache on every ledger mirror: settle_moves does
+        # its job surgery on the DESTINATION cache, and the drain waits on
+        # every mirror (the relist a destination process would run)
+        for lg in self.ledgers:
+            for other_pid, other_cache in self._cache_by_pid.items():
+                lg.attach_cache(other_pid, other_cache)
+        self.cache = self.caches[0]
+        self.sched = self.replicas[0].sched
+        self.ledger = self.ledgers[0]
+        metrics.set_partition_count(len(self.replicas))
+
+    def reserve_counts(self) -> Dict[str, int]:
+        """Cross-partition reserve counters, summed over the ledger mirrors
+        of a store-backed federation (each settlement is counted once, by
+        the partition that performed it)."""
+        if self.ledgers:
+            out: Dict[str, int] = {}
+            for lg in self.ledgers:
+                for k, v in lg.counts.items():
+                    out[k] = out.get(k, 0) + v
+            return out
+        return dict(self.ledger.counts) if self.ledger is not None else {}
+
+    def federation_totals(self) -> Dict[str, int]:
+        ledgers = self.ledgers or ([self.ledger]
+                                   if self.ledger is not None else [])
+        return {
+            "node_transfers": sum(lg.node_transfers for lg in ledgers),
+            "queue_moves": sum(lg.queue_moves for lg in ledgers),
+        }
+
     def speculation_stats(self) -> Dict[str, object]:
         """This run's speculation verdicts; hit_rate counts committed
         speculations (hits and partial replays) over all verdicts."""
@@ -1600,6 +2186,12 @@ class SimRunner:
         last_sig = None
         while self.cycles < self.max_cycles:
             now = self.clock.time()
+            if self.overload:
+                # shed clients whose retry_after expired try again, and the
+                # seeded injector may land a flash crowd, both through the
+                # same admission gate as the trace
+                self._drain_retries(now)
+                self._inject_bursts(now)
             self._apply_trace_until(now)
             self._fire_completions_until(now)
             if self.store_wired:
@@ -1612,13 +2204,16 @@ class SimRunner:
                     self._tear_cycles.pop(0)
                     self.torn_watch_events += len(
                         self.world.tear_streams(1, self._tear_rng))
-            if self.fast_admit_mode:
+            if self.fast_admit_mode and not self.federated \
+                    and not self.replicas:
                 # the arrivals just applied bind now, through the journaled
                 # funnel; the feedback pass stamps their first bind at this
                 # virtual time, before the full cycle
                 if self.sched.fast_admit():
                     self._feedback(now)
-            if self.replicas:
+            if self.federated:
+                self._federated_cycle(now)
+            elif self.replicas:
                 self._ha_cycle(now)
             else:
                 kill_mode = None
@@ -1641,11 +2236,18 @@ class SimRunner:
                 for name, _ in errors:
                     self.action_failures.append((self.cycles, name))
                 self._feedback(now)
-            # decision-plane samples read the (converged) view cache
-            sample = [self._view()]
+            # decision-plane samples: federated, the planes live in
+            # DISJOINT partition caches, so utilization and fairness sum
+            # across them; otherwise they read the (converged) view cache
+            sample = self.caches if self.federated else [self._view()]
             self.util_cpu.append(report_mod.cpu_utilization_all(sample))
             self.util_mem.append(report_mod.mem_utilization_all(sample))
             self.drf_gap.append(report_mod.drf_fairness_gap_all(sample))
+            if self._admission is not None:
+                # the drain-throughput EWMA behind the retry_after hints,
+                # fed virtual counts, so the hint stream is deterministic
+                self._admission.observe_drain(self._drained_tasks)
+                self._drained_tasks = 0
             self.cycles += 1
             self.clock.sleep(self.period)
             if self._done():
