@@ -246,9 +246,27 @@
    pipeline_e2e_ms, reserves, transfers and queue moves and B1 by
    partition, and baseline-10k's pipeline_e2e_ms over four partitions
    beside step 12's direct run.
-23. Prints one JSON line with each kernel's launches, times, bound and
-   error (and its launches in each sim run), then the card's name and
-   power limit, then the result line ``{"ok": true, "device": {...}}``.
+23. Elastic partition membership (ELASTIC_RUNS: diurnal-flash-crowd from
+   one partition under the overload preset, CI's elastic soak with store
+   chaos and kills at split and merge boundaries, the contract run, the
+   same world under deploy/scheduler.conf and the kill run), held as step
+   22 holds its runs, each partition's B1 launches counted (the newborns'
+   too); at least one split and one merge, the membership back at one
+   partition, and each merged partition's node rows freed by the end of
+   the cycle that retired it.
+24. The in-process system (tools/system_reference.py's worlds through
+   ``VolcanoSystem`` on the card: system-10k, the BASELINE 10k world's
+   200 gangs submitted as Jobs through the batched front door under
+   deploy/scheduler.conf; system-preempt; system-lifecycle): Jobs,
+   PodGroups, Pods, store events, the bind and evict sequence and the
+   node-tensor path equal to the JAX package's digests, B1 once a solve
+   (every gang of system-10k bound), B3 once a walk (system-preempt's
+   evictions). Prints each world's wall seconds and system-10k's cycle ms
+   p50/p99.
+25. Prints one JSON line with each kernel's launches, times, bound and
+   error (and its launches in each sim run and system world), then the
+   card's name and power limit, then the result line ``{"ok": true,
+   "device": {...}}``.
 
 Every phase but step 18 ends with no solver fallback, no device fault and
 no degraded cycle counted since the last containment check, and the
@@ -2839,18 +2857,22 @@ PARTITIONED_CPU_WALKS = {
     "--overload-chaos --kill-cycles 2,5,9,13 --kill-seed 1": 173,
     "--scenario fed-starve --seed 3 --conf deploy/scheduler.conf "
     "--federated 4 --verify-federated-equivalence": 762,
+    "--scenario diurnal-flash-crowd --seed 3 --conf deploy/scheduler.conf "
+    "--federated 1 --elastic --overload-chaos": 455,
 }
 
 
 def run_partitioned(source, args, env, trace_dir, extra_args=()):
-    """One overload or federated run on the card through the sim's entry
-    point, with the environment's timeline ring and audit ring applied to
-    the live objects (what the variables set at start-up): run_sim's
-    results, the summary of the solves' node-tensor paths, B1's launches
-    by partition (counted around each partition's run_once), each crash
-    restart's card memory on either side of the restart and the bytes of
-    the killed shell's node rows, and for a run
-    ending in ``--trace-out`` the trace and the recorder's state."""
+    """One overload, federated or elastic run on the card through the
+    sim's entry point, with the environment's timeline ring and audit ring
+    applied to the live objects (what the variables set at start-up):
+    run_sim's results, the summary of the solves' node-tensor paths, B1's
+    launches by partition (counted around each partition's run_once, a
+    newborn's too), each crash restart's card memory on either side of the
+    restart and the bytes of the killed shell's node rows, each elastic
+    merge's retired node rows and whether they were freed by the end of
+    that cycle, the virtual cycles' summed times, and for a run ending in
+    ``--trace-out`` the trace and the recorder's state."""
     import gc
     import weakref
 
@@ -2874,6 +2896,7 @@ def run_partitioned(source, args, env, trace_dir, extra_args=()):
         argv = ["--deterministic", *argv, path]
     by_part: dict = {}
     restarts = []
+    retires: list = []
     real_run_once = shell.Scheduler.run_once
     real_restarts = {name: getattr(SimRunner, name) for name in
                      ("_crash_restart", "_crash_restart_partition")}
@@ -2883,10 +2906,40 @@ def run_partitioned(source, args, env, trace_dir, extra_args=()):
     # run's pipeline_e2e_ms, which the report samples a partition leader
     cycle_ms: list = []
     real_fed_cycle = SimRunner._federated_cycle
+    real_retire = SimRunner._retire_partition
+    # an elastic merge reaps a partition from inside its own run_once (its
+    # cycle-end step), whose frames still hold that cycle's session: the
+    # reaped shell's device tensors must be gone once the cycle returns
+    retiring: list = []
 
     def timed_fed_cycle(runner, now):
         cycle_ms.append(0.0)
-        return real_fed_cycle(runner, now)
+        out = real_fed_cycle(runner, now)
+        if retiring:
+            gc.collect()
+            for rec, refs in retiring:
+                rec["allocated_after"] = torch.cuda.memory_allocated()
+                rec["freed"] = all(w() is None for w in refs)
+                retires.append(rec)
+            retiring.clear()
+        return out
+
+    def counted_retire(runner, pid):
+        rep = next((r for r in runner.replicas if r.ix == pid), None)
+        tc = rep.cache.tensor_cache if rep is not None else None
+        device = list((tc._device or {}).values()) if tc is not None \
+            else []
+        rec = {"pid": pid, "had_tensors": tc is not None,
+               "device_bytes": sum({t.untyped_storage().data_ptr():
+                                    t.untyped_storage().nbytes()
+                                    for t in device}.values()),
+               "allocated_before": torch.cuda.memory_allocated()}
+        refs = [weakref.ref(t) for t in device] + (
+            [weakref.ref(tc)] if tc is not None else [])
+        del tc, device, rep
+        out = real_retire(runner, pid)
+        retiring.append((rec, refs))
+        return out
 
     def counted_run_once(sched):
         before = place_cuda.launches
@@ -2943,6 +2996,7 @@ def run_partitioned(source, args, env, trace_dir, extra_args=()):
                                     audit._default_cycles())))
     shell.Scheduler.run_once = counted_run_once
     SimRunner._federated_cycle = timed_fed_cycle
+    SimRunner._retire_partition = counted_retire
     for name in real_restarts:
         setattr(SimRunner, name, restart_hook(name))
     paths = traces.TensorPathRecorder(allocate, SchedulerCache)
@@ -2953,6 +3007,7 @@ def run_partitioned(source, args, env, trace_dir, extra_args=()):
         paths.close()
         shell.Scheduler.run_once = real_run_once
         SimRunner._federated_cycle = real_fed_cycle
+        SimRunner._retire_partition = real_retire
         for name, real in real_restarts.items():
             setattr(SimRunner, name, real)
         obs.TIMELINE.max_events = events
@@ -2963,7 +3018,8 @@ def run_partitioned(source, args, env, trace_dir, extra_args=()):
     if path is not None:
         with open(path) as f:
             trace = json.load(f)
-    return out, paths.summary(), by_part, restarts, cycle_ms, trace, state
+    return (out, paths.summary(), by_part, restarts, retires, cycle_ms, trace,
+            state)
 
 
 def partitioned_phase(kind, runs, digests, sim_runs, extra_args=()):
@@ -2998,7 +3054,7 @@ def partitioned_phase(kind, runs, digests, sim_runs, extra_args=()):
             gc.collect()
             mem0 = torch.cuda.memory_allocated()
             (report, text, sequence, launches, wall_s), paths, by_part, \
-                restarts, cycle_ms, trace, state = run_partitioned(
+                restarts, retires, cycle_ms, trace, state = run_partitioned(
                     source, args, env, trace_dir, extra_args)
             gc.collect()
             mem1 = torch.cuda.memory_allocated()
@@ -3045,7 +3101,12 @@ def partitioned_phase(kind, runs, digests, sim_runs, extra_args=()):
                   f"{kind} {key}: B3 launched {launches['evict_walk']} "
                   f"times, the CPU path {walks}")
             overload = report.get("overload")
-            if overload is not None:
+            el = (report.get("federation") or {}).get("elastic")
+            if overload is not None and el is None:
+                # the overload contract's spend bound; the elastic
+                # contract (the JAX package's verifier) sets none, and
+                # the JAX record of CI's elastic soak spends 2.1 s of a
+                # 0.5 s budget in one cycle
                 budget = overload["cycle_budget"]
                 check(budget["max_cycle_spend_s"]
                       <= 2 * budget["budget_s"],
@@ -3075,6 +3136,22 @@ def partitioned_phase(kind, runs, digests, sim_runs, extra_args=()):
                       <= r["allocated_before"],
                       f"{kind} {key}: a crash restart kept the killed "
                       f"shell's device tensors ({r})")
+            for r in retires:
+                # a merged partition's node rows are gone by the end of the
+                # cycle that retired it (later partitions' cycles ran in
+                # between, so the card's total is printed, not held)
+                check(r["freed"], f"{kind} {key}: retiring partition "
+                                  f"{r['pid']} kept its device tensors "
+                                  f"({r})")
+            if el is not None:
+                # the verifier's second run merges as often again
+                runs_made = 2 if "--verify-elastic-equivalence" in args \
+                    else 1
+                check(el["splits"] >= 1 and el["merges"] >= 1
+                      and el["partitions_final"] == el["partitions_initial"]
+                      and len(retires) == runs_made * el["merges"],
+                      f"{kind} {key}: the elastic contract {el}, "
+                      f"{len(retires)} retires")
             check(mem1 <= mem0, f"{kind} {key}: {mem1 - mem0} bytes of "
                                 f"card memory outlived the run")
             # a --deterministic run (the merged trace's) prints no
@@ -3103,6 +3180,15 @@ def partitioned_phase(kind, runs, digests, sim_runs, extra_args=()):
                         "fell_by": r["allocated_before"]
                         - r["allocated_after"]}
                        for r in restarts if r["had_tensors"]]}
+            if el is not None:
+                rec["elastic"] = {k: el[k] for k in (
+                    "splits", "merges", "abstentions", "partitions_peak",
+                    "max_queue_depth", "events")}
+                rec["retire_memory"] = [
+                    {"pid": r["pid"], "rows_bytes": r["device_bytes"],
+                     "freed": r["freed"],
+                     "fell_by": r["allocated_before"]
+                     - r["allocated_after"]} for r in retires]
             if overload is not None:
                 rec["overload"] = {k: overload[k] for k in (
                     "cycle_budget", "shed", "readmit_attempts",
@@ -3129,6 +3215,98 @@ def partitioned_phase(kind, runs, digests, sim_runs, extra_args=()):
             "direct_wall_s": _DIRECT_E2E["wall_s"]}), flush=True)
     print(f"{kind} phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(f"{kind} card:", card_line(), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the in-process system
+# ---------------------------------------------------------------------------
+
+def system_phase(sim_runs, device=None):
+    """Step 24: each world of tools/system_reference.py through the port's
+    VolcanoSystem on the card (store, webhooks, controllers, vcctl's
+    commands and the scheduler in this process), each kernel's count set to
+    0 just before: the Jobs, PodGroups, Pods, store events, bind and evict
+    sequence and node-tensor path must equal the JAX package's in
+    tests/system_reference_digests.json, with no action failure; B1 must
+    launch once a solve and B3 once a walk of the CPU path, system-10k bind
+    every gang with B1 and system-preempt evict through B3; no card memory
+    outlives the phase. (The job controller installs its state machine's
+    hooks in ``controllers/job_state.py``'s module, as the JAX package's
+    does, so a system's cache and node tensors live until the next
+    system's controller replaces them; each world's held bytes are
+    printed.) Prints each world's wall seconds and launches, and
+    system-10k's cycle ms p50/p99. Adds the launches to ``sim_runs``.
+    ``device`` overrides the card (a rehearsal on the CPU)."""
+    import gc
+
+    import torch
+
+    from volcano_tpu_torch.sim.report import percentiles
+    sys.path.insert(0, os.path.join(_ROOT, "tools"))
+    import system_reference
+    digests = system_reference.load_digests()
+    counters = kernel_counters()
+    t_phase = time.perf_counter()
+    out = {}
+    gc.collect()
+    mem_start = torch.cuda.memory_allocated()
+    for world in system_reference.WORLDS:
+        want = digests[world]
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        run = system_reference.run_world("volcano_tpu_torch", world, device)
+        launches = {k: w.launches for k, w in counters.items()}
+        got = run.pop("digest")
+        check(run["system"].device.type == (device or "cuda"),
+              f"system {world}: the system solved on {run['system'].device}")
+        del run["system"]
+        gc.collect()
+        mem1 = torch.cuda.memory_allocated()
+        check(run["action_failures"] == [],
+              f"system {world}: action failures {run['action_failures']}")
+        expect = {k: v for k, v in want.items()
+                  if k not in ("port_cpu", "action_failures")}
+        diff = sorted(k for k in set(expect) | set(got)
+                      if k not in system_reference.PER_PACKAGE
+                      and expect.get(k) != got.get(k))
+        check(not diff, f"system {world}: {diff} differ from the JAX "
+                        f"package's ({ {k: got.get(k) for k in diff} })")
+        check(launches["place"] == want["port_cpu"]["solves"] == got["solves"]
+              and launches["evict_walk"] == want["port_cpu"]["walks"]
+              == got["walks"],
+              f"system {world}: B1 launched {launches['place']} times, B3 "
+              f"{launches['evict_walk']}; the CPU path "
+              f"{want['port_cpu']}")
+        rec = {"wall_s": run["wall_s"], "cycles": len(run["cycle_ms"]),
+               "cycle_ms": percentiles(run["cycle_ms"]),
+               "binds": got["binds"], "evicts": got["evicts"],
+               "pods": got["pods"], "pod_phases": got["pod_phases"],
+               "job_phases": got["job_phases"],
+               "B1": launches["place"], "B3": launches["evict_walk"],
+               "held_until_next_system_bytes": mem1 - mem0}
+        out[world] = rec
+        sim_runs[f"system {world}"] = launches
+        print(f"system {world}:", json.dumps(rec), flush=True)
+    gc.collect()
+    mem_end = torch.cuda.memory_allocated()
+    # the last world (system-lifecycle, the default conf) holds no node
+    # tensors, and replacing the hooks let every earlier system go
+    check(mem_end <= mem_start, f"system: {mem_end - mem_start} bytes of "
+                                f"card memory outlived the phase")
+    full = out["system-10k"]
+    check(full["B1"] > 0 and full["binds"] == full["pods"] == 10000,
+          f"system system-10k: {full}")
+    check(out["system-preempt"]["B3"] > 0
+          and out["system-preempt"]["evicts"] > 0,
+          f"system system-preempt: {out['system-preempt']}")
+    print("system system-10k cycle_ms p50/p99:", json.dumps(
+        {"p50": full["cycle_ms"]["p50"], "p99": full["cycle_ms"]["p99"],
+         "cycles": full["cycles"], "wall_s": full["wall_s"]}), flush=True)
+    print(f"system phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print("system card:", card_line(), flush=True)
     return out
 
 
@@ -3661,6 +3839,18 @@ def main() -> int:
     # 22. the federated control plane: partitioned schedulers, reserves,
     # node transfers, queue moves and the rebalancer
     partitioned_phase("federated", tool.FEDERATED_RUNS, digests, sim_runs)
+
+    phase("elastic-membership")
+    # 23. elastic partition membership: splits under a flash crowd, merges
+    # once it passes, each newborn's solves over its own node tensors
+    partitioned_phase("elastic-membership", tool.ELASTIC_RUNS, digests,
+                      sim_runs)
+
+    phase("system")
+    # 24. the in-process system: webhooks, controllers, vcctl's commands
+    # and VolcanoSystem at 10k pods / 2k nodes, preempt and the lifecycle
+    # policies
+    system_phase(sim_runs)
 
     phase("summary")
     # 18. the kernels line (launches: the placement kernel's in the 10k

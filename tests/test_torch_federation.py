@@ -3,12 +3,12 @@
 tests/test_federation.py's TestPartitionMap, TestReserveProtocol,
 TestQueueRebalance, TestStoreBackedFederation, the ledger-level cases of
 TestElasticMembership (the journaled spawn/retire funnel lives in
-``reserve.py``; the elastic controller waits), the shared-journal follower
-and control-record cases, and tests/test_overload.py's TestRebalancer.
-Each scenario runs once through each package's classes and the two
-records must be equal; the assertions are the reference tests'. The vcctl
-verbs and the batched admission front door wait for the CLI and the
-admission webhooks."""
+``reserve.py``), the shared-journal follower and control-record cases, and
+tests/test_overload.py's TestRebalancer. Each scenario runs once through
+each package's classes and the two records must be equal; the assertions
+are the reference tests'. The elastic controller, the batched admission
+front door and the elastic-status verb are in
+tests/test_torch_elastic_membership.py."""
 
 import random
 import types

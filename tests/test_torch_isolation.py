@@ -1,7 +1,10 @@
 """volcano_tpu_torch stands alone: it imports neither JAX nor any module of
 the JAX package — not while it runs the slice conf, nor deploy/scheduler.conf
-with its preempt walk, drf, predicates and proportion — and its entry
-points refuse to fall back to the CPU when no CUDA device is there."""
+with its preempt walk, drf, predicates and proportion, nor the in-process
+system (webhooks, controllers, vcctl, ``VolcanoSystem``, ``cmd``) and the
+elastic membership controller, nor tools/system_reference.py driving the
+port's worlds — and its entry points refuse to fall back to the CPU when no
+CUDA device is there."""
 
 import ast
 import os
@@ -44,6 +47,24 @@ def test_cycle_runs_without_jax():
         "cache, binder, evictor = baseline_config('preempt-small')\n"
         "Scheduler(cache, deployed, device='cpu').run_once()\n"
         "assert binder.binds, 'the deployed cycle bound nothing'\n"
+        "import volcano_tpu_torch.cmd\n"
+        "import volcano_tpu_torch.cli.verbs\n"
+        "import volcano_tpu_torch.federation.elastic\n"
+        "from volcano_tpu_torch.system import VolcanoSystem\n"
+        "from volcano_tpu_torch.api import NodeInfo, Resource\n"
+        "system = VolcanoSystem(conf_text=deployed, device='cpu')\n"
+        "alloc = Resource(8000, 32 << 30)\n"
+        "alloc.max_task_num = 110\n"
+        "system.cache.add_node(NodeInfo(name='n0', allocatable=alloc))\n"
+        "system.jobs.run('j', replicas=2)\n"
+        "assert system.schedule_once() == [] == system.schedule_once()\n"
+        "assert [p.status.phase for p in system.store.list('Pod')] == "
+        "['Running', 'Running']\n"
+        f"sys.path.insert(0, {str(REPO / 'tools')!r})\n"
+        "import system_reference\n"
+        "out = system_reference.run_world('volcano_tpu_torch', "
+        "'system-lifecycle', 'cpu')\n"
+        "assert out['action_failures'] == []\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'volcano_tpu'))\n"
         "assert not bad, bad\n"

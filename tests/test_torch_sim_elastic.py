@@ -314,8 +314,9 @@ def test_elastic_flags_run_and_exclude_the_pipelined_modes(capsys):
     for flag in ("--elastic-gangs", "--topology-weight",
                  "--verify-elastic-gang-equivalence"):
         assert flag not in REFUSED_FLAGS
+    # the federation's elastic membership is in too (slice 15)
     for flag in ("--elastic", "--verify-elastic-equivalence"):
-        assert flag in REFUSED_FLAGS
+        assert flag not in REFUSED_FLAGS
     assert sim_main(["--device", "cpu", "--scenario", "elastic-churn",
                      "--elastic-gangs", "--deterministic",
                      "--verify-elastic-gang-equivalence"]) == 0

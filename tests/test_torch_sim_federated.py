@@ -262,12 +262,23 @@ def test_federated_flags_run():
 @pytest.mark.parametrize("flag", ["--elastic",
                                   "--verify-elastic-equivalence"])
 def test_elastic_membership_is_refused_by_name(flag, capsys):
-    """Elastic membership waits for ROADMAP item 9e′: refused, exit 2."""
-    rc = sim_main(["--device", "cpu", "--scenario", "smoke", "--federated",
-                   "2", flag])
-    assert rc == 2
+    """Elastic membership (ROADMAP item 9e′) is ported, so neither flag is
+    refused by name any more: ``--elastic`` runs over the partitions, and
+    ``--verify-elastic-equivalence`` without it is a usage error (exit 2)
+    that names the flag it needs."""
+    argv = ["--device", "cpu", "--scenario", "smoke", "--federated", "2",
+            "--deterministic", flag]
+    if flag == "--elastic":
+        assert sim_main(argv) == 0
+        report = json.loads(capsys.readouterr().out)
+        assert report["federation"]["elastic"]["enabled"] is True
+        return
+    with pytest.raises(SystemExit) as exc:
+        sim_main(argv)
+    assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert flag in err and "9e′" in err
+    assert "requires --elastic" in err and "not in volcano_tpu_torch" \
+        not in err
 
 
 def test_one_partition_is_the_single_scheduler(digests):

@@ -289,9 +289,31 @@ FEDERATED_RUNS = (
     ("baseline-tiny", ("--federated", "4", "--kill-cycles", "0",
                        "--kill-seed", "4"), ()),
 )
-# the deploy/scheduler.conf runs of both lists, mended
+# elastic partition membership (ROADMAP item 9e′): diurnal-flash-crowd
+# from one partition under the overload preset, where chronic cycle-budget
+# exhaustion splits the partition and chronic idleness merges the newborns
+# back. (a) CI's elastic soak (ci/check.sh): store chaos and four seeded
+# kills at split and merge boundaries, with --verify-elastic-equivalence;
+# (b) the same world without kills or store chaos (TestElasticSim's
+# contract run); (c) (b) under deploy/scheduler.conf, where every
+# partition's solve, the newborns' included, is B1 over that partition's
+# own node tensors; (d) (b) with (a)'s kills, TestElasticSim's kill run.
+ELASTIC_KILLS = ("--kill-cycles", "22,39,134,146")
+ELASTIC = ("--seed", "3", "--federated", "1", "--elastic",
+           "--overload-chaos")
+ELASTIC_RUNS = (
+    ("diurnal-flash-crowd", ELASTIC + ("--store-chaos",) + ELASTIC_KILLS
+     + ("--verify-elastic-equivalence",), ()),
+    ("diurnal-flash-crowd", ELASTIC, ()),
+    ("diurnal-flash-crowd", ("--seed", "3", "--conf", DEPLOYED,
+                             "--federated", "1", "--elastic",
+                             "--overload-chaos"), ()),
+    ("diurnal-flash-crowd", ELASTIC + ELASTIC_KILLS, ()),
+)
+# the deploy/scheduler.conf runs of the lists, mended
 MENDED_RUNS = tuple((src, args, env + MEND)
                     for src, args, env in OVERLOAD_RUNS + FEDERATED_RUNS
+                    + ELASTIC_RUNS
                     if DEPLOYED in args)
 
 # the child's switch that mends the JAX package's reconcile of a journal
@@ -663,7 +685,8 @@ def main(argv=None) -> int:
     ap.add_argument("--write", action="store_true",
                     help=f"compute the runs of RUNS, OBS_RUNS, "
                          f"STORE_RUNS, HA_RUNS, OVERLOAD_RUNS, "
-                         f"FEDERATED_RUNS, MENDED_RUNS and RECONCILE_RUNS "
+                         f"FEDERATED_RUNS, ELASTIC_RUNS, MENDED_RUNS and "
+                         f"RECONCILE_RUNS "
                          f"and write {DIGESTS}")
     ap.add_argument("--keys", nargs="+", metavar="KEY",
                     help="with --write: compute only these runs and merge "
@@ -683,7 +706,7 @@ def main(argv=None) -> int:
     if not args.write:
         ap.error("one of --write / --run is required")
     every = (RUNS + OBS_RUNS + STORE_RUNS + HA_RUNS + OVERLOAD_RUNS
-             + FEDERATED_RUNS + MENDED_RUNS + RECONCILE_RUNS)
+             + FEDERATED_RUNS + ELASTIC_RUNS + MENDED_RUNS + RECONCILE_RUNS)
     runs = [r for r in every
             if args.keys is None or run_key(*r) in args.keys]
     if args.keys is not None and len(runs) != len(args.keys):

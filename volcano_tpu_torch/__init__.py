@@ -9,8 +9,14 @@ and the sim's direct mode (``python -m volcano_tpu_torch.sim``). A conf
 naming an action, plugin, engine or argument this package lacks is
 refused by name when it loads. Entry points solve on the CUDA card unless
 the caller passes ``device="cpu"``.
+
+The in-process Volcano system (``system.py``: the object store, admission
+webhooks, controllers, vcctl and the scheduler in one process) is the
+entry point a user starts; ``cmd.py`` holds the control-plane binaries.
 """
 
 from .scheduler import Scheduler
 
-__all__ = ["Scheduler"]
+__version__ = "0.1.0"
+
+__all__ = ["Scheduler", "__version__"]

@@ -27,6 +27,7 @@ INFINITY = "Infinity"
 
 CPU = "cpu"
 MEMORY = "memory"
+PODS = "pods"
 
 _INF = math.inf
 
@@ -58,6 +59,26 @@ class Resource:
         self.memory = float(memory)
         self.scalars: Dict[str, float] = dict(scalars) if scalars else {}
         self.max_task_num = max_task_num
+
+    @classmethod
+    def from_dict(cls, rl: Dict[str, object]) -> "Resource":
+        """Build from a resource-list style dict, e.g. ``{"cpu": "2",
+        "memory": "4Gi", "nvidia.com/gpu": 1, "pods": 110}`` (NewResource,
+        resource_info.go:68-87); scalar resources are kept in milli-units,
+        as CPU is."""
+        r = cls()
+        for name, q in rl.items():
+            if name == CPU:
+                r.cpu += parse_quantity(q) * 1000.0
+            elif name == MEMORY:
+                r.memory += parse_quantity(q)
+            elif name == PODS:
+                r.max_task_num = int(parse_quantity(q)) \
+                    + (r.max_task_num or 0)
+            else:
+                r.scalars[name] = r.scalars.get(name, 0.0) \
+                    + parse_quantity(q) * 1000.0
+        return r
 
     def clone(self) -> "Resource":
         r = Resource.__new__(Resource)
@@ -219,3 +240,25 @@ class ResourceNames:
         for r in resources:
             scalars.update(r.scalars)
         return cls(scalars)
+
+
+_SUFFIXES = {
+    "k": 1e3, "M": 1e6, "G": 1e9, "T": 1e12, "P": 1e15, "E": 1e18,
+    "Ki": 2**10, "Mi": 2**20, "Gi": 2**30, "Ti": 2**40, "Pi": 2**50,
+    "Ei": 2**60,
+}
+
+
+def parse_quantity(q: object) -> float:
+    """Parse a Kubernetes quantity ('100m', '4Gi', '2', 1.5) to a float.
+    The 'm' suffix is milli, so '100m' is 0.1; a caller that wants
+    milli-CPU multiplies by 1000."""
+    if isinstance(q, (int, float)):
+        return float(q)
+    s = str(q).strip()
+    if s.endswith("m") and s[:-1].replace(".", "").replace("-", "").isdigit():
+        return float(s[:-1]) / 1000.0
+    for suf in sorted(_SUFFIXES, key=len, reverse=True):
+        if s.endswith(suf):
+            return float(s[: -len(suf)]) * _SUFFIXES[suf]
+    return float(s)

@@ -241,6 +241,12 @@ class SchedulerCache:
 
     # -- intent journal (cache/journal.py) ----------------------------------
 
+    def attach_journal(self, journal: Optional[IntentJournal]) -> None:
+        """Swap the write-ahead journal in (or out with None); honours the
+        VOLCANO_TPU_JOURNAL switch as the constructor does."""
+        self.journal = journal if (journal is not None
+                                   and journal_enabled()) else None
+
     def fencing_epoch(self) -> int:
         return self.fencing_epoch_fn()
 
@@ -1354,6 +1360,21 @@ class SchedulerCache:
                 self.inflight.abort(op, task.uid)
                 self._resync_or_dead_letter(key, op, task)
         return done
+
+    FORWARD_CLUSTER_KEY = "volcano.sh/forward-cluster"
+
+    def bind_pod_group(self, job: JobInfo, cluster: str) -> None:
+        """Multi-cluster forwarding (podgroupBinder, cache.go:275-312):
+        annotate every task's pod and the PodGroup with the silo cluster so
+        the target cluster's control plane takes over the gang."""
+        for task in job.tasks.values():
+            task.annotations[self.FORWARD_CLUSTER_KEY] = cluster
+            pod = getattr(task, "pod", None)
+            if pod is not None:
+                pod.metadata.annotations[self.FORWARD_CLUSTER_KEY] = cluster
+        job.podgroup.annotations[self.FORWARD_CLUSTER_KEY] = cluster
+        self._dirty_jobs.add(job.uid)
+        self.status_updater.update_pod_group(job)
 
     def update_job_status(self, job: JobInfo) -> None:
         try:

@@ -22,19 +22,22 @@ partition-local.
   deterministic greedy bin-balancer with hysteresis and a flap guard over
   the published load, executing through the same journaled move funnel
   operators use;
+- :class:`ElasticController`: load-driven membership. A chronically
+  budget-exhausted partition SPLITS through the journaled
+  ``partition_spawn`` funnel and a chronically idle one MERGES back
+  through ``partition_retire``, queue and node ownership flowing through
+  the same move and reserve funnels;
 - :class:`StorePartitionBackend`, :class:`StoreBackedPartitionMap` and
   :class:`StoreBackedReserveLedger`: the map and the ledger as a
   ``PartitionState`` store object behind the CAS/watch path.
 
-The JAX package's elastic membership controller (``ElasticController``,
-which splits and merges partitions under load) is not in this package
-yet; the membership funnel it drives is.
-
 ``sim --federated N`` drives the protocol: partition kills mid-trace, no
 cross-partition double bind, the aggregate decision plane equal to a
-single scheduler's on non-contended traces.
+single scheduler's on non-contended traces; ``sim --elastic`` adds kills
+mid-split and mid-merge that reconcile to a consistent membership.
 """
 
+from .elastic import ElasticController
 from .member import PartitionMember
 from .partition import PartitionMap
 from .rebalance import RebalanceController
@@ -43,6 +46,7 @@ from .store_backed import (StoreBackedPartitionMap,
                            StoreBackedReserveLedger,
                            StorePartitionBackend)
 
-__all__ = ["PartitionMap", "PartitionMember", "RebalanceController",
-           "ReserveLedger", "StoreBackedPartitionMap",
-           "StoreBackedReserveLedger", "StorePartitionBackend"]
+__all__ = ["ElasticController", "PartitionMap", "PartitionMember",
+           "RebalanceController", "ReserveLedger",
+           "StoreBackedPartitionMap", "StoreBackedReserveLedger",
+           "StorePartitionBackend"]

@@ -53,9 +53,9 @@ class PartitionMember:
         # load signals and may move ONE owned queue through the
         # journaled move funnel. None = operator moves only.
         self.rebalancer = rebalancer
-        # elastic membership (the JAX package's federation/elastic.py,
-        # not in this package yet): a controller riding here may split
-        # this partition or drive its merge. None = fixed membership.
+        # elastic membership (federation/elastic.py): a controller
+        # riding here may split this partition or drive its merge.
+        # None = fixed membership.
         self.elastic = elastic
         ledger.attach_cache(pid, cache)
 

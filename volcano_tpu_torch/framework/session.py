@@ -420,6 +420,11 @@ class Session:
         self._audit_event("evict", reclaimee, reason)
         self.cache.evict(reclaimee, reason)
 
+    def bind_pod_group(self, job: JobInfo, cluster: str) -> None:
+        """Forward a gang to a silo cluster (session.go:399-402 ->
+        cache.BindPodGroup, the multi-cluster path)."""
+        self.cache.bind_pod_group(job, cluster)
+
     def update_pod_group_condition(self, job: JobInfo, condition: dict) -> None:
         """Replace the same-type condition (one entry per type, like
         PodGroup status conditions on the CR); mark dirty only on a real

@@ -16,8 +16,9 @@ the HA control plane's (the leader gauge, fencing rejections by
 operation, failovers), the overload plane's (admission backpressure by
 reason, the pending depth), and the federated control plane's (the
 per-partition leader gauge, cross-partition reserves, the rebalancer's
-decisions, the partition count), with ``health_detail()``'s sections for
-them. There is no Prometheus
+decisions, the partition count, elastic membership's splits and merges)
+and the batched admission front door's batch sizes, with
+``health_detail()``'s sections for them. There is no Prometheus
 exposition yet.
 
 ``solver_trace`` marks a device solve as a named range in a
@@ -203,6 +204,14 @@ def health_detail() -> dict:
                 k[1]: v for k, v in _counters.items()
                 if k[0] == "cross_partition_reserves"},
             "partition_count": int(_gauges.get(("partition_count",), 0)),
+            # elastic membership: the split and merge outcomes; each
+            # partition's own state lives under federation.elastic
+            "partition_splits_total": {
+                k[1]: v for k, v in _counters.items()
+                if k[0] == "partition_splits"},
+            "partition_merges_total": {
+                k[1]: v for k, v in _counters.items()
+                if k[0] == "partition_merges"},
             "overload": _overload_detail_locked(),
             # the SLO plane: the engine's last published evaluation
             # (compliance + per-window burn rates)
@@ -397,6 +406,33 @@ def set_partition_count(n: int) -> None:
         _gauges[("partition_count",)] = float(n)
         fed = _health_detail.setdefault("federation", {"enabled": True})
         fed["partition_count"] = int(n)
+
+
+def register_partition_split(result: str) -> None:
+    """One elastic split decision settled (result=executed|refused)."""
+    _count(("partition_splits", result))
+
+
+def register_partition_merge(result: str) -> None:
+    """One elastic merge step settled (result=begun|completed|refused)."""
+    _count(("partition_merges", result))
+
+
+def set_elastic_detail(partition: int, detail: dict) -> None:
+    """Publish one partition's elastic-membership state into
+    health_detail()'s ``federation.elastic`` section, which ``vcctl
+    federation elastic-status`` reads."""
+    with _lock:
+        fed = _health_detail.setdefault("federation", {"enabled": True})
+        fed.setdefault("elastic", {})[str(partition)] = dict(detail)
+
+
+def observe_admission_batch(size: int) -> None:
+    """One batched admission submit of ``size`` jobs went through the
+    validate-then-single-store-write path
+    (``webhooks/admission.py::submit_job_batch``)."""
+    with _lock:
+        _durations[("admission_batch",)].observe(float(size))
 
 
 def register_action_failure(action: str) -> None:

@@ -65,6 +65,13 @@ run equals it byte for byte)::
         --federated 4 --kill-cycles 2,5,9,13 --kill-seed 2 \
         --verify-federated-equivalence --deterministic
 
+Elastic partition membership: one partition splits under a flash crowd and
+the newborns merge back once it passes, with the elastic contract checked::
+
+    python -m volcano_tpu_torch.sim --device cpu --scenario \\
+        diurnal-flash-crowd --seed 3 --federated 1 --elastic \\
+        --overload-chaos --verify-elastic-equivalence --deterministic
+
 Elastic gangs, with the elastic-gang contract checked::
 
     python -m volcano_tpu_torch.sim --device cpu --scenario elastic-churn \\
@@ -93,11 +100,6 @@ from .workload import SCENARIOS, make_scenario
 # the JAX package's sim flags that name modes this package lacks:
 # flag -> (takes a value, what it needs)
 REFUSED_FLAGS = {
-    "--elastic": (False, "the federation's elastic membership (ROADMAP "
-                         "item 9e\u2032)"),
-    "--verify-elastic-equivalence": (
-        False, "the federation's elastic membership (ROADMAP item "
-               "9e\u2032)"),
     "--sharded": (False, "the node-sharded engine (ROADMAP item 10)"),
     "--sharded-devices": (True, "the node-sharded engine "
                                 "(ROADMAP item 10)"),
@@ -193,6 +195,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rebalance", action="store_true",
                     help="the load-driven partition rebalancer (requires "
                          "--federated N)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="elastic partition membership: chronic cycle-"
+                         "budget exhaustion SPLITS a partition (journaled "
+                         "partition_spawn, queues moved through the drain "
+                         "funnel), chronic idleness MERGES it back (drain "
+                         "and partition_retire); requires --federated N "
+                         "(N may be 1: the 1 -> N -> 1 diurnal case)")
+    ap.add_argument("--verify-elastic-equivalence", action="store_true",
+                    help="check the elastic contract: at least one split "
+                         "and one merge fired, the membership returned to "
+                         "the initial partition count, per-queue depth "
+                         "stayed bounded, every admitted gang completed "
+                         "with no double bind, the report byte-identical "
+                         "on a second run (exit 1 otherwise)")
     ap.add_argument("--lease-loss-cycles", default="",
                     help="comma-separated virtual cycles on which the "
                          "leader LOSES ITS LEASE mid-cycle (no process "
@@ -426,6 +442,10 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
     budget_cost = 0.002 * args.period if cycle_budget else 0.0
     if rebalance and not args.federated:
         ap.error("--rebalance requires --federated N")
+    if args.elastic and not args.federated:
+        ap.error("--elastic requires --federated N (N may be 1)")
+    if args.verify_elastic_equivalence and not args.elastic:
+        ap.error("--verify-elastic-equivalence requires --elastic")
 
     def wraps():
         if not args.chaos_rate:
@@ -474,7 +494,8 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                            if lease_rate is None else lease_rate,
                            lease_fault_seed=args.lease_fault_seed,
                            federated_partitions=partitions,
-                           rebalance=rebalance and bool(partitions))
+                           rebalance=rebalance and bool(partitions),
+                           elastic=args.elastic and bool(partitions))
         if runners is not None:
             runners.append(runner)
         return runner.run()
@@ -678,6 +699,58 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
               f"bursts={ov.get('burst_jobs', 0)}, "
               f"rebalance_moves="
               f"{(reb or {}).get('move_count', 0)}, "
+              f"restarts={report.get('restarts', 0)}, "
+              f"accounting={terminal_accounting(report)}",
+              file=sys.stderr)
+    if args.verify_elastic_equivalence:
+        el = report.get("federation", {}).get("elastic") or {}
+        problems = []
+        if not el.get("enabled"):
+            problems.append("no elastic section in the report: the "
+                            "controller never attached")
+        if not el.get("splits"):
+            problems.append("no partition split fired: the scenario "
+                            "never sustained cycle-budget exhaustion long "
+                            "enough")
+        if not el.get("merges"):
+            problems.append("no partition merge fired: spawned partitions "
+                            "never drained back")
+        if el.get("partitions_final") != el.get("partitions_initial"):
+            problems.append(
+                f"membership did not return to the initial count: "
+                f"final={el.get('partitions_final')} "
+                f"initial={el.get('partitions_initial')}")
+        if report["jobs"]["completed"] != report["jobs"]["arrived"] \
+                or report["jobs"]["unfinished"]:
+            problems.append("not every admitted gang completed across "
+                            f"membership changes: {report['jobs']}")
+        if report.get("double_binds"):
+            problems.append(f"double-binds across membership changes: "
+                            f"{report['double_binds']}")
+        adm = report.get("overload", {}).get("admission", {})
+        if adm and adm.get("max_queue_depth"):
+            over = {q: d for q, d in adm.get("high_water", {}).items()
+                    if d > adm["max_queue_depth"]}
+            if over:
+                problems.append(f"per-queue depth bound violated across "
+                                f"split/merge: {over} > "
+                                f"{adm['max_queue_depth']}")
+        # byte-determinism x2: the split and merge triggers are virtual-
+        # clock hysteresis over seeded load, so a second run must print
+        # the same bytes
+        rerun = run(kill_cycles)
+        if deterministic_json(report) != deterministic_json(rerun):
+            problems.append("elastic run not byte-deterministic x2")
+        if problems:
+            for p in problems:
+                print(f"elastic-equivalence FAILED: {p}", file=sys.stderr)
+            return 1
+        print(f"elastic-equivalence OK: splits={el.get('splits')}, "
+              f"merges={el.get('merges')}, "
+              f"peak={el.get('partitions_peak')}, "
+              f"final={el.get('partitions_final')}, "
+              f"max_queue_depth={el.get('max_queue_depth')}, "
+              f"abstentions={el.get('abstentions')}, "
               f"restarts={report.get('restarts', 0)}, "
               f"accounting={terminal_accounting(report)}",
               file=sys.stderr)

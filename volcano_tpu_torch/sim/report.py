@@ -246,6 +246,11 @@ def build_report(runner, actions_ms: Dict[tuple, list],
             # load signals and the virtual clock: the fed-hotspot
             # convergence witness
             report["federation"]["rebalance"] = runner.rebalance_stats()
+        if runner.elastic:
+            # load-driven membership: splits, merges, the partition-count
+            # trajectory and the bounded per-queue depth witness, a
+            # function of the published load and the virtual clock
+            report["federation"]["elastic"] = runner.elastic_stats()
     elif runner.replicas:
         report["ha"] = {
             "replicas": runner.ha_replicas,

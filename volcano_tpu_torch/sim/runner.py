@@ -315,7 +315,8 @@ class SimRunner:
                  lease_fault_rate: float = 0.0,
                  lease_fault_seed: Optional[int] = None,
                  federated_partitions: int = 0,
-                 rebalance: bool = False):
+                 rebalance: bool = False,
+                 elastic: bool = False):
         self.trace = list(trace)
         self.period = period
         self.seed = seed
@@ -366,7 +367,10 @@ class SimRunner:
         # only through the shared journal's reserve/transfer protocol. One
         # partition is the single scheduler; --ha is another topology
         self.federated = max(int(federated_partitions or 0), 0)
-        if self.federated == 1:
+        if self.federated == 1 and not elastic:
+            # one partition is the single scheduler, EXCEPT under elastic
+            # membership, where 1 is only the starting partition count and
+            # the federation machinery must be live to grow it
             self.federated = 0
         if self.federated and self.ha_replicas > 1:
             raise ValueError("ha_replicas and federated_partitions are "
@@ -454,6 +458,14 @@ class SimRunner:
         self.overload_burst_rate = float(overload_burst_rate)
         # and, federated, the load-driven queue rebalancer
         self.rebalance = bool(rebalance)
+        # elastic membership: the partition COUNT follows load. Chronically
+        # budget-exhausted partitions split and chronically idle ones merge
+        # back, through the journaled partition_spawn/partition_retire
+        # funnel; the runner is the host supervisor whose spawn and retire
+        # hooks build and reap partition shells mid-run
+        self.elastic = bool(elastic)
+        if self.elastic and not self.federated:
+            raise ValueError("elastic requires federated_partitions")
         self.overload = bool(self.cycle_budget_s or self.admission_depth
                              or self.overload_burst_rate or self.rebalance)
         self._admission = None
@@ -481,6 +493,20 @@ class SimRunner:
         self._rebalance_base = {"abstentions": 0, "refused": 0}
         self._rebalancers: Dict[int, object] = {}
         self._cache_by_pid: Dict[int, SchedulerCache] = {}
+        # elastic bookkeeping: the live controllers by pid, the counters
+        # harvested from dead and retired incarnations, the membership
+        # changes in order, and the trace specs a newborn partition's cache
+        # backfills from (its relist)
+        self._elastics: Dict[int, object] = {}
+        self._elastic_base = {"splits": 0, "merges": 0,
+                              "abstentions": 0, "refused": 0}
+        self._elastic_events: List[dict] = []
+        self._partition_peak = self.federated
+        self._queue_specs: Dict[str, dict] = {}
+        self._node_specs: Dict[str, dict] = {}
+        self._unready_nodes: set = set()
+        self._retired_watch_counts = {"resumes": 0, "relists": 0}
+        self._max_queue_depth = 0
         # the federation plane (a run without partitions leaves it empty;
         # the store-backed one keeps a map and ledger mirror and the kill
         # wrappers of each partition's own store chain)
@@ -857,7 +883,8 @@ class SimRunner:
 
     def store_detail(self) -> Dict[str, object]:
         """The report's deterministic store-boundary section."""
-        resumes = relists = 0
+        resumes = self._retired_watch_counts["resumes"]
+        relists = self._retired_watch_counts["relists"]
         for cache in self.caches:
             mgr = getattr(cache, "watch_manager", None)
             if mgr is not None:
@@ -956,6 +983,19 @@ class SimRunner:
         if ev.kind == "queue_add" and d["name"] not in self._queue_names:
             # the burst injector's routing table, in watch-stream order
             self._queue_names.append(d["name"])
+        # an elastic spawn backfills the newborn partition's cache from
+        # these recorded specs (the relist a fresh process start performs)
+        if ev.kind == "queue_add":
+            self._queue_specs[d["name"]] = dict(d)
+        elif ev.kind == "node_add":
+            self._node_specs[d["name"]] = dict(d)
+        elif ev.kind == "node_fail":
+            self._node_specs.pop(d["name"], None)
+            self._unready_nodes.discard(d["name"])
+        elif ev.kind == "node_drain":
+            self._unready_nodes.add(d["name"])
+        elif ev.kind == "node_restore":
+            self._unready_nodes.discard(d["name"])
         if self.pmap is not None:
             # federated: the watch stream also feeds the partition map
             # (deterministic round-robin in stream order)
@@ -1371,7 +1411,13 @@ class SimRunner:
                 # a submitted verb meets its cycle boundary (applied or
                 # journaled dropped) before the run ends
                 and (self._command_funnel is None
-                     or not self._command_funnel.pending_count()))
+                     or not self._command_funnel.pending_count())
+                # an elastic run ends on the SHRUNK membership: spawned
+                # partitions idle out and merge back before the run
+                # reports (the 1 -> N -> 1 witness); stall_limit stays the
+                # backstop for a wedged merge
+                and (not self.elastic
+                     or len(self.replicas) <= max(self.federated, 1)))
 
     # -- crash/restart ------------------------------------------------------
 
@@ -1780,13 +1826,18 @@ class SimRunner:
         self.ledger = ReserveLedger(self.pmap, journal=self.journal,
                                     registry=self.registry,
                                     time_fn=self.clock.time,
-                                    timeout_s=8 * self.period)
+                                    timeout_s=8 * self.period,
+                                    donor_guard=self.elastic)
         self.caches: List[SchedulerCache] = []
         self._view_ix = 0
         self._fed_oracles: Dict[int, tuple] = {}
         self._p_leader_key: Dict[int, Optional[tuple]] = {}
         self._p_vacant: Dict[int, Optional[int]] = {}
         self._p_had: Dict[int, bool] = {}
+        # kept for elastic spawns: a newborn partition's executor gate
+        # wraps the SAME (possibly kill-wrapped) cluster executors
+        self._fed_binder = binder
+        self._fed_evictor = evictor
         for pid in range(self.federated):
             rep = _Replica(pid)
             cache = SchedulerCache(
@@ -1869,8 +1920,219 @@ class SimRunner:
                 max_cooldown_s=64 * self.period)
             member.rebalancer = ctrl
             self._rebalancers[pid] = ctrl
+        if self.elastic:
+            # elastic membership: this partition's controller may split it
+            # or drive its merge, with the runner as host supervisor
+            # (spawn_fn and retire_fn build and reap shells). A restart
+            # loses the streak and flap state (volatile) but never the
+            # counters, which _crash_restart_partition harvests; a killed
+            # RETIRING partition resumes its drain from the persisted
+            # membership state
+            from ..federation import ElasticController
+            ectrl = ElasticController(
+                pid, pmap, ledger, rep.cache,
+                epoch_fn=lambda r=rep: r.elector.fencing_epoch,
+                time_fn=self.clock.time,
+                exhausted_fn=lambda s=sched: s.budget_exhausted_total,
+                spawn_fn=self._spawn_partition,
+                retire_fn=self._retire_partition,
+                cooldown_s=16 * self.period,
+                max_cooldown_s=128 * self.period)
+            member.elastic = ectrl
+            self._elastics[pid] = ectrl
         sched.federation = member
         rep.sched = sched
+
+    # -- elastic membership hooks -------------------------------------------
+
+    def _spawn_partition(self, pid: int) -> None:
+        """The host half of a SPLIT: the journaled ``partition_spawn``
+        already minted ``pid`` in the map; build the newborn's cache (with
+        its own persistent node tensors, built at its first solve),
+        scheduler shell, Lease and FencingAuthority, as a deployment's
+        supervisor starts one more partition process. The newborn owns
+        nothing until the split's queue moves settle through the drain
+        funnel; its cache backfills queues and nodes from the recorded
+        trace specs (direct mode: the relist a fresh process runs) or its
+        own filtered informers (store mode)."""
+        rep = _Replica(pid)
+        if self.store_wired:
+            from ..federation import (StoreBackedPartitionMap,
+                                      StoreBackedReserveLedger,
+                                      StorePartitionBackend)
+            # the newborn's own hostile store chain, seeded by pid as an
+            # up-front partition's is
+            while len(self.world.transports) <= pid:
+                self.world.add_scheduler()
+            backend = StorePartitionBackend(self.world.transports[pid],
+                                            self.federated)
+            pmap_p = StoreBackedPartitionMap(backend)
+            ledger = StoreBackedReserveLedger(
+                pmap_p, backend, journal=self.journal,
+                registry=self.registry, time_fn=self.clock.time,
+                timeout_s=8 * self.period, donor_guard=self.elastic)
+            cache, b, e = self.world.build_cache(
+                pid, self._fed_binder_wrap, self._fed_evictor_wrap,
+                journal=self.journal,
+                event_filter=self._fed_event_filter(pid))
+            self._pin_store_feedback(cache, pid)
+            if self.kill_cycles:
+                kb, ke = KillPointBinder(b), KillPointEvictor(e)
+                self._store_kill_wrappers[pid] = (kb, ke)
+                b, e = kb, ke
+            cache.binder = FencedBinder(
+                b, lambda r=rep: r.elector.fencing_epoch,
+                self.registry.authority(pid))
+            cache.evictor = FencedEvictor(
+                e, lambda r=rep: r.elector.fencing_epoch,
+                self.registry.authority(pid))
+            cache.snapshot_scope = \
+                lambda ci, m=pmap_p, p=pid: m.scope(ci, p)
+            cache.partition = pid
+            rep.cache = cache
+            ledger.attach_cache(pid, cache)
+            self._p_maps[pid] = pmap_p
+            self._p_ledgers[pid] = ledger
+            self.ledgers.append(ledger)
+            # the newborn's mirror learns every live cache and every live
+            # mirror learns the newborn's: settle_moves needs the
+            # destination cache
+            for other_pid, other_cache in self._cache_by_pid.items():
+                ledger.attach_cache(other_pid, other_cache)
+            for lg in self.ledgers:
+                lg.attach_cache(pid, cache)
+        else:
+            cache = SchedulerCache(
+                binder=FencedBinder(
+                    self._fed_binder,
+                    lambda r=rep: r.elector.fencing_epoch,
+                    self.registry.authority(pid)),
+                evictor=FencedEvictor(
+                    self._fed_evictor,
+                    lambda r=rep: r.elector.fencing_epoch,
+                    self.registry.authority(pid)),
+                default_queue=None, journal=self.journal)
+            cache.resync_queue.time_fn = self.clock.time
+            cache.time_fn = self.clock.time
+            self._pin_feedback(cache)
+            cache.snapshot_scope = \
+                lambda ci, p=pid: self.pmap.scope(ci, p)
+            cache.partition = pid
+            rep.cache = cache
+        # the relist: every queue and node the watch stream has announced
+        # so far (jobs arrive only through the move funnel). A newborn
+        # process LISTS before it watches; the store-wired cache's watch
+        # delivers only events from now on, so both modes backfill here
+        cache = rep.cache
+        for spec in self._queue_specs.values():
+            cache.add_queue(QueueInfo(name=spec["name"],
+                                      weight=spec["weight"]))
+        for spec in self._node_specs.values():
+            scalars = {"nvidia.com/gpu": float(spec["gpus"])} \
+                if spec["gpus"] else None
+            alloc = Resource(spec["cpu_milli"], spec["mem"], scalars)
+            alloc.max_task_num = spec["pods"]
+            labels = {TOPOLOGY_ZONE_LABEL: spec["zone"]} \
+                if spec.get("zone") else None
+            node = NodeInfo(name=spec["name"], allocatable=alloc,
+                            labels=labels)
+            if spec["name"] in self._unready_nodes:
+                node.ready = False
+            cache.add_node(node)
+        self._build_partition_shell(rep)
+        self.replicas.append(rep)
+        self.caches.append(rep.cache)
+        self._cache_by_pid[pid] = rep.cache
+        self._p_leader_key[pid] = None
+        self._p_vacant[pid] = None
+        self._p_had[pid] = False
+        self._partition_peak = max(self._partition_peak,
+                                   len(self.replicas))
+        self._elastic_events.append(
+            {"cycle": self.cycles, "kind": "spawn", "pid": pid})
+        metrics.set_partition_count(len(self.replicas))
+
+    def _retire_partition(self, pid: int) -> None:
+        """The host half of a MERGE: the journaled ``partition_retire``
+        already removed ``pid`` from the map with its ownership drained;
+        reap the shell, folding every counter the report sums into the run
+        totals (the harvest a crash restart performs: retirement is a
+        PLANNED process exit), and free the retired cache's persistent
+        node tensors on the device. Pids are never reused, so the reaped
+        slot leaves the live lists."""
+        rep = next((r for r in self.replicas if r.ix == pid), None)
+        if rep is None:
+            return
+        self._harvest_budget(rep.sched)
+        ctrl = self._rebalancers.pop(pid, None)
+        if ctrl is not None:
+            self._rebalance_moves.extend(ctrl.moves)
+            self._rebalance_base["abstentions"] += ctrl.abstentions
+            self._rebalance_base["refused"] += ctrl.refused
+        ectrl = self._elastics.pop(pid, None)
+        if ectrl is not None:
+            self._harvest_elastic(ectrl)
+        if self.store_wired:
+            # the retired cache leaves self.caches: bank its stream
+            # recovery counters so store_detail stays whole-run
+            mgr = getattr(rep.cache, "watch_manager", None)
+            if mgr is not None:
+                for w in mgr.watches:
+                    self._retired_watch_counts["resumes"] += w.resumes
+                    self._retired_watch_counts["relists"] += w.relists
+        # the process exits: its device tensors go with it
+        rep.cache.tensor_cache = None
+        rep.cache._tensor_dirty = set()
+        self.replicas.remove(rep)
+        self.caches.remove(rep.cache)
+        self._cache_by_pid.pop(pid, None)
+        self._p_leader_key.pop(pid, None)
+        self._p_vacant.pop(pid, None)
+        self._p_had.pop(pid, None)
+        self._fed_oracles.pop(pid, None)
+        self._elastic_events.append(
+            {"cycle": self.cycles, "kind": "retire", "pid": pid})
+        metrics.set_partition_count(len(self.replicas))
+
+    def _harvest_elastic(self, ectrl) -> None:
+        """An elastic controller dies with its shell (crash restart or
+        retirement): fold its decision counters into the run totals."""
+        for k in ("splits", "merges", "abstentions", "refused"):
+            self._elastic_base[k] += getattr(ectrl, k)
+
+    def elastic_stats(self) -> Dict[str, object]:
+        """The report's deterministic elastic-membership section."""
+        totals = dict(self._elastic_base)
+        for c in self._elastics.values():
+            for k in ("splits", "merges", "abstentions", "refused"):
+                totals[k] += getattr(c, k)
+        return {
+            "enabled": self.elastic,
+            "splits": totals["splits"],
+            "merges": totals["merges"],
+            "abstentions": totals["abstentions"],
+            "refused": totals["refused"],
+            "partitions_initial": self.federated,
+            "partitions_final": len(self.replicas),
+            "partitions_peak": self._partition_peak,
+            "max_queue_depth": self._max_queue_depth,
+            "events": list(self._elastic_events),
+        }
+
+    def _sample_queue_depth(self) -> None:
+        """The elastic run's bounded-depth witness: the deepest single
+        queue's pending-task count, maxed over the run."""
+        from ..api import TaskStatus
+        depth = 0
+        for cache in self.caches:
+            per_q: Dict[str, int] = {}
+            for job in cache.jobs.values():
+                n = len(job.task_status_index.get(TaskStatus.PENDING, {}))
+                if n:
+                    per_q[job.queue] = per_q.get(job.queue, 0) + n
+            if per_q:
+                depth = max(depth, max(per_q.values()))
+        self._max_queue_depth = max(self._max_queue_depth, depth)
 
     def _crash_restart_partition(self, rep: _Replica,
                                  kill_mode: Optional[str]) -> None:
@@ -1891,6 +2153,12 @@ class SimRunner:
             self._rebalance_moves.extend(ctrl.moves)
             self._rebalance_base["abstentions"] += ctrl.abstentions
             self._rebalance_base["refused"] += ctrl.refused
+        ectrl = self._elastics.get(rep.ix)
+        if ectrl is not None:
+            # the same for the elastic controller; a killed RETIRING
+            # partition is not lost: the fresh controller resumes the
+            # drain from the persisted membership state
+            self._harvest_elastic(ectrl)
         self._build_partition_shell(rep)
         self._fed_oracles[rep.ix] = self._crash_window_oracle(kill_mode)
         self._feedback_blocked = True
@@ -1960,6 +2228,8 @@ class SimRunner:
         for transport in self._lease_transports.values():
             transport.new_cycle()
         fired = False
+        # a snapshot: a partition's run_once may SPAWN a sibling (it runs
+        # from the next cycle) or retire ITSELF (it already ran this one)
         for rep in list(self.replicas):
             t0 = time.perf_counter()
             try:
@@ -1978,6 +2248,11 @@ class SimRunner:
         if kill_mode is not None and not fired:
             # the armed kill never fired (too few side effects, or
             # post_cycle): a clean-boundary death of the seeded partition
+            if boundary_rep not in self.replicas:
+                # the seeded partition retired THIS cycle (its merge
+                # completed before the arm could fire): the clean-boundary
+                # death lands on the merge sink instead
+                boundary_rep = self.replicas[0]
             self._crash_restart_partition(boundary_rep, "post_cycle")
         self._armed_revoke = None
         self._account_partitions()
@@ -2036,6 +2311,10 @@ class SimRunner:
         self._p_leader_key = {}
         self._p_vacant = {}
         self._p_had = {}
+        # kept for elastic spawns: a newborn's store chain takes the same
+        # chaos wraps an up-front partition's does
+        self._fed_binder_wrap = binder_wrap
+        self._fed_evictor_wrap = evictor_wrap
         for pid in range(self.federated):
             rep = _Replica(pid)
             backend = StorePartitionBackend(self.world.transports[pid],
@@ -2044,7 +2323,7 @@ class SimRunner:
             ledger = StoreBackedReserveLedger(
                 pmap_p, backend, journal=self.journal,
                 registry=self.registry, time_fn=self.clock.time,
-                timeout_s=8 * self.period)
+                timeout_s=8 * self.period, donor_guard=self.elastic)
             cache, b, e = self.world.build_cache(
                 pid, binder_wrap, evictor_wrap, journal=self.journal,
                 event_filter=self._fed_event_filter(pid))
@@ -2240,6 +2519,8 @@ class SimRunner:
             # DISJOINT partition caches, so utilization and fairness sum
             # across them; otherwise they read the (converged) view cache
             sample = self.caches if self.federated else [self._view()]
+            if self.elastic:
+                self._sample_queue_depth()
             self.util_cpu.append(report_mod.cpu_utilization_all(sample))
             self.util_mem.append(report_mod.mem_utilization_all(sample))
             self.drf_gap.append(report_mod.drf_fairness_gap_all(sample))

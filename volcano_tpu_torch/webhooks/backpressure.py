@@ -27,9 +27,8 @@ Accounting contract: ``admit_batch`` at acceptance, ``credit`` when the
 work leaves the pending set; the caller feeds ``observe_drain`` so the
 retry hints track real throughput. Every timestamp rides the injectable
 ``time_fn``; the seeded ``chaos.OverloadInjector`` drives the budget
-deterministically in the sim's overload runs. The batched front door that
-charges it (the JAX package's ``webhooks/admission.py::submit_job_batch``)
-is not in this package yet.
+deterministically in the sim's overload runs. The batched front door
+``webhooks/admission.py::submit_job_batch`` charges it.
 """
 
 from __future__ import annotations
