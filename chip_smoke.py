@@ -263,10 +263,27 @@
    (every gang of system-10k bound), B3 once a walk (system-preempt's
    evictions). Prints each world's wall seconds and system-10k's cycle ms
    p50/p99.
-25. Prints one JSON line with each kernel's launches, times, bound and
-   error (and its launches in each sim run and system world), then the
-   card's name and power limit, then the result line ``{"ok": true,
-   "device": {...}}``.
+25. The snapshot RPC sidecar on the card (tools/rpc_reference.py's
+   worlds, each sent over TCP by ``SnapshotClient`` to ``rpc.serve``'s
+   sidecar: rpc-10k, the BASELINE 10k world under deploy/scheduler.conf;
+   rpc-10k-blocks, the same snapshot under tpu-blocks; rpc-preempt, the
+   tight running+pending mix under deploy/scheduler.conf): each reply's
+   decisions digest equal to the JAX package's in
+   tests/rpc_reference_digests.json, rpc-10k binding all 10,000 pods with
+   one B1 launch, B4 and B3 launching as their solves counted, no card
+   memory outliving the requests; then system-preempt and
+   system-lifecycle over ``VolcanoSystem(native_store=True)``, equal to the
+   JAX package's native-store records; the metrics server scraped after
+   rpc-10k (/metrics, /healthz) and after the native system-preempt
+   (/healthz?detail, /debug/why, /debug/timeline); last, the
+   vc-snapshot-rpc binary (``python -m volcano_tpu_torch.cmd``) as a
+   process of its own answers rpc-10k twice, serves /healthz and exits 0
+   on SIGTERM. Prints each world's wall s and encode, request and decode
+   ms, and the binary's seconds to listen and its request ms.
+26. Prints one JSON line with each kernel's launches, times, bound and
+   error (and its launches in each sim run, system world and rpc world),
+   then the card's name and power limit, then the result line ``{"ok":
+   true, "device": {...}}``.
 
 Every phase but step 18 ends with no solver fallback, no device fault and
 no degraded cycle counted since the last containment check, and the
@@ -3311,6 +3328,293 @@ def system_phase(sim_runs, device=None):
 
 
 # ---------------------------------------------------------------------------
+# the snapshot RPC sidecar, the native store and the metrics endpoint
+# ---------------------------------------------------------------------------
+
+def _summary_count(body: str, family: str) -> float:
+    """The summed ``_count`` samples of one summary family."""
+    total = 0.0
+    for line in body.splitlines():
+        if line.startswith(family + "_count"):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rpc_binary(msg: dict, want: dict, device=None) -> dict:
+    """``python -m volcano_tpu_torch.cmd vc-snapshot-rpc`` as a process of
+    its own (kernels built already, so it loads them before it listens):
+    seconds until it listens, ``msg`` answered over TCP with the decisions
+    ``want`` records (twice: the first request and a warm one), /healthz on
+    its --listen-address, and exit 0 on SIGTERM. The process is stopped
+    whatever happens."""
+    import signal
+    import urllib.request
+
+    sys.path.insert(0, os.path.join(_ROOT, "tools"))
+    import rpc_reference
+    from volcano_tpu_torch.rpc import SnapshotClient
+    http = _free_port()
+    argv = [sys.executable, "-m", "volcano_tpu_torch.cmd",
+            "vc-snapshot-rpc", "--port", "0", "--scheduler-conf",
+            os.path.join(_ROOT, "deploy", "scheduler.conf"),
+            "--listen-address", str(http)]
+    if device is not None:
+        argv += ["--device", str(device)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=_ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    out = {}
+    try:
+        line = proc.stdout.readline()
+        out["listen_s"] = time.perf_counter() - t0
+        check("listening on" in line,
+              f"vc-snapshot-rpc did not listen: {line!r}")
+        port = int(line.rsplit(":", 1)[1])
+        out["request_ms"] = []
+        for _ in range(2):
+            client = SnapshotClient("127.0.0.1", port, timeout=600)
+            t1 = time.perf_counter()
+            reply = client.schedule(msg)
+            out["request_ms"].append((time.perf_counter() - t1) * 1e3)
+            client.close()
+            rec = rpc_reference.decisions_record(reply)
+            check(rec["decisions_sha256"] == want["decisions_sha256"],
+                  "vc-snapshot-rpc: the reply differs from the reference's")
+        with urllib.request.urlopen(f"http://127.0.0.1:{http}/healthz",
+                                    timeout=30) as r:
+            out["healthz"] = r.read().decode()
+        check(out["healthz"] == "ok", f"vc-snapshot-rpc /healthz: {out}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out["rc"] = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out["rc"] = proc.wait()
+        proc.stdout.close()
+        proc.stderr.close()
+    check(out["rc"] == 0, f"vc-snapshot-rpc exited {out['rc']}")
+    return out
+
+
+def rpc_phase(sim_runs, device=None):
+    """Step 25: the vc-snapshot-rpc sidecar on the card. Each world of
+    tools/rpc_reference.py (rpc-10k, rpc-10k-blocks, rpc-preempt) is
+    encoded once and sent over TCP by ``SnapshotClient`` to ``serve``'s
+    sidecar (one a conf, solving on the card), each kernel's count set to 0
+    just before the request: the reply's decisions digest must equal
+    tests/rpc_reference_digests.json (the JAX package's, which the port's
+    CPU path equals), rpc-10k must bind all 10,000 pods with exactly one
+    B1 launch, rpc-10k-blocks launch every B4 kernel as its solve counted
+    (one prep a solve, a free a sweep, as many candidate as round
+    launches), rpc-preempt launch B3 as often as the CPU path walked and B1
+    once a solve. The card's memory must be back at its value from before
+    the requests. Then system-preempt and system-lifecycle over
+    the port's C++ object store (tools/system_reference.py ``--native``)
+    equal to tests/system_reference_digests.json, as over its Python
+    store. The
+    metrics server started at the phase's start is scraped after rpc-10k
+    (/metrics in the exposition grammar with a nonzero plugin latency
+    count, /healthz "ok") and after the native system-preempt
+    (/healthz?detail, /debug/why and /debug/timeline of its high-priority
+    job, each 200 with JSON, and a nonzero e2e count). Last, the
+    vc-snapshot-rpc binary as a process of its own answers rpc-10k
+    (``rpc_binary``). Prints each world's wall s, encode / request /
+    decode ms and launches. Adds the launches to ``sim_runs``. ``device``
+    overrides the card (a rehearsal)."""
+    import gc
+
+    import torch
+
+    sys.path.insert(0, os.path.join(_ROOT, "tools"))
+    import rpc_reference
+    import system_reference
+    from volcano_tpu_torch import metrics
+    from volcano_tpu_torch.framework import get_action
+    from volcano_tpu_torch.native import NativeObjectStore
+    from volcano_tpu_torch.obs import validate
+    from volcano_tpu_torch.rpc import SnapshotClient, serve
+    doc = rpc_reference.load_digests()
+    system_digests = system_reference.load_digests()
+    counters = kernel_counters()
+    t_phase = time.perf_counter()
+    http = metrics.start_metrics_server(0, "127.0.0.1")
+    servers = {}
+    out = {}
+    try:
+        gc.collect()
+        mem_start = torch.cuda.memory_allocated()
+        for world in rpc_reference.WORLDS:
+            want = doc["worlds"][world]
+            t0 = time.perf_counter()
+            snap = rpc_reference.world_snapshot(world)
+            t1 = time.perf_counter()
+            msg = rpc_reference.encode(snap)
+            encode_ms = (time.perf_counter() - t1) * 1e3
+            del snap
+            check(rpc_reference.message_sha256(msg)
+                  == want["snapshot_sha256"],
+                  f"rpc {world}: the snapshot differs from the reference's")
+            conf = rpc_reference.conf_text(world)
+            if conf not in servers:
+                servers[conf] = serve(conf_text=conf, device=device)[0]
+            client = SnapshotClient("127.0.0.1",
+                                    servers[conf].server_address[1],
+                                    timeout=600)
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            t1 = time.perf_counter()
+            reply = client.schedule(msg)
+            request_ms = (time.perf_counter() - t1) * 1e3
+            launches = {k: w.launches for k, w in counters.items()}
+            client.close()
+            t1 = time.perf_counter()
+            rec = rpc_reference.decisions_record(reply)
+            decode_ms = (time.perf_counter() - t1) * 1e3
+            del reply, msg
+            stats = get_action("allocate-tpu").last_stats
+            blocks = stats.get("blocks") or {}
+            diff = sorted(k for k in rec if rec[k] != want[k])
+            check(not diff, f"rpc {world}: {diff} differ from the JAX "
+                            f"package's ({ {k: rec[k] for k in diff} })")
+            cpu = want["port_cpu"]
+            check(launches["evict_walk"] == cpu["walks"],
+                  f"rpc {world}: B3 launched {launches['evict_walk']} "
+                  f"times, the CPU path walked {cpu['walks']}")
+            if world == "rpc-10k-blocks":
+                check(launches["place"] == 0
+                      and launches["blocks_prep"] == cpu["allocate"]
+                      and launches["blocks_free"] == cpu["blocks_sweeps"]
+                      == blocks.get("sweeps")
+                      and blocks.get("passes") == cpu["blocks_passes"]
+                      and launches["blocks_topk"]
+                      == launches["blocks_round"] > 0,
+                      f"rpc {world}: B4 launches {launches}, solve "
+                      f"{blocks}, CPU path {cpu}")
+            else:
+                check(launches["place"] == cpu["allocate"],
+                      f"rpc {world}: B1 launched {launches['place']} "
+                      f"times for {cpu['allocate']} solves")
+            if world == "rpc-10k":
+                check(launches["place"] == 1 and rec["binds"] == 10000,
+                      f"rpc-10k: B1 {launches['place']}, binds "
+                      f"{rec['binds']}")
+            if world == "rpc-preempt":
+                check(launches["evict_walk"] >= 1,
+                      "rpc-preempt: the walk never launched")
+            line = {"wall_s": time.perf_counter() - t0,
+                    "encode_ms": encode_ms, "request_ms": request_ms,
+                    "decode_ms": decode_ms, "binds": rec["binds"],
+                    "evicts": rec["evicts"],
+                    "decisions_sha256": rec["decisions_sha256"],
+                    "digest": "equal", "launches": launches}
+            out[world] = line
+            sim_runs[f"rpc {world}"] = launches
+            print(f"rpc {world}:", json.dumps(line), flush=True)
+            if world == "rpc-10k":
+                status, body = validate.fetch(http, "/metrics", timeout=30)
+                text = body.decode()
+                samples = validate.parse_sample_count(text)
+                plugin = _summary_count(
+                    text, "volcano_plugin_scheduling_latency_microseconds")
+                health = validate.fetch(http, "/healthz", timeout=30)
+                check(status == 200 and samples > 0 and plugin > 0
+                      and health == (200, b"ok"),
+                      f"rpc scrape: /metrics {status}, {samples} samples, "
+                      f"plugin count {plugin}; /healthz {health}")
+                print("rpc scrape after rpc-10k:", json.dumps(
+                    {"samples": samples, "plugin_count": plugin,
+                     "bytes": len(body), "healthz": health[1].decode()}),
+                    flush=True)
+        for server in servers.values():
+            server.shutdown()
+            server.server_close()
+        servers.clear()
+        gc.collect()
+        mem_after = torch.cuda.memory_allocated()
+        check(mem_after == mem_start,
+              f"rpc: {mem_after - mem_start} bytes of card memory "
+              f"outlived the requests")
+        for world in system_reference.NATIVE_WORLDS:
+            want = system_digests[world]
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            run = system_reference.run_world("volcano_tpu_torch", world,
+                                             device, native=True)
+            launches = {k: w.launches for k, w in counters.items()}
+            got = run.pop("digest")
+            check(isinstance(run["system"].store, NativeObjectStore),
+                  f"native {world}: the system's store is not native")
+            del run["system"]
+            check(run["action_failures"] == [],
+                  f"native {world}: action failures "
+                  f"{run['action_failures']}")
+            diff = sorted(k for k in want
+                          if k not in ("action_failures", "port_cpu")
+                          and want[k] != got.get(k))
+            check(not diff, f"native {world}: {diff} differ from the JAX "
+                            f"package's ({ {k: got.get(k) for k in diff} })")
+            walks = system_digests[world]["port_cpu"]["walks"]
+            check(launches["place"] == got["solves"]
+                  and launches["evict_walk"] == walks == got["walks"],
+                  f"native {world}: B1 {launches['place']} for "
+                  f"{got['solves']} solves, B3 {launches['evict_walk']} "
+                  f"for {walks} walks")
+            line = {"wall_s": run["wall_s"], "binds": got["binds"],
+                    "evicts": got["evicts"], "B1": launches["place"],
+                    "B3": launches["evict_walk"], "digest": "equal"}
+            out[f"native {world}"] = line
+            sim_runs[f"native {world}"] = launches
+            print(f"rpc native {world}:", json.dumps(line), flush=True)
+            if world == "system-preempt":
+                scraped = {}
+                for path in ("/healthz?detail", "/debug/why?job=default/high",
+                             "/debug/timeline?job=default/high"):
+                    status, body = validate.fetch(http, path, timeout=30)
+                    check(status == 200 and json.loads(body),
+                          f"rpc scrape {path}: {status} {body[:200]!r}")
+                    scraped[path] = len(body)
+                status, body = validate.fetch(http, "/metrics", timeout=30)
+                e2e = _summary_count(
+                    body.decode(),
+                    "volcano_e2e_scheduling_latency_milliseconds")
+                check(status == 200 and e2e > 0,
+                      f"rpc scrape: e2e count {e2e} after system-preempt")
+                scraped["e2e_count"] = e2e
+                print("rpc scrape after native system-preempt:",
+                      json.dumps(scraped), flush=True)
+        gc.collect()
+        mem_end = torch.cuda.memory_allocated()
+        # the last native world (the default conf) holds no node tensors,
+        # and its controller let the earlier system go
+        check(mem_end <= mem_start,
+              f"rpc: {mem_end - mem_start} bytes of card memory outlived "
+              f"the phase")
+        world = "rpc-10k"
+        out["binary"] = rpc_binary(rpc_reference.snapshot_message(world),
+                                   doc["worlds"][world], device)
+        print("rpc binary vc-snapshot-rpc:", json.dumps(out["binary"]),
+              flush=True)
+    finally:
+        for server in servers.values():
+            server.shutdown()
+            server.server_close()
+        http.shutdown()
+        http.server_close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"rpc phase: {out['phase_s']:.1f} s", flush=True)
+    print("rpc card:", card_line(), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the cycle
 # ---------------------------------------------------------------------------
 
@@ -3851,6 +4155,11 @@ def main() -> int:
     # and VolcanoSystem at 10k pods / 2k nodes, preempt and the lifecycle
     # policies
     system_phase(sim_runs)
+
+    phase("rpc")
+    # 25. the vc-snapshot-rpc sidecar over TCP at 10k pods / 2k nodes, the
+    # native object store, the metrics and health endpoints
+    rpc_phase(sim_runs)
 
     phase("summary")
     # 18. the kernels line (launches: the placement kernel's in the 10k

@@ -2,9 +2,10 @@
 the JAX package — not while it runs the slice conf, nor deploy/scheduler.conf
 with its preempt walk, drf, predicates and proportion, nor the in-process
 system (webhooks, controllers, vcctl, ``VolcanoSystem``, ``cmd``) and the
-elastic membership controller, nor tools/system_reference.py driving the
-port's worlds — and its entry points refuse to fall back to the CPU when no
-CUDA device is there."""
+elastic membership controller, nor the snapshot RPC, the native store and
+the metrics endpoint, nor tools/system_reference.py and
+tools/rpc_reference.py driving the port's worlds — and its entry points
+refuse to fall back to the CPU when no CUDA device is there."""
 
 import ast
 import os
@@ -65,6 +66,21 @@ def test_cycle_runs_without_jax():
         "out = system_reference.run_world('volcano_tpu_torch', "
         "'system-lifecycle', 'cpu')\n"
         "assert out['action_failures'] == []\n"
+        "import rpc_reference\n"
+        "from volcano_tpu_torch import metrics\n"
+        "from volcano_tpu_torch.native import NativeObjectStore\n"
+        "from volcano_tpu_torch.rpc import SnapshotClient, serve\n"
+        "import json\n"
+        f"golden = json.load(open({str(REPO / 'shim' / 'testdata' / 'golden_snapshot.json')!r}))\n"
+        "server, _, port = serve(conf_text=deployed, device='cpu')\n"
+        "client = SnapshotClient('127.0.0.1', port)\n"
+        "assert client.schedule(golden)['binds']\n"
+        "client.close(); server.shutdown()\n"
+        "assert b'volcano_plugin_scheduling_latency' in "
+        "metrics.fallback_exposition()\n"
+        "out = system_reference.run_world('volcano_tpu_torch', "
+        "'system-preempt', 'cpu', native=True)\n"
+        "assert isinstance(out['system'].store, NativeObjectStore)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'volcano_tpu'))\n"
         "assert not bad, bad\n"

@@ -240,9 +240,8 @@ def test_validator_counts_and_summaries_alike():
 
 
 def test_validate_cli(tmp_path, capsys):
-    """The trace check and --flows run as the JAX package's do; the
-    metrics scrape needs the HTTP server this package lacks and is refused
-    by name, exit 2."""
+    """The trace check and --flows run as the JAX package's do, and
+    --metrics-scrape serves and scrapes the port's /metrics (exit 0)."""
     from volcano_tpu.obs import validate as jx_validate
     rec = pt_trace.TraceRecorder(logical=True)
     rec.enable()
@@ -264,8 +263,11 @@ def test_validate_cli(tmp_path, capsys):
     capsys.readouterr()
     assert pt_validate.main([str(good)]) == 0
     assert pt_validate.main(["--flows", str(good)]) == 1   # one lane
-    assert pt_validate.main(["--metrics-scrape"]) == 2
-    assert "--metrics-scrape" in capsys.readouterr().err
+    try:
+        assert pt_validate.main(["--metrics-scrape"]) == 0
+    finally:
+        pt_metrics.reset_local()
+    assert "/metrics OK" in capsys.readouterr().out
 
 
 # -- the decision audit --------------------------------------------------------

@@ -504,11 +504,36 @@ def test_scenarios_are_not_vacuous():
         True, False)
 
 
-def test_resource_quota_is_refused_by_name():
-    """The port's cache keeps no namespace infos: a ResourceQuota reaching
-    a store-fed cache is refused by name, never dropped."""
-    s, _, transport, cache = _wired(PORT)
-    quota = PORT.objects.ResourceQuota(
-        metadata=PORT.objects.ObjectMeta(name="rq", namespace="team"))
-    with pytest.raises(NotImplementedError, match="ResourceQuota"):
-        s.create(quota)
+@pytest.fixture(scope="module")
+def jax_quota(tmp_path_factory):
+    import torch_parity as tp
+    return tp.jax_reference("quota", tp.QUOTA_CASES,
+                            tmp_path_factory.mktemp("quota") / "jax.pkl")
+
+
+@pytest.mark.parametrize("case", ["weights-1-3", "weights-3-1", "no-quota",
+                                  "largest-of-two", "deleted"])
+def test_resource_quota_sets_the_namespace_weight(jax_quota, case):
+    """A ResourceQuota reaching a store-fed cache sets its namespace's
+    weight (the largest of the namespace's quotas; a deleted one no
+    longer counts), and drf's namespace order under allocate-tpu then
+    binds what the JAX package binds, in its order."""
+    import torch_parity as tp
+    got = tp.quota_run(True, case)
+    want = jax_quota[case]
+    assert got["weights"] == want["weights"]
+    assert got["binds"] == want["binds"]
+    writes = {(ns, q): w for ns, q, w in tp.QUOTA_CASES[case]}
+    for ns in ("ns-a", "ns-b"):
+        live = [w for (n, _), w in writes.items() if n == ns and w]
+        assert got["weights"][ns] == (max(live) if live else 1)
+
+
+def test_namespace_order_follows_the_weights():
+    """The weights reach the solve's job order: with ns-b at three times
+    ns-a's weight the cycle binds in another order than with the default
+    weights."""
+    import torch_parity as tp
+    heavy = tp.quota_run(True, "weights-1-3")["binds"]
+    flat = tp.quota_run(True, "no-quota")["binds"]
+    assert heavy and flat and heavy != flat

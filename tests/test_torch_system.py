@@ -13,13 +13,14 @@ package's.
   (tools/system_reference.py), so nothing read from the wall clock can
   reorder them. TestDeployArtifacts and TestHelmChart check the JAX
   package's deploy/ tree and are not ported; ``test_metrics_healthz_
-  endpoint`` becomes a test of ``--listen-address``'s refusal.
+  endpoint`` is tests/test_torch_metrics_server.py's.
 - The small worlds of tools/system_reference.py (system-preempt under
   deploy/scheduler.conf, system-lifecycle) against the JAX package's
   digests in tests/system_reference_digests.json; system-10k is the card's
   (``chip_smoke.py``'s ``system`` phase).
 - tests/test_overload.py's TestFrontDoorIntegration, through both packages.
-- The entry points' device rule and the refusals by name.
+- The entry points' device rule, the native store and the binaries'
+  dispatcher.
 """
 
 import copy
@@ -1379,7 +1380,7 @@ def test_job_commands_drive_the_lifecycle():
 
 
 # ---------------------------------------------------------------------------
-# the entry points: the device rule and the refusals by name
+# the entry points: the device rule, the native store, the dispatcher
 # ---------------------------------------------------------------------------
 
 def test_system_default_device_needs_cuda():
@@ -1397,30 +1398,25 @@ def test_system_passes_its_device_to_the_scheduler():
     assert system.device == torch.device("cpu")
 
 
-def test_native_store_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="9f′"):
-        VolcanoSystem(device="cpu", native_store=True)
+def test_native_store_backs_the_system():
+    """native_store=True puts the API server's state in the C++ store; a
+    store given wins."""
+    from volcano_tpu_torch.native import NativeObjectStore
+    assert isinstance(VolcanoSystem(device="cpu", native_store=True).store,
+                      NativeObjectStore)
+    given = pt_store.ObjectStore()
+    assert VolcanoSystem(device="cpu", native_store=True,
+                         store=given).store is given
 
 
-@pytest.mark.parametrize("main,argv,what", [
-    (pt_cmd.scheduler_main, ["--native-store"], "--native-store"),
-    (pt_cmd.controller_manager_main, ["--native-store"], "--native-store"),
-    (pt_cmd.scheduler_main, ["--listen-address", "9090"],
-     "--listen-address"),
-    (pt_cmd.controller_manager_main, ["--listen-address", "9090"],
-     "--listen-address"),
-    (pt_cmd.snapshot_rpc_main, [], "vc-snapshot-rpc"),
-    (pt_cmd.snapshot_rpc_main, ["--port", "7070"], "vc-snapshot-rpc"),
-], ids=["scheduler-native-store", "controller-manager-native-store",
-        "scheduler-listen-address", "controller-manager-listen-address",
-        "snapshot-rpc", "snapshot-rpc-with-flags"])
-def test_refused_by_name(capsys, main, argv, what):
-    """--native-store, --listen-address (the metrics and /healthz server:
-    the port of test_metrics_healthz_endpoint) and the vc-snapshot-rpc
-    sidecar each exit 2, naming what they wait for."""
-    assert main(argv) == 2
+@pytest.mark.parametrize("argv", [
+    ["vc-unknown"], [],
+], ids=["unknown-binary", "no-binary"])
+def test_cmd_names_its_binaries(capsys, argv):
+    """python -m volcano_tpu_torch.cmd takes a binary's name first."""
+    assert pt_cmd.main(argv) == 2
     err = capsys.readouterr().err
-    assert what in err and "ROADMAP item 9f′" in err
+    assert all(name in err for name in pt_cmd.BINARIES)
 
 
 def test_quick_start_runs_on_the_cpu():

@@ -2768,7 +2768,9 @@ def jax_reference(kind: str, names, out_path) -> dict:
     name -> hole_world_run() of a HOLE_WORLDS or DRAIN_WORLDS world;
     "pipelined": name -> pipelined_drive(); "topo": "world@weight" ->
     jax_topo(); "topo-dispatch": any name -> topo_dispatch();
-    "containment": "ENGINE:SCRIPT" -> containment_drive(); "mixed":
+    "containment": "ENGINE:SCRIPT" -> containment_drive(); "rpc": name
+    -> jax_rpc() of an RPC_WORLDS world; "quota": name -> quota_run() of
+    a QUOTA_CASES case; "mixed":
     names are "kind:name", so one child process serves several kinds."""
     return jax_reference_script([os.path.abspath(__file__), kind], out_path,
                                 names)
@@ -2845,6 +2847,192 @@ def sim_port_run(source, args, env=(), out_dir=None, device="cpu"):
             "state": state, "tool": tool}
 
 
+# ---------------------------------------------------------------------------
+# the snapshot RPC (volcano_tpu_torch/rpc): one message through both
+# packages' SchedulerService
+# ---------------------------------------------------------------------------
+
+RPC_GI = 1 << 30
+
+
+def rpc_small_world(api):
+    """tests/test_rpc.py's build_world in the package ``api`` (either
+    package's ``api`` module): 4 nodes in two zones, 3 two-task Inqueue
+    gangs over two queues and a running filler on n0."""
+    nodes = []
+    for i in range(4):
+        alloc = api.Resource(8000, 16 * RPC_GI)
+        alloc.max_task_num = 110
+        nodes.append(api.NodeInfo(name=f"n{i}", allocatable=alloc,
+                                  labels={"zone": "a" if i < 2 else "b"}))
+    queues = [api.QueueInfo(name="default", weight=1),
+              api.QueueInfo(name="best", weight=2)]
+    jobs = []
+    for j in range(3):
+        queue = "default" if j % 2 == 0 else "best"
+        pg = api.PodGroup(name=f"job{j}", queue=queue, min_member=2,
+                          phase=api.PodGroupPhase.INQUEUE,
+                          min_resources=api.Resource(1000, RPC_GI))
+        job = api.JobInfo(uid=f"job{j}", name=f"job{j}", queue=queue,
+                          min_available=2, podgroup=pg, priority=j,
+                          creation_timestamp=float(j))
+        for t in range(2):
+            job.add_task_info(api.TaskInfo(
+                uid=f"job{j}-{t}", name=f"job{j}-{t}", job=f"job{j}",
+                resreq=api.Resource(1000, 2 * RPC_GI),
+                creation_timestamp=float(t)))
+        jobs.append(job)
+    pg = api.PodGroup(name="filler", queue="default", min_member=1,
+                      phase=api.PodGroupPhase.RUNNING)
+    filler = api.JobInfo(uid="filler", name="filler", queue="default",
+                         min_available=1, podgroup=pg,
+                         creation_timestamp=10.0)
+    t = api.TaskInfo(uid="filler-0", name="filler-0", job="filler",
+                     resreq=api.Resource(2000, 4 * RPC_GI),
+                     status=api.TaskStatus.RUNNING, creation_timestamp=0.0)
+    filler.add_task_info(t)
+    t.node_name = "n0"
+    nodes[0].add_task(filler.tasks["filler-0"])
+    jobs.append(filler)
+    return nodes, jobs, queues
+
+
+def _rpc_baseline_message(name):
+    """A synthetic world's first snapshot, encoded by the port."""
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+    from volcano_tpu_torch.rpc import encode_snapshot
+    snap = baseline_config(name, seed=0)[0].snapshot()
+    return encode_snapshot(list(snap.nodes.values()),
+                           list(snap.jobs.values()),
+                           list(snap.queues.values()))
+
+
+def rpc_message(name) -> dict:
+    """RPC_WORLDS' message, as JSON carries it."""
+    import json
+    if name.startswith("small-"):
+        import volcano_tpu_torch.api as api
+        from volcano_tpu_torch.rpc import encode_snapshot
+        msg = encode_snapshot(*rpc_small_world(api))
+    elif name == "golden":
+        with open(os.path.join(_REPO, "shim", "testdata",
+                               "golden_snapshot.json")) as f:
+            return json.load(f)
+    else:
+        msg = _rpc_baseline_message(name.rsplit("-", 1)[0] if name.endswith(
+            ("-blocks", "-deployed")) else name)
+    return json.loads(json.dumps(msg))
+
+
+def rpc_conf(name):
+    """RPC_WORLDS' conf text (None: the reference's default conf)."""
+    if name.endswith("-deployed"):
+        return DEPLOYED_CONF
+    if name.endswith("-blocks"):
+        sys.path.insert(0, os.path.join(_REPO, "tools"))
+        import rpc_reference
+        return rpc_reference.BLOCKS_CONF
+    return None
+
+
+# the default conf on test_rpc's world and on the shim's golden snapshot,
+# the deployed conf (B1, preempt's walk) on the world and on the preempt
+# mix at a tenth, and tpu-blocks (B4) on the 1k world
+RPC_WORLDS = ("small-default", "small-deployed", "golden", "1k-blocks",
+              "preempt-small-deployed")
+
+
+def rpc_normalized(out: dict) -> dict:
+    """A decisions reply without the conditions' session id and time."""
+    return dict(out, podgroups=[
+        dict(p, conditions=[{k: v for k, v in c.items()
+                             if k not in ("lastTransitionTime",
+                                          "transitionID")}
+                            for c in p["conditions"]])
+        for p in out["podgroups"]])
+
+
+def jax_rpc(name) -> dict:
+    """The JAX package's SchedulerService on RPC_WORLDS[name]'s message,
+    its preempt walk per task (tools/rpc_reference.py)."""
+    sys.path.insert(0, os.path.join(_REPO, "tools"))
+    import rpc_reference
+    from volcano_tpu.rpc import SchedulerService
+    rpc_reference._per_task_walk()
+    return rpc_normalized(SchedulerService(rpc_conf(name)).schedule(
+        rpc_message(name)))
+
+
+# ---------------------------------------------------------------------------
+# ResourceQuota namespace weights through a store-fed cache
+# ---------------------------------------------------------------------------
+
+# case -> the quota writes, in order: (namespace, quota, weight), a weight
+# of None deleting that quota
+QUOTA_CASES = {
+    "weights-1-3": [("ns-a", "rq", 1), ("ns-b", "rq", 3)],
+    "weights-3-1": [("ns-a", "rq", 3), ("ns-b", "rq", 1)],
+    "no-quota": [],
+    "largest-of-two": [("ns-a", "rq", 1), ("ns-b", "rq", 2),
+                       ("ns-b", "rq2", 5)],
+    "deleted": [("ns-a", "rq", 1), ("ns-b", "rq", 3), ("ns-b", "rq", None)],
+}
+
+
+def quota_run(torch_port: bool, name: str) -> dict:
+    """One cycle of NAMESPACE_CONF (drf's enabledNamespaceOrder,
+    allocate-tpu) on a cache fed from an object store whose ResourceQuotas
+    set the namespaces' weights: _namespaces()'s two namespaces of gangs
+    over two queues on a tight cluster. Returns the binds in order and
+    the session's namespace weights."""
+    import importlib
+    pkg = "volcano_tpu_torch" if torch_port else "volcano_tpu"
+    imp = importlib.import_module
+    api, objects = imp(f"{pkg}.api"), imp(f"{pkg}.apis.objects")
+    synthetic = imp(f"{pkg}.cache.synthetic")
+    framework = imp(f"{pkg}.framework")
+    imp(f"{pkg}.actions")
+    imp(f"{pkg}.plugins")
+    store = imp(f"{pkg}.store").ObjectStore()
+    cache = imp(f"{pkg}.cache.store_wiring").wire_cache_to_store(store)
+    binds = []
+
+    class OrderBinder(imp(f"{pkg}.cache").FakeBinder):
+        def bind(self, task, hostname):
+            binds.append([task.key(), hostname])
+            super().bind(task, hostname)
+
+    cache.binder = OrderBinder()
+    for ns, quota, weight in QUOTA_CASES[name]:
+        if weight is None:
+            store.delete("ResourceQuota", ns, quota)
+        else:
+            store.create(objects.ResourceQuota(
+                metadata=objects.ObjectMeta(name=quota, namespace=ns),
+                hard={"volcano.sh/namespace.weight": weight}))
+    for k, w in enumerate((2, 1)):
+        cache.add_queue(api.QueueInfo(name=f"q{k + 1}", weight=w))
+    for node in synthetic.make_cluster(16):
+        cache.add_node(node)
+    for j, job in enumerate(synthetic.make_jobs(400, 20, ["q1", "q2"],
+                                                seed=8)):
+        ns = "ns-a" if j % 3 else "ns-b"
+        job.namespace = ns
+        job.podgroup.namespace = ns
+        for task in job.tasks.values():
+            task.namespace = ns
+        cache.add_job(job)
+    conf = framework.parse_scheduler_conf(NAMESPACE_CONF)
+    kwargs = {"device": "cpu"} if torch_port else {}
+    ssn = framework.open_session(cache, conf.tiers, conf.configurations,
+                                 **kwargs)
+    weights = {n: info.get_weight() for n, info in ssn.namespaces.items()}
+    for action in conf.actions:
+        framework.get_action(action).execute(ssn)
+    framework.close_session(ssn)
+    return {"binds": binds, "weights": weights}
+
+
 def _reference(kind, name):
     if kind == "slice":
         cache = SLICE_WORLDS[name]()
@@ -2881,6 +3069,10 @@ def _reference(kind, name):
         return topo_dispatch(False)
     if kind == "containment":
         return containment_drive(False, name)
+    if kind == "rpc":
+        return jax_rpc(name)
+    if kind == "quota":
+        return quota_run(False, name)
     return jax_place(PLACE_WORLDS[name](), name in INTEGER_PLACE_WORLDS)
 
 

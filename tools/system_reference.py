@@ -44,6 +44,16 @@ Worlds:
   against RestartJob, TerminateJob, AbortJob and CompleteJob, job-level
   and task-level, and exit codes) as one run.
 
+``native=True`` (``--native``) runs system-preempt or system-lifecycle
+over the package's C++ object store (``native.NativeObjectStore`` under
+the same logical clock, given to ``VolcanoSystem`` as its store). The
+port's runs over it equal the digests above; the JAX package's
+system-lifecycle over its own C++ store does not (ROADMAP §3), so no
+native record is written. A package whose store did not build is
+refused: the JAX package's factory would hand back its Python store.
+system-10k's batched front door needs ``create_batch``, which the native
+store lacks, so it runs over the Python store only.
+
 Write the digests (the JAX package, one child a world at
 ``--xla_backend_optimization_level=0``, as ``tools/sim_reference.py``
 runs it)::
@@ -76,6 +86,7 @@ DIGESTS = os.path.join(REPO, "tests", "system_reference_digests.json")
 DEPLOYED = os.path.join(REPO, "deploy", "scheduler.conf")
 NO_FMA_XLA_FLAGS = "--xla_backend_optimization_level=0"
 WORLDS = ("system-10k", "system-preempt", "system-lifecycle")
+NATIVE_WORLDS = ("system-preempt", "system-lifecycle")
 # the child's last line on stdout: this marker, then the record
 RECORD_MARKER = "system-reference-record "
 GI = 1 << 30
@@ -105,13 +116,25 @@ class Package:
         self.evict_tpu = imp(f"{name}.actions.evict_tpu")
 
 
-def logical_store(pkg: Package):
-    """An ObjectStore whose every created object gets its creation time
-    from a counter: the order of jobs and tasks (creation time, then uid)
-    is the order of creation in both packages, never a clock tie."""
-    clock = itertools.count(1)
+def native_store_class(pkg: Package):
+    """The package's C++ object store class, refusing a package whose
+    store did not build."""
+    native = importlib.import_module(f"{pkg.name}.native")
+    if not native.available():
+        raise RuntimeError(f"{pkg.name}.native did not build: "
+                           f"{getattr(native, 'build_error', lambda: '')()}")
+    return native.NativeObjectStore
 
-    class LogicalClockStore(pkg.store.ObjectStore):
+
+def logical_store(pkg: Package, native: bool = False):
+    """An object store whose every created object gets its creation time
+    from a counter: the order of jobs and tasks (creation time, then uid)
+    is the order of creation in both packages, never a clock tie.
+    ``native``: the package's C++ store under the same clock."""
+    clock = itertools.count(1)
+    base = native_store_class(pkg) if native else pkg.store.ObjectStore
+
+    class LogicalClockStore(base):
         def create(self, obj):
             obj.metadata.creation_timestamp = float(next(clock))
             return super().create(obj)
@@ -274,15 +297,18 @@ class LogicalClock:
             self._now += seconds
 
 
-def new_system(pkg: Package, conf_text=None, device=None, nodes=()):
-    """A VolcanoSystem over a logical-clock store, on a logical clock that
-    each ``schedule_once`` advances by a second, the package's uid counter
-    restarted, ``nodes`` added to its cache."""
+def new_system(pkg: Package, conf_text=None, device=None, nodes=(),
+               native: bool = False):
+    """A VolcanoSystem over a logical-clock store (the C++ one with
+    ``native``), on a logical clock that each ``schedule_once`` advances by
+    a second, the package's uid counter restarted, ``nodes`` added to its
+    cache."""
     pkg.objects._uid = itertools.count()
     kwargs = {} if device is None else {"device": device}
     system = pkg.system.VolcanoSystem(conf_text=conf_text,
                                       schedule_period=0.01,
-                                      store=logical_store(pkg), **kwargs)
+                                      store=logical_store(pkg, native),
+                                      **kwargs)
     clock = LogicalClock()
     system.scheduler.clock = clock
     cache = system.cache
@@ -394,7 +420,7 @@ def _gc(pkg: Package, system) -> list:
     return gc.process()
 
 
-def world_preempt(pkg: Package, device=None) -> tuple:
+def world_preempt(pkg: Package, device=None, native=False) -> tuple:
     """system-preempt (module docstring): 4 nodes of 8 cores, two
     low-priority 8-pod jobs of 2 cores fill them, then a high-priority
     4-pod job of 4 cores arrives."""
@@ -402,7 +428,7 @@ def world_preempt(pkg: Package, device=None) -> tuple:
     with open(DEPLOYED) as f:
         conf = f.read()
     system = new_system(pkg, conf, device,
-                        _nodes(pkg, 4, 8000, 32 * GI))
+                        _nodes(pkg, 4, 8000, 32 * GI), native)
     system.queues.create("q1", weight=1)
     for name, value in (("low", 1), ("high", 1000)):
         system.store.create(o.PriorityClass(
@@ -467,9 +493,10 @@ def _lifecycle_cases(pkg: Package):
     )
 
 
-def world_lifecycle(pkg: Package, device=None) -> tuple:
+def world_lifecycle(pkg: Package, device=None, native=False) -> tuple:
     """system-lifecycle (module docstring): 14 two-pod jobs on 4 nodes."""
-    system = new_system(pkg, None, device, _nodes(pkg, 4, 8000, 16 * GI))
+    system = new_system(pkg, None, device, _nodes(pkg, 4, 8000, 16 * GI),
+                        native)
     cases = _lifecycle_cases(pkg)
     for name, policies, task_policies, _ in cases:
         system.store.create(_job(pkg, name, 2, 1000, GI, policies=policies,
@@ -506,14 +533,18 @@ def run_lifecycle(system, cases, cycle_ms: list) -> list:
     return failures
 
 
-def run_world(package: str, world: str, device=None) -> dict:
-    """Build and drive one world through ``package``'s VolcanoSystem.
-    Returns {"digest", "cycle_ms", "action_failures", "wall_s",
-    "system"}."""
+def run_world(package: str, world: str, device=None,
+              native: bool = False) -> dict:
+    """Build and drive one world through ``package``'s VolcanoSystem
+    (over its C++ store with ``native``). Returns {"digest", "cycle_ms",
+    "action_failures", "wall_s", "system"}."""
     pkg = Package(package)
     t0 = time.perf_counter()
     cycle_ms: list = []
     if world == "system-10k":
+        if native:
+            raise ValueError("system-10k submits through create_batch, "
+                             "which the native store lacks")
         system, _ = world_10k(pkg, device)
         recorder = Recorder(pkg, system)
         try:
@@ -521,14 +552,14 @@ def run_world(package: str, world: str, device=None) -> dict:
         finally:
             recorder.close()
     elif world == "system-preempt":
-        system, script = world_preempt(pkg, device)
+        system, script = world_preempt(pkg, device, native)
         recorder = Recorder(pkg, system)
         try:
             failures = run_script(system, script, cycle_ms)
         finally:
             recorder.close()
     elif world == "system-lifecycle":
-        system, cases = world_lifecycle(pkg, device)
+        system, cases = world_lifecycle(pkg, device, native)
         recorder = Recorder(pkg, system)
         try:
             failures = run_lifecycle(system, cases, cycle_ms)
@@ -595,9 +626,11 @@ def main(argv=None) -> int:
                     help="print one world's record")
     ap.add_argument("--package", default="volcano_tpu_torch")
     ap.add_argument("--device", default=None)
+    ap.add_argument("--native", action="store_true",
+                    help="with --run: over the package's C++ object store")
     args = ap.parse_args(argv)
     if args.run:
-        out = run_world(args.package, args.run, args.device)
+        out = run_world(args.package, args.run, args.device, args.native)
         print(json.dumps(dict(out["digest"],
                               action_failures=out["action_failures"],
                               wall_s=out["wall_s"]), sort_keys=True))

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import metrics
 from ..api import PodGroupPhase, Resource, TaskInfo, TaskStatus
 from ..cache.snapshot import (NodeTensors, assemble_feasibility,
                               assemble_static_score, assemble_weights,
@@ -927,6 +928,7 @@ def _replay_preempt_fast(ssn, ptasks, pjob_ix, kept_jobs, tensors,
     dealloc_agg: Dict[str, Resource] = {}
     cache_evicts: List[TaskInfo] = []
     rolled_back = False
+    n_attempts = last_victims = 0
     for jx, ids in per_job.items():
         job = kept_jobs[jx]
         applied_p: List[TaskInfo] = []
@@ -934,8 +936,11 @@ def _replay_preempt_fast(ssn, ptasks, pjob_ix, kept_jobs, tensors,
         for i in ids:
             if task_node[i] == NO_NODE:
                 continue
-            for vt in victims_by_step.get(i, []):
+            evicted = victims_by_step.get(i, [])
+            for vt in evicted:
                 applied_v.append(_fast_evict(ssn, vt))
+            n_attempts += 1
+            last_victims = len(evicted)
             host = names[task_node[i]]
             # after a host-side rollback an earlier job's un-done evictions
             # can leave a node below what the walk assumed: re-check the
@@ -960,6 +965,11 @@ def _replay_preempt_fast(ssn, ptasks, pjob_ix, kept_jobs, tensors,
             dealloc_agg.setdefault(v.job, Resource()).add(v.resreq)
             cache_evicts.append(v)
 
+    # the slow replay's per-attempt gauge, last write wins; no attempt
+    # leaves it untouched
+    if n_attempts:
+        metrics.update_preemption_victims(last_victims)
+        metrics.register_preemption_attempt(n_attempts)
     for jx, r in alloc_agg.items():
         ssn._fire_allocate(_AggTask(kept_jobs[jx].uid, r))
     for uid, r in dealloc_agg.items():
@@ -1000,6 +1010,8 @@ def _replay_preempt(ssn, ptasks, pjob_ix, kept_jobs, tensors,
             for vt in evicted:
                 if vt.uid in validated and vt.uid in ssn.jobs[vt.job].tasks:
                     stmt.evict(ssn.jobs[vt.job].tasks[vt.uid], "preempt")
+            metrics.update_preemption_victims(len(validated))
+            metrics.register_preemption_attempt()
             # pipeline only if the node fits after the validated evictions
             # (preempt.go:263-267)
             node = ssn.nodes[node_name]

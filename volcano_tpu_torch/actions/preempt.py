@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
+from .. import metrics
 from ..api import PodGroupPhase, Resource, TaskInfo, TaskStatus
 from ..obs import trace as obs_trace
 from ..utils import PriorityQueue
@@ -178,6 +179,7 @@ class PreemptAction(Action):
             preemptees = [t.clone() for t in node.tasks.values()
                           if task_filter(t)]
             victims = ssn.preemptable(preemptor, preemptees)
+            metrics.update_preemption_victims(len(victims))
             if not validate_victims(preemptor, node, victims):
                 continue
 
@@ -193,6 +195,7 @@ class PreemptAction(Action):
                 stmt.evict(ssn.jobs[preemptee.job].tasks[preemptee.uid],
                            "preempt")
                 preempted.add(preemptee.resreq)
+            metrics.register_preemption_attempt()
 
             if preemptor.init_resreq.less_equal(node.future_idle()):
                 stmt.pipeline(preemptor, node.name)

@@ -7,7 +7,7 @@ from .types import (BusAction, BusEvent, JobPhase, PodGroupConditionType,
                     PodGroupPhase, QueueState, TaskStatus, allocated_status)
 from .job_info import JobInfo, PodGroup, TaskInfo
 from .node_info import NodeInfo
-from .queue_info import QueueInfo
+from .queue_info import NamespaceCollection, NamespaceInfo, QueueInfo
 from .cluster_info import ClusterInfo
 from .unschedule_info import FitError, FitErrors
 
@@ -17,5 +17,6 @@ __all__ = [
     "PodGroupConditionType", "PodGroupPhase", "QueueState",
     "TaskStatus",
     "allocated_status", "JobInfo", "PodGroup", "TaskInfo", "NodeInfo",
-    "QueueInfo", "ClusterInfo", "FitError", "FitErrors",
+    "NamespaceCollection", "NamespaceInfo", "QueueInfo", "ClusterInfo",
+    "FitError", "FitErrors",
 ]

@@ -172,6 +172,10 @@ class JobInfo:
         # when the cache ingested the job (SchedulerCache.add_job stamps it
         # from the cache's clock)
         self.schedule_start_timestamp: Optional[float] = None
+        # the job's preemptable and revocable-zone annotations, as the
+        # snapshot wire carries them (rpc/codec.py)
+        self.preemptable = False
+        self.revocable_zone = ""
         self.podgroup = podgroup or PodGroup(name=self.name, namespace=namespace,
                                              queue=queue, min_member=min_available)
         # Mutation witness for the incremental snapshot (cache/cache.py):
@@ -291,6 +295,8 @@ class JobInfo:
                       min_available=self.min_available, podgroup=self.podgroup,
                       creation_timestamp=self.creation_timestamp)
         job.schedule_start_timestamp = self.schedule_start_timestamp
+        job.preemptable = self.preemptable
+        job.revocable_zone = self.revocable_zone
         job.task_min_available = dict(self.task_min_available)
         job.task_min_available_total = self.task_min_available_total
         for task in self.tasks.values():

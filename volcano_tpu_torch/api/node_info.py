@@ -32,9 +32,16 @@ class NodeInfo:
     def __init__(self, name: str = "", allocatable: Optional[Resource] = None,
                  labels: Optional[Dict[str, str]] = None,
                  taints: Optional[List[dict]] = None,
-                 unschedulable: bool = False):
+                 unschedulable: bool = False,
+                 capability: Optional[Resource] = None,
+                 annotations: Optional[Dict[str, str]] = None):
         self.name = name
         self.allocatable = allocatable.clone() if allocatable else Resource()
+        # the node's raw capacity and annotations: the snapshot wire carries
+        # them (rpc/codec.py); no plugin of this package reads them
+        self.capability = (capability.clone() if capability
+                           else self.allocatable.clone())
+        self.annotations = dict(annotations or {})
         self.idle = self.allocatable.clone()
         self.used = Resource()
         self.releasing = Resource()
@@ -134,11 +141,14 @@ class NodeInfo:
 
     def clone(self) -> "NodeInfo":
         """Snapshot copy with direct state transfer: the aggregates are exact
-        invariants of the task set, and allocatable/labels/taints are never
-        mutated after construction, so clones share them."""
+        invariants of the task set, and allocatable, capability, labels,
+        taints and annotations are never mutated after construction, so
+        clones share them."""
         n = NodeInfo.__new__(NodeInfo)
         n.name = self.name
         n.allocatable = self.allocatable
+        n.capability = self.capability
+        n.annotations = self.annotations
         n.idle = self.idle.clone()
         n.used = self.used.clone()
         n.releasing = self.releasing.clone()

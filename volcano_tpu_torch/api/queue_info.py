@@ -56,3 +56,26 @@ class NamespaceInfo:
 
     def get_weight(self) -> int:
         return self.weight if self.weight > 0 else DEFAULT_NAMESPACE_WEIGHT
+
+
+class NamespaceCollection:
+    """One namespace's weights by source, the ResourceQuotas'
+    ``volcano.sh/namespace.weight`` (namespace_info.go:60-145): the
+    snapshot's NamespaceInfo takes the largest."""
+
+    WEIGHT_KEY = "volcano.sh/namespace.weight"
+
+    def __init__(self, name: str):
+        self.name = name
+        self._weights: Dict[str, int] = {}
+
+    def update(self, source: str, weight: int) -> None:
+        self._weights[source] = weight
+
+    def delete(self, source: str) -> None:
+        self._weights.pop(source, None)
+
+    def snapshot(self) -> NamespaceInfo:
+        weight = (max(self._weights.values()) if self._weights
+                  else DEFAULT_NAMESPACE_WEIGHT)
+        return NamespaceInfo(self.name, weight)

@@ -32,8 +32,9 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
-from ..api import (ClusterInfo, JobInfo, NodeInfo, QueueInfo, Resource,
-                   TaskInfo, TaskStatus, allocated_status)
+from ..api import (ClusterInfo, JobInfo, NamespaceCollection,
+                   NamespaceInfo, NodeInfo, QueueInfo, Resource, TaskInfo,
+                   TaskStatus, allocated_status)
 from ..obs.lifecycle import TIMELINE
 from ..obs.trace import TRACE as OBS_TRACE
 from .executors import (Binder, Evictor, FakeBinder, FakeEvictor,
@@ -151,6 +152,7 @@ class SchedulerCache:
         self.jobs: Dict[str, JobInfo] = {}
         self.nodes: Dict[str, NodeInfo] = {}
         self.queues: Dict[str, QueueInfo] = {}
+        self.namespace_collections: Dict[str, NamespaceCollection] = {}
         self.binder = binder or FakeBinder()
         self.evictor = evictor or FakeEvictor()
         self.status_updater = status_updater or StatusUpdater()
@@ -429,6 +431,23 @@ class SchedulerCache:
 
     # -- snapshot (cache.go:801-893) ----------------------------------------
 
+    def add_resource_quota(self, quota) -> None:
+        """AddResourceQuota (event_handlers.go:740-770): the
+        ``volcano.sh/namespace.weight`` key of ``spec.hard``, by quota, in
+        its namespace's collection; the snapshot's NamespaceInfo takes the
+        largest."""
+        ns = quota.metadata.namespace
+        col = self.namespace_collections.setdefault(
+            ns, NamespaceCollection(ns))
+        weight = int(quota.hard.get(NamespaceCollection.WEIGHT_KEY, 0))
+        col.update(quota.metadata.name, weight)
+
+    def delete_resource_quota(self, quota) -> None:
+        """DeleteResourceQuota (event_handlers.go:790-812)."""
+        col = self.namespace_collections.get(quota.metadata.namespace)
+        if col is not None:
+            col.delete(quota.metadata.name)
+
     def snapshot(self) -> ClusterInfo:
         """Clone-on-dirty snapshot of ready nodes, queues and jobs: a node
         or job whose key no mutator marked since the previous snapshot, and
@@ -521,6 +540,11 @@ class SchedulerCache:
                         touched_jobs.append(uid)
                     else:
                         job._touched = False
+            for name, col in self.namespace_collections.items():
+                ci.namespaces[name] = col.snapshot()
+            for job in ci.jobs.values():
+                ci.namespaces.setdefault(job.namespace,
+                                         NamespaceInfo(job.namespace))
             n_nodes = len(ci.nodes)
             stats = {
                 "full": full,
@@ -571,8 +595,10 @@ class SchedulerCache:
             self._snap_epoch += 1
             ci.snap_epoch = self._snap_epoch
             self.last_snapshot_stats = stats
+        from .. import metrics
+        metrics.update_snapshot_stats(stats["dirty_nodes"],
+                                      stats["dirty_ratio"])
         if full:
-            from .. import metrics
             metrics.register_snapshot_full_rebuild("clone")
         return ci
 
@@ -664,8 +690,10 @@ class SchedulerCache:
             self._snap_epoch += 1
             stats = staged["stats"]
             self.last_snapshot_stats = stats
+        from .. import metrics
+        metrics.update_snapshot_stats(stats["dirty_nodes"],
+                                      stats["dirty_ratio"])
         if stats["full"]:
-            from .. import metrics
             metrics.register_snapshot_full_rebuild("clone")
         return True
 
@@ -874,6 +902,8 @@ class SchedulerCache:
         for layer, names in drift.items():
             if names:
                 metrics.register_state_drift(layer, len(names))
+        metrics.set_drift_verify_stats(stats["drift_total"],
+                                       stats["verify_s"])
         return stats
 
     @staticmethod
@@ -1146,7 +1176,8 @@ class SchedulerCache:
                 out[resolution] = out.get(resolution, 0) + 1
                 metrics.register_inflight_expired(entry.op, resolution)
         metrics.set_inflight_stats(ledger.open_count(),
-                                   ledger.oldest_age(now))
+                                   ledger.oldest_age(now),
+                                   ledger.detail(now))
         return out
 
     def _resolve_expired_inflight(self, entry) -> Optional[str]:

@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Set
 import numpy as np
 import torch
 
+from .. import metrics
 from ..api import NodeInfo, Resource, ResourceNames, TaskInfo
 from ..ops.scores import ScoreWeights
 
@@ -289,6 +290,7 @@ class PersistentNodeTensors(_DeviceRows):
             dict(self.index), self.rnames,
             {f: a.copy() for f, a in self.host.items()})
         self.live_pins += 1
+        metrics.set_tensor_epochs_live(self.live_pins)
         return view
 
     def retire_epoch(self, view: Optional[TensorEpochView]) -> None:
@@ -297,6 +299,7 @@ class PersistentNodeTensors(_DeviceRows):
             return
         view.retired = True
         self.live_pins = max(self.live_pins - 1, 0)
+        metrics.set_tensor_epochs_live(self.live_pins)
 
     def prewarm_epoch_pair(self) -> None:
         """Pay the epoch pair's cold costs before the first pipelined

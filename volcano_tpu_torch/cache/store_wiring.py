@@ -204,13 +204,11 @@ def wire_cache_to_store(store: ObjectStore,
 
     def on_resource_quota(event: str, quota, old) -> None:
         # namespace weights for drf's namespace fairness
-        # (event_handlers.go:740-837): this package's cache keeps no
-        # namespace infos, so a quota is refused by name. The watch stays
-        # subscribed: the streams and their order are the JAX package's
-        raise NotImplementedError(
-            f"ResourceQuota {quota.metadata.namespace}/"
-            f"{quota.metadata.name}: namespace quotas are not in "
-            f"volcano_tpu_torch yet")
+        # (event_handlers.go:740-837)
+        if event == DELETED:
+            cache.delete_resource_quota(quota)
+        else:
+            cache.add_resource_quota(quota)
 
     if event_filter is not None:
         def _filtered(kind, handler):

@@ -64,6 +64,13 @@ class JobController(Controller):
         # last observed PodGroup phase per job, for Unknown-transition
         # detection (status writes mutate in place, so watch `old` lies)
         self._pg_phases: dict = {}
+        # the job each running state machine holds, by (namespace, name):
+        # a handler that the machine's own writes call reads this job, phase
+        # moves not yet written included. The Python store hands out its
+        # own objects, so there it is the stored job; a store that
+        # serializes (the native store) would hand out a copy that predates
+        # those moves.
+        self._working: dict = {}
 
     # -- wiring -------------------------------------------------------------
 
@@ -94,7 +101,7 @@ class JobController(Controller):
         job_name = pod.metadata.annotations.get(JOB_NAME_ANNOTATION)
         if not job_name:
             return
-        job = self.store.get("Job", pod.metadata.namespace, job_name)
+        job = self._get_job(pod.metadata.namespace, job_name)
         if job is None:
             return
         bus_event = None
@@ -129,7 +136,7 @@ class JobController(Controller):
             dirty = list(self._dirty)
             self._dirty.clear()
         for ns, name in dirty:
-            job = self.store.get("Job", ns, name)
+            job = self._get_job(ns, name)
             if job is not None:
                 self._execute(job, BusAction.SYNC_JOB)
         return len(dirty)
@@ -180,7 +187,7 @@ class JobController(Controller):
             return
         if pg.status.phase == PodGroupPhase.PENDING:
             return
-        job = self.store.get("Job", pg.metadata.namespace, pg.metadata.name)
+        job = self._get_job(pg.metadata.namespace, pg.metadata.name)
         if job is None:
             return
         # a PodGroup turning Unknown (running members + a fresh
@@ -219,6 +226,7 @@ class JobController(Controller):
         if event != ADDED:
             return
         for job in self.store.list("Job", pvc.metadata.namespace):
+            job = self._get_job(job.metadata.namespace, job.metadata.name)
             if any(v.get("volumeClaimName") == pvc.metadata.name
                    for v in job.spec.volumes):
                 self._execute(job, BusAction.SYNC_JOB)
@@ -230,7 +238,7 @@ class JobController(Controller):
         target = cmd.target_object or {}
         if target.get("kind") != "Job":
             return
-        job = self.store.get("Job", cmd.metadata.namespace, target.get("name"))
+        job = self._get_job(cmd.metadata.namespace, target.get("name"))
         self.store.delete("Command", cmd.metadata.namespace, cmd.metadata.name)
         if job is None:
             return
@@ -247,14 +255,26 @@ class JobController(Controller):
         # phase transition (e.g. Restarting -> Pending resync) proceeds
         key = (job.metadata.namespace, job.metadata.name, action,
                job.status.state)
+        held = (job.metadata.namespace, job.metadata.name)
         with self._lock:
             if key in self._in_execute:
                 return
             self._in_execute.add(key)
+            outer = held not in self._working
+            if outer:
+                self._working[held] = job
             try:
                 job_state.new_state(job).execute(action)
             finally:
                 self._in_execute.discard(key)
+                if outer:
+                    del self._working[held]
+
+    def _get_job(self, namespace: str, name: str) -> Optional[Job]:
+        """The job a running state machine holds, else the stored one."""
+        job = self._working.get((namespace, name))
+        return job if job is not None else self.store.get("Job", namespace,
+                                                          name)
 
     # -- core sync (job_controller_actions.go:206-440) -----------------------
 
@@ -303,11 +323,13 @@ class JobController(Controller):
 
     def kill_job(self, job: Job, phase: JobPhase,
                  transition: Optional[Callable] = None,
-                 retain_phases: tuple = ()) -> None:
+                 retain_phases: tuple = (), retry: bool = False) -> None:
         """Delete the job's pods except those in ``retain_phases``, then
         transition (job_controller_actions.go:43-146: PodRetainPhaseSoft
         keeps Succeeded/Failed pods on abort/terminate/complete;
-        PodRetainPhaseNone on restart drains everything)."""
+        PodRetainPhaseNone on restart drains everything). ``retry`` counts
+        a restart in the status that this call writes, as the reference's
+        RestartJob update function does (state/running.go)."""
         job_state._update_phase(job, phase)
         for pod in self.store.list("Pod", job.metadata.namespace):
             if pod.metadata.annotations.get(JOB_NAME_ANNOTATION) \
@@ -318,6 +340,8 @@ class JobController(Controller):
         self._update_status(job)
         if transition is not None:
             job_state._update_phase(job, transition(job.status))
+        if retry:
+            job.status.retry_count += 1
         self.store.update_status(job)
         # restart cycle continues: once drained, Restarting -> Pending resync
         if job.status.state == JobPhase.PENDING:

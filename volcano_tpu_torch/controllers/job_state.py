@@ -44,8 +44,7 @@ class PendingState(State):
         job = self.job
         if action == BusAction.RESTART_JOB:
             kill_job(job, JobPhase.RESTARTING,
-                     retain_phases=POD_RETAIN_PHASE_NONE)
-            job.status.retry_count += 1
+                     retain_phases=POD_RETAIN_PHASE_NONE, retry=True)
         elif action == BusAction.ABORT_JOB:
             kill_job(job, JobPhase.ABORTING,
                      retain_phases=POD_RETAIN_PHASE_SOFT)
@@ -67,8 +66,7 @@ class RunningState(State):
         job = self.job
         if action == BusAction.RESTART_JOB:
             kill_job(job, JobPhase.RESTARTING,
-                     retain_phases=POD_RETAIN_PHASE_NONE)
-            job.status.retry_count += 1
+                     retain_phases=POD_RETAIN_PHASE_NONE, retry=True)
         elif action == BusAction.ABORT_JOB:
             kill_job(job, JobPhase.ABORTING,
                      retain_phases=POD_RETAIN_PHASE_SOFT)

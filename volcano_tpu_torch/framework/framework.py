@@ -10,6 +10,7 @@ from typing import List, Optional, Union
 
 import torch
 
+from .. import metrics
 from ..obs import trace as obs_trace
 from .conf import Configuration, Tier
 from .job_updater import update_all
@@ -111,9 +112,13 @@ def open_session(cache, tiers: List[Tier],
             for opt in tier.plugins:
                 plugin = get_plugin_builder(opt.name)(opt.arguments)
                 ssn.plugins[plugin.name()] = plugin
+                # the span records the callback in the cycle trace and
+                # times the plugin latency series: one timer
                 with obs_trace.span("plugin:" + plugin.name(),
-                                    event="OnSessionOpen"):
+                                    event="OnSessionOpen") as sp:
                     plugin.on_session_open(ssn)
+                metrics.update_plugin_duration(plugin.name(),
+                                               "OnSessionOpen", sp.dur_s)
     except BaseException:
         _gc_resume(window)
         raise
@@ -145,8 +150,10 @@ def close_session(ssn: Session) -> None:
     try:
         for plugin in ssn.plugins.values():
             with obs_trace.span("plugin:" + plugin.name(),
-                                event="OnSessionClose"):
+                                event="OnSessionClose") as sp:
                 plugin.on_session_close(ssn)
+            metrics.update_plugin_duration(plugin.name(), "OnSessionClose",
+                                           sp.dur_s)
         # writeback of job/podgroup status (job_updater.go:95-108)
         with obs_trace.span("job_updater"):
             update_all(ssn)

@@ -1,10 +1,13 @@
 """The scheduler's metrics, in process: duration series, counters, gauges
-and the health verdict, under the JAX package's function names.
+and the health verdict, under the JAX package's function names, and the
+HTTP endpoint that serves them.
 
-This is the subset the serial cycle, the cache and the sim read and
-write: the end-to-end and per-action duration series (fed from the
-shell's spans), the mark/since API the sim's wall-clock plane reads,
-action failures, the dead-letter gauge, the crash-loop guard's health
+The series: the end-to-end, per-action and per-plugin duration series
+(fed from the shell's and the framework's spans), the mark/since API the
+sim's wall-clock plane reads, the queue gauges proportion publishes, the
+gang plugin's unschedulable tasks and jobs, preempt's victims and
+attempts, the snapshot's dirty share, the drift verifier's last pass, the
+pinned tensor epochs, action failures, the dead-letter gauge, the crash-loop guard's health
 verdict, the feedback-plane and journal counters, and the incremental
 snapshot's (full rebuilds by layer, state drift by layer), the
 elastic gangs' grows, shrinks, below-min witness and gauges, and the
@@ -18,8 +21,16 @@ reason, the pending depth), and the federated control plane's (the
 per-partition leader gauge, cross-partition reserves, the rebalancer's
 decisions, the partition count, elastic membership's splits and merges)
 and the batched admission front door's batch sizes, with
-``health_detail()``'s sections for them. There is no Prometheus
-exposition yet.
+``health_detail()``'s sections for them. The mesh and per-device lattice
+series wait for the multi-device engines.
+
+``start_metrics_server`` serves ``/metrics`` (the Prometheus text
+exposition, version 0.0.4, rendered from the in-process mirror by
+``fallback_exposition``: the JAX package's path without
+``prometheus_client``, and this package's only one), ``/healthz`` (200
+"ok" while the shell is healthy, 503 once the crash-loop guard trips;
+``?detail`` gives ``health_detail()`` as JSON), ``/debug/traces``,
+``/debug/why?job=`` and ``/debug/timeline?job=``.
 
 ``solver_trace`` marks a device solve as a named range in a
 ``torch.profiler`` trace, behind the JAX package's own switch
@@ -176,8 +187,21 @@ def health_detail() -> dict:
         return {
             "state": _health["state"],
             "consecutive_failures": _health["consecutive_failures"],
+            "dead_letter_size": int(
+                _gauges.get(("resync_dead_letter_size",), 0)),
             "device": dict(_health_detail.get("device",
                                               {"available": True})),
+            "state_drift_total": {k[1]: v for k, v in _counters.items()
+                                  if k[0] == "state_drift"},
+            "journal_replayed_total": {
+                k[1]: v for k, v in _counters.items()
+                if k[0] == "journal_replayed"},
+            # the feedback plane: the in-flight ledger's open set and the
+            # watchdog's resolutions
+            "inflight": dict(_health_detail.get("inflight", {"open": 0})),
+            "inflight_expired_total": {
+                "/".join(k[1:]): v for k, v in _counters.items()
+                if k[0] == "inflight_expired"},
             # the store boundary: the retry funnel's and the watch
             # streams' state pushed by the store world, and the totals
             "store": dict(_health_detail.get("store", {"wired": False})),
@@ -496,6 +520,8 @@ def set_inflight_stats(open_count: int, oldest_s: float,
     with _lock:
         _gauges[("inflight_open",)] = float(open_count)
         _gauges[("inflight_oldest_seconds",)] = float(oldest_s)
+        if detail is not None:
+            _health_detail["inflight"] = dict(detail)
 
 
 def register_feedback_ack(kind: str, verdict: str) -> None:
@@ -626,6 +652,336 @@ def register_audit_evicted(n: int = 1) -> None:
     """The decision audit's per-live-job map evicted its oldest records
     to stay bounded under pathological job-churn cardinality."""
     _count(("audit_latest_evicted",), n)
+
+
+# -- the scheduling series: plugins, queues, gangs, preempt, snapshot -------
+
+def update_plugin_duration(plugin: str, event: str, seconds: float) -> None:
+    """One plugin's OnSessionOpen or OnSessionClose span, in µs."""
+    with _lock:
+        _durations[("plugin", plugin, event)].observe(seconds * 1e6)
+
+
+def update_preemption_victims(count: int) -> None:
+    """The victims of the last preemption attempt (last write wins)."""
+    with _lock:
+        _gauges[("preemption_victims",)] = count
+
+
+def register_preemption_attempt(n: int = 1) -> None:
+    _count(("preemption_attempts",), n)
+
+
+def update_unschedule_task_count(job_id: str, count: int) -> None:
+    """The gang plugin's close: a job's tasks short of its minimum."""
+    with _lock:
+        _gauges[("unschedule_tasks", job_id)] = count
+
+
+def retain_unschedule_jobs(job_ids) -> None:
+    """Drop the unschedule_tasks gauge of every job not in ``job_ids``:
+    the gang plugin's close passes the session's jobs, so a long-lived
+    process (the snapshot sidecar) keeps no gauge of a job that is gone."""
+    keep = set(job_ids)
+    with _lock:
+        for key in [k for k in _gauges
+                    if k[0] == "unschedule_tasks" and k[1] not in keep]:
+            del _gauges[key]
+
+
+def register_unschedule_job() -> None:
+    _count(("unschedule_jobs",))
+
+
+def update_queue_metrics(name: str, allocated_mcpu: float,
+                         share: float = 0.0) -> None:
+    """Proportion's queue gauges: the allocated CPU and the share, the
+    values the JAX package's mirror keeps."""
+    with _lock:
+        _gauges[("queue_allocated", name)] = allocated_mcpu
+        _gauges[("queue_share", name)] = share
+
+
+def update_snapshot_stats(dirty_nodes: int, dirty_ratio: float) -> None:
+    """Published by every snapshot: the nodes the incremental snapshot
+    re-cloned and their share of the snapshot (1.0 is a full rebuild)."""
+    with _lock:
+        _gauges[("snapshot_dirty_nodes",)] = float(dirty_nodes)
+        _gauges[("snapshot_dirty_ratio",)] = float(dirty_ratio)
+
+
+def set_drift_verify_stats(drift_total: int, verify_s: float) -> None:
+    """The drift verifier's last pass: entries repaired and its seconds."""
+    with _lock:
+        _gauges[("drift_last_verify_total",)] = float(drift_total)
+        _gauges[("drift_last_verify_s",)] = float(verify_s)
+
+
+def set_tensor_epochs_live(n: int) -> None:
+    """Pinned persistent-tensor epochs live (a speculation's; more than
+    one for long is a retire leak)."""
+    with _lock:
+        _gauges[("tensor_epochs_live",)] = float(n)
+
+
+# -- the Prometheus text exposition -------------------------------------------
+
+_SUBSYSTEM = "volcano"
+
+# In-process mirror key -> Prometheus family: the key's first element maps
+# to (family name, label name or a tuple of them). Keys absent here expose
+# as volcano_<key0> with a generic "key" label, so no series disappears
+# from a scrape.
+_EXPO_GAUGES = {
+    "scheduler_healthy": (f"{_SUBSYSTEM}_scheduler_healthy", None),
+    "preemption_victims": (f"{_SUBSYSTEM}_pod_preemption_victims", None),
+    "unschedule_tasks": (f"{_SUBSYSTEM}_unschedule_task_count", "job_id"),
+    "queue_allocated": (f"{_SUBSYSTEM}_queue_allocated_milli_cpu",
+                        "queue_name"),
+    "queue_share": (f"{_SUBSYSTEM}_queue_share", "queue_name"),
+    "snapshot_dirty_nodes": (f"{_SUBSYSTEM}_snapshot_dirty_nodes", None),
+    "snapshot_dirty_ratio": (f"{_SUBSYSTEM}_snapshot_dirty_ratio", None),
+    "resync_dead_letter_size": (f"{_SUBSYSTEM}_resync_dead_letter_size",
+                                None),
+    "device_healthy": (f"{_SUBSYSTEM}_device_healthy", None),
+    "leader": (f"{_SUBSYSTEM}_leader", None),
+    "partition_leader": (f"{_SUBSYSTEM}_partition_leader", "partition"),
+    "partition_count": (f"{_SUBSYSTEM}_partition_count", None),
+    "tensor_epochs_live": (f"{_SUBSYSTEM}_tensor_epochs_live", None),
+    "elastic_members": (f"{_SUBSYSTEM}_elastic_members", None),
+    "topology_spread": (f"{_SUBSYSTEM}_topology_spread", None),
+    "store_watch_staleness": (f"{_SUBSYSTEM}_store_watch_staleness", None),
+    "inflight_open": (f"{_SUBSYSTEM}_inflight_open", None),
+    "inflight_oldest_seconds": (f"{_SUBSYSTEM}_inflight_oldest_seconds",
+                                None),
+    "admission_pending_depth": (f"{_SUBSYSTEM}_admission_pending_depth",
+                                None),
+    "admission_pending_bytes": (f"{_SUBSYSTEM}_admission_pending_bytes",
+                                None),
+    "slo_compliance": (f"{_SUBSYSTEM}_slo_compliance", "slo"),
+    "slo_burn_rate": (f"{_SUBSYSTEM}_slo_burn_rate", ("slo", "window")),
+}
+_EXPO_COUNTERS = {
+    "preemption_attempts": (f"{_SUBSYSTEM}_total_preemption_attempts",
+                            None),
+    "unschedule_jobs": (f"{_SUBSYSTEM}_unschedule_job_count", None),
+    "action_failures": (f"{_SUBSYSTEM}_action_failures_total", "action"),
+    "solver_fallback": (f"{_SUBSYSTEM}_solver_fallback_total", "action"),
+    "resync_dead_letter": (f"{_SUBSYSTEM}_resync_dead_letter_total", "op"),
+    "snapshot_full_rebuilds": (
+        f"{_SUBSYSTEM}_snapshot_full_rebuilds_total", "layer"),
+    "state_drift": (f"{_SUBSYSTEM}_state_drift_total", "layer"),
+    "journal_replayed": (f"{_SUBSYSTEM}_journal_replayed_total", "result"),
+    "device_faults": (f"{_SUBSYSTEM}_device_faults_total", "kind"),
+    "device_degraded_cycles": (
+        f"{_SUBSYSTEM}_device_degraded_cycles_total", None),
+    "gang_growths": (f"{_SUBSYSTEM}_gang_growths_total", None),
+    "gang_shrinks": (f"{_SUBSYSTEM}_gang_shrinks_total", "reason"),
+    "elastic_below_min_evictions": (
+        f"{_SUBSYSTEM}_elastic_below_min_evictions_total", None),
+    "fencing_rejections": (f"{_SUBSYSTEM}_fencing_rejections_total", "op"),
+    "failovers": (f"{_SUBSYSTEM}_failovers_total", None),
+    "cross_partition_reserves": (
+        f"{_SUBSYSTEM}_cross_partition_reserves_total", "result"),
+    "speculation": (f"{_SUBSYSTEM}_speculation_total", "outcome"),
+    "fast_admit_gangs": (f"{_SUBSYSTEM}_fast_admit_gangs_total", None),
+    "fast_admit_binds": (f"{_SUBSYSTEM}_fast_admit_binds_total", None),
+    "store_retries": (f"{_SUBSYSTEM}_store_retries_total",
+                      ("verb", "result")),
+    "store_faults": (f"{_SUBSYSTEM}_store_faults_total", ("verb", "kind")),
+    "store_watch_resumes": (f"{_SUBSYSTEM}_store_watch_resumes_total",
+                            "outcome"),
+    "inflight_expired": (f"{_SUBSYSTEM}_inflight_expired_total",
+                         ("op", "resolution")),
+    "ack_faults": (f"{_SUBSYSTEM}_ack_faults_total", "kind"),
+    "feedback_acks": (f"{_SUBSYSTEM}_feedback_acks_total",
+                      ("kind", "verdict")),
+    "cycle_budget_exhausted": (
+        f"{_SUBSYSTEM}_cycle_budget_exhausted_total", "action"),
+    "deferred_actions": (f"{_SUBSYSTEM}_deferred_actions_total", None),
+    "admission_backpressure": (
+        f"{_SUBSYSTEM}_admission_backpressure_total", "reason"),
+    "dead_letter_evicted": (f"{_SUBSYSTEM}_dead_letter_evicted_total",
+                            None),
+    "audit_latest_evicted": (f"{_SUBSYSTEM}_audit_latest_evicted_total",
+                             None),
+    "rebalance_moves": (f"{_SUBSYSTEM}_rebalance_moves_total", "result"),
+    "partition_splits": (f"{_SUBSYSTEM}_partition_splits_total", "result"),
+    "partition_merges": (f"{_SUBSYSTEM}_partition_merges_total", "result"),
+}
+# duration-series key -> (family, label name); the unit is in the name
+_EXPO_DURATIONS = {
+    "e2e": (f"{_SUBSYSTEM}_e2e_scheduling_latency_milliseconds", None),
+    "action": (f"{_SUBSYSTEM}_action_scheduling_latency_microseconds",
+               "action"),
+    "plugin": (f"{_SUBSYSTEM}_plugin_scheduling_latency_microseconds",
+               "plugin"),
+    "admission_batch": (f"{_SUBSYSTEM}_admission_batch_size", None),
+}
+
+
+def _expo_escape(v: str) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace(
+        "\n", "\\n")
+
+
+def _expo_name(raw: str) -> str:
+    out = "".join(c if c.isalnum() or c == "_" else "_" for c in str(raw))
+    return out if not out[:1].isdigit() else "_" + out
+
+
+def _expo_family(spec, key: Tuple[str, ...], generic: str):
+    """(family name, label spec, label values) of one mirror key."""
+    if spec is None:
+        label, labelv = ("key", ":".join(key[1:])) if len(key) > 1 \
+            else (None, None)
+        return generic, label, labelv
+    name, label = spec
+    if isinstance(label, tuple):
+        return name, label, tuple(key[1:]) if len(key) > 1 else None
+    return name, label, (key[1] if label is not None and len(key) > 1
+                         else None)
+
+
+def fallback_exposition() -> bytes:
+    """The Prometheus text exposition (version 0.0.4) of the in-process
+    mirror: gauges and counters a sample a label set, duration series as
+    summary ``_count``/``_sum`` pairs (all-time, so the ring's truncation
+    does not show). Named after the JAX package's function, whose bytes
+    it gives on the same mirror."""
+    families: Dict[str, list] = {}
+
+    def add(name: str, mtype: str, label, labelv, value: float,
+            suffix: str = "") -> None:
+        fam = families.setdefault(name, [mtype])
+        if isinstance(label, tuple) and labelv is not None:
+            # one label a key component, padded with "" when short
+            vals = list(labelv) + [""] * (len(label) - len(labelv))
+            pairs = ",".join(f'{ln}="{_expo_escape(lv)}"'
+                             for ln, lv in zip(label, vals))
+            fam.append(f"{name}{suffix}{{{pairs}}} {float(value)}")
+        elif label is not None and labelv is not None:
+            fam.append(f'{name}{suffix}{{{label}="{_expo_escape(labelv)}"}}'
+                       f" {float(value)}")
+        else:
+            fam.append(f"{name}{suffix} {float(value)}")
+
+    with _lock:
+        for key, value in sorted(_gauges.items(), key=str):
+            name, label, labelv = _expo_family(
+                _EXPO_GAUGES.get(key[0]), key,
+                f"{_SUBSYSTEM}_{_expo_name(key[0])}")
+            add(name, "gauge", label, labelv, value)
+        for key, value in sorted(_counters.items(), key=str):
+            name, label, labelv = _expo_family(
+                _EXPO_COUNTERS.get(key[0]), key,
+                f"{_SUBSYSTEM}_{_expo_name(key[0])}_total")
+            add(name, "counter", label, labelv, value)
+        for key, series in sorted(_durations.items(), key=str):
+            spec = _EXPO_DURATIONS.get(key[0])
+            if spec is None:
+                name = f"{_SUBSYSTEM}_{_expo_name(key[0])}_duration"
+                label = "key" if len(key) > 1 else None
+            else:
+                name, label = spec
+            labelv = ":".join(key[1:]) if label is not None and len(key) > 1 \
+                else None
+            add(name, "summary", label, labelv, series.count,
+                suffix="_count")
+            add(name, "summary", label, labelv, series.total, suffix="_sum")
+
+    lines = []
+    for name, fam in families.items():
+        lines.append(f"# HELP {name} volcano_tpu in-process mirror")
+        lines.append(f"# TYPE {name} {fam[0]}")
+        lines.extend(fam[1:])
+    return ("\n".join(lines) + "\n").encode()
+
+
+def _job_query(path: str) -> Optional[str]:
+    from urllib.parse import parse_qs, urlparse
+    return (parse_qs(urlparse(path).query).get("job") or [None])[0]
+
+
+def _debug_body(path: str) -> Tuple[int, bytes]:
+    """/debug/traces, /debug/timeline?job= and /debug/why?job=: (status,
+    JSON body)."""
+    import json
+    from ..obs import AUDIT, TIMELINE, TRACE
+    if path.startswith("/debug/traces"):
+        return 200, TRACE.dump().encode()
+    job = _job_query(path)
+    if not job:
+        return 400, json.dumps(
+            {"error": "missing ?job= query parameter"}).encode()
+    if path.startswith("/debug/timeline"):
+        tl = TIMELINE.timeline(job)
+        if tl is None:
+            return 404, json.dumps(
+                {"error": f"no timeline retained for job {job!r}",
+                 "jobs_retained": TIMELINE.job_count()}).encode()
+        return 200, json.dumps(tl, sort_keys=True).encode()
+    # the timeline-backed verdict: the audit ring's, with the causal
+    # history the ring ages out of
+    from ..obs.lifecycle import why as timeline_why
+    rec = timeline_why(job)
+    if rec is None:
+        return 404, json.dumps(
+            {"error": f"no decision recorded for job {job!r} in the "
+                      f"retained window",
+             "cycles_retained": AUDIT.cycles_retained()}).encode()
+    return 200, json.dumps(rec, sort_keys=True).encode()
+
+
+def start_metrics_server(port: int = 8080, host: str = ""):
+    """Serve /metrics, /healthz and the flight recorder's /debug endpoints
+    on a daemon thread (the scheduler's --listen-address,
+    cmd/scheduler/app/options.go:32,94). Returns the http.server instance;
+    ``server_address[1]`` is the bound port (``port=0`` picks one)."""
+    import http.server
+    import json
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            status = 200
+            if self.path.startswith("/healthz"):
+                state, fails = health()
+                if state != HEALTHY:
+                    status = 503
+                if "detail" in self.path:
+                    body = json.dumps(health_detail(),
+                                      sort_keys=True).encode()
+                    ctype = "application/json"
+                else:
+                    body = (b"ok" if state == HEALTHY else
+                            f"degraded ({fails} consecutive failed "
+                            f"cycles)".encode())
+                    ctype = "text/plain"
+            elif self.path.startswith("/metrics"):
+                body = fallback_exposition()
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+            elif self.path.startswith(("/debug/traces", "/debug/timeline",
+                                       "/debug/why")):
+                status, body = _debug_body(self.path)
+                ctype = "application/json"
+            else:
+                self.send_response(404)
+                self.end_headers()
+                return
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    server = http.server.ThreadingHTTPServer((host, port), Handler)
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="vc-metrics").start()
+    return server
 
 
 # -- device profiling --------------------------------------------------------

@@ -8,21 +8,27 @@ Usage::
     python -m volcano_tpu_torch.obs.validate --flows t.json    # + the
                                                                # flow-arc and
                                                                # lane contract
+    python -m volcano_tpu_torch.obs.validate --metrics-scrape  # serve and
+                                                               # scrape
+                                                               # /metrics
 
 The trace check enforces the Chrome trace-event contract (required
 fields, monotonic ts, matched/nested B/E pairs) via
-``export.validate_chrome_trace``. The JAX package's ``--metrics-scrape``
-serves and scrapes a Prometheus ``/metrics`` endpoint; this package has
-no metrics server, so that mode is refused by name (exit 2).
+``export.validate_chrome_trace``. ``--metrics-scrape`` seeds the metrics
+mirror, starts ``metrics.start_metrics_server`` on a free port, scrapes
+``/metrics`` and holds the body to the text exposition's line grammar
+(every line a comment, blank or a well-formed sample) and to the seeded
+series.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
-
-# modes of the JAX package's validator this package refuses by name
-REFUSED_MODES = ("--metrics-scrape",)
+import urllib.error
+import urllib.request
+from typing import Tuple
 
 
 def check_trace(path: str, flows: bool = False) -> int:
@@ -65,14 +71,85 @@ def check_trace(path: str, flows: bool = False) -> int:
     return 0
 
 
+def fetch(server, path: str = "/metrics",
+          timeout: float = 5.0) -> Tuple[int, bytes]:
+    """(status, body) of a GET of ``path`` from a metrics server started
+    on this host; an error status is returned, not raised."""
+    port = server.server_address[1]
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+def scrape(server, path: str = "/metrics") -> str:
+    """The body of a GET of ``path``, which must answer 200."""
+    status, body = fetch(server, path)
+    if status != 200:
+        raise RuntimeError(f"GET {path}: HTTP {status}")
+    return body.decode()
+
+
+# one sample line of the text exposition: name{labels} value [timestamp]
+_SAMPLE_RE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? [0-9eE+.\-]+(?: [0-9.]+)?$')
+
+
+def parse_sample_count(body: str) -> int:
+    """The strict line-grammar check of an exposition body: every
+    non-comment, non-blank line must be a well-formed sample. Returns the
+    sample count; raises ValueError on a malformed line."""
+    n = 0
+    for line in body.splitlines():
+        if not line.strip() or line.startswith("#"):
+            continue
+        if not _SAMPLE_RE.match(line):
+            raise ValueError(f"malformed exposition line: {line!r}")
+        n += 1
+    return n
+
+
+def check_metrics_scrape() -> int:
+    from .. import metrics
+
+    # seed the mirror so the exposition has labelled series to emit
+    metrics.set_health(metrics.HEALTHY, 0)
+    metrics.register_action_failure("ci-probe")
+    metrics.update_queue_metrics("ci-q", 1000.0, share=0.5)
+    metrics.update_action_duration("ci-probe", 0.001)
+    server = metrics.start_metrics_server(0, "127.0.0.1")
+    try:
+        body = scrape(server)
+    finally:
+        server.shutdown()
+        server.server_close()
+    try:
+        n_samples = parse_sample_count(body)
+    except ValueError as exc:
+        print(f"/metrics failed to parse: {exc}", file=sys.stderr)
+        return 1
+    if not n_samples:
+        print("/metrics parsed to zero samples", file=sys.stderr)
+        return 1
+    # the exact series the probe seeded: a broken mapping that drops
+    # labelled families would still parse to some samples
+    for needle in ('volcano_action_failures_total{action="ci-probe"}',
+                   'volcano_queue_allocated_milli_cpu{queue_name="ci-q"}',
+                   "volcano_action_scheduling_latency_microseconds_count"):
+        if needle not in body:
+            print(f"seeded series missing from /metrics: {needle}",
+                  file=sys.stderr)
+            return 1
+    print(f"/metrics OK — {n_samples} samples")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    refused = [a for a in argv if a in REFUSED_MODES]
-    if refused:
-        print(f"{refused[0]} is not in volcano_tpu_torch: it needs the "
-              f"metrics HTTP server, which this package does not have",
-              file=sys.stderr)
-        return 2
+    if argv and argv[0] == "--metrics-scrape":
+        return check_metrics_scrape()
     flows = False
     if argv and argv[0] == "--flows":
         flows = True

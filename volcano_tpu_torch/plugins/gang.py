@@ -9,6 +9,7 @@ condition writeback.
 
 from __future__ import annotations
 
+from .. import metrics
 from ..api import PodGroupConditionType
 from ..framework.session import PERMIT, REJECT, ValidateResult
 from .base import Plugin
@@ -71,12 +72,16 @@ class GangPlugin(Plugin):
 
     def on_session_close(self, ssn) -> None:
         """Write PodGroup (Un)schedulable conditions (gang.go:158-216)."""
+        unschedulable_jobs = 0
+        metrics.retain_unschedule_jobs(job.name for job in ssn.jobs.values())
         for job in ssn.jobs.values():
             if not job.ready():
                 unready = job.min_available - job.ready_task_num()
                 msg = (f"{unready}/{len(job.tasks)} tasks in gang "
                        f"unschedulable: {job.fit_error()}")
                 job.job_fit_errors = msg
+                unschedulable_jobs += 1
+                metrics.update_unschedule_task_count(job.name, int(unready))
                 ssn.update_pod_group_condition(job, {
                     "type": PodGroupConditionType.UNSCHEDULABLE.value,
                     "status": "True",
@@ -94,6 +99,8 @@ class GangPlugin(Plugin):
                     "message": "",
                     "lastTransitionTime": ssn.now(),
                 })
+        for _ in range(unschedulable_jobs):
+            metrics.register_unschedule_job()
 
 
 def New(arguments):

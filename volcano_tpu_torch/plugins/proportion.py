@@ -14,6 +14,7 @@ from typing import Dict
 
 import numpy as np
 
+from .. import metrics
 from ..api import (PodGroupPhase, Resource, ResourceNames, TaskStatus,
                    allocated_status)
 from ..framework.session import PERMIT, REJECT, EventHandler
@@ -122,6 +123,8 @@ class ProportionPlugin(Plugin):
                 # expose deserved to the reclaim screener's over-deserved
                 # gate (actions/evict_tpu.py)
                 ssn.queue_deserved[attr.name] = attr.deserved
+                metrics.update_queue_metrics(attr.name, attr.allocated.cpu,
+                                             share=attr.share)
 
         def queue_order(l, r) -> int:
             la = self.queue_opts.get(l.uid)
@@ -207,6 +210,11 @@ class ProportionPlugin(Plugin):
                                            aggregatable=True))
 
     def on_session_close(self, ssn) -> None:
+        # the queue gauges once a cycle (the reference updates them on
+        # every event; the end-of-cycle values are the same)
+        for attr in self.queue_opts.values():
+            metrics.update_queue_metrics(attr.name, attr.allocated.cpu,
+                                         share=attr.share)
         self.total = Resource()
         self.queue_opts = {}
 

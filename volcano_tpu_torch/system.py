@@ -35,11 +35,6 @@ from .scheduler import Scheduler
 from .store import ObjectStore
 from .webhooks import register_webhooks
 
-# what the refused options wait for
-NATIVE_STORE_ITEM = ("the C++ object store (volcano_tpu.native) is not in "
-                     "volcano_tpu_torch yet: ROADMAP item 9f′")
-
-
 class VolcanoSystem:
     def __init__(self, conf_text: Optional[str] = None,
                  schedule_period: float = 1.0,
@@ -49,14 +44,19 @@ class VolcanoSystem:
                  device: Optional[Union[str, torch.device]] = None):
         """``device``: where the scheduler's sessions solve, the CUDA card
         by default; with no card and no ``device`` this raises rather than
-        run on the CPU. ``native_store=True`` (the JAX package's C++ store)
-        is refused by name."""
-        if native_store:
-            raise NotImplementedError(NATIVE_STORE_ITEM)
+        run on the CPU. ``native_store=True`` backs the API server's state
+        with the C++ store (``native.NativeObjectStore``), built at first
+        use; a failed build raises. A ``store`` given wins over both."""
         # before any component is built: a system without a usable device
         # is refused whole
         self.device = resolve_device(device)
-        self.store = store if store is not None else ObjectStore()
+        if store is not None:
+            self.store = store
+        elif native_store:
+            from .native import make_object_store
+            self.store = make_object_store(prefer_native=True)
+        else:
+            self.store = ObjectStore()
         self.router = register_webhooks(self.store)
         self.controllers = start_controllers(self.store)
         if default_queue:
