@@ -280,8 +280,29 @@
    process of its own answers rpc-10k twice, serves /healthz and exits 0
    on SIGTERM. Prints each world's wall s and encode, request and decode
    ms, and the binary's seconds to listen and its request ms.
-26. Prints one JSON line with each kernel's launches, times, bound and
-   error (and its launches in each sim run, system world and rpc world),
+26. The plugin worlds (tools/plugin_reference.py) through the port's
+   ``Scheduler`` on the card, two cycles each: affinity-10k (the BASELINE
+   10k world with hostname and zone labels, gangs spread one pod a node,
+   kept to one zone or drawn to their zone by pod affinity), gpushare-10k
+   (its 2,000 nodes, 500 of them with 4 shared cards, 80 gangs requesting
+   card memory under predicate.GPUSharingEnable), affinity-preempt (the
+   tight mix with every tenth running pod critical and conformance in the
+   first tier), numa-1k (numa-aware on 200 two-NUMA-node nodes) and
+   proportional-1k (predicate.ProportionalEnable on gpu-small), each
+   kernel's count set to 0 just before: each digest (binds and evictions
+   in order, PodGroup phases, node-tensor path, critical pods evicted,
+   the walks' evictions of a victim the first tier refused after
+   offering it) equal to the record tests/plugin_reference_digests.json
+   holds it to (affinity-preempt: the JAX package with its tier dispatch
+   mended as upstream's, none such evicted), B1 launched once a recorded
+   solve and B3 once a recorded walk, the proportional guard refusing
+   placements, no action failure, no fallback, and no card memory
+   outliving the phase. Prints each world's
+   binds, evictions, launches, rounds, re-check rejections and allocate
+   ms split, with the card's name and power limit.
+27. Prints one JSON line with each kernel's launches, times, bound and
+   error (and its launches in each sim run, system world, rpc world and
+   plugin world),
    then the card's name and power limit, then the result line ``{"ok":
    true, "device": {...}}``.
 
@@ -768,11 +789,12 @@ def compare_rowdiff(label, ms):
 # ---------------------------------------------------------------------------
 
 def walk_worlds(card=False):
-    """The seeded walk worlds of tests/torch_parity.py (NumPy only); with
-    ``card``, those too large for the plain walk on the CPU."""
+    """The seeded walk worlds of tests/torch_parity.py (NumPy only) and
+    those whose tier kinds only the port takes; with ``card``, those too
+    large for the plain walk on the CPU."""
     sys.path.insert(0, os.path.join(_ROOT, "tests"))
-    from torch_parity import CARD_WALK_WORLDS, WALK_WORLDS
-    return CARD_WALK_WORLDS if card else WALK_WORLDS
+    from torch_parity import CARD_WALK_WORLDS, PORT_WALK_WORLDS, WALK_WORLDS
+    return CARD_WALK_WORLDS if card else {**WALK_WORLDS, **PORT_WALK_WORLDS}
 
 
 def walk_bound(inputs, kinds, dispatches):
@@ -794,7 +816,7 @@ def walk_bound(inputs, kinds, dispatches):
     nw = inputs.nw
     N, W, R = nw.vreq.shape
     M = inputs.tier_masks.shape[0]
-    drf = "drf" in kinds
+    drf = any(kind.startswith("drf") for kind in kinds)
     k = nw.valid.sum(dim=1).double().cpu().numpy()
     per_node = (k * (M + 2 + R + (3 * R + 3 if drf else 0))
                 + (k * (k - 1) / 2 * R if drf else 0) + R + 2)
@@ -3615,6 +3637,100 @@ def rpc_phase(sim_runs, device=None):
 
 
 # ---------------------------------------------------------------------------
+# the plugin worlds: pod affinity, GPU sharing, conformance, NUMA, the
+# proportional guard
+# ---------------------------------------------------------------------------
+
+def plugins_phase(sim_runs, device=None):
+    """Step 26: each world of tools/plugin_reference.py through the port's
+    Scheduler on the card, two cycles, each kernel's count set to 0 just
+    before: the digest must equal the record tests/plugin_reference_digests.json
+    holds it to (the JAX package's, mended where the world meets its tier
+    dispatch fault, ROADMAP §3; the port's CPU path equals it), B1 must
+    launch once a recorded solve and B3 once a recorded walk (the JAX
+    package's walks and the CPU path's), no walk may evict a victim that a
+    plugin of the first tier refused after the tier's first plugin offered
+    it (affinity-preempt: no critical pod of a lower-priority job than its
+    preemptor's; the critical pods still evicted are the held record's,
+    fewer than the unmended one's, all on nodes where priority offered
+    nothing and drf's tier ruled, as upstream's dispatch allows), the
+    proportional guard must refuse placements in proportional-1k, no action
+    may fail and no fallback be counted, and the card's memory must be back
+    at its start at the phase's end. Prints each world's line and the
+    phase's seconds. Adds the launches to ``sim_runs``. ``device``
+    overrides the card (a rehearsal)."""
+    import gc
+
+    import torch
+
+    sys.path.insert(0, os.path.join(_ROOT, "tools"))
+    import plugin_reference
+    digests = plugin_reference.load_digests()
+    counters = kernel_counters()
+    card = card_line()
+    t_phase = time.perf_counter()
+    gc.collect()
+    mem_start = torch.cuda.memory_allocated()
+    out = {}
+    for world in plugin_reference.WORLDS:
+        want = plugin_reference.held_to(digests[world])
+        port_cpu = digests[world]["port_cpu"]
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        run = plugin_reference.run_world("volcano_tpu_torch", world, device)
+        launches = {k: w.launches for k, w in counters.items()}
+        got = run["digest"]
+        diff = sorted(k for k in got
+                      if k not in plugin_reference.PER_PACKAGE
+                      and want.get(k) != got[k])
+        check(not diff, f"plugins {world}: {diff} differ from the JAX "
+                        f"package's ({ {k: got[k] for k in diff} } against "
+                        f"{ {k: want.get(k) for k in diff} })")
+        check(launches["place"] == want["solves"] == port_cpu["solves"],
+              f"plugins {world}: B1 launched {launches['place']} times, "
+              f"the record solved {want['solves']}")
+        check(launches["evict_walk"] == want["walks"] == port_cpu["walks"],
+              f"plugins {world}: B3 launched {launches['evict_walk']} "
+              f"times, the record walked {want['walks']}")
+        check(got["action_failures"] == [],
+              f"plugins {world}: action failures {got['action_failures']}")
+        check_contained(f"plugins {world}")
+        alloc = run["allocate"]
+        rec = {"binds": got["binds"], "evicts": got["evicts"],
+               "critical_evicted": got["critical_evicted"],
+               "vetoed_evicted": got.get("vetoed_evicted"),
+               "guard_refusals": run["guard_refusals"],
+               "B1": launches["place"], "B3": launches["evict_walk"],
+               "rounds": sum(a["rounds"] for a in alloc),
+               "rejected": sum(a["rejected"] for a in alloc),
+               "allocate_ms": {k: sum(a[k] for a in alloc) * 1e3
+                               for k in ("order", "assemble", "solve",
+                                         "replay")},
+               "podgroup_phases": got["podgroup_phases"],
+               "wall_s": run["wall_s"], "card": card}
+        out[world] = rec
+        sim_runs[f"plugins {world}"] = launches
+        print(f"plugins {world}:", json.dumps(rec), flush=True)
+    gc.collect()
+    mem_end = torch.cuda.memory_allocated()
+    check(mem_end <= mem_start, f"plugins: {mem_end - mem_start} bytes of "
+                                f"card memory outlived the phase")
+    as_is = digests["affinity-preempt"]
+    check(out["affinity-10k"]["rejected"] > 0
+          and out["affinity-preempt"]["B3"] > 0
+          and out["affinity-preempt"]["vetoed_evicted"] == 0
+          < as_is["vetoed_evicted"]
+          and out["affinity-preempt"]["critical_evicted"]
+          < as_is["critical_evicted"]
+          and out["proportional-1k"]["guard_refusals"] > 0
+          and out["gpushare-10k"]["binds"] > 0,
+          f"plugins: {out}")
+    print(f"plugins phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the cycle
 # ---------------------------------------------------------------------------
 
@@ -4161,8 +4277,13 @@ def main() -> int:
     # native object store, the metrics and health endpoints
     rpc_phase(sim_runs)
 
+    phase("plugins")
+    # 26. pod affinity, GPU sharing, conformance, NUMA placement and the
+    # proportional guard, each a world held to the JAX package's digest
+    plugins_phase(sim_runs)
+
     phase("summary")
-    # 18. the kernels line (launches: the placement kernel's in the 10k
+    # 27. the kernels line (launches: the placement kernel's in the 10k
     # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
     # it a static matrix, the walk's in the deployed cycle of the tight mix,
     # the one where preempt has work, the block auction's in the tpu-blocks

@@ -17,8 +17,9 @@ from volcano_tpu_torch.cache import cache_from_world
 from volcano_tpu_torch.cache import synthetic as torch_synthetic
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
-from torch_parity import (SLICE_CONF, assert_same, jax_reference, outcome,
-                          run_torch_cycle, world_from_cache)
+from torch_parity import (DEPLOYED_CONF, SLICE_CONF, assert_same,
+                          jax_reference, outcome, run_torch_cycle,
+                          world_from_cache)
 
 KINDS = ["tiny", "1k", "three-queue", "tight", "releasing", "taints", "gpu"]
 
@@ -78,8 +79,7 @@ def test_scheduler_run_once():
 @pytest.mark.parametrize("conf_text, refused", [
     (SLICE_CONF.replace("engine: tpu-fused", "engine: tpu-sharded"),
      "tpu-sharded"),
-    (SLICE_CONF.replace("name: binpack", "name: conformance"),
-     "conformance"),
+    (SLICE_CONF.replace("name: binpack", "name: tdm"), "tdm"),
     (SLICE_CONF.replace("backfill", "reserve"), "reserve"),
     (SLICE_CONF.replace("engine: tpu-fused", "engine: callbacks-parallel"),
      "callbacks-parallel"),
@@ -111,12 +111,21 @@ def test_topology_weight_runs_the_zone_anchor_solve(engine, monkeypatch):
     assert binder.binds == plain_binder.binds and binder.binds
 
 
-def test_refuses_pod_affinity():
-    cache = torch_synthetic.baseline_config("tiny")[0]
-    task = next(iter(next(iter(cache.jobs.values())).tasks.values()))
-    task.has_pod_affinity = True
-    with pytest.raises(NotImplementedError, match="pod-affinity"):
-        Scheduler(cache, SLICE_CONF, device="cpu").run_once()
+def test_refuses_pod_affinity(tmp_path):
+    """The name is the refusal this test held before pod affinity was
+    ported, kept so that the suite's record of it runs on; it now holds
+    parity. Pod affinity, once refused, runs: one deployed cycle of
+    tests/torch_parity.py's affinity world (spread, zone-kept and
+    zone-preferring gangs) decides what the JAX package decides, through
+    the stateful re-check and more than one round."""
+    world, want = jax_reference("deployed", ["affinity"],
+                                tmp_path / "affinity.pkl")["affinity"]
+    cache = cache_from_world(world)
+    got = outcome(run_torch_cycle(cache, DEPLOYED_CONF), cache)
+    assert got == want and got["binds"]
+    from volcano_tpu_torch.framework import get_action
+    stats = get_action("allocate-tpu").last_stats
+    assert stats["rounds"] > 1 and stats["rejected"] > 0
 
 
 @pytest.mark.slow

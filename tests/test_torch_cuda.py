@@ -39,8 +39,9 @@ from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
 from torch_parity import (BLOCK_WORLDS, CARD_BLOCK_WORLDS, CARD_WALK_WORLDS,
-                          HOLE_WORLDS, PLACE_WORLDS, TOPO_CASES, TOPO_WORLDS,
-                          WALK_WORLDS, blocks_args, hole_world_run,
+                          HOLE_WORLDS, PLACE_WORLDS, PORT_WALK_WORLDS,
+                          TOPO_CASES, TOPO_WORLDS, WALK_WORLDS, blocks_args,
+                          hole_world_run,
                           topo_args)
 
 pytestmark = pytest.mark.cuda
@@ -192,11 +193,11 @@ def _assert_walk_same(got, want, label):
     assert got.steps == want.steps, label
 
 
-@pytest.mark.parametrize("world", list(WALK_WORLDS))
+@pytest.mark.parametrize("world", [*WALK_WORLDS, *PORT_WALK_WORLDS])
 def test_walk_kernel_matches_plain(world, card):
     """Task nodes, slot owners and quota verdicts equal to the bit; the
     kernel dispatched the nodes its cache rule needs, no more."""
-    inputs, kinds, sizes, gang = WALK_WORLDS[world]()
+    inputs, kinds, sizes, gang = {**WALK_WORLDS, **PORT_WALK_WORLDS}[world]()
     d = to_device(inputs, card)
     got = walk_cuda(d, kinds, sizes, gang)
     _assert_walk_same(got, walk_plain(d, kinds, sizes, gang), world)

@@ -17,8 +17,9 @@ from volcano_tpu_torch.ops import evict as torch_evict
 from volcano_tpu_torch.ops.evict import to_device, walk, walk_plain
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
-from torch_parity import (DEPLOYED_CONF, DEPLOYED_WORLDS, EVICT_WORLDS,
-                          WALK_WORLDS, evict_outcome, jax_reference, outcome,
+from torch_parity import (CONFORMANCE_KEYS, DEPLOYED_CONF, DEPLOYED_WORLDS,
+                          EVICT_WORLDS, WALK_WORLDS, conformance_run,
+                          evict_outcome, jax_reference, outcome,
                           run_torch_action, run_torch_cycle)
 
 
@@ -27,7 +28,8 @@ def reference(tmp_path_factory):
     """Every JAX result this module reads, from one child process."""
     names = ([f"walk:{n}" for n in WALK_WORLDS]
              + [f"evict:{n}" for n in EVICT_WORLDS]
-             + [f"deployed:{n}" for n in DEPLOYED_WORLDS])
+             + [f"deployed:{n}" for n in DEPLOYED_WORLDS]
+             + [f"conformance:{k}" for k in CONFORMANCE_KEYS])
     return jax_reference("mixed", names,
                          tmp_path_factory.mktemp("jax") / "preempt.pkl")
 
@@ -88,6 +90,9 @@ def test_walk_worlds_exercise_their_case(walk_ref):
     assert owner[:3, 0].tolist() == [4, -1, -1] and not done[0] and done[2]
     assert walk_ref["ties-across-warps"][0].tolist() == [31, 32, 63, 64, -1]
     assert walk_ref["rollback-after-lazy-save-quota-3"][2][0]
+    # a veto after the first mask's victims leaves the node with none
+    assert walk_ref["tier-veto-hand"][0].tolist() == [-1]
+    assert placed("tier-veto") > 0
 
 
 def test_rollback_world_evicts_on_three_nodes_before_it_fails(walk_ref):
@@ -256,9 +261,8 @@ def test_scheduler_runs_the_deployed_conf(deployed_ref):
 @pytest.mark.parametrize("old, new, refused", [
     ("engine: tpu\n- name: reclaim", "engine: tpu-sharded\n- name: reclaim",
      "tpu-sharded"),
-    ("- name: binpack", "- name: conformance", "conformance"),
-    ("- name: predicates", "- name: predicates\n    arguments:\n"
-     "      predicate.GPUSharingEnable: true", "GPUSharingEnable"),
+    ("- name: binpack", "- name: overcommit", "overcommit"),
+    ("- name: binpack", "- name: task-topology", "task-topology"),
 ])
 def test_deployed_conf_refuses_what_is_not_ported(old, new, refused):
     """An engine, plugin or argument the port lacks is refused by name."""
@@ -292,3 +296,121 @@ def test_preempt_worlds_match_jax_generators(name):
 
     assert_same(world_from_cache(build(torch_synthetic)),
                 world_from_cache(build(jax_synthetic)))
+
+
+# -- conformance: tests/test_preempt_reclaim.py's cases -----------------------
+
+@pytest.mark.parametrize("engine", ["callbacks", "tpu"])
+def test_conformance_protects_critical(engine, reference):
+    """A kube-system pod is no victim (conformance vetoes it in tier 1),
+    under the callbacks engine and the walk's conformance fast path."""
+    got = conformance_run(True, f"critical:{engine}")
+    assert got == reference[f"conformance:critical:{engine}"]
+    assert got["evicts"] == []
+
+
+@pytest.mark.parametrize("engine", ["callbacks", "tpu"])
+def test_intra_job_preemption(engine, reference):
+    """Phase 2: a starving gang evicts its own running task. Gang's
+    priority guard (tier 1) returns no same-job victim, so the dispatch
+    falls through to the conformance tier, which permits it."""
+    got = conformance_run(True, f"intra-job:{engine}")
+    assert got == reference[f"conformance:intra-job:{engine}"]
+    assert got["evicts"] == ["default/j-0"]
+    assert got["pipelined"] == ["j-1"]
+
+
+@pytest.mark.parametrize("engine", ["callbacks", "tpu"])
+def test_conformance_veto_holds_across_tiers(engine, reference):
+    """Priority and gang offer both kube-system pods and conformance
+    refuses them: upstream's dispatch keeps ``init`` across the tiers, so
+    drf's tier does not rule after that veto and nothing is evicted, under
+    the callbacks engine and the walk (the JAX package mended alike)."""
+    got = conformance_run(True, f"vetoed:{engine}")
+    assert got == reference[f"conformance:vetoed:{engine}"]
+    assert got["evicts"] == [] and got["pipelined"] == []
+
+
+def test_session_dispatch_keeps_init_across_tiers():
+    """session_plugins.go's Preemptable: a veto after one plugin's
+    victims leaves none, whatever a later tier returns; a veto by the
+    tier's first plugin lets the next tier rule; an abstention is no
+    vote."""
+    from volcano_tpu_torch.framework import Tier, PluginOption
+    from volcano_tpu_torch.framework.session import Session
+    from volcano_tpu_torch.api import TaskInfo
+    a, b = TaskInfo(uid="a"), TaskInfo(uid="b")
+
+    def dispatch(*tiers):
+        ssn = Session.__new__(Session)
+        ssn.tiers = [Tier(plugins=[PluginOption(n) for n, _ in t])
+                     for t in tiers]
+        fns = {n: (lambda out: lambda p, c: out)(out)
+               for t in tiers for n, out in t}
+        return [t.uid for t in ssn._tiered_victims(
+            fns, None, lambda fn: fn(None, [a, b]))]
+
+    offer, refuse, abstain = [a, b], [], None
+    assert dispatch([("p", offer), ("c", refuse)], [("d", [b])]) == []
+    assert dispatch([("c", refuse), ("p", offer)], [("d", [b])]) == ["b"]
+    assert dispatch([("p", offer), ("c", [a])], [("d", [b])]) == ["a"]
+    assert dispatch([("p", offer), ("c", [b]), ("g", [a])],
+                    [("d", [a])]) == []
+    assert dispatch([("x", abstain)], [("d", [b])]) == ["b"]
+    assert dispatch([("x", abstain)]) == []
+
+
+@pytest.mark.parametrize("name, placed", [("drf-leads", [-1]),
+                                          ("drf-follows", [0])])
+def test_walk_takes_drf_place_in_its_tier(name, placed):
+    """drf ahead of its tier's static mask leads the tier: its victims
+    decide the node, and the mask's veto leaves none; behind the mask, the
+    mask's veto lets the next tier rule (torch_parity.tier_veto_world)."""
+    from torch_parity import PORT_WALK_WORLDS
+    out = _plain(PORT_WALK_WORLDS[name]())
+    assert out.task_node.tolist() == placed
+    assert int((out.owner >= 0).sum()) == (placed[0] >= 0)
+
+
+def test_tier_stack_records_drf_place():
+    """A tier with drf ahead of a static plugin gives the walk the kind
+    ``drf@k``, k the static masks before drf; drf last gives ``drf``."""
+    from volcano_tpu_torch.ops.evict import tier_layout
+    assert tier_layout(("drf@0", "static"), (1, 1), 2) == ((True, 0),
+                                                          (False, 1))
+    assert tier_layout(("static", "drf"), (2, 0), 2) == ((False, 2),
+                                                        (True, 0))
+    for bad in (("drf@1",), ("static@0",), ("drf@x",)):
+        with pytest.raises(ValueError):
+            tier_layout(bad, (1,), 1)
+
+
+def test_conformance_mask_is_the_plugins_verdict():
+    """The tier stack's conformance fast path excludes exactly the pods the
+    plugin's callback leaves out: kube-system and the two system priority
+    classes, by annotation or by the job's class name."""
+    from volcano_tpu_torch.actions.evict_tpu import _is_critical
+    from volcano_tpu_torch.api import TaskInfo
+    from volcano_tpu_torch.plugins.conformance import ConformancePlugin
+    tasks = [TaskInfo(uid="a", namespace="kube-system"),
+             TaskInfo(uid="b", annotations={
+                 "priorityClassName": "system-cluster-critical"}),
+             TaskInfo(uid="c", annotations={
+                 "priorityClassName": "system-node-critical"}),
+             TaskInfo(uid="d", annotations={"priorityClassName": "high"}),
+             TaskInfo(uid="e")]
+    fns = {}
+
+    class Ssn:
+        def add_preemptable_fn(self, name, fn):
+            fns["preempt"] = fn
+
+        def add_reclaimable_fn(self, name, fn):
+            fns["reclaim"] = fn
+
+    ConformancePlugin().on_session_open(Ssn())
+    for fn in fns.values():
+        victims, _ = fn(None, tasks)
+        assert [t.uid for t in victims] == ["d", "e"]
+    assert [_is_critical(t) for t in tasks] == [True, True, True, False,
+                                                False]

@@ -366,17 +366,20 @@ def test_conf_refused_by_name():
     assert "preempt" in svc.conf.actions
 
 
-def test_pod_affinity_refused_by_name(sidecar):
-    """A snapshot whose task carries pod affinity fails its request by
-    name (the session's open refuses it), and the sidecar keeps serving."""
+def test_pod_affinity_refused_by_name(sidecar, jax_rpc):
+    """The name is the refusal this test held before pod affinity was
+    ported, kept so that the suite's record of it runs on; it now holds
+    parity. A snapshot whose tasks carry pod affinity and labels, once refused,
+    is served over TCP with the JAX package's sidecar reply on the same
+    message (tests/torch_parity.py::_rpc_affinity: job0 spread one pod a
+    zone, job1 drawn to job0's zone), and the sidecar keeps serving."""
     _, client = sidecar
-    msg = tp.rpc_message("small-default")
-    msg["jobs"][0]["tasks"][0]["affinity"] = {"podAffinity": {
-        "requiredDuringSchedulingIgnoredDuringExecution": [
-            {"labelSelector": {"matchLabels": {"app": "x"}},
-             "topologyKey": "zone"}]}}
-    with pytest.raises(RuntimeError, match="affinity"):
-        client.schedule(msg)
+    got = tp.rpc_normalized(client.schedule(tp.rpc_message("small-affinity")))
+    assert json.dumps(got, sort_keys=True) == json.dumps(
+        jax_rpc["small-affinity"], sort_keys=True)
+    nodes = {b["name"]: b["node"] for b in got["binds"]}
+    zone = {"n0": "a", "n1": "a", "n2": "b", "n3": "b"}
+    assert zone[nodes["job0-0"]] != zone[nodes["job0-1"]]
     assert client.schedule(tp.rpc_message("small-default"))["binds"]
 
 

@@ -537,3 +537,46 @@ def test_namespace_order_follows_the_weights():
     heavy = tp.quota_run(True, "weights-1-3")["binds"]
     flat = tp.quota_run(True, "no-quota")["binds"]
     assert heavy and flat and heavy != flat
+
+@pytest.mark.parametrize("native", [False, True])
+def test_list_of_one_jobs_pods_is_the_filtered_list(native):
+    """``list("Pod", ns, job=...)`` gives exactly the pods a scan of every
+    pod would keep (the job-name annotation in that namespace), in the
+    store's order, through creates, status writes, deletes, a delete and
+    re-create, and an update that moves a pod to another job; the Python
+    store answers from its per-job index, the native store by a scan."""
+    from volcano_tpu_torch.store import JOB_NAME_ANNOTATION
+    if native:
+        from volcano_tpu_torch.native import NativeObjectStore
+        store = NativeObjectStore()
+    else:
+        store = pt_store.ObjectStore()
+
+    def pod(name, job, ns="default"):
+        p = make_pod(PORT, name, ns=ns)
+        p.metadata.annotations[JOB_NAME_ANNOTATION] = job
+        return p
+
+    rng = random.Random(7)
+    jobs, names = ("a", "b", "c"), [f"p{i}" for i in range(24)]
+    for name in names:
+        store.create(pod(name, rng.choice(jobs), rng.choice(("default",
+                                                              "other"))))
+    gone = rng.sample(names, 6)
+    for name in gone:
+        store.delete("Pod", "default", name)
+        store.delete("Pod", "other", name)
+    store.create(pod(names[3] + "x", "a"))
+    store.create(pod(gone[0], "b"))
+    moved = next(p for p in store.list("Pod", "default", job="a"))
+    moved.metadata.annotations[JOB_NAME_ANNOTATION] = "c"
+    store.update(moved)
+
+    for ns in ("default", "other"):
+        for job in (*jobs, "none"):
+            want = [p.metadata.name for p in store.list("Pod", ns)
+                    if p.metadata.annotations.get(JOB_NAME_ANNOTATION)
+                    == job]
+            got = [p.metadata.name for p in store.list("Pod", ns, job=job)]
+            assert got == want, (ns, job)
+    assert store.list("Pod", "default", job="c")

@@ -853,10 +853,13 @@ def _execute_fused(ssn, blocks: bool = False,
     Returns the phases' host wall seconds: "order" (the order simulation),
     "assemble" (the solve's tensors, built and copied to the device),
     "solve" (the kernels, the one device-to-host copy and the decode),
-    "replay", and "solves", the number of solves; with ``blocks`` also
-    "blocks", the block auction's counts (ops/blocks.py)."""
+    "replay", "solves", the number of solves, "rounds", the number of
+    replays, and "rejected", the proposals the live stateful re-check
+    rejected over them; with ``blocks`` also "blocks", the block auction's
+    counts (ops/blocks.py)."""
     stats: Dict[str, object] = {"order": 0.0, "assemble": 0.0, "solve": 0.0,
-                                "replay": 0.0, "solves": 0}
+                                "replay": 0.0, "solves": 0, "rounds": 0,
+                                "rejected": 0}
     blocks_stats = stats["blocks"] = {} if blocks else None
     max_rounds = 3 if ssn.stateful_predicates else 1
     seeded = first_solution
@@ -910,6 +913,8 @@ def _execute_fused(ssn, blocks: bool = False,
         with obs_trace.span("replay") as sp:
             rejected = _replay_fused(ssn, solution)
         stats["replay"] += sp.dur_s
+        stats["rounds"] += 1
+        stats["rejected"] += rejected
         if not rejected:
             break
     LAST_STATS["final_kept_empty"] = bool(solution is not None
@@ -1086,7 +1091,8 @@ def _fused_solution(inputs: PlacementInputs, blocks: bool = False,
 
 def _stateful_recheck(ssn, task, node) -> bool:
     """Re-validate a device proposal through the predicate chain when a
-    plugin registered itself in ssn.stateful_predicates (host ports): the
+    plugin registered itself in ssn.stateful_predicates (host ports, GPU
+    card packing, the proportional guard, pod affinity, NUMA cpusets): the
     static feasibility mask shipped to the device is necessary but not
     sufficient for those, and the reference evaluates them per placement."""
     try:
@@ -1101,7 +1107,8 @@ def _fast_replay_ok(ssn) -> bool:
     sound only when (a) no stateful predicates need re-checking, (b) every
     event handler declared itself additive per job and (c) the gang plugin
     alone decides job readiness/pipelining, so the kernel's gang verdicts
-    (gang.go's formula) are authoritative."""
+    (gang.go's formula) are authoritative, and (d) no node carries GPU card
+    state, which only the per-task node accounting keeps."""
     if ssn.stateful_predicates:
         return False
     if any(not eh.aggregatable for eh in ssn.event_handlers):
@@ -1112,6 +1119,8 @@ def _fast_replay_ok(ssn) -> bool:
                   if opt.name in reg and opt.is_enabled(flag)]
         if any(name != "gang" for name in owners):
             return False
+    if any(n.gpu_devices for n in ssn.nodes.values()):
+        return False
     return True
 
 

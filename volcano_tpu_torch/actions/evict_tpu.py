@@ -25,11 +25,13 @@ keeps the rotation on the host and vectorizes only the per-attempt node
 walk. Exact by construction.
 
 Mirrors volcano_tpu/actions/evict_tpu.py without its node-sharded walk,
-its compile prewarm, its pow2 shape padding (which existed only for XLA's
-compile cache) and the conformance plugin's victim rules (that plugin is
-not in this package). The elastic gangs' victim tier is in: an elastic
-gang's above-min members lead the eviction order
-(``_elastic_victims_first``).
+its compile prewarm and its pow2 shape padding (which existed only for
+XLA's compile cache). The conformance plugin's victim rule (no critical
+pod is a victim of its tier) is one of the tier stack's fast paths, and
+the tiered dispatch is upstream's, not the JAX package's: once a plugin
+returned victims, a later veto leaves the node none (ROADMAP §3). The elastic
+gangs' victim tier is in: an elastic gang's above-min members lead the
+eviction order (``_elastic_victims_first``).
 """
 
 from __future__ import annotations
@@ -299,23 +301,32 @@ def _rep_task(job) -> Optional[TaskInfo]:
     return None
 
 
+def _is_critical(task) -> bool:
+    from ..plugins.conformance import _is_critical as crit
+    return crit(task)
+
+
 class _TierStack:
     """Per-tier plugin veto masks for the walk's dispatch replay.
 
-    kinds[i]: "static" | "drf". masks[i]: tuple of (mask [PJ,V] bool,
-    part [PJ] bool) for the STATIC plugins of tier i — drf's dynamic
-    dominant-share verdict is computed in the walk from tracked state.
+    kinds[i]: "static" | "drf" | "drf@k" (drf follows only the tier's
+    first k static masks in conf order; ops/evict.py::tier_layout).
+    masks[i]: tuple of (mask [PJ,V] bool, part [PJ] bool) for the STATIC
+    plugins of tier i — drf's dynamic dominant-share verdict is computed in
+    the walk from tracked state.
 
-    The stock priority/gang callbacks have vectorized fast paths (they
-    filter on the owning job's priority only — priority.go:44-117,
-    gang.go:83-101); any other plugin runs the generic per-job dispatch
-    through its real registered callback.
+    The stock priority/gang/conformance callbacks have vectorized fast
+    paths (they filter on per-victim attributes only: the owning job's
+    priority — priority.go:44-117, gang.go:83-101 — and the critical-pod
+    namespace and priority class, conformance.go:45-66); any other plugin
+    runs the generic per-job dispatch through its real registered
+    callback.
 
     cand_kind selects the candidate filter: "inter-queue" (preempt phase 1:
     same queue, different job — preempt.go:120) or "intra-job" (phase 2).
     """
 
-    FAST = {"priority", "gang"}
+    FAST = {"priority", "gang", "conformance"}
 
     def __init__(self, ssn, pjobs, victims, registry, flag, dynamic_name,
                  cand_kind: str):
@@ -372,6 +383,7 @@ class _TierStack:
         for tier in ssn.tiers:
             entries = []
             has_dynamic = False
+            dynamic_at = 0          # static entries before the dynamic
             for opt in tier.plugins:
                 if not opt.is_enabled(flag):
                     continue
@@ -379,6 +391,7 @@ class _TierStack:
                     continue
                 if opt.name == dynamic_name:
                     has_dynamic = True
+                    dynamic_at = len(entries)
                 else:
                     entries.append(opt.name)
             if not entries and not has_dynamic:
@@ -399,30 +412,44 @@ class _TierStack:
                         for v in returned:
                             if v.uid in vix:
                                 m[j, vix[v.uid]] = True
-                else:
+                elif name == "priority" or name == "gang":
                     # victims only from lower-priority jobs
                     m = (vjob_prio[None, :] < jprio[:, None]) \
                         & has_rep[:, None]
                     part = has_rep.copy()
+                else:                       # conformance
+                    crit = np.asarray([_is_critical(t) for t in victims],
+                                      bool)
+                    m = np.broadcast_to(~crit[None, :], (PJ, V)).copy() \
+                        & has_rep[:, None]
+                    part = has_rep.copy()
                 tier_masks.append((m, part))
-            # identical masks in one tier merge exactly: (m | ~p1) &
-            # (m | ~p2) = m | ~(p1 | p2) and the per-plugin non-empty counts
-            # coincide — the deployed conf's priority and gang callbacks
-            # produce the same lower-priority-job filter
+            # identical masks with the same participants in one tier merge
+            # exactly: the intersection, the per-plugin non-empty counts and
+            # the tier's first participant's verdict all coincide — the
+            # deployed conf's priority and gang callbacks produce the same
+            # lower-priority-job filter
             merged: List[tuple] = []
-            for m, part in tier_masks:
-                for i, (m2, part2) in enumerate(merged):
-                    if m2.shape == m.shape and np.array_equal(m2, m):
-                        merged[i] = (m2, part2 | part)
+            lead = 0                # merged entries before the dynamic
+            for e, (m, part) in enumerate(tier_masks):
+                for m2, part2 in merged:
+                    if (m2.shape == m.shape and np.array_equal(m2, m)
+                            and np.array_equal(part2, part)):
                         break
                 else:
                     merged.append((m, part))
-            kinds.append(dynamic_name if has_dynamic else "static")
+                    lead += e < dynamic_at
+            kind = "static"
+            if has_dynamic:
+                kind = (dynamic_name if lead == len(merged)
+                        else f"{dynamic_name}@{lead}")
+            kinds.append(kind)
             masks.append(tuple(merged))
         self.kinds = tuple(kinds)
         self.sizes = tuple(len(m) for m in masks)
         self.masks = tuple(masks)
-        self.has_dynamic = dynamic_name in self.kinds
+        self.has_dynamic = any(
+            k.partition("@")[0] == dynamic_name for k in self.kinds)
         # custom (non-stock) plugins participated: their live callbacks must
         # re-validate every proposal at replay (no batched fast replay)
         self.generic = bool(generic_names)
@@ -516,6 +543,11 @@ def _f64_scores(ssn, rep_tasks, node_t) -> Optional[np.ndarray]:
         if (task.affinity.get("nodeAffinity", {})
                 .get("preferredDuringSchedulingIgnoredDuringExecution")):
             return None            # per-node python term; no exact replica
+    from ..plugins.podaffinity import session_has_pod_affinity
+    if session_has_pod_affinity(ssn):
+        # the batch pod-affinity scorer normalizes over the candidate
+        # list, which differs per attempt — no exact replica
+        return None
     nodes = [ssn.nodes[name] for name in node_t.names]
     N, G = len(nodes), len(rep_tasks)
     # a non-stock batch scorer may depend on the node LIST it is handed;

@@ -3,13 +3,17 @@
 Mirrors pkg/scheduler/api/node_info.go:29-400 — Idle/Used/
 Releasing/Pipelined vectors, ``FutureIdle = Idle + Releasing - Pipelined``,
 and the per-status AddTask/RemoveTask bookkeeping that the Statement undo log
-relies on.
+relies on, with the node's GPU cards (node_info.go:57, 268-291, 460-480)
+and its NUMA topology (node_info.go NumaSchedulerInfo).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+from .device_info import (GPU_MEMORY_RESOURCE, GPU_NUMBER_RESOURCE,
+                          add_gpu_resource, gpu_memory_of_task,
+                          make_gpu_devices, sub_gpu_resource)
 from .job_info import TaskInfo
 from .resource import Resource
 from ..elastic_gang.membership import TOPOLOGY_ZONE_LABEL
@@ -37,8 +41,8 @@ class NodeInfo:
                  annotations: Optional[Dict[str, str]] = None):
         self.name = name
         self.allocatable = allocatable.clone() if allocatable else Resource()
-        # the node's raw capacity and annotations: the snapshot wire carries
-        # them (rpc/codec.py); no plugin of this package reads them
+        # the node's raw capacity (its GPU cards are read from it) and
+        # annotations, as the snapshot wire carries them (rpc/codec.py)
         self.capability = (capability.clone() if capability
                            else self.allocatable.clone())
         self.annotations = dict(annotations or {})
@@ -66,6 +70,34 @@ class NodeInfo:
         # ready mirrors NodePhase; the snapshot skips nodes flagged not-ready
         # (cache.go:822-827)
         self.ready = True
+        # NumatopoInfo for this node (node_info.go NumaSchedulerInfo), and
+        # task uid -> ResNumaSets the numa-aware plugin committed, so the
+        # cache can return a task's cpusets when it goes away
+        self.numa_info = None
+        self.numa_allocations: Dict[str, dict] = {}
+        # GPU cards (node_info.go:57 GPUDevices), from the
+        # volcano.sh/gpu-memory and volcano.sh/gpu-number capacity scalars
+        # (NewNodeInfo -> setNodeGPUInfo), or set with set_gpu_info()
+        self.gpu_devices: Dict[int, object] = {}
+        gpu_mem = self.capability.get(GPU_MEMORY_RESOURCE)
+        gpu_num = self.capability.get(GPU_NUMBER_RESOURCE)
+        if gpu_mem > 0 and gpu_num > 0:
+            # scalars are milli-scaled (Resource.from_dict); the memory stays
+            # in that space, so it compares directly with task requests
+            self.set_gpu_info(gpu_mem, int(round(gpu_num / 1000.0)))
+
+    def set_gpu_info(self, total_memory: float, card_count: int) -> None:
+        """node_info.go setNodeGPUInfo:268-291. ``total_memory`` is in the
+        (milli-scaled) units of the tasks' volcano.sh/gpu-memory requests."""
+        self.gpu_devices = make_gpu_devices(total_memory, card_count)
+
+    def _account_gpu(self, task: TaskInfo, add: bool) -> None:
+        if not self.gpu_devices or gpu_memory_of_task(task) <= 0:
+            return
+        if add:
+            add_gpu_resource(self.gpu_devices, task)
+        else:
+            sub_gpu_resource(self.gpu_devices, task)
 
     @property
     def max_task_num(self) -> int:
@@ -111,6 +143,8 @@ class NodeInfo:
         self.tasks[ti.uid] = ti
         for port in ti.host_ports:
             self.used_ports[port] = self.used_ports.get(port, 0) + 1
+        if ti.status != TaskStatus.PIPELINED:
+            self._account_gpu(ti, add=True)
 
     def remove_task(self, task: TaskInfo) -> None:
         own = self.tasks.get(task.uid)
@@ -134,6 +168,8 @@ class NodeInfo:
                 self.used_ports[port] = left
             else:
                 self.used_ports.pop(port, None)
+        if own.status != TaskStatus.PIPELINED:
+            self._account_gpu(own, add=False)
 
     def update_task(self, task: TaskInfo) -> None:
         self.remove_task(task)
@@ -159,6 +195,10 @@ class NodeInfo:
         n.topology_zone = self.topology_zone
         n.used_ports = dict(self.used_ports)
         n.ready = self.ready
+        n.numa_info = self.numa_info.deep_copy() if self.numa_info else None
+        n.numa_allocations = {uid: {res: set(ids) for res, ids in sets.items()}
+                              for uid, sets in self.numa_allocations.items()}
+        n.gpu_devices = {i: d.clone() for i, d in self.gpu_devices.items()}
         n._touched = False
         n.tasks = {}
         for uid, task in self.tasks.items():

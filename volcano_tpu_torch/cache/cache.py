@@ -422,12 +422,23 @@ class SchedulerCache:
             if job is not None:
                 job.delete_task_info(task)
             if task.node_name and task.node_name in self.nodes:
-                self.nodes[task.node_name].remove_task(task)
+                node = self.nodes[task.node_name]
+                node.remove_task(task)
+                self._release_numa(node, task.uid)
             self._drop_retry_state(task.uid)
             self.binding_tasks.pop(task.uid, None)
         # the pod left the cluster: a pending evict entry is thereby
         # CONFIRMED, a pending bind entry is moot (cache/inflight.py)
         self.inflight.task_deleted(task.uid)
+
+    @staticmethod
+    def _release_numa(node, task_uid: str) -> None:
+        """Return the task's committed cpusets to the node topology — the
+        in-process equivalent of the node agent refreshing the Numatopology
+        CR after a pod dies (numa_info.go Release)."""
+        sets = node.numa_allocations.pop(task_uid, None)
+        if sets and node.numa_info is not None:
+            node.numa_info.release(sets)
 
     # -- snapshot (cache.go:801-893) ----------------------------------------
 
@@ -1029,11 +1040,14 @@ class SchedulerCache:
                 job.update_task_status(cached, TaskStatus.BOUND)
                 node = self.nodes.get(task.node_name)
                 if node is not None:
-                    # the clone keeps status BOUND so a later
-                    # remove_task/update_task re-accounts correctly
-                    node.tasks[cached.uid] = cached.clone()
-                    agg.setdefault(task.node_name, Resource()).add(
-                        cached.resreq)
+                    if node.gpu_devices:
+                        node.add_task(cached)        # full path: card packing
+                    else:
+                        # the clone keeps status BOUND so a later
+                        # remove_task/update_task re-accounts correctly
+                        node.tasks[cached.uid] = cached.clone()
+                        agg.setdefault(task.node_name, Resource()).add(
+                            cached.resreq)
                 placed.append((task, True))
             for name, r in agg.items():
                 node = self.nodes[name]
@@ -1391,6 +1405,24 @@ class SchedulerCache:
                 self.inflight.abort(op, task.uid)
                 self._resync_or_dead_letter(key, op, task)
         return done
+
+    def update_scheduler_numa_info(self, numa_sets) -> None:
+        """Commit the cpusets the numa-aware plugin chose back to the live
+        node topology (cache interface UpdateSchedulerNumaInfo;
+        session.go:435-437). ``numa_sets`` is {node_name: {task_uid:
+        ResNumaSets}}; the per-task records let delete_task release them
+        (re-committing a uid first releases its previous assignment, so the
+        writeback is idempotent across sessions)."""
+        with self._lock:
+            for node_name, per_task in numa_sets.items():
+                node = self.nodes.get(node_name)
+                if node is None or node.numa_info is None:
+                    continue
+                self._dirty_nodes.add(node_name)
+                for task_uid, res_sets in per_task.items():
+                    self._release_numa(node, task_uid)
+                    node.numa_info.allocate(res_sets)
+                    node.numa_allocations[task_uid] = res_sets
 
     FORWARD_CLUSTER_KEY = "volcano.sh/forward-cluster"
 

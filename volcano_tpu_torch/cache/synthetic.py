@@ -2,9 +2,8 @@
 
 The same generator, seed for seed, as the JAX package's: one seed gives the
 same world in both packages, for the configs this package runs (tiny, 1k,
-10k, 20k, 100k, preempt, preempt-small), the running+pending preempt mix
-and the pipeline world; the others arrive with the resources they
-exercise.
+10k, 20k, 100k, preempt, preempt-small, gpu, gpu-small), the
+running+pending preempt mix and the pipeline world.
 """
 
 from __future__ import annotations
@@ -22,12 +21,13 @@ GI = 1 << 30
 
 def make_cluster(num_nodes: int, cpu_milli: int = 32000,
                  mem: int = 128 * GI, pods: int = 110,
-                 seed: int = 0) -> List[NodeInfo]:
-    """``num_nodes`` equal nodes; ``seed`` is the JAX package's argument,
-    which draws nothing."""
+                 gpus: int = 0, seed: int = 0) -> List[NodeInfo]:
+    """``num_nodes`` equal nodes, with ``gpus`` whole ``nvidia.com/gpu``
+    each; ``seed`` is the JAX package's argument, which draws nothing."""
     nodes = []
     for i in range(num_nodes):
-        alloc = Resource(cpu_milli, mem)
+        scalars = {"nvidia.com/gpu": float(gpus)} if gpus else None
+        alloc = Resource(cpu_milli, mem, scalars)
         alloc.max_task_num = pods
         nodes.append(NodeInfo(name=f"node-{i:05d}", allocatable=alloc))
     return nodes
@@ -35,11 +35,12 @@ def make_cluster(num_nodes: int, cpu_milli: int = 32000,
 
 def make_jobs(num_tasks: int, num_jobs: int, queues: List[str],
               cpu_range=(500, 4000), mem_range=(1 * GI, 8 * GI),
-              running_fraction: float = 0.0,
+              gpus_per_task: int = 0, running_fraction: float = 0.0,
               nodes: Optional[List[NodeInfo]] = None,
               seed: int = 0, name_prefix: str = "") -> List[JobInfo]:
     """num_tasks split over num_jobs; each job is a whole gang (minAvailable
-    = its task count) whose tasks share one request. running_fraction of
+    = its task count) whose tasks share one request, with
+    ``gpus_per_task`` whole ``nvidia.com/gpu``. running_fraction of
     the jobs are pre-placed RUNNING onto ``nodes``, round-robin wherever a
     task fits (the preempt and reclaim worlds); the others are Inqueue.
     ``name_prefix`` keeps a later batch's uids distinct from a live
@@ -62,9 +63,11 @@ def make_jobs(num_tasks: int, num_jobs: int, queues: List[str],
                       creation_timestamp=float(j))
         cpu = rng.randrange(*cpu_range, 100)
         mem = rng.randrange(mem_range[0], mem_range[1], GI // 4)
+        scalars = ({"nvidia.com/gpu": float(gpus_per_task)}
+                   if gpus_per_task else None)
         for t in range(size):
             task = TaskInfo(uid=f"{name}-{t}", name=f"{name}-{t}", job=name,
-                            resreq=Resource(cpu, mem),
+                            resreq=Resource(cpu, mem, scalars),
                             creation_timestamp=float(j * 100000 + t))
             if running and nodes:
                 for _ in range(len(nodes)):
@@ -103,6 +106,8 @@ def baseline_config(name: str, seed: int = 0):
     - "100k":  100k pods in 2,000 gangs / 20k nodes, 3 queues
     - "preempt": 5k running + 5k pending / 1k nodes, 2 queues
     - "preempt-small": the preempt mix at a tenth
+    - "gpu":   8k one-GPU pods in 160 gangs / 2k nodes of 8 GPUs
+    - "gpu-small": the gpu mix at a tenth
     """
     binder, evictor = FakeBinder(), FakeEvictor()
     cache = SchedulerCache(binder=binder, evictor=evictor)
@@ -145,6 +150,14 @@ def baseline_config(name: str, seed: int = 0):
                          nodes=nodes, seed=seed)
         queues = [QueueInfo(name="q1", weight=1),
                   QueueInfo(name="q2", weight=1)]
+    elif name == "gpu":
+        nodes = make_cluster(2000, gpus=8)
+        jobs = make_jobs(8000, 160, ["default"], gpus_per_task=1, seed=seed)
+        queues = [QueueInfo(name="default", weight=1)]
+    elif name == "gpu-small":
+        nodes = make_cluster(200, gpus=8)
+        jobs = make_jobs(800, 16, ["default"], gpus_per_task=1, seed=seed)
+        queues = [QueueInfo(name="default", weight=1)]
     else:
         raise ValueError(f"unknown baseline config {name!r}")
     return _wire(cache, queues, nodes, jobs), binder, evictor

@@ -12,14 +12,20 @@ very same cluster:
 - ``nodes``: ``{"names": [N], "allocatable": f64[N,R], "max_tasks": i64[N],
   "labels": [dict], "taints": [list], "tasks": [[task uid, ...]]}`` — the
   tasks each node holds (running, releasing, ...), in the order the node
-  took them — optionally with ``"unschedulable": [bool]``;
+  took them — optionally with ``"unschedulable": [bool]`` and ``"numa":
+  [None or {"policies": dict, "cpus": [[cpu, numa, socket, core]],
+  "allocatable": [cpu], "capacity": int}]`` (a node's NUMA topology under
+  the cpu resource; its GPU cards come from the
+  ``volcano.sh/gpu-*`` columns of ``allocatable``);
 - ``jobs``: ``[{"uid", "name", "namespace", "queue", "priority",
   "min_available", "creation_timestamp", "phase", "tasks": {"uid": [T],
   "name": [T], "resreq": f64[T,R], "status": i64[T] (TaskStatus values),
   "priority": i64[T], "creation_timestamp": f64[T],
   "tolerations": [list], "affinity": [dict]}}]``, optionally with the
   PodGroup's ``"min_resources"`` (f64[R] or None) and the tasks'
-  ``"node_selector": [dict]`` and ``"host_ports": [list]``.
+  ``"node_selector": [dict]``, ``"host_ports": [list]``, ``"namespace":
+  [str]``, ``"labels": [dict]``, ``"annotations": [dict]`` and
+  ``"topology_policy": [str]``.
 
 Resources stay float64 end to end, so node accounting is exact. The cache is
 host-side: the device is chosen when a session opens on it.
@@ -33,6 +39,7 @@ import numpy as np
 
 from ..api import (JobInfo, NodeInfo, PodGroup, PodGroupPhase, QueueInfo,
                    Resource, TaskInfo, TaskStatus)
+from ..api.numa_info import CPU, CPUInfo, NumatopoInfo, ResourceInfo
 from .cache import SchedulerCache
 from .executors import FakeBinder, FakeEvictor
 
@@ -67,11 +74,16 @@ def cache_from_world(world: Dict) -> SchedulerCache:
                       min_available=int(j["min_available"]), podgroup=pg,
                       creation_timestamp=float(j["creation_timestamp"]))
         t = j["tasks"]
-        selectors = t.get("node_selector") or [{}] * len(t["uid"])
-        ports = t.get("host_ports") or [[]] * len(t["uid"])
+        n = len(t["uid"])
+        selectors = t.get("node_selector") or [{}] * n
+        ports = t.get("host_ports") or [[]] * n
+        namespaces = t.get("namespace") or [j["namespace"]] * n
+        labels = t.get("labels") or [{}] * n
+        annotations = t.get("annotations") or [{}] * n
+        policies = t.get("topology_policy") or [""] * n
         for k, uid in enumerate(t["uid"]):
             task = TaskInfo(uid=uid, name=t["name"][k],
-                            namespace=j["namespace"], job=j["uid"],
+                            namespace=namespaces[k], job=j["uid"],
                             resreq=_resource(t["resreq"][k], names),
                             status=TaskStatus(int(t["status"][k])),
                             priority=int(t["priority"][k]),
@@ -80,20 +92,36 @@ def cache_from_world(world: Dict) -> SchedulerCache:
                             affinity=t["affinity"][k],
                             creation_timestamp=float(
                                 t["creation_timestamp"][k]),
-                            host_ports=ports[k])
+                            host_ports=ports[k], labels=labels[k],
+                            annotations=annotations[k],
+                            topology_policy=policies[k])
             job.add_task_info(task)
             tasks[uid] = task
         cache.add_job(job)
 
     nodes = world["nodes"]
     unsched = nodes.get("unschedulable") or [False] * len(nodes["names"])
+    numa = nodes.get("numa") or [None] * len(nodes["names"])
     for i, name in enumerate(nodes["names"]):
         alloc = _resource(nodes["allocatable"][i], names)
         alloc.max_task_num = int(nodes["max_tasks"][i])
         node = NodeInfo(name=name, allocatable=alloc,
                         labels=nodes["labels"][i], taints=nodes["taints"][i],
                         unschedulable=bool(unsched[i]))
+        if numa[i] is not None:
+            node.numa_info = _numa(name, numa[i])
         for uid in nodes["tasks"][i]:
             node.add_task(tasks[uid])
         cache.add_node(node)
     return cache
+
+
+def _numa(name: str, spec: Dict) -> NumatopoInfo:
+    detail = {int(cpu): CPUInfo(numa_id=int(numa), socket_id=int(socket),
+                                core_id=int(core))
+              for cpu, numa, socket, core in spec["cpus"]}
+    return NumatopoInfo(
+        name=name, policies=dict(spec["policies"]),
+        numa_res_map={CPU: ResourceInfo(set(spec["allocatable"]),
+                                        int(spec["capacity"]))},
+        cpu_detail=detail)

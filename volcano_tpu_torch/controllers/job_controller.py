@@ -17,13 +17,13 @@ from ..apis.objects import (Command, Job, LifecyclePolicy, ObjectMeta, PVC,
                             Pod, PodGroupCR, PodGroupSpec, PodTemplate,
                             TaskSpec)
 from ..cache.store_wiring import GROUP_NAME_ANNOTATION
-from ..store import ADDED, DELETED, UPDATED, AdmissionError, ObjectStore
+from ..store import (ADDED, DELETED, JOB_NAME_ANNOTATION, UPDATED,
+                     AdmissionError, ObjectStore)
 from . import job_state
 from .framework import Controller
 from .job_plugins import plugin_on_job_add, plugin_on_pod_create
 
 TASK_SPEC_ANNOTATION = "volcano.sh/task-spec"
-JOB_NAME_ANNOTATION = "volcano.sh/job-name"
 TASK_INDEX_ANNOTATION = "volcano.sh/task-index"
 
 
@@ -207,10 +207,8 @@ class JobController(Controller):
         # only sync when pods are actually missing — sync_job itself writes
         # the PodGroup status, so an unconditional trigger would recurse
         desired = sum(t.replicas for t in job.spec.tasks)
-        existing = sum(
-            1 for p in self.store.list("Pod", job.metadata.namespace)
-            if p.metadata.annotations.get(JOB_NAME_ANNOTATION)
-            == job.metadata.name)
+        existing = len(self.store.list("Pod", job.metadata.namespace,
+                                       job=job.metadata.name))
         if existing < desired:
             self._execute(job, BusAction.SYNC_JOB)
 
@@ -289,9 +287,8 @@ class JobController(Controller):
                 desired[pod_name(job, task, i)] = (task, i)
 
         existing = {p.metadata.name: p
-                    for p in self.store.list("Pod", job.metadata.namespace)
-                    if p.metadata.annotations.get(JOB_NAME_ANNOTATION)
-                    == job.metadata.name}
+                    for p in self.store.list("Pod", job.metadata.namespace,
+                                             job=job.metadata.name)}
 
         # syncTask gate (job_controller_actions.go:263-280): create pods
         # only once the PodGroup left Pending (the scheduler's enqueue
@@ -331,10 +328,9 @@ class JobController(Controller):
         a restart in the status that this call writes, as the reference's
         RestartJob update function does (state/running.go)."""
         job_state._update_phase(job, phase)
-        for pod in self.store.list("Pod", job.metadata.namespace):
-            if pod.metadata.annotations.get(JOB_NAME_ANNOTATION) \
-                    == job.metadata.name \
-                    and pod.status.phase not in retain_phases:
+        for pod in self.store.list("Pod", job.metadata.namespace,
+                                   job=job.metadata.name):
+            if pod.status.phase not in retain_phases:
                 self.store.delete("Pod", job.metadata.namespace,
                                   pod.metadata.name)
         self._update_status(job)
@@ -454,10 +450,8 @@ class JobController(Controller):
     def _update_status(self, job: Job) -> None:
         counts = {"Pending": 0, "Running": 0, "Succeeded": 0, "Failed": 0}
         task_counts: Dict[str, Dict[str, int]] = {}
-        for pod in self.store.list("Pod", job.metadata.namespace):
-            if pod.metadata.annotations.get(JOB_NAME_ANNOTATION) \
-                    != job.metadata.name:
-                continue
+        for pod in self.store.list("Pod", job.metadata.namespace,
+                                   job=job.metadata.name):
             counts[pod.status.phase] = counts.get(pod.status.phase, 0) + 1
             task = pod.metadata.annotations.get(TASK_SPEC_ANNOTATION, "")
             task_counts.setdefault(task, {}).setdefault(pod.status.phase, 0)
@@ -482,10 +476,9 @@ class JobController(Controller):
         self.store.update_status(pg)
 
     def _delete_job_resources(self, job: Job) -> None:
-        for pod in self.store.list("Pod", job.metadata.namespace):
-            if pod.metadata.annotations.get(JOB_NAME_ANNOTATION) \
-                    == job.metadata.name:
-                self.store.delete("Pod", job.metadata.namespace,
-                                  pod.metadata.name)
+        for pod in self.store.list("Pod", job.metadata.namespace,
+                                   job=job.metadata.name):
+            self.store.delete("Pod", job.metadata.namespace,
+                              pod.metadata.name)
         self.store.delete("PodGroup", job.metadata.namespace,
                           job.metadata.name)

@@ -25,3 +25,12 @@ class Arguments(dict):
             return int(str(v).strip())
         except ValueError:
             return default
+
+    def get_float(self, key: str, default: float = 0.0) -> float:
+        v = self.get(key)
+        if v is None:
+            return default
+        try:
+            return float(str(v).strip())
+        except ValueError:
+            return default

@@ -238,12 +238,15 @@ class Session:
     # -- victim selection: per-tier intersection with veto ------------------
 
     def _tiered_victims(self, registry, flag, invoke) -> List[TaskInfo]:
-        """session_plugins.go:187-236: within a tier, every participating
-        plugin's candidates intersect; an empty set from any of them vetoes
-        the tier, and the next tier rules."""
+        """session_plugins.go:187-236: every participating plugin's
+        candidates intersect; an empty set from any of them vetoes the
+        tier. A later tier rules only while no plugin has returned victims
+        yet: ``init`` spans the tiers, as upstream's does, so a veto after
+        one plugin's victims leaves none (the JAX package resets it each
+        tier; ROADMAP §3)."""
+        victims: List[TaskInfo] = []
+        init = False
         for tier in self.tiers:
-            victims: Optional[List[TaskInfo]] = None
-            init = False
             for opt in tier.plugins:
                 if flag is not None and not opt.is_enabled(flag):
                     continue
@@ -255,7 +258,7 @@ class Session:
                     continue
                 candidates = result
                 if not candidates:      # veto: this tier yields nothing
-                    victims = None
+                    victims = []
                     break
                 if not init:
                     victims = list(candidates)
@@ -263,7 +266,7 @@ class Session:
                 else:
                     cand_ids = {c.uid for c in candidates}
                     victims = [v for v in victims if v.uid in cand_ids]
-            if victims is not None:
+            if init:
                 return victims
         return []
 
@@ -424,6 +427,13 @@ class Session:
         """Forward a gang to a silo cluster (session.go:399-402 ->
         cache.BindPodGroup, the multi-cluster path)."""
         self.cache.bind_pod_group(job, cluster)
+
+    def update_scheduler_numa_info(self, numa_sets) -> None:
+        """session.go:435-437 — forward the numa-aware plugin's cpuset
+        assignments to the cache."""
+        update = getattr(self.cache, "update_scheduler_numa_info", None)
+        if update is not None:
+            update(numa_sets)
 
     def update_pod_group_condition(self, job: JobInfo, condition: dict) -> None:
         """Replace the same-type condition (one entry per type, like

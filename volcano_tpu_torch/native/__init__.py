@@ -30,8 +30,8 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
-from ..store import (ADDED, BOOKMARK, DELETED, UPDATED, AdmissionError,
-                     ConflictError, GoneError, _Watcher)
+from ..store import (ADDED, BOOKMARK, DELETED, JOB_NAME_ANNOTATION, UPDATED,
+                     AdmissionError, ConflictError, GoneError, _Watcher)
 
 SRC = Path(__file__).parent / "store.cpp"
 BUILD_DIR = Path(__file__).parent.parent / "ops" / "_build"
@@ -453,11 +453,15 @@ class NativeObjectStore:
         objs = [self._read(kind, k) for k in self._keys(kind)]
         return [o for o in objs if o is not None]
 
-    def list(self, kind: str, namespace: Optional[str] = None) -> List:
+    def list(self, kind: str, namespace: Optional[str] = None,
+             job: Optional[str] = None) -> List:
+        """As ``store.ObjectStore.list``."""
         objs = self._list(kind)
         if namespace is None:
             return objs
-        return [o for o in objs if o.metadata.namespace == namespace]
+        return [o for o in objs if o.metadata.namespace == namespace
+                and (job is None or o.metadata.annotations.get(
+                    JOB_NAME_ANNOTATION) == job)]
 
     def list_with_rv(self, kind: str, namespace: Optional[str] = None):
         """The objects and the resourceVersion they are consistent at: the

@@ -108,6 +108,7 @@ struct Args {
   int has_drf;
   int tier_kind[kMaxTiers];   // 0 static, 1 drf
   int tier_size[kMaxTiers];
+  int tier_lead[kMaxTiers];   // static masks before drf in conf order
   const float* fidle0; const int* vslot; const uint8_t* valid;
   const float* vreq; const int* vgroup; const int* rank;
   const uint8_t* cand_mask; const uint8_t* tier_masks;
@@ -288,7 +289,10 @@ __device__ u64 drf_keep(const View& v, int W, int n, u64 cand, float ls,
 }
 
 // The tiered dispatch on node n (session_plugins.go:187-236) given drf's
-// kept slots: the eligible victim slots.
+// kept slots: the eligible victim slots. A tier decides the node once its
+// first participant (the first participating static mask among the
+// tier_lead before drf, else drf) returned victims: upstream's init spans
+// the tiers, so a later veto leaves none.
 __device__ __forceinline__ u64 tier_elig(const View& v, const Args& a, int n,
                                          u64 cand, u64 part, u64 dset) {
   u64 elig = 0;
@@ -297,22 +301,29 @@ __device__ __forceinline__ u64 tier_elig(const View& v, const Args& a, int n,
   for (int t = 0; t < a.n_tiers; ++t) {
     const int size = a.tier_size[t];
     u64 tset = cand;
-    bool ok = true, participated = false;
+    bool ok = true, has_lead = false, lead = false;
     for (int k = 0; k < size; ++k) {
       if (!((part >> (off + k)) & 1ull)) continue;
       const u64 m = v.masks[static_cast<size_t>(off + k) * a.N + n];
-      participated = true;
+      const bool some = (cand & m) != 0;
       tset &= m;
-      ok = ok && (cand & m) != 0;
+      ok = ok && some;
+      if (!has_lead && k < a.tier_lead[t]) {
+        has_lead = true;
+        lead = some;
+      }
     }
     if (a.tier_kind[t] == 1) {
       tset &= dset;
       ok = ok && dset != 0;
-      participated = true;
+      if (!has_lead) {
+        has_lead = true;
+        lead = dset != 0;
+      }
     }
-    if (participated) {
+    if (has_lead) {
       if (ok && !decided) elig |= tset;
-      decided = decided || ok;
+      decided = decided || lead;
     }
     off += size;
   }
@@ -1022,6 +1033,7 @@ extern "C" int vt_evict_walk(const int64_t* ptrs, const int* ints,
   for (int t = 0; t < kMaxTiers; ++t) {
     a.tier_kind[t] = ints[14 + t];
     a.tier_size[t] = ints[14 + kMaxTiers + t];
+    a.tier_lead[t] = ints[14 + 2 * kMaxTiers + t];
     if (t < a.n_tiers) {
       a.has_drf = a.has_drf || a.tier_kind[t] == 1;
       masks += a.tier_size[t];

@@ -12,8 +12,13 @@ dense per-node victim layout:
   over at most W slots;
 - each task replays the tiered dispatch on every node: a tier's verdict
   stands only if EVERY participating plugin returns a non-empty candidate
-  set on that node; an empty set makes the tier abstain and the next tier
-  rules. Static plugin verdicts are host-computed ``[PJ, V]`` masks; the
+  set on that node; an empty set vetoes the tier. The next tier rules only
+  if the tier's first participating plugin returned none, as upstream's
+  ``init`` spans the tiers: a veto after some plugin's victims leaves the
+  node with none (the JAX walk lets the next tier rule; ROADMAP §3). A
+  tier kind ``drf@k`` says that drf follows only the tier's first k static
+  masks in conf order (plain ``drf``: all of them), which decides the
+  first participant. Static plugin verdicts are host-computed ``[PJ, V]`` masks; the
   drf tier is dynamic — job allocations are tracked as drf's event
   handlers would (allocate on pipeline, deallocate on evict), including
   the within-dispatch subtraction of earlier candidates of the same job
@@ -130,14 +135,23 @@ def _share(alloc: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     return ratio.max(dim=-1).values
 
 
-def _check_tiers(tier_kinds: Sequence[str], tier_sizes: Sequence[int],
-                 M: int) -> None:
+def tier_layout(tier_kinds: Sequence[str], tier_sizes: Sequence[int],
+                M: int) -> Tuple[Tuple[bool, int], ...]:
+    """(drf, lead) per tier, checked against M masks: whether drf is in
+    the tier, and how many of its static masks come before drf in conf
+    order (the tier's size without drf or with drf last), of which the
+    first participating one, else drf, leads the tier."""
     if len(tier_kinds) != len(tier_sizes) or sum(tier_sizes) != M:
         raise ValueError(f"walk: tiers {tier_kinds}/{tier_sizes} do not "
                          f"describe {M} masks")
-    for kind in tier_kinds:
-        if kind not in ("static", "drf"):
+    out = []
+    for kind, size in zip(tier_kinds, tier_sizes):
+        base, _, pos = kind.partition("@")
+        if (base not in ("static", "drf") or (pos and base != "drf")
+                or (pos and not (pos.isdigit() and int(pos) < size))):
             raise ValueError(f"walk: unknown tier kind {kind!r}")
+        out.append((base == "drf", int(pos) if pos else size))
+    return tuple(out)
 
 
 def walk_plain(inp: WalkInputs, tier_kinds: Tuple[str, ...],
@@ -156,8 +170,8 @@ def walk_plain(inp: WalkInputs, tier_kinds: Tuple[str, ...],
     AJ1 = inp.jalloc0.shape[0]
     dev = inp.fidle0.device
     f32 = torch.float32
-    _check_tiers(tier_kinds, tier_sizes, inp.tier_masks.shape[0])
-    has_drf = "drf" in tier_kinds
+    layout = tier_layout(tier_kinds, tier_sizes, inp.tier_masks.shape[0])
+    has_drf = any(drf for drf, _ in layout)
     neg_inf = torch.tensor(-float("inf"), dtype=f32, device=dev)
 
     fidle = inp.fidle0.clone()
@@ -221,23 +235,27 @@ def walk_plain(inp: WalkInputs, tier_kinds: Tuple[str, ...],
         decided = torch.zeros(N, dtype=torch.bool, device=dev)
         elig = torch.zeros((N, W), dtype=torch.bool, device=dev)
         off = 0
-        for kind, size in zip(tier_kinds, tier_sizes):
+        for size, (drf, lead_span) in zip(tier_sizes, layout):
             parts = cur_part[off:off + size]
             tset = cand
             ok = torch.ones(N, dtype=torch.bool, device=dev)
-            participated = any(parts)
+            lead = None         # the first participant returned victims
             for k, p in enumerate(parts):
                 if p:
                     m = cur_masks[off + k]
                     tset = tset & m
-                    ok = ok & (cand & m).any(dim=-1)
-            if kind == "drf":
+                    some = (cand & m).any(dim=-1)
+                    ok = ok & some
+                    if lead is None and k < lead_span:
+                        lead = some
+            if drf:
                 tset = tset & dset
                 ok = ok & dset.any(dim=-1)
-                participated = True
-            if participated:
+                if lead is None:
+                    lead = dset.any(dim=-1)
+            if lead is not None:
                 elig = elig | (tset & (ok & ~decided)[:, None])
-                decided = decided | ok
+                decided = decided | lead
             off += size
 
         evictable = (nw.vreq * elig[..., None].to(f32)).sum(dim=1)
@@ -313,7 +331,8 @@ def walk_dispatches(inp: WalkInputs, tier_kinds: Tuple[str, ...],
     nw = inp.nw
     N = nw.vreq.shape[0]
     dev = inp.fidle0.device
-    has_drf = "drf" in tier_kinds
+    has_drf = any(drf for drf, _ in tier_layout(
+        tier_kinds, tier_sizes, inp.tier_masks.shape[0]))
     opens = np.cumsum(inp.first.cpu().numpy())
     run_id = inp.run_id.cpu().numpy()
     req_bits = inp.preq.cpu().numpy().view(np.uint32)
@@ -356,7 +375,7 @@ def walk_dispatches(inp: WalkInputs, tier_kinds: Tuple[str, ...],
 # ---------------------------------------------------------------------------
 
 _PTRS = 25
-_INTS = 14 + 2 * MAX_TIERS
+_INTS = 14 + 3 * MAX_TIERS
 SMEM_MAX = 232_448          # dynamic shared memory a Hopper CTA may use
 MIN_THREADS, MAX_THREADS = 64, 512
 # csrc/evict.cu's layout: the fixed part, then five blocks, each in shared
@@ -454,7 +473,7 @@ def walk_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
     M = inp.tier_masks.shape[0]
     AJ1 = inp.jalloc0.shape[0]
     G = inp.score_g.shape[0]
-    _check_tiers(tier_kinds, tier_sizes, M)
+    layout = tier_layout(tier_kinds, tier_sizes, M)
     if not (1 <= W <= MAX_W and 1 <= R <= MAX_R and M <= MAX_MASKS
             and len(tier_kinds) <= MAX_TIERS):
         raise ValueError(f"walk_cuda: W={W} R={R} masks={M} tiers="
@@ -496,11 +515,13 @@ def walk_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
     ptrs = (ctypes.c_int64 * _PTRS)(*[t.data_ptr() for t in
                                       ins + [scratch, owner, task_node,
                                              job_done, stats]])
-    kinds = [1 if k == "drf" else 0 for k in tier_kinds]
+    kinds = [int(drf) for drf, _ in layout]
+    leads = [lead for _, lead in layout]
     ints = [N, W, R, P, PJ, V1, AJ1, G, len(tier_kinds), M,
             int(gang_commit), plan.threads, plan.blocks, plan.smem]
     ints += kinds + [0] * (MAX_TIERS - len(kinds))
     ints += list(tier_sizes) + [0] * (MAX_TIERS - len(tier_sizes))
+    ints += leads + [0] * (MAX_TIERS - len(leads))
     cints = (ctypes.c_int * _INTS)(*ints)
     with torch.cuda.device(device):
         err = _lib().vt_evict_walk(

@@ -3,10 +3,10 @@
 Mirrors pkg/scheduler/plugins/nodeorder/nodeorder.go:71-412 —
 LeastAllocated/MostAllocated/BalancedAllocation as weights of the in-kernel
 dynamic scorers, and the preference terms that are static per session
-(preferred node affinity, PreferNoSchedule taint toleration) as a static
-score matrix for the device solve; and the same terms as host scorers
-(``_score``, ``_batch_score``) for preempt. The pod-affinity score term is not in
-this package yet: a session where any task carries pod affinity is refused.
+(preferred node affinity, PreferNoSchedule taint toleration, preferred pod
+affinity normalized to [0, 100] over the nodes) as a static score matrix for
+the device solve; and the same terms as host scorers (``_score``,
+``_batch_score``) for preempt.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import numpy as np
 
 from ..cache.snapshot import node_infos_for
 from .base import Plugin
+from .podaffinity import (get_pod_affinity_index, normalize_scores,
+                          session_has_pod_affinity)
 
 MAX_NODE_SCORE = 100.0
 
@@ -103,6 +105,7 @@ class NodeOrderPlugin(Plugin):
         self.most_req_weight = args.get_int("mostrequested.weight", 0)
         self.balanced_weight = args.get_int("balancedresource.weight", 1)
         self.taint_toleration_weight = args.get_int("tainttoleration.weight", 1)
+        self._ssn = None
 
     # host-path per-(task, node) scorers: preempt's callbacks rung and its
     # f64 rank replica (actions/evict_tpu.py) read these
@@ -137,6 +140,20 @@ class NodeOrderPlugin(Plugin):
             for n in nodes:
                 out[n.name] = self.taint_toleration_weight * \
                     taint_toleration_score(task.tolerations, n)
+        # InterPodAffinity scoring (nodeorder.go:269-340): preferred terms
+        # against the live pod index, normalized over the nodes handed in
+        # (f32), then weighted in f64
+        if (self.pod_affinity_weight and self._ssn is not None
+                and session_has_pod_affinity(self._ssn)):
+            idx = get_pod_affinity_index(self._ssn)
+            row = idx.score_row(task)
+            if row is not None:
+                sub = np.asarray([row[idx.node_index[n.name]]
+                                  for n in nodes], np.float32)
+                norm = normalize_scores(sub)
+                for k, n in enumerate(nodes):
+                    out[n.name] = out.get(n.name, 0.0) + \
+                        self.pod_affinity_weight * float(norm[k])
         return out
 
     def _static_matrix(self, ssn, tasks, node_t):
@@ -152,7 +169,9 @@ class NodeOrderPlugin(Plugin):
         prefs = [(ti, t) for ti, t in enumerate(tasks)
                  if (t.affinity.get("nodeAffinity", {})
                      .get("preferredDuringSchedulingIgnoredDuringExecution"))]
-        if not tainted and not prefs:
+        pod_aff = bool(self.pod_affinity_weight
+                       and session_has_pod_affinity(ssn))
+        if not tainted and not prefs and not pod_aff:
             return None
         score = np.zeros((T, N), np.float32)
         if self.taint_toleration_weight:
@@ -173,17 +192,26 @@ class NodeOrderPlugin(Plugin):
                 for ni, node in enumerate(nodes):
                     score[ti, ni] += self.node_affinity_weight * \
                         node_affinity_preferred_score(task, node)
+        if pod_aff:
+            idx = get_pod_affinity_index(ssn)
+            cols = np.asarray([idx.node_index.get(n, -1)
+                               for n in node_t.names])
+            hole = cols < 0             # persistent-tensor hole rows
+            terms: Dict[int, np.ndarray] = {}   # a memoized row's term
+            for ti, task in enumerate(tasks):
+                row = idx.score_row_cached(task)
+                if row is None:
+                    continue
+                term = terms.get(id(row))
+                if term is None:
+                    sub = np.where(hole, 0.0, row[cols])
+                    term = terms[id(row)] = self.pod_affinity_weight * \
+                        normalize_scores(sub)
+                score[ti] += term
         return score
 
     def on_session_open(self, ssn) -> None:
-        if self.pod_affinity_weight and (
-                any(t.has_pod_affinity for job in ssn.jobs.values()
-                    for t in job.tasks.values())
-                or any(t.has_pod_affinity for node in ssn.nodes.values()
-                       for t in node.tasks.values())):
-            raise NotImplementedError(
-                "nodeorder: the pod-affinity score term is not in "
-                "volcano_tpu_torch yet, and a task carries pod affinity")
+        self._ssn = ssn
         ssn.add_node_order_fn(self.NAME, self._score)
         ssn.add_batch_node_order_fn(self.NAME, self._batch_score)
         ssn.set_dynamic_score_weights(

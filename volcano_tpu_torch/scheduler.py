@@ -1121,16 +1121,16 @@ class Scheduler:
             return None
         total = Resource()
         for task in gang:
-            # (this package's tasks carry no topology policy or revocable
-            # zone, and its nodes no GPU devices or NUMA topology, which
-            # the JAX package's gate also declines)
-            if task.node_selector or task.affinity or task.tolerations:
+            if (task.node_selector or task.affinity or task.tolerations
+                    or task.topology_policy or task.revocable_zone
+                    or task.has_pod_affinity):
                 return None             # placement constraints
             total.add(task.init_resreq)
         inflight = set(cache.binding_tasks.values())
         for node in cache.nodes.values():
             if (not node.ready or node.unschedulable
-                    or node.name in inflight):
+                    or node.name in inflight
+                    or node.gpu_devices or node.numa_info is not None):
                 continue
             if any(t.get("effect") in ("NoSchedule", "NoExecute")
                    for t in node.taints):

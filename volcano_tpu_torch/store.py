@@ -108,6 +108,47 @@ class _Watcher:
             self.handler(event, obj, old)
 
 
+JOB_NAME_ANNOTATION = "volcano.sh/job-name"
+
+
+class _PodsByJob(dict):
+    """The store's pods by key, with each job's pods (its namespace and the
+    job-name annotation, as the pod was last written) in the same
+    insertion order, so that one job's pods are listed without a scan of
+    every pod. A pod that an update moves to another job takes its place
+    in that job's group by the store's order."""
+
+    def __init__(self):
+        super().__init__()
+        self.groups: Dict[tuple, Dict[str, object]] = {}
+        self._group_of: Dict[str, tuple] = {}
+
+    def __setitem__(self, key, pod) -> None:
+        dict.__setitem__(self, key, pod)
+        group = (pod.metadata.namespace,
+                 pod.metadata.annotations.get(JOB_NAME_ANNOTATION))
+        old = self._group_of.get(key)
+        self._group_of[key] = group
+        if old is not None and old != group:
+            self._drop(old, key)
+            self.groups[group] = {k: p for k, p in self.items()
+                                  if self._group_of[k] == group}
+        else:
+            self.groups.setdefault(group, {})[key] = pod
+
+    def pop(self, key, default=None):
+        if key not in self:
+            return default
+        self._drop(self._group_of.pop(key), key)
+        return dict.pop(self, key)
+
+    def _drop(self, group: tuple, key: str) -> None:
+        members = self.groups[group]
+        del members[key]
+        if not members:
+            del self.groups[group]
+
+
 class ObjectStore:
     KINDS = ("Pod", "Job", "PodGroup", "Queue", "Command", "PriorityClass",
              "PersistentVolumeClaim", "Lease", "ResourceQuota",
@@ -116,6 +157,7 @@ class ObjectStore:
     def __init__(self, watch_backlog: int = DEFAULT_WATCH_BACKLOG):
         self._lock = threading.RLock()
         self._objects: Dict[str, Dict[str, object]] = {k: {} for k in self.KINDS}
+        self._objects["Pod"] = _PodsByJob()
         self._watchers: Dict[str, List[_Watcher]] = {k: [] for k in self.KINDS}
         self._admission_hooks: List[Callable] = []
         self._rv = 0
@@ -367,8 +409,16 @@ class ObjectStore:
         with self._lock:
             return self._objects[kind].get(f"{namespace}/{name}")
 
-    def list(self, kind: str, namespace: Optional[str] = None) -> List:
+    def list(self, kind: str, namespace: Optional[str] = None,
+             job: Optional[str] = None) -> List:
+        """The kind's objects in the store's order, those of ``namespace``
+        if given; with ``job`` (kind Pod, a namespace given), only the pods
+        whose job-name annotation is ``job``."""
         with self._lock:
+            if job is not None:
+                assert kind == "Pod" and namespace is not None
+                return list(self._objects["Pod"].groups.get(
+                    (namespace, job), {}).values())
             objs = list(self._objects[kind].values())
         if namespace is None:
             return objs

@@ -136,9 +136,9 @@ class FaultyStoreTransport:
         self._roll("get", kind, f"{namespace}/{name}")
         return self.store.get(kind, namespace, name)
 
-    def list(self, kind: str, namespace=None):
+    def list(self, kind: str, namespace=None, job=None):
         self._roll("list", kind)
-        return self.store.list(kind, namespace)
+        return self.store.list(kind, namespace, job=job)
 
     def list_with_rv(self, kind: str, namespace=None):
         self._roll("list", kind)
@@ -312,8 +312,8 @@ class RetryingStoreTransport:
     def get(self, kind: str, namespace: str, name: str):
         return self._call("get", self.store.get, kind, namespace, name)
 
-    def list(self, kind: str, namespace=None):
-        return self._call("list", self.store.list, kind, namespace)
+    def list(self, kind: str, namespace=None, job=None):
+        return self._call("list", self.store.list, kind, namespace, job=job)
 
     def list_with_rv(self, kind: str, namespace=None):
         return self._call("list", self.store.list_with_rv, kind, namespace)
