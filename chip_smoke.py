@@ -288,18 +288,30 @@
    card memory under predicate.GPUSharingEnable), affinity-preempt (the
    tight mix with every tenth running pod critical and conformance in the
    first tier), numa-1k (numa-aware on 200 two-NUMA-node nodes) and
-   proportional-1k (predicate.ProportionalEnable on gpu-small), each
-   kernel's count set to 0 just before: each digest (binds and evictions
-   in order, PodGroup phases, node-tensor path, critical pods evicted,
-   the walks' evictions of a victim the first tier refused after
-   offering it) equal to the record tests/plugin_reference_digests.json
-   holds it to (affinity-preempt: the JAX package with its tier dispatch
-   mended as upstream's, none such evicted), B1 launched once a recorded
-   solve and B3 once a recorded walk, the proportional guard refusing
-   placements, no action failure, no fallback, and no card memory
-   outliving the phase. Prints each world's
-   binds, evictions, launches, rounds, re-check rejections and allocate
-   ms split, with the card's name and power limit.
+   proportional-1k (predicate.ProportionalEnable on gpu-small); then
+   slice 18's: tdm-10k (the 10k generator's nodes, 400 of them in two
+   revocable zones, one active on the logical clock and one not;
+   preemptable gangs running on plain and inactive-zone nodes; tdm in the
+   first tier: B1 under tdm's mask, B3 under its tier mask, the drain in
+   the first cycle only), topology-10k (the 10k world's gangs as chief, ps
+   and workers with task-topology annotations: B1 in task-topology's task
+   order, replayed through Statements), sla-overcommit-10k (300 Pending
+   PodGroups asking 1.5x the cluster's idle CPU, overcommit in the second
+   tier and sla in the first, three cycles: what overcommit holds back
+   enqueues as its sla wait runs out) and reservation-1k (elect and reserve
+   around allocate, four cycles: the target and a node locked a cycle);
+   each kernel's count set to 0 just before: each digest (binds and
+   evictions in order, PodGroup phases, node-tensor path, critical pods
+   evicted, the walks' evictions of a victim the first tier refused after
+   offering it, and for slice 18's worlds a record a cycle) equal to the
+   record tests/plugin_reference_digests.json holds it to (affinity-preempt
+   and tdm-10k: the JAX package with its tier dispatch mended as
+   upstream's, none such evicted; sla-overcommit-10k: with its durations
+   read as Go's), B1 launched once a recorded solve and B3 once a recorded
+   walk, the proportional guard refusing placements, no action failure,
+   no fallback, and no card memory outliving the phase. Prints each
+   world's binds, evictions, launches, rounds, re-check rejections and
+   allocate ms split, with the card's name and power limit.
 27. Prints one JSON line with each kernel's launches, times, bound and
    error (and its launches in each sim run, system world, rpc world and
    plugin world),
@@ -3309,16 +3321,14 @@ def system_phase(sim_runs, device=None):
         expect = {k: v for k, v in want.items()
                   if k not in ("port_cpu", "action_failures")}
         diff = sorted(k for k in set(expect) | set(got)
-                      if k not in system_reference.PER_PACKAGE
-                      and expect.get(k) != got.get(k))
+                      if expect.get(k) != got.get(k))
         check(not diff, f"system {world}: {diff} differ from the JAX "
                         f"package's ({ {k: got.get(k) for k in diff} })")
         check(launches["place"] == want["port_cpu"]["solves"] == got["solves"]
-              and launches["evict_walk"] == want["port_cpu"]["walks"]
-              == got["walks"],
+              and launches["evict_walk"] == want["walks"] == got["walks"],
               f"system {world}: B1 launched {launches['place']} times, B3 "
               f"{launches['evict_walk']}; the CPU path "
-              f"{want['port_cpu']}")
+              f"{want['port_cpu']}, the record walked {want['walks']}")
         rec = {"wall_s": run["wall_s"], "cycles": len(run["cycle_ms"]),
                "cycle_ms": percentiles(run["cycle_ms"]),
                "binds": got["binds"], "evicts": got["evicts"],
@@ -3583,7 +3593,7 @@ def rpc_phase(sim_runs, device=None):
                           and want[k] != got.get(k))
             check(not diff, f"native {world}: {diff} differ from the JAX "
                             f"package's ({ {k: got.get(k) for k in diff} })")
-            walks = system_digests[world]["port_cpu"]["walks"]
+            walks = system_digests[world]["walks"]
             check(launches["place"] == got["solves"]
                   and launches["evict_walk"] == walks == got["walks"],
                   f"native {world}: B1 {launches['place']} for "
@@ -3643,10 +3653,11 @@ def rpc_phase(sim_runs, device=None):
 
 def plugins_phase(sim_runs, device=None):
     """Step 26: each world of tools/plugin_reference.py through the port's
-    Scheduler on the card, two cycles, each kernel's count set to 0 just
-    before: the digest must equal the record tests/plugin_reference_digests.json
-    holds it to (the JAX package's, mended where the world meets its tier
-    dispatch fault, ROADMAP §3; the port's CPU path equals it), B1 must
+    Scheduler on the card, two cycles (three for sla-overcommit-10k, four
+    for reservation-1k), each kernel's count set to 0 just before: the
+    digest must equal the record tests/plugin_reference_digests.json holds
+    it to (the JAX package's, mended where the world meets a fault of it
+    the port fixes, ROADMAP §3; the port's CPU path equals it), B1 must
     launch once a recorded solve and B3 once a recorded walk (the JAX
     package's walks and the CPU path's), no walk may evict a victim that a
     plugin of the first tier refused after the tier's first plugin offered
@@ -3681,8 +3692,7 @@ def plugins_phase(sim_runs, device=None):
         launches = {k: w.launches for k, w in counters.items()}
         got = run["digest"]
         diff = sorted(k for k in got
-                      if k not in plugin_reference.PER_PACKAGE
-                      and want.get(k) != got[k])
+                      if want.get(k) != got[k])
         check(not diff, f"plugins {world}: {diff} differ from the JAX "
                         f"package's ({ {k: got[k] for k in diff} } against "
                         f"{ {k: want.get(k) for k in diff} })")
@@ -3708,6 +3718,14 @@ def plugins_phase(sim_runs, device=None):
                                          "replay")},
                "podgroup_phases": got["podgroup_phases"],
                "wall_s": run["wall_s"], "card": card}
+        if "per_cycle" in got:
+            cycles = got["per_cycle"]
+            rec.update(fast_replays=got["fast_replays"],
+                       drained=[c["evicts_by_zone"] for c in cycles],
+                       pending=[c["podgroup_phases"].get("Pending", 0)
+                                for c in cycles],
+                       target=[c["target"] for c in cycles],
+                       locked=[len(c["locked"]) for c in cycles])
         out[world] = rec
         sim_runs[f"plugins {world}"] = launches
         print(f"plugins {world}:", json.dumps(rec), flush=True)
@@ -3725,6 +3743,19 @@ def plugins_phase(sim_runs, device=None):
           and out["proportional-1k"]["guard_refusals"] > 0
           and out["gpushare-10k"]["binds"] > 0,
           f"plugins: {out}")
+    # slice 18: tdm's walk and its drain in the first cycle only; the
+    # Statement replay of task-topology's order; sla letting through what
+    # overcommit held back; a target and a node locked a cycle
+    tdm, topo = out["tdm-10k"], out["topology-10k"]
+    sla, res = out["sla-overcommit-10k"], out["reservation-1k"]
+    check(tdm["B3"] > 0 and tdm["vetoed_evicted"] == 0
+          and tdm["drained"][0].get("rz-closed", 0) > 0
+          and not any(tdm["drained"][1:])
+          and topo["B1"] > 0 and topo["fast_replays"] == 0
+          and sla["pending"][0] > sla["pending"][1] > sla["pending"][2]
+          and sla["B1"] > 0
+          and res["target"] == ["vip"] * 4 and res["locked"] == [1, 2, 3, 4],
+          f"plugins: slice 18's worlds {tdm, topo, sla, res}")
     print(f"plugins phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return out

@@ -79,8 +79,6 @@ def test_scheduler_run_once():
 @pytest.mark.parametrize("conf_text, refused", [
     (SLICE_CONF.replace("engine: tpu-fused", "engine: tpu-sharded"),
      "tpu-sharded"),
-    (SLICE_CONF.replace("name: binpack", "name: tdm"), "tdm"),
-    (SLICE_CONF.replace("backfill", "reserve"), "reserve"),
     (SLICE_CONF.replace("engine: tpu-fused", "engine: callbacks-parallel"),
      "callbacks-parallel"),
 ])

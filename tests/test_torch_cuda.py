@@ -561,3 +561,24 @@ def test_dispatch_does_not_synchronize_and_equals_the_serial_solve(card):
         assert (np.asarray(got.task_node) >= 0).sum() == 10000
     finally:
         abandon_session(ssn)
+
+
+def test_tdm_world_on_the_card(card):
+    """tools/plugin_reference.py's tdm-1k (tdm-10k at a tenth) through the
+    Scheduler on the card decides as the port's CPU path: B1 once a solve
+    under tdm's feasibility mask, B3 once a walk under its tier mask, and
+    the drain of rz-closed's nodes in the first cycle only."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import plugin_reference
+    want = plugin_reference.run_world("volcano_tpu_torch", "tdm-1k",
+                                      "cpu")["digest"]
+    b1, b3 = place_cuda.launches, walk_cuda.launches
+    got = plugin_reference.run_world("volcano_tpu_torch", "tdm-1k",
+                                     card)["digest"]
+    assert got == want
+    assert place_cuda.launches - b1 == got["solves"] > 0
+    assert walk_cuda.launches - b3 == got["walks"] > 0
+    assert got["per_cycle"][0]["evicts_by_zone"]["rz-closed"] > 0

@@ -261,8 +261,6 @@ def test_scheduler_runs_the_deployed_conf(deployed_ref):
 @pytest.mark.parametrize("old, new, refused", [
     ("engine: tpu\n- name: reclaim", "engine: tpu-sharded\n- name: reclaim",
      "tpu-sharded"),
-    ("- name: binpack", "- name: overcommit", "overcommit"),
-    ("- name: binpack", "- name: task-topology", "task-topology"),
 ])
 def test_deployed_conf_refuses_what_is_not_ported(old, new, refused):
     """An engine, plugin or argument the port lacks is refused by name."""

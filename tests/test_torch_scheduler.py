@@ -29,6 +29,7 @@ from volcano_tpu_torch.scheduler import Scheduler
 from volcano_tpu_torch.sim.runner import VirtualClock
 
 from torch_parity import DEPLOYED_CONF, port_gc_windows  # noqa: F401
+from torch_parity import ONCE_REFUSED, jax_reference, once_refused_run
 
 GI = 1 << 30
 SEED = 20260803
@@ -791,16 +792,6 @@ REFUSED_CONFS = [
     (DEPLOYED_CONF.replace("- name: reclaim\n  arguments:\n    engine: tpu",
                            "- name: reclaim\n  arguments:\n"
                            "    engine: tpu-sharded"), "tpu-sharded"),
-    (SIMPLE_CONF.replace("name: nodeorder", "name: tdm"), "tdm"),
-    (SIMPLE_CONF.replace("name: nodeorder", "name: sla"), "sla"),
-    (SIMPLE_CONF.replace("name: nodeorder", "name: overcommit"),
-     "overcommit"),
-    (SIMPLE_CONF.replace("name: nodeorder", "name: task-topology"),
-     "task-topology"),
-    (SIMPLE_CONF.replace("name: nodeorder", "name: reservation"),
-     "reservation"),
-    (SIMPLE_CONF.replace("backfill", "reserve"), "reserve"),
-    (SIMPLE_CONF.replace("backfill", "elect"), "elect"),
 ]
 
 
@@ -842,6 +833,28 @@ def test_refusal_raises_at_reload_not_as_action_failure(tmp_path,
     os.utime(conf_path)
     assert sched.run_once() == []
     assert sched.run_once() == []
+
+
+@pytest.fixture(scope="module")
+def once_refused_reference(tmp_path_factory):
+    return jax_reference("once-refused", list(ONCE_REFUSED),
+                         tmp_path_factory.mktemp("jax") / "refused.pkl")
+
+
+@pytest.mark.parametrize("name", list(ONCE_REFUSED))
+def test_once_refused_name_runs_equal_to_jax(name, once_refused_reference):
+    """tdm, sla, overcommit, task-topology and reservation, and the elect
+    and reserve actions, were refused by name until slice 18. Each conf
+    that named one now builds a scheduler, and its first cycle binds,
+    evicts, moves PodGroups and elects as the JAX package's does, with no
+    action failure."""
+    conf = Scheduler(make_world(FakeBinder(), n_jobs=1),
+                     ONCE_REFUSED[name], device="cpu").conf
+    assert name in ([p.name for t in conf.tiers for p in t.plugins]
+                    + conf.actions)
+    got = once_refused_run(True, name)
+    assert got == once_refused_reference[name]
+    assert got["failures"] == [] and got["binds"]
 
 
 # confs the port once refused and now runs: (conf text, what it names)

@@ -796,6 +796,25 @@ def mend_jax_tier_scope():
     jax_evict._tier_scope_mended = True
 
 
+def mend_jax_duration():
+    """Read a Go duration's units longest first in the JAX package's
+    ``plugins/sla.py::parse_duration`` (in this process only), as Go's
+    time.ParseDuration and the port do (ROADMAP §3): its alternation tries
+    "m" before "ms", so "1500ms" reads as 1,500 minutes. sla's waiting
+    times and tdm's drain period read through it. Idempotent."""
+    import re
+
+    from volcano_tpu.plugins import sla
+    sla._DUR_RE = re.compile(r"(\d+(?:\.\d+)?)(ms|us|µs|ns|h|m|s)")
+
+
+def mend_jax():
+    """Every mend of a fault of the JAX package that the port fixes and
+    the tests hold it to: the tier scope and the duration units."""
+    mend_jax_tier_scope()
+    mend_jax_duration()
+
+
 TOPO_CONF = """
 actions: "enqueue, allocate-tpu, backfill"
 tiers:
@@ -3017,6 +3036,8 @@ def jax_reference(kind: str, names, out_path) -> dict:
     a QUOTA_CASES case; "podaffinity", "numa", "conformance":
     "CASE:ENGINE" -> podaffinity_run(), numa_run(), conformance_run();
     "plugin-world": a tools/plugin_reference.py world -> its digest;
+    "once-refused": an ONCE_REFUSED name -> once_refused_run();
+    "topology": "CASE:ENGINE" -> topology_run();
     "mixed":
     names are "kind:name", so one child process serves several kinds."""
     return jax_reference_script([os.path.abspath(__file__), kind], out_path,
@@ -3684,6 +3705,180 @@ CONFORMANCE_KEYS = [f"{c}:{e}" for c in ("critical", "intra-job", "vetoed")
                     for e in ("callbacks", "tpu")]
 
 
+# ---------------------------------------------------------------------------
+# tdm, sla, overcommit, reservation and task-topology, with the elect and
+# reserve actions (slice 18), each case built with either package's modules
+# ---------------------------------------------------------------------------
+
+ONCE_REFUSED_BASE = """
+actions: "enqueue, allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: predicates
+  - name: nodeorder
+"""
+# the seven names the port refused until slice 18, each in the conf that
+# named it in tests/test_torch_scheduler.py's refusal cases
+ONCE_REFUSED = {
+    name: ONCE_REFUSED_BASE.replace("name: nodeorder", f"name: {name}")
+    for name in ("tdm", "sla", "overcommit", "task-topology", "reservation")
+}
+ONCE_REFUSED.update({
+    name: ONCE_REFUSED_BASE.replace("backfill", name)
+    for name in ("reserve", "elect")})
+
+
+def _once_refused_world(m):
+    """Four nodes (the last in revocable zone ``rz``, which no conf names),
+    a ps/worker gang with task-topology annotations, a Pending gang with
+    minResources and an sla-waiting-time, a preemptable gang naming a
+    revocable zone, and a Pending gang too large to enqueue under
+    overcommit."""
+    api = m.api
+    cache = m.cache.SchedulerCache(binder=m.cache.FakeBinder(),
+                                   evictor=m.cache.FakeEvictor())
+    cache.add_queue(api.QueueInfo(name="default", weight=1))
+    for i in range(4):
+        alloc = api.Resource(16000, 32 * GI)
+        alloc.max_task_num = 110
+        labels = {"volcano.sh/revocable-zone": "rz"} if i == 3 else {}
+        cache.add_node(api.NodeInfo(name=f"n{i}", allocatable=alloc,
+                                    labels=labels))
+    specs = (
+        ("topo", api.PodGroupPhase.INQUEUE, 4, 3000, False,
+         {"volcano.sh/task-topology-affinity": "ps,worker",
+          "volcano.sh/task-topology-anti-affinity": "worker"}),
+        ("waits", api.PodGroupPhase.PENDING, 2, 2000, False,
+         {"sla-waiting-time": "1s"}),
+        ("revocable", api.PodGroupPhase.INQUEUE, 3, 4000, True, {}),
+        ("huge", api.PodGroupPhase.PENDING, 6, 12000, False, {}),
+    )
+    for name, phase, n, cpu, revocable, annotations in specs:
+        pg = api.PodGroup(name=name, queue="default", min_member=n,
+                          phase=phase, annotations=annotations,
+                          min_resources=api.Resource(n * cpu, n * GI))
+        job = api.JobInfo(uid=name, name=name, queue="default",
+                          min_available=n, podgroup=pg,
+                          creation_timestamp=0.0)
+        job.preemptable = revocable
+        for k in range(n):
+            job.add_task_info(api.TaskInfo(
+                uid=f"{name}-{k}", name=f"{name}-{k}", job=name,
+                task_role="ps" if k == 0 else "worker",
+                resreq=api.Resource(cpu, GI), preemptable=revocable,
+                revocable_zone="rz" if revocable else "",
+                creation_timestamp=float(k)))
+        cache.add_job(job)
+    return cache
+
+
+def once_refused_run(torch_port: bool, name: str) -> dict:
+    """One cycle of ``ONCE_REFUSED[name]`` through the package's Scheduler
+    shell on a logical clock: its outcome and the reservation's target."""
+    import importlib
+    sys.path.insert(0, os.path.join(_REPO, "tools"))
+    from system_reference import LogicalClock
+    m = plugin_modules(torch_port)
+    pkg = m.api.__name__.split(".")[0]
+    res = importlib.import_module(f"{pkg}.utils.reservation").Reservation
+    res.reset()
+    sched_mod = importlib.import_module(f"{pkg}.scheduler")
+    cache = _once_refused_world(m)
+    clock = LogicalClock()
+    cache.time_fn = cache.resync_queue.time_fn = clock.time
+    sched = sched_mod.Scheduler(cache, ONCE_REFUSED[name], **m.kw)
+    sched.clock = clock
+    failures = [n for n, _ in sched.run_once()]
+    target = res.target_job.uid if res.target_job is not None else None
+    res.reset()
+    return {"binds": dict(cache.binder.binds),
+            "evicts": sorted(cache.evictor.evicts),
+            "phases": {uid: j.podgroup.phase.value
+                       for uid, j in cache.jobs.items()},
+            "failures": failures, "target": target}
+
+
+def topology_case(m, case: str):
+    """tests/test_task_topology.py's TestScheduling worlds: ``mates`` (a
+    ps and two workers with affinity, four nodes) and ``spread`` (two ps
+    with self anti-affinity, two nodes); ``bound`` (the affinity job's ps
+    already running on n1, two workers pending, anti-affinity between the
+    workers, three nodes)."""
+    api = m.api
+    aff = "volcano.sh/task-topology-affinity"
+    anti = "volcano.sh/task-topology-anti-affinity"
+    if case == "mates":
+        annotations, specs, n_nodes = {aff: "ps,worker"}, \
+            [("ps", 1), ("worker", 2)], 4
+    elif case == "spread":
+        annotations, specs, n_nodes = {anti: "ps"}, [("ps", 2)], 2
+    else:
+        annotations, specs, n_nodes = {aff: "ps,worker", anti: "worker"}, \
+            [("ps", 1), ("worker", 2)], 3
+    min_avail = sum(n for _, n in specs)
+    pg = api.PodGroup(name="j1", queue="default", min_member=min_avail,
+                      phase=api.PodGroupPhase.INQUEUE,
+                      annotations=annotations)
+    job = api.JobInfo(uid="j1", name="j1", queue="default",
+                      min_available=min_avail, podgroup=pg)
+    i = 0
+    for role, count in specs:
+        for _ in range(count):
+            running = case == "bound" and i == 0
+            job.add_task_info(api.TaskInfo(
+                uid=f"j1-{i}", name=f"j1-{role}-{i}", job="j1",
+                task_role=role, resreq=api.Resource(100, 100),
+                status=api.TaskStatus.RUNNING if running
+                else api.TaskStatus.PENDING,
+                creation_timestamp=float(i)))
+            i += 1
+    cache = m.cache.SchedulerCache(binder=m.cache.FakeBinder(),
+                                   evictor=m.cache.FakeEvictor())
+    cache.add_queue(api.QueueInfo(name="default", weight=1))
+    nodes = [api.NodeInfo(name=f"n{i}", allocatable=api.Resource(
+        4000, 4000, max_task_num=10)) for i in range(n_nodes)]
+    if case == "bound":
+        nodes[1].add_task(job.tasks["j1-0"])
+    for n in nodes:
+        cache.add_node(n)
+    cache.add_job(job)
+    return cache
+
+
+TOPOLOGY_PLUGINS = ("gang", "predicates", "task-topology", "binpack")
+
+
+def topology_run(torch_port: bool, key: str) -> dict:
+    """``CASE:ENGINE``: one allocate of a ``topology_case`` world under
+    tests/test_task_topology.py's tier, with each pending task's node
+    scores and the allocate's task order before it."""
+    case, engine = key.split(":")
+    m = plugin_modules(torch_port)
+    fw = m.framework
+    cache = topology_case(m, case)
+    tiers = [fw.Tier(plugins=[fw.PluginOption(n) for n in TOPOLOGY_PLUGINS])]
+    ssn = fw.open_session(cache, tiers, [], **m.kw)
+    import importlib
+    alloc = importlib.import_module(m.actions.__name__ + ".allocate")
+    order = {uid: [t.uid for t in alloc._pending_tasks(ssn, job)]
+             for uid, job in ssn.jobs.items()}
+    scores = {t.uid: {n.name: ssn.node_order_fn(t, n)
+                      for n in ssn.nodes.values()}
+              for job in ssn.jobs.values() for t in job.tasks.values()
+              if int(t.status) == 1}                      # PENDING
+    m.actions.AllocateAction(engine=engine).execute(ssn)
+    fw.close_session(ssn)
+    return {"binds": dict(cache.binder.binds), "order": order,
+            "scores": scores}
+
+
+TOPOLOGY_KEYS = [f"{c}:{e}" for c in ("mates", "spread", "bound")
+                 for e in ("callbacks", "tpu-fused")]
+
+
 def plugin_world_jax(world: str) -> dict:
     """tools/plugin_reference.py's digest of one world through the JAX
     package (in this child process)."""
@@ -3740,13 +3935,18 @@ def _reference(kind, name):
         return conformance_run(False, name)
     if kind == "plugin-world":
         return plugin_world_jax(name)
+    if kind == "once-refused":
+        return once_refused_run(False, name)
+    if kind == "topology":
+        return topology_run(False, name)
     return jax_place(PLACE_WORLDS[name](), name in INTEGER_PLACE_WORLDS)
 
 
 def _main(kind, out_path, names):
-    # the port's tier dispatch is upstream's (ROADMAP §3): every JAX result
-    # the tests hold it to comes from the JAX package mended alike
-    mend_jax_tier_scope()
+    # the port's tier dispatch and duration units are upstream's (ROADMAP
+    # §3): every JAX result the tests hold it to comes from the JAX package
+    # mended alike
+    mend_jax()
     results = {}
     for name in names:
         if kind == "mixed":

@@ -1,6 +1,8 @@
 """The plugin worlds' reference decisions: pod affinity, GPU sharing,
-conformance's critical pods, NUMA placement and the proportional guard,
-each a world built from one seed in either package and scheduled through
+conformance's critical pods, NUMA placement, the proportional guard, and
+tdm, task-topology, sla with overcommit, and the reservation with its
+elect and reserve actions, each a world built from one seed in either
+package and scheduled through
 its ``Scheduler`` shell, digested the same way. ``chip_smoke.py``'s
 ``plugins`` phase runs the port's worlds on the card and holds them to
 ``tests/plugin_reference_digests.json``; the tests hold the port's CPU path
@@ -43,9 +45,24 @@ watchdog's ack deadline never reads the host's speed):
   plus 400 CPU-only pods in 20 gangs, with ``predicate.ProportionalEnable``
   for ``nvidia.com/gpu`` at 4 CPUs and 16 GiB a GPU.
 
-``affinity-1k`` and ``gpushare-1k`` are the first two at a tenth (200
-nodes, 1,000 pods in 20 gangs, 8 of them on cards), run live against the
-JAX package by the tests rather than digested.
+- ``tdm-10k`` (full width, B1 and B3): ``world_tdm``, tdm after gang in
+  the first tier with zones ``rz-open`` (13:00-14:00, active on the
+  logical clock) and ``rz-closed`` (00:00-12:00).
+- ``topology-10k`` (full width, B1): ``world_topology``, task-topology in
+  the second tier.
+- ``sla-overcommit-10k`` (full width, B1, three cycles):
+  ``world_sla_overcommit``, sla in the first tier and overcommit (1.2) in
+  the second.
+- ``reservation-1k`` (B1, four cycles): ``world_reservation``, the
+  actions ``enqueue, elect, allocate-tpu, backfill, reserve`` and the
+  reservation plugin in the first tier.
+
+``affinity-1k``, ``gpushare-1k``, ``tdm-1k``, ``topology-1k`` and
+``sla-overcommit-1k`` are the full-width worlds at a tenth (200 nodes, 1,000
+pods), and ``VARIANTS`` the tenths under another setting of their plugin:
+all run live against the JAX package by the tests rather than digested.
+``NAME@callbacks`` runs a world with every device engine swapped for the
+host's.
 
 A world's digest: the binds and evictions in order (``sequence_sha256``),
 each PodGroup's phase, each allocate solve's node-tensor path
@@ -53,7 +70,9 @@ each PodGroup's phase, each allocate solve's node-tensor path
 walks, how many critical pods were evicted and, where a walk ran, how many
 of its evictions took a victim that a plugin of the first tier refused
 after the tier's first plugin offered it (``vetoed_evicted``: conformance's
-guarantee, none under upstream's dispatch). The JAX side runs one child a
+guarantee, none under upstream's dispatch), and for slice 18's worlds a
+record a cycle (``_cycle_record``) and the fused allocate's batched
+replays. The JAX side runs one child a
 world at ``--xla_backend_optimization_level=0`` with its walk in the
 per-task formulation (as ``tools/system_reference.py`` runs it); beside
 each record the file keeps the port's CPU path's solves and walks
@@ -61,11 +80,12 @@ each record the file keeps the port's CPU path's solves and walks
 
 The JAX package's tier dispatch lets a later tier rule after a veto that
 followed a plugin's victims, where upstream's does not (ROADMAP §3), and
-affinity-preempt meets it: conformance vetoes a node whose lower-priority
-candidates are all critical, and drf's tier then evicts them. Its record is
-taken as the JAX package is, and again with that dispatch mended
-(``tests/torch_parity.py::mend_jax_tier_scope``) under ``mended``;
-``held_to`` names the one the port is held to.
+affinity-preempt and tdm-10k meet it: conformance (tdm) vetoes victims
+priority offered, and drf's tier then evicts them. Its duration parser
+reads "1500ms" as 1,500 minutes, which sla-overcommit-10k meets. Those
+records are taken as the JAX package is, and again with the package
+mended (``tests/torch_parity.py::mend_jax``) under ``mended``; ``held_to``
+names the one the port is held to.
 
     JAX_PLATFORMS=cpu python tools/plugin_reference.py --write
     python tools/plugin_reference.py --run numa-1k --device cpu   # the port
@@ -103,6 +123,19 @@ CARD_MIB = 24576
 CARD_SIZES_MIB = (6144, 8192, 12288)
 NUMA_POLICIES = ("single-numa-node", "single-numa-node", "restricted",
                  "best-effort")
+REVOCABLE_ZONE = "volcano.sh/revocable-zone"
+# tools/system_reference.py's LogicalClock starts at 1e6 s, 1970-01-12
+# 13:46:40 UTC, and moves a second a cycle: rz-open's window holds it,
+# rz-closed's does not
+CLOCK_START = 1e6
+OPEN_WINDOW = "13:00-14:00"
+CLOSED_WINDOW = "00:00-12:00"
+TDM_CPU_RANGE = (4000, 12000)
+SLA_CPU_RANGE = (6000, 13200)
+SLA_WAITING_TIME = "sla-waiting-time"
+TOPOLOGY_AFFINITY = "volcano.sh/task-topology-affinity"
+TOPOLOGY_ANTI_AFFINITY = "volcano.sh/task-topology-anti-affinity"
+TOPOLOGY_ORDER = "volcano.sh/task-topology-task-order"
 
 
 def _sha(value) -> str:
@@ -127,6 +160,17 @@ def _plugin_args(name: str, args: dict) -> str:
     entry = f"  - name: {name}\n"
     assert conf.count(entry) == 1, name
     return conf.replace(entry, entry + "    arguments:\n" + lines)
+
+
+def _add_plugin(conf: str, after: str, name: str, args: dict) -> str:
+    """``conf`` with plugin ``name`` (and ``args``) after plugin ``after``,
+    in its tier."""
+    entry = f"  - name: {after}\n"
+    assert conf.count(entry) == 1, after
+    lines = "".join(f"      {k}: {v}\n" for k, v in args.items())
+    plugin = f"  - name: {name}\n" + ("    arguments:\n" + lines
+                                       if lines else "")
+    return conf.replace(entry, entry + plugin)
 
 
 def gpushare_conf() -> str:
@@ -340,6 +384,205 @@ def world_proportional(pkg, seed=0):
                  jobs), set()
 
 
+def _set_revocable(node, zone: str) -> None:
+    """A node of a revocable zone: the label, and the zone each package
+    reads from it when a node is built."""
+    node.labels[REVOCABLE_ZONE] = zone
+    node.revocable_zone = zone
+
+
+def _place_round_robin(tasks, nodes, start: int) -> int:
+    """Each task RUNNING on the next of ``nodes`` it fits, round robin from
+    ``start`` (the generator's placement); returns where it stopped."""
+    at = start
+    for task in tasks:
+        for _ in range(len(nodes)):
+            node = nodes[at % len(nodes)]
+            at += 1
+            if task.resreq.less_equal(node.idle):
+                node.add_task(task)
+                break
+    return at
+
+
+def world_tdm(pkg, n_nodes=2000, n_tasks=10000, n_jobs=200, seed=0):
+    """Every fifth node revocable, in ``rz-open`` and ``rz-closed`` by
+    turns. Jobs by j % 8: 0 preemptable and running (on plain and on
+    rz-closed nodes by turns), 4 preemptable and pending, 1 and 5 running
+    on plain nodes, the rest pending. A preemptable job's tasks name the
+    zone rz-open; its disruption budget by j % 24: none, minAvailable 50%,
+    maxUnavailable 5."""
+    api, syn = pkg.api, pkg.synthetic
+    nodes = syn.make_cluster(n_nodes, seed=seed)
+    for i, node in enumerate(nodes):
+        if i % 5 == 0:
+            _set_revocable(node, "rz-open" if i % 10 == 0 else "rz-closed")
+    plain = [n for n in nodes if not n.revocable_zone]
+    drained = [n for i, n in enumerate(nodes)
+               if not n.revocable_zone or i % 10 == 5]
+    jobs = syn.make_jobs(n_tasks, n_jobs, ["q1", "q2", "q3"],
+                         cpu_range=TDM_CPU_RANGE, seed=seed)
+    out = []
+    at_plain = at_drained = 0
+    for j, job in enumerate(jobs):
+        kind = j % 8
+        preemptable = kind in (0, 4)
+        running = kind in (0, 1, 5)
+        status = api.TaskStatus.RUNNING if running else api.TaskStatus.PENDING
+        new = _rebuild_job(pkg, job, lambda t, p=preemptable, s=status: {
+            "preemptable": p, "revocable_zone": "rz-open" if p else "",
+            "status": s})
+        new.preemptable = preemptable
+        new.revocable_zone = "rz-open" if preemptable else ""
+        if preemptable:
+            new.budget = (None, api.DisruptionBudget(min_available="50%"),
+                          api.DisruptionBudget(max_unavailable="5"))[
+                              (j // 8) % 3]
+        if running:
+            job.podgroup.phase = api.PodGroupPhase.RUNNING
+            tasks = list(new.tasks.values())
+            if kind == 0:
+                at_drained = _place_round_robin(tasks, drained, at_drained)
+            else:
+                at_plain = _place_round_robin(tasks, plain, at_plain)
+        out.append(new)
+    return _wire(pkg, _three_queues(pkg), nodes, out), set()
+
+
+def tdm_conf(windows=(OPEN_WINDOW, CLOSED_WINDOW), period=None) -> str:
+    """``tdm`` after gang in the first tier, its two zones' windows (in
+    UTC on the session clock) and its drain period."""
+    args = {"tdm.revocable-zone.rz-open": f'"{windows[0]}"',
+            "tdm.revocable-zone.rz-closed": f'"{windows[1]}"'}
+    if period is not None:
+        args["tdm.evict.period"] = period
+    return _add_plugin(deployed_conf(), "gang", "tdm", args)
+
+
+TOPOLOGY_KINDS = (
+    {TOPOLOGY_AFFINITY: "ps,worker", TOPOLOGY_ANTI_AFFINITY: "ps",
+     TOPOLOGY_ORDER: "chief,ps,worker"},
+    {TOPOLOGY_AFFINITY: "chief,ps", TOPOLOGY_ORDER: "worker,chief"},
+    {TOPOLOGY_ANTI_AFFINITY: "worker;chief,ps"},
+    {},
+)
+
+
+def _task_role(t: int) -> str:
+    return "chief" if t == 0 else "ps" if t % 10 == 1 else "worker"
+
+
+def world_topology(pkg, n_nodes=2000, n_tasks=10000, n_jobs=200, seed=0):
+    """The 10k generator's nodes and gangs, each gang a chief, a ps in ten
+    and workers, with gang j's task-topology annotations by j % 4
+    (``TOPOLOGY_KINDS``: affinity with self anti-affinity and a task order;
+    affinity and an order; anti-affinity; none)."""
+    syn = pkg.synthetic
+    nodes = syn.make_cluster(n_nodes, seed=seed)
+    jobs = syn.make_jobs(n_tasks, n_jobs, ["q1", "q2", "q3"], seed=seed)
+    out = []
+    for j, job in enumerate(jobs):
+        job.podgroup.annotations.update(TOPOLOGY_KINDS[j % 4])
+        index = {uid: t for t, uid in enumerate(job.tasks)}
+        out.append(_rebuild_job(pkg, job, lambda task, ix=index: {
+            "task_role": _task_role(ix[task.uid])}))
+    return _wire(pkg, _three_queues(pkg), nodes, out), set()
+
+
+def topology_conf() -> str:
+    return _add_plugin(deployed_conf(), "binpack", "task-topology", {})
+
+
+def world_sla_overcommit(pkg, n_nodes=2000, n_tasks=10000, n_jobs=300,
+                         seed=0):
+    """Pending PodGroups whose minResources (the gang's requests) sum to
+    about 1.5x the cluster's idle CPU, created a second before the first
+    cycle (the logical clock's start). The gangs of queue q3 (j % 3 == 2,
+    the queue enqueue reaches last, after overcommit's room is spent) have
+    an sla-waiting-time: 1.5 s where j % 6 == 2 (waited out by cycle 2),
+    2.5 s where j % 6 == 5 (by cycle 3); the other gangs j % 9 == 1 wait an
+    hour, the rest name no waiting time."""
+    api, syn = pkg.api, pkg.synthetic
+    nodes = syn.make_cluster(n_nodes, seed=seed)
+    jobs = syn.make_jobs(n_tasks, n_jobs, ["q1", "q2", "q3"],
+                         cpu_range=SLA_CPU_RANGE, seed=seed)
+    for j, job in enumerate(jobs):
+        pg = job.podgroup
+        pg.phase = api.PodGroupPhase.PENDING
+        total = api.Resource()
+        for t in job.tasks.values():
+            total.add(t.resreq)
+        pg.min_resources = total
+        job.creation_timestamp = CLOCK_START - 1.0 + j * 1e-3
+        wait = ("1500ms" if j % 6 == 2 else "2500ms" if j % 6 == 5
+                else "1h" if j % 9 == 1 else None)
+        if wait is not None:
+            pg.annotations[SLA_WAITING_TIME] = wait
+    return _wire(pkg, _three_queues(pkg), nodes, jobs), set()
+
+
+def sla_overcommit_conf(factor="1.2", sla=True) -> str:
+    """``overcommit`` in the second tier and ``sla`` in the first: a REJECT
+    in a tier vetoes whatever another plugin of that tier permits
+    (session_plugins.go JobEnqueueable), so sla overrides overcommit only
+    from an earlier tier, where upstream's sla documentation puts it."""
+    conf = _add_plugin(deployed_conf(), "binpack", "overcommit",
+                       {"overcommit-factor": factor})
+    return _add_plugin(conf, "gang", "sla", {}) if sla else conf
+
+
+def world_reservation(pkg, seed=0):
+    """``preempt_mix_cache``'s generator at 200 nodes and 800 pods in 32
+    gangs, half running, plus two pending gangs of queue ``vip``, whose
+    capability (4,000 CPU) is below either gang's minimum, so proportion
+    keeps both Pending: ``vip`` (priority 100, 100 pods of 30 CPU: more
+    than the cluster has free) and ``vip-low`` (priority 50, 100 pods of 1
+    CPU), which entered scheduling first."""
+    api, syn = pkg.api, pkg.synthetic
+    nodes = syn.make_cluster(200, seed=seed)
+    jobs = syn.make_jobs(800, 32, ["q1", "q2"], running_fraction=0.5,
+                         nodes=nodes, seed=seed)
+    for name, prio, cpu, start in (("vip", 100, 30000, 2.0),
+                                   ("vip-low", 50, 1000, 1.0)):
+        pg = api.PodGroup(name=name, queue="vip", min_member=100,
+                          phase=api.PodGroupPhase.PENDING,
+                          min_resources=api.Resource(100 * cpu, 100 * GI))
+        job = api.JobInfo(uid=name, name=name, queue="vip",
+                          min_available=100, podgroup=pg, priority=prio,
+                          creation_timestamp=float(len(jobs)))
+        job.schedule_start_timestamp = start
+        for t in range(100):
+            job.add_task_info(api.TaskInfo(
+                uid=f"{name}-{t}", name=f"{name}-{t}", job=name,
+                resreq=api.Resource(cpu, GI), priority=prio,
+                creation_timestamp=float(t)))
+        jobs.append(job)
+    queues = [api.QueueInfo(name="q1", weight=1),
+              api.QueueInfo(name="q2", weight=1),
+              api.QueueInfo(name="vip", weight=1,
+                            capability=api.Resource(4000, 1000 * GI))]
+    return _wire(pkg, queues, nodes, jobs), set()
+
+
+def reservation_conf() -> str:
+    conf = deployed_conf().replace(
+        'actions: "enqueue, allocate-tpu, preempt, reclaim, backfill"',
+        'actions: "enqueue, elect, allocate-tpu, backfill, reserve"')
+    assert "elect" in conf
+    return _add_plugin(conf, "gang", "reservation", {})
+
+
+def with_engine(conf: str, engine: str) -> str:
+    """``conf`` with every device engine swapped for the host's when
+    ``engine`` is ``callbacks`` (allocate-tpu's tpu-fused, preempt's and
+    reclaim's tpu)."""
+    if engine == "tpu-fused":
+        return conf
+    assert engine == "callbacks", engine
+    out = conf.replace("engine: tpu-fused\n", "engine: callbacks\n")
+    return out.replace("engine: tpu\n", "engine: callbacks\n")
+
+
 # world -> (builder, conf)
 WORLDS = {
     "affinity-10k": (world_affinity, deployed_conf),
@@ -347,6 +590,10 @@ WORLDS = {
     "affinity-preempt": (world_affinity_preempt, conformance_conf),
     "numa-1k": (world_numa, numa_conf),
     "proportional-1k": (world_proportional, proportional_conf),
+    "tdm-10k": (world_tdm, tdm_conf),
+    "topology-10k": (world_topology, topology_conf),
+    "sla-overcommit-10k": (world_sla_overcommit, sla_overcommit_conf),
+    "reservation-1k": (world_reservation, reservation_conf),
 }
 # the full-width worlds at a tenth, held live to the JAX package by tests
 TENTH = {
@@ -354,11 +601,37 @@ TENTH = {
                     deployed_conf),
     "gpushare-1k": (lambda pkg: world_gpushare(pkg, 200, 1000, 20, 8),
                     gpushare_conf),
+    "tdm-1k": (lambda pkg: world_tdm(pkg, 200, 1000, 20), tdm_conf),
+    "topology-1k": (lambda pkg: world_topology(pkg, 200, 1000, 20),
+                    topology_conf),
+    "sla-overcommit-1k": (lambda pkg: world_sla_overcommit(pkg, 200, 1000,
+                                                           30),
+                          sla_overcommit_conf),
 }
-ALL_WORLDS = {**WORLDS, **TENTH}
-# worlds that meet the JAX package's tier-dispatch fault: recorded as it is
-# and mended, and held to the mended record
-MENDED = ("affinity-preempt",)
+# the tenths under another setting of their plugin, held live by tests
+VARIANTS = {
+    # both zones closed: no pod lands on a revocable node
+    "tdm-1k-closed": (TENTH["tdm-1k"][0],
+                      lambda: tdm_conf((CLOSED_WINDOW, CLOSED_WINDOW))),
+    # a drain period of one second: the drain runs every cycle
+    "tdm-1k-period": (TENTH["tdm-1k"][0], lambda: tdm_conf(period="1s")),
+    # a factor below 1.0 is clamped to 1.2, and without sla nothing
+    # overrides overcommit
+    "overcommit-1k-clamped": (TENTH["sla-overcommit-1k"][0],
+                              lambda: sla_overcommit_conf("0.5", sla=False)),
+    "overcommit-1k": (TENTH["sla-overcommit-1k"][0],
+                      lambda: sla_overcommit_conf("1.2", sla=False)),
+}
+ALL_WORLDS = {**WORLDS, **TENTH, **VARIANTS}
+# cycles a world runs where its plugin needs more than CYCLES
+WORLD_CYCLES = {"sla-overcommit": 3, "overcommit": 3, "reservation": 4}
+# worlds whose digest carries a record a cycle ("per_cycle")
+PER_CYCLE = ("tdm", "topology", "sla-overcommit", "overcommit",
+             "reservation")
+# worlds that meet a fault of the JAX package the port fixes (its tier
+# dispatch: affinity-preempt, tdm-10k; its duration units: sla-overcommit-10k):
+# recorded as it is and mended, and held to the mended record
+MENDED = ("affinity-preempt", "tdm-10k", "sla-overcommit-10k")
 
 
 # ---------------------------------------------------------------------------
@@ -410,6 +683,7 @@ class Recorder:
         import importlib
         from sim_traces import TensorPathRecorder
         self.sequence = []
+        self.evicted_from = []
         bind, evict = cache.binder.bind, cache.evictor.evict
 
         def rec_bind(task, hostname):
@@ -420,6 +694,7 @@ class Recorder:
         def rec_evict(task, reason):
             self.sequence.append(["evict", f"{task.namespace}/{task.name}",
                                   reason])
+            self.evicted_from.append(task.node_name)
             return evict(task, reason)
 
         cache.binder.bind = rec_bind
@@ -471,31 +746,95 @@ class Recorder:
             self.refused += not ok
             return ok
         self._preds.proportional_ok = counted_guard
+        # the fused allocate's batched replays (the others replay through
+        # Statements)
+        self.fast_replays = 0
+        self._alloc = pkg.allocate
+        fast = self._fast = pkg.allocate._replay_fused_fast
+
+        def counted_fast(*a, **kw):
+            self.fast_replays += 1
+            return fast(*a, **kw)
+        self._alloc._replay_fused_fast = counted_fast
 
     def close(self) -> None:
         self.paths.close()
         setattr(self._module, self._name, self._real)
         self._preds.proportional_ok = self._guard
+        self._alloc._replay_fused_fast = self._fast
+
+
+def _split_engine(world: str):
+    """``NAME@ENGINE`` -> (NAME, ENGINE); a bare name runs the conf as
+    written (tpu-fused)."""
+    name, _, engine = world.partition("@")
+    return name, engine or "tpu-fused"
+
+
+def world_conf(world: str) -> str:
+    name, engine = _split_engine(world)
+    return with_engine(ALL_WORLDS[name][1](), engine)
+
+
+def world_cycles(world: str) -> int:
+    name = _split_engine(world)[0]
+    return next((n for prefix, n in WORLD_CYCLES.items()
+                 if name.startswith(prefix)), CYCLES)
 
 
 def build_world(package_name: str, world: str):
     """(pkg, cache, critical pod keys) of one world in one package."""
     pkg = package(package_name)
-    build, _ = ALL_WORLDS[world]
+    build, _ = ALL_WORLDS[_split_engine(world)[0]]
     cache, critical = build(pkg)
     return pkg, cache, critical
 
 
+def _cycle_record(cache, recorder, reservation, seen) -> dict:
+    """What one cycle decided: its binds and evictions (those from a
+    revocable node by zone), the PodGroups by phase, and the reservation's
+    target and locked nodes. ``seen``: the recorder's sequence and
+    eviction lengths when the cycle began."""
+    new = recorder.sequence[seen[0]:]
+    zones = {n.name: n.revocable_zone for n in cache.nodes.values()}
+    drained: dict = {}
+    for node in recorder.evicted_from[seen[1]:]:
+        if zones.get(node):
+            drained[zones[node]] = drained.get(zones[node], 0) + 1
+    phases: dict = {}
+    for job in cache.jobs.values():
+        phase = job.podgroup.phase.value
+        phases[phase] = phases.get(phase, 0) + 1
+    target = reservation.target_job
+    return {"binds": sum(1 for x in new if x[0] == "bind"),
+            "evicts": sum(1 for x in new if x[0] == "evict"),
+            "evicts_by_zone": dict(sorted(drained.items())),
+            "podgroup_phases": dict(sorted(phases.items())),
+            "target": None if target is None else target.uid,
+            "locked": sorted(reservation.locked_nodes)}
+
+
 def run_world(package_name: str, world: str, device=None,
-              cycles: int = CYCLES) -> dict:
+              cycles=None, keep=None) -> dict:
     """Build and schedule one world through ``package_name``'s Scheduler
-    shell. Returns {"digest", "wall_s", "allocate", "guard_refusals"}: for
-    the port each cycle's allocate stats (order, assemble, solve and replay
-    seconds, solves, rounds, re-check rejections), and the proportional
-    guard's refusals (mask and re-check)."""
+    shell (``NAME@callbacks``: with the host engines). Returns {"digest",
+    "wall_s", "allocate", "guard_refusals"}: for the port each cycle's
+    allocate stats (order, assemble, solve and replay seconds, solves,
+    rounds, re-check rejections), and the proportional guard's refusals
+    (mask and re-check). The cache is appended to the list ``keep`` when
+    one is given."""
+    import importlib
     from system_reference import LogicalClock
     pkg, cache, critical = build_world(package_name, world)
-    conf = ALL_WORLDS[world][1]()
+    if keep is not None:
+        keep.append(cache)
+    conf = world_conf(world)
+    cycles = world_cycles(world) if cycles is None else cycles
+    per_cycle = _split_engine(world)[0].startswith(PER_CYCLE)
+    # the reservation is a module global that outlives a scheduler
+    reservation = importlib.import_module(
+        f"{package_name}.utils.reservation").Reservation
+    reservation.reset()
     port = package_name != "volcano_tpu"
     kwargs = {"device": device} if port else {}
     sched = pkg.scheduler.Scheduler(cache, conf, **kwargs)
@@ -509,10 +848,15 @@ def run_world(package_name: str, world: str, device=None,
     recorder = Recorder(pkg, cache)
     allocate = []
     failures = []
+    records = []
     t0 = time.perf_counter()
     try:
         for _ in range(cycles):
+            seen = len(recorder.sequence), len(recorder.evicted_from)
             failures += [name for name, _ in sched.run_once()]
+            if per_cycle:
+                records.append(_cycle_record(cache, recorder, reservation,
+                                             seen))
             clock.sleep(1.0)
             if port:
                 from volcano_tpu_torch.framework import get_action
@@ -522,9 +866,13 @@ def run_world(package_name: str, world: str, device=None,
                     "rounds", "rejected")})
     finally:
         recorder.close()
+        reservation.reset()
     wall = time.perf_counter() - t0
-    return {"digest": digest(cache, recorder, critical, failures),
-            "wall_s": wall, "allocate": allocate,
+    out = digest(cache, recorder, critical, failures)
+    if per_cycle:
+        out["per_cycle"] = records
+        out["fast_replays"] = recorder.fast_replays
+    return {"digest": out, "wall_s": wall, "allocate": allocate,
             "guard_refusals": recorder.refused}
 
 
@@ -552,15 +900,6 @@ def digest(cache, recorder, critical, failures) -> dict:
     }
 
 
-# the digest's fields that may differ between the packages by design: the
-# walks the preempt action ran (tools/system_reference.py's PER_PACKAGE)
-PER_PACKAGE = ("walks",)
-
-
-def comparable(d: dict) -> dict:
-    return {k: v for k, v in d.items() if k not in PER_PACKAGE}
-
-
 def _child_env() -> dict:
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
@@ -575,8 +914,8 @@ def _child_env() -> dict:
 def _child(world: str, mend: bool) -> int:
     if mend:
         sys.path.insert(0, os.path.join(REPO, "tests"))
-        from torch_parity import mend_jax_tier_scope
-        mend_jax_tier_scope()
+        from torch_parity import mend_jax
+        mend_jax()
     out = run_world("volcano_tpu", world)
     print(RECORD_MARKER + json.dumps(out["digest"], sort_keys=True),
           flush=True)
@@ -625,8 +964,8 @@ def main(argv=None) -> int:
     ap.add_argument("--jax-only", action="store_true",
                     help="with --write: leave each world's port_cpu as "
                          "the file has it")
-    ap.add_argument("--run", choices=sorted(ALL_WORLDS),
-                    help="print one world's record")
+    ap.add_argument("--run", help="print one world's record (a name of "
+                    "ALL_WORLDS, NAME@callbacks for the host engines)")
     ap.add_argument("--package", default="volcano_tpu_torch")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
@@ -656,7 +995,7 @@ def main(argv=None) -> int:
             # once a walk (chip_smoke.py holds the card's launches to these)
             port = run_world("volcano_tpu_torch", world, "cpu")["digest"]
             if any(held_to(record).get(k) != v
-                   for k, v in comparable(port).items()):
+                   for k, v in port.items()):
                 print(f"{world}: the port's CPU path differs from the JAX "
                       f"package's: {port} against {held_to(record)}",
                       file=sys.stderr)

@@ -198,7 +198,7 @@ class Recorder:
             def patched(*a, **kw):
                 self.walks += 1
                 return walk(*a, **kw)
-        setattr(pkg.evict_tpu, self._name, patched)
+        setattr(self._module, self._name, patched)
 
     def close(self) -> None:
         self.paths.close()
@@ -256,19 +256,6 @@ def system_digest(system, recorder: Recorder) -> dict:
         "solves": paths["solves"], "tensor_paths_sha256": paths["sha256"],
         "walks": recorder.walks,
     }
-
-
-# the digest's fields that differ between the packages by design: the
-# preempt walks the solve ran (the JAX package's shape gate sends small
-# walks to its host path, the port's walk wrapper runs every walk; the
-# decisions are equal). The port's CPU count is recorded beside the JAX
-# package's digest as ``port_cpu``.
-PER_PACKAGE = ("walks",)
-
-
-def comparable(digest: dict) -> dict:
-    """A world digest without its per-package fields."""
-    return {k: v for k, v in digest.items() if k not in PER_PACKAGE}
 
 
 def _phase_counts(phases) -> dict:
@@ -586,8 +573,7 @@ def _child_env() -> dict:
 
 def _child(world: str) -> int:
     out = run_world("volcano_tpu", world)
-    record = dict(comparable(out["digest"]),
-                  action_failures=out["action_failures"])
+    record = dict(out["digest"], action_failures=out["action_failures"])
     print(RECORD_MARKER + json.dumps(record, sort_keys=True), flush=True)
     return 0
 
@@ -643,11 +629,14 @@ def main(argv=None) -> int:
         records = load_digests()
     for world in worlds:
         record = jax_record(world)
-        # the port's CPU path: B1's plain version once a solve, B3's once a
-        # walk (chip_smoke.py holds the card's launches to these)
+        # the port's CPU path: B1's plain version once a solve (chip_smoke.py
+        # holds the card's launches to it, and B3's to the record's walks)
         port = run_world("volcano_tpu_torch", world, "cpu")["digest"]
-        record["port_cpu"] = {"solves": port["solves"],
-                              "walks": port["walks"]}
+        if port != {k: v for k, v in record.items()
+                    if k != "action_failures"}:
+            print(f"{world}: the port's CPU path differs from the JAX "
+                  f"package's: {port} against {record}", file=sys.stderr)
+        record["port_cpu"] = {"solves": port["solves"]}
         records[world] = record
         print(f"{world}: {records[world]}", file=sys.stderr)
     doc = {"schema": "volcano-tpu-system-reference/v1",

@@ -12,7 +12,7 @@ from .device_info import (GPU_MEMORY_RESOURCE, GPU_NUMBER_RESOURCE, GPUDevice,
 from .numa_info import (CPUInfo, NumatopoInfo, ResNumaSets, ResourceInfo,
                         TopologyHint, generate_node_res_numa_sets,
                         generate_numa_nodes, get_policy)
-from .job_info import JobInfo, PodGroup, TaskInfo
+from .job_info import DisruptionBudget, JobInfo, PodGroup, TaskInfo
 from .node_info import NodeInfo
 from .queue_info import NamespaceCollection, NamespaceInfo, QueueInfo
 from .cluster_info import ClusterInfo
@@ -23,7 +23,8 @@ __all__ = [
     "ResourceNames", "BusAction", "BusEvent", "JobPhase",
     "PodGroupConditionType", "PodGroupPhase", "QueueState",
     "TaskStatus",
-    "allocated_status", "JobInfo", "PodGroup", "TaskInfo", "NodeInfo",
+    "allocated_status", "DisruptionBudget", "JobInfo", "PodGroup",
+    "TaskInfo", "NodeInfo",
     "NamespaceCollection", "NamespaceInfo", "QueueInfo", "ClusterInfo",
     "FitError", "FitErrors",
     "GPU_MEMORY_RESOURCE", "GPU_NUMBER_RESOURCE", "GPUDevice",

@@ -142,6 +142,15 @@ class PodGroup:
         self.failed = 0
 
 
+class DisruptionBudget:
+    """JobInfo disruption budget (job_info.go:354-365): an int or a
+    percentage string each."""
+
+    def __init__(self, min_available=None, max_unavailable=None):
+        self.min_available = min_available
+        self.max_unavailable = max_unavailable
+
+
 class JobInfo:
     """A gang: the scheduler-side view of one PodGroup and its tasks."""
 
@@ -176,6 +185,11 @@ class JobInfo:
         # snapshot wire carries them (rpc/codec.py)
         self.preemptable = False
         self.revocable_zone = ""
+        # the sla plugin's per-job waiting time in seconds (ahead of the
+        # podgroup's sla-waiting-time annotation), and the disruption budget
+        # the tdm plugin bounds its evictions by
+        self.waiting_time: Optional[float] = None
+        self.budget: Optional[DisruptionBudget] = None
         self.podgroup = podgroup or PodGroup(name=self.name, namespace=namespace,
                                              queue=queue, min_member=min_available)
         # Mutation witness for the incremental snapshot (cache/cache.py):
@@ -297,6 +311,8 @@ class JobInfo:
         job.schedule_start_timestamp = self.schedule_start_timestamp
         job.preemptable = self.preemptable
         job.revocable_zone = self.revocable_zone
+        job.waiting_time = self.waiting_time
+        job.budget = self.budget
         job.task_min_available = dict(self.task_min_available)
         job.task_min_available_total = self.task_min_available_total
         for task in self.tasks.values():

@@ -17,6 +17,8 @@ from .device_info import (GPU_MEMORY_RESOURCE, GPU_NUMBER_RESOURCE,
 from .job_info import TaskInfo
 from .resource import Resource
 from ..elastic_gang.membership import TOPOLOGY_ZONE_LABEL
+
+REVOCABLE_ZONE_LABEL = "volcano.sh/revocable-zone"
 from .types import TaskStatus
 
 
@@ -56,6 +58,9 @@ class NodeInfo:
         # the volcano.sh/topology-zone label names the node's interconnect
         # locality group (cache/snapshot.py zone_code)
         self.topology_zone = self.labels.get(TOPOLOGY_ZONE_LABEL, "")
+        # the volcano.sh/revocable-zone label marks a time-division
+        # multiplexed node (the tdm plugin)
+        self.revocable_zone = self.labels.get(REVOCABLE_ZONE_LABEL, "")
         self.tasks: Dict[str, TaskInfo] = {}
         # Mutation witness for the incremental snapshot (cache/cache.py):
         # add_task/remove_task, the funnel every placement-accounting
@@ -193,6 +198,7 @@ class NodeInfo:
         n.taints = self.taints
         n.unschedulable = self.unschedulable
         n.topology_zone = self.topology_zone
+        n.revocable_zone = self.revocable_zone
         n.used_ports = dict(self.used_ports)
         n.ready = self.ready
         n.numa_info = self.numa_info.deep_copy() if self.numa_info else None

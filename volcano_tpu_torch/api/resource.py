@@ -175,6 +175,19 @@ class Resource:
                 return False
         return True
 
+    def less_in_some_dimension(self, rr: "Resource") -> bool:
+        """True if any dimension of self is below rr
+        (resource_info.go:345-370)."""
+        if self.cpu < rr.cpu or self.memory < rr.memory:
+            return True
+        for n, q in self.scalars.items():
+            if n in rr.scalars and q < rr.scalars[n]:
+                return True
+        for n, q in rr.scalars.items():
+            if n not in self.scalars and q > MIN_RESOURCE:
+                return True
+        return False
+
     def __eq__(self, rr: object) -> bool:
         """Equal in every dimension within 1e-9 (the drift verifier's
         comparison of a cached clone with the live node)."""

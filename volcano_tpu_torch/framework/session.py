@@ -104,6 +104,9 @@ class Session:
         self.node_order_fns: Dict[str, Callable] = {}
         self.batch_node_order_fns: Dict[str, Callable] = {}
         self.best_node_fns: Dict[str, Callable] = {}
+        # registered by no plugin, kept for the reference's full surface
+        self.node_map_fns: Dict[str, Callable] = {}
+        self.node_reduce_fns: Dict[str, Callable] = {}
         self.preemptable_fns: Dict[str, Callable] = {}
         self.reclaimable_fns: Dict[str, Callable] = {}
         self.victim_tasks_fns: Dict[str, Callable] = {}
@@ -114,6 +117,10 @@ class Session:
         self.job_valid_fns: Dict[str, Callable] = {}
         self.job_enqueueable_fns: Dict[str, Callable] = {}
         self.job_enqueued_fns: Dict[str, Callable] = {}
+        # the reservation plugin's election and node locking (elect and
+        # reserve actions)
+        self.target_job_fns: Dict[str, Callable] = {}
+        self.reserved_nodes_fns: Dict[str, Callable] = {}
 
         # tensor-contribution registries: fns of (session, tasks, node
         # tensors) -> numpy arrays, assembled by cache/snapshot.py
@@ -145,6 +152,8 @@ class Session:
     def add_node_order_fn(self, name, fn): self.node_order_fns[name] = fn
     def add_batch_node_order_fn(self, name, fn): self.batch_node_order_fns[name] = fn
     def add_best_node_fn(self, name, fn): self.best_node_fns[name] = fn
+    def add_node_map_fn(self, name, fn): self.node_map_fns[name] = fn
+    def add_node_reduce_fn(self, name, fn): self.node_reduce_fns[name] = fn
     def add_preemptable_fn(self, name, fn): self.preemptable_fns[name] = fn
     def add_reclaimable_fn(self, name, fn): self.reclaimable_fns[name] = fn
     def add_victim_tasks_fn(self, name, fn): self.victim_tasks_fns[name] = fn
@@ -155,6 +164,8 @@ class Session:
     def add_job_valid_fn(self, name, fn): self.job_valid_fns[name] = fn
     def add_job_enqueueable_fn(self, name, fn): self.job_enqueueable_fns[name] = fn
     def add_job_enqueued_fn(self, name, fn): self.job_enqueued_fns[name] = fn
+    def add_target_job_fn(self, name, fn): self.target_job_fns[name] = fn
+    def add_reserved_nodes_fn(self, name, fn): self.reserved_nodes_fns[name] = fn
     def add_event_handler(self, eh: EventHandler): self.event_handlers.append(eh)
 
     def add_feasibility_fn(self, name, fn): self.feasibility_fns[name] = fn
@@ -368,6 +379,20 @@ class Session:
             if vr is not None and not vr.passed:
                 return vr
         return None
+
+    def target_job(self, jobs: List[JobInfo]) -> Optional[JobInfo]:
+        """The first enabled plugin's pick of the reservation target
+        (session_plugins.go TargetJob)."""
+        for fn in self._enabled_fns(self.target_job_fns, "enabledTargetJob"):
+            return fn(jobs)
+        return None
+
+    def reserved_nodes(self) -> None:
+        """Every enabled plugin locks its nodes (session_plugins.go
+        ReservedNodes)."""
+        for fn in self._enabled_fns(self.reserved_nodes_fns,
+                                    "enabledReservedNodes"):
+            fn()
 
     # -- state mutation (session.go:224-397) --------------------------------
 
