@@ -1199,7 +1199,8 @@ def record_blocks_solves(fn):
         seen.append(((*nodes, alloc, max_tasks, *padded[:3], meta,
                       padded[3], weights),
                      {"chunk": 256, "sweeps": kw["sweeps"],
-                      "passes": kw["passes"]}))
+                      "passes": kw["passes"],
+                      "shards": 1 if mesh is None else mesh.size}))
         return real(mesh, nodes, req, valid, job_ix, jobs, weights, alloc,
                     max_tasks, **kw)
 
@@ -1322,9 +1323,10 @@ def deployed_world(name):
 
 def kernel_counters():
     """Every kernel wrapper whose launches the script counts, by name."""
-    from volcano_tpu_torch.ops.blocks import (free_cuda, prep_cuda,
-                                              round_cuda, topk_cuda)
-    from volcano_tpu_torch.ops.evict import walk_cuda
+    from volcano_tpu_torch.ops.blocks import (free_cuda, merge_cuda,
+                                              prep_cuda, round_cuda,
+                                              round_sharded_cuda, topk_cuda)
+    from volcano_tpu_torch.ops.evict import walk_cuda, walk_sharded_cuda
     from volcano_tpu_torch.ops.place import (decode_packed_cuda, place_cuda,
                                              place_topo_cuda, rowdiff_cuda)
     return {"place": place_cuda, "place_topo": place_topo_cuda,
@@ -1332,7 +1334,9 @@ def kernel_counters():
             "decode_packed": decode_packed_cuda,
             "evict_walk": walk_cuda, "blocks_prep": prep_cuda,
             "blocks_topk": topk_cuda, "blocks_round": round_cuda,
-            "blocks_free": free_cuda}
+            "blocks_free": free_cuda, "blocks_merge": merge_cuda,
+            "blocks_round_sharded": round_sharded_cuda,
+            "evict_walk_sharded": walk_sharded_cuda}
 
 
 def run_deployed(name, device, conf_text=None, keep_cache=False):
@@ -3762,6 +3766,471 @@ def plugins_phase(sim_runs, device=None):
 
 
 # ---------------------------------------------------------------------------
+# the node mesh: tpu-sharded over 8 slots of one card
+# ---------------------------------------------------------------------------
+
+SHARDED_SLOTS = 8
+# tools/sharded_reference.py's worlds on the card (callbacks-parallel-1k
+# runs in this process too: its pool forks after CUDA)
+SHARDED_WORLDS = ("sharded-10k", "sharded-tight", "sharded-20k")
+SHARDED_KERNELS = ("blocks_merge", "blocks_round_sharded",
+                   "evict_walk_sharded")
+SHARDED_BLOCK_WORLDS = ("unified-0-ms-33", "n-lt-32", "lanes-split-256",
+                        "mixed-exact", "static-classes")
+SHARDED_WALK_WORLDS = ("gang-rollback", "drf", "intra-job", "tier-veto",
+                       "random-1", "ties-across-warps")
+
+
+def sharded_tool():
+    sys.path.insert(0, os.path.join(_ROOT, "tools"))
+    import sharded_reference
+    return sharded_reference
+
+
+def sharded_cpu(world):
+    """A sharded world's port run on the CPU over 8 slots (a pool job):
+    its digest and the allocate and preempt stats."""
+    out = sharded_tool().run_world("volcano_tpu_torch", world, "cpu",
+                                   SHARDED_SLOTS)
+    return out["digest"], out["stats"]
+
+
+def sharded_kernel_parity(dev) -> list:
+    """The mesh kernels against their plain versions on the card at 2 and 8
+    shards (parity 0): the block auction's sharded solve (candidate kernel
+    a shard, merge, sharded round) on blocks worlds padded to the shard
+    count, the merge alone on lists with many equal scores, and the
+    sharded walk on walk worlds padded by victim-free rows. Returns the
+    records."""
+    import numpy as np
+    import torch
+
+    from volcano_tpu_torch.ops import blocks as B
+    from volcano_tpu_torch.ops.evict import (pad_nodes, to_device, walk,
+                                             walk_plain)
+    sys.path.insert(0, os.path.join(_ROOT, "tests"))
+    from torch_parity import (BLOCK_WORLDS, WALK_WORLDS, blocks_args,
+                              pad_blocks_nodes)
+    records = []
+    for d in (2, SHARDED_SLOTS):
+        for name in SHARDED_BLOCK_WORLDS:
+            args, kw = blocks_args(pad_blocks_nodes(BLOCK_WORLDS[name](), d),
+                                   dev)
+            m0 = B.merge_cuda.launches
+            got = B.blocks_cuda(*args, shards=d, **kw)
+            want = B.blocks_plain(*args, shards=d, **kw)
+            one = B.blocks_cuda(*args, **kw)
+            for label, g, w, o in zip(("packed", "idle", "future_idle",
+                                       "used", "ntasks"), got, want, one):
+                check(torch.equal(g, w) and torch.equal(g, o),
+                      f"sharded blocks {name}@{d}: {label} differs from "
+                      f"the plain version's or the one-shard solve's")
+            check(B.merge_cuda.launches > m0,
+                  f"sharded blocks {name}@{d}: no merge launched")
+            records.append({"kernel": "blocks_sharded", "world": name,
+                            "shards": d, "max_abs_err": 0.0})
+        rng = np.random.RandomState(d)
+        C, Nl = 256, 40
+        full = torch.tensor(rng.choice([1.0, 2.0, 2.5, -np.inf],
+                                       size=(C, d * Nl)).astype(np.float32))
+        parts = [torch.sort(full[:, s * Nl:(s + 1) * Nl], dim=1,
+                            descending=True, stable=True)
+                 for s in range(d)]
+        ps = torch.stack([v[:, :32] for v, _ in parts]).contiguous().to(dev)
+        pc = torch.stack([i[:, :32] for _, i in parts]).to(
+            torch.int32).contiguous().to(dev)
+        want_s, want_i = B.merge_plain(ps, pc, Nl, 32)
+        cand = torch.empty((C, 32), dtype=torch.int32, device=dev)
+        cs = torch.empty((C, 32), dtype=torch.float32, device=dev)
+        B.merge_cuda(pc, ps, torch.tensor([C], dtype=torch.int32,
+                                          device=dev), cand, cs, 0, C, Nl)
+        check(torch.equal(cand.long(), want_i) and torch.equal(cs, want_s),
+              f"merge@{d}: kernel differs from merge_plain")
+        records.append({"kernel": "blocks_merge", "world": "ties",
+                        "shards": d, "max_abs_err": 0.0})
+        for name in SHARDED_WALK_WORLDS:
+            inputs, kinds, sizes, gang = WALK_WORLDS[name]()
+            dd = to_device(pad_nodes(inputs, d), dev)
+            got = walk(dd, kinds, sizes, gang, shards=d)
+            want = walk_plain(dd, kinds, sizes, gang, shards=d)
+            for label in ("task_node", "owner", "job_done"):
+                check(torch.equal(getattr(got, label), getattr(want, label)),
+                      f"sharded walk {name}@{d}: {label} differs")
+            check(got.steps == want.steps,
+                  f"sharded walk {name}@{d}: evaluated tasks differ")
+            records.append({"kernel": "evict_walk_sharded", "world": name,
+                            "shards": d, "max_abs_err": 0.0})
+    return records
+
+
+def merge_timing(args, kw, dev) -> dict:
+    """The merge of the first chunk of a recorded sharded solve: its lists
+    from the candidate kernel over each shard's rows, then the merge kernel
+    (CUDA events, median of 5) against merge_plain and against one library
+    call (torch.sort, stable, and a gather over [C, D*K_loc]); the bound
+    from its bytes (the shards' lists read once, the merged list written
+    once). Returns the record and what round_timing needs."""
+    import torch
+
+    from volcano_tpu_torch.ops import blocks as B
+    from volcano_tpu_torch.ops.scores import ScoreWeights  # noqa: F401
+    (idle, fidle, used, nt, alloc, maxt, req, valid, job_ix, jobs, ms,
+     weights) = args
+    chunk, d = kw["chunk"], kw["shards"]
+    N, R = idle.shape
+    Nl = N // d
+    K, K_loc = min(B.K_CAND, N), min(B.K_CAND, Nl)
+    state = B.NodeState(idle.clone(), fidle.clone(), used.clone(),
+                        nt.clone())
+    classes, exact = B.prep_cuda(req, ms, chunk)
+    res = torch.as_tensor(weights.binpack_res, dtype=torch.float32,
+                          device=dev).contiguous()
+    scratch = B.topk_scratch(
+        2 * torch.cuda.get_device_properties(dev).multi_processor_count, dev)
+    assign = torch.full((req.shape[0],), B.NO_NODE, dtype=torch.int32,
+                        device=dev)
+    dead = torch.zeros(len(jobs.min_available), dtype=torch.bool,
+                       device=dev)
+    counters = torch.zeros(7, dtype=torch.int32, device=dev)
+    pc = torch.zeros((d, chunk, K_loc), dtype=torch.int32, device=dev)
+    ps = torch.zeros((d, chunk, K_loc), dtype=torch.float32, device=dev)
+    for s in range(d):
+        sl = slice(s * Nl, (s + 1) * Nl)
+        B.topk_cuda(B.NodeState(*(x[sl] for x in state)), alloc[sl],
+                    maxt[sl], res, weights, req, valid, job_ix, dead, assign,
+                    ms, classes, scratch, 0, chunk, pc[s], ps[s], counters,
+                    col0=s * Nl)
+    n_class = int(classes[2][0])
+    cand = torch.empty((chunk, K), dtype=torch.int32, device=dev)
+    cs = torch.empty((chunk, K), dtype=torch.float32, device=dev)
+    ms_kernel = time_cuda_ms(lambda: B.merge_cuda(pc, ps, classes[2], cand,
+                                                  cs, 0, chunk, Nl))
+    want_s, want_i = B.merge_plain(ps[:, :n_class], pc[:, :n_class], Nl, K)
+    check(torch.equal(cand[:n_class].long(), want_i)
+          and torch.equal(cs[:n_class], want_s),
+          "merge on the 20k solve's first chunk differs from merge_plain")
+    plain_ms = time_host_ms(lambda: B.merge_plain(ps[:, :n_class],
+                                                  pc[:, :n_class], Nl, K))
+    gid = pc[:, :n_class].long() + (torch.arange(d, device=dev)
+                                    * Nl)[:, None, None]
+    flat_s = ps[:, :n_class].permute(1, 0, 2).reshape(n_class, d * K_loc)
+    flat_i = gid.permute(1, 0, 2).reshape(n_class, d * K_loc)
+
+    def library():
+        pos = torch.sort(flat_s, dim=1, descending=True, stable=True)[1]
+        return flat_i.gather(1, pos[:, :K])
+
+    library_ms = time_cuda_ms(library)
+    t_bytes = (n_class * d * K_loc * 8 + n_class * K * 8) / HBM_BYTES_PER_S \
+        * 1e3
+    # a sorting network's compares and a merge's: d*K_loc*log2(d*K_loc) a
+    # class, two operations a 64-bit compare
+    ops = 2.0 * n_class * d * K_loc * max(1, (d * K_loc - 1).bit_length())
+    bound_ms, bound_by = larger(t_bytes, ops / FP32_OPS_PER_S * 1e3)
+    rec = {"shards": d, "C": chunk, "classes": n_class, "K_loc": K_loc,
+           "K": K, "ms": ms_kernel, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "max_abs_err": 0.0}
+    return rec, (state, classes, exact, cand, cs, assign, dead, res)
+
+
+def round_timing(args, kw, dev, prepared) -> dict:
+    """The sharded round kernel on the first chunk of the recorded solve
+    (one cluster launch of D CTAs; CUDA events, median of 5, on copies of
+    the node state) against round_plain over D shards on the same
+    inputs; the bound from the chunk's bytes (its requests and candidate
+    lists read once, the touched nodes' rows read and written once, the
+    task outputs written once)."""
+    import torch
+
+    from volcano_tpu_torch.ops import blocks as B
+    (idle, fidle, used, nt, alloc, maxt, req, valid, job_ix, jobs, ms,
+     weights) = args
+    state, classes, exact, cand, cs, assign, dead, res = prepared
+    chunk, d = kw["chunk"], kw["shards"]
+    N, R = idle.shape
+    counters = torch.zeros(7, dtype=torch.int32, device=dev)
+
+    def launch():
+        st = B.NodeState(*(x.clone() for x in state))
+        a = assign.clone()
+        p = torch.zeros_like(a)
+        B.round_sharded_cuda(st, maxt, req, valid, job_ix, dead, a, p,
+                             classes[0], exact, cand, cs, 0, chunk, counters,
+                             d)
+        return st, a, p
+
+    st, a, p = launch()
+    ms_kernel = time_cuda_ms(launch)
+    todo = valid[:chunk] & (assign[:chunk] == B.NO_NODE)
+    rows = classes[0][:chunk].long()
+    unit = B.sum_unit(req)
+    t0 = time.perf_counter()
+    pst, out, pipe = B.round_plain(state, maxt, req[:chunk], todo,
+                                   cs[rows], cand[rows].long(), unit,
+                                   None, d)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(a[:chunk], out) and torch.equal(p[:chunk].bool(),
+                                                      pipe)
+          and all(torch.equal(x, y) for x, y in zip(st, pst)),
+          "sharded round on the 20k solve's first chunk differs from "
+          "round_plain")
+    placed = out[out >= 0].unique().numel()
+    K = cand.shape[1]
+    n_class = int(classes[2][0])
+    t_bytes = (chunk * R * 4 + n_class * K * 8 + chunk * 4 * 4
+               + placed * (3 * R * 4 + 8) * 2) / HBM_BYTES_PER_S * 1e3
+    return {"shards": d, "C": chunk, "placed_nodes": placed,
+            "exact": bool(exact[0]), "ms": ms_kernel, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": t_bytes, "bound_by": "bytes",
+            "max_abs_err": 0.0}
+
+
+def sharded_phase(sim_runs, cpu_refs, dev) -> dict:
+    """Step 27: tpu-sharded over 8 slots of the card. The mesh kernels
+    against their plain versions at 2 and 8 shards; each world of
+    tools/sharded_reference.py (10k/2k under allocate, preempt and reclaim
+    on tpu-sharded, the tight mix under preempt on tpu-sharded, 20k/5k
+    under allocate on tpu-sharded) at 8 slots, each kernel's count set to 0
+    just before, equal to its one-slot run on the card, to its CPU run at 8
+    slots and to the JAX record (tools/sharded_reference.py);
+    callbacks-parallel on the 1k world in this process (its pool forks
+    after CUDA), equal to the serial callbacks' CPU run and to the JAX
+    record, no worker touching CUDA; the mesh-chaos sim and the sharded
+    smoke sim on the card, equal to their JAX records; then each mesh
+    kernel's time against its plain version, bound and library call, and
+    the sharded allocate and preempt ms at 8 slots against 1."""
+    global _CONTAINMENT_MARK
+    import torch
+
+    from volcano_tpu_torch.actions import evict_tpu
+    from volcano_tpu_torch.actions.callbacks_parallel import _ScanPool
+    from volcano_tpu_torch.ops import blocks as B
+    from volcano_tpu_torch.ops import evict as E
+    tool = sharded_tool()
+    records = tool.load_digests()
+    card = card_line()
+    t_phase = time.perf_counter()
+    out = {"parity": sharded_kernel_parity(dev)}
+    counters = kernel_counters()
+    ms = {}
+    solves, walks = {}, {}
+    for world in SHARDED_WORLDS:
+        runs = {}
+        for slots in (SHARDED_SLOTS, 1):
+            for wrapper in counters.values():
+                wrapper.launches = 0
+            seen_walks = []
+            real_walk = evict_tpu.walk
+
+            def recording(inputs, kinds, sizes, gang_commit, **kw):
+                seen_walks.append((inputs, kinds, sizes, gang_commit, kw))
+                return real_walk(inputs, kinds, sizes, gang_commit, **kw)
+
+            evict_tpu.walk = recording
+            try:
+                ran, seen = record_blocks_solves(
+                    lambda: tool.run_world("volcano_tpu_torch", world, dev,
+                                           slots))
+            finally:
+                evict_tpu.walk = real_walk
+            runs[slots] = (ran, {k: w.launches for k, w in counters.items()})
+            if slots == SHARDED_SLOTS:
+                if seen:
+                    solves[world] = seen[0]
+                if seen_walks:
+                    walks[world] = seen_walks[0]
+        (ran8, launches8), (ran1, launches1) = runs[SHARDED_SLOTS], runs[1]
+        got = ran8["digest"]
+        check(got == ran1["digest"],
+              f"sharded {world}: 8 slots {got} differ from 1 slot "
+              f"{ran1['digest']}")
+        cpu_digest, cpu_stats = cpu_refs[("sharded", world)]
+        check(got == cpu_digest,
+              f"sharded {world}: the card {got} differs from the CPU path "
+              f"{cpu_digest}")
+        if world in records:
+            want = {k: v for k, v in records[world].items()
+                    if k != "jax_wall_s"}
+            check(got == want, f"sharded {world}: {got} differs from the "
+                               f"JAX record {want}")
+        check(not got["action_failures"],
+              f"sharded {world}: action failures {got['action_failures']}")
+        sim_runs[f"sharded {world}"] = launches8
+        stats8, stats1 = ran8["stats"], ran1["stats"]
+        rec = {"digest": got, "jax_record": world in records,
+               "launches": {k: v for k, v in launches8.items() if v},
+               "launches_1_slot": {k: v for k, v in launches1.items() if v},
+               "wall_s": ran8["wall_s"], "wall_s_1_slot": ran1["wall_s"],
+               "card": card}
+        alloc8 = stats8.get("allocate-tpu", {})
+        if "blocks" in alloc8:
+            rec["allocate_ms"] = {
+                "8": {k: alloc8[k] * 1e3 for k in ("order", "assemble",
+                                                   "solve", "replay")},
+                "1": {k: stats1["allocate-tpu"][k] * 1e3
+                      for k in ("order", "assemble", "solve", "replay")},
+                "cpu": {k: cpu_stats["allocate-tpu"][k] * 1e3
+                        for k in ("order", "assemble", "solve", "replay")}}
+            rec["mesh_devices"] = alloc8.get("mesh_devices")
+            check(launches8["blocks_merge"] > 0
+                  and launches8["blocks_round_sharded"] > 0
+                  and launches1["blocks_merge"] == 0,
+                  f"sharded {world}: B4's mesh kernels launched "
+                  f"{launches8['blocks_merge']} / "
+                  f"{launches8['blocks_round_sharded']} times at 8 slots, "
+                  f"{launches1['blocks_merge']} at 1")
+        pre8 = stats8.get("preempt", {})
+        if pre8.get("p1_steps"):
+            rec["preempt_walk_ms"] = {
+                "8": {k: v * 1e3 for k, v in pre8.items()
+                      if k.endswith("_solve_s")},
+                "1": {k: v * 1e3 for k, v in stats1["preempt"].items()
+                      if k.endswith("_solve_s")},
+                "cpu": {k: v * 1e3 for k, v in cpu_stats["preempt"].items()
+                        if k.endswith("_solve_s")}}
+            check(launches8["evict_walk_sharded"] > 0
+                  and launches1["evict_walk_sharded"] == 0,
+                  f"sharded {world}: the sharded walk launched "
+                  f"{launches8['evict_walk_sharded']} times at 8 slots")
+        out[world] = rec
+        print(f"sharded {world}:", json.dumps(rec), flush=True)
+
+    # callbacks-parallel, forked from this process with CUDA initialised
+    check(torch.cuda.is_initialized(), "sharded: CUDA not initialised")
+    pools = []
+    real_pool = _ScanPool.__init__
+
+    def keep(self, *a, **kw):
+        real_pool(self, *a, **kw)
+        pools.append(self)
+
+    real_stop = _ScanPool.stop
+    probes = []
+
+    def stop(self):
+        probes.extend(self.cuda_attempts())
+        real_stop(self)
+
+    _ScanPool.__init__, _ScanPool.stop = keep, stop
+    try:
+        par = tool.run_world("volcano_tpu_torch", "callbacks-parallel-1k",
+                             dev)
+    finally:
+        _ScanPool.__init__, _ScanPool.stop = real_pool, real_stop
+    serial, _ = cpu_refs[("sharded", "callbacks-1k")]
+    want = {k: v for k, v in records["callbacks-parallel-1k"].items()
+            if k != "jax_wall_s"}
+    check(par["digest"] == serial == want,
+          f"callbacks-parallel-1k: {par['digest']} against the serial "
+          f"callbacks {serial} and the JAX record {want}")
+    check(pools and probes and all(a == 0 and not init
+                                   for _, a, init in probes),
+          f"callbacks-parallel: a worker touched CUDA: {probes}")
+    out["callbacks-parallel-1k"] = {
+        "binds": par["digest"]["binds"], "wall_s": par["wall_s"],
+        "workers": len(probes), "cuda_attempts": sum(a for _, a, _ in
+                                                     probes)}
+    print("sharded callbacks-parallel-1k:",
+          json.dumps(out["callbacks-parallel-1k"]), flush=True)
+
+    # the sims: mesh-chaos injects slot faults on purpose, so the
+    # containment counters may move by exactly its injected faults (no
+    # fallback, no degraded cycle), and that is the new mark
+    for name in tool.SIMS:
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        before = containment_counts()
+        t0 = time.perf_counter()
+        run = tool.run_port_sim(name, dev)
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in counters.items()}
+        want = {k: v for k, v in records[name].items() if k != "jax_wall_s"}
+        check(run["rc"] == 0 and run["record"] == want,
+              f"sharded {name}: exit {run['rc']}, {run['record']} against "
+              f"the JAX record {want}: {run['stderr'][-2000:]}")
+        after = containment_counts()
+        moved = {k: v - before.get(k, 0) for k, v in after.items()
+                 if v != before.get(k, 0)}
+        injected = (run["record"]["mesh"] or {}).get("injected", {})
+        check(moved == {f"device_faults/{k}": float(v)
+                        for k, v in injected.items() if v},
+              f"sharded {name}: containment counters moved by {moved}, "
+              f"the sim injected {injected}")
+        _CONTAINMENT_MARK = after
+        check(launches["blocks_merge"] > 0
+              and launches["blocks_round_sharded"] > 0,
+              f"sharded {name}: B4's mesh kernels never launched")
+        verdict = [ln for ln in run["stderr"].splitlines()
+                   if "equivalence OK" in ln]
+        sim_runs[f"sharded {name}"] = launches
+        out[name] = {"wall_s": wall, "verdict": verdict[-1:],
+                     "launches": {k: v for k, v in launches.items() if v}}
+        print(f"sharded {name}:", json.dumps(out[name]), flush=True)
+
+    # the mesh kernels' times on the 20k world's first sharded solve and
+    # the tight mix's first sharded walk
+    args, kw = solves["sharded-20k"]
+    merge_rec, prepared = merge_timing(args, kw, dev)
+    round_rec = round_timing(args, kw, dev, prepared)
+    del prepared
+    timing = {}
+    B.blocks_cuda(*args, timing=timing, **kw)
+    solve_ms = time_cuda_ms(lambda: B.blocks_cuda(*args, **kw), reps=3)
+    kw1 = dict(kw, shards=1)
+    solve1_ms = time_cuda_ms(lambda: B.blocks_cuda(*args, **kw1), reps=3)
+    merge_rec.update(solve_ms=solve_ms, solve_ms_1_shard=solve1_ms,
+                     solve_kernel_ms={k: v * 1e3 for k, v in timing.items()})
+    round_rec.update(solve_ms=solve_ms, solve_ms_1_shard=solve1_ms)
+    del args
+    inputs, kinds, sizes, gang, wkw = walks["sharded-tight"]
+    d = wkw["shards"]
+    got = E.walk_sharded_cuda(inputs, kinds, sizes, gang, d)
+    one = E.walk_cuda(inputs, kinds, sizes, gang)
+    for label in ("task_node", "owner", "job_done"):
+        check(torch.equal(getattr(got, label), getattr(one, label)),
+              f"sharded walk on the tight mix: {label} differs from the "
+              f"single walk's")
+    walk_ms = time_cuda_ms(
+        lambda: E.walk_sharded_cuda(inputs, kinds, sizes, gang, d), reps=3)
+    walk1_ms = time_cuda_ms(lambda: E.walk_cuda(inputs, kinds, sizes, gang),
+                            reps=3)
+    N = inputs.nw.vreq.shape[0]
+    # the bound counts what the function needs: the dispatches of the
+    # single walk's verdict cache, counted from the plain walk on these
+    # inputs (the sharded kernel has no cache, so it dispatches every node
+    # for every evaluated task: ``dispatches`` and the no-cache bound)
+    needed = E.walk_dispatches(inputs, kinds, sizes, gang)
+    check(int(needed.per_node.sum()) == one.redispatched,
+          f"sharded walk on the tight mix: the single walk dispatched "
+          f"{one.redispatched} nodes, its cache rule needs "
+          f"{int(needed.per_node.sum())}")
+    bound_ms, bound_by, no_cache_ms = walk_bound(inputs, kinds, needed)
+    cpu_walk = cpu_refs[("sharded", "sharded-tight")][1]["preempt"]
+    walk_rec = {"shards": d, "N": int(N), "P": int(inputs.preq.shape[0]),
+                "steps": got.steps, "dispatches": got.redispatched,
+                "needed_dispatches": int(needed.per_node.sum()),
+                "ms": walk_ms, "us_per_task": walk_ms * 1e3
+                / max(got.steps, 1), "single_walk_ms": walk1_ms,
+                "plain_ms": cpu_walk["p1_solve_s"] * 1e3,
+                "plain_where": "walk_plain over 8 shards on the CPU, in a "
+                               "worker (the tight mix's phase-1 solve)",
+                "library_ms": None, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_no_cache_ms": no_cache_ms,
+                "max_abs_err": 0.0}
+    out["timing"] = {"blocks_merge": merge_rec,
+                     "blocks_round_sharded": round_rec,
+                     "evict_walk_sharded": walk_rec}
+    for name, rec in out["timing"].items():
+        print(f"kernel {name}", json.dumps(dict(rec, card=card)),
+              flush=True)
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the cycle
 # ---------------------------------------------------------------------------
 
@@ -3861,8 +4330,16 @@ def start_cpu_references() -> dict:
     blocks = engine_conf("tpu-blocks")
     strict = engine_conf("tpu-strict")
     jobs = [
+        ("sharded sharded-20k", ("sharded", "sharded-20k"), sharded_cpu,
+         ("sharded-20k",)),
         ("deployed 20k-taints tpu-blocks", ("deployed", "20k-taints", blocks),
          run_deployed, ("20k-taints", "cpu", blocks)),
+        ("sharded sharded-10k", ("sharded", "sharded-10k"), sharded_cpu,
+         ("sharded-10k",)),
+        ("sharded sharded-tight", ("sharded", "sharded-tight"), sharded_cpu,
+         ("sharded-tight",)),
+        ("sharded callbacks-1k", ("sharded", "callbacks-1k"), sharded_cpu,
+         ("callbacks-1k",)),
         *((f"blocks_plain {name}", ("blocks_plain", name), blocks_plain_cpu,
            (name,)) for name in BLOCKS_PLAIN_ON_CPU),
         ("preempt", ("preempt", False), run_preempt, ("cpu", False)),
@@ -3954,7 +4431,8 @@ def main() -> int:
     round_ptxas = {fn: r for fn, r in build.ptxas_report("blocks").items()
                    if "blocks_round_kernel" in fn}
     print("ptxas blocks_round_kernel:", json.dumps(round_ptxas), flush=True)
-    check(len(round_ptxas) == 7 and all(
+    # seven R instances, each unsharded and as a cluster's CTA
+    check(len(round_ptxas) == 14 and all(
         r.get("stack") == 0 and r.get("spill_stores") == 0
         and r.get("spill_loads") == 0 for r in round_ptxas.values()),
           "blocks_round_kernel has a stack frame or spills")
@@ -4313,6 +4791,12 @@ def main() -> int:
     # proportional guard, each a world held to the JAX package's digest
     plugins_phase(sim_runs)
 
+    phase("sharded")
+    # 27. tpu-sharded over 8 slots of the card: the mesh kernels against
+    # their plain versions, the sharded worlds, callbacks-parallel, the
+    # mesh-chaos and sharded sims, the mesh kernels' times
+    sharded_out = sharded_phase(sim_runs, cpu_refs, dev)
+
     phase("summary")
     # 27. the kernels line (launches: the placement kernel's in the 10k
     # cycle, the pre-pass's in the 10k cycle with taints, the one that gives
@@ -4442,6 +4926,31 @@ def main() -> int:
             "solve_ms": solve20["ms"],
             "plain_solve_ms": solve20["plain_ms"],
         })
+    # the mesh kernels: launches in the 10k world under allocate, preempt
+    # and reclaim on tpu-sharded at 8 slots (B4's), and in the tight mix
+    # under preempt on tpu-sharded (the walk's); times on the 20k world's
+    # first sharded solve's first chunk and the tight mix's first walk
+    parity = sharded_out["parity"]
+    for name, world, source, replaces in (
+            ("blocks_merge", "sharded-10k", "blocks.cu",
+             "volcano_tpu/ops/unified.py:189"),
+            ("blocks_round_sharded", "sharded-10k", "blocks.cu",
+             "volcano_tpu/ops/unified.py:208"),
+            ("evict_walk_sharded", "sharded-tight", "evict.cu",
+             "volcano_tpu/ops/evict.py:743")):
+        rec = sharded_out["timing"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"volcano_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces,
+            "launches": sharded_out[world]["launches"].get(name, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in parity),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            **{k: v for k, v in rec.items()
+               if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "max_abs_err")}})
     for rec in kernels:
         rec["sim_launches"] = {name: launches[rec["name"]]
                                for name, launches in sim_runs.items()}

@@ -17,6 +17,7 @@ from volcano_tpu_torch.cache import cache_from_world
 from volcano_tpu_torch.cache import synthetic as torch_synthetic
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
+from torch_parity import one_torch_thread  # noqa: F401
 from torch_parity import (DEPLOYED_CONF, SLICE_CONF, assert_same,
                           jax_reference, outcome, run_torch_cycle,
                           world_from_cache)
@@ -82,10 +83,23 @@ def test_scheduler_run_once():
     (SLICE_CONF.replace("engine: tpu-fused", "engine: callbacks-parallel"),
      "callbacks-parallel"),
 ])
-def test_refuses_what_is_not_ported(conf_text, refused):
-    cache = torch_synthetic.baseline_config("tiny")[0]
-    with pytest.raises(ValueError, match=refused):
-        Scheduler(cache, conf_text, device="cpu").run_once()
+def test_refuses_what_is_not_ported(conf_text, refused, one_torch_thread):
+    """The name is the refusal this test held before slice 19; both
+    engines now run: tpu-sharded (over four CPU slots) binds what
+    tpu-blocks binds, callbacks-parallel what callbacks binds."""
+    from volcano_tpu_torch.ops import unified
+    established = {"tpu-sharded": "tpu-blocks",
+                   "callbacks-parallel": "callbacks"}[refused]
+    binds = []
+    unified.set_devices(4, "cpu")
+    try:
+        for text in (conf_text, conf_text.replace(refused, established)):
+            cache, binder, _ = torch_synthetic.baseline_config("1k", seed=3)
+            assert Scheduler(cache, text, device="cpu").run_once() == []
+            binds.append(dict(binder.binds))
+    finally:
+        unified.set_devices(None)
+    assert binds[0] == binds[1] and len(binds[0]) == 1000
 
 
 @pytest.mark.parametrize("engine", ["tpu-fused", "tpu-scan", "tpu-pallas"])

@@ -139,8 +139,11 @@ def test_sum_unit_and_the_exact_shortcut():
 
 
 def test_blocks_dispatch_and_refusals():
-    """CPU tensors take the plain version; blocks_cuda refuses them, and the
-    node-sharded form (a mesh) is refused by name."""
+    """CPU tensors take the plain version; blocks_cuda refuses them. The
+    node-sharded form runs over a mesh whose size divides the node axis
+    (and gives the unsharded bits); a mesh that does not divide it, and a
+    mesh over more than one device, are refused by name."""
+    from volcano_tpu_torch.ops import unified as U
     args, kw = blocks_args(BLOCK_WORLDS["n-lt-32"](), "cpu")
     stats = {}
     got = B.blocks(*args, stats=stats, **kw)
@@ -150,8 +153,23 @@ def test_blocks_dispatch_and_refusals():
     assert stats["sweeps"] >= 1 and stats["chunks"] >= 1
     with pytest.raises(ValueError, match="not a CUDA device"):
         B.blocks_cuda(*args, **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        B.place_blocks_unified(object(), *([None] * 8))
+    for g, w in zip(B.blocks(*args, shards=2, **kw), want):
+        assert torch.equal(g, w)
+    cpu = torch.device("cpu")
+    world = BLOCK_WORLDS["n-lt-32"]()
+    t = {k: torch.tensor(v) for k, v in world.items()
+         if isinstance(v, np.ndarray)}
+    with pytest.raises(ValueError, match="not divisible by mesh size 3"):
+        B.place_blocks_unified(
+            U.make_mesh([U.Slot(i, cpu) for i in range(3)]),
+            B.NodeState(t["idle"], t["future_idle"], t["used"],
+                        t["ntasks"]), t["req"], t["valid"], t["job_ix"],
+            None, None, t["allocatable"], t["max_tasks"])
+    with pytest.raises(ValueError, match="more than one device"):
+        U.make_mesh([U.Slot(0, torch.device("cuda", 0)),
+                     U.Slot(1, torch.device("cuda", 1))])
+    with pytest.raises(NotImplementedError, match="B5"):
+        U.place_scan_unified(None)
 
 
 # ---------------------------------------------------------------------------

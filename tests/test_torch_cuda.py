@@ -31,17 +31,20 @@ from volcano_tpu_torch.ops.place import (CLUSTER_SIZES, NEG, launch_plan,
                                          place_topo_plain, rowdiff_cuda,
                                          rowdiff_plain, task_flags)
 from volcano_tpu_torch.ops.evict import (launch_plan as walk_plan,
-                                         to_device, walk, walk_cuda,
-                                         walk_dispatches, walk_plain)
+                                         pad_nodes, to_device, walk,
+                                         walk_cuda, walk_dispatches,
+                                         walk_plain, walk_sharded_cuda)
 from volcano_tpu_torch.ops.blocks import (blocks, blocks_cuda, blocks_plain,
-                                          free_cuda, round_cuda, topk_cuda)
+                                          free_cuda, merge_cuda, merge_plain,
+                                          round_cuda, round_sharded_cuda,
+                                          topk_cuda)
 from volcano_tpu_torch.ops.scores import default_weights
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
 from torch_parity import (BLOCK_WORLDS, CARD_BLOCK_WORLDS, CARD_WALK_WORLDS,
                           HOLE_WORLDS, PLACE_WORLDS, PORT_WALK_WORLDS,
                           TOPO_CASES, TOPO_WORLDS, WALK_WORLDS, blocks_args,
-                          hole_world_run,
+                          hole_world_run, pad_blocks_nodes,
                           topo_args)
 
 pytestmark = pytest.mark.cuda
@@ -582,3 +585,120 @@ def test_tdm_world_on_the_card(card):
     assert place_cuda.launches - b1 == got["solves"] > 0
     assert walk_cuda.launches - b3 == got["walks"] > 0
     assert got["per_cycle"][0]["evicts_by_zone"]["rz-closed"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the node mesh: B4's merge and sharded round, the sharded walk
+# ---------------------------------------------------------------------------
+
+# blocks worlds for the sharded solve: both budget tiers, a masked static
+# matrix, fewer nodes than K, one contended node, padding, the in-order sum
+# mode in waves and split, row classes, pod caps, and both modes in one
+# solve
+SHARDED_BLOCK_WORLDS = ["unified-0-ms-33", "unified-1-plain-54", "n-lt-32",
+                        "one-node-40", "t300-padding", "lanes-wave-256",
+                        "lanes-split-256", "static-classes",
+                        "max-tasks-exact", "mixed-exact"]
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+@pytest.mark.parametrize("world", SHARDED_BLOCK_WORLDS)
+def test_blocks_sharded_kernels_match_plain(world, shards, card):
+    """Over a mesh of 2 and 8 shards (the node axis padded to a multiple):
+    the candidate kernel a shard, the merge kernel and the round kernel as
+    a cluster give blocks_plain's sharded form to the bit, which is its
+    unsharded form."""
+    args, kw = blocks_args(pad_blocks_nodes(BLOCK_WORLDS[world](), shards),
+                           card)
+    m0, r0 = merge_cuda.launches, round_sharded_cuda.launches
+    got = blocks_cuda(*args, shards=shards, **kw)
+    _assert_blocks_same(got, blocks_plain(*args, shards=shards, **kw),
+                        f"{world}@{shards}")
+    _assert_blocks_same(got, blocks_cuda(*args, **kw), f"{world}@1")
+    assert merge_cuda.launches > m0 and round_sharded_cuda.launches > r0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+def test_blocks_merge_kernel_matches_plain(shards, card):
+    """Shard lists with many equal scores and -inf entries merge into the
+    unsharded top K (a stable sort of the whole row)."""
+    rng = np.random.RandomState(shards)
+    C, Nl = 256, 40
+    N = shards * Nl
+    score = rng.choice([1.0, 2.0, 2.5, -np.inf], size=(C, N)).astype(
+        np.float32)
+    full = torch.tensor(score)
+    vals, idx = torch.sort(full, dim=1, descending=True, stable=True)
+    parts = [torch.sort(full[:, s * Nl:(s + 1) * Nl], dim=1,
+                        descending=True, stable=True) for s in range(shards)]
+    K_loc = min(32, Nl)
+    ps = torch.stack([v[:, :K_loc] for v, _ in parts]).contiguous()
+    pc = torch.stack([i[:, :K_loc] for _, i in parts]).to(
+        torch.int32).contiguous()
+    K = min(32, N)
+    want_s, want_i = merge_plain(ps, pc, Nl, K)
+    assert torch.equal(want_i, idx[:, :K]) and torch.equal(want_s,
+                                                           vals[:, :K])
+    cand = torch.empty((C, K), dtype=torch.int32, device=card)
+    cand_score = torch.empty((C, K), dtype=torch.float32, device=card)
+    merge_cuda(pc.to(card), ps.to(card),
+               torch.tensor([C], dtype=torch.int32, device=card), cand,
+               cand_score, 0, C, Nl)
+    assert torch.equal(cand.cpu().long(), want_i)
+    assert torch.equal(cand_score.cpu(), want_s)
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+@pytest.mark.parametrize("world", [*WALK_WORLDS, *PORT_WALK_WORLDS,
+                                   "n2500"])
+def test_walk_sharded_kernel_matches_plain(world, shards, card):
+    """The walk as a cluster of 2 and 8 CTAs (node axis padded by
+    victim-free rows) gives walk_plain's sharded form, which is the
+    unsharded walk: task nodes, owners, quota verdicts, evaluated tasks."""
+    worlds = {**WALK_WORLDS, **PORT_WALK_WORLDS, **CARD_WALK_WORLDS}
+    inputs, kinds, sizes, gang = worlds[world]()
+    d = to_device(pad_nodes(inputs, shards), card)
+    before = walk_sharded_cuda.launches
+    got = walk(d, kinds, sizes, gang, shards=shards)
+    assert walk_sharded_cuda.launches == before + 1
+    _assert_walk_same(got, walk_plain(d, kinds, sizes, gang, shards=shards),
+                      f"{world}@{shards}")
+    _assert_walk_same(got, walk_cuda(d, kinds, sizes, gang), f"{world}@1")
+    torch.cuda.synchronize()
+
+
+def test_callbacks_parallel_forks_after_cuda(card):
+    """callbacks-parallel's pool forks from a process whose CUDA context
+    is live (a tensor on the card, a session on the card): the cycle binds
+    what the serial callbacks engine binds, and every worker reports no
+    CUDA initialisation attempted."""
+    from volcano_tpu_torch import Scheduler
+    from volcano_tpu_torch.actions.callbacks_parallel import _ScanPool
+    from volcano_tpu_torch.cache.synthetic import baseline_config
+    from volcano_tpu_torch.framework import DEFAULT_SCHEDULER_CONF
+    held = torch.ones(1024, device=card)        # a live context
+    assert torch.cuda.is_initialized()
+    conf = DEFAULT_SCHEDULER_CONF + ("configurations:\n- name: allocate\n"
+                                     "  arguments:\n    engine: {}\n")
+    probes = []
+    real_stop = _ScanPool.stop
+
+    def stop(self):
+        probes.extend(self.cuda_attempts())
+        real_stop(self)
+
+    binds = {}
+    _ScanPool.stop = stop
+    try:
+        for engine in ("callbacks-parallel", "callbacks"):
+            cache, binder, _ = baseline_config("1k", seed=3)
+            assert Scheduler(cache, conf.format(engine), device=card
+                             ).run_once() == []
+            binds[engine] = dict(binder.binds)
+    finally:
+        _ScanPool.stop = real_stop
+    assert binds["callbacks-parallel"] == binds["callbacks"]
+    assert len(binds["callbacks"]) == 1000
+    assert probes and all(a == 0 for _, a, _ in probes)
+    del held

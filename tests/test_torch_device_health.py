@@ -62,10 +62,12 @@ def rig():
 # each script is a list of (operation, arguments); "advance" moves the
 # clock, "window" moves it one second past the window; every other
 # operation is a DeviceHealth method whose return value is recorded, of
-# "detail" the fleet window's keys (the JAX package's detail adds its
-# per-device lattice, which comes with item 10b)
+# "detail" the fleet window's keys (detail adds the per-slot lattice's,
+# LATTICE_KEYS, held by tests/test_torch_mesh_health.py)
 FLEET_KEYS = ("available", "consecutive_faults", "total_faults",
               "last_kind", "cooldown_remaining_s")
+LATTICE_KEYS = ("devices", "devices_known", "devices_healthy",
+                "devices_quarantined")
 HEALTH_SCRIPTS = {
     # tests/test_journal_recovery.py::test_repeated_faults_double_the_window
     "repeated-faults-double": [
@@ -117,7 +119,11 @@ def test_health_state_machine_equals_jax(name):
 
 
 def test_detail_is_the_fleet_window():
-    assert tuple(pt_dh.DeviceHealth().detail()) == FLEET_KEYS
+    """The fleet window's keys, then the per-slot lattice's (slice 19), in
+    the JAX package's order."""
+    from volcano_tpu.device_health import DeviceHealth as JaxHealth
+    assert tuple(pt_dh.DeviceHealth().detail()) \
+        == FLEET_KEYS + LATTICE_KEYS == tuple(JaxHealth().detail())
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from volcano_tpu_torch.ops.place import (F_KEEP, F_PIPE, F_PLACE, F_READY,
 from torch_parity import (PIPELINED_CONF as CONF,  # noqa: F401
                           PIPELINED_WORLDS, jax_reference, pipelined_drive,
                           port_gc_windows)
+from torch_parity import one_torch_thread  # noqa: F401
 
 GI = 1 << 30
 CPU = torch.device("cpu")
@@ -574,17 +575,24 @@ def test_place_dispatch_on_cpu_runs_the_plain_versions():
         close_session(ssn)
 
 
-def test_dispatch_declines_what_it_does_not_serve():
+def test_dispatch_declines_what_it_does_not_serve(one_torch_thread):
+    """The block auctions are not dispatched ahead: tpu-blocks', and
+    tpu-sharded's over a mesh of four slots (each reads a flag a pass on
+    the host, so a dispatch would run the whole solve); stateful
+    predicates decline every engine."""
+    from volcano_tpu_torch.ops import unified
     cache = baseline_config("tiny")[0]
     sched = scheduler(cache)
     ssn = open_session(cache, sched.conf.tiers, sched.conf.configurations,
                        device="cpu", speculative=True)
+    unified.set_devices(4, "cpu")
     try:
         assert alloc.dispatch_speculative_solve(ssn, "tpu-blocks") is None
         assert alloc.dispatch_speculative_solve(ssn, "tpu-sharded") is None
         ssn.stateful_predicates.add("x")
         assert alloc.dispatch_speculative_solve(ssn, "tpu-fused") is None
     finally:
+        unified.set_devices(None)
         abandon_session(ssn)
 
 
@@ -640,7 +648,28 @@ def test_scan_and_pallas_engines_speculate(engine):
         == engine
 
 
-def test_sharded_engine_stays_refused():
-    with pytest.raises(ValueError, match="tpu-sharded"):
-        Scheduler(build_cache(n_jobs=1),
-                  ENGINE_CONF.format(engine="tpu-sharded"), device="cpu")
+def test_sharded_engine_stays_refused(one_torch_thread):
+    """The name is this test's before slice 19, when tpu-sharded was
+    refused; the pipelined shell now runs it (over four CPU slots),
+    solving each cycle serially since nothing is dispatched ahead: the
+    binds equal the serial shell's tpu-sharded cycles, which equal
+    tpu-blocks'."""
+    from volcano_tpu_torch.ops import unified
+    unified.set_devices(4, "cpu")
+    try:
+        binds = {}
+        for engine, pipelined in (("tpu-sharded", True),
+                                  ("tpu-sharded", False),
+                                  ("tpu-blocks", False)):
+            cache = build_cache()
+            sched = Scheduler(cache, ENGINE_CONF.format(engine=engine),
+                              device="cpu", pipelined=pipelined)
+            for _ in range(3):
+                assert sched.run_once() == []
+                assert sched._spec is None
+            binds[(engine, pipelined)] = dict(cache.binder.binds)
+    finally:
+        unified.set_devices(None)
+    assert binds[("tpu-sharded", True)] == binds[("tpu-sharded", False)] \
+        == binds[("tpu-blocks", False)]
+    assert binds[("tpu-blocks", False)]

@@ -17,6 +17,7 @@ from volcano_tpu_torch.ops import evict as torch_evict
 from volcano_tpu_torch.ops.evict import to_device, walk, walk_plain
 
 from torch_parity import port_gc_windows  # noqa: F401 (autouse)
+from torch_parity import one_torch_thread  # noqa: F401
 from torch_parity import (CONFORMANCE_KEYS, DEPLOYED_CONF, DEPLOYED_WORLDS,
                           EVICT_WORLDS, WALK_WORLDS, conformance_run,
                           evict_outcome, jax_reference, outcome,
@@ -262,13 +263,26 @@ def test_scheduler_runs_the_deployed_conf(deployed_ref):
     ("engine: tpu\n- name: reclaim", "engine: tpu-sharded\n- name: reclaim",
      "tpu-sharded"),
 ])
-def test_deployed_conf_refuses_what_is_not_ported(old, new, refused):
-    """An engine, plugin or argument the port lacks is refused by name."""
-    from volcano_tpu_torch.cache.synthetic import baseline_config
+def test_deployed_conf_refuses_what_is_not_ported(old, new, refused,
+                                                 one_torch_thread):
+    """The name is the refusal this test held before slice 19: preempt's
+    tpu-sharded now runs the sharded walk (over four CPU slots) and evicts
+    and binds what the single walk does, on a preempt mix."""
+    from volcano_tpu_torch.cache.synthetic import preempt_mix_cache
+    from volcano_tpu_torch.ops import unified
     conf = DEPLOYED_CONF.replace(old, new)
     assert conf != DEPLOYED_CONF
-    with pytest.raises(ValueError, match=refused):
-        Scheduler(baseline_config("tiny")[0], conf, device="cpu").run_once()
+    runs = []
+    unified.set_devices(4, "cpu")
+    try:
+        for text in (conf, DEPLOYED_CONF):
+            cache, binder, evictor = preempt_mix_cache(
+                n_nodes=30, n_tasks=600, n_jobs=30, seed=4)
+            assert Scheduler(cache, text, device="cpu").run_once() == []
+            runs.append((dict(binder.binds), list(evictor.evicts)))
+    finally:
+        unified.set_devices(None)
+    assert runs[0] == runs[1] and runs[0][1]
 
 
 @pytest.mark.parametrize("name", ["preempt-small", "preempt", "mix-3",

@@ -37,6 +37,7 @@ from volcano_tpu_torch.rpc import (SchedulerService, SnapshotClient,
                                    decode_snapshot, encode_snapshot, serve)
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 GI = 1 << 30
@@ -353,15 +354,24 @@ def test_service_default_device_needs_cuda():
         serve()
 
 
-def test_conf_refused_by_name():
+def test_conf_refused_by_name(one_torch_thread):
+    """tpu-sharded, refused by name before slice 19, is taken by the
+    service and by a reload; an engine neither package has is still
+    refused by name."""
+    sharded = tp.DEPLOYED_CONF.replace("engine: tpu-fused",
+                                       "engine: tpu-sharded")
+    assert sharded != tp.DEPLOYED_CONF
+    svc = SchedulerService(sharded, device="cpu")
+    assert "tpu-sharded" in [c.arguments.get("engine")
+                             for c in svc.conf.configurations]
     bad = tp.DEPLOYED_CONF.replace("engine: tpu-fused",
-                                   "engine: tpu-sharded")
-    assert bad != tp.DEPLOYED_CONF
-    with pytest.raises(ValueError, match="tpu-sharded"):
+                                   "engine: tpu-nonexistent")
+    with pytest.raises(ValueError, match="tpu-nonexistent"):
         SchedulerService(bad, device="cpu")
     svc = SchedulerService(device="cpu")
-    with pytest.raises(ValueError, match="tpu-sharded"):
+    with pytest.raises(ValueError, match="tpu-nonexistent"):
         svc.reload_conf(bad)
+    svc.reload_conf(sharded)
     svc.reload_conf(tp.DEPLOYED_CONF)
     assert "preempt" in svc.conf.actions
 

@@ -30,6 +30,8 @@ from volcano_tpu_torch.sim.runner import VirtualClock
 
 from torch_parity import DEPLOYED_CONF, port_gc_windows  # noqa: F401
 from torch_parity import ONCE_REFUSED, jax_reference, once_refused_run
+from torch_parity import ONCE_REFUSED_ENGINES, once_refused_engine_run
+from torch_parity import one_torch_thread  # noqa: F401
 
 GI = 1 << 30
 SEED = 20260803
@@ -780,7 +782,12 @@ tiers:
   - name: nodeorder
 """
 
-# the refused names of ROADMAP §0: (conf text, what the refusal names)
+# the engines once refused by name (ROADMAP §0), which run since slice 19:
+# (conf text, the engine). ``_established`` gives each conf with the engine
+# whose decisions it must equal (tpu-sharded's are tpu-blocks' at every
+# mesh size, preempt's the single walk's, reclaim's the callbacks
+# rotation's; callbacks-parallel's are callbacks'); tests/test_torch_sharded
+# .py and test_torch_callbacks_parallel.py hold those to the JAX package
 REFUSED_CONFS = [
     (SIMPLE_CONF + "configurations:\n- name: allocate\n  arguments:\n"
      f"    engine: {engine}\n", engine)
@@ -795,39 +802,67 @@ REFUSED_CONFS = [
 ]
 
 
+def _established(conf_text: str) -> str:
+    return (conf_text
+            .replace("engine: tpu-sharded\n- name: preempt",
+                     "engine: tpu-blocks\n- name: preempt")
+            .replace("engine: tpu-sharded\n- name: reclaim",
+                     "engine: tpu\n- name: reclaim")
+            .replace("    engine: tpu-sharded\n    ", "    engine: tpu\n    ")
+            .replace("reclaim\n  arguments:\n    engine: tpu-sharded",
+                     "reclaim\n  arguments:\n    engine: callbacks")
+            .replace("engine: tpu-sharded", "engine: tpu-blocks")
+            .replace("engine: callbacks-parallel", "engine: callbacks"))
+
+
+@pytest.fixture
+def four_slots(one_torch_thread):
+    from volcano_tpu_torch.ops import unified
+    unified.set_devices(4, "cpu")
+    yield
+    unified.set_devices(None)
+
+
 @pytest.mark.parametrize("conf_text, refused", REFUSED_CONFS,
                          ids=[f"{r}-{i}" for i, (_, r)
                               in enumerate(REFUSED_CONFS)])
-def test_refusal_raises_at_construction(conf_text, refused):
-    cache = make_world(FakeBinder(), n_jobs=1)
-    with pytest.raises(ValueError, match=refused):
-        Scheduler(cache, conf_text, device="cpu")
+def test_refusal_raises_at_construction(conf_text, refused, four_slots):
+    """The name is the refusal this test held before slice 19; it now
+    holds that the conf runs: a cycle over four CPU slots with no action
+    failure, deciding what the established engine decides."""
+    runs = []
+    for text in (conf_text, _established(conf_text)):
+        cache = make_world(FakeBinder(), n_jobs=3)
+        assert Scheduler(cache, text, device="cpu").run_once() == []
+        runs.append((dict(cache.binder.binds), list(cache.evictor.evicts)))
+    assert _established(conf_text) != conf_text
+    assert runs[0] == runs[1] and runs[0][0]
 
 
 @pytest.mark.parametrize("conf_text, refused", REFUSED_CONFS,
                          ids=[f"{r}-{i}" for i, (_, r)
                               in enumerate(REFUSED_CONFS)])
 def test_refusal_raises_at_reload_not_as_action_failure(tmp_path,
-                                                        conf_text, refused):
-    """A hot-reloaded conf naming what the port lacks raises out of
-    run_once (where run()'s guard sees a failed cycle), counts no action
-    failure, and leaves the previous conf in force. It raises again on
-    every cycle until the file is fixed."""
+                                                        conf_text, refused,
+                                                        four_slots):
+    """The name is the refusal this test held before slice 19; it now
+    holds that a hot-reloaded conf naming the engine is taken: the next
+    cycles run it with no action failure."""
     metrics.reset_local()
     conf_path = tmp_path / "scheduler.conf"
     conf_path.write_text(SIMPLE_CONF)
-    cache = make_world(FakeBinder(), n_jobs=1)
+    cache = make_world(FakeBinder(), n_jobs=3)
     sched = scheduler(cache, conf_path=str(conf_path))
     assert sched.run_once() == []
     time.sleep(0.01)
     conf_path.write_text(conf_text)
     os.utime(conf_path)
     for _ in range(2):
-        with pytest.raises(ValueError, match=refused):
-            sched.run_once()
+        assert sched.run_once() == []
     assert not [k for k in metrics.local_counters()
                 if k[0] == "action_failures"]
-    assert sched.conf.actions == ["enqueue", "allocate", "backfill"]
+    assert refused in [c.arguments.get("engine")
+                       for c in sched.conf.configurations]
     time.sleep(0.01)
     conf_path.write_text(SIMPLE_CONF)
     os.utime(conf_path)
@@ -855,6 +890,28 @@ def test_once_refused_name_runs_equal_to_jax(name, once_refused_reference):
     got = once_refused_run(True, name)
     assert got == once_refused_reference[name]
     assert got["failures"] == [] and got["binds"]
+
+
+@pytest.fixture(scope="module")
+def once_refused_engine_reference(tmp_path_factory):
+    return jax_reference("once-refused-engine", list(ONCE_REFUSED_ENGINES),
+                         tmp_path_factory.mktemp("jax") / "engines.pkl")
+
+
+@pytest.mark.parametrize("name", list(ONCE_REFUSED_ENGINES))
+def test_once_refused_engine_runs_equal_to_jax(name,
+                                              once_refused_engine_reference,
+                                              one_torch_thread):
+    """tpu-sharded (allocate, preempt, reclaim) and callbacks-parallel were
+    refused by name until slice 19. Each conf that named one now runs a
+    cycle on a preempt mix that binds, evicts and moves PodGroups as the
+    JAX package's does, with no action failure."""
+    assert name.split(":")[1] in ONCE_REFUSED_ENGINES[name]
+    got = once_refused_engine_run(True, name)
+    assert got == once_refused_engine_reference[name]
+    assert got["failures"] == [] and got["binds"]
+    if not name.startswith("allocate:"):
+        assert got["evicts"]
 
 
 # confs the port once refused and now runs: (conf text, what it names)
@@ -926,7 +983,9 @@ def test_refused_reload_keeps_run_degraded(tmp_path):
                       clock=StoppingClock(), device="cpu")
     assert sched.run_once() == []
     time.sleep(0.01)
-    conf_path.write_text(REFUSED_CONFS[0][0])
+    # an engine neither package has: still refused by name
+    conf_path.write_text(REFUSED_CONFS[0][0].replace("tpu-sharded",
+                                                     "tpu-nonexistent"))
     os.utime(conf_path)
     sched.run()
     assert sched.consecutive_failures == 4
@@ -974,16 +1033,33 @@ def test_refused_scheduler_modes(mode, value):
 
 
 def test_every_refused_sim_flag_exits_by_name(capsys):
-    """Each JAX-package sim flag naming a mode the port lacks is accepted
-    by name and refused (exit 2, named on stderr) before anything runs."""
-    from volcano_tpu_torch.sim.__main__ import REFUSED_FLAGS, main
-    for flag, (takes_value, _) in REFUSED_FLAGS.items():
-        argv = ["--device", "cpu", "--scenario", "smoke", flag]
-        if takes_value:
-            argv.append("1")
-        assert main(argv) == 2, flag
-        err = capsys.readouterr().err
-        assert flag in err and "not in volcano_tpu_torch" in err, flag
+    """The name is this test's before slice 19, when the sim's mesh flags
+    were refused; since then none is: REFUSED_FLAGS is empty and every
+    flag the JAX package's sim CLI takes parses, the mesh ones included
+    (--sharded, --sharded-devices, --verify-sharded-equivalence,
+    --mesh-chaos, --mesh-fault-rate, --mesh-fault-seed,
+    --verify-mesh-equivalence)."""
+    import re
+    from pathlib import Path
+
+    from volcano_tpu_torch.sim.__main__ import REFUSED_FLAGS, build_parser
+    assert REFUSED_FLAGS == {}
+    src = (Path(__file__).resolve().parents[1] / "volcano_tpu" / "sim"
+           / "__main__.py").read_text()
+    parser = build_parser()
+    takes = {}
+    for action in parser._actions:
+        for opt in action.option_strings:
+            takes[opt] = action.nargs != 0
+    for flag in re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', src):
+        if flag in ("--help", "--list"):
+            continue
+        source = [] if flag in ("--scenario", "--trace") \
+            else ["--scenario", "smoke"]
+        argv = source + [flag] + (["1"] if takes[flag] else [])
+        args = parser.parse_args(argv)
+        assert not getattr(args, "refused", []), flag
+    assert capsys.readouterr().err == ""
 
 
 def test_sim_cli_flags_match_the_jax_package():

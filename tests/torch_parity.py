@@ -11,11 +11,17 @@ between two nodes; PyTorch's ops and the CUDA kernel (built with
 -fmad=false) round every operation on its own. With LLVM's optimizations
 off the JAX programs do too, so the two packages must decide alike bit for
 bit. The flag cannot change in the test process itself: XLA reads it once.
+A child that runs a node-sharded program (a kind or a name that says
+``sharded``: ``blocks-sharded``, ``walk-sharded``, tpu-sharded engine
+runs) also gets --xla_force_host_platform_device_count=8, as
+tests/conftest.py gives the test process, so that its mesh has up to 8
+virtual CPU devices. The other children run on one device: eight make each
+child's start and programs about a third slower.
 
 Run as a script, this file computes the references:
 ``python tests/torch_parity.py
 {slice|deployed|evict|walk|walk-modes|plugins|place|blocks|engines|incremental|
-pipelined|topo|topo-dispatch} OUT NAME...``, or
+pipelined|topo|topo-dispatch|blocks-sharded|walk-sharded} OUT NAME...``, or
 ``mixed OUT KIND:NAME...``.
 """
 
@@ -53,6 +59,22 @@ _REPO = os.path.dirname(_TESTS)
 with open(os.path.join(_REPO, "deploy", "scheduler.conf")) as _f:
     DEPLOYED_CONF = _f.read()
 NO_FMA_XLA_FLAGS = "--xla_backend_optimization_level=0"
+MESH_XLA_FLAGS = "--xla_force_host_platform_device_count=8"
+MESH_SIZES = (1, 2, 4, 8)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the test: the node-sharded plain versions
+    and the mesh sims run many small tensor ops one shard at a time, which
+    run several times faster on one thread than on a pool of them (and a
+    pool per xdist worker oversubscribes the machine's cores). The result
+    does not depend on it: the plain versions sum in a fixed order."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -62,8 +84,18 @@ def port_gc_windows():
     session open to inspect it would keep collection off for every later
     test in the process, the JAX package's GC tests included: close the
     windows a test leaked. Test modules that open port sessions import this
-    fixture, which makes it autouse there."""
+    fixture, which makes it autouse there.
+
+    It also runs each such test on one torch intra-op thread (as
+    ``one_torch_thread``): the port's plain versions run many small tensor
+    ops, which a thread pool a test process slows several times over, and
+    six test processes with a pool each oversubscribe the machine's cores,
+    so that time-bounded tests elsewhere in the run miss their bounds."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     from volcano_tpu_torch.framework import framework as fw
     for window in list(fw._GC_OPEN_WINDOWS):
         fw._gc_resume(window)
@@ -1238,6 +1270,25 @@ CARD_BLOCK_WORLDS = {
 }
 
 
+def pad_blocks_nodes(world, shards):
+    """A blocks world with its node axis padded to a multiple of
+    ``shards`` by zero-capacity nodes (no pod room, static rows NEG): the
+    JAX package's sharded_node_layout padding, inert by construction."""
+    N = len(world["idle"])
+    pad = (-N) % shards
+    if not pad:
+        return world
+    w = dict(world)
+    for k in ("idle", "future_idle", "used", "allocatable"):
+        w[k] = np.pad(w[k], ((0, pad), (0, 0)))
+    for k in ("ntasks", "max_tasks"):
+        w[k] = np.pad(w[k], (0, pad))
+    if w["ms"] is not None:
+        w["ms"] = np.pad(w["ms"], ((0, 0), (0, pad)),
+                         constant_values=np.float32(-1e30))
+    return w
+
+
 def blocks_args(world, device):
     """blocks_plain/blocks_cuda's arguments for a blocks world on
     ``device``: the task axis padded, then the chunk and budgets as
@@ -1260,17 +1311,21 @@ def blocks_args(world, device):
     return args, {k: world[k] for k in ("chunk", "sweeps", "passes")}
 
 
-def jax_blocks(world):
-    """place_blocks_unified(None, ...) on a blocks world: the packed row and
-    the final node state, as NumPy arrays."""
+def jax_blocks(world, shards=None):
+    """place_blocks_unified(None, ...) on a blocks world, or over a mesh of
+    the first ``shards`` devices (the world's node axis a multiple of it):
+    the packed row and the final node state, as NumPy arrays."""
+    import jax
     import jax.numpy as jnp
 
     from volcano_tpu.ops.place import JobMeta, NodeState
     from volcano_tpu.ops.scores import default_weights
-    from volcano_tpu.ops.unified import place_blocks_unified
+    from volcano_tpu.ops.unified import make_mesh, place_blocks_unified
     w = world
+    mesh = None if shards is None else make_mesh(jax.devices()[:shards])
+    assert mesh is None or mesh.devices.size == shards
     packed, nodes = place_blocks_unified(
-        None, NodeState(*(jnp.asarray(w[k]) for k in
+        mesh, NodeState(*(jnp.asarray(w[k]) for k in
                           ("idle", "future_idle", "used", "ntasks"))),
         jnp.asarray(w["req"]), jnp.asarray(w["valid"]),
         jnp.asarray(w["job_ix"]),
@@ -1722,13 +1777,46 @@ def fill_rank_shrink_world():
 FAULT_WALK_WORLDS = {"fill-rank-shrink": fill_rank_shrink_world}
 
 
-def jax_walk(world, exact: bool = False):
+def pad_walk_world(world, shards):
+    """A walk world with its node axis padded to a multiple of ``shards``
+    as the JAX package's evict_tpu pads it (evict_tpu.py:1025-1048): no future
+    idle, every slot the pad victim and invalid, group the last alloc-group,
+    rank BIG, score -1e30."""
+    inputs, kinds, sizes, gang = world
+    nw = inputs.nw
+    pad = (-nw.vslot.shape[0]) % shards
+    if not pad:
+        return world
+    V = inputs.cand_mask.shape[1] - 1
+    AJ1 = inputs.jalloc0.shape[0]
+
+    def rows(a, value=0):
+        return np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1),
+                      constant_values=value)
+
+    nw = nw._replace(vslot=rows(nw.vslot, V), valid=rows(nw.valid),
+                     vreq=rows(nw.vreq), vgroup=rows(nw.vgroup, AJ1 - 1),
+                     rank=rows(nw.rank, WALK_BIG))
+    inputs = inputs._replace(
+        fidle0=rows(inputs.fidle0), nw=nw,
+        score_g=np.pad(inputs.score_g, ((0, 0), (0, pad)),
+                       constant_values=np.float32(-1e30)))
+    return inputs, kinds, sizes, gang
+
+
+def jax_walk(world, exact: bool = False, shards=None):
     """build_preempt_walk on a walk world: (task_node, owner, job_done) as
     NumPy arrays. allow_cheap follows the JAX host's rule, unless
-    ``exact`` asks for the per-task formulation (allow_cheap=False)."""
+    ``exact`` asks for the per-task formulation (allow_cheap=False). With
+    ``shards``, build_preempt_walk_sharded over the first ``shards``
+    devices, the node axis padded (``pad_walk_world``)."""
+    import jax
     import jax.numpy as jnp
 
-    from volcano_tpu.ops.evict import EvictNW, build_preempt_walk
+    from volcano_tpu.ops.evict import (EvictNW, build_preempt_walk,
+                                       build_preempt_walk_sharded)
+    if shards is not None:
+        world = pad_walk_world(world, shards)
     inputs, kinds, sizes, gang = world
     allow_cheap = (all(k == "static" for k in kinds[:-1])
                    and (gang or "drf" not in kinds)) and not exact
@@ -1738,7 +1826,12 @@ def jax_walk(world, exact: bool = False):
                       jnp.asarray(inputs.tier_part[off:off + size])))
         off += size
     nw = EvictNW(*(jnp.asarray(a) for a in inputs.nw))
-    fn = build_preempt_walk(kinds, sizes, gang, allow_cheap)
+    if shards is None:
+        fn = build_preempt_walk(kinds, sizes, gang, allow_cheap)
+    else:
+        from volcano_tpu.parallel.mesh import make_mesh
+        fn = build_preempt_walk_sharded(make_mesh(jax.devices()[:shards]),
+                                        kinds, sizes, gang, allow_cheap)
     a = jnp.asarray
     task_node, owner, job_done, _ = fn(
         a(inputs.fidle0), nw, a(inputs.cand_mask), tuple(masks),
@@ -2331,6 +2424,9 @@ ENGINE_WORLDS = {
     "strict-multiqueue-batch3": (_strict_multiqueue, None,
                                  {"strict-batch": 3}),
     "strict-adaptive": (_strict_adaptive, ENGINE_CONF, {"strict-batch": 4}),
+    # the sharded engine's mesh capped to the first d devices (slots)
+    **{f"1k-seed3-d{d}": ((lambda: _baseline_seed("1k", 3)), None,
+                          {"sharded-devices": d}) for d in MESH_SIZES},
 }
 
 
@@ -3004,10 +3100,14 @@ def containment_drive(torch_port: bool, name: str) -> dict:
     return {"cycles": out, "injected": list(injector.injected)}
 
 
-def jax_reference_script(argv, out_path, names=()) -> dict:
+def jax_reference_script(argv, out_path, names=(),
+                         mesh: bool = False) -> dict:
     """Run ``python *argv out_path *names`` in a child process without FMA
-    contraction and load the pickle it writes to ``out_path``."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=NO_FMA_XLA_FLAGS,
+    contraction (and, with ``mesh``, on 8 virtual CPU devices) and load the
+    pickle it writes to ``out_path``."""
+    flags = f"{NO_FMA_XLA_FLAGS} {MESH_XLA_FLAGS}" if mesh \
+        else NO_FMA_XLA_FLAGS
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags,
                PYTHONPATH=os.pathsep.join(
                    [_REPO, _TESTS, os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(
@@ -3037,11 +3137,14 @@ def jax_reference(kind: str, names, out_path) -> dict:
     "CASE:ENGINE" -> podaffinity_run(), numa_run(), conformance_run();
     "plugin-world": a tools/plugin_reference.py world -> its digest;
     "once-refused": an ONCE_REFUSED name -> once_refused_run();
+    "once-refused-engine": an ONCE_REFUSED_ENGINES name ->
+    once_refused_engine_run();
     "topology": "CASE:ENGINE" -> topology_run();
     "mixed":
     names are "kind:name", so one child process serves several kinds."""
+    mesh = any("sharded" in str(k) for k in (kind, *names))
     return jax_reference_script([os.path.abspath(__file__), kind], out_path,
-                                names)
+                                names, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -3801,6 +3904,60 @@ def once_refused_run(torch_port: bool, name: str) -> dict:
             "failures": failures, "target": target}
 
 
+# the engines the port refused by name until slice 19, each in a conf
+# that named it in tests/test_torch_scheduler.py's refusal cases
+ONCE_REFUSED_ENGINES = {
+    "allocate:tpu-sharded": ONCE_REFUSED_BASE + (
+        "configurations:\n- name: allocate\n  arguments:\n"
+        "    engine: tpu-sharded\n"),
+    "allocate:callbacks-parallel": ONCE_REFUSED_BASE + (
+        "configurations:\n- name: allocate\n  arguments:\n"
+        "    engine: callbacks-parallel\n"),
+    "preempt:tpu-sharded": DEPLOYED_CONF.replace(
+        "engine: tpu\n- name: reclaim",
+        "engine: tpu-sharded\n- name: reclaim"),
+    "reclaim:tpu-sharded": DEPLOYED_CONF.replace(
+        "- name: reclaim\n  arguments:\n    engine: tpu",
+        "- name: reclaim\n  arguments:\n    engine: tpu-sharded"),
+}
+
+
+def once_refused_engine_run(torch_port: bool, name: str) -> dict:
+    """One cycle of ``ONCE_REFUSED_ENGINES[name]`` on a preempt mix
+    (``preempt_mix_cache(n_nodes=30, n_tasks=600, n_jobs=30, seed=4)``)
+    through the package's Scheduler shell on a logical clock: the port over
+    four CPU slots, the JAX package over its eight virtual devices (the
+    sharded engines decide alike at every mesh size)."""
+    import importlib
+    sys.path.insert(0, os.path.join(_REPO, "tools"))
+    from system_reference import LogicalClock
+    pkg = "volcano_tpu_torch" if torch_port else "volcano_tpu"
+    for sub in ("plugins", "actions"):
+        importlib.import_module(f"{pkg}.{sub}")
+    synthetic = importlib.import_module(f"{pkg}.cache.synthetic")
+    sched_mod = importlib.import_module(f"{pkg}.scheduler")
+    cache, binder, evictor = synthetic.preempt_mix_cache(
+        n_nodes=30, n_tasks=600, n_jobs=30, seed=4)
+    clock = LogicalClock()
+    cache.time_fn = cache.resync_queue.time_fn = clock.time
+    kw = {}
+    if torch_port:
+        from volcano_tpu_torch.ops import unified
+        unified.set_devices(4, "cpu")
+        kw = {"device": "cpu"}
+    try:
+        sched = sched_mod.Scheduler(cache, ONCE_REFUSED_ENGINES[name], **kw)
+        sched.clock = clock
+        failures = [n for n, _ in sched.run_once()]
+    finally:
+        if torch_port:
+            unified.set_devices(None)
+    return {"binds": dict(binder.binds), "evicts": list(evictor.evicts),
+            "phases": {uid: j.podgroup.phase.value
+                       for uid, j in cache.jobs.items()},
+            "failures": failures}
+
+
 def topology_case(m, case: str):
     """tests/test_task_topology.py's TestScheduling worlds: ``mates`` (a
     ps and two workers with affinity, four nodes) and ``spread`` (two ps
@@ -3910,6 +4067,13 @@ def _reference(kind, name):
         return PLUGIN_CASES[name]()
     if kind == "blocks":
         return jax_blocks(BLOCK_WORLDS[name]())
+    if kind == "blocks-sharded":
+        world, D = name.split("@")
+        return jax_blocks(pad_blocks_nodes(BLOCK_WORLDS[world](), int(D)),
+                          int(D))
+    if kind == "walk-sharded":
+        world, D = name.split("@")
+        return jax_walk(WALK_WORLDS[world](), shards=int(D))
     if kind == "engines":
         return engine_reference(name)
     if kind == "incremental":
@@ -3937,6 +4101,8 @@ def _reference(kind, name):
         return plugin_world_jax(name)
     if kind == "once-refused":
         return once_refused_run(False, name)
+    if kind == "once-refused-engine":
+        return once_refused_engine_run(False, name)
     if kind == "topology":
         return topology_run(False, name)
     return jax_place(PLACE_WORLDS[name](), name in INTEGER_PLACE_WORLDS)

@@ -25,6 +25,15 @@ is Ready. The engines (the JAX package's actions/allocate.py):
   changing, and the final solve replays through the session.
 - ``tpu-blocks``: tpu-fused's fixed point with the block auction
   (ops/blocks.py) as the solve.
+- ``tpu-sharded``: tpu-blocks' solve node-sharded over a mesh of slots
+  (ops/unified.py): ``sharded-devices`` takes the first k slots (0: all),
+  the health lattice drops quarantined ones, the node axis is padded to a
+  multiple of the mesh size (cache/snapshot.py::sharded_node_layout).
+  Decisions are mesh-size invariant, so ``sharded-devices: 1`` is the
+  oracle for every D. A one-slot mesh runs tpu-blocks' own kernels.
+- ``callbacks-parallel``: the callbacks engine with its node scans over a
+  forked process pool (actions/callbacks_parallel.py), decisions equal to
+  callbacks'.
 
 - ``tpu-scan`` and ``tpu-pallas``: the JAX package's XLA scan and Pallas
   forms of tpu-fused's solve; both compute B1's function, so here both run
@@ -37,8 +46,7 @@ other engines do not read it, as there. The elastic-gang plugin's pending
 filter narrows an elastic gang's pending set in every engine.
 
 The action ``allocate`` defaults to callbacks and ``allocate-tpu`` to
-tpu-fused. A conf that asks for an engine this package lacks
-(``tpu-sharded``, ``callbacks-parallel``) is refused by name.
+tpu-fused.
 
 Device containment (``AllocateAction._with_fallback``, the JAX package's,
 narrowed): a device engine's solve that fails on a ``SolverFault``
@@ -51,7 +59,12 @@ or fetch opens the cool-down too but fails the action, since a hand
 kernel's own fault surfaces there the same way. A kernel that does not
 build, launch or give a well-formed wire (``ops.build.KernelError``) and
 every other error stays a failed action. ``solver-fallback: false`` turns
-the fallback off.
+the fallback off. Under tpu-sharded a device fault attributed to one slot
+quarantines that slot and re-dispatches the same solve over the survivors
+(the mesh heal, ``_with_fallback``); a quarantined slot whose window
+expired gets a dry-run probe solve before the cycle, and the degradation
+rung (0 full mesh, 1 shrunken, 2 one slot, 3 the sequential placer) goes to
+``metrics.set_degradation_rung``.
 
 The pipelined shell splits tpu-fused's first solve in two:
 ``dispatch_speculative_solve`` orders, assembles and launches it on a side
@@ -87,16 +100,16 @@ from ..utils.scheduler_helper import (predicate_nodes, prioritize_nodes,
                                       select_best_node)
 from .base import Action
 
-ENGINES = ("callbacks", "tpu-strict", "tpu-strict-perjob", "tpu-fused",
-           "tpu-scan", "tpu-pallas", "tpu-blocks")
-# the engines whose first solve the pipelined shell may dispatch ahead: all
-# three name the placement kernel here
+ENGINES = ("callbacks", "callbacks-parallel", "tpu-strict",
+           "tpu-strict-perjob", "tpu-fused", "tpu-scan", "tpu-pallas",
+           "tpu-blocks", "tpu-sharded")
+# the engines whose first solve the pipelined shell may dispatch ahead: the
+# three that name the placement kernel. The block auctions (tpu-blocks,
+# tpu-sharded) read a flag a pass on the host, so a dispatch ahead would
+# run the whole solve before it returned and overlap nothing
 SPECULATIVE_ENGINES = ("tpu-fused", "tpu-scan", "tpu-pallas")
-# engines of the JAX package this one lacks, and why
-MISSING_ENGINES = {
-    "tpu-sharded": "the node-sharded solve over a device mesh (B5)",
-    "callbacks-parallel": "the 16-way threaded callbacks engine",
-}
+# engines of the JAX package this one lacks, and why (none)
+MISSING_ENGINES: Dict[str, str] = {}
 BLOCKS_BIG_T = 12000    # above this many tasks the blocks budgets are 5/4
 
 log = logging.getLogger(__name__)
@@ -135,11 +148,124 @@ LAST_FALLBACK: Dict[str, str] = {}
 # card's own error would surface.
 DEVICE_FAULT_HOOK = None
 
+# The slot ids the last sharded solve attempt ran over (the pipelined
+# shell compares a speculative dispatch's mesh with the commit's).
+CURRENT_MESH_DEVICES: tuple = ()
+
 
 def _device_available() -> bool:
-    """Is the device cool-down window closed (device_health)?"""
+    """Is the fleet cool-down window closed (device_health)? Only an
+    unattributed fault opens it; an attributed one quarantines a slot."""
     from ..device_health import DEVICE_HEALTH
     return DEVICE_HEALTH.available()
+
+
+def _sharded_device_count(ssn) -> int:
+    """The ``sharded-devices`` argument: the sharded engine's mesh takes
+    the first k slots (0: all of them; unparsable or negative: 0)."""
+    k = 0
+    for args in _action_args(ssn.configurations,
+                             ("allocate", "allocate-tpu")):
+        try:
+            k = int(args.get("sharded-devices", k))
+        except (TypeError, ValueError):
+            k = 0
+    return max(k, 0)
+
+
+def _mesh_devices(ssn):
+    """``(capped, healthy)``: the process's slots on the session's device
+    (ops/unified.devices) cut to ``sharded-devices``, and the subset the
+    lattice has not quarantined, in order. The ladder falls out of
+    ``healthy``: all of ``capped`` is rung 0, a strict subset rung 1, one
+    slot rung 2 (the single-device kernels), none rung 3."""
+    from ..device_health import DEVICE_HEALTH
+    from ..ops.unified import devices
+    slots = list(devices(ssn.device))
+    k = _sharded_device_count(ssn)
+    if k:
+        slots = slots[:k]
+    live = set(DEVICE_HEALTH.healthy_devices([s.id for s in slots]))
+    return slots, [s for s in slots if s.id in live]
+
+
+def current_mesh_ids(ssn) -> tuple:
+    """The slot ids the sharded engine would solve over now; the pipelined
+    shell compares them with those recorded at a speculative dispatch."""
+    return tuple(s.id for s in _mesh_devices(ssn)[1])
+
+
+def _degradation_rung(total: int, healthy: int) -> int:
+    """0 full mesh, 1 shrunken mesh, 2 one slot left of a larger mesh, 3
+    the sequential placer. A mesh of one slot by configuration is rung 0."""
+    if healthy == 0:
+        return 3
+    if healthy == 1 and total > 1:
+        return 2
+    if healthy < total:
+        return 1
+    return 0
+
+
+def _dry_run_probe_solve(slot) -> None:
+    """A throwaway one-node, one-task blocks solve on ``slot``'s device:
+    the quarantined slot's probe. Its output is dropped, so a probe never
+    reaches a live decision; it raises whatever the device raises."""
+    from ..ops.blocks import blocks
+    from ..ops.scores import default_weights
+    dev = slot.device
+    with obs_trace.span("solve", probe=True):
+        packed = blocks(
+            torch.ones((1, 2), device=dev), torch.ones((1, 2), device=dev),
+            torch.zeros((1, 2), device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.ones((1, 2), device=dev),
+            torch.ones(1, dtype=torch.int32, device=dev),
+            torch.full((1, 2), 0.5, device=dev),
+            torch.ones(1, dtype=torch.bool, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            JobMeta(*(torch.tensor([v], dtype=torch.int32, device=dev)
+                      for v in (1, 0, 0))),
+            None, default_weights(2), chunk=1)[0]
+        packed.cpu()
+
+
+def _probe_quarantined(ssn) -> int:
+    """Probe every slot whose quarantine window expired with a dry-run
+    solve; readmit those that pass (and retire the tensor epoch: the mesh
+    grows). A probe fault doubles the slot's window. No probes while the
+    fleet window is open. ``DEVICE_FAULT_HOOK`` sees each probe as
+    ``"tpu-sharded:probe:<id>"``."""
+    from ..device_health import DEVICE_HEALTH, classify_device_fault
+    if not DEVICE_HEALTH.available():
+        return 0
+    from ..ops.unified import devices
+    slots = list(devices(ssn.device))
+    k = _sharded_device_count(ssn)
+    if k:
+        slots = slots[:k]
+    by_id = {s.id: s for s in slots}
+    readmitted = 0
+    for dev_id in DEVICE_HEALTH.probe_candidates(list(by_id)):
+        try:
+            if DEVICE_FAULT_HOOK is not None:
+                DEVICE_FAULT_HOOK(f"tpu-sharded:probe:{dev_id}")
+            _dry_run_probe_solve(by_id[dev_id])
+        except Exception as exc:
+            kind = classify_device_fault(exc)
+            if kind is None:
+                raise
+            DEVICE_HEALTH.quarantine(dev_id, kind)
+            log.warning("device %s failed its probe dry-run (%s): "
+                        "quarantine window doubled", dev_id, kind)
+            continue
+        DEVICE_HEALTH.readmit(dev_id)
+        ssn.cache.invalidate_device_state()
+        readmitted += 1
+        log.info("device %s readmitted after probe dry-run: mesh "
+                 "re-forms over %d device(s), epoch retired", dev_id,
+                 len(_mesh_devices(ssn)[1]))
+    return readmitted
 
 
 class _AggTask:
@@ -194,7 +320,19 @@ class AllocateAction(Action):
         LAST_FALLBACK.clear()
         LAST_STATS.pop("tensor_s", None)      # accumulates within one cycle
         LAST_STATS.pop("tensor_incremental", None)
-        if engine.startswith("tpu-") and not _device_available():
+        degraded = engine.startswith("tpu-") and not _device_available()
+        if engine == "tpu-sharded":
+            # the lattice first: expired quarantines get their probe, then
+            # the ladder's rung; rung 3 (the fleet window open, or no slot
+            # left) is the sequential placer
+            if _device_available():
+                _probe_quarantined(ssn)
+            capped, healthy = _mesh_devices(ssn)
+            rung = 3 if not _device_available() else \
+                _degradation_rung(len(capped), len(healthy))
+            metrics.set_degradation_rung(rung)
+            degraded = rung == 3
+        if degraded:
             # the device cool-down is open: this cycle runs the sequential
             # placer without touching the card; the window's expiry lets
             # the next cycle probe the device engine. With
@@ -214,6 +352,16 @@ class AllocateAction(Action):
             return
         if engine == "callbacks":
             self.last_stats = self._sequential(ssn, record=False)
+        elif engine == "callbacks-parallel":
+            from .callbacks_parallel import ParallelCallbackJobPlacer
+            t0 = time.perf_counter()
+            placer = ParallelCallbackJobPlacer(ssn)
+            try:
+                _execute_interleaved(ssn, placer)
+            finally:
+                placer.close()
+            self.last_stats = {"interleave": time.perf_counter() - t0,
+                               "workers": placer.workers}
         elif engine == "tpu-strict":
             self._with_fallback(
                 ssn, engine, fallback,
@@ -227,7 +375,9 @@ class AllocateAction(Action):
         else:
             self._with_fallback(
                 ssn, engine, fallback,
-                lambda: _execute_fused(ssn, blocks=engine == "tpu-blocks"))
+                lambda: _execute_fused(
+                    ssn, blocks=engine in ("tpu-blocks", "tpu-sharded"),
+                    sharded=engine == "tpu-sharded"))
 
     def _sequential(self, ssn, record: bool = True) -> Dict[str, object]:
         """The callbacks engine's interleave over ``ssn``: the callbacks
@@ -293,31 +443,66 @@ class AllocateAction(Action):
         task not yet replayed is still PENDING and the sequential placer
         takes them all; tasks an earlier committed statement placed stay
         placed. ``enabled`` False (``solver-fallback: false``) re-raises
-        after the containment bookkeeping."""
-        from ..device_health import DEVICE_HEALTH, classify_device_fault
-        try:
-            if DEVICE_FAULT_HOOK is not None:
-                DEVICE_FAULT_HOOK(engine)
-            self.last_stats = run()
-            DEVICE_HEALTH.record_ok()
-            return
-        except ReplayFault:
-            raise
-        except Exception as exc:
-            kind = classify_device_fault(exc)
-            if kind is not None:
-                window = DEVICE_HEALTH.record_fault(kind)
-                ssn.cache.invalidate_device_state()
-                log.error("device fault (%s) in allocate engine %s: "
-                          "cooling down for %.1fs, device tensor state "
-                          "invalidated", kind, engine, window)
-            if not enabled or not _enters_fallback(exc):
+        after the containment bookkeeping.
+
+        Under tpu-sharded a device fault attributed to one slot of the mesh
+        (``attribute_device_fault``) heals the mesh in the same cycle
+        (allocate.py:359-395): the slot is quarantined, the tensor epoch
+        retired, and the same solve re-dispatches over the survivors, with
+        the same decisions (mesh-size invariance). With no survivor, or an
+        unattributed fault, the rules above apply."""
+        from ..device_health import (DEVICE_HEALTH, attribute_device_fault,
+                                     classify_device_fault)
+        global CURRENT_MESH_DEVICES
+        sharded = engine == "tpu-sharded"
+        while True:
+            mesh_ids = current_mesh_ids(ssn) if sharded else ()
+            CURRENT_MESH_DEVICES = mesh_ids
+            try:
+                if DEVICE_FAULT_HOOK is not None:
+                    DEVICE_FAULT_HOOK(engine)
+                self.last_stats = run()
+                DEVICE_HEALTH.record_ok()
+                return
+            except ReplayFault:
                 raise
-            log.exception("allocate engine %s failed; completing the "
-                          "cycle with the sequential placer", engine)
-            metrics.register_solver_fallback(self.NAME)
-            LAST_FALLBACK.update(engine=engine, error=repr(exc))
-            self.last_stats = self._sequential(ssn)
+            except Exception as exc:
+                kind = classify_device_fault(exc)
+                device = attribute_device_fault(exc, mesh_ids) \
+                    if kind is not None and sharded else None
+                if device is not None:
+                    window = DEVICE_HEALTH.quarantine(device, kind)
+                    ssn.cache.invalidate_device_state()
+                    capped, healthy = _mesh_devices(ssn)
+                    if healthy:
+                        metrics.set_degradation_rung(
+                            _degradation_rung(len(capped), len(healthy)))
+                        metrics.register_mesh_heal(kind)
+                        log.warning(
+                            "device %s fault (%s): quarantined for %.1fs; "
+                            "healing mesh over %d surviving device(s) and "
+                            "re-dispatching the solve", device, kind,
+                            window, len(healthy))
+                        continue
+                    metrics.set_degradation_rung(3)
+                    log.error("device %s fault (%s): quarantined for %.1fs "
+                              "and no devices survive — ladder bottoms out "
+                              "at the sequential placer", device, kind,
+                              window)
+                elif kind is not None:
+                    window = DEVICE_HEALTH.record_fault(kind)
+                    ssn.cache.invalidate_device_state()
+                    log.error("device fault (%s) in allocate engine %s: "
+                              "cooling down for %.1fs, device tensor state "
+                              "invalidated", kind, engine, window)
+                if not enabled or not _enters_fallback(exc):
+                    raise
+                log.exception("allocate engine %s failed; completing the "
+                              "cycle with the sequential placer", engine)
+                metrics.register_solver_fallback(self.NAME)
+                LAST_FALLBACK.update(engine=engine, error=repr(exc))
+                self.last_stats = self._sequential(ssn)
+                return
 
 
 def _enters_fallback(exc: BaseException) -> bool:
@@ -349,11 +534,13 @@ def _topology_weight(ssn) -> float:
     return max(w, 0.0)
 
 
-def _solve_route(ssn, blocks: bool) -> str:
+def _solve_route(ssn, blocks: bool, sharded: bool = False) -> str:
     """The ``kernel`` attribute of a fused solve's span: the wrapper the
     solve goes through and its route on the session's device, the kernel
     (``_cuda``) or its plain version (``_plain``)."""
-    if blocks:
+    if sharded:
+        name = "blocks_sharded"
+    elif blocks:
         name = "blocks"
     elif _topology_weight(ssn) > 0:
         name = "place_topo"
@@ -553,10 +740,16 @@ def _run_interleaved(ssn, placer) -> None:
         except Exception:
             stmt.discard()
             raise
+        ops = list(stmt.operations)
+        committed = True               # committed, or kept open: pipelined
         if ssn.job_ready(job):
             stmt.commit()
         elif not ssn.job_pipelined(job):
             stmt.discard()
+            committed = False
+        closed = getattr(placer, "statement_closed", None)
+        if closed is not None:
+            closed(job, committed, ops)
         namespaces.push(ns)            # post-placement, like allocate.go
 
 
@@ -821,7 +1014,7 @@ def _execute_strict_batched(ssn, batch: int = 16) -> Dict[str, object]:
 # the fused solve
 # ---------------------------------------------------------------------------
 
-def _execute_fused(ssn, blocks: bool = False,
+def _execute_fused(ssn, blocks: bool = False, sharded: bool = False,
                    max_order_iters: int = 4,
                    first_solution: Optional["_FusedSolution"] = None,
                    first_ordered: Optional[List] = None,
@@ -856,7 +1049,9 @@ def _execute_fused(ssn, blocks: bool = False,
     "replay", "solves", the number of solves, "rounds", the number of
     replays, and "rejected", the proposals the live stateful re-check
     rejected over them; with ``blocks`` also "blocks", the block auction's
-    counts (ops/blocks.py)."""
+    counts (ops/blocks.py). ``sharded`` (tpu-sharded) solves the block
+    auction over the mesh of ``_mesh_devices`` (``mesh_devices`` in the
+    stats: its slot count)."""
     stats: Dict[str, object] = {"order": 0.0, "assemble": 0.0, "solve": 0.0,
                                 "replay": 0.0, "solves": 0, "rounds": 0,
                                 "rejected": 0}
@@ -883,16 +1078,21 @@ def _execute_fused(ssn, blocks: bool = False,
                     break
                 # the span covers the assembly too, where the JAX
                 # package's solve span opens
-                with obs_trace.span("solve",
-                                    kernel=_solve_route(ssn, blocks)):
+                with obs_trace.span("solve", kernel=_solve_route(
+                        ssn, blocks, sharded)):
                     t1 = time.perf_counter()
                     inputs = placement_inputs(ssn, ordered_jobs)
                     t2 = time.perf_counter()
                     stats["assemble"] += t2 - t1
                     if inputs is not None:
+                        mesh = None
+                        if sharded:
+                            from ..ops.unified import make_mesh
+                            mesh = make_mesh(_mesh_devices(ssn)[1])
+                            stats["mesh_devices"] = mesh.size
                         with metrics.solver_trace("allocate-solve"):
                             solution = _fused_solution(inputs, blocks,
-                                                       blocks_stats)
+                                                       blocks_stats, mesh)
                         stats["solve"] += time.perf_counter() - t2
                         stats["solves"] += 1
                 if inputs is None:
@@ -1018,14 +1218,16 @@ def _masked_static(feas, static, T: int, N: int, device):
 
 
 def solve(inputs: PlacementInputs, blocks: bool = False,
-          stats: Optional[Dict[str, int]] = None):
+          stats: Optional[Dict[str, int]] = None, mesh=None):
     """One solve of ``inputs``: the placement kernel (ops/place.place), B6
     at a positive topology weight (allocate.py:1402-1406), or with
     ``blocks`` the block auction (ops/blocks.place_blocks_unified, which has
     no anchor term) at the reference's size-scaled budgets, 5 sweeps and 4
     passes above BLOCKS_BIG_T tasks, else 3 and 3 (allocate.py:1387-1393).
-    Returns (task_node, task_pipelined, job_ready, job_kept) as NumPy
-    arrays."""
+    With ``mesh`` (ops/unified.Mesh) the block auction runs node-sharded
+    over it, the node axis padded to a multiple of its size by inert nodes
+    (allocate.py:1295-1340). Returns (task_node, task_pipelined,
+    job_ready, job_kept) as NumPy arrays."""
     nt = inputs.node_t
     if not blocks:
         res = place(nt.idle, nt.future_idle, nt.used, nt.ntasks,
@@ -1038,15 +1240,24 @@ def solve(inputs: PlacementInputs, blocks: bool = False,
     J = len(inputs.min_available)
     big = T > BLOCKS_BIG_T
     dev = inputs.req.device
+    state = NodeState(nt.idle, nt.future_idle, nt.used, nt.ntasks)
+    allocatable, max_tasks, ms = nt.allocatable, nt.max_tasks, \
+        inputs.masked_static
+    if mesh is not None:
+        from ..cache.snapshot import sharded_node_layout
+        state, allocatable, max_tasks, n_pad = sharded_node_layout(
+            nt, mesh.size)
+        if ms is not None and n_pad:
+            ms = torch.nn.functional.pad(ms, (0, n_pad), value=NEG)
     packed, _ = place_blocks_unified(
-        None, NodeState(nt.idle, nt.future_idle, nt.used, nt.ntasks),
-        inputs.req, torch.ones(T, dtype=torch.bool, device=dev),
+        mesh, state, inputs.req,
+        torch.ones(T, dtype=torch.bool, device=dev),
         torch.tensor(inputs.job_ix, device=dev),
         JobMeta(inputs.min_available, inputs.base_ready,
                 inputs.base_pipelined),
-        inputs.weights, nt.allocatable, nt.max_tasks,
+        inputs.weights, allocatable, max_tasks,
         sweeps=5 if big else 3, passes=4 if big else 3,
-        masked_static=inputs.masked_static, stats=stats)
+        masked_static=ms, stats=stats)
     packed = packed.cpu().numpy()
     Tp = padded_task_len(T)
     return (packed[:T], packed[Tp:Tp + T].astype(bool),
@@ -1079,10 +1290,10 @@ class _FusedSolution:
 
 
 def _fused_solution(inputs: PlacementInputs, blocks: bool = False,
-                    stats: Optional[Dict[str, int]] = None
+                    stats: Optional[Dict[str, int]] = None, mesh=None
                     ) -> _FusedSolution:
     return _FusedSolution(inputs.tasks, inputs.job_ix, inputs.jobs_list,
-                          inputs.node_t, *solve(inputs, blocks, stats))
+                          inputs.node_t, *solve(inputs, blocks, stats, mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,7 @@ from ..elastic_gang.membership import is_elastic, shrink_allowance
 from ..framework.session import ABSTAIN
 from ..obs import trace as obs_trace
 from ..ops.evict import (BIG, MAX_R, MAX_W, NO_NODE, EvictNW, WalkInputs,
-                         to_device, walk)
+                         pad_nodes, to_device, walk)
 from ..ops.scores import combined_dynamic_score
 from ..utils import PriorityQueue
 
@@ -727,12 +727,14 @@ def _pending_in_order(ssn, job) -> List[TaskInfo]:
     return _pending_tasks(ssn, job)
 
 
-def execute_preempt_tpu(ssn) -> Dict[str, float]:
+def execute_preempt_tpu(ssn, sharded: bool = False) -> Dict[str, float]:
     """Device preempt: phase 1 inter-job (gang statements), phase 2
-    intra-job, then the host victim_tasks pass. A shape the dense layout
-    cannot hold (more than MAX_W victims on one node, more than MAX_R
-    resources, or past the N·W²·R budget) runs the callbacks engine — a
-    decision by shape, as the JAX package makes it.
+    intra-job, then the host victim_tasks pass. ``sharded`` (engine
+    tpu-sharded) runs each walk node-sharded over the health-filtered mesh
+    of slots (``_walk_shards``); its decisions are the single walk's. A
+    shape the dense layout cannot hold (more than MAX_W victims on one
+    node, more than MAX_R resources, or past the N·W²·R budget) runs the
+    callbacks engine — a decision by shape, as the JAX package makes it.
 
     Returns each walked phase's ("p1", "p2") host wall seconds — assemble,
     solve (upload, walk, one packed fetch), replay — and its evaluated
@@ -766,7 +768,7 @@ def execute_preempt_tpu(ssn) -> Dict[str, float]:
              if vq_count.get(j.queue, 0)
              - vq_own.get((j.queue, j.uid), 0) > 0]
     if pjobs and victims:
-        _preempt_phase(ssn, pjobs, victims, True, stats)
+        _preempt_phase(ssn, pjobs, victims, True, stats, sharded)
     # phase 2: within-job preemption, one pass in underRequest order
     # (preempt.go:146-183) — only jobs that still have pending tasks AND
     # own running victims can act (victims re-collected: phase 1 may have
@@ -777,13 +779,27 @@ def execute_preempt_tpu(ssn) -> Dict[str, float]:
     if pjobs2:
         victims2 = _eviction_order(ssn, _collect_victims(ssn))
         if victims2:
-            _preempt_phase(ssn, pjobs2, victims2, False, stats)
+            _preempt_phase(ssn, pjobs2, victims2, False, stats, sharded)
     _victim_tasks_host(ssn)
     return stats
 
 
+def _walk_shards(ssn) -> int:
+    """The sharded walk's shard count: the process's slots on the
+    session's device that the health lattice has not quarantined (preempt
+    rides allocate's health-filtered mesh, evict_tpu.py:1005-1024); 1 when
+    one or none is left, where the single walk runs, with the same
+    decisions."""
+    from ..device_health import DEVICE_HEALTH
+    from ..ops.unified import devices, make_mesh
+    slots = list(devices(ssn.device))
+    live = set(DEVICE_HEALTH.healthy_devices([s.id for s in slots]))
+    healthy = [s for s in slots if s.id in live]
+    return make_mesh(healthy or slots[:1]).size
+
+
 def _preempt_phase(ssn, pjobs, victims, inter_job: bool,
-                   stats: Dict[str, float]) -> None:
+                   stats: Dict[str, float], sharded: bool = False) -> None:
     t0 = time.perf_counter()
     ptasks: List[TaskInfo] = []
     pjob_ix: List[int] = []
@@ -840,17 +856,26 @@ def _preempt_phase(ssn, pjobs, victims, inter_job: bool,
 
     P = len(ptasks)
     N, W = tensors.vslot.shape
+    shards = _walk_shards(ssn) if sharded else 1
+    if shards > 1:
+        # victim-free pad rows up to a multiple of the mesh size
+        inputs = pad_nodes(inputs, shards)
+        stats[key + "_shards"] = shards
+    Np = inputs.fidle0.shape[0]
     with obs_trace.span("upload", phase=key):
         dev_inputs = to_device(inputs, ssn.device)          # one upload
     with obs_trace.span("solve", phase=key):
+        # the shard count only when sharded: the single walk's call is
+        # the one its recorders (chip_smoke.py, tools/) wrap
         out = walk(dev_inputs, stack.kinds, stack.sizes,
-                   gang_commit=inter_job)
+                   gang_commit=inter_job,
+                   **({"shards": shards} if shards > 1 else {}))
         packed = torch.cat([out.task_node, out.owner.reshape(-1),
                             out.job_done.to(torch.int32)]).cpu().numpy()
     task_node = packed[:P]                                  # one fetch
-    owner_nw = packed[P:P + N * W].reshape(N, W)
+    owner_nw = packed[P:P + Np * W].reshape(Np, W)[:N]
     # per-group verdicts -> per kept job via its alloc-group index
-    job_done = packed[P + N * W:].astype(bool)[pjg_job]
+    job_done = packed[P + Np * W:].astype(bool)[pjg_job]
     if task_node.size and (task_node.min() < NO_NODE
                            or task_node.max() >= N):
         raise RuntimeError("preempt walk returned node indices outside "

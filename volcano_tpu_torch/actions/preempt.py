@@ -2,10 +2,13 @@
 starving jobs.
 
 Mirrors pkg/scheduler/actions/preempt/preempt.go:41-284. Engine ``tpu``
-(actions/evict_tpu.py) runs the victim search as the walk kernel; engine
-``callbacks`` is the reference's per-(task, node) loop below, which the
-``tpu`` engine also takes for shapes its dense layout cannot hold. Any
-other engine is refused by name.
+(actions/evict_tpu.py) runs the victim search as the walk kernel, and
+``tpu-sharded`` runs it node-sharded over the mesh of slots (the sharded
+walk; a one-slot mesh runs the single walk, with the same decisions);
+engine ``callbacks`` is the reference's per-(task, node) loop below, which
+the device engines also take for shapes their dense layout cannot hold.
+Any other engine is refused by name. Reclaim's ``tpu-sharded`` runs the
+callbacks rotation, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from ..utils.scheduler_helper import (predicate_nodes, prioritize_nodes,
                                       sort_nodes)
 from .base import Action
 
-ENGINES = ("tpu", "callbacks")
+ENGINES = ("tpu", "tpu-sharded", "callbacks")
 
 
 def validate_victims(preemptor: TaskInfo, node, victims: List[TaskInfo]) -> bool:
@@ -63,10 +66,11 @@ class PreemptAction(Action):
 
     def execute(self, ssn) -> None:
         self.last_stats = {}
-        if action_engine(ssn.configurations, self.NAME,
-                         self.engine) == "tpu":
+        engine = action_engine(ssn.configurations, self.NAME, self.engine)
+        if engine in ("tpu", "tpu-sharded"):
             from .evict_tpu import execute_preempt_tpu
-            self.last_stats = execute_preempt_tpu(ssn)
+            self.last_stats = execute_preempt_tpu(
+                ssn, sharded=engine == "tpu-sharded")
             return
         self._execute_callbacks(ssn)
 

@@ -4,7 +4,9 @@ Mirrors pkg/scheduler/actions/reclaim/reclaim.go:40-192 — victims come from
 OTHER queues that are reclaimable, via the tiered Reclaimable dispatch;
 eviction is direct (ssn.evict, no statement). Engine ``tpu`` runs this
 rotation through evict_tpu._ReclaimScreener, a host-side node pre-filter
-that changes no decision; engine ``callbacks`` runs it over every node.
+that changes no decision; engine ``callbacks`` runs it over every node, and
+so does ``tpu-sharded``, as in the JAX package (reclaim has no walk to
+shard).
 """
 
 from __future__ import annotations

@@ -320,6 +320,32 @@ class PersistentNodeTensors(_DeviceRows):
 _HOLE_NODE = NodeInfo(name="", unschedulable=True)
 
 
+def sharded_node_layout(node_t, D: int):
+    """The node rows of a solve padded on their device to a multiple of
+    the mesh size ``D`` (the JAX package's snapshot.py:103): the sharded
+    solve splits the node axis into D equal blocks of rows, shard s owning
+    rows s*N/D ... (ops/blocks.py). Pad rows have zero capacity and
+    ``max_tasks`` 0, so no solve selects them, at any D. A mesh change (a
+    heal or a readmission) retires the tensor epoch first, and the next
+    solve re-pads the rebuilt rows at the new D. Returns ``(NodeState,
+    allocatable, max_tasks, n_pad)``; with no padding the tensors are the
+    node rows themselves."""
+    from ..ops.blocks import NodeState
+    state = NodeState(node_t.idle, node_t.future_idle, node_t.used,
+                      node_t.ntasks)
+    alloc, maxt = node_t.allocatable, node_t.max_tasks
+    n_pad = (-state.idle.shape[0]) % D
+    if n_pad:
+        rows = torch.nn.functional.pad
+        state = NodeState(rows(state.idle, (0, 0, 0, n_pad)),
+                          rows(state.future_idle, (0, 0, 0, n_pad)),
+                          rows(state.used, (0, 0, 0, n_pad)),
+                          rows(state.ntasks, (0, n_pad)))
+        alloc = rows(alloc, (0, 0, 0, n_pad))
+        maxt = rows(maxt, (0, n_pad))
+    return state, alloc, maxt, n_pad
+
+
 def node_infos_for(ssn, node_t) -> List[NodeInfo]:
     """Session NodeInfos row-aligned with ``node_t.names`` — what plugin
     mask and score builders iterate. Persistent rows freed by node removal

@@ -8,7 +8,9 @@ fault plan (``StoreFaultInjector``, behind
 store_transport.FaultyStoreTransport), the feedback plane's ack faults
 (``AckFaultInjector``), the overload drills' seeded arrival bursts
 (``OverloadInjector``) and the allocate solve's device faults
-(``DeviceFaultInjector`` at ``actions.allocate.DEVICE_FAULT_HOOK``), and
+(``DeviceFaultInjector`` at ``actions.allocate.DEVICE_FAULT_HOOK``, and
+``MeshFaultInjector`` there for faults attributed to one slot of the
+sharded engine's mesh), and
 the HA control plane's lease revocation (``LeaseLossInjector``) and lease
 clock skew (``ClockSkewInjector``). Everything is driven by one
 ``random.Random(seed)`` per wrapper, so a failing chaos test reproduces
@@ -354,6 +356,74 @@ class DeviceFaultInjector:
         raise DeviceFaultError(kind, f"chaos: {msg} "
                                      f"(seed={self.seed}, "
                                      f"attempt={self.attempt})")
+
+
+class MeshFaultInjector:
+    """Per-slot device faults for the ``tpu-sharded`` engine — install as
+    ``actions.allocate.DEVICE_FAULT_HOOK`` (the socket of
+    ``DeviceFaultInjector``, so the two are interchangeable per run).
+
+    Each fault is ATTRIBUTED to a live slot: the raised
+    ``DeviceFaultError`` carries ``device=<id>``, picked seeded from
+    ``allocate.CURRENT_MESH_DEVICES`` (the slot ids the current solve
+    attempt runs over, refreshed per heal retry), so the lattice
+    quarantines exactly one slot and the mesh heals mid-cycle. Kinds:
+    "oom", "device_lost" and "slow" (a straggling shard).
+
+    ``plan`` maps kind -> 1-based solve-attempt indices, or set
+    ``failure_rate`` for a seeded coin per attempt (as
+    ``DeviceFaultInjector``). Probe dry runs (hook calls named
+    ``"<engine>:probe:<id>"``) are attempts of their own and fault the
+    PROBED slot when their index is planned: that keeps a slot
+    quarantined across probe windows. Faults are recorded in
+    ``injected`` as ``(attempt, kind, device)``."""
+
+    _MESSAGES = {
+        "oom": "out of memory allocating a shard's buffer",
+        "device_lost": "device lost (simulated)",
+        "slow": "collective timed out waiting on the shard (simulated "
+                "straggler)",
+    }
+
+    def __init__(self, plan: Dict[str, Iterable[int]],
+                 failure_rate: Optional[float] = None, seed: int = 0):
+        self.plan = {kind: set(attempts) for kind, attempts in plan.items()}
+        self.failure_rate = failure_rate
+        self.seed = seed
+        self._rng = random.Random(seed)
+        self.attempt = 0
+        self.injected: List[tuple] = []    # (attempt, kind, device)
+
+    def _pick_kind(self) -> Optional[str]:
+        if self.failure_rate is not None:
+            if self._rng.random() < self.failure_rate:
+                kinds = sorted(self.plan) or ["device_lost"]
+                return kinds[len(self.injected) % len(kinds)]
+            return None
+        for k, attempts in self.plan.items():
+            if self.attempt in attempts:
+                return k
+        return None
+
+    def __call__(self, engine: str) -> None:
+        from .device_health import DeviceFaultError
+        self.attempt += 1
+        kind = self._pick_kind()
+        if kind is None:
+            return
+        if ":probe:" in engine:
+            device = int(engine.rsplit(":", 1)[1])
+        else:
+            from .actions.allocate import CURRENT_MESH_DEVICES
+            if not CURRENT_MESH_DEVICES:
+                return               # nothing live to attribute to
+            device = CURRENT_MESH_DEVICES[
+                self._rng.randrange(len(CURRENT_MESH_DEVICES))]
+        self.injected.append((self.attempt, kind, device))
+        raise DeviceFaultError(
+            kind, f"chaos: {self._MESSAGES[kind]} "
+                  f"(seed={self.seed}, attempt={self.attempt})",
+            device=device)
 
 
 class SimKill(BaseException):

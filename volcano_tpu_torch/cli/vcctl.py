@@ -465,18 +465,39 @@ def main(argv: Optional[List[str]] = None, store: Optional[ObjectStore] = None,
                     out(f"p{pid}\t{k}={json.dumps(d[k], sort_keys=True)}")
         return 0
     if args.group == "device" and args.verb == "status":
-        # process-local, like rebalance-status: the fleet cool-down lives
-        # in the scheduler process. This package runs one device, so there
-        # is no per-device lattice or mesh rung to show (ROADMAP item 10b)
+        # process-local, like rebalance-status: the fleet cool-down and the
+        # per-slot lattice live in the scheduler process
         from .. import metrics
         detail = metrics.health_detail().get("device", {})
+        counts = metrics.mesh_counts()
         out(f"fleet\tavailable={detail.get('available', True)}\t"
             f"consecutive_faults={detail.get('consecutive_faults', 0)}\t"
             f"total_faults={detail.get('total_faults', 0)}\t"
             f"last_kind={detail.get('last_kind')}\t"
             f"cooldown_remaining_s={detail.get('cooldown_remaining_s', 0.0)}")
-        out("no per-device state: the multi-device mesh is not in "
-            "volcano_tpu_torch yet (ROADMAP item 10b)")
+        heals = {k.split("/", 1)[1]: int(v)
+                 for k, v in sorted(counts.items())
+                 if k.startswith("heals/")}
+        quarantines = {k.split("/", 1)[1]: int(v)
+                       for k, v in sorted(counts.items())
+                       if k.startswith("quarantines/")}
+        out(f"mesh\trung={int(counts.get('rung', 0))}\t"
+            f"devices_healthy={int(counts.get('devices_healthy', 0))}\t"
+            f"readmissions={int(counts.get('readmissions', 0))}\t"
+            f"heals={heals}\tquarantines={quarantines}")
+        devices = detail.get("devices", {})
+        if not devices:
+            out("no per-device state recorded — the sharded engine has "
+                "not run in this process (or the lattice was reset)")
+            return 0
+        for did in sorted(devices, key=int):
+            d = devices[did]
+            out(f"device/{did}\tstate={d.get('state')}\t"
+                f"consecutive_faults={d.get('consecutive_faults', 0)}\t"
+                f"total_faults={d.get('total_faults', 0)}\t"
+                f"last_kind={d.get('last_kind')}\t"
+                f"window_remaining_s={d.get('window_remaining_s', 0.0)}\t"
+                f"readmissions={d.get('readmissions', 0)}")
         return 0
     if args.group == "job" and args.verb in ("suspend", "resume", "scale"):
         if funnel is not None:

@@ -20,9 +20,10 @@ operation, failovers), the overload plane's (admission backpressure by
 reason, the pending depth), and the federated control plane's (the
 per-partition leader gauge, cross-partition reserves, the rebalancer's
 decisions, the partition count, elastic membership's splits and merges)
-and the batched admission front door's batch sizes, with
-``health_detail()``'s sections for them. The mesh and per-device lattice
-series wait for the multi-device engines.
+and the batched admission front door's batch sizes, and
+the node mesh's (per-device quarantines and readmissions, mid-cycle mesh
+heals, the healthy-device and degradation-rung gauges), with
+``health_detail()``'s sections for them.
 
 ``start_metrics_server`` serves ``/metrics`` (the Prometheus text
 exposition, version 0.0.4, rendered from the in-process mirror by
@@ -304,6 +305,58 @@ def set_device_health(available: bool, detail: Optional[dict] = None
         _gauges[("device_healthy",)] = 1.0 if available else 0.0
         _health_detail["device"] = dict(detail) if detail else {
             "available": available}
+
+
+def register_device_quarantine(kind: str) -> None:
+    """An attributed device fault quarantined one slot: the mesh heals
+    around it."""
+    _count(("device_quarantines", kind))
+
+
+def register_device_readmission() -> None:
+    """A quarantined slot's probe solve succeeded and it rejoined the
+    mesh (the caller retires the tensor epoch)."""
+    _count(("device_readmissions",))
+
+
+def register_mesh_heal(trigger: str) -> None:
+    """A mid-cycle mesh heal: the failing slot was quarantined and the same
+    solve re-dispatched over the survivors."""
+    _count(("mesh_heals", trigger))
+
+
+def set_mesh_devices_healthy(healthy: int, known: int) -> None:
+    """The lattice's healthy (known minus quarantined) and known slots."""
+    with _lock:
+        _gauges[("mesh_devices_healthy",)] = float(healthy)
+        _gauges[("mesh_devices_known",)] = float(known)
+
+
+def set_degradation_rung(rung: int) -> None:
+    """The sharded engine's degradation-ladder rung: 0 full mesh, 1
+    shrunken mesh, 2 single slot, 3 CPU placer."""
+    with _lock:
+        _gauges[("degradation_rung",)] = float(rung)
+
+
+def mesh_counts() -> Dict[str, float]:
+    """The mesh-containment counters for delta-based reporting (the sim
+    report's ``mesh`` section): ``heals/<trigger>``,
+    ``quarantines/<kind>``, readmissions, degraded cycles and the current
+    rung and healthy-slot gauges."""
+    with _lock:
+        out: Dict[str, float] = {}
+        for key, v in _counters.items():
+            if key[0] == "mesh_heals":
+                out[f"heals/{key[1]}"] = v
+            elif key[0] == "device_quarantines":
+                out[f"quarantines/{key[1]}"] = v
+        out["readmissions"] = _counters.get(("device_readmissions",), 0)
+        out["degraded_cycles"] = _counters.get(("device_degraded_cycles",),
+                                               0)
+        out["rung"] = _gauges.get(("degradation_rung",), 0.0)
+        out["devices_healthy"] = _gauges.get(("mesh_devices_healthy",), 0.0)
+        return out
 
 
 def containment_counts() -> Dict[str, float]:
@@ -744,6 +797,9 @@ _EXPO_GAUGES = {
     "resync_dead_letter_size": (f"{_SUBSYSTEM}_resync_dead_letter_size",
                                 None),
     "device_healthy": (f"{_SUBSYSTEM}_device_healthy", None),
+    "mesh_devices_healthy": (f"{_SUBSYSTEM}_mesh_devices_healthy", None),
+    "mesh_devices_known": (f"{_SUBSYSTEM}_mesh_devices_known", None),
+    "degradation_rung": (f"{_SUBSYSTEM}_degradation_rung", None),
     "leader": (f"{_SUBSYSTEM}_leader", None),
     "partition_leader": (f"{_SUBSYSTEM}_partition_leader", "partition"),
     "partition_count": (f"{_SUBSYSTEM}_partition_count", None),
@@ -775,6 +831,11 @@ _EXPO_COUNTERS = {
     "device_faults": (f"{_SUBSYSTEM}_device_faults_total", "kind"),
     "device_degraded_cycles": (
         f"{_SUBSYSTEM}_device_degraded_cycles_total", None),
+    "device_quarantines": (f"{_SUBSYSTEM}_device_quarantines_total",
+                           "kind"),
+    "device_readmissions": (f"{_SUBSYSTEM}_device_readmissions_total",
+                            None),
+    "mesh_heals": (f"{_SUBSYSTEM}_mesh_heals_total", "trigger"),
     "gang_growths": (f"{_SUBSYSTEM}_gang_growths_total", None),
     "gang_shrinks": (f"{_SUBSYSTEM}_gang_shrinks_total", "reason"),
     "elastic_below_min_evictions": (

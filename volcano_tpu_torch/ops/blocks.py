@@ -31,6 +31,19 @@ when no order can change a bit and it sums any way. The round kernel sums
 in that order too, except in a chunk whose requests' column totals stay
 below 2^24 units (``chunk_exact``), where it sums in parallel.
 
+Over a node mesh of D shards (``shards``, unified.py's ``axis``; ops/unified.py
+holds the mesh) the same solve runs node-sharded: each shard takes the K_loc =
+min(32, N/D) best of its own nodes, the shards' lists merge into the global
+K (``merge_plain``: a stable sort of the shard-major concatenation, so equal
+scores go to the lowest global node), a node's contention is decided by the
+shard that owns it and the shards' verdicts are OR-ed each round, and each
+shard applies deltas and frees to its own rows only. Every decision is the
+unsharded solve's (a node's sums involve only its own tasks, and the merged
+list is the unsharded one), so the packed wire and node state are equal to
+the bit at every D. On the card this is the candidate kernel once a shard
+over its own rows, ``blocks_merge_kernel``, and the round kernel as a
+thread-block cluster of D CTAs (``round_sharded_cuda``).
+
 ``blocks`` picks the version by the tensors' device: the plain one only
 for CPU tensors.
 """
@@ -52,6 +65,7 @@ from .scores import ScoreWeights, combined_dynamic_score
 K_CAND = 32          # candidate nodes a task bids for
 CHUNK = 256          # tasks a chunk scores at once
 MAX_CHUNK = 256      # the round kernel runs one thread a task of a chunk
+MAX_SHARDS = 8       # the sharded round kernel's cluster: a CTA a shard
 ALLOC_STEPS = 9      # alloc-vs-pipeline split steps (unified.py:293)
 FREE_BLOCK = 256     # the sweep's frees sum blocks of this many tasks
 
@@ -280,19 +294,85 @@ def topk_plain(fidle: torch.Tensor, used: torch.Tensor, ntasks: torch.Tensor,
     return vals[:, :K].contiguous(), idx[:, :K].contiguous()
 
 
+def merge_plain(part_score: torch.Tensor, part_cand: torch.Tensor, Nl: int,
+                K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global candidates from D shards' lists (unified.py:195-204):
+    ``part_score``/``part_cand`` [D,C,Kl] (shard-local nodes, shard s
+    owning global nodes s*Nl ...), concatenated shard-major and sorted
+    stably by score, highest first; the first K. The plain version of
+    ``merge_cuda``."""
+    D, C, Kl = part_score.shape
+    gid = part_cand.long() + (torch.arange(D, device=part_cand.device)
+                              * Nl)[:, None, None]
+    flat_s = part_score.permute(1, 0, 2).reshape(C, D * Kl)
+    flat_i = gid.permute(1, 0, 2).reshape(C, D * Kl)
+    vals, pos = torch.sort(flat_s, dim=1, descending=True, stable=True)
+    return (vals[:, :K].contiguous(),
+            flat_i.gather(1, pos[:, :K]).contiguous())
+
+
+def _shard(state: NodeState, s: int, Nl: int) -> NodeState:
+    """Shard s's rows of the node state (views)."""
+    return NodeState(*(x[s * Nl:(s + 1) * Nl] for x in state))
+
+
+def _join(parts) -> NodeState:
+    """The shards' node states as one."""
+    return NodeState(*(torch.cat(xs) for xs in zip(*parts)))
+
+
+def _round_shard(fidle, nt, max_tasks, off: int, Nl: int,
+                 accept: torch.Tensor, choice: torch.Tensor,
+                 bid: torch.Tensor, bidding: torch.Tensor,
+                 req_c: torch.Tensor, unit: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """One bidding round's accept verdicts for the bidders on one shard's
+    nodes ``[off, off + Nl)`` (unified.py:211-242): claims of the tasks
+    accepted there, then the three waves."""
+    C = req_c.shape[0]
+    dev = req_c.device
+    own = (bid >= off) & (bid < off + Nl)
+    bid_l = torch.clamp(bid - off, 0, Nl - 1)
+    bidding_l = bidding & own
+    held_ok = accept & (choice >= off) & (choice < off + Nl)
+    held = torch.where(held_ok, choice - off, -1)
+    claimed = _node_sums(held, req_c, Nl, unit)
+    claimed_cnt = torch.bincount(choice[held_ok] - off, minlength=Nl)
+    avail = fidle[bid_l] - claimed[bid_l]
+    base_cnt = nt[bid_l].long() + claimed_cnt[bid_l]
+    maxt = max_tasks[bid_l].long()
+    ar = torch.arange(C, device=dev)
+    same = (bid_l[:, None] == bid_l[None, :]) & (ar[:, None] > ar[None, :])
+
+    def wave(mask):
+        live = mask & bidding_l
+        cum = _lane_prefix(bid_l, live, req_c, unit)
+        cnt = (same & live[None, :]).sum(dim=1)
+        room = (req_c + cum < avail + EPS).all(dim=-1)
+        return bidding_l & room & (base_cnt + cnt < maxt)
+
+    acc = wave(torch.ones(C, dtype=torch.bool, device=dev))
+    acc = acc | wave(acc)
+    return wave(acc)
+
+
 def round_plain(state: NodeState, max_tasks: torch.Tensor,
                 req_c: torch.Tensor, todo_c: torch.Tensor,
                 cand_score: torch.Tensor, cand: torch.Tensor,
                 unit: Optional[torch.Tensor],
-                stats: Optional[Dict[str, int]] = None
+                stats: Optional[Dict[str, int]] = None, shards: int = 1
                 ) -> Tuple[NodeState, torch.Tensor, torch.Tensor]:
     """Everything of a chunk after scoring (unified.py:206-308): the
     bidding rounds to their fixpoint or K, the alloc/pipe split, the
     deltas. Returns the new node state and each task's (node or NO_NODE,
-    pipelined)."""
+    pipelined). Over ``shards`` equal shards of the node axis, each shard
+    decides the bids for its own nodes and the verdicts are OR-ed, the
+    split runs on each task's owner shard and its alloc verdicts are
+    OR-ed, and each shard applies its own deltas (unified.py:243-305)."""
     idle, fidle, used, nt = state
     C = req_c.shape[0]
     N = idle.shape[0]
+    Nl = N // shards
     K = cand.shape[1]
     dev = req_c.device
     accept = torch.zeros(C, dtype=torch.bool, device=dev)
@@ -301,28 +381,15 @@ def round_plain(state: NodeState, max_tasks: torch.Tensor,
     rounds = 0
     changed = True
     while rounds < K and changed:
-        bid = cand.gather(1, slot[:, None])[:, 0]
+        bid = cand.gather(1, slot[:, None])[:, 0].long()
         bscore = cand_score.gather(1, slot[:, None])[:, 0]
         bidding = ~accept & todo_c & (bscore > -torch.inf)
-        held = torch.where(accept, choice, -1)
-        claimed = _node_sums(held, req_c, N, unit)
-        claimed_cnt = torch.bincount(choice[accept], minlength=N)
-        avail = fidle[bid] - claimed[bid]
-        base_cnt = nt[bid].long() + claimed_cnt[bid]
-        maxt = max_tasks[bid].long()
-        ar = torch.arange(C, device=dev)
-        same = (bid[:, None] == bid[None, :]) & (ar[:, None] > ar[None, :])
-
-        def wave(mask):
-            live = mask & bidding
-            cum = _lane_prefix(bid, live, req_c, unit)
-            cnt = (same & live[None, :]).sum(dim=1)
-            room = (req_c + cum < avail + EPS).all(dim=-1)
-            return bidding & room & (base_cnt + cnt < maxt)
-
-        acc = wave(torch.ones(C, dtype=torch.bool, device=dev))
-        acc = acc | wave(acc)
-        acc = wave(acc)
+        acc = torch.zeros(C, dtype=torch.bool, device=dev)
+        for s in range(shards):
+            sl = slice(s * Nl, (s + 1) * Nl)
+            acc = acc | _round_shard(fidle[sl], nt[sl], max_tasks[sl],
+                                     s * Nl, Nl, accept, choice, bid,
+                                     bidding, req_c, unit)
         new_choice = torch.where(acc, bid, choice)
         new_accept = accept | acc
         new_slot = torch.where(bidding & ~acc,
@@ -335,21 +402,33 @@ def round_plain(state: NodeState, max_tasks: torch.Tensor,
     if stats is not None:
         stats["rounds"] = stats.get("rounds", 0) + rounds
 
-    # alloc-vs-pipeline split: nine steps of the antitone fit map
-    node = torch.where(accept, choice, 0)
-    idle_bid = idle[node]
-    alloc = accept.clone()
-    for _ in range(ALLOC_STEPS):
-        cum = _lane_prefix(node, alloc & accept, req_c, unit)
-        alloc = accept & (req_c + cum < idle_bid + EPS).all(dim=-1)
+    # alloc-vs-pipeline split: nine steps of the antitone fit map, on each
+    # task's owner shard
+    alloc = torch.zeros(C, dtype=torch.bool, device=dev)
+    parts = []
+    for s in range(shards):
+        off = s * Nl
+        mine = accept & (choice >= off) & (choice < off + Nl)
+        sh = _shard(state, s, Nl)
+        node = torch.where(mine, choice - off, 0)
+        idle_bid = sh.idle[node]
+        alloc_l = mine.clone()
+        for _ in range(ALLOC_STEPS):
+            cum = _lane_prefix(node, alloc_l & mine, req_c, unit)
+            alloc_l = mine & (req_c + cum < idle_bid + EPS).all(dim=-1)
+        alloc = alloc | alloc_l
+        delta_alloc = _node_sums(torch.where(alloc_l, choice - off, -1),
+                                 req_c, Nl, unit)
+        delta_all = _node_sums(torch.where(mine, choice - off, -1), req_c,
+                               Nl, unit)
+        placed = torch.bincount(choice[mine] - off,
+                                minlength=Nl).to(nt.dtype)
+        parts.append(NodeState(sh.idle - delta_alloc,
+                               sh.future_idle - delta_all,
+                               sh.used + delta_alloc, sh.ntasks + placed))
     pipe = accept & ~alloc
-    delta_alloc = _node_sums(torch.where(alloc, choice, -1), req_c, N, unit)
-    delta_all = _node_sums(torch.where(accept, choice, -1), req_c, N, unit)
-    placed = torch.bincount(choice[accept], minlength=N).to(nt.dtype)
-    state = NodeState(idle - delta_alloc, fidle - delta_all,
-                      used + delta_alloc, nt + placed)
     out = torch.where(accept, choice, NO_NODE).to(torch.int32)
-    return state, out, pipe
+    return _join(parts), out, pipe
 
 
 def free_plain(state: NodeState, assign: torch.Tensor, pipe: torch.Tensor,
@@ -416,7 +495,8 @@ def blocks_plain(idle: torch.Tensor, future_idle: torch.Tensor,
                  masked_static: Optional[torch.Tensor],
                  weights: ScoreWeights, chunk: int = CHUNK, sweeps: int = 3,
                  passes: int = 3, timing: Optional[Dict[str, float]] = None,
-                 stats: Optional[Dict[str, int]] = None) -> BlocksOutput:
+                 stats: Optional[Dict[str, int]] = None,
+                 shards: int = 1) -> BlocksOutput:
     """The solve with tensor ops on any device (unified.py:313-446). The
     task axis is padded: ``req [Tp,R]``, ``valid [Tp]`` bool, ``job_ix
     [Tp]`` i32, ``masked_static [Tp,N]`` or None, Tp a multiple of
@@ -424,13 +504,22 @@ def blocks_plain(idle: torch.Tensor, future_idle: torch.Tensor,
     ``packed`` the i32 row ``[assign Tp | pipe Tp | ready J | kept J]``;
     the inputs are not modified. ``timing`` collects the host seconds of
     the parts the kernels do, by kernel name ("blocks_topk",
-    "blocks_round", "blocks_free"); ``stats`` counts the chunks and rows
-    with work, the rounds, passes and sweeps run and the tasks the sweeps
-    dropped."""
+    "blocks_round", "blocks_free"; sharded also "blocks_merge" and
+    "blocks_round_sharded"); ``stats`` counts the chunks and rows with
+    work, the rounds, passes and sweeps run and the tasks the sweeps
+    dropped. ``shards`` > 1 runs the node-sharded form over that many
+    equal shards of the node axis (N a multiple of it), one shard after
+    another and gathered in shard order; its outputs are the unsharded
+    solve's."""
     Tp = req.shape[0]
     N = idle.shape[0]
     J = jobs.min_available.shape[0]
+    if shards < 1 or N % shards:
+        raise ValueError(f"blocks_plain: {N} nodes do not split into "
+                         f"{shards} shards")
+    Nl = N // shards
     K = min(K_CAND, N)
+    K_loc = min(K_CAND, Nl)
     dev = req.device
     unit = sum_unit(req)
     stats = {} if stats is None else stats
@@ -458,13 +547,29 @@ def blocks_plain(idle: torch.Tensor, future_idle: torch.Tensor,
             stats["chunks"] = stats.get("chunks", 0) + 1
             stats["rows"] = stats.get("rows", 0) + int(todo[lo:hi].sum())
             ms_c = None if masked_static is None else masked_static[lo:hi]
-            cs, cand = _time(timing, "blocks_topk", lambda: topk_plain(
-                state.future_idle, state.used, state.ntasks, allocatable,
-                max_tasks, req[lo:hi], ms_c, weights, K))
+            if shards == 1:
+                cs, cand = _time(timing, "blocks_topk", lambda: topk_plain(
+                    state.future_idle, state.used, state.ntasks, allocatable,
+                    max_tasks, req[lo:hi], ms_c, weights, K))
+            else:
+                lists = []
+                for s in range(shards):
+                    sl = slice(s * Nl, (s + 1) * Nl)
+                    lists.append(_time(
+                        timing, "blocks_topk", lambda: topk_plain(
+                            state.future_idle[sl], state.used[sl],
+                            state.ntasks[sl], allocatable[sl],
+                            max_tasks[sl], req[lo:hi],
+                            None if ms_c is None else ms_c[:, sl],
+                            weights, K_loc)))
+                cs, cand = _time(timing, "blocks_merge", lambda: merge_plain(
+                    torch.stack([v for v, _ in lists]),
+                    torch.stack([i for _, i in lists]), Nl, K))
             state, out[lo:hi], out_pipe[lo:hi] = _time(
-                timing, "blocks_round", lambda: round_plain(
+                timing, "blocks_round" if shards == 1
+                else "blocks_round_sharded", lambda: round_plain(
                     state, max_tasks, req[lo:hi], todo[lo:hi], cs, cand,
-                    unit, stats))
+                    unit, stats, shards))
         assign = torch.where(fresh, out, assign)
         pipe = torch.where(fresh, out_pipe, pipe)
         return state, assign, pipe
@@ -483,8 +588,12 @@ def blocks_plain(idle: torch.Tensor, future_idle: torch.Tensor,
             stats["passes"] = stats.get("passes", 0) + 1
         ready, kept, drop, dead = gang_vote(assign, pipe, job_ix, jobs)
         stats["dropped"] = stats.get("dropped", 0) + int(drop.sum())
-        state = _time(timing, "blocks_free", lambda: free_plain(
-            state, assign, pipe, drop, req, unit))
+        state = _time(timing, "blocks_free", lambda: _join([
+            free_plain(_shard(state, s, Nl),
+                       torch.where(drop & own, assign - s * Nl, NO_NODE),
+                       pipe, drop & own, req, unit)
+            for s in range(shards)
+            for own in [(assign >= s * Nl) & (assign < (s + 1) * Nl)]]))
         assign = torch.where(drop, NO_NODE, assign)
         job_dead = job_dead | dead
         changed_s = bool((assign != assign_in).any()
@@ -513,15 +622,20 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vt_blocks_topk.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, f, f,
                                    f, f, p, p, p, p, i, p, i, p, p, p, i, i,
-                                   i, i, i, i, p]
+                                   i, i, i, i, i, p]
     lib.vt_blocks_topk_scratch.argtypes = [i, p, p]
     lib.vt_blocks_topk_scratch.restype = None
     lib.vt_blocks_round.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p,
                                     p, p, i, i, i, i, i, p]
     lib.vt_blocks_free.argtypes = [p, p, p, p, p, p, p, p, p, i, i, p]
     lib.vt_blocks_prep.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.vt_blocks_round_sharded.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                            p, p, p, p, p, i, i, i, i, i, i,
+                                            p]
+    lib.vt_blocks_merge.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     for fn in (lib.vt_blocks_topk, lib.vt_blocks_round, lib.vt_blocks_free,
-               lib.vt_blocks_prep):
+               lib.vt_blocks_prep, lib.vt_blocks_round_sharded,
+               lib.vt_blocks_merge):
         fn.restype = ctypes.c_int
     return lib
 
@@ -580,7 +694,8 @@ def blocks_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
                 masked_static: Optional[torch.Tensor],
                 weights: ScoreWeights, chunk: int = CHUNK, sweeps: int = 3,
                 passes: int = 3, timing: Optional[Dict[str, float]] = None,
-                stats: Optional[Dict[str, int]] = None) -> BlocksOutput:
+                stats: Optional[Dict[str, int]] = None,
+                shards: int = 1) -> BlocksOutput:
     """The solve through the kernels of ``csrc/blocks.cu`` on the current
     stream: once, each row's class (``task_classes``) and each chunk's
     exactness flag (``chunk_exact``) by ``blocks_prep``; per pass, for each
@@ -597,7 +712,11 @@ def blocks_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
     "blocks_free_prep"; ``stats`` the chunks and rows with work, the
     candidate lists computed ("classes"), the chunks summed in the exact
     mode ("chunks_exact"), the rounds, passes and sweeps run and the tasks
-    the sweeps dropped.
+    the sweeps dropped. With ``shards`` D of 2 to 8 (the portable cluster
+    size) it runs the node-sharded form: a chunk launches the candidate
+    kernel once a shard over the shard's rows (its K_loc best into slot s of
+    a [D, chunk, K_loc] buffer), ``blocks_merge`` and one cluster of D CTAs
+    of ``blocks_round_sharded``; the frees launch once a shard.
     Raises on a tensor it does not take, a failed build or a failed
     launch."""
     device = idle.device
@@ -615,6 +734,9 @@ def blocks_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
                          f"and divide the {Tp} tasks")
     if N >= 1 << 31 or N < 1:
         raise ValueError(f"blocks_cuda: {N} nodes")
+    if not 1 <= shards <= MAX_SHARDS or N % shards:
+        raise ValueError(f"blocks_cuda: {N} nodes in {shards} shards; the "
+                         f"kernels take 1..{MAX_SHARDS} equal shards")
     for name, t, dtype, shape in (
             ("idle", idle, torch.float32, (N, R)),
             ("future_idle", future_idle, torch.float32, (N, R)),
@@ -639,12 +761,13 @@ def blocks_cuda(idle: torch.Tensor, future_idle: torch.Tensor,
     with torch.cuda.device(device):
         return _drive(idle, future_idle, used, ntasks, allocatable,
                       max_tasks, req, valid, job_ix, jobs, masked_static,
-                      weights, res, chunk, sweeps, passes, timing, stats)
+                      weights, res, chunk, sweeps, passes, timing, stats,
+                      shards)
 
 
 def _drive(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
            valid, job_ix, jobs, masked_static, weights, res, chunk, sweeps,
-           passes, timing, stats) -> BlocksOutput:
+           passes, timing, stats, shards) -> BlocksOutput:
     """blocks_cuda's loops over sweeps, passes and chunks, on checked
     tensors."""
     N = idle.shape[0]
@@ -652,6 +775,8 @@ def _drive(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
     J = jobs.min_available.shape[0]
     device = idle.device
     K = min(K_CAND, N)
+    Nl = N // shards
+    K_loc = min(K_CAND, Nl)
     state = NodeState(idle.clone(), future_idle.clone(), used.clone(),
                       ntasks.clone())
     if allocatable.data_ptr() % 16:
@@ -664,6 +789,14 @@ def _drive(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
     cand = torch.empty((chunk, K), dtype=torch.int32, device=device)
     cand_score = torch.empty((chunk, K), dtype=torch.float32, device=device)
     counters = torch.zeros(7, dtype=torch.int32, device=device)
+    if shards > 1:
+        # each shard's lists, and counters for the shards past the first
+        # (the rows and classes count once)
+        part_cand = torch.zeros((shards, chunk, K_loc), dtype=torch.int32,
+                                device=device)
+        part_score = torch.zeros((shards, chunk, K_loc), dtype=torch.float32,
+                                 device=device)
+        spare = torch.zeros(7, dtype=torch.int32, device=device)
     jx = job_ix.long()
     stats = {} if stats is None else stats
     events = _Events(timing)
@@ -679,13 +812,31 @@ def _drive(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
     def one_pass():
         counters[ACCEPTED] = 0
         for lo in range(0, Tp, chunk):
-            events.run("blocks_topk", lambda: topk_cuda(
-                state, allocatable, max_tasks, res, weights, req, valid,
-                job_ix, job_dead, assign, masked_static, classes, scratch,
-                lo, chunk, cand, cand_score, counters))
-            events.run("blocks_round", lambda: round_cuda(
+            if shards == 1:
+                events.run("blocks_topk", lambda: topk_cuda(
+                    state, allocatable, max_tasks, res, weights, req, valid,
+                    job_ix, job_dead, assign, masked_static, classes,
+                    scratch, lo, chunk, cand, cand_score, counters))
+                events.run("blocks_round", lambda: round_cuda(
+                    state, max_tasks, req, valid, job_ix, job_dead, assign,
+                    pipe, classes[0], exact, cand, cand_score, lo, chunk,
+                    counters))
+                continue
+            for s in range(shards):
+                sl = slice(s * Nl, (s + 1) * Nl)
+                events.run("blocks_topk", lambda: topk_cuda(
+                    _shard(state, s, Nl), allocatable[sl], max_tasks[sl],
+                    res, weights, req, valid, job_ix, job_dead, assign,
+                    masked_static, classes, scratch, lo, chunk,
+                    part_cand[s], part_score[s],
+                    counters if s == 0 else spare, col0=s * Nl))
+            events.run("blocks_merge", lambda: merge_cuda(
+                part_cand, part_score, classes[2], cand, cand_score, lo,
+                chunk, Nl))
+            events.run("blocks_round_sharded", lambda: round_sharded_cuda(
                 state, max_tasks, req, valid, job_ix, job_dead, assign, pipe,
-                classes[0], exact, cand, cand_score, lo, chunk, counters))
+                classes[0], exact, cand, cand_score, lo, chunk, counters,
+                shards))
 
     # a sweep's pass loop starts on any(todo): read here for the first,
     # with the sweep's changed flag for the others
@@ -705,8 +856,11 @@ def _drive(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
                                             jobs)
         groups = events.run("blocks_free_prep",
                             lambda: free_groups(assign, drop, N))
-        events.run("blocks_free", lambda: free_cuda(state, req, pipe,
-                                                    *groups))
+        for sh in range(shards):
+            sl = slice(sh * Nl, (sh + 1) * Nl)
+            events.run("blocks_free", lambda: free_cuda(
+                _shard(state, sh, Nl), req, pipe, groups[0], groups[1][sl],
+                groups[2][sl]))
         counters[DROPPED] += drop.sum(dtype=torch.int32)
         assign.masked_fill_(drop, NO_NODE)
         job_dead = job_dead | dead
@@ -781,30 +935,78 @@ def topk_cuda(state: NodeState, allocatable: torch.Tensor,
               classes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
               scratch: Tuple[int, torch.Tensor, torch.Tensor], lo: int,
               chunk: int, cand: torch.Tensor, cand_score: torch.Tensor,
-              counters: torch.Tensor) -> None:
+              counters: torch.Tensor, col0: int = 0) -> None:
     """One launch of ``blocks_topk_kernel`` for the chunk of tasks
     ``[lo, lo + chunk)``: the K candidates of each class (``task_classes``)
     with a row that still has work, into row ``class`` of
     ``cand``/``cand_score``, on the grid and scratch of ``topk_scratch``.
+    The node state may be a shard's rows: its static scores are then the
+    columns ``col0 ...`` of ``masked_static``, and its nodes shard-local.
     Arguments as ``blocks_cuda`` checked them."""
     N, R = state.idle.shape
     cls, class_rep, n_class = classes
     grid, part, done = scratch
+    ms_ld = N if masked_static is None else masked_static.shape[1]
     err = _lib().vt_blocks_topk(
         state.future_idle.data_ptr(), state.used.data_ptr(),
         state.ntasks.data_ptr(), allocatable.data_ptr(),
         max_tasks.data_ptr(), res.data_ptr(), req.data_ptr(),
         valid.data_ptr(), job_ix.data_ptr(), job_dead.data_ptr(),
         assign.data_ptr(),
-        None if masked_static is None else masked_static.data_ptr(),
+        None if masked_static is None
+        else masked_static.data_ptr() + 4 * col0,
         weights.binpack_weight, weights.least_req_weight,
         weights.most_req_weight, weights.balanced_weight, cls.data_ptr(),
         class_rep.data_ptr(), n_class.data_ptr(), part.data_ptr(),
         part.numel(), done.data_ptr(), done.numel(), cand.data_ptr(),
         cand_score.data_ptr(), counters.data_ptr(), lo, chunk, N, R,
-        cand.shape[1], grid, torch.cuda.current_stream().cuda_stream)
+        cand.shape[1], ms_ld, grid, torch.cuda.current_stream().cuda_stream)
     _launched("blocks_topk", err)
     topk_cuda.launches += 1
+
+
+def merge_cuda(part_cand: torch.Tensor, part_score: torch.Tensor,
+               n_class: torch.Tensor, cand: torch.Tensor,
+               cand_score: torch.Tensor, lo: int, chunk: int,
+               Nl: int) -> None:
+    """One launch of ``blocks_merge_kernel``: each class's global K
+    candidates of the chunk ``[lo, lo + chunk)`` (``cand``/``cand_score``
+    [chunk, K], global nodes) from the shards' lists ``part_*`` [D, chunk,
+    K_loc] (shard-local nodes, Nl a shard): ``merge_plain``'s function, a
+    warp a class."""
+    D, _, K_loc = part_cand.shape
+    err = _lib().vt_blocks_merge(
+        part_cand.data_ptr(), part_score.data_ptr(), n_class.data_ptr(),
+        cand.data_ptr(), cand_score.data_ptr(), lo, chunk, D, Nl, K_loc,
+        cand.shape[1], torch.cuda.current_stream().cuda_stream)
+    _launched("blocks_merge", err)
+    merge_cuda.launches += 1
+
+
+def round_sharded_cuda(state: NodeState, max_tasks: torch.Tensor,
+                       req: torch.Tensor, valid: torch.Tensor,
+                       job_ix: torch.Tensor, job_dead: torch.Tensor,
+                       assign: torch.Tensor, pipe: torch.Tensor,
+                       cls: torch.Tensor, exact: torch.Tensor,
+                       cand: torch.Tensor, cand_score: torch.Tensor, lo: int,
+                       chunk: int, counters: torch.Tensor,
+                       shards: int) -> None:
+    """One launch of the sharded ``blocks_round_kernel``, a cluster of
+    ``shards`` CTAs over the whole node state (CTA s owning rows s*Nl ...):
+    ``round_cuda``'s function, each node's contention and split decided by
+    its owner CTA and the verdicts OR-ed through distributed shared
+    memory."""
+    N, R = state.idle.shape
+    err = _lib().vt_blocks_round_sharded(
+        state.idle.data_ptr(), state.future_idle.data_ptr(),
+        state.used.data_ptr(), state.ntasks.data_ptr(), max_tasks.data_ptr(),
+        req.data_ptr(), valid.data_ptr(), job_ix.data_ptr(),
+        job_dead.data_ptr(), assign.data_ptr(), pipe.data_ptr(),
+        cls.data_ptr(), exact.data_ptr(), cand.data_ptr(),
+        cand_score.data_ptr(), counters.data_ptr(), lo, chunk, N // shards,
+        R, cand.shape[1], shards, torch.cuda.current_stream().cuda_stream)
+    _launched("blocks_round_sharded", err)
+    round_sharded_cuda.launches += 1
 
 
 def round_cuda(state: NodeState, max_tasks: torch.Tensor, req: torch.Tensor,
@@ -867,6 +1069,8 @@ prep_cuda.launches = 0
 topk_cuda.launches = 0
 round_cuda.launches = 0
 free_cuda.launches = 0
+merge_cuda.launches = 0
+round_sharded_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -879,9 +1083,11 @@ def blocks(idle: torch.Tensor, future_idle: torch.Tensor, used: torch.Tensor,
            job_ix: torch.Tensor, jobs: JobMeta,
            masked_static: Optional[torch.Tensor], weights: ScoreWeights,
            chunk: int = CHUNK, sweeps: int = 3, passes: int = 3,
-           stats: Optional[Dict[str, int]] = None) -> BlocksOutput:
-    """The solve on the tensors' device: the kernels for CUDA tensors, the
-    plain version for CPU tensors."""
+           stats: Optional[Dict[str, int]] = None,
+           shards: int = 1) -> BlocksOutput:
+    """The solve on the tensors' device, over ``shards`` shards of the
+    node axis: the kernels for CUDA tensors, the plain version for CPU
+    tensors."""
     device = idle.device
     if device.type == "cuda":
         solve = blocks_cuda
@@ -892,7 +1098,7 @@ def blocks(idle: torch.Tensor, future_idle: torch.Tensor, used: torch.Tensor,
                          f"{device}")
     return solve(idle, future_idle, used, ntasks, allocatable, max_tasks, req,
                  valid, job_ix, jobs, masked_static, weights, chunk=chunk,
-                 sweeps=sweeps, passes=passes, stats=stats)
+                 sweeps=sweeps, passes=passes, stats=stats, shards=shards)
 
 
 def _device_meta(jobs: JobMeta, device) -> JobMeta:
@@ -911,22 +1117,27 @@ def place_blocks_unified(mesh, nodes: NodeState, req: torch.Tensor,
                          masked_static: Optional[torch.Tensor] = None,
                          stats: Optional[Dict[str, int]] = None
                          ) -> Tuple[torch.Tensor, NodeState]:
-    """Blocks-mode placement on one device (unified.py:497-540). Pads the
-    task axis to a multiple of ``chunk`` (``valid`` false, static rows
-    ``NEG``) and returns ``(packed, nodes)``: the i32 row ``[assign Tp |
-    pipe Tp | ready J | kept J]``, Tp = ``padded_task_len(T, chunk)``, and
-    the final node state, both on the device. ``mesh`` must be None: the
-    node-sharded form is not in this package."""
-    if mesh is not None:
-        raise NotImplementedError("place_blocks_unified: a device mesh (the "
-                                  "tpu-sharded engine) is not in "
-                                  "volcano_tpu_torch")
+    """Blocks-mode placement (unified.py:497-540), unsharded (``mesh``
+    None) or node-sharded over ``mesh`` (ops/unified.py's Mesh; the node
+    axis N must be a multiple of its size). Pads the task axis to a
+    multiple of ``chunk`` (``valid`` false, static rows ``NEG``) and
+    returns ``(packed, nodes)``: the i32 row ``[assign Tp | pipe Tp | ready
+    J | kept J]``, Tp = ``padded_task_len(T, chunk)``, and the final node
+    state, both on the device. A one-slot mesh runs the unsharded solve
+    (unified.py:518-519): the sharded one gives the same bits, so this
+    changes no decision."""
+    shards = 1 if mesh is None else mesh.size
+    N = allocatable.shape[0]
+    if N % shards:
+        raise ValueError(f"place_blocks_unified: node count {N} not "
+                         f"divisible by mesh size {shards}")
     req, valid, job_ix, masked_static = pad_tasks(req, valid, job_ix,
                                                   masked_static, chunk)
     out = blocks(nodes.idle, nodes.future_idle, nodes.used, nodes.ntasks,
                  allocatable, max_tasks, req, valid, job_ix,
                  _device_meta(jobs, req.device), masked_static, weights,
-                 chunk=chunk, sweeps=sweeps, passes=passes, stats=stats)
+                 chunk=chunk, sweeps=sweeps, passes=passes, stats=stats,
+                 shards=shards)
     return out[0], NodeState(*out[1:])
 
 

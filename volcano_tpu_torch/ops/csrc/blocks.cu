@@ -63,6 +63,15 @@
 //     product), the lanes held in registers.
 //   Each node's state is read once a round, by its group's first thread.
 //
+// Over a node mesh of D shards (ops/blocks.py with ``shards``; unified.py's
+// solve with ``axis``, :152-310) a chunk launches blocks_topk_kernel once a
+// shard over the shard's rows (its K_loc best into slot s of a [D, chunk,
+// K_loc] buffer), blocks_merge_kernel (the global top K, ties to the lowest
+// global node) and blocks_round_kernel<R, true> as one thread-block cluster
+// of D CTAs, each owning a shard's rows and OR-ing its accept and alloc
+// verdicts with the others through distributed shared memory; the frees
+// launch once a shard.
+//
 // A sweep then takes the gang vote as integer tensor ops on the host's
 // stream and launches blocks_free_kernel, a thread a node: the node's
 // dropped tasks (grouped by node in task order by a stable sort) are summed
@@ -83,12 +92,15 @@
 // nodes a chunk chose gives the same bits as the plain version's
 // whole-array update.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "score.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 0.1f;          // resource_info.go minResource
@@ -227,6 +239,8 @@ struct TopkArgs {
   float* cand_score;             // [chunk,K] by class
   int* counters;
   int lo, chunk, N, K;
+  int ms_ld;                     // row stride of ms (N, or the whole axis
+                                 // for a shard's columns)
 };
 
 // Splits of the node axis for ``groups`` work groups: enough to give every
@@ -299,7 +313,7 @@ __global__ void __launch_bounds__(kTopkThreads)
 #pragma unroll
       for (int r = 0; r < R; ++r)
         q[j][r] = a.req[static_cast<size_t>(t) * R + r];
-      srow[j] = a.ms ? a.ms + static_cast<size_t>(t) * a.N : nullptr;
+      srow[j] = a.ms ? a.ms + static_cast<size_t>(t) * a.ms_ld : nullptr;
     }
     const int n0 = static_cast<int>(static_cast<long long>(s) * a.N / S);
     const int n1 = static_cast<int>(static_cast<long long>(s + 1) * a.N / S);
@@ -416,7 +430,8 @@ struct RoundArgs {
   const int* cand;               // [chunk,K] by class
   const float* cand_score;       // [chunk,K] by class
   int* counters;
-  int lo, chunk, N, K;
+  int lo, chunk, N, K;           // N: the nodes of the block's shard
+  int shards;                    // the cluster's CTAs (sharded round only)
 };
 
 // Ascending bitonic sort of one key a thread over the block (blockDim.x a
@@ -652,11 +667,44 @@ __device__ __forceinline__ void split_inorder(int p, int T, const u64* key,
   a.nt[node] = a.nt[node] + (end - p);
 }
 
+// Whether ``v`` holds in any CTA of the cluster, for thread i of each: the
+// warps' ballots go to this CTA's ``vote[vb]``, one cluster barrier, then
+// each thread reads its warp's word of every CTA through distributed
+// shared memory. Two vote buffers alternate: a CTA writes buffer vb again
+// only after the next call's barrier, which every CTA reaches after its
+// reads of this one.
+__device__ __forceinline__ bool cluster_any(bool v,
+                                            unsigned (*vote)[kRoundWarps],
+                                            int& vb, int shards) {
+  cg::cluster_group cl = cg::this_cluster();
+  const unsigned bal = __ballot_sync(kFull, v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) vote[vb][warp] = bal;
+  cl.sync();
+  bool any = false;
+  for (int r = 0; r < shards; ++r) {
+    const unsigned* w = cl.map_shared_rank(&vote[vb][0], r);
+    any = any || ((w[warp] >> lane) & 1u);
+  }
+  vb ^= 1;
+  return any;
+}
+
 // One block an SM at most (a chunk is one block): ptxas then need not fit
 // two blocks' registers, and no instance spills.
-template <int R>
+//
+// kSharded: the node axis split over a cluster of ``shards`` CTAs, CTA s
+// owning nodes [s * N, (s + 1) * N) (N the shard's size, candidates global
+// node ids). Every CTA holds the whole chunk's replicated state (accepted,
+// choice, slot); it groups and decides only the tasks that bid for, or hold,
+// one of its own nodes, reads and writes only its own nodes' rows, and
+// each round's accept verdicts and the split's alloc verdicts are OR-ed over
+// the cluster (cluster_any): a node's owner decides it, exactly as the
+// unsharded kernel does, since a node's sums involve only its own tasks.
+// CTA 0 alone writes the task outputs and counters.
+template <int R, bool kSharded>
 __global__ void __launch_bounds__(kMaxChunk, 1) blocks_round_kernel(
-    const RoundArgs a) {
+    const RoundArgs ga) {
   __shared__ float s_req[kMaxChunk][R];
   __shared__ u64 s_sort[2][kMaxChunk];
   __shared__ u64 s_key[kMaxChunk];
@@ -664,7 +712,21 @@ __global__ void __launch_bounds__(kMaxChunk, 1) blocks_round_kernel(
   __shared__ float s_nf[kMaxChunk][R];   // by group head: FutureIdle, Idle
   __shared__ int s_ni[kMaxChunk][2];     // by group head: pods, max pods
   __shared__ ScanShared sh;
+  __shared__ unsigned s_vote[2][kRoundWarps];
 
+  RoundArgs a = ga;
+  int rank = 0;
+  if constexpr (kSharded) {
+    rank = static_cast<int>(cg::this_cluster().block_rank());
+    const size_t o = static_cast<size_t>(rank) * a.N;
+    a.idle += o * R;
+    a.fidle += o * R;
+    a.used += o * R;
+    a.nt += o;
+    a.maxt += o;
+  }
+  const int off = rank * a.N;         // the shard's first global node
+  int vb = 0;
   // thread i is task i of the chunk, and position i of each sort
   const int i = threadIdx.x;
   const int T = blockDim.x;
@@ -675,11 +737,11 @@ __global__ void __launch_bounds__(kMaxChunk, 1) blocks_round_kernel(
       active && has_work(t, a.assign, a.valid, a.job_ix, a.job_dead);
   if (!__syncthreads_or(todo)) {
     // the skipped chunk's rows come back NO_NODE, not pipelined
-    if (fresh) a.pipe[t] = 0;
+    if (fresh && rank == 0) a.pipe[t] = 0;
     return;
   }
   const bool exact = a.exact[a.lo / a.chunk] != 0;
-  if (i == 0) {
+  if (i == 0 && rank == 0) {
     atomicAdd(a.counters + kChunks, 1);
     if (exact) atomicAdd(a.counters + kExactChunks, 1);
   }
@@ -713,9 +775,14 @@ __global__ void __launch_bounds__(kMaxChunk, 1) blocks_round_kernel(
     const int bid = bid_at;
     const bool bidding = !accept && todo && score_at > -INFINITY;
     // group by node: accepted tasks, then bidders, each in task order
-    const u64 mine = accept ? (static_cast<u64>(choice) << 32 | i)
-                     : bidding ? (static_cast<u64>(bid) << 32 | kBidBit | i)
-                               : (kNone | i);
+    const bool own_choice = !kSharded || (choice >= off && choice < off + a.N);
+    const bool own_bid = !kSharded || (bid >= off && bid < off + a.N);
+    const u64 mine =
+        accept ? (own_choice ? (static_cast<u64>(choice - off) << 32 | i)
+                             : (kNone | i))
+        : (bidding && own_bid)
+            ? (static_cast<u64>(bid - off) << 32 | kBidBit | i)
+            : (kNone | i);
     const u64 key = group_by_node(mine, narrow, s_sort);
     s_key[i] = key;
     __syncthreads();
@@ -781,7 +848,8 @@ __global__ void __launch_bounds__(kMaxChunk, 1) blocks_round_kernel(
       if (pbid) s_flag[pt] = acc;
     }
     __syncthreads();
-    const bool acc = bidding && s_flag[i];
+    bool acc = bidding && own_bid && s_flag[i];
+    if constexpr (kSharded) acc = cluster_any(acc, s_vote, vb, a.shards);
 
     const int new_choice = acc ? bid : choice;
     const bool new_accept = accept || acc;
@@ -802,15 +870,17 @@ __global__ void __launch_bounds__(kMaxChunk, 1) blocks_round_kernel(
     changed = __syncthreads_or(mine_changed);
     ++rounds;
   }
-  if (i == 0) atomicAdd(a.counters + kRounds, rounds);
+  if (i == 0 && rank == 0) atomicAdd(a.counters + kRounds, rounds);
   const int accepted = __syncthreads_count(accept);
-  if (i == 0) atomicAdd(a.counters + kAccepted, accepted);
+  if (i == 0 && rank == 0) atomicAdd(a.counters + kAccepted, accepted);
 
   // alloc-vs-pipeline split (nine steps of the antitone fit map on Idle)
   // and deltas, over the accepted tasks grouped by node in task order
+  const bool mine_node =
+      accept && (!kSharded || (choice >= off && choice < off + a.N));
   const u64 key = group_by_node(
-      accept ? (static_cast<u64>(choice) << 32 | i) : (kNone | i), narrow,
-      s_sort);
+      mine_node ? (static_cast<u64>(choice - off) << 32 | i) : (kNone | i),
+      narrow, s_sort);
   s_key[i] = key;
   __syncthreads();
   const bool real = (key & kNone) != kNone;
@@ -870,13 +940,16 @@ __global__ void __launch_bounds__(kMaxChunk, 1) blocks_round_kernel(
     if (real) s_flag[pt] = al;
   }
   __syncthreads();
-  const bool alloc = accept && s_flag[i];
+  bool alloc = mine_node && s_flag[i];
+  if constexpr (kSharded) alloc = cluster_any(alloc, s_vote, vb, a.shards);
   // the task's row and freshness read again, not held across the rounds
   const int te = a.lo + i;
-  if (active && a.assign[te] == -1) {
+  if (rank == 0 && active && a.assign[te] == -1) {
     if (accept) a.assign[te] = choice;
     a.pipe[te] = accept && !alloc;
   }
+  // no CTA leaves while another may still read its votes
+  if constexpr (kSharded) cg::this_cluster().sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -1125,6 +1198,50 @@ __global__ void __launch_bounds__(kFreeThreads)
   a.nt[n] = a.nt[n] - cnt;
 }
 
+// ---------------------------------------------------------------------------
+// the merge of the shards' candidate lists
+// ---------------------------------------------------------------------------
+
+struct MergeArgs {
+  const int* part_cand;          // [D, chunk, Kl] shard-local nodes by class
+  const float* part_score;       // [D, chunk, Kl]
+  const int* n_class;            // [Tp/chunk]
+  int* cand;                     // [chunk, K] global nodes by class
+  float* cand_score;             // [chunk, K]
+  int lo, chunk, D, Nl, Kl, K;
+};
+
+// A warp a class of the chunk: the global top K of the shards' lists (shard
+// s's node j is global node s * Nl + j). A batch of 32 entries a step,
+// sorted by the bitonic network and merged into the warp's best 32; the
+// keys order a stable top-k of the shard-major concatenation (highest score
+// first, equal scores by global node, as each shard's list is), so the
+// merged list is the unsharded candidate kernel's.
+constexpr int kMergeThreads = 256;
+
+__global__ void __launch_bounds__(kMergeThreads)
+    blocks_merge_kernel(const MergeArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * (kMergeThreads / 32) + (threadIdx.x >> 5);
+  if (k >= a.n_class[a.lo / a.chunk]) return;
+  const int total = a.D * a.Kl;
+  u64 best = 0;
+  for (int base = 0; base < total; base += 32) {
+    const int e = base + lane;
+    u64 key = 0;
+    if (e < total) {
+      const int sh = e / a.Kl, j = e - sh * a.Kl;
+      const size_t at = (static_cast<size_t>(sh) * a.chunk + k) * a.Kl + j;
+      key = score_key(a.part_score[at], sh * a.Nl + a.part_cand[at]);
+    }
+    best = warp_merge_desc(best, warp_sort_desc(key, lane), lane);
+  }
+  if (lane < a.K) {
+    a.cand[k * a.K + lane] = key_node(best);
+    a.cand_score[k * a.K + lane] = key_score(best);
+  }
+}
+
 template <template <int> class Launch, typename Args>
 int dispatch_r(int R, const Args& args, dim3 grid, dim3 block,
                cudaStream_t stream) {
@@ -1150,7 +1267,26 @@ struct TopkLaunch {
 template <int R>
 struct RoundLaunch {
   static void go(const RoundArgs& a, dim3 g, dim3 b, cudaStream_t s) {
-    blocks_round_kernel<R><<<g, b, 0, s>>>(a);
+    blocks_round_kernel<R, false><<<g, b, 0, s>>>(a);
+  }
+};
+// a cluster of g.x CTAs, one a shard
+template <int R>
+struct RoundShardedLaunch {
+  static void go(const RoundArgs& a, dim3 g, dim3 b, cudaStream_t s) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = g;
+    cfg.blockDim = b;
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = g.x;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaLaunchKernelEx(&cfg, blocks_round_kernel<R, true>, a);
   }
 };
 template <int R>
@@ -1202,17 +1338,17 @@ extern "C" int vt_blocks_topk(const float* fidle, const float* used,
                               void* part, int part_entries, int* done,
                               int done_entries, int* cand,
                               float* cand_score, int* counters, int lo,
-                              int chunk, int N, int R, int K, int grid,
-                              cudaStream_t stream) {
+                              int chunk, int N, int R, int K, int ms_ld,
+                              int grid, cudaStream_t stream) {
   int need_part = 0, need_done = 0;
   vt_blocks_topk_scratch(grid, &need_part, &need_done);
   if (!shape_ok(chunk, N, R, K) || grid < 1 || lo % chunk ||
-      part_entries < need_part || done_entries < need_done)
+      part_entries < need_part || done_entries < need_done || ms_ld < N)
     return static_cast<int>(cudaErrorInvalidValue);
   const TopkArgs a{fidle, used, nt, alloc, maxt, rw, req, valid, job_ix,
                    job_dead, assign, ms, bw, lw, mw, balw, cls, class_rep,
                    n_class, static_cast<u64*>(part), done, cand, cand_score,
-                   counters, lo, chunk, N, K};
+                   counters, lo, chunk, N, K, ms_ld};
   return dispatch_r<TopkLaunch>(R, a, dim3(grid), dim3(kTopkThreads),
                                 stream);
 }
@@ -1232,10 +1368,51 @@ extern "C" int vt_blocks_round(float* idle, float* fidle, float* used,
     return static_cast<int>(cudaErrorInvalidValue);
   const RoundArgs a{idle,   fidle,  used,     nt,     maxt,  req,
                     valid,  job_ix, job_dead, assign, pipe,  cls,
-                    exact,  cand,   cand_score, counters, lo, chunk, N, K};
+                    exact,  cand,   cand_score, counters, lo, chunk, N, K, 1};
   int threads = 32;
   while (threads < chunk) threads <<= 1;
   return dispatch_r<RoundLaunch>(R, a, dim3(1), dim3(threads), stream);
+}
+
+// The same over node state split into ``shards`` equal shards of N nodes
+// (2..8, the portable cluster size): one cluster of a CTA a shard. The
+// arrays are the whole axis (shards * N rows); candidates are global nodes.
+extern "C" int vt_blocks_round_sharded(
+    float* idle, float* fidle, float* used, int* nt, const int* maxt,
+    const float* req, const unsigned char* valid, const int* job_ix,
+    const unsigned char* job_dead, int* assign, int* pipe, const int* cls,
+    const unsigned char* exact, const int* cand, const float* cand_score,
+    int* counters, int lo, int chunk, int N, int R, int K, int shards,
+    cudaStream_t stream) {
+  if (shards < 2 || shards > 8 || N < 1 ||
+      !shape_ok(chunk, N * shards, R, K) || lo % chunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RoundArgs a{idle,   fidle,  used,     nt,     maxt,  req,
+                    valid,  job_ix, job_dead, assign, pipe,  cls,
+                    exact,  cand,   cand_score, counters, lo, chunk, N, K,
+                    shards};
+  int threads = 32;
+  while (threads < chunk) threads <<= 1;
+  return dispatch_r<RoundShardedLaunch>(R, a, dim3(shards), dim3(threads),
+                                        stream);
+}
+
+// The global candidates of chunk [lo, lo + chunk) from the D shards' lists
+// (Kl entries a class each, shard-local nodes of Nl a shard): K entries a
+// class, for every class of the chunk.
+extern "C" int vt_blocks_merge(const int* part_cand, const float* part_score,
+                               const int* n_class, int* cand,
+                               float* cand_score, int lo, int chunk, int D,
+                               int Nl, int Kl, int K, cudaStream_t stream) {
+  if (chunk < 1 || chunk > kMaxChunk || lo % chunk || D < 1 || Nl < 1 ||
+      Kl < 1 || Kl > kMaxK || Kl > Nl || K < 1 || K > kMaxK || K > D * Kl)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MergeArgs a{part_cand, part_score, n_class, cand, cand_score,
+                    lo, chunk, D, Nl, Kl, K};
+  constexpr int per = kMergeThreads / 32;
+  blocks_merge_kernel<<<(chunk + per - 1) / per, kMergeThreads, 0, stream>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Once a solve: each row's class in its chunk and each chunk's exactness

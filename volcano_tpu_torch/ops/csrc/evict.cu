@@ -66,6 +66,9 @@
 //   while the slot is alive, so the owners to reset are the saved alive bits
 //   that are gone.
 //
+// walk_sharded_kernel (below) runs the walk over a node mesh as one
+// cluster of a CTA a shard (the JAX package's build_preempt_walk_sharded).
+//
 // Every sum runs in the plain version's order (slot order), with
 // -fmad=false, and no product or sum goes through a tensor core (the TPU
 // reference hit verdict flips through its matrix unit, evict.py:161-167).
@@ -75,11 +78,14 @@
 // +0), the low word kMaxNode - n; 0 is no node, and a NaN or -inf score, or
 // a task that does not fit, gives 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 typedef unsigned long long u64;
 
@@ -1010,17 +1016,371 @@ bool plan_ok(const Args& a) {
   return want == a.smem;
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// the walk over a node mesh: a cluster of D CTAs, one a shard
+// ---------------------------------------------------------------------------
+//
+// The JAX package's build_preempt_walk_sharded (volcano_tpu/ops/evict.py:
+// 743-785, the walk with ``axis``, :253-303) runs the walk node-sharded:
+// the node state is split over the shards, the per-task tables and the job
+// state replicated, and each probe adds two collectives, a gather of the
+// shards' best (score, global node) and a broadcast of the owner shard's
+// node-row bundle, so that every shard applies the same job-state update.
+// Here the shards are the CTAs of one thread-block cluster, and the two
+// collectives go through distributed shared memory:
+//
+// - every CTA dispatches each of its own nodes (no verdict cache: a node's
+//   dispatch is the plain version's, dispatch() above) and takes its best
+//   key; the CTAs' keys are gathered over the cluster and the largest wins
+//   (the key's low word makes the lowest global node win a tie);
+// - the owner CTA evicts on the chosen node and writes the bundle (each
+//   victim group's freed requests in first-slot order); after a cluster
+//   barrier every CTA reads it from the owner's shared memory and updates
+//   its own copy of the job allocations and quota counts.
+//
+// Each CTA reads and writes only its own nodes' rows. Gang statements:
+// each CTA snapshots its own rows and its job-state copy at a job's first
+// task and restores them on a missed quota. Outputs are walk_plain's.
 
-// Plain C entry, bound with ctypes (ops/evict.py::walk_cuda): `ptrs` holds
-// the 25 tensor addresses and `ints` the 46 sizes, plan and tier words, in
-// walk_cuda's order. Launches on `stream` and returns the launch's
-// cudaError_t (0 on success); cudaErrorInvalidValue for shapes the kernel
-// does not take, -2 for a plan whose shared memory does not match this
-// file's layout.
-extern "C" int vt_evict_walk(const int64_t* ptrs, const int* ints,
-                             void* stream) {
-  Args a;
+constexpr int kShardThreads = 256;
+
+struct ShardArgs {
+  float *jalloc, *count, *s_jalloc, *s_count;  // [D, ...]: a copy a CTA
+  float *fidle, *s_fidle, *minrs;              // [N, R], [N, R], [N]
+  u64 *alive, *s_alive, *ccand, *elig, *key;   // [N]
+  u64 *before, *masks;                         // [N, W], [M, N]
+  int shards;
+};
+
+// The owner's eviction, for every CTA.
+struct Bundle {
+  int np;                       // victim groups
+  int grp[kMaxW];
+  float d[kMaxW][kMaxR];        // each group's freed requests
+};
+
+template <int R>
+__global__ void __launch_bounds__(kShardThreads)
+    walk_sharded_kernel(const Args a, const ShardArgs sa) {
+  cg::cluster_group cl = cg::this_cluster();
+  __shared__ u64 s_wbest[kShardThreads / 32];
+  __shared__ u64 s_best[2];     // this CTA's best key, by exchange parity
+  __shared__ Bundle s_bundle[2];
+  __shared__ u64 s_pick, s_part;
+  const int tid = threadIdx.x, nth = blockDim.x, lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rank = static_cast<int>(cl.block_rank()), D = sa.shards;
+  const int N = a.N, W = a.W, P = a.P, AJ1 = a.AJ1;
+  const int Nl = N / D, n0 = rank * Nl, n1 = n0 + Nl;
+  View v = {};
+  v.jalloc = sa.jalloc + static_cast<size_t>(rank) * AJ1 * R;
+  v.count = sa.count + static_cast<size_t>(rank) * AJ1;
+  v.fidle = sa.fidle;
+  v.minrs = sa.minrs;
+  v.alive = sa.alive;
+  v.ccand = sa.ccand;
+  v.elig = sa.elig;
+  v.key = sa.key;
+  v.before = sa.before;
+  v.masks = sa.masks;
+  v.vreq = const_cast<float*>(a.vreq);
+  v.vgroup = const_cast<int*>(a.vgroup);
+  float* sj = sa.s_jalloc + static_cast<size_t>(rank) * AJ1 * R;
+  float* sc = sa.s_count + static_cast<size_t>(rank) * AJ1;
+  float tot[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) tot[r] = a.total[r];
+
+  // prologue: this CTA's nodes, its job-state copy
+  const u64 full = W == 64 ? ~0ull : ((1ull << W) - 1);
+  for (int n = n0 + tid; n < n1; n += nth) {
+    const size_t nw = static_cast<size_t>(n) * W;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      v.fidle[static_cast<size_t>(n) * R + r] =
+          a.fidle0[static_cast<size_t>(n) * R + r];
+    v.alive[n] = full;
+    v.ccand[n] = v.elig[n] = v.key[n] = 0;
+    v.minrs[n] = INFINITY;
+    for (int w = 0; w < W; ++w) {
+      a.owner[nw + w] = -1;
+      const int gw = a.vgroup[nw + w];
+      const int rw = a.rank[nw + w];
+      u64 bm = 0;
+      for (int u = 0; u < W; ++u)
+        if (a.valid[nw + u] && a.vgroup[nw + u] == gw && a.rank[nw + u] < rw)
+          bm |= 1ull << u;
+      v.before[nw + w] = bm;
+    }
+  }
+  for (int k = tid; k < AJ1; k += nth) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      v.jalloc[static_cast<size_t>(k) * R + r] =
+          a.jalloc0[static_cast<size_t>(k) * R + r];
+    v.count[k] = 0.f;
+  }
+  if (rank == 0) {
+    for (int k = tid; k < P; k += nth) a.task_node[k] = -1;
+    if (tid == 0) a.stats[0] = a.stats[1] = a.stats[2] = 0;
+  }
+  cl.sync();
+
+  int kb = 0, bb = 0, last_g = -1, steps = 0, opens = 0, disp = 0;
+  u64 part = 0;
+  for (int i = 0; i < P;) {
+    const int pj = a.pjob[i], g = a.pjg[i];
+    if (a.first[i]) {
+      if (a.gang) {
+        if (last_g >= 0 && v.count[last_g] < a.needed[last_g]) {
+          // the previous job missed its quota: its statement rolls back
+          for (int n = n0 + tid; n < n1; n += nth) {
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              v.fidle[static_cast<size_t>(n) * R + r] =
+                  sa.s_fidle[static_cast<size_t>(n) * R + r];
+            const u64 saved = sa.s_alive[n];
+            for (u64 lost = saved & ~v.alive[n]; lost; lost &= lost - 1)
+              a.owner[static_cast<size_t>(n) * W +
+                      __ffsll(static_cast<long long>(lost)) - 1] = -1;
+            v.alive[n] = saved;
+          }
+          for (int k = tid; k < AJ1; k += nth) {
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              v.jalloc[static_cast<size_t>(k) * R + r] =
+                  sj[static_cast<size_t>(k) * R + r];
+            v.count[k] = sc[k];
+          }
+          __syncthreads();
+          if (tid == 0) v.count[last_g] = -kBig;
+          __syncthreads();
+        }
+        // this job's statement opens: snapshot
+        for (int n = n0 + tid; n < n1; n += nth) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            sa.s_fidle[static_cast<size_t>(n) * R + r] =
+                v.fidle[static_cast<size_t>(n) * R + r];
+          sa.s_alive[n] = v.alive[n];
+        }
+        for (int k = tid; k < AJ1; k += nth) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            sj[static_cast<size_t>(k) * R + r] =
+                v.jalloc[static_cast<size_t>(k) * R + r];
+          sc[k] = v.count[k];
+        }
+      }
+      // the job's candidate and mask words of this CTA's nodes
+      for (int n = n0 + tid; n < n1; n += nth) {
+        const size_t nw = static_cast<size_t>(n) * W;
+        u64 cb = 0;
+        for (int w = 0; w < W; ++w) {
+          const int vs = a.vslot[nw + w];
+          if (a.valid[nw + w] &&
+              a.cand_mask[static_cast<size_t>(pj) * a.V1 + vs])
+            cb |= 1ull << w;
+        }
+        v.ccand[n] = cb;
+        for (int k = 0; k < a.M; ++k) {
+          const uint8_t* row =
+              a.tier_masks + (static_cast<size_t>(k) * a.PJ + pj) * a.V1;
+          u64 mb = 0;
+          for (int w = 0; w < W; ++w)
+            if (row[a.vslot[nw + w]]) mb |= 1ull << w;
+          v.masks[static_cast<size_t>(k) * N + n] = mb;
+        }
+      }
+      if (tid == 0) {
+        u64 pb = 0;
+        for (int k = 0; k < a.M; ++k)
+          if (a.tier_part[static_cast<size_t>(k) * a.PJ + pj]) pb |= 1ull << k;
+        s_part = pb;
+      }
+      ++opens;
+      __syncthreads();
+      part = s_part;
+    }
+    last_g = g;
+    if (v.count[g] >= a.needed[g]) {       // quota met: skip the job
+      i = a.job_end[i] + 1;
+      continue;
+    }
+    ++steps;
+    float req[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) req[r] = a.preq[static_cast<size_t>(i) * R + r];
+    float ls = 0.f;
+    if (a.has_drf) {
+      float lal[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        lal[r] = v.jalloc[static_cast<size_t>(g) * R + r] + req[r];
+      ls = share_of<R>(lal, tot);
+    }
+
+    // every node of this CTA, then the cluster's largest key
+    const float* srow = a.score_g + static_cast<size_t>(a.run_id[i]) * N;
+    u64 m = 0;
+    for (int n = n0 + tid; n < n1; n += nth) {
+      float mk;
+      m = max64(m, dispatch<R>(v, a, n, part, ls, req, srow[n], tot, &mk));
+      ++disp;
+    }
+    m = warp_max(m);
+    if (lane == 0) s_wbest[warp] = m;
+    __syncthreads();
+    if (tid == 0) {
+      u64 b = 0;
+      for (int k = 0; k < nth / 32; ++k) b = max64(b, s_wbest[k]);
+      s_best[kb] = b;
+    }
+    cl.sync();
+    if (tid == 0) {
+      u64 b = 0;
+      for (int r = 0; r < D; ++r)
+        b = max64(b, *cl.map_shared_rank(&s_best[kb], r));
+      s_pick = b;
+    }
+    kb ^= 1;
+    __syncthreads();
+    const u64 best = s_pick;
+    if (best == 0) {
+      // phase 1: the rest of the run fails alike; phase 2 stops the job
+      i = (a.gang ? a.run_end[i] : a.job_end[i]) + 1;
+      continue;
+    }
+
+    // the owner evicts the minimal row-order prefix and writes the bundle
+    const int b = key_node(best);
+    const int owner = b / Nl;
+    if (rank == owner && tid == 0) {
+      const size_t bw = static_cast<size_t>(b) * W;
+      const u64 el = v.elig[b], al = v.alive[b];
+      float fb[R], cum[R], freed[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        fb[r] = v.fidle[static_cast<size_t>(b) * R + r];
+        cum[r] = freed[r] = 0.f;
+      }
+      u64 evicted = 0;
+      for (u64 bits = el; bits; bits &= bits - 1) {
+        const int w = __ffsll(static_cast<long long>(bits)) - 1;
+        const float* vw = v.vreq + (bw + w) * R;
+        bool fit = true;
+#pragma unroll
+        for (int r = 0; r < R; ++r) fit = fit && req[r] < (fb[r] + cum[r]) + kEps;
+        if (!fit) evicted |= 1ull << w;
+#pragma unroll
+        for (int r = 0; r < R; ++r) cum[r] = cum[r] + vw[r];
+      }
+      for (u64 bits = evicted; bits; bits &= bits - 1) {
+        const int w = __ffsll(static_cast<long long>(bits)) - 1;
+        const float* vw = v.vreq + (bw + w) * R;
+#pragma unroll
+        for (int r = 0; r < R; ++r) freed[r] = freed[r] + vw[r];
+        a.owner[bw + w] = i;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        v.fidle[static_cast<size_t>(b) * R + r] = fb[r] + (freed[r] - req[r]);
+      v.alive[b] = al & ~evicted;
+      a.task_node[i] = b;
+      Bundle& bu = s_bundle[bb];
+      int np = 0;
+      for (u64 left = evicted; left;) {
+        const int w0 = __ffsll(static_cast<long long>(left)) - 1;
+        const int grp = v.vgroup[bw + w0];
+        float d[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) d[r] = 0.f;
+        for (u64 bits = left; bits; bits &= bits - 1) {
+          const int w = __ffsll(static_cast<long long>(bits)) - 1;
+          if (v.vgroup[bw + w] != grp) continue;
+          const float* vw = v.vreq + (bw + w) * R;
+#pragma unroll
+          for (int r = 0; r < R; ++r) d[r] = d[r] + vw[r];
+          left &= ~(1ull << w);
+        }
+        bu.grp[np] = grp;
+#pragma unroll
+        for (int r = 0; r < R; ++r) bu.d[np][r] = d[r];
+        ++np;
+      }
+      bu.np = np;
+    }
+    cl.sync();
+    if (tid == 0) {
+      // every CTA: the victim groups lose their evicted requests, then the
+      // preemptor's group gains the task
+      const Bundle* bu = cl.map_shared_rank(&s_bundle[bb], owner);
+      const int np = bu->np;
+      for (int k = 0; k < np; ++k) {
+        const int grp = bu->grp[k];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          v.jalloc[static_cast<size_t>(grp) * R + r] =
+              v.jalloc[static_cast<size_t>(grp) * R + r] - bu->d[k][r];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        v.jalloc[static_cast<size_t>(g) * R + r] =
+            v.jalloc[static_cast<size_t>(g) * R + r] + req[r];
+      v.count[g] = v.count[g] + 1.f;
+    }
+    bb ^= 1;
+    __syncthreads();
+    ++i;
+  }
+
+  // close the last job's statement, then the per-group verdicts
+  if (a.gang && last_g >= 0 && v.count[last_g] < a.needed[last_g]) {
+    for (int n = n0 + tid; n < n1; n += nth) {
+      const u64 saved = sa.s_alive[n];
+      for (u64 lost = saved & ~v.alive[n]; lost; lost &= lost - 1)
+        a.owner[static_cast<size_t>(n) * W +
+                __ffsll(static_cast<long long>(lost)) - 1] = -1;
+    }
+    __syncthreads();
+    if (tid == 0) v.count[last_g] = -kBig;
+  }
+  atomicAdd(&a.stats[1], disp);
+  if (rank == 0 && tid == 0) {
+    a.stats[0] = steps;
+    a.stats[2] = opens;
+  }
+  cl.sync();
+  if (rank == 0) {
+    for (int k = tid; k < AJ1; k += nth)
+      a.job_done[k] = v.count[k] >= a.needed[k] ? 1 : 0;
+    __syncthreads();
+    if (a.gang)
+      for (int k = tid; k < P; k += nth)
+        if (!a.job_done[a.pjg[k]]) a.task_node[k] = -1;
+  }
+}
+
+template <int R>
+cudaError_t launch_sharded(const Args& a, const ShardArgs& sa,
+                           cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sa.shards);
+  cfg.blockDim = dim3(kShardThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = sa.shards;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, walk_sharded_kernel<R>, a, sa);
+}
+
+// the sizes, tier words and the 25 pointers of vt_evict_walk's contract
+int read_args(const int64_t* ptrs, const int* ints, Args& a) {
   a.N = ints[0]; a.W = ints[1]; a.R = ints[2]; a.P = ints[3];
   a.PJ = ints[4]; a.V1 = ints[5]; a.AJ1 = ints[6]; a.G = ints[7];
   a.n_tiers = ints[8]; a.M = ints[9]; a.gang = ints[10];
@@ -1040,7 +1400,6 @@ extern "C" int vt_evict_walk(const int64_t* ptrs, const int* ints,
     }
   }
   if (masks != a.M) return static_cast<int>(cudaErrorInvalidValue);
-  if (!plan_ok(a)) return -2;
   int k = 0;
   a.fidle0 = (const float*)ptrs[k++]; a.vslot = (const int*)ptrs[k++];
   a.valid = (const uint8_t*)ptrs[k++]; a.vreq = (const float*)ptrs[k++];
@@ -1056,7 +1415,61 @@ extern "C" int vt_evict_walk(const int64_t* ptrs, const int* ints,
   a.scratch = (unsigned char*)ptrs[k++];
   a.owner = (int*)ptrs[k++]; a.task_node = (int*)ptrs[k++];
   a.job_done = (int*)ptrs[k++]; a.stats = (int*)ptrs[k++];
-  if (k != kNPtrs) return static_cast<int>(cudaErrorInvalidValue);
+  return k == kNPtrs ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// The walk over ``shards`` (2..8) equal shards of the node axis, one
+// cluster of a CTA a shard (ops/evict.py::walk_sharded_cuda): ``ptrs`` and
+// ``ints`` as vt_evict_walk's (its scratch, threads and plan unused), then
+// ``sptrs`` the 14 arrays of ShardArgs in its order. Returns the launch's
+// cudaError_t.
+extern "C" int vt_evict_walk_sharded(const int64_t* ptrs, const int* ints,
+                                     const int64_t* sptrs, int shards,
+                                     void* stream) {
+  Args a;
+  const int err = read_args(ptrs, ints, a);
+  if (err != 0) return err;
+  if (shards < 2 || shards > 8 || a.N % shards || a.N < shards ||
+      static_cast<unsigned>(a.N) > kMaxNode || a.P < 0 || a.AJ1 < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ShardArgs sa;
+  int k = 0;
+  sa.jalloc = (float*)sptrs[k++]; sa.count = (float*)sptrs[k++];
+  sa.s_jalloc = (float*)sptrs[k++]; sa.s_count = (float*)sptrs[k++];
+  sa.fidle = (float*)sptrs[k++]; sa.s_fidle = (float*)sptrs[k++];
+  sa.minrs = (float*)sptrs[k++];
+  sa.alive = (u64*)sptrs[k++]; sa.s_alive = (u64*)sptrs[k++];
+  sa.ccand = (u64*)sptrs[k++]; sa.elig = (u64*)sptrs[k++];
+  sa.key = (u64*)sptrs[k++]; sa.before = (u64*)sptrs[k++];
+  sa.masks = (u64*)sptrs[k++];
+  sa.shards = shards;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (a.R) {
+    case 1: return launch_sharded<1>(a, sa, s);
+    case 2: return launch_sharded<2>(a, sa, s);
+    case 3: return launch_sharded<3>(a, sa, s);
+    case 4: return launch_sharded<4>(a, sa, s);
+    case 5: return launch_sharded<5>(a, sa, s);
+    case 6: return launch_sharded<6>(a, sa, s);
+    case 7: return launch_sharded<7>(a, sa, s);
+    default: return launch_sharded<8>(a, sa, s);
+  }
+}
+
+// Plain C entry, bound with ctypes (ops/evict.py::walk_cuda): `ptrs` holds
+// the 25 tensor addresses and `ints` the 46 sizes, plan and tier words, in
+// walk_cuda's order. Launches on `stream` and returns the launch's
+// cudaError_t (0 on success); cudaErrorInvalidValue for shapes the kernel
+// does not take, -2 for a plan whose shared memory does not match this
+// file's layout.
+extern "C" int vt_evict_walk(const int64_t* ptrs, const int* ints,
+                             void* stream) {
+  Args a;
+  const int err = read_args(ptrs, ints, a);
+  if (err != 0) return err;
+  if (!plan_ok(a)) return -2;
   cudaStream_t s = (cudaStream_t)stream;
   switch (a.R) {
     case 1: return launch<1>(a, s);

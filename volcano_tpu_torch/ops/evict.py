@@ -156,16 +156,27 @@ def tier_layout(tier_kinds: Sequence[str], tier_sizes: Sequence[int],
 
 def walk_plain(inp: WalkInputs, tier_kinds: Tuple[str, ...],
                tier_sizes: Tuple[int, ...], gang_commit: bool,
-               observe=None) -> WalkOutput:
+               observe=None, shards: int = 1) -> WalkOutput:
     """The walk as PyTorch ops on the inputs' device, one task at a time:
     the plain version of ``walk_cuda``. ``observe``, if given, is called
     after each evaluated task's dispatch as ``observe(i, ls, min_kept,
     best, changed)``: the preemptor's drf share (0.0 without a drf tier),
     each node's smallest drf-kept share (f32[N], inf where drf keeps none),
     the node taken (-1 if none fits) and the alloc-groups whose allocation
-    the eviction changed (its victims' and the preemptor's own)."""
+    the eviction changed (its victims' and the preemptor's own).
+
+    ``shards`` > 1 is the plain version of ``walk_sharded_cuda`` (the JAX
+    package's walk with ``axis``, volcano_tpu/ops/evict.py:253-303): the
+    node axis (N a multiple of it) in equal shards, each shard's best
+    (score, global node) taken on its own rows, one after another, and the
+    largest gathered in shard order (the lowest global node wins a tie);
+    the owner shard evicts. Its outputs are the unsharded walk's."""
     nw = inp.nw
     N, W, R = nw.vreq.shape
+    if shards < 1 or N % shards:
+        raise ValueError(f"walk_plain: {N} nodes do not split into "
+                         f"{shards} shards")
+    Nl = N // shards
     P = inp.preq.shape[0]
     AJ1 = inp.jalloc0.shape[0]
     dev = inp.fidle0.device
@@ -262,7 +273,12 @@ def walk_plain(inp: WalkInputs, tier_kinds: Tuple[str, ...],
         fits = (torch.all(req < fidle + evictable + EPS, dim=-1)
                 & elig.any(dim=-1))
         row = torch.where(fits, inp.score_g[run_id[i]], neg_inf)
-        best = int(torch.argmax(row))
+        best, top = 0, None
+        for s in range(shards):
+            part = row[s * Nl:(s + 1) * Nl]
+            b = int(torch.argmax(part))
+            if top is None or bool(part[b] > top):
+                best, top = s * Nl + b, part[b]
         found = bool(row[best] > neg_inf)
         if observe is not None:
             inf = torch.tensor(float("inf"), dtype=f32, device=dev)
@@ -443,6 +459,10 @@ def _lib():
     lib.vt_evict_walk.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p]
     lib.vt_evict_walk.restype = ctypes.c_int
+    lib.vt_evict_walk_sharded.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_void_p]
+    lib.vt_evict_walk_sharded.restype = ctypes.c_int
     return lib
 
 
@@ -537,17 +557,160 @@ def walk_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
                       redispatched, bulks, plan)
 
 
-# kernel launches since the count was last reset (chip_smoke.py reads it)
+MAX_SHARDS = 8          # the sharded walk's cluster: a CTA a shard
+PAD_SCORE = -1e30       # a pad node's score (evict_tpu.py:1045-1048)
+
+
+def pad_nodes(inp: WalkInputs, shards: int) -> WalkInputs:
+    """The inputs with the node axis padded to a multiple of ``shards``
+    by victim-free rows (the JAX package's evict_tpu.py:1025-1048): no
+    future idle, every slot the pad victim and invalid, group the zeroed
+    last alloc-group, rank BIG, score PAD_SCORE. A pad node never has an
+    eligible victim, so it is never chosen. NumPy or tensor inputs."""
+    N = inp.nw.vslot.shape[0]
+    pad = (-N) % shards
+    if not pad:
+        return inp
+    V = inp.cand_mask.shape[1] - 1
+    AJ1 = inp.jalloc0.shape[0]
+
+    def rows(a, value=0):
+        if isinstance(a, torch.Tensor):
+            extra = torch.full((pad,) + tuple(a.shape[1:]), value,
+                               dtype=a.dtype, device=a.device)
+            return torch.cat([a, extra])
+        width = [(0, pad)] + [(0, 0)] * (a.ndim - 1)
+        return np.pad(a, width, constant_values=value)
+
+    def cols(a, value):
+        if isinstance(a, torch.Tensor):
+            extra = torch.full((a.shape[0], pad), value, dtype=a.dtype,
+                               device=a.device)
+            return torch.cat([a, extra], dim=1)
+        return np.pad(a, ((0, 0), (0, pad)), constant_values=value)
+
+    nw = inp.nw
+    return inp._replace(
+        fidle0=rows(inp.fidle0),
+        nw=EvictNW(vslot=rows(nw.vslot, V), valid=rows(nw.valid, False),
+                   vreq=rows(nw.vreq), vgroup=rows(nw.vgroup, AJ1 - 1),
+                   rank=rows(nw.rank, BIG)),
+        score_g=cols(inp.score_g, PAD_SCORE))
+
+
+def walk_sharded_cuda(inp: WalkInputs, tier_kinds: Tuple[str, ...],
+                      tier_sizes: Tuple[int, ...], gang_commit: bool,
+                      shards: int) -> WalkOutput:
+    """The walk over ``shards`` (2 to 8) equal shards of the node axis as
+    one launch of ``walk_sharded_kernel`` (csrc/evict.cu): a cluster of a
+    CTA a shard, each dispatching its own nodes every task, the shards'
+    best keys gathered and the owner's eviction broadcast through
+    distributed shared memory. Same inputs and outputs as ``walk_plain``
+    with ``shards``; ``redispatched`` counts the node dispatches, ``bulks``
+    the job openings. Raises on an input it does not take, a failed build
+    or a failed launch."""
+    nw = inp.nw
+    device = inp.fidle0.device
+    if device.type != "cuda":
+        raise ValueError(f"walk_sharded_cuda: tensors are on {device}, not "
+                         f"a CUDA device")
+    N, W, R = nw.vreq.shape
+    P = inp.preq.shape[0]
+    PJ, V1 = inp.cand_mask.shape
+    M = inp.tier_masks.shape[0]
+    AJ1 = inp.jalloc0.shape[0]
+    G = inp.score_g.shape[0]
+    layout = tier_layout(tier_kinds, tier_sizes, M)
+    if not (2 <= shards <= MAX_SHARDS and N % shards == 0):
+        raise ValueError(f"walk_sharded_cuda: {N} nodes in {shards} shards; "
+                         f"the kernel takes 2..{MAX_SHARDS} equal shards")
+    if not (1 <= W <= MAX_W and 1 <= R <= MAX_R and M <= MAX_MASKS
+            and len(tier_kinds) <= MAX_TIERS):
+        raise ValueError(f"walk_sharded_cuda: W={W} R={R} masks={M} tiers="
+                         f"{len(tier_kinds)} exceed the kernel's "
+                         f"{MAX_W}/{MAX_R}/{MAX_MASKS}/{MAX_TIERS}")
+    if AJ1 < 1:
+        raise ValueError("walk_sharded_cuda: no alloc-group")
+    i32, f32, b8, i64 = torch.int32, torch.float32, torch.bool, torch.int64
+    for name, t, dtype, shape in (
+            ("fidle0", inp.fidle0, f32, (N, R)),
+            ("vslot", nw.vslot, i32, (N, W)), ("valid", nw.valid, b8, (N, W)),
+            ("vreq", nw.vreq, f32, (N, W, R)),
+            ("vgroup", nw.vgroup, i32, (N, W)), ("rank", nw.rank, i32, (N, W)),
+            ("cand_mask", inp.cand_mask, b8, (PJ, V1)),
+            ("tier_masks", inp.tier_masks, b8, (M, PJ, V1)),
+            ("tier_part", inp.tier_part, b8, (M, PJ)),
+            ("preq", inp.preq, f32, (P, R)), ("pjob", inp.pjob, i32, (P,)),
+            ("pjg", inp.pjg, i32, (P,)), ("first", inp.first, b8, (P,)),
+            ("run_id", inp.run_id, i32, (P,)),
+            ("run_end", inp.run_end, i32, (P,)),
+            ("job_end", inp.job_end, i32, (P,)),
+            ("score_g", inp.score_g, f32, (G, N)),
+            ("needed", inp.needed, f32, (AJ1,)),
+            ("jalloc0", inp.jalloc0, f32, (AJ1, R)),
+            ("total", inp.total, f32, (R,))):
+        _check(name, t, dtype, shape, device)
+
+    def buf(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    # ShardArgs' order: the job state a CTA (live, snapshot), node state,
+    # its snapshot, the verdict words, drf's precedence words, mask words
+    work = [buf((shards, AJ1, R), f32), buf((shards, AJ1), f32),
+            buf((shards, AJ1, R), f32), buf((shards, AJ1), f32),
+            buf((N, R), f32), buf((N, R), f32), buf((N,), f32),
+            buf((N,), i64), buf((N,), i64), buf((N,), i64), buf((N,), i64),
+            buf((N,), i64), buf((N, W), i64), buf((max(M, 1), N), i64)]
+    owner = torch.empty((N, W), dtype=i32, device=device)
+    task_node = torch.empty((P,), dtype=i32, device=device)
+    job_done = torch.empty((AJ1,), dtype=i32, device=device)
+    stats = torch.empty((3,), dtype=i32, device=device)
+    ins = [inp.fidle0, nw.vslot, nw.valid, nw.vreq, nw.vgroup, nw.rank,
+           inp.cand_mask, inp.tier_masks, inp.tier_part, inp.preq, inp.pjob,
+           inp.pjg, inp.first, inp.run_id, inp.run_end, inp.job_end,
+           inp.score_g, inp.needed, inp.jalloc0, inp.total]
+    ptrs = (ctypes.c_int64 * _PTRS)(*([t.data_ptr() for t in ins] + [0] + [
+        t.data_ptr() for t in (owner, task_node, job_done, stats)]))
+    sptrs = (ctypes.c_int64 * len(work))(*[t.data_ptr() for t in work])
+    kinds = [int(drf) for drf, _ in layout]
+    leads = [lead for _, lead in layout]
+    ints = [N, W, R, P, PJ, V1, AJ1, G, len(tier_kinds), M,
+            int(gang_commit), 0, 0, 0]
+    ints += kinds + [0] * (MAX_TIERS - len(kinds))
+    ints += list(tier_sizes) + [0] * (MAX_TIERS - len(tier_sizes))
+    ints += leads + [0] * (MAX_TIERS - len(leads))
+    cints = (ctypes.c_int * _INTS)(*ints)
+    with torch.cuda.device(device):
+        err = _lib().vt_evict_walk_sharded(
+            ptrs, cints, sptrs, shards,
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise KernelError(f"walk_sharded_cuda: kernel launch failed with "
+                          f"cudaError_t {err}")
+    walk_sharded_cuda.launches += 1
+    steps, dispatches, opens = stats.tolist()
+    return WalkOutput(task_node, owner, job_done.to(b8), steps, dispatches,
+                      opens)
+
+
+# kernel launches since each count was last reset (chip_smoke.py reads them)
 walk_cuda.launches = 0
+walk_sharded_cuda.launches = 0
 
 
 def walk(inp: WalkInputs, tier_kinds: Tuple[str, ...],
-         tier_sizes: Tuple[int, ...], gang_commit: bool) -> WalkOutput:
-    """The walk on the inputs' device: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+         tier_sizes: Tuple[int, ...], gang_commit: bool,
+         shards: int = 1) -> WalkOutput:
+    """The walk on the inputs' device over ``shards`` shards of the node
+    axis: the CUDA kernel for CUDA tensors (``walk_sharded_cuda`` for more
+    than one shard), the plain version for CPU tensors."""
     device = inp.fidle0.device
     if device.type == "cuda":
+        if shards > 1:
+            return walk_sharded_cuda(inp, tier_kinds, tier_sizes,
+                                     gang_commit, shards)
         return walk_cuda(inp, tier_kinds, tier_sizes, gang_commit)
     if device.type == "cpu":
-        return walk_plain(inp, tier_kinds, tier_sizes, gang_commit)
+        return walk_plain(inp, tier_kinds, tier_sizes, gang_commit,
+                          shards=shards)
     raise ValueError(f"walk: no walk kernel for device {device}")

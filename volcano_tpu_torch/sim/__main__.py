@@ -98,19 +98,8 @@ from .trace import load_trace, write_trace
 from .workload import SCENARIOS, make_scenario
 
 # the JAX package's sim flags that name modes this package lacks:
-# flag -> (takes a value, what it needs)
-REFUSED_FLAGS = {
-    "--sharded": (False, "the node-sharded engine (ROADMAP item 10)"),
-    "--sharded-devices": (True, "the node-sharded engine "
-                                "(ROADMAP item 10)"),
-    "--verify-sharded-equivalence": (
-        False, "the node-sharded engine (ROADMAP item 10)"),
-    "--mesh-chaos": (False, "the mesh ladder (ROADMAP item 10)"),
-    "--mesh-fault-rate": (True, "the mesh ladder (ROADMAP item 10)"),
-    "--mesh-fault-seed": (True, "the mesh ladder (ROADMAP item 10)"),
-    "--verify-mesh-equivalence": (False,
-                                  "the mesh ladder (ROADMAP item 10)"),
-}
+# flag -> (takes a value, what it needs); every flag runs now
+REFUSED_FLAGS: dict = {}
 
 
 class _Refused(argparse.Action):
@@ -325,6 +314,45 @@ def build_parser() -> argparse.ArgumentParser:
                          "plane (no ack faults, no kills) and assert equal "
                          "terminal accounting, no double binds and nothing "
                          "stuck in flight (exit 1 otherwise)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="run allocate through the node-sharded engine "
+                         "(tpu-sharded: the node axis over the mesh of "
+                         "slots, ops/unified.py; slots from "
+                         "VOLCANO_TORCH_MESH_SLOTS). Single-scheduler only")
+    ap.add_argument("--sharded-devices", type=int, default=0, metavar="N",
+                    help="cap the sharded mesh to the first N slots (0 = "
+                         "all). N=1 is the single-device oracle the "
+                         "equivalence verify diffs against")
+    ap.add_argument("--verify-sharded-equivalence", action="store_true",
+                    help="also run the SAME trace with sharded-devices=1 "
+                         "(the single-device oracle: the sharded solve's "
+                         "decisions are mesh-size invariant) and assert "
+                         "the full-mesh decision plane is byte-identical "
+                         "(exit 1 on mismatch); requires --sharded")
+    ap.add_argument("--mesh-chaos", action="store_true",
+                    help="the mesh fault soak preset: seeded per-slot "
+                         "device-lost/OOM/slow-shard faults at rate 0.2 "
+                         "(chaos.MeshFaultInjector), each attributed to a "
+                         "live slot so the lattice quarantines exactly "
+                         "that slot, the mesh heals mid-cycle over the "
+                         "survivors, and expired quarantines are probed "
+                         "and readmitted on the virtual clock. Implies "
+                         "--sharded")
+    ap.add_argument("--mesh-fault-rate", type=float, default=None,
+                    help="seeded per-solve-attempt mesh fault rate "
+                         "(overrides the --mesh-chaos preset; implies "
+                         "--mesh-chaos)")
+    ap.add_argument("--mesh-fault-seed", type=int, default=None,
+                    help="mesh fault RNG seed (default: --seed)")
+    ap.add_argument("--verify-mesh-equivalence", action="store_true",
+                    help="also run the SAME trace fault-free at "
+                         "sharded-devices=1 (the healthy single-device "
+                         "oracle) and assert the mesh-chaos decision "
+                         "plane is byte-identical (mesh section "
+                         "stripped), zero double-binds, faults injected, "
+                         "a quarantined slot readmitted, and the CPU-"
+                         "placer rung never reached (exit 1 otherwise); "
+                         "implies --mesh-chaos")
     ap.add_argument("--device", default="cuda",
                     help="where sessions solve: cuda (default) or cpu")
     ap.set_defaults(refused=[])
@@ -344,6 +372,17 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
             print(f"{ap.prog}: {flag} is not in volcano_tpu_torch yet: it "
                   f"needs {REFUSED_FLAGS[flag][1]}", file=sys.stderr)
         return 2
+
+    # the mesh-chaos preset, resolved before the conf is pinned: it implies
+    # the sharded engine, the one with slots to attribute faults to
+    mesh_fault_rate = args.mesh_fault_rate
+    mesh_chaos = bool(args.mesh_chaos or args.verify_mesh_equivalence
+                      or mesh_fault_rate is not None)
+    if mesh_chaos:
+        if mesh_fault_rate is None:
+            mesh_fault_rate = 0.2
+        args.sharded = True
+    mesh_fault_rate = mesh_fault_rate or 0.0
 
     if args.list:
         for name in sorted(SCENARIOS):
@@ -393,6 +432,12 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
     if args.verify_elastic_gang_equivalence and not args.elastic_gangs:
         ap.error("--verify-elastic-gang-equivalence requires "
                  "--elastic-gangs")
+    if args.sharded and (args.federated or args.ha > 1 or args.pipelined
+                         or args.elastic_gangs):
+        ap.error("--sharded is a direct single-scheduler mode (not "
+                 "--federated / --ha / --pipelined / --elastic-gangs)")
+    if args.verify_sharded_equivalence and not args.sharded:
+        ap.error("--verify-sharded-equivalence requires --sharded")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -404,6 +449,10 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
     if args.conf:
         with open(args.conf) as f:
             conf_text = f.read()
+    elif args.sharded:
+        # pinned: the equivalence oracles below swap only the slot cap
+        from .runner import sharded_sim_conf
+        conf_text = sharded_sim_conf(args.sharded_devices)
     elif args.pipelined or args.fast_admit:
         # pinned, so the serial oracle of --verify-pipelined-equivalence
         # runs the same actions and engine: the diff isolates the pipeline
@@ -458,10 +507,13 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
 
     def run(kills, replicas=None, losses=None, federated=None,
             pipelined=None, fast_admit=None, fault_rate=None, torn=None,
-            ack_rate=None, lease_rate=None):
+            ack_rate=None, lease_rate=None, conf=None, mesh_rate=None):
         partitions = args.federated if federated is None else federated
+        mesh_r = mesh_fault_rate if mesh_rate is None else mesh_rate
         bw, ew = wraps()
-        runner = SimRunner(trace, conf_text=conf_text, period=args.period,
+        runner = SimRunner(trace,
+                           conf_text=conf_text if conf is None else conf,
+                           period=args.period,
                            seed=args.seed, max_cycles=args.max_cycles,
                            scenario=args.scenario, binder_wrap=bw,
                            evictor_wrap=ew, kill_cycles=kills,
@@ -495,7 +547,10 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
                            lease_fault_seed=args.lease_fault_seed,
                            federated_partitions=partitions,
                            rebalance=rebalance and bool(partitions),
-                           elastic=args.elastic and bool(partitions))
+                           elastic=args.elastic and bool(partitions),
+                           mesh_chaos=mesh_chaos and mesh_r > 0,
+                           mesh_fault_rate=mesh_r,
+                           mesh_fault_seed=args.mesh_fault_seed)
         if runners is not None:
             runners.append(runner)
         return runner.run()
@@ -841,6 +896,79 @@ def main(argv=None, runners: Optional[List[SimRunner]] = None) -> int:
               f"failovers={report.get('failovers', 0)}, "
               f"reserves={report.get('cross_partition_reserves', {})}, "
               f"node_transfers={fed.get('node_transfers', 0)}",
+              file=sys.stderr)
+    if args.verify_sharded_equivalence:
+        from .runner import sharded_sim_conf
+        # mesh-size invariance: the full-mesh run must be byte-identical
+        # to the sharded-devices=1 single-device oracle
+        oracle = run(kill_cycles, conf=sharded_sim_conf(1))
+        problems = []
+        if deterministic_json(report) != deterministic_json(oracle):
+            problems.append("sharded decision plane differs from the "
+                            "single-device oracle (mesh-size invariance "
+                            "broken)")
+        if report.get("double_binds"):
+            problems.append(f"double-binds in sharded run: "
+                            f"{report['double_binds']}")
+        if problems:
+            for p in problems:
+                print(f"sharded-equivalence FAILED: {p}", file=sys.stderr)
+            return 1
+        from ..ops.unified import device_count
+        print(f"sharded-equivalence OK: devices="
+              f"{args.sharded_devices or device_count()} vs oracle 1, "
+              f"accounting={terminal_accounting(report)}", file=sys.stderr)
+    if args.verify_mesh_equivalence:
+        import json as _json
+        from .report import oracle_part
+        from .runner import sharded_sim_conf
+        # every heal, probe and readmission of the chaotic run must leave
+        # the decision plane byte-identical to the fault-free one-slot
+        # oracle under the same kills, and the CPU-placer rung must never
+        # fire while a slot survives
+        oracle = run(kill_cycles, conf=sharded_sim_conf(1), mesh_rate=0.0)
+        mesh = report.get("mesh", {})
+        problems = []
+        got_json = _json.dumps(oracle_part(report), sort_keys=True,
+                               separators=(",", ":"))
+        want_json = _json.dumps(oracle_part(oracle), sort_keys=True,
+                                separators=(",", ":"))
+        if got_json != want_json:
+            problems.append("mesh-chaos decision plane differs from the "
+                            "healthy single-device oracle (degradation "
+                            "ladder broke mesh-size invariance)")
+        if report.get("double_binds"):
+            problems.append(f"double-binds under mesh faults: "
+                            f"{report['double_binds']}")
+        if not mesh.get("injected"):
+            problems.append("no mesh faults injected — the soak is "
+                            "vacuous (raise --mesh-fault-rate or run "
+                            "more cycles)")
+        if mesh.get("heals") == {} and mesh.get("injected"):
+            problems.append("faults injected but no mesh heal fired — "
+                            "attribution or the heal path is broken")
+        if not mesh.get("readmissions"):
+            problems.append("no quarantined slot was readmitted — the "
+                            "probe/readmit arc never completed (run more "
+                            "cycles or shorten the window)")
+        if mesh.get("cpu_fallback_cycles"):
+            problems.append(
+                f"{mesh['cpu_fallback_cycles']} cycle(s) fell to the "
+                f"CPU-placer rung — only legal with zero healthy slots, "
+                f"which this soak never reaches")
+        if report["jobs"]["completed"] != report["jobs"]["arrived"]:
+            problems.append("mesh-chaos run did not complete every "
+                            "arrived job")
+        if problems:
+            for p in problems:
+                print(f"mesh-equivalence FAILED: {p}", file=sys.stderr)
+            return 1
+        print(f"mesh-equivalence OK: injected={mesh.get('injected')}, "
+              f"heals={mesh.get('heals')}, "
+              f"readmissions={mesh.get('readmissions')}, "
+              f"rung_cycles={mesh.get('rung_cycles')}, "
+              f"restarts={report.get('restarts', 0)}, "
+              f"accounting={terminal_accounting(report)}",
               file=sys.stderr)
     if args.verify_ha_equivalence:
         import json

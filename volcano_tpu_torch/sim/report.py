@@ -209,6 +209,11 @@ def build_report(runner, actions_ms: Dict[tuple, list],
         # on the deterministic cost model, so decision-plane material —
         # and only emitted on overload runs
         report["overload"] = runner.overload_stats()
+    if getattr(runner, "mesh_chaos", False):
+        # the mesh ladder's mechanism (seeded injector, virtual-clock
+        # windows: byte-reproducible); only under --mesh-chaos, so every
+        # fault-free run keeps its bytes
+        report["mesh"] = runner.mesh_stats()
     if getattr(runner, "pipelined_mode", False):
         # the pipeline's mechanism, not its decisions:
         # pipelined_oracle_part strips it for the serial-oracle diff

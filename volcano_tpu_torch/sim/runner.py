@@ -147,6 +147,38 @@ tiers:
 """
 
 
+# quarantine windows under --mesh-chaos, in virtual seconds: short enough
+# that a quarantine -> probe -> readmit arc completes inside a scenario;
+# run() restores the defaults when it hands DEVICE_HEALTH back
+MESH_SIM_COOLDOWN_S = 6.0
+MESH_SIM_MAX_COOLDOWN_S = 48.0
+
+
+def sharded_sim_conf(devices: int = 0) -> str:
+    """The conf of ``--sharded`` runs (the JAX package's runner.py:115-140):
+    the pipelined conf's actions with allocate on the node-sharded engine,
+    its mesh capped to the first ``devices`` slots (0: all). The sharded
+    solve's decisions are mesh-size invariant, so ``devices=1`` is the
+    single-device oracle --verify-sharded-equivalence diffs against."""
+    return f"""
+actions: "enqueue, allocate-tpu, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+configurations:
+- name: allocate-tpu
+  arguments:
+    engine: tpu-sharded
+    sharded-devices: {int(devices)}
+"""
+
+
 def elastic_sim_conf(topology_weight: float = 10.0) -> str:
     """The conf of ``--elastic-gangs`` runs: the default action chain with
     grow-shrink between allocate and preempt, the elastic-gang plugin in
@@ -316,7 +348,11 @@ class SimRunner:
                  lease_fault_seed: Optional[int] = None,
                  federated_partitions: int = 0,
                  rebalance: bool = False,
-                 elastic: bool = False):
+                 elastic: bool = False,
+                 mesh_chaos: bool = False,
+                 mesh_fault_rate: float = 0.0,
+                 mesh_fault_plan: Optional[Dict[str, Sequence[int]]] = None,
+                 mesh_fault_seed: Optional[int] = None):
         self.trace = list(trace)
         self.period = period
         self.seed = seed
@@ -444,6 +480,35 @@ class SimRunner:
         # hands it back to wall time
         from ..device_health import DEVICE_HEALTH
         DEVICE_HEALTH.reset(time_fn=self.clock.time)
+        # per-slot mesh chaos: a seeded MeshFaultInjector on the allocate
+        # fault hook attributes each fault to a live slot, so the lattice
+        # quarantines slots and the mesh heals mid-cycle; the quarantine
+        # windows run on the virtual clock at the sim's length. Restarts
+        # reset the lattice (health is process memory) but not the
+        # injector: the chaos survives them
+        self.mesh_fault_rate = float(mesh_fault_rate)
+        self.mesh_fault_plan = {k: tuple(v) for k, v in
+                                (mesh_fault_plan or {}).items()}
+        self.mesh_fault_seed = seed if mesh_fault_seed is None \
+            else mesh_fault_seed
+        self.mesh_chaos = bool(mesh_chaos or self.mesh_fault_rate
+                               or self.mesh_fault_plan)
+        self._mesh_injector = None
+        self._mesh_section: Optional[dict] = None
+        self._mesh_mark = dict(metrics.mesh_counts())
+        self.rung_cycles: Dict[int, int] = {}
+        if self.mesh_chaos:
+            from ..actions import allocate as _alloc_mod
+            from ..chaos import MeshFaultInjector
+            DEVICE_HEALTH.cooldown_s = MESH_SIM_COOLDOWN_S
+            DEVICE_HEALTH.max_cooldown_s = MESH_SIM_MAX_COOLDOWN_S
+            rate = self.mesh_fault_rate or (
+                None if self.mesh_fault_plan else 0.2)
+            self._mesh_injector = MeshFaultInjector(
+                self.mesh_fault_plan or {"device_lost": (), "oom": (),
+                                         "slow": ()},
+                failure_rate=rate, seed=self.mesh_fault_seed)
+            _alloc_mod.DEVICE_FAULT_HOOK = self._mesh_injector
         # the overload plane: a per-cycle budget priced by a DETERMINISTIC
         # cost model (budget_cost_per_task virtual seconds a pending task an
         # action: the virtual clock never advances inside a cycle, so
@@ -2451,6 +2516,45 @@ class SimRunner:
         return self._slo_engine.publish(self._timeline,
                                         now=self.clock.time())
 
+    def mesh_stats(self) -> Dict[str, object]:
+        """The report's mesh section (seeded injector and virtual-clock
+        windows, so byte-reproducible): faults injected by kind and slot,
+        the heals, quarantines and readmissions since construction, the
+        cycles on each rung and the CPU-rung witness (rung 3 cycles, 0
+        while a slot survives). run() takes it before it hands
+        DEVICE_HEALTH back to wall time."""
+        if self._mesh_section is not None:
+            return self._mesh_section
+        from ..device_health import DEVICE_HEALTH
+        now = metrics.mesh_counts()
+        d = {k: now.get(k, 0) - self._mesh_mark.get(k, 0)
+             for k in set(now) | set(self._mesh_mark)}
+        heals = {k.split("/", 1)[1]: int(v) for k, v in d.items()
+                 if k.startswith("heals/") and v}
+        quars = {k.split("/", 1)[1]: int(v) for k, v in d.items()
+                 if k.startswith("quarantines/") and v}
+        inj: Dict[str, int] = {}
+        devices_hit: List[int] = []
+        if self._mesh_injector is not None:
+            for _, kind, dev in self._mesh_injector.injected:
+                inj[kind] = inj.get(kind, 0) + 1
+                if dev not in devices_hit:
+                    devices_hit.append(dev)
+        detail = DEVICE_HEALTH.detail()
+        return {
+            "fault_rate": self.mesh_fault_rate,
+            "injected": dict(sorted(inj.items())),
+            "devices_faulted": sorted(devices_hit),
+            "heals": dict(sorted(heals.items())),
+            "quarantines": dict(sorted(quars.items())),
+            "readmissions": int(d.get("readmissions", 0)),
+            "rung_cycles": {str(k): v for k, v in
+                            sorted(self.rung_cycles.items())},
+            "cpu_fallback_cycles": int(self.rung_cycles.get(3, 0)),
+            "devices_healthy_final": detail["devices_healthy"],
+            "devices_quarantined_final": detail["devices_quarantined"],
+        }
+
     def fast_admit_stats(self) -> Dict[str, int]:
         now = metrics.fast_admit_counts()
         return {k: int(now.get(k, 0) - self._fa_mark.get(k, 0))
@@ -2529,6 +2633,11 @@ class SimRunner:
                 # fed virtual counts, so the hint stream is deterministic
                 self._admission.observe_drain(self._drained_tasks)
                 self._drained_tasks = 0
+            if self.mesh_chaos:
+                # the rung the allocate gate picked this cycle, a function
+                # of the seeded faults on the virtual clock
+                rung = int(metrics.mesh_counts().get("rung", 0))
+                self.rung_cycles[rung] = self.rung_cycles.get(rung, 0) + 1
             self.cycles += 1
             self.clock.sleep(self.period)
             if self._done():
@@ -2542,8 +2651,17 @@ class SimRunner:
         self.sched.drop_speculation()
         wall_s = time.perf_counter() - wall0
         # hand the process-wide device cool-down back to wall time, so code
-        # after the run is not stuck on a frozen virtual clock
-        from ..device_health import DEVICE_HEALTH
+        # after the run is not stuck on a frozen virtual clock; the mesh
+        # section first (the reset clears the lattice it reads)
+        from ..device_health import (DEFAULT_COOLDOWN_S,
+                                     DEFAULT_MAX_COOLDOWN_S, DEVICE_HEALTH)
+        if self.mesh_chaos:
+            self._mesh_section = self.mesh_stats()
+            from ..actions import allocate as _alloc_mod
+            if _alloc_mod.DEVICE_FAULT_HOOK is self._mesh_injector:
+                _alloc_mod.DEVICE_FAULT_HOOK = None
+            DEVICE_HEALTH.cooldown_s = DEFAULT_COOLDOWN_S
+            DEVICE_HEALTH.max_cooldown_s = DEFAULT_MAX_COOLDOWN_S
         DEVICE_HEALTH.reset(time_fn=time.monotonic)
         # runs longer than the bounded metrics ring lose their oldest
         # per-action samples: flag the affected series
